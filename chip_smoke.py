@@ -1,0 +1,377 @@
+"""Smoke run of redisson_tpu_torch on one CUDA card.
+
+Builds the port's kernels from the sources in this checkout, holds each
+against its plain PyTorch version at the main path's shapes, then drives
+the main path through the public client at full size:
+
+  phase 0  device, nvidia-smi name and power limit, kernel build
+  phase 1  kernel K1 (csrc/cms_seq.cu) vs its plain version and golden_seq
+           at d=5, w=65536, B=32768; kernel, plain and bound times
+  phase 2  RBloomFilter at 1M keys / 1% FPP: add_all_async, contains_many,
+           contains_each; the tenant row vs the golden bitmap; measured FPP
+           vs the expected rate for the 2**20 keys loaded
+  phase 3  1000 tenants, mixed add/contains/mixed runs from 4 threads
+           through the coalescer; every per-op result vs the golden model
+  phase 4  RCountMinSketch(5, 65536) add_all_seq over 2M zipf(1.2) events;
+           table vs golden, first chunk vs golden_seq, top-10 recall, K1
+           launches
+
+Every failed check raises, so the script exits non-zero.  Without a CUDA
+device it exits with code 2 before printing any result.  The line before
+the last is nvidia-smi's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py [--seed N]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+
+H100_BYTES_PER_S = 3.35e12  # HBM3 rate of one H100 SXM (NVIDIA data sheet)
+
+
+def log(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise AssertionError(msg)
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches after warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def zipf_keys(rng, n: int, n_keys: int = 100_000) -> np.ndarray:
+    return (rng.zipf(1.2, size=n) % n_keys).astype(np.uint64)
+
+
+# -- phase 1: K1 against its plain version -----------------------------------
+
+
+def phase_k1(rng, dev) -> dict:
+    from redisson_tpu_torch.ops import cms_seq
+    from redisson_tpu_torch.utils import hashing
+
+    d, w, B = 5, 1 << 16, 1 << 15
+    keys = zipf_keys(rng, B)
+    blocks, lengths = hashing.encode_uint64_batch(keys)
+    h1w, h2w = hashing.km_reduce_mod(*hashing.hash128_np(blocks, lengths), w)
+    wt = (rng.random(B) < 0.9).astype(np.uint32)  # weight 1, some 0 (pure estimates)
+    table0 = rng.integers(0, 1 << 16, d * w).astype(np.uint32)
+
+    def cols(device):
+        return [torch.from_numpy(a.view(np.int32).copy()).to(device)
+                for a in (table0, h1w, h2w, wt)]
+
+    k_table, *k_ops = cols(dev)
+    k_est = cms_seq.cms_update_estimate_seq(k_table, *k_ops, d=d, w=w)
+    p_table, *p_ops = cols(dev)
+    p_est = cms_seq.cms_seq_plain(p_table, *p_ops, d=d, w=w)
+    torch.cuda.synchronize()
+    err = max(
+        int((k_table.long() - p_table.long()).abs().max()),
+        int((k_est.long() - p_est.long()).abs().max()),
+    )
+    check(torch.equal(k_table, p_table) and torch.equal(k_est, p_est),
+          f"K1 disagrees with its plain version (max abs err {err})")
+    g_table, g_est = cms_seq.golden_seq(table0.reshape(d, w), h1w, h2w, wt, d=d, w=w)
+    check(np.array_equal(k_table.cpu().numpy().view(np.uint32), g_table.reshape(-1))
+          and np.array_equal(k_est.cpu().numpy().view(np.uint32), g_est),
+          "K1 disagrees with golden_seq")
+
+    t_table, *t_ops = cols(dev)
+    ms = cuda_time_ms(lambda: cms_seq.cms_update_estimate_seq(t_table, *t_ops, d=d, w=w), 50)
+    plain_ms = cuda_time_ms(lambda: cms_seq.cms_seq_plain(t_table, *t_ops, d=d, w=w), 20)
+    # Least time for the same work: the table read and written once, the
+    # three op columns read once, the estimates written once.
+    nbytes = 2 * d * w * 4 + 3 * B * 4 + B * 4
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    log({"phase": 1, "kernel": "cms_seq", "d": d, "w": w, "B": B,
+         "bit_identical_to_plain": True, "matches_golden_seq": True,
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bytes": nbytes, "compare_launches": cms_seq.LAUNCHES})
+    return {"name": "cms_seq", "route": "cuda",
+            "source": "redisson_tpu_torch/csrc/cms_seq.cu",
+            "replaces": "redisson_tpu/ops/pallas_cms.py:123",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
+# -- phase 2: config 1, Bloom at 1M keys / 1% FPP -----------------------------
+
+
+def golden_bloom(bf, keys: np.ndarray):
+    from redisson_tpu_torch.ops import golden
+    from redisson_tpu_torch.utils import hashing
+
+    m, k = bf.get_size(), bf.get_hash_iterations()
+    g = golden.GoldenBloomFilter(m, k)
+    h1m, h2m = hashing.km_reduce_mod(*hashing.hash128_np(*hashing.encode_uint64_batch(keys)), m)
+    g.bits[g._indexes(h1m, h2m).reshape(-1)] = True  # setting bits is order-free
+    return g
+
+
+def golden_contains(g, keys: np.ndarray) -> np.ndarray:
+    from redisson_tpu_torch.utils import hashing
+
+    h1m, h2m = hashing.km_reduce_mod(
+        *hashing.hash128_np(*hashing.encode_uint64_batch(keys)), g.size)
+    return g.contains_hashed(h1m, h2m)
+
+
+def tenant_row(client, name: str) -> np.ndarray:
+    eng = client._engine
+    eng._drain()
+    e = eng.registry.lookup(name)
+    u = e.pool.row_units
+    return eng.executor.state_to_host(e.pool)[e.row * u : (e.row + 1) * u]
+
+
+def phase_bloom(client, rng, card: str) -> None:
+    bf = client.get_bloom_filter("cfg1")
+    check(bf.try_init(1_000_000, 0.01), "try_init refused")
+    n_load, chunk = 1 << 20, 1 << 18
+    # Warm-up on a filter of the same size class, so the timed adds do not
+    # pay the process's first CUDA launches of each op.
+    warm = client.get_bloom_filter("cfg1-warmup")
+    check(warm.try_init(1_000_000, 0.01), "try_init refused")
+    warm.add_all_async(np.arange(chunk, dtype=np.uint64)).result()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adds = [bf.add_all_async(np.arange(i * chunk, (i + 1) * chunk, dtype=np.uint64))
+            for i in range(n_load // chunk)]
+    n_added = sum(int(np.sum(a.result())) for a in adds)
+    add_s = time.perf_counter() - t0
+    check(0.97 * n_load <= n_added <= n_load, f"added {n_added} of {n_load}")
+
+    g = golden_bloom(bf, np.arange(n_load, dtype=np.uint64))
+    words = tenant_row(client, "cfg1")
+    gbits = np.zeros(words.shape[0] * 32, bool)
+    gbits[: g.size] = g.bits
+    check(np.array_equal(words, np.packbits(gbits, bitorder="little").view(np.uint32)),
+          "bloom tenant row differs from the golden bitmap")
+
+    batches = [rng.integers(0, 2 * n_load, 1 << 20).astype(np.uint64) for _ in range(4)]
+    bf.contains_many(batches[:1])  # warm-up pass
+    t0 = time.perf_counter()
+    hits = bf.contains_many(batches)
+    contains_s = time.perf_counter() - t0
+    for b, h in zip(batches, hits):
+        check(np.array_equal(h, golden_contains(g, b)), "contains differs from golden")
+    outside = rng.integers(3 * n_load, 8 * n_load, 1 << 17).astype(np.uint64)
+    fp = bf.contains_each(outside)
+    check(np.array_equal(fp, golden_contains(g, outside)), "contains_each differs from golden")
+    fpp = float(fp.mean())
+    # The load is 2**20 keys, 4.9% past the design point of 1M, so the
+    # expected rate is (1 - e^(-k n / m))^k = 1.26%, not 1%.  The measured
+    # rate must sit within 3 binomial sigmas of it (and equals the golden
+    # model's exactly, checked above).
+    m, k = bf.get_size(), bf.get_hash_iterations()
+    p_theory = (1.0 - np.exp(-k * n_load / m)) ** k
+    sigma = np.sqrt(p_theory * (1.0 - p_theory) / len(outside))
+    check(abs(fpp - p_theory) <= 3 * sigma,
+          f"measured FPP {fpp} vs expected {p_theory} +- {3 * sigma}")
+    log({"phase": 2, "config": "bloom 1M keys 1% FPP", "added": n_added,
+         "add_ops_per_s": n_load / add_s,
+         "contains_ops_per_s": sum(map(len, batches)) / contains_s,
+         "fpp": fpp, "fpp_expected": p_theory, "fpp_3sigma": 3 * sigma,
+         "row_equals_golden": True, "card": card})
+
+
+# -- phase 3: multi-tenant coalesced runs -------------------------------------
+
+
+def phase_tenants(client, rng) -> None:
+    from redisson_tpu_torch.ops import golden
+
+    n_tenants, n_threads, per_op = 1000, 4, 256
+    names = [f"t{i}" for i in range(n_tenants)]
+    for name in names:
+        check(client.get_bloom_filter(name).try_init(10_000, 0.01), "try_init refused")
+    plans = {
+        name: [(kind, rng.integers(0, 4000, per_op).astype(np.uint64),
+                rng.random(per_op) < 0.5)
+               for kind in ("add", "contains", "mixed", "add", "contains")]
+        for name in names
+    }
+    ex = client._engine.executor
+    runs_per_flush = []
+    orig = ex.bloom_mixed_keys_runs
+
+    def spy(pool, k, blocks, lengths, run_rows, *rest):
+        runs_per_flush.append(len(run_rows))
+        return orig(pool, k, blocks, lengths, run_rows, *rest)
+
+    ex.bloom_mixed_keys_runs = spy
+    results: dict = {}
+
+    def worker(t):
+        mine = names[t::n_threads]
+        futs = {}
+        for step in range(5):  # each tenant's ops are issued in order
+            for name in mine:
+                bf = client.get_bloom_filter(name)
+                kind, keys, flags = plans[name][step]
+                if kind == "add":
+                    f = bf.add_all_async(keys)
+                elif kind == "contains":
+                    f = bf.contains_all_async(keys)
+                else:
+                    f = bf.mixed_async(keys, flags)
+                futs.setdefault(name, []).append(f)
+        for name, fs in futs.items():
+            results[name] = [f.result() for f in fs]
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(n_threads)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    check(not any(th.is_alive() for th in threads), "tenant workers hung")
+    wall_s = time.perf_counter() - t0
+    del ex.bloom_mixed_keys_runs
+    check(max(runs_per_flush) > 1, "no flush carried more than one run")
+
+    from redisson_tpu_torch.utils import hashing
+
+    bf0 = client.get_bloom_filter(names[0])
+    m, k = bf0.get_size(), bf0.get_hash_iterations()
+    for name in names:
+        g = golden.GoldenBloomFilter(m, k)
+        for (kind, keys, flags), got in zip(plans[name], results[name]):
+            h1m, h2m = hashing.km_reduce_mod(
+                *hashing.hash128_np(*hashing.encode_uint64_batch(keys)), m)
+            if kind == "add":
+                want = g.add_hashed(h1m, h2m)
+            elif kind == "contains":
+                want = g.contains_hashed(h1m, h2m)
+            else:  # one op at a time, in order
+                want = np.array([
+                    g.add_hashed(h1m[i:i + 1], h2m[i:i + 1])[0] if f
+                    else g.contains_hashed(h1m[i:i + 1], h2m[i:i + 1])[0]
+                    for i, f in enumerate(flags)
+                ])
+            check(np.array_equal(got, want), f"tenant {name} {kind} differs from golden")
+    log({"phase": 3, "tenants": n_tenants, "threads": n_threads,
+         "ops": n_tenants * 5 * per_op, "ops_per_s": n_tenants * 5 * per_op / wall_s,
+         "flushes": len(runs_per_flush), "max_runs_per_flush": max(runs_per_flush),
+         "results_equal_golden": True})
+
+
+# -- phase 4: config 5, CMS streaming top-K -----------------------------------
+
+
+def phase_cms(client, rng, card: str) -> None:
+    from redisson_tpu_torch.ops import cms_seq, golden
+    from redisson_tpu_torch.utils import hashing
+
+    d, w, n_events = 5, 1 << 16, 2_000_000
+    cms = client.get_count_min_sketch("cms")
+    check(cms.try_init(d, w, track_top_k=20), "try_init refused")
+    events = zipf_keys(rng, n_events)
+    before = cms_seq.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = cms.add_all_seq(events)
+    dt = time.perf_counter() - t0
+    launches = cms_seq.LAUNCHES - before
+    chunk = client._engine._SEQ_CHUNK
+    check(launches == -(-n_events // chunk), f"{launches} K1 launches")
+
+    h1w, h2w = hashing.km_reduce_mod(
+        *hashing.hash128_np(*hashing.encode_uint64_batch(events)), w)
+    g = golden.GoldenCountMinSketch(d, w)
+    g.add_hashed(h1w, h2w)
+    row = tenant_row(client, "cms")
+    check(np.array_equal(row[: d * w].reshape(d, w), g.counts), "CMS table differs from golden")
+    _, g_est = cms_seq.golden_seq(np.zeros((d, w), np.uint32), h1w[:chunk], h2w[:chunk],
+                                  np.ones(chunk, np.uint32), d=d, w=w)
+    check(np.array_equal(est[:chunk], g_est), "first chunk differs from golden_seq")
+    true_top = set(np.argsort(-np.bincount(events.astype(np.int64)))[:10].tolist())
+    got = {int(key) for key, _ in cms.top_k(10)}
+    recall = len(got & true_top) / 10.0
+    check(recall == 1.0, f"top-10 recall {recall}")
+    check(cms.total_count() == n_events, "total count")
+    log({"phase": 4, "config": "cms 5x65536 streaming top-K", "events": n_events,
+         "events_per_s": n_events / dt, "k1_launches": launches,
+         "table_equals_golden": True, "first_chunk_equals_golden_seq": True,
+         "top10_recall": recall, "card": card})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+    from redisson_tpu_torch.ops import _build, cms_seq
+
+    dev = torch.device("cuda")
+    name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    card = nvidia_smi()
+    build_s = _build.build(["cms_seq"])
+    log({"phase": 0, "device": name, "count": count, "nvidia_smi": card,
+         "torch": torch.__version__, "cuda": torch.version.cuda,
+         "build_s": build_s, "ptxas": _build.BUILD_LOG.get("cms_seq", "").strip()})
+    rng = np.random.default_rng(args.seed)
+    kernel = phase_k1(rng, dev)
+
+    # LongCodec: integer keys take the vectorized 8-byte encoding, as in
+    # the JAX package's benchmark configs.
+    client = rt.create(rt.Config().set_codec(LongCodec()).use_gpu_sketch())
+    try:
+        cms_seq.LAUNCHES = 0  # count the main path's launches only
+        phase_bloom(client, rng, card)
+        phase_tenants(client, rng)
+        phase_cms(client, rng, card)
+        kernel["launches"] = cms_seq.LAUNCHES
+        check(kernel["launches"] > 0, "the main path never launched K1")
+    finally:
+        client.shutdown()
+    log({"kernels": [kernel]})
+    print(card)
+    log({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,41 @@
+"""Carry a sketch's state from the JAX package into this one.
+
+The counterpart of loading a checkpoint: a tenant row's uint32 words
+come out of the JAX executor (``state_to_host(pool)[row*u:(row+1)*u]``)
+and go into an object of the same geometry here, so both packages can
+start from one state.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from redisson_tpu_torch.tenancy import PoolKind
+from redisson_tpu_torch.tenancy.registry import class_words_for_bits, spec_for
+
+
+def load_sketch_rows(client, name: str, kind: str, params: dict, row: np.ndarray):
+    """Create ``name`` as a ``kind`` sketch ("bloom" or "cms") with the
+    JAX object's ``params`` (its ``engine.params(name)``) and install the
+    row's words.  Returns the object handle; raises if ``name`` exists or
+    the row does not match the geometry."""
+    engine = client._engine
+    if kind == PoolKind.BLOOM:
+        class_key = (class_words_for_bits(int(params["size"])),)
+        handle = client.get_bloom_filter(name)
+    elif kind == PoolKind.CMS:
+        class_key = (int(params["depth"]), int(params["width"]))
+        handle = client.get_count_min_sketch(name)
+    else:
+        raise ValueError(f"unsupported sketch kind: {kind}")
+    row = np.asarray(row, np.uint32)
+    units = spec_for(kind, class_key).row_units
+    if row.shape != (units,):
+        raise ValueError(
+            f"row of {row.shape} words; {kind} {params} rows hold {units}"
+        )
+    entry, created = engine.registry.try_create(name, kind, class_key, params)
+    if not created:
+        raise ValueError(f"object {name!r} already exists")
+    engine.executor.write_row(entry.pool, entry.row, row)
+    return handle

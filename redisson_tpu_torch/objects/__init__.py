@@ -1,0 +1,7 @@
+"""RObject layer: the sketch objects of this package's slice, backed by
+``objects/engines.TorchSketchEngine``."""
+
+from redisson_tpu_torch.objects.bloom_filter import BloomFilter
+from redisson_tpu_torch.objects.count_min_sketch import CountMinSketch
+
+__all__ = ["BloomFilter", "CountMinSketch"]

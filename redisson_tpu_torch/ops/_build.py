@@ -1,0 +1,86 @@
+"""Build the CUDA sources under ``csrc/`` with nvcc and load them with
+ctypes (a plain C interface: no PyTorch headers, so a build takes seconds).
+
+Libraries go to ``build/kernels/`` at the repository root, named by a
+digest of the source and flags, so an edited source never loads a stale
+library.  Nothing here runs at import time: kernels build on first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: dict = {}
+BUILD_LOG: dict = {}  # name -> nvcc's output (ptxas register/spill report)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    found = str(path) if path.exists() else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME)")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def build(names) -> float:
+    """Compile every named source that has no current library, one nvcc
+    process per source, all started together.  Returns the seconds spent;
+    raises with nvcc's output if a build fails."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str, bind) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use;
+    ``bind(lib)`` declares its argtypes/restype once."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            bind(lib)
+            _libs[name] = lib
+        return lib

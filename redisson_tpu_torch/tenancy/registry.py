@@ -1,0 +1,141 @@
+"""Tenant registry and size-class pools.
+
+Counterpart of ``redisson_tpu/tenancy/registry.py`` with the same size
+classes and row geometry, so a pool here and in the JAX package hold the
+same bytes: a bloom filter of m bits lands in the pool whose row is the
+next power of two >= ceil(m/32) words (minimum 128); a count-min sketch
+row is d*w counters padded to a multiple of 128.  All tenants of a class
+share one flat ``[capacity*row_units + 1]`` tensor (trailing scratch
+word).  Pools grow by doubling row capacity.
+
+Thread-safety: registry mutations happen under one lock; pool growth
+takes the executor's dispatch lock, so it never races a launch.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+from typing import Optional
+
+
+class PoolKind:
+    BLOOM = "bloom"
+    CMS = "cms"
+
+
+def _pow2ceil(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def class_words_for_bits(m: int) -> int:
+    """Size class for an m-bit bitmap: pow2 words >= ceil(m/32), min 128."""
+    return max(128, _pow2ceil(-(-m // 32)))
+
+
+@dataclass
+class PoolSpec:
+    kind: str
+    class_key: tuple  # (words,) for bloom, (d, w) for cms
+    row_units: int  # uint32 words per tenant row
+
+    @property
+    def key(self) -> tuple:
+        return (self.kind, *self.class_key)
+
+
+def spec_for(kind: str, class_key: tuple) -> PoolSpec:
+    if kind == PoolKind.BLOOM:
+        (words,) = class_key
+        return PoolSpec(kind, class_key, words)
+    if kind == PoolKind.CMS:
+        d, w = class_key
+        return PoolSpec(kind, class_key, -(-d * w // 128) * 128)
+    raise ValueError(f"unknown pool kind: {kind}")
+
+
+class SizeClassPool:
+    """One stacked device tensor holding all tenants of a size class."""
+
+    def __init__(self, spec: PoolSpec, capacity: int, factory, dispatch_lock=None):
+        self.spec = spec
+        # The factory (the executor) owns the state layout; this layer only
+        # hands out row numbers.
+        self._factory = factory
+        self.capacity = factory.round_capacity(capacity, row_units=spec.row_units)
+        self._dispatch_lock = dispatch_lock or threading.RLock()
+        self.state = factory.make_pool_state(self.capacity, spec.row_units)
+        self._free: list[int] = list(range(self.capacity - 1, -1, -1))
+
+    @property
+    def row_units(self) -> int:
+        return self.spec.row_units
+
+    def alloc_row(self) -> int:
+        with self._dispatch_lock:
+            if not self._free:
+                self._grow()
+            return self._free.pop()
+
+    def _grow(self) -> None:
+        old_cap = self.capacity
+        new_cap = old_cap * 2
+        self.state = self._factory.grow_pool_state(
+            self.state, old_cap, new_cap, self.spec.row_units
+        )
+        self.capacity = new_cap
+        self._free.extend(range(new_cap - 1, old_cap - 1, -1))
+
+
+@dataclass
+class TenantEntry:
+    """One named sketch object's placement + parameters."""
+
+    name: str
+    kind: str
+    pool: SizeClassPool
+    row: int
+    params: dict = field(default_factory=dict)
+
+
+class TenantRegistry:
+    def __init__(self, factory, initial_capacity: int = 8, dispatch_lock=None):
+        self._factory = factory
+        self._initial_capacity = initial_capacity
+        self._dispatch_lock = dispatch_lock
+        self._lock = threading.RLock()
+        self._tenants: dict[str, TenantEntry] = {}
+        self._pools: dict[tuple, SizeClassPool] = {}
+
+    def lookup(self, name: str) -> Optional[TenantEntry]:
+        with self._lock:
+            return self._tenants.get(name)
+
+    def pool_for(self, kind: str, class_key: tuple) -> SizeClassPool:
+        with self._lock:
+            spec = spec_for(kind, class_key)
+            pool = self._pools.get(spec.key)
+            if pool is None:
+                pool = SizeClassPool(
+                    spec, self._initial_capacity, self._factory,
+                    dispatch_lock=self._dispatch_lock,
+                )
+                self._pools[spec.key] = pool
+            return pool
+
+    def try_create(self, name: str, kind: str, class_key: tuple, params: dict):
+        """tryInit semantics: create if absent -> (entry, True); if present
+        -> (existing, False) whatever the params."""
+        with self._lock:
+            entry = self._tenants.get(name)
+            if entry is not None:
+                if entry.kind != kind:
+                    raise TypeError(
+                        f"object {name!r} holds a {entry.kind}, not a {kind}"
+                    )
+                return entry, False
+            pool = self.pool_for(kind, class_key)
+            entry = TenantEntry(name, kind, pool, pool.alloc_row(), dict(params))
+            self._tenants[name] = entry
+            return entry, True
+
