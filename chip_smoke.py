@@ -5,8 +5,10 @@ against its plain PyTorch version at the main path's shapes, then drives
 the main path through the public client at full size:
 
   phase 0  device, nvidia-smi name and power limit, kernel build
-  phase 1  kernel K1 (csrc/cms_seq.cu) vs its plain version and golden_seq
-           at d=5, w=65536, B=32768; kernel, plain and bound times
+  phase 1  kernel K1 (csrc/cms_seq.cu) vs its plain version and golden_seq,
+           bit for bit, at d=5, w=65536, B=32768 and at the edge shapes of
+           K1_EDGES; kernel and plain times for zipf(1.2), uniform and
+           one-key streams at the main shape, and the bound
   phase 2  RBloomFilter at 1M keys / 1% FPP: add_all_async, contains_many,
            contains_each; the tenant row vs the golden bitmap; measured FPP
            vs the expected rate for the 2**20 keys loaded
@@ -21,7 +23,11 @@ device it exits with code 2 before printing any result.  The line before
 the last is nvidia-smi's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--parent-k1 SOURCE]
+
+``--parent-k1`` builds another version of ``csrc/cms_seq.cu`` (one with
+the launch interface of the one-warp-per-row kernel) and times it beside
+K1 in turns: parent, K1, K1, parent.
 """
 
 from __future__ import annotations
@@ -75,60 +81,187 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_time_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls queued behind a
+    sleep kernel, so that the host's time to enqueue them is hidden (a call
+    of K1's wrapper costs the host more than the kernel costs the card)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    while True:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / iters
+        cycles *= 4
+        check(cycles <= 1 << 34, "the host never got ahead of the card")
+
+
 def zipf_keys(rng, n: int, n_keys: int = 100_000) -> np.ndarray:
     return (rng.zipf(1.2, size=n) % n_keys).astype(np.uint64)
 
 
 # -- phase 1: K1 against its plain version -----------------------------------
 
+# Shapes K1 is held at besides the main path's: (name, d, w, B, stream,
+# pool words before the table).
+K1_EDGES = [
+    ("one_op", 5, 1 << 16, 1, "zipf", 0),
+    ("33_ops", 5, 1 << 16, 33, "zipf", 0),
+    ("ragged_last_tile", 3, 10_007, 5000, "zipf", 0),
+    ("one_key", 5, 1 << 16, 1 << 15, "one_key", 0),
+    ("uniform", 5, 1 << 16, 1 << 15, "uniform", 0),
+    ("weights_wrap", 5, 1 << 16, 1 << 15, "wrap", 0),
+    ("pool_view", 5, 1 << 16, 1 << 15, "zipf", 5 * (1 << 16) * 4 + 128),
+    ("8_mib", 2, 1 << 20, 1 << 15, "zipf", 0),
+]
 
-def phase_k1(rng, dev) -> dict:
-    from redisson_tpu_torch.ops import cms_seq
+
+def k1_inputs(rng, d: int, w: int, B: int, stream: str):
+    """Murmur-hashed op columns of a key stream, weights and a table."""
     from redisson_tpu_torch.utils import hashing
 
-    d, w, B = 5, 1 << 16, 1 << 15
-    keys = zipf_keys(rng, B)
+    if stream == "one_key":
+        keys = np.full(B, 12345, np.uint64)
+    elif stream == "uniform":
+        keys = rng.integers(0, 1 << 40, B).astype(np.uint64)
+    else:
+        keys = zipf_keys(rng, B)
     blocks, lengths = hashing.encode_uint64_batch(keys)
     h1w, h2w = hashing.km_reduce_mod(*hashing.hash128_np(blocks, lengths), w)
     wt = (rng.random(B) < 0.9).astype(np.uint32)  # weight 1, some 0 (pure estimates)
-    table0 = rng.integers(0, 1 << 16, d * w).astype(np.uint32)
+    table = rng.integers(0, 1 << 16, d * w).astype(np.uint32)
+    if stream == "wrap":  # counters and weights past 2**31: unsigned wrap and min
+        wt = rng.integers(0, 1 << 32, B, dtype=np.uint64).astype(np.uint32)
+        table = rng.integers(0, 1 << 32, d * w, dtype=np.uint64).astype(np.uint32)
+    return table, h1w, h2w, wt
 
-    def cols(device):
-        return [torch.from_numpy(a.view(np.int32).copy()).to(device)
-                for a in (table0, h1w, h2w, wt)]
 
-    k_table, *k_ops = cols(dev)
-    k_est = cms_seq.cms_update_estimate_seq(k_table, *k_ops, d=d, w=w)
-    p_table, *p_ops = cols(dev)
-    p_est = cms_seq.cms_seq_plain(p_table, *p_ops, d=d, w=w)
+def k1_check(rng, dev, d, w, B, stream, before_words) -> int:
+    """K1 vs its plain version and golden_seq on one shape, the table a view
+    into a pool whose other words must not change.  Returns the max abs
+    error (0, or the check fails)."""
+    from redisson_tpu_torch.ops import cms_seq
+
+    table0, h1w, h2w, wt = k1_inputs(rng, d, w, B, stream)
+    pool = rng.integers(0, 1 << 32, before_words + d * w + 96, dtype=np.uint64)
+    pool = pool.astype(np.uint32)
+    pool[before_words : before_words + d * w] = table0
+    view = slice(before_words, before_words + d * w)
+
+    def cols():
+        return [torch.from_numpy(a.view(np.int32).copy()).to(dev)
+                for a in (pool, h1w, h2w, wt)]
+
+    k_pool, *k_ops = cols()
+    k_est = cms_seq.cms_update_estimate_seq(k_pool[view], *k_ops, d=d, w=w)
+    p_pool, *p_ops = cols()
+    p_est = cms_seq.cms_seq_plain(p_pool[view], *p_ops, d=d, w=w)
     torch.cuda.synchronize()
-    err = max(
-        int((k_table.long() - p_table.long()).abs().max()),
-        int((k_est.long() - p_est.long()).abs().max()),
-    )
-    check(torch.equal(k_table, p_table) and torch.equal(k_est, p_est),
-          f"K1 disagrees with its plain version (max abs err {err})")
-    g_table, g_est = cms_seq.golden_seq(table0.reshape(d, w), h1w, h2w, wt, d=d, w=w)
-    check(np.array_equal(k_table.cpu().numpy().view(np.uint32), g_table.reshape(-1))
+    err = max(int((k_pool.long() - p_pool.long()).abs().max()),
+              int((k_est.long() - p_est.long()).abs().max()))
+    check(torch.equal(k_pool, p_pool) and torch.equal(k_est, p_est),
+          f"K1 disagrees with its plain version at d={d} w={w} B={B} {stream} "
+          f"(max abs err {err})")
+    with np.errstate(over="ignore"):  # golden_seq wraps mod 2**32
+        g_table, g_est = cms_seq.golden_seq(table0.reshape(d, w), h1w, h2w, wt, d=d, w=w)
+    k_pool = k_pool.cpu().numpy().view(np.uint32)
+    check(np.array_equal(k_pool[view], g_table.reshape(-1))
           and np.array_equal(k_est.cpu().numpy().view(np.uint32), g_est),
-          "K1 disagrees with golden_seq")
+          f"K1 disagrees with golden_seq at d={d} w={w} B={B} {stream}")
+    return err
 
-    t_table, *t_ops = cols(dev)
-    ms = cuda_time_ms(lambda: cms_seq.cms_update_estimate_seq(t_table, *t_ops, d=d, w=w), 50)
-    plain_ms = cuda_time_ms(lambda: cms_seq.cms_seq_plain(t_table, *t_ops, d=d, w=w), 20)
+
+def load_parent_k1(source: str):
+    """An earlier K1 with the one-warp-per-row launch interface, built from
+    a copy of its source, for timing beside the current kernel.  Returns
+    launch(table, h1, h2, wt, d=, w=)."""
+    import ctypes
+    from pathlib import Path
+
+    from redisson_tpu_torch.ops import _build
+
+    out = _build.BUILD_DIR / "parent_cms_seq.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                    str(Path(source).resolve())], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.cms_seq_launch.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.cms_seq_launch.restype = i
+
+    def launch(table, h1, h2, wt, *, d, w):
+        est = torch.full((h1.shape[0],), -1, dtype=torch.int32, device=table.device)
+        rc = lib.cms_seq_launch(table.data_ptr(), h1.data_ptr(), h2.data_ptr(),
+                                wt.data_ptr(), est.data_ptr(), h1.shape[0], d, w,
+                                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"parent K1 launch failed: CUDA error {rc}")
+        return est
+
+    return launch
+
+
+def phase_k1(rng, dev, parent_source=None) -> dict:
+    from redisson_tpu_torch.ops import cms_seq
+
+    d, w, B = 5, 1 << 16, 1 << 15
+    err = k1_check(rng, dev, d, w, B, "zipf", 0)
+    for _, *shape in K1_EDGES:
+        err = max(err, k1_check(rng, dev, *shape))
+    parent = load_parent_k1(parent_source) if parent_source else None
+
+    ms, plain_ms, parent_ms, call_ms = {}, {}, {}, None
+    for stream in ("zipf", "uniform", "one_key"):
+        cols = [torch.from_numpy(a.view(np.int32).copy()).to(dev)
+                for a in k1_inputs(rng, d, w, B, stream)]
+
+        def new():
+            return cms_seq.cms_update_estimate_seq(*cols, d=d, w=w)
+
+        if parent is None:
+            ms[stream] = device_time_ms(new, 50)
+        else:  # in turns: parent, new, new, parent
+            t = [device_time_ms(f, 50) for f in (lambda: parent(*cols, d=d, w=w),
+                                               new, new,
+                                               lambda: parent(*cols, d=d, w=w))]
+            ms[stream], parent_ms[stream] = t[1:3], [t[0], t[3]]
+            check(torch.equal(parent(*[c.clone() for c in cols], d=d, w=w),
+                              cms_seq.cms_update_estimate_seq(
+                                  *[c.clone() for c in cols], d=d, w=w)),
+                  f"parent K1 and K1 disagree on the {stream} stream")
+        plain_ms[stream] = cuda_time_ms(
+            lambda: cms_seq.cms_seq_plain(*cols, d=d, w=w), 20)
+        if stream == "zipf":  # back-to-back calls, paced by the host
+            call_ms = cuda_time_ms(new, 50)
     # Least time for the same work: the table read and written once, the
     # three op columns read once, the estimates written once.
     nbytes = 2 * d * w * 4 + 3 * B * 4 + B * 4
     bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    zipf_ms = ms["zipf"] if parent is None else sum(ms["zipf"]) / 2
     log({"phase": 1, "kernel": "cms_seq", "d": d, "w": w, "B": B,
+         "plan": cms_seq._plan(d, w, torch.cuda.get_device_properties(dev)
+                               .multi_processor_count)._asdict(),
+         "edge_shapes": [e[0] for e in K1_EDGES],
          "bit_identical_to_plain": True, "matches_golden_seq": True,
-         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "ms_by_stream": ms, "parent_ms_by_stream": parent_ms or None,
+         "plain_ms_by_stream": plain_ms, "host_paced_call_ms": call_ms,
+         "bound_ms": bound_ms,
          "bytes": nbytes, "compare_launches": cms_seq.LAUNCHES})
     return {"name": "cms_seq", "route": "cuda",
             "source": "redisson_tpu_torch/csrc/cms_seq.cu",
             "replaces": "redisson_tpu/ops/pallas_cms.py:123",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+            "max_abs_err": err, "ms": zipf_ms, "ms_by_stream": ms,
+            "plain_ms": plain_ms["zipf"], "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None}
 
 
 # -- phase 2: config 1, Bloom at 1M keys / 1% FPP -----------------------------
@@ -336,6 +469,8 @@ def phase_cms(client, rng, card: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent-k1", metavar="SOURCE",
+                    help="a K1 source with the one-warp-per-row interface, timed beside K1")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -349,11 +484,14 @@ def main(argv=None) -> int:
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     card = nvidia_smi()
     build_s = _build.build(["cms_seq"])
+    ptxas = _build.BUILD_LOG.get("cms_seq", "")
     log({"phase": 0, "device": name, "count": count, "nvidia_smi": card,
          "torch": torch.__version__, "cuda": torch.version.cuda,
-         "build_s": build_s, "ptxas": _build.BUILD_LOG.get("cms_seq", "").strip()})
+         "build_s": build_s, "ptxas": [  # registers, shared memory, spills
+             line.split("ptxas info    : ")[-1] for line in ptxas.splitlines()
+             if "registers" in line or "spill" in line or "Compiling" in line]})
     rng = np.random.default_rng(args.seed)
-    kernel = phase_k1(rng, dev)
+    kernel = phase_k1(rng, dev, args.parent_k1)
 
     # LongCodec: integer keys take the vectorized 8-byte encoding, as in
     # the JAX package's benchmark configs.

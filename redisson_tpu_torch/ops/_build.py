@@ -53,7 +53,9 @@ def build(names) -> float:
     procs = []
     for name in names:
         out = library_path(name)
-        if out.exists():
+        if out.exists():  # built earlier: its nvcc output lies beside it
+            log = out.with_suffix(".log")
+            BUILD_LOG[name] = log.read_text() if log.exists() else ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -67,6 +69,7 @@ def build(names) -> float:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

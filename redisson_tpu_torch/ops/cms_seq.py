@@ -10,12 +10,16 @@ pure estimate.  The minimum over rows is UNSIGNED, as in ``golden_seq``
 ``cms_update_estimate_seq`` is the wrapper: a CPU tensor takes the plain
 PyTorch version below, a CUDA tensor launches the hand-written kernel in
 ``csrc/cms_seq.cu`` (and raises if it cannot build or launch).  Both
-update the table in place.
+update the table in place.  The kernel cuts each depth row into tiles
+held in shared memory, one (row, tile) work item per block; ``_plan``
+sizes the tiles and the grid from (d, w) and the card's SM count, and the
+wrapper passes them to the launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -27,12 +31,43 @@ from redisson_tpu_torch.utils.hashing import u32
 LAUNCHES = 0
 
 
+# The kernel's fixed shape (csrc/cms_seq.cu): 16 warps, one walks and 15
+# filter; ops stream in chunks of 15 * 32 * 8, through two list buffers of
+# (cell, weight, op) words, beside 16 warp counts and 2 list lengths.
+CHUNK = 15 * 32 * 8
+SMEM_FIXED = 4 * (6 * CHUNK + 16 + 2)
+SMEM_PER_BLOCK = 232_448  # shared memory one block may take on Hopper
+TILE_ALIGN = 32  # tile widths are whole warps of cells
+
+
+class Plan(NamedTuple):
+    tile_w: int  # cells per tile (a multiple of TILE_ALIGN)
+    tiles_per_row: int  # the last tile of a row may be ragged
+    n_work: int  # d * tiles_per_row (row, tile) work items
+    grid: int  # blocks, one per SM at most; each walks work items grid-stride
+    smem: int  # dynamic shared memory per block, bytes
+
+
+def _plan(d: int, w: int, n_sm: int = 132) -> Plan:
+    """Tiles for a d x w table on a card with ``n_sm`` SMs: about one
+    work item per SM, no tile wider than shared memory allows.  A block's
+    512 threads take most of an SM's registers, so one block runs per
+    SM."""
+    max_tile = (SMEM_PER_BLOCK - SMEM_FIXED) // 4 // TILE_ALIGN * TILE_ALIGN
+    per_row = max(1, n_sm // d)
+    tile_w = -(-w // per_row)
+    tile_w = min(-(-tile_w // TILE_ALIGN) * TILE_ALIGN, max_tile)
+    tiles_per_row = -(-w // tile_w)
+    n_work = d * tiles_per_row
+    return Plan(tile_w, tiles_per_row, n_work, min(n_work, n_sm), 4 * tile_w + SMEM_FIXED)
+
+
 def _bind(lib) -> None:
-    p = ctypes.c_void_p
-    lib.cms_seq_launch.argtypes = [
-        p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
-    ]
-    lib.cms_seq_launch.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.cms_seq_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.cms_seq_launch.restype = i
+    lib.cms_seq_smem_bytes.argtypes = [i]
+    lib.cms_seq_smem_bytes.restype = i
 
 
 def _check(table, h1w, h2w, weights, d: int, w: int) -> int:
@@ -68,10 +103,13 @@ def cms_update_estimate_seq(table, h1w, h2w, weights, *, d: int, w: int):
         return est
     lib = _build.load("cms_seq", _bind)
     with torch.cuda.device(table.device):
+        n_sm = torch.cuda.get_device_properties(table.device).multi_processor_count
+        plan = _plan(d, w, n_sm)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.cms_seq_launch(
             table.data_ptr(), h1w.data_ptr(), h2w.data_ptr(),
-            weights.data_ptr(), est.data_ptr(), B, d, w, stream,
+            weights.data_ptr(), est.data_ptr(), B, d, w,
+            plan.tile_w, plan.tiles_per_row, plan.grid, stream,
         )
     if rc != 0:
         raise RuntimeError(f"cms_seq kernel launch failed: CUDA error {rc}")

@@ -169,3 +169,162 @@ def test_vectorized_cms_ops_match_jax_multitenant():
         j_new, jnp.asarray(rows), jnp.asarray(h2), jnp.asarray(h1), **kw)
     only = cms.cms_estimate(flat, _t(rows), _t(h2), _t(h1), **kw)
     assert np.array_equal(_u32(only), np.asarray(j_only))
+
+
+# -- the kernel's tile/grid plan and a NumPy model of its schedule -----------
+
+_GEOMETRIES = [
+    (5, 1 << 16),  # the main path: CountMinSketch(5, 65536)
+    (2, 1 << 20),  # the gate's edge, d*w*4 = 8 MiB
+    (1, 1 << 21),  # the gate's edge, one row
+    (3, 10_007),  # w not a multiple of the tile: a ragged last tile
+    (3, 20),  # w smaller than one tile
+    (1, 1),
+    (4, 4096),
+    (7, 1000),
+    (16_384, 128),  # more work items than blocks: grid-stride
+    (1, (1 << 31) - 1),  # the widest row the wrapper accepts
+]
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 8])
+@pytest.mark.parametrize("d,w", _GEOMETRIES)
+def test_k1_plan_tiles_every_cell_once(d, w, n_sm):
+    plan = cms_seq._plan(d, w, n_sm)
+    T = plan.tile_w
+    # Tiles are whole warps of cells, so every region of the dynamic shared
+    # memory after the tile starts on a 128-byte boundary.
+    assert T % cms_seq.TILE_ALIGN == 0 and T > 0
+    assert plan.smem == 4 * (T + 6 * cms_seq.CHUNK + 16 + 2)
+    assert plan.smem <= cms_seq.SMEM_PER_BLOCK
+    assert plan.n_work == d * plan.tiles_per_row < 1 << 31
+    assert 1 <= plan.grid <= plan.n_work
+    # The tiles of a row cover [0, w) and none is empty.
+    assert (plan.tiles_per_row - 1) * T < w <= plan.tiles_per_row * T
+    if d * w <= 1 << 22:
+        owner = np.zeros(d * w, np.int64)
+        for item in range(plan.n_work):  # what the grid-stride loop visits
+            r, t = divmod(item, plan.tiles_per_row)
+            lo = t * T
+            owner[r * w + lo : r * w + min(lo + T, w)] += 1
+        assert np.all(owner == 1)
+    if (d, w) == (5, 1 << 16) and n_sm == 132:
+        assert plan.n_work == plan.grid == 130  # one work item per SM
+
+
+def _row_cell(h1, h2, r, w):
+    """The kernel's row cell: conditional subtraction below r = 16, one
+    64-bit remainder above."""
+    if r < 16:
+        idx = h1.astype(np.int64)
+        for _ in range(r):
+            idx = idx + h2
+            idx = np.where(idx >= w, idx - w, idx)
+        return idx
+    return (h1.astype(np.int64) + r * h2.astype(np.int64)) % w
+
+
+def _group_scan(x, group):
+    """The kernel's pointer-jumping scan: inclusive prefix of x (uint32)
+    over each lane's group, lanes in order."""
+    lanes = np.arange(32)
+    below = group & ((1 << lanes) - 1)
+    prev = np.array([int(m).bit_length() - 1 for m in below])
+    x = x.astype(np.uint64)
+    for _ in range(5):
+        src = np.where(prev < 0, lanes, prev)
+        xp, pp = x[src], prev[src]
+        x = np.where(prev >= 0, (x + xp) & 0xFFFFFFFF, x)
+        prev = np.where(prev >= 0, pp, prev)
+    return x
+
+
+def _kernel_model(table, h1, h2, wt, d, w, plan):
+    """csrc/cms_seq.cu step by step: the filter warps' ballot ranks and
+    segment offsets, each 32-op window's match-any groups, prefixes and
+    last-of-group marks, then warp 0's walk.  Work items run in reverse
+    order: blocks run in no order."""
+    B = len(h1)
+    chunk, seg = cms_seq.CHUNK, 32 * 8
+    table = table.reshape(-1).astype(np.uint64)
+    est = np.full(B, 0xFFFFFFFF, np.uint64)
+    lanes = np.arange(32)
+    for item in reversed(range(plan.n_work)):
+        r, t = divmod(item, plan.tiles_per_row)
+        lo = t * plan.tile_w
+        ln = min(plan.tile_w, w - lo)
+        tile = table[r * w + lo : r * w + lo + ln].copy()
+        for c in range(-(-B // chunk)):
+            kept = np.full((3, chunk), -1, np.int64)  # cell, weight, op
+            counts = []
+            for fw in range(15):  # count, then write after earlier segments
+                j = c * chunk + fw * seg + lanes[None, :] + 32 * np.arange(8)[:, None]
+                ok = j < B
+                jj = np.where(ok, j, 0)
+                off = _row_cell(h1[jj], h2[jj], r, w) - lo
+                local = np.where(ok & (off >= 0) & (off < ln), off, -1)
+                counts.append((j, local))
+            at = 0
+            for j, local in counts:
+                for u in range(8):
+                    bits = local[u] >= 0
+                    rank = at + np.cumsum(bits) - bits  # popc(kept & lanemask_lt)
+                    kept[0, rank[bits]] = local[u][bits]
+                    kept[1, rank[bits]] = wt[j[u][bits]]
+                    kept[2, rank[bits]] = j[u][bits]
+                    at += int(bits.sum())
+            for i in range(0, at, 32):  # warp 0's walk
+                k = i + lanes
+                active = k < at
+                cell = np.where(active, kept[0, np.minimum(k, chunk - 1)], -1)
+                weight = np.where(active, kept[1, np.minimum(k, chunk - 1)], 0)
+                op = kept[2, np.minimum(k, chunk - 1)]
+                group = np.array([int(np.sum((cell == cell[l]) << lanes)) for l in lanes])
+                if np.all(weight <= 1):
+                    le = (1 << (lanes + 1)) - 1
+                    ones = int(np.sum((weight == 1).astype(np.int64) << lanes))
+                    prefix = np.array([bin(g & ones & m).count("1") for g, m in zip(group, le)])
+                else:
+                    prefix = _group_scan(weight, group)
+                cur = tile[np.where(active, cell, 0)]
+                for l in lanes[active]:
+                    val = (int(cur[l]) + int(prefix[l])) & 0xFFFFFFFF
+                    est[op[l]] = min(est[op[l]], val)
+                    if l == int(group[l]).bit_length() - 1:
+                        tile[cell[l]] = val
+        table[r * w + lo : r * w + lo + ln] = tile
+    return table.astype(np.uint32).reshape(d, w), est.astype(np.uint32)
+
+
+def _stream(kind, rng, B, w):
+    if kind == "one_key":
+        keys = np.full(B, 7)
+    elif kind == "uniform":
+        keys = rng.integers(0, 1 << 30, B)
+    else:
+        keys = rng.zipf(1.2, B) % 1000
+    return (keys * 2654435761 % w).astype(np.uint32), (keys * 40503 % w).astype(np.uint32)
+
+
+@pytest.mark.parametrize("d,w,B,kind,n_sm", [
+    (5, 256, 33, "zipf", 132),
+    (4, 1024, 1, "zipf", 132),
+    (3, 1009, 4000, "zipf", 132),  # two chunks, a ragged last tile
+    (2, 64, 600, "one_key", 132),
+    (5, 4096, 500, "uniform", 20),
+    (20, 96, 300, "zipf", 8),  # rows past 16 take the 64-bit remainder
+    (3, 512, 200, "wrap", 132),  # weights past 2**32: the pointer-jumping scan
+])
+def test_k1_schedule_model_reproduces_golden_seq(d, w, B, kind, n_sm):
+    rng = np.random.default_rng(B + d)
+    h1, h2 = _stream("zipf" if kind == "wrap" else kind, rng, B, w)
+    table = rng.integers(0, 1 << 16, (d, w)).astype(np.uint32)
+    wt = (rng.random(B) < 0.9).astype(np.uint32)
+    if kind == "wrap":
+        table = rng.integers(0, 1 << 32, (d, w), dtype=np.uint64).astype(np.uint32)
+        wt = rng.integers(0, 1 << 32, B, dtype=np.uint64).astype(np.uint32)
+    plan = cms_seq._plan(d, w, n_sm)
+    with np.errstate(over="ignore"):  # golden_seq wraps mod 2**32
+        g_table, g_est = cms_seq.golden_seq(table, h1, h2, wt, d=d, w=w)
+    m_table, m_est = _kernel_model(table, h1, h2, wt, d, w, plan)
+    assert np.array_equal(m_table, g_table) and np.array_equal(m_est, g_est)
