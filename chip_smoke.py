@@ -17,6 +17,21 @@ the main path through the public client at full size:
   phase 4  RCountMinSketch(5, 65536) add_all_seq over 2M zipf(1.2) events;
            table vs golden, first chunk vs golden_seq, top-10 recall, K1
            launches
+  phase 5  config 2, RHyperLogLog PFADD: a 2**21-key warm-up, then 4
+           disjoint batches of 2**21 keys issued together and resolved
+           with collect (10,485,760 distinct keys); registers vs the golden
+           model, count() vs its Ertl estimate and within 5% of the truth,
+           per-op changed flags of a 2**16-key chunk with repeats vs the
+           sequential model; PFADD ops/s and count() latency
+  phase 6  config 3, RBitSet of 2**30 bits: set(2**30 - 1), then 8
+           alternating set_many_async / get_many_async of 2**21 uniform
+           indexes resolved with collect; every per-op result, the final
+           row, cardinality() and length() vs a numpy bitmap updated in
+           order; ops/s
+  phase 7  4 threads, each owning 16 bitsets and 16 HLLs, issue random
+           SET/CLEAR/FLIP/GET batches and PFADDs through the coalescer (one
+           burst of more than 1024 runs, one of fewer); every per-op result
+           vs each tenant's sequential model
 
 Every failed check raises, so the script exits non-zero.  Without a CUDA
 device it exits with code 2 before printing any result.  The line before
@@ -290,8 +305,7 @@ def tenant_row(client, name: str) -> np.ndarray:
     eng = client._engine
     eng._drain()
     e = eng.registry.lookup(name)
-    u = e.pool.row_units
-    return eng.executor.state_to_host(e.pool)[e.row * u : (e.row + 1) * u]
+    return eng.executor.read_row(e.pool, e.row)
 
 
 def phase_bloom(client, rng, card: str) -> None:
@@ -466,6 +480,237 @@ def phase_cms(client, rng, card: str) -> None:
          "top10_recall": recall, "card": card})
 
 
+# -- phase 5: config 2, HyperLogLog PFADD at 10M cardinality ------------------
+
+
+def hll_lanes(keys: np.ndarray):
+    """Host murmur lanes (c0, c1, c2) of LongCodec-encoded keys."""
+    from redisson_tpu_torch.utils import hashing
+
+    return hashing.murmur3_x86_128(*hashing.encode_uint64_batch(keys))[:3]
+
+
+def golden_hll_changed(regs: np.ndarray, c0, c1, c2) -> np.ndarray:
+    """One op at a time: op j changed iff its rank beat its register.
+    Updates ``regs`` in place."""
+    from redisson_tpu_torch.ops import golden
+
+    idx, rank = golden.hll_index_rank(c0, c1, c2)
+    out = np.zeros(len(c0), bool)
+    for j, (i, r) in enumerate(zip(idx.tolist(), rank.tolist())):
+        if r > regs[i]:
+            out[j] = True
+            regs[i] = r
+    return out
+
+
+def phase_hll(client, rng, card: str) -> None:
+    from redisson_tpu_torch.ops import golden
+
+    B, iters = 1 << 21, 4
+    h = client.get_hyper_log_log("cfg2")
+    check(h.add_all_async(np.arange(B, dtype=np.uint64)).result(), "warm-up changed nothing")
+    batches = [np.arange((i + 1) * B, (i + 2) * B, dtype=np.uint64) for i in range(iters)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with client.defer_fetch():
+        futs = [h.add_all_async(b) for b in batches]
+    changed = client.collect(futs)
+    add_s = time.perf_counter() - t0
+    check(all(changed), f"a PFADD batch of new keys changed nothing: {changed}")
+    n = (iters + 1) * B
+    t0 = time.perf_counter()
+    est = h.count()
+    count_ms = (time.perf_counter() - t0) * 1e3
+
+    g = golden.GoldenHyperLogLog()
+    for i in range(iters + 1):
+        g.add_hashed(*hll_lanes(np.arange(i * B, (i + 1) * B, dtype=np.uint64)))
+    regs = tenant_row(client, "cfg2")
+    check(np.array_equal(regs, g.regs), "HLL registers differ from the golden model")
+    want = int(round(golden.ertl_estimate(np.bincount(regs, minlength=golden.HLL_Q + 2))))
+    check(est == want == g.count(), f"count() {est} vs Ertl {want}")
+    check(abs(est - n) / n < 0.05, f"count() {est} vs {n} distinct keys")
+
+    # Per-op flags: a chunk with repeats on a tenant already holding keys.
+    f = client.get_hyper_log_log("cfg2-flags")
+    f.add_all(np.arange(1 << 15, dtype=np.uint64))
+    chunk = rng.integers(0, 1 << 17, 1 << 16).astype(np.uint64)
+    eng = client._engine
+    e = eng.registry.lookup("cfg2-flags")
+    g_regs = tenant_row(client, "cfg2-flags")
+    c0, c1, c2 = hll_lanes(chunk)
+    flags = eng.executor.hll_add_changed(
+        e.pool, np.full(len(chunk), e.row, np.int32), c0, c1, c2).result()
+    want_flags = golden_hll_changed(g_regs, c0, c1, c2)
+    check(np.array_equal(flags, want_flags), "per-op changed flags differ from golden")
+    check(np.array_equal(tenant_row(client, "cfg2-flags"), g_regs), "flag chunk registers differ")
+    check(0 < want_flags.sum() < len(chunk), "the flag chunk does not exercise both outcomes")
+    log({"phase": 5, "config": "hll pfadd 10M cardinality", "keys": n,
+         "pfadd_ops_per_s": iters * B / add_s, "count": est,
+         "count_rel_err": (est - n) / n, "count_ms": count_ms,
+         "registers_equal_golden": True, "flag_chunk_ops": len(chunk),
+         "flag_chunk_changed": int(want_flags.sum()), "flags_equal_golden": True,
+         "card": card})
+
+
+# -- phase 6: config 3, a 2**30-bit BitSet -------------------------------------
+
+_POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.uint8)
+
+
+def golden_set(bitmap: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """SETBIT of a batch on a uint32 word bitmap, one op at a time: the
+    previous bit per op (1 after an earlier set of the same index)."""
+    w, b = idx >> 5, (idx & 31).astype(np.uint32)
+    prev = ((bitmap[w] >> b) & 1).astype(bool)
+    first = np.zeros(len(idx), bool)
+    first[np.unique(idx, return_index=True)[1]] = True
+    np.bitwise_or.at(bitmap, w, np.uint32(1) << b)
+    return prev | ~first
+
+
+def golden_get(bitmap: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    return ((bitmap[idx >> 5] >> (idx & 31).astype(np.uint32)) & 1).astype(bool)
+
+
+def phase_bitset(client, rng, card: str) -> None:
+    nbits, B, iters = 1 << 30, 1 << 21, 8
+    bitmap = np.zeros(nbits // 32, np.uint32)
+    bs = client.get_bit_set("cfg3")
+    check(not bs.set(nbits - 1), "set(2**30 - 1) found the bit set")
+    golden_set(bitmap, np.array([nbits - 1]))
+    check(bs.size() == nbits, f"size {bs.size()}")
+    # Warm-up: the first launches of each op at this batch size.
+    warm = rng.integers(0, nbits, B).astype(np.uint32)
+    check(np.array_equal(bs.set_many(warm), golden_set(bitmap, warm)), "warm-up set differs")
+    warm = rng.integers(0, nbits, B).astype(np.uint32)
+    check(np.array_equal(bs.get_many(warm), golden_get(bitmap, warm)), "warm-up get differs")
+    idxs = [rng.integers(0, nbits, B).astype(np.uint32) for _ in range(iters)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with client.defer_fetch():
+        futs = [bs.set_many_async(idx) if i % 2 == 0 else bs.get_many_async(idx)
+                for i, idx in enumerate(idxs)]
+    res = client.collect(futs)
+    dt = time.perf_counter() - t0
+    for i, (idx, got) in enumerate(zip(idxs, res)):
+        want = golden_set(bitmap, idx) if i % 2 == 0 else golden_get(bitmap, idx)
+        check(np.array_equal(got, want), f"batch {i} differs from the golden bitmap")
+    check(np.array_equal(tenant_row(client, "cfg3"), bitmap), "row differs from the golden bitmap")
+    card_want = int(_POPCOUNT8[bitmap.view(np.uint8)].sum(dtype=np.int64))
+    last = int(np.flatnonzero(bitmap)[-1])
+    length_want = last * 32 + int(bitmap[last]).bit_length()
+    check(bs.cardinality() == card_want, f"cardinality {bs.cardinality()} vs {card_want}")
+    check(bs.length() == length_want == nbits, f"length {bs.length()} vs {length_want}")
+    log({"phase": 6, "config": "bitset 2**30 bits", "ops": iters * B,
+         "ops_per_s": iters * B / dt, "cardinality": card_want,
+         "results_equal_golden": True, "row_equals_golden": True, "card": card})
+
+
+# -- phase 7: interleaved opcodes from 4 threads through the coalescer ------------
+
+
+def phase_interleaved(rng) -> None:
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+    from redisson_tpu_torch.ops import golden
+
+    n_threads, per_thread, nbits = 4, 16, 4096
+    # A long flush window: a burst queues whole before its first flush, so
+    # one launch carries every chunk of the burst as a run.
+    client = rt.create(rt.Config().set_codec(LongCodec()).use_gpu_sketch(
+        batch_window_us=2_000_000))
+    try:
+        eng = client._engine
+        names = [f"p7-{i}" for i in range(n_threads * per_thread)]
+        for name in names:
+            eng.bitset_ensure(name, nbits)
+        ex = eng.executor
+        runs = {"runs": [], "per_op": []}
+        orig_runs, orig_ops = ex.bitset_mixed_runs, ex.bitset_mixed
+
+        def spy_runs(pool, idx, run_rows, *rest):
+            runs["runs"].append(len(run_rows))
+            return orig_runs(pool, idx, run_rows, *rest)
+
+        def spy_ops(pool, rows, *rest):
+            runs["per_op"].append(len(rows))
+            return orig_ops(pool, rows, *rest)
+
+        ex.bitset_mixed_runs, ex.bitset_mixed = spy_runs, spy_ops
+        plans = {}  # name -> [(kind, idx or keys)] per burst
+        for burst_rounds in (24, 4):
+            for name in names:
+                plans.setdefault(name, []).append([
+                    (int(rng.integers(0, 5)),
+                     rng.integers(0, nbits, int(rng.integers(1, 48))).astype(np.uint32))
+                    for _ in range(burst_rounds)])
+        results: dict = {}
+        barrier = threading.Barrier(n_threads)
+
+        def worker(t):
+            mine = names[t * per_thread : (t + 1) * per_thread]
+            for burst in range(2):
+                futs = {name: [] for name in mine}
+                for step in range(len(plans[mine[0]][burst])):
+                    for name in mine:
+                        kind, idx = plans[name][burst][step]
+                        if kind == 0:
+                            f = eng.bitset_set(name, idx, True)
+                        elif kind == 1:
+                            f = eng.bitset_set(name, idx, False)
+                        elif kind == 2:
+                            f = eng.bitset_flip(name, idx)
+                        elif kind == 3:
+                            f = eng.bitset_get(name, idx)
+                        else:
+                            f = client.get_hyper_log_log("h" + name).add_all_async(
+                                idx.astype(np.uint64))
+                        futs[name].append(f)
+                barrier.wait(timeout=600)  # the burst is queued whole
+                for name in mine:
+                    results.setdefault(name, []).extend(f.result() for f in futs[name])
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=worker, args=(t,)) for t in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        check(not any(th.is_alive() for th in threads), "phase 7 workers hung")
+        wall_s = time.perf_counter() - t0
+        del ex.bitset_mixed_runs, ex.bitset_mixed
+        n_ops = 0
+        for name in names:
+            bits = np.zeros(nbits, bool)
+            regs = golden.GoldenHyperLogLog()
+            ops = [op for burst in plans[name] for op in burst]
+            for (kind, idx), got in zip(ops, results[name]):
+                n_ops += len(idx)
+                if kind == 4:
+                    before = regs.regs.copy()
+                    regs.add_hashed(*hll_lanes(idx.astype(np.uint64)))
+                    check(got == bool(np.any(regs.regs != before)), f"{name} PFADD differs")
+                    continue
+                want = np.empty(len(idx), bool)
+                for j, i in enumerate(idx):
+                    want[j] = bits[i]
+                    if kind < 3:
+                        bits[i] = (kind == 0) if kind < 2 else not bits[i]
+                check(np.array_equal(got, want), f"{name} opcode {kind} differs from golden")
+            check(np.array_equal(tenant_row(client, name),
+                                 np.packbits(bits, bitorder="little").view(np.uint32)),
+                  f"{name} row differs from golden")
+        check(max(runs["per_op"], default=0) > 1024, f"no flush of more than 1024 runs: {runs}")
+        check(max(runs["runs"], default=0) > 1, f"no multi-run flush: {runs}")
+        log({"phase": 7, "threads": n_threads, "bitsets": len(names), "ops": n_ops,
+             "ops_per_s": n_ops / wall_s, "runs_flushes": runs["runs"],
+             "per_op_flush_ops": runs["per_op"], "results_equal_golden": True})
+    finally:
+        client.shutdown()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -503,8 +748,11 @@ def main(argv=None) -> int:
         phase_cms(client, rng, card)
         kernel["launches"] = cms_seq.LAUNCHES
         check(kernel["launches"] > 0, "the main path never launched K1")
+        phase_hll(client, rng, card)
+        phase_bitset(client, rng, card)
     finally:
         client.shutdown()
+    phase_interleaved(rng)
     log({"kernels": [kernel]})
     print(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})

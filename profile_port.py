@@ -8,6 +8,11 @@ runs it again under ``torch.profiler`` and prints one JSON line per pass:
   bloom_contains  config 1: contains_many over 4 x 1M random keys
   cms_add_seq     config 5: add_all_seq over 2M zipf(1.2) events into a
                   5 x 65536 sketch (62 launches of kernel K1)
+  hll_pfadd       config 2: 4 x 2**21 keys into a fresh RHyperLogLog,
+                  issued together and resolved with collect
+  bitset_mixed    config 3: 8 alternating set_many_async / get_many_async
+                  of 2**21 uniform indexes on a 2**30-bit RBitSet, resolved
+                  with collect
 
 Each line has the pass's wall time (host clock, ending in a device
 synchronize), the device busy time (union of the CUDA kernel and memcpy
@@ -116,10 +121,33 @@ def main(argv=None) -> int:
         cms.try_init(5, 1 << 16, track_top_k=20)
         events = (rng.zipf(1.2, 2_000_000) % 100_000).astype(np.uint64)
 
+        B = 1 << 21
+        hlls = iter(range(1 << 10))
+
+        def hll_pfadd():
+            h = client.get_hyper_log_log(f"hll{next(hlls)}")
+            with client.defer_fetch():
+                futs = [h.add_all_async(np.arange(i * B, (i + 1) * B, dtype=np.uint64))
+                        for i in range(4)]
+            client.collect(futs)
+
+        nbits = 1 << 30
+        bs = client.get_bit_set("cfg3")
+        bs.set(nbits - 1)
+        idxs = [rng.integers(0, nbits, B).astype(np.uint32) for _ in range(8)]
+
+        def bitset_mixed():
+            with client.defer_fetch():
+                futs = [bs.set_many_async(idx) if i % 2 == 0 else bs.get_many_async(idx)
+                        for i, idx in enumerate(idxs)]
+            client.collect(futs)
+
         for name, fn in (
             ("bloom_add", bloom_add),
             ("bloom_contains", lambda: bf.contains_many(batches)),
             ("cms_add_seq", lambda: cms.add_all_seq(events)),
+            ("hll_pfadd", hll_pfadd),
+            ("bitset_mixed", bitset_mixed),
         ):
             row = profile_pass(name, fn, out_dir)
             row["card"] = card

@@ -2,8 +2,8 @@
 
 Redisson's probabilistic objects over stacked multi-tenant device pools,
 on an NVIDIA GPU through PyTorch, with hand-written CUDA kernels where
-the JAX package has Pallas kernels.  This package is the port's first
-slice: RBloomFilter add/contains on the coalesced path and
+the JAX package has Pallas kernels.  It carries RBloomFilter
+add/contains on the coalesced path, RHyperLogLog, RBitSet and
 RCountMinSketch with streaming top-K.  It never imports ``jax`` or
 ``redisson_tpu``; the JAX package is the reference its tests hold it
 against.

@@ -1,14 +1,17 @@
 """RedissonTorchClient — the entry-point facade of the port's slice.
 
 Parity with ``redisson_tpu/client.py`` for the sketch objects this
-package carries: ``get_bloom_filter``, ``get_count_min_sketch``,
-``collect`` and ``shutdown``.
+package carries: ``get_bloom_filter``, ``get_hyper_log_log``,
+``get_bit_set``, ``get_count_min_sketch``, ``collect``, ``defer_fetch``
+and ``shutdown``.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 from redisson_tpu_torch.config import Config
-from redisson_tpu_torch.objects import BloomFilter, CountMinSketch
+from redisson_tpu_torch.objects import BitSet, BloomFilter, CountMinSketch, HyperLogLog
 from redisson_tpu_torch.objects.base import CamelCompatMixin
 from redisson_tpu_torch.objects.engines import TorchSketchEngine
 
@@ -26,6 +29,12 @@ class RedissonTorchClient(CamelCompatMixin):
     def get_bloom_filter(self, name: str) -> BloomFilter:
         return BloomFilter(name, self)
 
+    def get_hyper_log_log(self, name: str) -> HyperLogLog:
+        return HyperLogLog(name, self)
+
+    def get_bit_set(self, name: str) -> BitSet:
+        return BitSet(name, self)
+
     def get_count_min_sketch(self, name: str) -> CountMinSketch:
         return CountMinSketch(name, self)
 
@@ -35,6 +44,14 @@ class RedissonTorchClient(CamelCompatMixin):
         futures = list(futures)
         self._engine.collect_results(futures)
         return [f.result() for f in futures]
+
+    def defer_fetch(self):
+        """Context manager for a bulk-dispatch region whose results are
+        resolved with :meth:`collect`.  The JAX package's results start an
+        eager per-launch host copy that this suppresses; results here are
+        fetched only on ``.result()`` or ``collect``, so it has nothing to
+        suppress and is a no-op, kept for the same client code."""
+        return contextlib.nullcontext()
 
     def shutdown(self) -> None:
         """→ Redisson#shutdown."""

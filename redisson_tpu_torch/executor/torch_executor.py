@@ -2,9 +2,10 @@
 
 Counterpart of ``redisson_tpu/executor/tpu_executor.py``:
 
-- pool state is one flat int32 tensor per size class on the executor's
-  ``torch.device``, holding uint32 words as bit-views in the JAX
-  package's layout (``state_to_host`` returns identical bytes);
+- pool state is one flat tensor per size class on the executor's
+  ``torch.device`` in the JAX package's layout: uint32 words held as
+  int32 bit-views, or uint8 HyperLogLog registers (``state_to_host``
+  returns identical bytes);
 - op batches are padded to power-of-two buckets (``_bucket``) and packed
   into ONE host block per flush, copied to the device in one H2D
   (pinned memory on CUDA);
@@ -26,7 +27,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from redisson_tpu_torch.ops import bitops, cms as cms_ops, cms_seq, fastpath
+from redisson_tpu_torch.ops import (
+    bitops,
+    bitset as bitset_ops,
+    cms as cms_ops,
+    cms_seq,
+    fastpath,
+    golden,
+    hll as hll_ops,
+)
 
 # Ops per pass of the single-tenant keyed paths.  The non-exact add takes
 # its newly-added flags against the state before each pass, so the pass
@@ -164,40 +173,66 @@ class TorchCommandExecutor:
             return max(1, (1 << 27) // row_units)
         return capacity
 
-    def make_pool_state(self, capacity: int, row_units: int):
-        """Flat int32 [capacity*row_units + 1]; trailing scratch word."""
-        return torch.zeros(capacity * row_units + 1, dtype=torch.int32,
+    @staticmethod
+    def _torch_dtype(dtype):
+        """Device element type of a pool spec's numpy dtype: uint8
+        registers stay uint8; uint32 words are held as int32 bit-views."""
+        return torch.uint8 if np.dtype(dtype) == np.uint8 else torch.int32
+
+    @staticmethod
+    def _host_view(t: torch.Tensor) -> np.ndarray:
+        """A host copy of pool elements in the JAX package's dtype."""
+        a = t.cpu().numpy()
+        return (a if a.dtype == np.uint8 else _as_u32(a)).copy()
+
+    def _to_device(self, pool, data: np.ndarray) -> torch.Tensor:
+        if self._torch_dtype(pool.spec.dtype) == torch.uint8:
+            host = np.ascontiguousarray(data, dtype=np.uint8)
+        else:
+            host = np.ascontiguousarray(data, dtype=np.uint32).view(np.int32)
+        return torch.from_numpy(host.copy()).to(self.device)
+
+    def make_pool_state(self, capacity: int, row_units: int, dtype=np.uint32):
+        """Flat [capacity*row_units + 1]; trailing scratch element."""
+        return torch.zeros(capacity * row_units + 1, dtype=self._torch_dtype(dtype),
                            device=self.device)
 
     def grow_pool_state(self, state, old_cap: int, new_cap: int, row_units: int):
         extra = torch.zeros((new_cap - old_cap) * row_units + 1,
-                            dtype=torch.int32, device=self.device)
-        # state[:-1] drops the old scratch word; extra brings the new one.
+                            dtype=state.dtype, device=self.device)
+        # state[:-1] drops the old scratch element; extra brings the new one.
         return torch.cat([state[:-1], extra])
 
     @_locked
     def state_to_host(self, pool) -> np.ndarray:
-        """The pool's uint32 words, byte-identical to the JAX executor's."""
-        return _as_u32(pool.state.cpu().numpy()).copy()
+        """The pool's elements, byte-identical to the JAX executor's."""
+        return self._host_view(pool.state)
 
     @_locked
     def state_from_host(self, pool, arr: np.ndarray) -> None:
-        host = np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32)
-        pool.state = torch.from_numpy(host.copy()).to(self.device)
+        pool.state = self._to_device(pool, arr)
 
     @_locked
     def read_row(self, pool, row: int) -> np.ndarray:
-        return _as_u32(
-            bitops.row_slice(pool.state, row, pool.row_units).cpu().numpy()
-        ).copy()
+        return self._host_view(bitops.row_slice(pool.state, row, pool.row_units))
 
     @_locked
     def write_row(self, pool, row: int, data: np.ndarray) -> None:
-        host = np.ascontiguousarray(data, dtype=np.uint32).view(np.int32)
-        bitops.row_update(
-            pool.state, row, torch.from_numpy(host.copy()).to(self.device),
-            pool.row_units,
-        )
+        bitops.row_update(pool.state, row, self._to_device(pool, data), pool.row_units)
+
+    @_locked
+    def zero_row(self, pool, row: int) -> None:
+        """Clear a tenant row (delete, and the old row of a migration)."""
+        bitops.row_slice(pool.state, row, pool.row_units).zero_()
+
+    @_locked
+    def copy_row(self, src_pool, src_row: int, dst_pool, dst_row: int) -> None:
+        """dst row = src row zero-padded to the dst row's width, on the
+        device (a bitset's size-class migration)."""
+        src = bitops.row_slice(src_pool.state, src_row, src_pool.row_units)
+        dst = bitops.row_slice(dst_pool.state, dst_row, dst_pool.row_units)
+        dst[: src.shape[0]].copy_(src)
+        dst[src.shape[0]:].zero_()
 
     # -- staging -------------------------------------------------------------
 
@@ -268,7 +303,7 @@ class TorchCommandExecutor:
             pool.state, packed[:Bp], packed[o + Wb :].view(Bp, Lt),
             packed[Bp : 2 * Bp], packed[2 * Bp : o],
             bitops.unpack_bool_u32_dev(packed[o : o + Wb], Bp),
-            torch.arange(Bp, device=self.device) < B,
+            self._valid(Bp, B),
             k=k, words_per_row=pool.row_units, target_lanes=L,
         )
         return self._result_bits(res, B)
@@ -373,6 +408,10 @@ class TorchCommandExecutor:
         res = torch.cat(parts or [torch.zeros(0, dtype=torch.bool, device=self.device)])
         return self._result_bits(self._pad_bits(res, B), B)
 
+    def _valid(self, Bp: int, n) -> torch.Tensor:
+        """bool[Bp]: the first ``n`` ops are real, the rest padding."""
+        return torch.arange(Bp, device=self.device) < n
+
     def _pad_bits(self, res: torch.Tensor, B: int) -> torch.Tensor:
         pad = (-B) % 32
         if pad == 0:
@@ -381,9 +420,10 @@ class TorchCommandExecutor:
 
     # -- cms -----------------------------------------------------------------
 
-    def _cms_cols(self, Bp: int, *cols):
-        """Pack int32/uint32 op columns (zero-padded to Bp) into one H2D;
-        padded ops carry row 0 and weight 0, the scatter-add identity."""
+    def _op_cols(self, Bp: int, *cols):
+        """Pack int32/uint32 op columns (zero-padded to Bp) into one H2D.
+        Padded CMS ops carry row 0 and weight 0, the scatter-add identity;
+        the other callers mask padded ops with ``_valid``."""
         buf, host = self._staging(len(cols) * Bp)
         o = 0
         for c in cols:
@@ -396,7 +436,7 @@ class TorchCommandExecutor:
         """Coalesced CMS path: updates and estimates share one launch
         (estimates ride with weight 0); estimates are batch-final."""
         B = h1w.shape[0]
-        r, a, b, wt = self._cms_cols(self._bucket(B), rows, h1w, h2w, weights)
+        r, a, b, wt = self._op_cols(self._bucket(B), rows, h1w, h2w, weights)
         est = cms_ops.cms_update_and_estimate(
             pool.state, r, a, b, wt, d=d, w=w, cells_per_row=pool.row_units
         )
@@ -405,7 +445,7 @@ class TorchCommandExecutor:
     @_locked
     def cms_estimate(self, pool, rows, h1w, h2w, d: int, w: int) -> LazyResult:
         B = h1w.shape[0]
-        r, a, b = self._cms_cols(self._bucket(B), rows, h1w, h2w)
+        r, a, b = self._op_cols(self._bucket(B), rows, h1w, h2w)
         est = cms_ops.cms_estimate(
             pool.state, r, a, b, d=d, w=w, cells_per_row=pool.row_units
         )
@@ -419,7 +459,208 @@ class TorchCommandExecutor:
         IN PLACE through a view at offset ``row*row_units``.  No padding:
         the kernel takes any op count."""
         B = h1w.shape[0]
-        a, b, wt = self._cms_cols(B, h1w, h2w, weights)
+        a, b, wt = self._op_cols(B, h1w, h2w, weights)
         table = pool.state[row * pool.row_units : row * pool.row_units + d * w]
         est = cms_seq.cms_update_estimate_seq(table, a, b, wt, d=d, w=w)
         return LazyResult(est, transform=_as_u32)
+
+    # -- hll -----------------------------------------------------------------
+
+    @_locked
+    def hll_add_keys_single(self, pool, row: int, blocks, lengths,
+                            chunk: int = _SCAN_CHUNK) -> LazyResult:
+        """Direct PFADD from raw codec lanes (device hash), in passes of
+        ``chunk`` ops, as the JAX package scans them: each pass sees the
+        registers the one before left, and "changed" is the any over
+        passes."""
+        B = blocks.shape[0]
+        if B == 0:
+            return LazyResult(False)
+        dblocks, dlens, L = self._keys_block(blocks, lengths)
+        changed = torch.zeros((), dtype=torch.bool, device=self.device)
+        for i in range(0, B, chunk):
+            changed |= fastpath.hll_add_keys_single(
+                pool.state, row, dblocks[i : i + chunk], dlens[i : i + chunk],
+                target_lanes=L,
+            )
+        return LazyResult(changed, transform=bool)
+
+    @_locked
+    def hll_add(self, pool, rows, c0, c1, c2) -> LazyResult:
+        B = len(c0)
+        Bp = self._bucket(B)
+        cols = self._op_cols(Bp, rows, c0, c1, c2)
+        hll_ops.hll_add(pool.state, *cols, valid=self._valid(Bp, B))
+        return LazyResult(True)
+
+    @_locked
+    def hll_add_changed(self, pool, rows, c0, c1, c2) -> LazyResult:
+        """Multi-tenant PFADD with exact per-op "changed" flags (the
+        coalesced path): one packed H2D of ``[n, rows, c0, c1, c2]``, the
+        JAX executor's layout."""
+        B = len(c0)
+        Bp = self._bucket(B)
+        buf, host = self._staging(1 + 4 * Bp)
+        buf[0] = B
+        o = 1
+        for col in (rows, c0, c1, c2):
+            o = _fill_words(buf, o, Bp, np.asarray(col).astype(np.uint32, copy=False),
+                            np.uint32)
+        packed = self._ship(host)
+        cols = [packed[1 + i * Bp : 1 + (i + 1) * Bp] for i in range(4)]
+        changed = hll_ops.hll_add_changed(
+            pool.state, *cols, valid=self._valid(Bp, packed[0])
+        )
+        return self._result_bits(changed, B)
+
+    @_locked
+    def hll_add_single(self, pool, row: int, c0, c1, c2) -> LazyResult:
+        """Single-tenant PFADD returning the "changed" boolean."""
+        B = len(c0)
+        Bp = self._bucket(B)
+        cols = self._op_cols(Bp, c0, c1, c2)
+        changed = hll_ops.hll_add_single(pool.state, row, *cols,
+                                         valid=self._valid(Bp, B))
+        return LazyResult(changed, transform=bool)
+
+    @_locked
+    def hll_count(self, pool, row: int) -> LazyResult:
+        """PFCOUNT: the device histogram, finalized on the host with the
+        float64 Ertl estimator (the golden model's count)."""
+        return LazyResult(
+            hll_ops.hll_histogram(pool.state, row),
+            transform=lambda h: int(round(golden.ertl_estimate(h))),
+        )
+
+    @_locked
+    def hll_merge(self, pool, dst_row: int, src_rows) -> LazyResult:
+        hll_ops.hll_merge(pool.state, dst_row, self._rows_tensor(src_rows))
+        return LazyResult(None)
+
+    def _rows_tensor(self, rows) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+
+    # -- bitset ----------------------------------------------------------------
+
+    @_locked
+    def bitset_mixed_runs(self, pool, idx, run_rows, run_ops, run_starts) -> LazyResult:
+        """bitset_mixed with run-length metadata: row and opcode are
+        constant within each submitted chunk, so they ship once per run
+        and expand on the device with ``searchsorted`` (the scheme of
+        bloom_mixed_keys_runs).  Packed as the JAX executor packs it:
+        ``[n, idx (Bp), starts (Cp + 1), rows (Cp), opcodes (Cp)]``; padded
+        runs carry OP_GET, so padded ops (routed to the scratch word) are
+        reads and the pool bytes match."""
+        B = int(run_starts[-1])
+        Bp = self._bucket(B)
+        C = len(run_rows)
+        Cp = max(1024, _pow2ceil(C))
+        buf, host = self._staging(1 + Bp + (Cp + 1) + 2 * Cp)
+        buf[0] = B
+        o = _fill_words(buf, 1, Bp, np.asarray(idx, np.uint32), np.uint32)
+        sview = buf[o : o + Cp + 1].view(np.int32)
+        sview[: C + 1] = run_starts
+        sview[C + 1 :] = B
+        o += Cp + 1
+        o = _fill_words(buf, o, Cp, np.asarray(run_rows, np.int32), np.int32)
+        _fill_words(buf, o, Cp, np.asarray(run_ops, np.uint32), np.uint32,
+                    bitset_ops.OP_GET)
+        packed = self._ship(host)
+        o = 1 + Bp
+        ends = packed[o + 1 : o + Cp + 1].to(torch.int64)
+        rr = packed[o + Cp + 1 : o + 2 * Cp + 1]
+        ro = packed[o + 2 * Cp + 1 :]
+        iota = torch.arange(Bp, dtype=torch.int64, device=self.device)
+        # Run of op i = number of run ends <= i, clipped to the last run.
+        seg = torch.clamp(torch.searchsorted(ends, iota, right=True), max=Cp - 1)
+        obs = bitset_ops.bitset_mixed(
+            pool.state, rr[seg], packed[1 : 1 + Bp], ro[seg],
+            words_per_row=pool.row_units, valid=iota < packed[0],
+        )
+        return self._result_bits(obs, B)
+
+    @_locked
+    def bitset_mixed(self, pool, rows, idx, opcodes) -> LazyResult:
+        """Unified set/clear/flip/get batch with per-op arrays: one packed
+        H2D of ``[n, rows, idx, opcodes]``; padded ops carry OP_GET."""
+        B = len(idx)
+        Bp = self._bucket(B)
+        buf, host = self._staging(1 + 3 * Bp)
+        buf[0] = B
+        o = _fill_words(buf, 1, Bp, np.asarray(rows, np.int32), np.int32)
+        o = _fill_words(buf, o, Bp, np.asarray(idx, np.uint32), np.uint32)
+        _fill_words(buf, o, Bp, np.asarray(opcodes, np.uint32), np.uint32,
+                    bitset_ops.OP_GET)
+        packed = self._ship(host)
+        r, i, op = (packed[1 + k * Bp : 1 + (k + 1) * Bp] for k in range(3))
+        obs = bitset_ops.bitset_mixed(
+            pool.state, r, i, op, words_per_row=pool.row_units,
+            valid=self._valid(Bp, packed[0]),
+        )
+        return self._result_bits(obs, B)
+
+    def _bitset_rw(self, kernel, pool, rows, idx) -> LazyResult:
+        B = len(idx)
+        Bp = self._bucket(B)
+        r, i = self._op_cols(Bp, rows, idx)
+        prev = kernel(pool.state, r, i, words_per_row=pool.row_units,
+                      valid=self._valid(Bp, B))
+        return self._result_bits(prev, B)
+
+    @_locked
+    def bitset_set(self, pool, rows, idx) -> LazyResult:
+        return self._bitset_rw(bitset_ops.bitset_set, pool, rows, idx)
+
+    @_locked
+    def bitset_clear_bits(self, pool, rows, idx) -> LazyResult:
+        return self._bitset_rw(bitset_ops.bitset_clear, pool, rows, idx)
+
+    @_locked
+    def bitset_flip(self, pool, rows, idx) -> LazyResult:
+        return self._bitset_rw(bitset_ops.bitset_flip, pool, rows, idx)
+
+    @_locked
+    def bitset_get(self, pool, rows, idx) -> LazyResult:
+        B = len(idx)
+        r, i = self._op_cols(self._bucket(B), rows, idx)
+        got = bitset_ops.bitset_get(pool.state, r, i, words_per_row=pool.row_units)
+        return self._result_bits(got, B)
+
+    @_locked
+    def bitset_set_range(self, pool, row: int, from_bit: int, to_bit: int,
+                         value: bool) -> LazyResult:
+        bitset_ops.bitset_set_range(pool.state, row, from_bit, to_bit,
+                                    words_per_row=pool.row_units, value=value)
+        return LazyResult(None)
+
+    @_locked
+    def bitset_cardinality(self, pool, row: int) -> LazyResult:
+        return LazyResult(bitset_ops.bitset_cardinality(
+            pool.state, row, words_per_row=pool.row_units), transform=int)
+
+    @_locked
+    def bitset_length(self, pool, row: int) -> LazyResult:
+        return LazyResult(bitset_ops.bitset_length(
+            pool.state, row, words_per_row=pool.row_units), transform=int)
+
+    @_locked
+    def bitset_bitpos(self, pool, row: int, target_bit: int) -> LazyResult:
+        return LazyResult(bitset_ops.bitset_bitpos(
+            pool.state, row, words_per_row=pool.row_units, target_bit=target_bit),
+            transform=int)
+
+    @_locked
+    def bitset_bitop(self, pool, dst_row: int, src_rows, op: str,
+                     limit_bits=None) -> LazyResult:
+        """BITOP; ``limit_bits`` (NOT only) masks the result to the
+        source's logical length."""
+        bitset_ops.bitset_bitop_rows(
+            pool.state, dst_row, self._rows_tensor(src_rows),
+            words_per_row=pool.row_units, op=op, limit_bits=limit_bits,
+        )
+        return LazyResult(None)
+
+    @_locked
+    def bitset_get_row(self, pool, row: int) -> LazyResult:
+        return LazyResult(bitset_ops.bitset_get_row(
+            pool.state, row, words_per_row=pool.row_units), transform=_as_u32)

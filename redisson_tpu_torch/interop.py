@@ -15,21 +15,32 @@ from redisson_tpu_torch.tenancy.registry import class_words_for_bits, spec_for
 
 
 def load_sketch_rows(client, name: str, kind: str, params: dict, row: np.ndarray):
-    """Create ``name`` as a ``kind`` sketch ("bloom" or "cms") with the
-    JAX object's ``params`` (its ``engine.params(name)``) and install the
-    row's words.  Returns the object handle; raises if ``name`` exists or
-    the row does not match the geometry."""
+    """Create ``name`` as a ``kind`` sketch ("bloom", "hll", "bitset" or
+    "cms") with the JAX object's ``params`` (its ``engine.params(name)``)
+    and install the row: uint32 words, or 16384 uint8 registers for
+    "hll".  Returns the object handle; raises if ``name`` exists or the
+    row does not match the geometry."""
     engine = client._engine
     if kind == PoolKind.BLOOM:
         class_key = (class_words_for_bits(int(params["size"])),)
         handle = client.get_bloom_filter(name)
+    elif kind == PoolKind.HLL:
+        class_key = ()
+        handle = client.get_hyper_log_log(name)
+    elif kind == PoolKind.BITSET:
+        # The JAX row may sit in a class above its logical length (BITOP
+        # grows its operands' placement only), so the row's own width
+        # counts too.
+        class_key = (class_words_for_bits(max(int(params["nbits"]), 32 * len(row))),)
+        handle = client.get_bit_set(name)
     elif kind == PoolKind.CMS:
         class_key = (int(params["depth"]), int(params["width"]))
         handle = client.get_count_min_sketch(name)
     else:
         raise ValueError(f"unsupported sketch kind: {kind}")
-    row = np.asarray(row, np.uint32)
-    units = spec_for(kind, class_key).row_units
+    spec = spec_for(kind, class_key)
+    row = np.asarray(row, spec.dtype)
+    units = spec.row_units
     if row.shape != (units,):
         raise ValueError(
             f"row of {row.shape} words; {kind} {params} rows hold {units}"

@@ -1,4 +1,5 @@
-"""TorchSketchEngine — the backend behind BloomFilter and CountMinSketch.
+"""TorchSketchEngine — the backend behind the port's sketch objects
+(BloomFilter, HyperLogLog, BitSet, CountMinSketch).
 
 Counterpart of ``TpuSketchEngine`` in ``redisson_tpu/objects/engines.py``
 for this package's slice: tenant registry + size-class pools +
@@ -21,7 +22,7 @@ from redisson_tpu_torch.executor.torch_executor import (
     LazyResult,
     TorchCommandExecutor,
 )
-from redisson_tpu_torch.ops import golden
+from redisson_tpu_torch.ops import bitset as bitset_ops, golden
 from redisson_tpu_torch.tenancy import PoolKind, TenantRegistry
 from redisson_tpu_torch.tenancy.registry import class_words_for_bits
 from redisson_tpu_torch.utils import hashing
@@ -36,6 +37,45 @@ class ImmediateResult(LazyResult):
 
     def __init__(self, value):
         super().__init__(value)
+
+
+class _MappedFuture:
+    """Future adapter applying a transform on ``.result()``."""
+
+    def __init__(self, fut, transform):
+        self._fut = fut
+        self._transform = transform
+
+    def result(self, *a, **kw):
+        return self._transform(self._fut.result(*a, **kw))
+
+    def get(self):
+        return self.result()
+
+    def done(self) -> bool:
+        return self._fut.done()
+
+
+class _ConcatLazy:
+    """Result of a coalesced bitset launch that a size-class migration
+    split into consecutive per-pool launches: the parts' results
+    concatenated in op order."""
+
+    def __init__(self, parts):
+        self._parts = parts
+        self._done = None
+
+    def result(self, timeout=None):
+        if self._done is None:
+            self._done = np.concatenate([p.result() for p in self._parts])
+            self._parts = None
+        return self._done
+
+    def get(self):
+        return self.result()
+
+    def done(self) -> bool:
+        return self._done is not None
 
 
 class TopKStore:
@@ -78,6 +118,10 @@ class TopKStore:
             if len(cands) > 2 * cap:
                 keep = heapq.nlargest(cap, cands.items(), key=lambda kv: kv[1])
                 t["cands"] = dict(keep)
+
+    def drop(self, name: str) -> None:
+        with self._lock:
+            self._tables.pop(name, None)
 
     def candidates(self, name: str) -> list:
         with self._lock:
@@ -145,12 +189,29 @@ class TorchSketchEngine:
         entry = self.registry.lookup(name)
         return None if entry is None else entry.params
 
-    def _require(self, name: str, kind: str):
+    def _lookup_kind(self, name: str, kind: str):
+        """None if absent; TypeError on a kind mismatch."""
         entry = self.registry.lookup(name)
+        if entry is not None and entry.kind != kind:
+            raise TypeError(f"object {name!r} holds a {entry.kind}, not a {kind}")
+        return entry
+
+    def delete(self, name: str) -> bool:
+        """Drop ``name``: its row is zeroed before it can be reused."""
+        entry = self.registry.detach(name)
+        if entry is None:
+            return False
+        self._drain()
+        with self.executor._dispatch_lock:
+            self.executor.zero_row(entry.pool, entry.row)
+            entry.pool.free_row(entry.row)
+        self.topk.drop(name)
+        return True
+
+    def _require(self, name: str, kind: str):
+        entry = self._lookup_kind(name, kind)
         if entry is None:
             raise RuntimeError(f"{kind} object {name!r} is not initialized")
-        if entry.kind != kind:
-            raise TypeError(f"object {name!r} holds a {entry.kind}, not a {kind}")
         return entry
 
     # -- bloom -------------------------------------------------------------
@@ -297,6 +358,281 @@ class TorchSketchEngine:
             return self.bloom_add_encoded(name, blocks, lengths)
         entry = self._require(name, PoolKind.BLOOM)
         return self._bloom_submit_mixed_keys(entry, blocks, lengths, flags)
+
+    # -- hll ---------------------------------------------------------------
+
+    def hll_ensure(self, name):
+        entry, _ = self.registry.try_create(name, PoolKind.HLL, (), {})
+        return entry
+
+    def hll_add(self, name, c0, c1, c2):
+        """PFADD of host-hashed lanes; the result is True iff a register
+        grew.  Coalesced: one segment per HLL pool, per-op changed flags
+        reduced with ``any``."""
+        entry = self.hll_ensure(name)
+        if self.coalescer is not None:
+            pool = entry.pool
+            rows = np.full(len(c0), entry.row, np.int32)
+            fut = self._submit(
+                ("hll_add", id(pool)),
+                lambda cols: self.executor.hll_add_changed(
+                    pool, cols[0], cols[1], cols[2], cols[3]
+                ),
+                (rows, c0, c1, c2),
+                len(c0),
+                pool_key=id(pool),
+            )
+            return _MappedFuture(fut, lambda v: bool(np.any(v)))
+        return self.executor.hll_add_single(entry.pool, entry.row, c0, c1, c2)
+
+    def hll_add_encoded(self, name, blocks, lengths):
+        """PFADD of raw codec lanes: without the coalescer the device
+        hashes them (``hll_add_keys_single``); with it, the host does."""
+        if self.coalescer is None:
+            entry = self.hll_ensure(name)
+            return self.executor.hll_add_keys_single(
+                entry.pool, entry.row, blocks,
+                np.broadcast_to(np.asarray(lengths, np.uint32), (blocks.shape[0],)),
+            )
+        c0, c1, c2, _ = hashing.murmur3_x86_128(blocks, lengths)
+        return self.hll_add(name, c0, c1, c2)
+
+    def hll_count(self, name):
+        entry = self._lookup_kind(name, PoolKind.HLL)
+        if entry is None:
+            return ImmediateResult(0)
+        self._drain()
+        return self.executor.hll_count(entry.pool, entry.row)
+
+    def hll_count_with(self, name, other_names) -> int:
+        """PFCOUNT over several keys (the union's cardinality) without
+        changing any: host max of the rows (16 KiB each), then the
+        histogram and the Ertl estimate."""
+        entries = [self._lookup_kind(n, PoolKind.HLL) for n in (name, *other_names)]
+        entries = [e for e in entries if e is not None]
+        if not entries:
+            return 0
+        self._drain()
+        regs = None
+        for e in entries:
+            r = self.executor.read_row(e.pool, e.row)
+            regs = r if regs is None else np.maximum(regs, r)
+        hist = np.bincount(regs, minlength=golden.HLL_Q + 2)
+        return int(round(golden.ertl_estimate(hist)))
+
+    def hll_merge_with(self, name, other_names) -> None:
+        """PFMERGE: this = max(this, sources)."""
+        entry = self.hll_ensure(name)
+        srcs = [e for e in (self._lookup_kind(n, PoolKind.HLL) for n in other_names)
+                if e is not None]
+        if not srcs:
+            return
+        self._drain()
+        self.executor.hll_merge(entry.pool, entry.row, [e.row for e in srcs])
+
+    # -- bitset ------------------------------------------------------------
+
+    def _bitset_entry_with_capacity(self, name, min_bits: int):
+        """Placement only: create the bitset, or migrate it to a size class
+        that holds ``min_bits``, without extending its logical length
+        (BITOP operands keep their true lengths)."""
+        entry, created = self.registry.try_create(
+            name, PoolKind.BITSET, (class_words_for_bits(min_bits),), {"nbits": 0}
+        )
+        if not created:
+            self._bitset_grow(entry, min_bits)
+        return entry
+
+    def bitset_ensure(self, name, min_bits: int = 1):
+        entry = self._bitset_entry_with_capacity(name, min_bits)
+        # Logical length: Redis string-length semantics (SETBIT grows the
+        # value to cover the highest index ever touched).
+        entry.params["nbits"] = max(entry.params.get("nbits", 0), int(min_bits))
+        return entry
+
+    def _bitset_grow(self, entry, min_bits: int) -> None:
+        """Auto-grow of Redis bitmaps: migrate the tenant to a larger size
+        class."""
+        need_words = class_words_for_bits(min_bits)
+        if need_words > entry.pool.row_units:
+            self._bitset_migrate(entry, need_words)
+
+    def _bitset_migrate(self, entry, need_words: int) -> None:
+        """Copy the row into a row of the larger class on the device, then
+        zero and free the old row, all under the dispatch lock, so no
+        flush applies ops to the old row in between.  Queued ops resolve
+        their row at flush time (``_bitset_submit_mixed``), so they follow
+        the move."""
+        self._drain()
+        while True:
+            old_pool, old_row = entry.pool, entry.row
+            new_pool = self.registry.pool_for(PoolKind.BITSET, (need_words,))
+            with self.executor._dispatch_lock:
+                if entry.pool is not old_pool or entry.row != old_row:
+                    # A concurrent grow moved the entry first.
+                    if entry.pool.row_units >= need_words:
+                        return
+                    continue
+                new_row = new_pool.alloc_row()
+                self.executor.copy_row(old_pool, old_row, new_pool, new_row)
+                self.executor.zero_row(old_pool, old_row)
+                old_pool.free_row(old_row)
+                entry.pool, entry.row = new_pool, new_row
+                return
+
+    def bitset_capacity_bits(self, name) -> int:
+        entry = self._lookup_kind(name, PoolKind.BITSET)
+        return 0 if entry is None else entry.pool.row_units * 32
+
+    def _bitset_dispatch_group(self, pool, gidx, runs):
+        """One resolved-placement group of a mixed-bit segment -> one
+        launch: the run-length form up to 1024 runs (the JAX package's
+        run-table size), per-op arrays above that."""
+        if len(runs) <= 1024:
+            run_rows = np.array([r for _, r, _ in runs], np.int32)
+            run_ops = np.array([o for _, _, o in runs], np.uint32)
+            starts = np.zeros(len(runs) + 1, np.int32)
+            starts[1:] = np.cumsum([n for n, _, _ in runs])
+            return self.executor.bitset_mixed_runs(pool, gidx, run_rows, run_ops, starts)
+        rows = np.concatenate([np.full(n, r, np.int32) for n, r, _ in runs])
+        ops_col = np.concatenate([np.full(n, o, np.uint32) for n, _, o in runs])
+        return self.executor.bitset_mixed(pool, rows, gidx, ops_col)
+
+    def _bitset_submit_mixed(self, entry, idx, opcode: int):
+        """Coalesced path: every single-bit opcode rides ONE segment per
+        pool through the affine op (exact sequential semantics), so
+        interleaved set/clear/flip/get never fragment.
+
+        Placement resolves at FLUSH time, under the dispatch lock, from
+        the per-chunk metas: a migration committing while ops sit queued
+        repoints the entry, and rows fixed at submit would land writes in
+        the old, freed row."""
+
+        def dispatch(cols, metas):
+            with self.executor._dispatch_lock:  # atomic vs a migration commit
+                # Consecutive chunks grouped by their resolved pool (more
+                # than one group only when a migration committed
+                # mid-segment); op order is kept.
+                groups = []  # [pool, runs, lo, hi]
+                off = 0
+                for nops, (e, op) in metas:
+                    if groups and groups[-1][0] is e.pool:
+                        groups[-1][1].append((nops, e.row, op))
+                        groups[-1][3] = off + nops
+                    else:
+                        groups.append([e.pool, [(nops, e.row, op)], off, off + nops])
+                    off += nops
+                results = [
+                    self._bitset_dispatch_group(pool, cols[0][lo:hi], runs)
+                    for pool, runs, lo, hi in groups
+                ]
+            return results[0] if len(results) == 1 else _ConcatLazy(results)
+
+        return self._submit(
+            ("bs_mix", id(entry.pool)),
+            dispatch,
+            (np.asarray(idx, np.uint32),),
+            len(idx),
+            pool_key=id(entry.pool),
+            meta=(entry, opcode),
+        )
+
+    def _bitset_rw(self, opcode: int, method, entry, idx):
+        if self.coalescer is not None:
+            return self._bitset_submit_mixed(entry, idx, opcode)
+        # Placement and dispatch atomic vs a concurrent migration.
+        with self.executor._dispatch_lock:
+            rows = np.full(len(idx), entry.row, np.int32)
+            return method(entry.pool, rows, idx)
+
+    def bitset_set(self, name, idx, value: bool):
+        """SETBIT of every index to ``value``; previous bit per op."""
+        idx = np.asarray(idx, np.uint32)
+        entry = self.bitset_ensure(name, int(idx.max()) + 1 if idx.size else 1)
+        if value:
+            return self._bitset_rw(bitset_ops.OP_SET, self.executor.bitset_set, entry, idx)
+        return self._bitset_rw(
+            bitset_ops.OP_CLEAR, self.executor.bitset_clear_bits, entry, idx
+        )
+
+    def bitset_flip(self, name, idx):
+        idx = np.asarray(idx, np.uint32)
+        entry = self.bitset_ensure(name, int(idx.max()) + 1 if idx.size else 1)
+        return self._bitset_rw(bitset_ops.OP_FLIP, self.executor.bitset_flip, entry, idx)
+
+    def bitset_get(self, name, idx):
+        """GETBIT; an index past the row's capacity reads 0 (it is sent as
+        index 0 and its result masked)."""
+        idx = np.asarray(idx, np.uint32)
+        entry = self._lookup_kind(name, PoolKind.BITSET)
+        if entry is None:
+            return ImmediateResult(np.zeros(len(idx), bool))
+        in_range = idx < entry.pool.row_units * 32
+        safe_idx = np.where(in_range, idx, 0).astype(np.uint32)
+        if self.coalescer is not None:
+            fut = self._bitset_submit_mixed(entry, safe_idx, bitset_ops.OP_GET)
+            return _MappedFuture(fut, lambda v: v & in_range)
+        rows = np.full(len(idx), entry.row, np.int32)
+        res = self.executor.bitset_get(entry.pool, rows, safe_idx)
+        return _MappedFuture(res, lambda v: v & in_range)
+
+    def bitset_set_range(self, name, from_bit, to_bit, value: bool):
+        entry = self.bitset_ensure(name, int(to_bit))
+        self._drain()
+        return self.executor.bitset_set_range(
+            entry.pool, entry.row, int(from_bit), int(to_bit), value
+        )
+
+    def _bitset_scalar(self, name, empty: int, method, *args) -> int:
+        entry = self._lookup_kind(name, PoolKind.BITSET)
+        if entry is None:
+            return empty
+        self._drain()
+        return int(method(entry.pool, entry.row, *args).result())
+
+    def bitset_cardinality(self, name) -> int:
+        return self._bitset_scalar(name, 0, self.executor.bitset_cardinality)
+
+    def bitset_length(self, name) -> int:
+        return self._bitset_scalar(name, 0, self.executor.bitset_length)
+
+    def bitset_bitpos(self, name, target_bit: int) -> int:
+        return self._bitset_scalar(
+            name, -1 if target_bit else 0, self.executor.bitset_bitpos, target_bit
+        )
+
+    def bitset_bitop(self, dest: str, src_names, op: str) -> None:
+        """BITOP dest = op(srcs).  Every operand (dest included) is grown
+        into one size class first, so their rows share a pool.  Redis
+        semantics: dest is replaced, and the result's length is the
+        longest source's; unary NOT complements the source's whole
+        byte-aligned string and is masked there, so the row's tail bits
+        stay 0."""
+        max_bits = max(
+            (self.bitset_capacity_bits(n) for n in (dest, *src_names)), default=0
+        ) or 32 * 32
+        dst = self._bitset_entry_with_capacity(dest, max_bits)
+        srcs, src_nbits = [], []
+        for n in src_names:
+            e = self._bitset_entry_with_capacity(n, max_bits)
+            srcs.append(e.row)
+            src_nbits.append(e.params.get("nbits", 0))
+        nbits = -(-src_nbits[0] // 8) * 8 if op == "not" else max(src_nbits, default=0)
+        self._drain()
+        self.executor.bitset_bitop(
+            dst.pool, dst.row, srcs, op, limit_bits=nbits if op == "not" else None
+        )
+        dst.params["nbits"] = nbits
+
+    def bitset_to_bytes(self, name) -> bytes:
+        """The row's bytes trimmed to the logical length (Redis STRLEN
+        semantics), so both packages return identical bytes."""
+        entry = self._lookup_kind(name, PoolKind.BITSET)
+        if entry is None:
+            return b""
+        nbytes = -(-entry.params.get("nbits", 0) // 8)
+        self._drain()
+        return self.executor.read_row(entry.pool, entry.row).tobytes()[:nbytes]
 
     # -- cms ---------------------------------------------------------------
 

@@ -11,13 +11,14 @@ device, bit-identical to the host pipeline (``hashing.hash128_np`` +
 ``*_keys_st`` pair serves direct (uncoalesced) contains and the
 non-exact bulk add, whose newly-added flags are taken against the state
 before the call (two identical keys in one call both report True).
+``hll_add_keys_single`` is the direct (uncoalesced) PFADD.
 """
 
 from __future__ import annotations
 
 import torch
 
-from redisson_tpu_torch.ops import bitops, bloom
+from redisson_tpu_torch.ops import bitops, bloom, hll
 from redisson_tpu_torch.utils import hashing
 
 
@@ -82,3 +83,13 @@ def bloom_add_keys_st(flat, row: int, blocks, lengths, m: int, valid, *,
     newly = (bitops.gather_bits(flat, gword, bit) == 0).any(dim=1)
     bitops.or_bits(flat, gword[valid].reshape(-1), bit[valid].reshape(-1))
     return newly
+
+
+def hll_add_keys_single(flat_regs, row: int, blocks, lengths, valid=None, *,
+                        target_lanes: int):
+    """Single-tenant PFADD from raw key lanes: device murmur, then the
+    scatter-max.  Updates in place; returns the 0-d "changed" flag."""
+    c0, c1, c2, _ = hashing.murmur3_x86_128_torch(
+        pad_lanes(blocks, target_lanes), lengths
+    )
+    return hll.hll_add_single(flat_regs, row, c0, c1, c2, valid=valid)

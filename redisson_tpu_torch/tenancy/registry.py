@@ -2,11 +2,12 @@
 
 Counterpart of ``redisson_tpu/tenancy/registry.py`` with the same size
 classes and row geometry, so a pool here and in the JAX package hold the
-same bytes: a bloom filter of m bits lands in the pool whose row is the
-next power of two >= ceil(m/32) words (minimum 128); a count-min sketch
-row is d*w counters padded to a multiple of 128.  All tenants of a class
+same bytes: a bloom filter or bitset of m bits lands in the pool whose
+row is the next power of two >= ceil(m/32) uint32 words (minimum 128); a
+HyperLogLog row is 16384 uint8 registers; a count-min sketch row is d*w
+uint32 counters padded to a multiple of 128.  All tenants of a class
 share one flat ``[capacity*row_units + 1]`` tensor (trailing scratch
-word).  Pools grow by doubling row capacity.
+element).  Pools grow by doubling row capacity.
 
 Thread-safety: registry mutations happen under one lock; pool growth
 takes the executor's dispatch lock, so it never races a launch.
@@ -16,11 +17,17 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Optional
+
+import numpy as np
+
+from redisson_tpu_torch.ops.golden import HLL_M
 
 
 class PoolKind:
     BLOOM = "bloom"
+    BITSET = "bitset"
+    HLL = "hll"
     CMS = "cms"
 
 
@@ -36,8 +43,9 @@ def class_words_for_bits(m: int) -> int:
 @dataclass
 class PoolSpec:
     kind: str
-    class_key: tuple  # (words,) for bloom, (d, w) for cms
-    row_units: int  # uint32 words per tenant row
+    class_key: tuple  # (words,) for bloom/bitset, () for hll, (d, w) for cms
+    row_units: int  # elements per tenant row
+    dtype: Any  # element type: np.uint32 words, or np.uint8 HLL registers
 
     @property
     def key(self) -> tuple:
@@ -45,12 +53,14 @@ class PoolSpec:
 
 
 def spec_for(kind: str, class_key: tuple) -> PoolSpec:
-    if kind == PoolKind.BLOOM:
+    if kind in (PoolKind.BLOOM, PoolKind.BITSET):
         (words,) = class_key
-        return PoolSpec(kind, class_key, words)
+        return PoolSpec(kind, class_key, words, np.uint32)
+    if kind == PoolKind.HLL:
+        return PoolSpec(kind, (), HLL_M, np.uint8)
     if kind == PoolKind.CMS:
         d, w = class_key
-        return PoolSpec(kind, class_key, -(-d * w // 128) * 128)
+        return PoolSpec(kind, class_key, -(-d * w // 128) * 128, np.uint32)
     raise ValueError(f"unknown pool kind: {kind}")
 
 
@@ -64,7 +74,9 @@ class SizeClassPool:
         self._factory = factory
         self.capacity = factory.round_capacity(capacity, row_units=spec.row_units)
         self._dispatch_lock = dispatch_lock or threading.RLock()
-        self.state = factory.make_pool_state(self.capacity, spec.row_units)
+        self.state = factory.make_pool_state(
+            self.capacity, spec.row_units, spec.dtype
+        )
         self._free: list[int] = list(range(self.capacity - 1, -1, -1))
 
     @property
@@ -76,6 +88,10 @@ class SizeClassPool:
             if not self._free:
                 self._grow()
             return self._free.pop()
+
+    def free_row(self, row: int) -> None:
+        # The caller zeroes the row on the device before recycling it.
+        self._free.append(row)
 
     def _grow(self) -> None:
         old_cap = self.capacity
@@ -110,6 +126,11 @@ class TenantRegistry:
     def lookup(self, name: str) -> Optional[TenantEntry]:
         with self._lock:
             return self._tenants.get(name)
+
+    def detach(self, name: str) -> Optional[TenantEntry]:
+        """Unregister ``name``; the caller zeroes and frees its row."""
+        with self._lock:
+            return self._tenants.pop(name, None)
 
     def pool_for(self, kind: str, class_key: tuple) -> SizeClassPool:
         with self._lock:

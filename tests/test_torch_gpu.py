@@ -1,5 +1,6 @@
-"""Kernel K1 on the card against its plain PyTorch version: bit-identical
-tables and estimates.  Needs a CUDA device and nvcc; run with
+"""Kernel K1 on the card against its plain PyTorch version (bit-identical
+tables and estimates), and the HyperLogLog and BitSet ops on the card
+against the same calls on the CPU.  Needs a CUDA device and nvcc; run with
 ``pytest -m gpu tests/test_torch_gpu.py`` on the machine with the card."""
 
 import numpy as np
@@ -76,3 +77,124 @@ def test_k1_shared_memory_matches_plan(cuda):
     for d, w in ((5, 65536), (2, 1 << 20), (3, 10_007), (1, 1)):
         plan = cms_seq._plan(d, w)
         assert lib.cms_seq_smem_bytes(plan.tile_w) == plan.smem
+
+
+# -- HyperLogLog and BitSet: plain PyTorch, the same calls on the card and
+# on the CPU must agree bit for bit.
+
+
+def _both(cuda, *arrays):
+    """Each numpy array as a (cpu, cuda) pair of tensors (uint32 as int32
+    bit-views)."""
+    out = []
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        t = torch.from_numpy((a.view(np.int32) if a.dtype == np.uint32 else a).copy())
+        out.append((t, t.to(cuda, copy=True)))
+    return out
+
+
+def test_uint8_amax_scatter_matches_cpu(cuda):
+    from redisson_tpu_torch.ops import bitops
+
+    rng = np.random.default_rng(1)
+    n = 4 * 16384 + 1
+    (flat_c, flat_g), (idx_c, idx_g), (val_c, val_g) = _both(
+        cuda, rng.integers(0, 30, n).astype(np.uint8),
+        rng.integers(0, n - 1, 1 << 21), rng.integers(0, 52, 1 << 21).astype(np.uint8))
+    bitops.scatter_max_onehot(flat_c, idx_c, val_c)
+    bitops.scatter_max_onehot(flat_g, idx_g, val_g)
+    assert torch.equal(flat_g.cpu(), flat_c)
+
+
+@pytest.mark.parametrize("density", [0.5, 1e-3, 1e-6])
+def test_segmented_scans_match_cpu(cuda, density):
+    from redisson_tpu_torch.ops import bitops
+
+    rng = np.random.default_rng(2)
+    n = 1 << 21
+    first = rng.random(n) < density
+    first[0] = True
+    (f_c, f_g), (v_c, v_g), (b_c, b_g), (a_c, a_g) = _both(
+        cuda, first, rng.integers(0, 52, n).astype(np.int32),
+        (rng.random(n) < 0.6).astype(np.int64), (rng.random(n) < 0.5).astype(np.int64))
+    assert torch.equal(bitops.segmented_exclusive_max(f_g, v_g).cpu(),
+                       bitops.segmented_exclusive_max(f_c, v_c))
+    for g, c in zip(bitops._segmented_affine_scan(f_g, b_g, a_g),
+                    bitops._segmented_affine_scan(f_c, b_c, a_c)):
+        assert torch.equal(g.cpu(), c)
+
+
+def test_hll_add_changed_matches_cpu(cuda):
+    from redisson_tpu_torch.ops import hll
+
+    rng = np.random.default_rng(3)
+    B = 1 << 21
+    (flat_c, flat_g), (r_c, r_g), (c0_c, c0_g), (c1_c, c1_g), (c2_c, c2_g) = _both(
+        cuda, rng.integers(0, 20, 3 * 16384 + 1).astype(np.uint8),
+        rng.integers(0, 3, B).astype(np.int32),
+        *(rng.integers(0, 1 << 32, B, dtype=np.uint64).astype(np.uint32) for _ in range(3)))
+    valid = torch.arange(B) < B - 1000
+    ch_c = hll.hll_add_changed(flat_c, r_c, c0_c, c1_c, c2_c, valid=valid)
+    ch_g = hll.hll_add_changed(flat_g, r_g, c0_g, c1_g, c2_g, valid=valid.to(cuda))
+    assert torch.equal(ch_g.cpu(), ch_c) and torch.equal(flat_g.cpu(), flat_c)
+    hist = hll.hll_histogram(flat_g, 1)
+    assert torch.equal(hist.cpu(), hll.hll_histogram(flat_c, 1))
+    assert torch.equal(hll.ertl_estimate_device(hist).cpu(),
+                       hll.ertl_estimate_device(hist.cpu()))
+
+
+@pytest.mark.parametrize("n_runs", [700, 3000])
+def test_bitset_mixed_dispatch_matches_cpu(cuda, n_runs):
+    """The executor's run-length form (up to 1024 runs) and its per-op
+    form above that, on pools of the two devices."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.executor.torch_executor import TorchCommandExecutor
+    from redisson_tpu_torch.tenancy import TenantRegistry
+
+    rng = np.random.default_rng(n_runs)
+    sizes = rng.integers(1, 300, n_runs)
+    run_rows = rng.integers(0, 8, n_runs).astype(np.int32)
+    run_ops = rng.integers(0, 4, n_runs).astype(np.uint32)
+    starts = np.zeros(n_runs + 1, np.int32)
+    starts[1:] = np.cumsum(sizes)
+    idx = rng.integers(0, 1 << 15, int(starts[-1])).astype(np.uint32)
+    seed_state = rng.integers(0, 1 << 32, 8 * 1024 + 1, dtype=np.uint64).astype(np.uint32)
+    out = []
+    for dev in ("cpu", cuda.type):
+        ex = TorchCommandExecutor(rt.Config().use_gpu_sketch(device=dev))
+        reg = TenantRegistry(ex, dispatch_lock=ex._dispatch_lock)
+        for i in range(8):
+            e, _ = reg.try_create(f"b{i}", "bitset", (1024,), {"nbits": 0})
+        ex.state_from_host(e.pool, seed_state)
+        if n_runs <= 1024:
+            res = ex.bitset_mixed_runs(e.pool, idx, run_rows, run_ops, starts)
+        else:
+            res = ex.bitset_mixed(e.pool, np.repeat(run_rows, sizes), idx,
+                                  np.repeat(run_ops, sizes))
+        out.append((res.result(), ex.state_to_host(e.pool)))
+    assert np.array_equal(out[0][0], out[1][0])
+    assert np.array_equal(out[0][1], out[1][1])
+
+
+@pytest.mark.parametrize("fill", ["sparse", "empty", "full"])
+def test_giant_row_reductions_match_cpu(cuda, fill):
+    """popcount, bit length and bit positions over a 2**25-word row."""
+    from redisson_tpu_torch.ops import bitset
+
+    rng = np.random.default_rng(4)
+    W = 1 << 25
+    row = np.zeros(2 * W + 1, np.uint32)
+    if fill == "sparse":
+        row[W + rng.integers(0, W, 5000)] = rng.integers(1, 1 << 32, 5000, dtype=np.uint64)
+    elif fill == "full":
+        row[W:-1] = 0xFFFFFFFF
+        row[W + 12345] = 0xFFFF7FFF
+    ((flat_c, flat_g),) = _both(cuda, row)
+    for name, kw in (("bitset_cardinality", {}), ("bitset_length", {}),
+                     ("bitset_bitpos", {"target_bit": 1}),
+                     ("bitset_bitpos", {"target_bit": 0})):
+        fn = getattr(bitset, name)
+        g = fn(flat_g, 1, words_per_row=W, **kw)
+        c = fn(flat_c, 1, words_per_row=W, **kw)
+        assert int(g) == int(c), (name, kw)

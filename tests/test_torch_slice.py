@@ -200,7 +200,7 @@ def test_direct_dispatch_and_fast_add():
 
 def test_port_imports_neither_jax_nor_the_reference():
     """The package and chip_smoke.py import with jax and redisson_tpu
-    blocked, and run the slice on the CPU."""
+    blocked, and run every object of the port on the CPU."""
     import os
     import subprocess
     import sys
@@ -220,6 +220,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "cms = c.get_count_min_sketch('c')\n"
         "cms.try_init(2, 128)\n"
         "assert list(cms.add_all_seq(np.array([3, 3, 3], np.uint64))) == [1, 2, 3]\n"
+        "h = c.get_hyper_log_log('h')\n"
+        "assert h.add_all(['a', 'b', 'c']) and h.count() == 3\n"
+        "bs = c.get_bit_set('s')\n"
+        "assert not bs.set(70000) and bs.get(70000) and not bs.get(3)\n"
         "c.shutdown()\n"
     )  # a blocked module raises ImportError on any import of it
     env = dict(os.environ, PYTHONPATH=root)
