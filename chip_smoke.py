@@ -32,6 +32,16 @@ the main path through the public client at full size:
            SET/CLEAR/FLIP/GET batches and PFADDs through the coalescer (one
            burst of more than 1024 runs, one of fewer); every per-op result
            vs each tenant's sequential model
+  phase 8  the RObject lifecycle on the phases 2-6 keyspace (about 0.55 GiB
+           of pools): Bloom count() vs the golden bitmap's; DUMP/RESTORE of
+           the four config-sized objects (rows equal on the card, re-dumps
+           equal, BUSYKEY); CMS merge (numpy uint32 sum, wrapping) and
+           reset; rename; a TTL reaped within 5 s and its row zeroed; one
+           batch of 326 sync-named calls vs direct calls on twins, with
+           fewer dispatches than calls; a whole-keyspace snapshot restored
+           on create by a second client (every pool byte-equal, equal
+           answers), then 2**18 events through add_all_seq on both CMSes
+           (K1 launches on the restored one; equal tables)
 
 Every failed check raises, so the script exits non-zero.  Without a CUDA
 device it exits with code 2 before printing any result.  The line before
@@ -49,10 +59,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -308,7 +322,7 @@ def tenant_row(client, name: str) -> np.ndarray:
     return eng.executor.read_row(e.pool, e.row)
 
 
-def phase_bloom(client, rng, card: str) -> None:
+def phase_bloom(client, rng, card: str):
     bf = client.get_bloom_filter("cfg1")
     check(bf.try_init(1_000_000, 0.01), "try_init refused")
     n_load, chunk = 1 << 20, 1 << 18
@@ -357,6 +371,7 @@ def phase_bloom(client, rng, card: str) -> None:
          "contains_ops_per_s": sum(map(len, batches)) / contains_s,
          "fpp": fpp, "fpp_expected": p_theory, "fpp_3sigma": 3 * sigma,
          "row_equals_golden": True, "card": card})
+    return g
 
 
 # -- phase 3: multi-tenant coalesced runs -------------------------------------
@@ -608,6 +623,295 @@ def phase_bitset(client, rng, card: str) -> None:
          "results_equal_golden": True, "row_equals_golden": True, "card": card})
 
 
+# -- phase 8: the keyspace lifecycle at full size ----------------------------------
+
+_GETTERS = {"bloom": "get_bloom_filter", "hll": "get_hyper_log_log",
+            "bitset": "get_bit_set", "cms": "get_count_min_sketch"}
+# Executor methods that launch a coalesced segment: the batch's dispatches.
+_DISPATCHES = ("bloom_mixed_keys_runs", "bloom_mixed_keys", "hll_add_changed",
+               "cms_update_estimate", "cms_estimate", "bitset_mixed_runs", "bitset_mixed")
+
+
+def row_view(client, name: str):
+    """The tenant row of ``name`` as a view of its pool on the card."""
+    from redisson_tpu_torch.ops import bitops
+
+    e = client._engine.registry.lookup(name)
+    return bitops.row_slice(e.pool.state, e.row, e.pool.row_units)
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def lifecycle_dump_restore(client) -> dict:
+    """DUMP each config-sized object, RESTORE it under a new name: rows
+    equal on the card, the re-dump equal to the dump, BUSYKEY refused."""
+    times = {}
+    for kind, name in (("bloom", "cfg1"), ("cms", "cms"), ("hll", "cfg2"), ("bitset", "cfg3")):
+        get = getattr(client, _GETTERS[kind])
+        blob, dump_s = timed(get(name).dump)
+        restored = get(name + "-r")
+        _, restore_s = timed(lambda: restored.restore(blob))
+        check(torch.equal(row_view(client, name), row_view(client, name + "-r")),
+              f"restored {kind} row differs from {name}'s on the card")
+        check(restored.dump() == blob, f"re-dump of the restored {kind} differs")
+        try:
+            restored.restore(blob)
+        except ValueError as e:
+            check("BUSYKEY" in str(e), f"restore onto {name}-r: {e}")
+        else:
+            fail(f"restore onto the existing {name}-r without replace succeeded")
+        times[kind] = {"bytes": len(blob), "dump_s": dump_s, "restore_s": restore_s}
+    # The card's share of a dump: one D2H of the row.
+    e = client._engine.registry.lookup("cfg3")
+    _, times["bitset"]["row_d2h_s"] = timed(lambda: client._engine.executor.read_row(e.pool, e.row))
+    return times
+
+
+def lifecycle_cms(client, rng) -> None:
+    """Merge a second zipf-fed CMS and, twice, one with every counter past
+    2**31 into the restored copy (the row must equal the numpy uint32 sum,
+    which wraps in every cell), then reset it (zero row, top-K
+    configuration kept)."""
+    from redisson_tpu_torch.interop import load_sketch_rows
+
+    eng = client._engine
+    d, w = 5, 1 << 16
+    other = client.get_count_min_sketch("cms-b")
+    check(other.try_init(d, w), "try_init refused")
+    other.add_all(zipf_keys(rng, 1 << 20, n_keys=50_000))
+    wrap = rng.integers(1 << 31, 1 << 32, d * w, dtype=np.uint64).astype(np.uint32)
+    load_sketch_rows(client, "cms-wrap", "cms", {"depth": d, "width": w}, wrap)
+    want = tenant_row(client, "cms-r")
+    with np.errstate(over="ignore"):
+        want += tenant_row(client, "cms-b")
+        want += tenant_row(client, "cms-wrap")
+        want += tenant_row(client, "cms-wrap")
+    client.get_count_min_sketch("cms-r").merge("cms-b", "cms-wrap", "cms-wrap")
+    got = tenant_row(client, "cms-r")
+    check(np.array_equal(got, want), "merged CMS row differs from the numpy uint32 sum")
+    check((got[: d * w] < wrap).mean() > 0.99, "the merge did not wrap past 2**32")
+    k = eng.topk.track("cms-r")
+    eng.cms_reset("cms-r")
+    check(not row_view(client, "cms-r").any(), "reset left counters")
+    check(k == 20 and eng.topk.track("cms-r") == k, "reset lost the top-K configuration")
+
+
+def lifecycle_rename_ttl(client, n_load: int) -> float:
+    """Rename the restored Bloom and expire the restored HLL; returns the
+    seconds from expire(0.5) until is_exists() turned False."""
+    bf = client.get_bloom_filter("cfg1-r")
+    bf.rename("cfg1-renamed")
+    check(bf.name == "cfg1-renamed", "rename did not repoint the handle")
+    check(not client.get_bloom_filter("cfg1-r").is_exists(), "the old name survived rename")
+    check(bf.contains_each(np.arange(n_load, dtype=np.uint64)).all(),
+          "the renamed filter lost loaded keys")
+    try:
+        client.get_bloom_filter("no-such-filter").rename("elsewhere")
+    except RuntimeError:
+        pass
+    else:
+        fail("rename of a missing name succeeded")
+    h = client.get_hyper_log_log("cfg2-r")
+    e = client._engine.registry.lookup("cfg2-r")
+    pool, row = e.pool, e.row
+    t0 = time.perf_counter()
+    check(h.expire(0.5), "expire refused")
+    while h.is_exists():
+        check(time.perf_counter() - t0 < 5.0, "the expired HLL still exists after 5 s")
+        time.sleep(0.01)
+    gone_s = time.perf_counter() - t0
+    from redisson_tpu_torch.ops import bitops
+
+    check(not bitops.row_slice(pool.state, row, pool.row_units).any(),
+          "the expired HLL's row is not zero on the card")
+    return gone_s
+
+
+def cms_disjoint_keys(candidates: np.ndarray, n: int, d: int, w: int, used: set) -> np.ndarray:
+    """The first ``n`` candidates whose d cells share no cell with each
+    other or with ``used`` (updated in place)."""
+    from redisson_tpu_torch.utils import hashing
+
+    h1w, h2w = hashing.km_reduce_mod(
+        *hashing.hash128_np(*hashing.encode_uint64_batch(candidates)), w)
+    r = np.arange(d, dtype=np.uint64)
+    cells = (h1w[:, None].astype(np.uint64) + r * h2w[:, None]) % np.uint64(w) + r * np.uint64(w)
+    out = []
+    for key, c in zip(candidates, cells.tolist()):
+        if used.isdisjoint(c):
+            used.update(c)
+            out.append(key)
+            if len(out) == n:
+                return np.array(out, np.uint64)
+    fail(f"only {len(out)} of {n} CMS keys with disjoint cells")
+
+
+def lifecycle_batch(client, rng) -> dict:
+    """One batch of sync-named calls over the four kinds against the same
+    calls made directly on twin objects (both restored from one dump).
+    A coalesced CMS launch returns batch-final estimates, so the batch's
+    CMS keys (added once each, or only estimated) share no cell: then
+    batch-final and one-call-at-a-time estimates are equal."""
+    eng = client._engine
+    sources = {"bloom": "cfg1", "hll": "cfg2", "cms": "cms", "bitset": "cfg3"}
+    objs = {tag: {kind: f"b8-{kind}-{tag}" for kind in sources} for tag in ("batch", "twin")}
+    for kind, src in sources.items():
+        get = getattr(client, _GETTERS[kind])
+        blob = get(src).dump()
+        for tag in objs:
+            get(objs[tag][kind]).restore(blob)
+    used: set = set()
+    cms_keys = cms_disjoint_keys(
+        rng.integers(0, 1 << 40, 20_000).astype(np.uint64), 1180, 5, 1 << 16, used)
+    cms_add, cms_est = cms_keys[:40], cms_keys[40:80]
+    calls = []
+    for i in range(40):
+        key = int(rng.integers(1 << 40, 1 << 41))
+        calls += [("bloom", "add", (key,)), ("bloom", "contains", (key,)),
+                  ("bloom", "contains", (key + 1,)), ("hll", "add", (key,)),
+                  ("cms", "add", (int(cms_add[i]), 3)), ("cms", "estimate", (int(cms_est[i]),)),
+                  ("bitset", "set_many", (rng.integers(0, 1 << 30, 8).astype(np.uint32),)),
+                  ("bitset", "get_many", (rng.integers(0, 1 << 30, 8).astype(np.uint32),))]
+    keys = rng.integers(1 << 40, 1 << 41, 1000).astype(np.uint64)
+    calls += [("bloom", "add_all", (keys[:500],)), ("bloom", "contains_all", (keys,)),
+              ("bloom", "contains_each", (keys,)), ("hll", "add_all", (keys,)),
+              ("cms", "add_all", (cms_keys[80:180],)),
+              ("cms", "estimate_all", (cms_keys[180:],))]
+    batch = client.create_batch()
+    proxies = {k: getattr(batch, _GETTERS[k])(n) for k, n in objs["batch"].items()}
+    for kind, meth, args in calls:
+        getattr(proxies[kind], meth)(*args)
+    ex = eng.executor
+    dispatches = []
+
+    def spy(name):
+        orig = getattr(ex, name)
+
+        def counted(*a, **kw):
+            dispatches.append(name)
+            return orig(*a, **kw)
+
+        return counted
+
+    for name in _DISPATCHES:
+        setattr(ex, name, spy(name))
+    try:
+        res, execute_s = timed(lambda: batch.execute().get_responses())
+    finally:
+        for name in _DISPATCHES:
+            delattr(ex, name)
+    twins = {k: getattr(client, _GETTERS[k])(n) for k, n in objs["twin"].items()}
+    check(len(res) == len(calls), f"{len(res)} responses for {len(calls)} calls")
+    for (kind, meth, args), got in zip(calls, res):
+        want = getattr(twins[kind], meth)(*args)
+        same = (np.array_equal(got, want) if isinstance(want, np.ndarray)
+                else type(got) is type(want) and got == want)
+        check(same, f"batch {kind}.{meth} gave {got!r}, the direct call {want!r}")
+    for kind in sources:
+        check(torch.equal(row_view(client, objs["batch"][kind]),
+                          row_view(client, objs["twin"][kind])),
+              f"batch and twin {kind} rows differ")
+    check(len(dispatches) < len(calls),
+          f"{len(dispatches)} dispatches for {len(calls)} queued calls")
+    for tag in objs:  # not part of the snapshot that follows
+        for name in objs[tag].values():
+            check(eng.delete(name), f"delete {name}")
+    return {"calls": len(calls), "dispatches": len(dispatches), "execute_s": execute_s}
+
+
+def lifecycle_snapshot(client, rng, seed: int) -> dict:
+    """Snapshot the whole keyspace, restore it on create in a second client,
+    hold every pool and the answers equal, then stream the same events
+    into both CMSes (K1 runs on the restored one)."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+    from redisson_tpu_torch.ops import cms_seq
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    snap_dir = tempfile.mkdtemp(prefix="phase8-snapshot-", dir=build)
+    try:
+        # The card's share of a snapshot: the D2H capture under the locks.
+        _, capture_s = timed(client._engine._snapshot_capture)
+        _, snapshot_s = timed(lambda: client.snapshot(snap_dir))
+        snap_bytes = sum(os.path.getsize(os.path.join(snap_dir, f))
+                         for f in os.listdir(snap_dir))
+        cfg = rt.Config().set_codec(LongCodec()).use_gpu_sketch()
+        cfg.snapshot_dir = snap_dir
+        twin, restore_s = timed(lambda: rt.create(cfg))
+        try:
+            ex1, ex2 = client._engine.executor, twin._engine.executor
+            pools1, pools2 = client._engine.registry.pools(), twin._engine.registry.pools()
+            check([p.spec.key for p in pools1] == [p.spec.key for p in pools2],
+                  "the restored client holds other pools")
+            pool_bytes = 0
+            for p1, p2 in zip(pools1, pools2):
+                a, b = ex1.state_to_host(p1), ex2.state_to_host(p2)
+                check(a.dtype == b.dtype and np.array_equal(a, b),
+                      f"restored pool {p1.spec.key} differs")
+                pool_bytes += a.nbytes
+            check(sorted(client._engine.names()) == sorted(twin._engine.names()),
+                  "the restored keyspace holds other names")
+            probe = np.random.default_rng(seed + 8).integers(
+                1 << 22, 1 << 24, 1 << 17).astype(np.uint64)
+            for c_name, kind, fn in (
+                ("cfg1", "bloom", lambda o: o.contains_each(probe).tolist()),
+                ("cfg1-renamed", "bloom", lambda o: o.count()),
+                ("cfg2", "hll", lambda o: o.count()),
+                ("cfg3", "bitset", lambda o: (o.cardinality(), o.length())),
+                ("cms", "cms", lambda o: o.top_k(10)),
+            ):
+                a = fn(getattr(client, _GETTERS[kind])(c_name))
+                b = fn(getattr(twin, _GETTERS[kind])(c_name))
+                check(a == b, f"{kind} {c_name} answers differ after restore")
+            events = zipf_keys(rng, 1 << 18)
+            before = cms_seq.LAUNCHES
+            est2 = twin.get_count_min_sketch("cms").add_all_seq(events)
+            restored_launches = cms_seq.LAUNCHES - before
+            check(restored_launches > 0, "K1 never launched on the restored CMS")
+            est1 = client.get_count_min_sketch("cms").add_all_seq(events)
+            check(np.array_equal(est1, est2), "streamed estimates differ after restore")
+            check(torch.equal(row_view(client, "cms"), row_view(twin, "cms")),
+                  "CMS tables differ after the same stream")
+        finally:
+            # Its config names the directory: shutdown writes the final snapshot.
+            _, shutdown_s = timed(twin.shutdown)
+        check(os.path.exists(os.path.join(snap_dir, "sketch_meta.json")),
+              "no snapshot after shutdown")
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    return {"snapshot_s": snapshot_s, "capture_s": capture_s,
+            "snapshot_bytes": snap_bytes, "pool_bytes": pool_bytes,
+            "restore_on_create_s": restore_s, "shutdown_snapshot_s": shutdown_s,
+            "k1_launches_on_restored": restored_launches}
+
+
+def phase_lifecycle(client, rng, g, seed: int, card: str) -> None:
+    from redisson_tpu_torch.executor.torch_executor import bloom_count_from_bitcount
+
+    n_load = 1 << 20
+    count = client.get_bloom_filter("cfg1").count()
+    want = bloom_count_from_bitcount(int(g.bits.sum()), g.size, g.hash_iterations)
+    check(count == want, f"count() {count} vs {want} from the golden bitmap")
+    check(abs(count - n_load) / n_load < 0.05, f"count() {count} vs {n_load} keys")
+    dumps = lifecycle_dump_restore(client)
+    lifecycle_cms(client, rng)
+    ttl_s = lifecycle_rename_ttl(client, n_load)
+    batch = lifecycle_batch(client, rng)
+    snap = lifecycle_snapshot(client, rng, seed)
+    log({"phase": 8, "bloom_count": count, "bloom_count_rel_err": (count - n_load) / n_load,
+         "dump_restore": dumps, "bitset_row_dump_s": dumps["bitset"]["dump_s"],
+         "bitset_row_restore_s": dumps["bitset"]["restore_s"],
+         "bitset_row_d2h_s": dumps["bitset"]["row_d2h_s"], "ttl_gone_s": ttl_s,
+         "batch": batch, **snap, "card": card})
+
+
 # -- phase 7: interleaved opcodes from 4 threads through the coalescer ------------
 
 
@@ -743,13 +1047,17 @@ def main(argv=None) -> int:
     client = rt.create(rt.Config().set_codec(LongCodec()).use_gpu_sketch())
     try:
         cms_seq.LAUNCHES = 0  # count the main path's launches only
-        phase_bloom(client, rng, card)
+        g = phase_bloom(client, rng, card)
         phase_tenants(client, rng)
         phase_cms(client, rng, card)
         kernel["launches"] = cms_seq.LAUNCHES
         check(kernel["launches"] > 0, "the main path never launched K1")
         phase_hll(client, rng, card)
         phase_bitset(client, rng, card)
+        cms_seq.LAUNCHES = 0  # phase 8's path, counted on its own
+        phase_lifecycle(client, rng, g, args.seed, card)
+        check(cms_seq.LAUNCHES > 0, "phase 8 never launched K1")
+        kernel["launches"] += cms_seq.LAUNCHES
     finally:
         client.shutdown()
     phase_interleaved(rng)

@@ -9,6 +9,8 @@ device is present (nothing falls back to the CPU).  Tests pass
 
 from __future__ import annotations
 
+from typing import Optional
+
 
 class GpuSketchConfig:
     """Tunables for the GPU sketch backend."""
@@ -51,6 +53,11 @@ class Config:
 
         self.codec = DEFAULT_CODEC
         self.gpu_sketch = GpuSketchConfig()
+        # Snapshots (the JAX package's names and defaults): with a
+        # directory set, the engine restores from it on create and writes
+        # a final snapshot on shutdown; an interval > 0 adds periodic ones.
+        self.snapshot_dir: Optional[str] = None
+        self.snapshot_interval_s: float = 0.0
 
     def set_codec(self, codec) -> "Config":
         self.codec = codec

@@ -21,6 +21,7 @@ because padded ops are part of the semantics the JAX package defines
 from __future__ import annotations
 
 import functools
+import math
 import threading
 from typing import Optional
 
@@ -29,6 +30,7 @@ import torch
 
 from redisson_tpu_torch.ops import (
     bitops,
+    bloom as bloom_ops,
     bitset as bitset_ops,
     cms as cms_ops,
     cms_seq,
@@ -82,6 +84,16 @@ class LazyResult:
 
     def done(self) -> bool:
         return self._done is not None
+
+
+def bloom_count_from_bitcount(x, m: int, k: int) -> int:
+    """BITCOUNT inversion n = -m/k * ln(1 - X/m) (RedissonBloomFilter#count),
+    rounded with Python ``round`` and ``m`` once every bit is set, so the
+    integer equals the JAX package's."""
+    x = int(x)
+    if x >= m:
+        return m
+    return int(round(-m / k * math.log(1 - x / m)))
 
 
 def _pow2ceil(n: int) -> int:
@@ -408,6 +420,13 @@ class TorchCommandExecutor:
         res = torch.cat(parts or [torch.zeros(0, dtype=torch.bool, device=self.device)])
         return self._result_bits(self._pad_bits(res, B), B)
 
+    @_locked
+    def bloom_count(self, pool, row: int, m: int, k: int) -> LazyResult:
+        """RBloomFilter#count: the row's popcount on the device, inverted
+        on the host."""
+        x = bloom_ops.bloom_cardinality(pool.state, row, words_per_row=pool.row_units)
+        return LazyResult(x, transform=lambda xv: bloom_count_from_bitcount(xv, m, k))
+
     def _valid(self, Bp: int, n) -> torch.Tensor:
         """bool[Bp]: the first ``n`` ops are real, the rest padding."""
         return torch.arange(Bp, device=self.device) < n
@@ -463,6 +482,13 @@ class TorchCommandExecutor:
         table = pool.state[row * pool.row_units : row * pool.row_units + d * w]
         est = cms_seq.cms_update_estimate_seq(table, a, b, wt, d=d, w=w)
         return LazyResult(est, transform=_as_u32)
+
+    @_locked
+    def cms_merge(self, pool, dst_row: int, src_rows) -> LazyResult:
+        """CMS.MERGE: dst row += the source rows, mod 2**32, on the device."""
+        cms_ops.cms_merge(pool.state, dst_row, self._rows_tensor(src_rows),
+                          cells_per_row=pool.row_units)
+        return LazyResult(None)
 
     # -- hll -----------------------------------------------------------------
 

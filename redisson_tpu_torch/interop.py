@@ -1,9 +1,13 @@
-"""Carry a sketch's state from the JAX package into this one.
+"""Carry sketch state between the JAX package and this one.
 
-The counterpart of loading a checkpoint: a tenant row's uint32 words
-come out of the JAX executor (``state_to_host(pool)[row*u:(row+1)*u]``)
-and go into an object of the same geometry here, so both packages can
-start from one state.
+Whole objects and whole keyspaces cross with the RObject lifecycle, whose
+byte formats the two packages share: ``obj.dump()`` bytes of either
+package ``restore()`` in the other, and a directory written by either
+``client.snapshot()`` restores in the other (``Config.snapshot_dir``, or
+``engine.restore_snapshot``).  ``load_sketch_rows`` installs a single raw
+row: a tenant row's uint32 words out of the JAX executor
+(``state_to_host(pool)[row*u:(row+1)*u]``) go into an object of the same
+geometry here.
 """
 
 from __future__ import annotations

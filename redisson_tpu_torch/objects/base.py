@@ -1,8 +1,10 @@
 """Object-layer base plumbing: RObject idiom + camelCase compatibility.
 
 Counterpart of ``redisson_tpu/objects/base.py`` (→
-org/redisson/RedissonObject.java): name-addressed objects bound to a
-client engine; camelCase names (``tryInit``) alias the snake_case API.
+org/redisson/RedissonObject.java and RedissonExpirable.java):
+name-addressed objects bound to a client engine with the RObject
+lifecycle (exists, delete, rename, TTL, DUMP/RESTORE); camelCase names
+(``tryInit``) alias the snake_case API.
 """
 
 from __future__ import annotations
@@ -37,10 +39,49 @@ class CamelCompatMixin:
         )
 
 
+class MappedFuture:
+    """Future adapter applying a transform on ``.result()`` (the deferred
+    forms of sync-named methods, and engine results)."""
+
+    def __init__(self, fut, transform):
+        self._fut = fut
+        self._transform = transform
+
+    def result(self, *a, **kw):
+        return self._transform(self._fut.result(*a, **kw))
+
+    get = result
+
+    def done(self) -> bool:
+        return self._fut.done()
+
+
+class CompletedFuture:
+    """An already-resolved future (RFuture parity)."""
+
+    def __init__(self, value):
+        self._value = value
+
+    def result(self, *a, **kw):
+        return self._value
+
+    get = result
+
+    @staticmethod
+    def done() -> bool:
+        return True
+
+
 class RObject(CamelCompatMixin):
-    """Name-addressed object bound to a client engine."""
+    """Name-addressed object bound to a client engine.
+
+    ``_DEFERRED`` maps sync-named methods to methods returning a future
+    whose value matches the SYNC return contract: the Batch facade routes
+    queued sync calls through them, so a batch coalesces instead of
+    running call by call."""
 
     KIND: str = ""
+    _DEFERRED: dict = {}
 
     def __init__(self, name: str, client):
         self._name = name
@@ -54,6 +95,50 @@ class RObject(CamelCompatMixin):
     @property
     def name(self) -> str:
         return self._name
+
+    def is_exists(self) -> bool:
+        return self._engine.exists(self._name)
+
+    def delete(self) -> bool:
+        return self._engine.delete(self._name)
+
+    def rename(self, new_name: str) -> None:
+        if not self._engine.rename(self._name, new_name):
+            # A failed rename (missing or expired source) leaves the handle
+            # alone: repointing it would mutate whatever lives at new_name.
+            raise RuntimeError(f"object {self._name!r} does not exist")
+        self._name = new_name
+
+    # -- expiry (→ org/redisson/RedissonExpirable.java) --------------------
+
+    def expire(self, ttl_s: float) -> bool:
+        """Schedule deletion ``ttl_s`` seconds from now (EXPIRE)."""
+        return self._engine.expire(self._name, ttl_s)
+
+    def expire_at(self, timestamp: float) -> bool:
+        """Absolute-deadline expiry (EXPIREAT, unix seconds)."""
+        return self._engine.expire_at(self._name, timestamp)
+
+    def clear_expire(self) -> bool:
+        """Remove a pending TTL (PERSIST)."""
+        return self._engine.clear_expire(self._name)
+
+    def remain_time_to_live(self) -> int:
+        """Remaining TTL in ms; -1 no TTL, -2 absent (PTTL)."""
+        return self._engine.remain_ttl_ms(self._name)
+
+    # -- dump/restore (→ org/redisson/RedissonObject.java#dump) ------------
+
+    def dump(self) -> bytes:
+        """Opaque serialized state (DUMP); raises if absent."""
+        data = self._engine.dump(self._name)
+        if data is None:
+            raise RuntimeError(f"object {self._name!r} does not exist")
+        return data
+
+    def restore(self, data: bytes, replace: bool = False) -> None:
+        """Recreate this object from ``dump`` bytes (RESTORE)."""
+        self._engine.restore(self._name, data, replace=replace)
 
     def _encode(self, objs) -> tuple[np.ndarray, np.ndarray]:
         if np.isscalar(objs) or isinstance(objs, (str, bytes)):

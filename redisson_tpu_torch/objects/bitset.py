@@ -16,6 +16,12 @@ from redisson_tpu_torch.tenancy import PoolKind
 class BitSet(RObject):
     KIND = PoolKind.BITSET
 
+    # Batch pipelining.
+    _DEFERRED = {
+        "set_many": "set_many_async",
+        "get_many": "get_many_async",
+    }
+
     # -- single/batch bit ops ---------------------------------------------
 
     def get(self, index: int) -> bool:

@@ -8,12 +8,34 @@ from __future__ import annotations
 
 import numpy as np
 
-from redisson_tpu_torch.objects.base import RObject
+from redisson_tpu_torch.objects.base import MappedFuture, RObject
 from redisson_tpu_torch.tenancy import PoolKind
 
 
 class BloomFilter(RObject):
     KIND = PoolKind.BLOOM
+
+    # Batch pipelining: sync-named calls ride these deferred forms inside
+    # Batch.execute (their values keep the sync contracts).
+    _DEFERRED = {
+        "add": "add_deferred",
+        "add_all": "add_all_deferred",
+        "contains": "contains_deferred",
+        "contains_all": "contains_all_deferred",
+        "contains_each": "contains_all_async",
+    }
+
+    def add_deferred(self, obj):
+        return MappedFuture(self.add_all_async([obj]), lambda v: bool(v[0]))
+
+    def add_all_deferred(self, objs):
+        return MappedFuture(self.add_all_async(objs), lambda v: int(np.sum(v)))
+
+    def contains_deferred(self, obj):
+        return MappedFuture(self.contains_all_async([obj]), lambda v: bool(v[0]))
+
+    def contains_all_deferred(self, objs):
+        return MappedFuture(self.contains_all_async(objs), lambda v: int(np.sum(v)))
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -91,3 +113,17 @@ class BloomFilter(RObject):
         bool array per input batch."""
         futs = [self.contains_all_async(b) for b in batches]
         return self._client.collect(futs)
+
+    # -- read replication and count ----------------------------------------
+
+    def set_replicated(self) -> bool:
+        """Copy this filter's row to every mesh shard (reads spread over
+        the copies).  False on one card: there is nothing to spread over."""
+        return self._engine.bloom_replicate(self._name)
+
+    def is_replicated(self) -> bool:
+        return self._engine.bloom_is_replicated(self._name)
+
+    def count(self) -> int:
+        """→ RBloomFilter#count: estimated number of inserted elements."""
+        return int(self._engine.bloom_count(self._name).result())

@@ -17,12 +17,26 @@ import math
 
 import numpy as np
 
-from redisson_tpu_torch.objects.base import RObject
+from redisson_tpu_torch.objects.base import MappedFuture, RObject
 from redisson_tpu_torch.tenancy import PoolKind
 
 
 class CountMinSketch(RObject):
     KIND = PoolKind.CMS
+
+    # Batch pipelining.
+    _DEFERRED = {
+        "add": "add_deferred",
+        "add_all": "add_all_async",
+        "estimate": "estimate_deferred",
+        "estimate_all": "estimate_all_async",
+    }
+
+    def add_deferred(self, obj, count: int = 1):
+        return MappedFuture(self.add_all_async([obj], [count]), lambda v: int(v[0]))
+
+    def estimate_deferred(self, obj):
+        return MappedFuture(self.estimate_all_async([obj]), lambda v: int(v[0]))
 
     def estimate_all_async(self, objs):
         H1, H2 = self._hash128(objs)
@@ -163,6 +177,10 @@ class CountMinSketch(RObject):
 
     def estimate_all(self, objs) -> np.ndarray:
         return self.estimate_all_async(objs).result()
+
+    def merge(self, *other_names: str) -> None:
+        """CMS.MERGE: add every named sketch's counters into this one."""
+        self._engine.cms_merge(self._name, other_names)
 
     # -- top-K tracking (engine-shared, see module docstring) --------------
 

@@ -6,14 +6,20 @@ for this package's slice: tenant registry + size-class pools +
 TorchCommandExecutor, with the BatchCoalescer in front when
 ``coalesce`` is on.  The routing and the ops each call becomes follow
 the JAX engine, so both packages return the same answers and hold the
-same pool bytes.  The journal, near cache, degraded mirrors, residency
-tiers and replicas are not part of this slice.
+same pool bytes.  The object lifecycle (TTL, exists/delete/rename,
+DUMP/RESTORE, snapshots) comes from ``objects/durability.py``.  The
+journal, near cache, degraded mirrors, residency tiers and replicas are
+not part of the port yet.
 """
 
 from __future__ import annotations
 
 import heapq
+import logging
 import threading
+import time
+import warnings
+from typing import Optional
 
 import numpy as np
 
@@ -22,6 +28,8 @@ from redisson_tpu_torch.executor.torch_executor import (
     LazyResult,
     TorchCommandExecutor,
 )
+from redisson_tpu_torch.objects.base import MappedFuture
+from redisson_tpu_torch.objects.durability import SketchDurabilityMixin
 from redisson_tpu_torch.ops import bitset as bitset_ops, golden
 from redisson_tpu_torch.tenancy import PoolKind, TenantRegistry
 from redisson_tpu_torch.tenancy.registry import class_words_for_bits
@@ -37,23 +45,6 @@ class ImmediateResult(LazyResult):
 
     def __init__(self, value):
         super().__init__(value)
-
-
-class _MappedFuture:
-    """Future adapter applying a transform on ``.result()``."""
-
-    def __init__(self, fut, transform):
-        self._fut = fut
-        self._transform = transform
-
-    def result(self, *a, **kw):
-        return self._transform(self._fut.result(*a, **kw))
-
-    def get(self):
-        return self.result()
-
-    def done(self) -> bool:
-        return self._fut.done()
 
 
 class _ConcatLazy:
@@ -128,8 +119,111 @@ class TopKStore:
             t = self._tables.get(name)
             return [] if t is None else list(t["cands"])
 
+    def rename(self, old: str, new: str) -> None:
+        with self._lock:
+            self._tables.pop(new, None)
+            t = self._tables.pop(old, None)
+            if t is not None:
+                self._tables[new] = t
 
-class TorchSketchEngine:
+    # -- durability: snapshots and CMS dumps carry the candidate tables,
+    # data-only (losing them would forget every heavy hitter while the
+    # counters survive) --------------------------------------------------
+
+    # Candidate keys round-trip with their ORIGINAL scalar type: codecs
+    # encode np.uint64(5) and 5 to different bytes, so a type-collapsing
+    # export would make a restored top_k() re-estimate the wrong cells.
+    _KEY_TAGS = {
+        int: ("i", int),
+        np.uint64: ("u8", int),
+        np.uint32: ("u4", int),
+        np.int64: ("i8", int),
+        np.int32: ("i4", int),
+        str: ("s", str),
+    }
+    _TAG_DECODE = {
+        "i": int,
+        "u8": np.uint64,
+        "u4": np.uint32,
+        "i8": np.int64,
+        "i4": np.int32,
+        "s": str,
+        "b": bytes.fromhex,
+    }
+    MAX_K = 1 << 20  # sanity bound on an imported table's k
+
+    @classmethod
+    def _encode_cands(cls, name: str, t: dict) -> dict:
+        cands = []
+        skipped = set()
+        for key, est in t["cands"].items():
+            enc = cls._KEY_TAGS.get(type(key))
+            if enc is not None:
+                cands.append([enc[0], enc[1](key), int(est)])
+            elif isinstance(key, bytes):
+                cands.append(["b", key.hex(), int(est)])
+            else:
+                skipped.add(type(key).__name__)
+        if skipped:
+            warnings.warn(
+                f"top-K candidates of {name!r} with non-serializable key "
+                f"types {sorted(skipped)} were not exported; they will "
+                f"re-enter the table from future traffic"
+            )
+        return {"k": int(t["k"]), "cands": cands}
+
+    @classmethod
+    def _decode_cands(cls, d: dict) -> dict:
+        """Strict decode of an UNTRUSTED table: unknown tags or malformed
+        values raise ValueError, and so does a k past ``MAX_K``."""
+        cands = {}
+        for entry in d.get("cands", []):
+            if not isinstance(entry, (list, tuple)) or len(entry) != 3:
+                raise ValueError(f"bad topk entry: {entry!r}")
+            tag, val, est = entry
+            dec = cls._TAG_DECODE.get(tag)
+            if dec is None:
+                raise ValueError(f"bad topk key tag: {tag!r}")
+            cands[dec(val)] = int(est)
+        k = int(d.get("k", 0))
+        if not 0 <= k <= cls.MAX_K:
+            raise ValueError(f"topk k={k} out of range")
+        return {"k": k, "cands": cands}
+
+    def export_state(self, name: Optional[str] = None):
+        """JSON-safe copy of one table (None if absent) or of all."""
+        with self._lock:
+            if name is not None:
+                t = self._tables.get(name)
+                return None if t is None else self._encode_cands(name, t)
+            return {n: self._encode_cands(n, t) for n, t in self._tables.items()}
+
+    @classmethod
+    def decode_state(cls, state, name: Optional[str] = None):
+        """Validate and decode an untrusted export WITHOUT touching the
+        store: restore paths call this before any mutation, then install
+        the value with ``import_decoded``."""
+        if name is not None:
+            return cls._decode_cands(state) if state else None
+        return {n: cls._decode_cands(d) for n, d in (state or {}).items()}
+
+    def import_decoded(self, decoded, name: Optional[str] = None) -> None:
+        with self._lock:
+            if name is not None:
+                self._tables.pop(name, None)  # never keep a ghost table
+                if decoded:
+                    self._tables[name] = decoded
+                return
+            self._tables.update(decoded or {})
+
+    def import_state(self, state, name: Optional[str] = None) -> None:
+        self.import_decoded(self.decode_state(state, name), name)
+
+
+_log = logging.getLogger(__name__)
+
+
+class TorchSketchEngine(SketchDurabilityMixin):
     # Per-launch op cap of the sequential CMS path: the JAX engine chunks
     # at this size and carries state across chunks, so sequential
     # semantics are exact either way; the same chunks keep the per-op
@@ -157,8 +251,35 @@ class TorchSketchEngine:
                     self.executor.collect_group if cfg.mailbox_collect else None
                 ),
             )
+        self._sweeper = None
+        self._snapshotter = None
+        # One snapshot at a time: the periodic snapshotter, explicit calls
+        # and shutdown write the same tmp files.  Strictly outermost.
+        self._snapshot_lock = threading.Lock()
+        # Checkpoint/resume: restore from the configured directory, then
+        # arm periodic snapshots (never while the restore runs).
+        if config.snapshot_dir:
+            try:
+                self.restore_snapshot(config.snapshot_dir)
+            except Exception:
+                self._stop_coalescer()
+                raise
+            if config.snapshot_interval_s > 0:
+                self._start_snapshotter(config.snapshot_dir, config.snapshot_interval_s)
 
     def shutdown(self) -> None:
+        """Stop the snapshotter and the sweeper, write the final snapshot
+        (best effort, logged on failure), then stop the coalescer."""
+        self._stop_snapshotter()
+        self._stop_sweeper()
+        if self.config.snapshot_dir:
+            try:
+                self.snapshot(self.config.snapshot_dir)
+            except Exception:
+                _log.exception("snapshot on shutdown to %s failed", self.config.snapshot_dir)
+        self._stop_coalescer()
+
+    def _stop_coalescer(self) -> None:
         if self.coalescer is not None:
             self.coalescer.shutdown()
 
@@ -185,28 +306,56 @@ class TorchSketchEngine:
 
     # -- generic -----------------------------------------------------------
 
-    def params(self, name: str):
-        entry = self.registry.lookup(name)
+    def params(self, name: str) -> Optional[dict]:
+        entry = self._live_lookup(name)
         return None if entry is None else entry.params
 
     def _lookup_kind(self, name: str, kind: str):
-        """None if absent; TypeError on a kind mismatch."""
-        entry = self.registry.lookup(name)
+        """None if absent or expired; TypeError on a kind mismatch."""
+        entry = self._live_lookup(name)
         if entry is not None and entry.kind != kind:
             raise TypeError(f"object {name!r} holds a {entry.kind}, not a {kind}")
         return entry
 
+    def exists(self, name: str) -> bool:
+        return self._live_lookup(name) is not None
+
     def delete(self, name: str) -> bool:
-        """Drop ``name``: its row is zeroed before it can be reused."""
+        """Drop ``name``: detach, then zero, then free the row, so only one
+        concurrent deleter (a user, the sweeper, a lazy expiry) wins and
+        the row is reusable only once clean.  An expired but unswept
+        entry is freed too, but reports False (Redis DEL on an expired
+        key)."""
         entry = self.registry.detach(name)
         if entry is None:
             return False
+        was_expired = entry.expire_at is not None and time.time() >= entry.expire_at
         self._drain()
-        with self.executor._dispatch_lock:
-            self.executor.zero_row(entry.pool, entry.row)
-            entry.pool.free_row(entry.row)
+        self._reap_row(entry.pool, entry.row)
         self.topk.drop(name)
+        return not was_expired
+
+    def rename(self, old: str, new: str) -> bool:
+        """RENAME: False (nothing changes) when ``old`` is missing or
+        expired.  Queued ops are drained first: queued bitset ops resolve
+        their row by entry at flush time, and must land before the names
+        move.  A displaced destination's row is zeroed before reuse."""
+        if old == new or self._live_lookup(old) is None:
+            return False
+        self._drain()
+        ok, dest = self.registry.rename_detach_dest(old, new)
+        if not ok:  # the source expired since the check
+            return False
+        if dest is not None:
+            self._reap_row(dest.pool, dest.row)
+        self.topk.rename(old, new)
         return True
+
+    def names(self, kind=None) -> list:
+        for e in self.registry.entries():
+            if e.expire_at is not None:
+                self._expire_if_due(e)
+        return self.registry.names(kind)
 
     def _require(self, name: str, kind: str):
         entry = self._lookup_kind(name, kind)
@@ -225,10 +374,28 @@ class TorchSketchEngine:
             "expected_insertions": expected_insertions,
             "false_probability": false_probability,
         }
+        self._live_lookup(name)  # reap an expired holder before tryInit
         _, created = self.registry.try_create(
             name, PoolKind.BLOOM, (class_words_for_bits(m),), params
         )
         return created
+
+    def bloom_count(self, name) -> LazyResult:
+        entry = self._require(name, PoolKind.BLOOM)
+        self._drain()
+        return self.executor.bloom_count(
+            entry.pool, entry.row, entry.params["size"], entry.params["hash_iterations"]
+        )
+
+    def bloom_replicate(self, name: str) -> bool:
+        """Read replication spreads a filter's row over mesh shards; one
+        card has nothing to spread over, so this is False (the JAX
+        engine's answer at one shard)."""
+        return False
+
+    def bloom_is_replicated(self, name: str) -> bool:
+        entry = self._lookup_kind(name, PoolKind.BLOOM)
+        return bool(entry is not None and entry.replica_rows)
 
     def _runs_dispatch(self, pool, k):
         """Flush-time dispatch for the run-length mixed path: folds the
@@ -362,6 +529,7 @@ class TorchSketchEngine:
     # -- hll ---------------------------------------------------------------
 
     def hll_ensure(self, name):
+        self._live_lookup(name)  # reap an expired holder first
         entry, _ = self.registry.try_create(name, PoolKind.HLL, (), {})
         return entry
 
@@ -382,7 +550,7 @@ class TorchSketchEngine:
                 len(c0),
                 pool_key=id(pool),
             )
-            return _MappedFuture(fut, lambda v: bool(np.any(v)))
+            return MappedFuture(fut, lambda v: bool(np.any(v)))
         return self.executor.hll_add_single(entry.pool, entry.row, c0, c1, c2)
 
     def hll_add_encoded(self, name, blocks, lengths):
@@ -436,6 +604,7 @@ class TorchSketchEngine:
         """Placement only: create the bitset, or migrate it to a size class
         that holds ``min_bits``, without extending its logical length
         (BITOP operands keep their true lengths)."""
+        self._live_lookup(name)  # reap an expired holder first
         entry, created = self.registry.try_create(
             name, PoolKind.BITSET, (class_words_for_bits(min_bits),), {"nbits": 0}
         )
@@ -571,10 +740,10 @@ class TorchSketchEngine:
         safe_idx = np.where(in_range, idx, 0).astype(np.uint32)
         if self.coalescer is not None:
             fut = self._bitset_submit_mixed(entry, safe_idx, bitset_ops.OP_GET)
-            return _MappedFuture(fut, lambda v: v & in_range)
+            return MappedFuture(fut, lambda v: v & in_range)
         rows = np.full(len(idx), entry.row, np.int32)
         res = self.executor.bitset_get(entry.pool, rows, safe_idx)
-        return _MappedFuture(res, lambda v: v & in_range)
+        return MappedFuture(res, lambda v: v & in_range)
 
     def bitset_set_range(self, name, from_bit, to_bit, value: bool):
         entry = self.bitset_ensure(name, int(to_bit))
@@ -637,6 +806,7 @@ class TorchSketchEngine:
     # -- cms ---------------------------------------------------------------
 
     def cms_try_init(self, name, depth: int, width: int) -> bool:
+        self._live_lookup(name)  # reap an expired holder before tryInit
         _, created = self.registry.try_create(
             name, PoolKind.CMS, (depth, width),
             {"depth": depth, "width": width},
@@ -650,6 +820,30 @@ class TorchSketchEngine:
         self._drain()
         row = self.executor.read_row(entry.pool, entry.row)
         return int(np.asarray(row[: entry.params["width"]], np.uint64).sum())
+
+    def cms_reset(self, name) -> None:
+        """Zero a CMS's counters in place; the object and its top-K
+        configuration stay."""
+        entry = self._require(name, PoolKind.CMS)
+        self._drain()
+        self.executor.zero_row(entry.pool, entry.row)
+
+    def cms_merge(self, name, other_names) -> None:
+        """CMS.MERGE: this += each source, counter for counter (mod 2**32);
+        every source must share this sketch's geometry."""
+        entry = self._require(name, PoolKind.CMS)
+        srcs = []
+        for n in other_names:
+            e = self._require(n, PoolKind.CMS)
+            if (e.params["depth"], e.params["width"]) != (
+                entry.params["depth"], entry.params["width"]
+            ):
+                raise ValueError("cannot merge CMS with different geometry")
+            srcs.append(e)
+        if not srcs:
+            return
+        self._drain()
+        self.executor.cms_merge(entry.pool, entry.row, [e.row for e in srcs])
 
     def cms_add(self, name, H1, H2, weights):
         entry = self._require(name, PoolKind.CMS)

@@ -6,12 +6,24 @@ math runs on the device (ops/hll.py).
 
 from __future__ import annotations
 
-from redisson_tpu_torch.objects.base import RObject
+from redisson_tpu_torch.objects.base import MappedFuture, RObject
 from redisson_tpu_torch.tenancy import PoolKind
 
 
 class HyperLogLog(RObject):
     KIND = PoolKind.HLL
+
+    # Batch pipelining: sync-named adds coalesce.
+    _DEFERRED = {
+        "add": "add_deferred",
+        "add_all": "add_deferred_all",
+    }
+
+    def add_deferred(self, obj):
+        return MappedFuture(self.add_all_async([obj]), bool)
+
+    def add_deferred_all(self, objs):
+        return MappedFuture(self.add_all_async(objs), bool)
 
     def add(self, obj) -> bool:
         """→ RHyperLogLog#add: True iff the estimate changed (a register

@@ -58,3 +58,14 @@ def bloom_add(flat, rows, h1m, h2m, *, m, k: int, words_per_row: int, valid=None
         flat, rows, h1m, h2m, is_add,
         m=m, k=k, words_per_row=words_per_row, valid=valid,
     )
+
+
+def bloom_cardinality(flat, row, *, words_per_row: int):
+    """BITCOUNT of one tenant row (0-d int64 tensor): the set-bit count X
+    that the host turns into ``-m/k * ln(1 - X/m)`` (RBloomFilter#count)."""
+    return bitops.popcount_row(flat, row, words_per_row)
+
+
+def bloom_clear_row(flat, row, *, words_per_row: int):
+    """Zero one tenant's bitmap in place (RObject.delete)."""
+    bitops.row_slice(flat, row, words_per_row).zero_()

@@ -10,7 +10,10 @@ share one flat ``[capacity*row_units + 1]`` tensor (trailing scratch
 element).  Pools grow by doubling row capacity.
 
 Thread-safety: registry mutations happen under one lock; pool growth
-takes the executor's dispatch lock, so it never races a launch.
+takes the executor's dispatch lock, so it never races a launch.  Lock
+order, as in the JAX package: the registry lock before the dispatch lock
+(``try_create`` -> ``alloc_row`` -> ``_grow``; snapshot capture and
+restore take them in the same order).
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ class SizeClassPool:
             self.capacity, spec.row_units, spec.dtype
         )
         self._free: list[int] = list(range(self.capacity - 1, -1, -1))
+        self.generation = 0  # bumped on every growth and snapshot restore
 
     @property
     def row_units(self) -> int:
@@ -100,18 +104,26 @@ class SizeClassPool:
             self.state, old_cap, new_cap, self.spec.row_units
         )
         self.capacity = new_cap
+        self.generation += 1
         self._free.extend(range(new_cap - 1, old_cap - 1, -1))
 
 
 @dataclass
 class TenantEntry:
-    """One named sketch object's placement + parameters."""
+    """One named sketch object's placement + parameters.  ``expire_at``:
+    absolute wall-clock deadline (``time.time()``) after which the object
+    no longer exists; None = no TTL.  ``replica_rows`` (read replicas on
+    a mesh) is always None on one card and ``residency`` always
+    "device"; both are kept so snapshots carry the JAX package's keys."""
 
     name: str
     kind: str
     pool: SizeClassPool
     row: int
     params: dict = field(default_factory=dict)
+    expire_at: Optional[float] = None
+    replica_rows: Optional[list] = None
+    residency: str = "device"
 
 
 class TenantRegistry:
@@ -128,9 +140,45 @@ class TenantRegistry:
             return self._tenants.get(name)
 
     def detach(self, name: str) -> Optional[TenantEntry]:
-        """Unregister ``name``; the caller zeroes and frees its row."""
+        """Unregister ``name`` WITHOUT freeing its row: the caller zeroes
+        the row and then frees it, so only one concurrent deleter wins the
+        pop and the row is never reallocated while still dirty."""
         with self._lock:
             return self._tenants.pop(name, None)
+
+    def detach_if(self, name: str, entry: TenantEntry) -> Optional[TenantEntry]:
+        """detach() guarded on entry identity: a no-op if ``name`` was
+        deleted and re-created since the caller captured ``entry`` (an
+        expiry reaper never removes a fresh successor)."""
+        with self._lock:
+            if self._tenants.get(name) is not entry:
+                return None
+            return self._tenants.pop(name)
+
+    def rename_detach_dest(self, old: str, new: str):
+        """Atomic rename -> (renamed, displaced destination or None).  The
+        displaced entry's row is NOT freed (the caller zeroes it first).
+        A missing ``old`` leaves the destination untouched."""
+        with self._lock:
+            entry = self._tenants.pop(old, None)
+            if entry is None:
+                return False, None
+            dest = self._tenants.pop(new, None)
+            entry.name = new
+            self._tenants[new] = entry
+            return True, dest
+
+    def names(self, kind: Optional[str] = None) -> list[str]:
+        with self._lock:
+            return [n for n, e in self._tenants.items() if kind is None or e.kind == kind]
+
+    def pools(self) -> list[SizeClassPool]:
+        with self._lock:
+            return list(self._pools.values())
+
+    def entries(self) -> list[TenantEntry]:
+        with self._lock:
+            return list(self._tenants.values())
 
     def pool_for(self, kind: str, class_key: tuple) -> SizeClassPool:
         with self._lock:

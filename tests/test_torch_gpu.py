@@ -1,6 +1,7 @@
 """Kernel K1 on the card against its plain PyTorch version (bit-identical
-tables and estimates), and the HyperLogLog and BitSet ops on the card
-against the same calls on the CPU.  Needs a CUDA device and nvcc; run with
+tables and estimates), and the HyperLogLog and BitSet ops, Bloom count,
+CMS merge and a whole-keyspace snapshot round trip on the card against
+the same calls on the CPU.  Needs a CUDA device and nvcc; run with
 ``pytest -m gpu tests/test_torch_gpu.py`` on the machine with the card."""
 
 import numpy as np
@@ -198,3 +199,109 @@ def test_giant_row_reductions_match_cpu(cuda, fill):
         g = fn(flat_g, 1, words_per_row=W, **kw)
         c = fn(flat_c, 1, words_per_row=W, **kw)
         assert int(g) == int(c), (name, kw)
+
+
+def _executor_pool(dev, kind, class_key, state):
+    """A one-pool executor on ``dev`` holding ``state``."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.executor.torch_executor import TorchCommandExecutor
+    from redisson_tpu_torch.tenancy import TenantRegistry
+
+    ex = TorchCommandExecutor(rt.Config().use_gpu_sketch(device=dev))
+    reg = TenantRegistry(ex, dispatch_lock=ex._dispatch_lock)
+    e, _ = reg.try_create("t0", kind, class_key, {})
+    ex.state_from_host(e.pool, state)
+    return ex, e.pool
+
+
+@pytest.mark.parametrize("fill", [0.0, 0.3, 0.999, 1.0])
+def test_bloom_count_matches_cpu(cuda, fill):
+    """popcount of a config-1 row (2**19 words) and its inversion."""
+    rng = np.random.default_rng(int(fill * 1000))
+    W = 1 << 19
+    m, k = 9_585_059, 7
+    state = np.zeros(8 * W + 1, np.uint32)
+    bits = rng.random(m) < fill
+    state[3 * W : 4 * W] = np.packbits(np.concatenate(
+        [bits, np.zeros(32 * W - m, bool)]), bitorder="little").view(np.uint32)
+    got = []
+    for dev in ("cpu", cuda.type):
+        ex, pool = _executor_pool(dev, "bloom", (W,), state)
+        got.append(ex.bloom_count(pool, 3, m, k).result())
+    assert got[0] == got[1]
+    if fill == 1.0:
+        assert got[1] == m
+
+
+def test_cms_merge_matches_cpu(cuda):
+    """CMS.MERGE of two 5 x 65536 rows into a third, counters past 2**31
+    so the sum wraps mod 2**32."""
+    rng = np.random.default_rng(6)
+    u = 5 * 65536
+    state = rng.integers(1 << 31, 1 << 32, 8 * u + 1, dtype=np.uint64).astype(np.uint32)
+    want = state[2 * u : 3 * u].copy()
+    with np.errstate(over="ignore"):
+        want += state[5 * u : 6 * u]
+        want += state[7 * u : 8 * u]
+    got = []
+    for dev in ("cpu", cuda.type):
+        ex, pool = _executor_pool(dev, "cms", (5, 65536), state)
+        ex.cms_merge(pool, 2, [5, 7])
+        got.append(ex.state_to_host(pool))
+    assert np.array_equal(got[0], got[1])
+    assert np.array_equal(got[1][2 * u : 3 * u], want)
+
+
+def test_snapshot_round_trip_of_a_giant_row_matches_cpu(cuda, tmp_path):
+    """The same calls on a CPU and a card client, a 2**30-bit bitset (one
+    2**25-word row) among them; both snapshots hold byte-equal pools and
+    equal metadata, and each restores into a card client byte for byte."""
+    import json
+
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+
+    rng = np.random.default_rng(7)
+    idx = rng.integers(0, 1 << 30, 1 << 16).astype(np.uint32)
+    keys = rng.integers(0, 1 << 40, 1 << 14).astype(np.uint64)
+
+    def client(dev, snapshot_dir=None):
+        cfg = rt.Config().set_codec(LongCodec()).use_gpu_sketch(device=dev)
+        cfg.snapshot_dir = snapshot_dir
+        return rt.create(cfg)
+
+    dirs, metas, pools = {}, {}, {}
+    for dev in ("cpu", cuda.type):
+        c = client(dev)
+        try:
+            c.get_bit_set("big").set_many(idx)
+            c.get_bit_set("big").set((1 << 30) - 1)
+            bf = c.get_bloom_filter("bf")
+            bf.try_init(100_000, 0.01)
+            bf.add_all(keys)
+            cms = c.get_count_min_sketch("cms")
+            cms.try_init(5, 65536, track_top_k=4)
+            cms.add_all_seq(keys % 1000)
+            dirs[dev] = str(tmp_path / dev)
+            c.snapshot(dirs[dev])
+        finally:
+            c.shutdown()
+        with open(f"{dirs[dev]}/sketch_meta.json") as f:
+            metas[dev] = json.load(f)
+        metas[dev].pop("pools_crc")
+        with np.load(f"{dirs[dev]}/sketch_pools.npz") as z:
+            pools[dev] = {k: z[k] for k in z.files}
+    assert metas["cpu"] == metas[cuda.type]
+    for k, arr in pools["cpu"].items():
+        assert np.array_equal(arr, pools[cuda.type][k]), k
+    for dev in ("cpu", cuda.type):
+        c = client(cuda.type, dirs[dev])
+        try:
+            eng = c._engine
+            for i, p in enumerate(eng.registry.pools()):
+                assert np.array_equal(eng.executor.state_to_host(p), pools["cpu"][f"pool_{i}"])
+            assert c.get_bit_set("big").cardinality() == len(np.unique(
+                np.append(idx, (1 << 30) - 1)))
+        finally:
+            c.config.snapshot_dir = None  # no shutdown snapshot
+            c.shutdown()

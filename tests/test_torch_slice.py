@@ -200,7 +200,8 @@ def test_direct_dispatch_and_fast_add():
 
 def test_port_imports_neither_jax_nor_the_reference():
     """The package and chip_smoke.py import with jax and redisson_tpu
-    blocked, and run every object of the port on the CPU."""
+    blocked, and run every object of the port on the CPU, with a
+    DUMP/RESTORE and a batch."""
     import os
     import subprocess
     import sys
@@ -224,6 +225,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert h.add_all(['a', 'b', 'c']) and h.count() == 3\n"
         "bs = c.get_bit_set('s')\n"
         "assert not bs.set(70000) and bs.get(70000) and not bs.get(3)\n"
+        "c.get_bloom_filter('b2').restore(bf.dump())\n"
+        "batch = c.create_batch()\n"
+        "batch.get_bloom_filter('b2').contains('k')\n"
+        "assert batch.execute()[0] is True\n"
         "c.shutdown()\n"
     )  # a blocked module raises ImportError on any import of it
     env = dict(os.environ, PYTHONPATH=root)
