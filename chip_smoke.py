@@ -42,6 +42,23 @@ the main path through the public client at full size:
            on create by a second client (every pool byte-equal, equal
            answers), then 2**18 events through add_all_seq on both CMSes
            (K1 launches on the restored one; equal tables)
+  phase 9  failure and overload on a fresh client (breakers open on the
+           second failure): per kind (config 1 Bloom loaded with 2**20 keys,
+           a config 2 HLL, a config 3 2**30-bit BitSet), a chaos rule on the
+           kind's dispatch methods opens its breaker, a degraded window is
+           served by the host mirror and held to the golden model op for op,
+           and after clearing, the breaker closes and the reconciled row
+           equals the golden state on the card; config 5 streams 2**20
+           events on K1, 2**18 on the mirror (whole-call estimates), 2**20
+           on K1 again (K1 launches; the table is the uint32 sum of every
+           event); a seeded 5% schedule over dispatch, fetch and staged H2D
+           under 4 threads loses no acknowledged write; 1000 calls under a
+           50 ms deadline shed under injected pressure without a launch; a
+           burster tenant is throttled while a 3-thread victim completes
+           every op; a sleep kernel ahead of one launch outlasts
+           fetch_timeout_ms (DispatchTimeoutError, a breaker failure, and
+           the op still lands).  Phases 2-8 end with no op served degraded
+           and every breaker closed
 
 Every failed check raises, so the script exits non-zero.  Without a CUDA
 device it exits with code 2 before printing any result.  The line before
@@ -728,6 +745,11 @@ def lifecycle_rename_ttl(client, n_load: int) -> float:
     gone_s = time.perf_counter() - t0
     from redisson_tpu_torch.ops import bitops
 
+    # The name is gone once the reaper detaches it; the row is zeroed and
+    # then freed after that, under the dispatch lock: wait for the free.
+    while row not in pool._free:
+        check(time.perf_counter() - t0 < 5.0, "the expired HLL's row was not freed in 5 s")
+        time.sleep(0.01)
     check(not bitops.row_slice(pool.state, row, pool.row_units).any(),
           "the expired HLL's row is not zero on the card")
     return gone_s
@@ -1006,6 +1028,7 @@ def phase_interleaved(rng) -> None:
             check(np.array_equal(tenant_row(client, name),
                                  np.packbits(bits, bitorder="little").view(np.uint32)),
                   f"{name} row differs from golden")
+        check_healthy(client, 7)
         check(max(runs["per_op"], default=0) > 1024, f"no flush of more than 1024 runs: {runs}")
         check(max(runs["runs"], default=0) > 1, f"no multi-run flush: {runs}")
         log({"phase": 7, "threads": n_threads, "bitsets": len(names), "ops": n_ops,
@@ -1013,6 +1036,566 @@ def phase_interleaved(rng) -> None:
              "per_op_flush_ops": runs["per_op"], "results_equal_golden": True})
     finally:
         client.shutdown()
+
+
+# -- phase 9: failure and overload on the card ----------------------------------
+
+# Knobs of phase 9's clients: a breaker opens on the second consecutive
+# failure, retries and backoffs take milliseconds.  The open window must
+# outlast seeding the 2**30-bit mirror (a 128 MiB D2H and a decode to 1 GiB
+# of bools, half a second or more): the recovery probe is a row read, so
+# under a fault that hits only the kind's methods it succeeds, and a
+# breaker that closes in the middle of a seed discards it.
+P9_KNOBS = {"breaker_failure_threshold": 2, "breaker_open_ms": 2000,
+            "retry_max_backoff_ms": 20}
+P9_RETRY = {"retry_attempts": 2, "retry_interval_ms": 2}
+# The dispatch methods of each kind's coalesced path (chaos points
+# dispatch.<method>), and K1's for the CMS.
+KIND_POINTS = {
+    "bloom": ("dispatch.bloom_mixed_keys_runs", "dispatch.bloom_mixed_keys"),
+    "hll": ("dispatch.hll_add_changed",),
+    "bitset": ("dispatch.bitset_mixed_runs", "dispatch.bitset_mixed"),
+    "cms": ("dispatch.cms_update_estimate", "dispatch.cms_update_estimate_seq"),
+}
+
+
+def p9_client(**kw):
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+
+    cfg = rt.Config().set_codec(LongCodec()).use_gpu_sketch(**P9_KNOBS, **kw)
+    cfg.retry_attempts = P9_RETRY["retry_attempts"]
+    cfg.retry_interval_ms = P9_RETRY["retry_interval_ms"]
+    return rt.create(cfg)
+
+
+def typed_errors():
+    from redisson_tpu_torch import chaos
+    from redisson_tpu_torch.executor.failures import RedissonTpuError
+
+    return (RedissonTpuError, chaos.FaultInjected, chaos.CorruptionDetected)
+
+
+def until(cond, what: str, timeout: float = 30.0) -> float:
+    """Poll ``cond`` with a deadline; the seconds it took."""
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout, f"{what} within {timeout} s")
+        time.sleep(0.002)
+    return time.perf_counter() - t0
+
+
+def check_healthy(client, phase) -> None:
+    """Phases 2-8 run on a healthy card: no op served degraded, every
+    breaker closed, no mirror."""
+    from redisson_tpu_torch.obs import total
+
+    eng = client._engine
+    check(total(eng.obs.degraded_ops) == 0, f"phase {phase}: ops were served degraded")
+    check(eng.health.board.open_count() == 0 and not eng._mirrors
+          and not eng.health.any_degraded, f"phase {phase}: a breaker is not closed")
+
+
+def trip(client, kind: str, name: str, op):
+    """Fail the kind's dispatch methods until its breaker opens and ``op``
+    is answered by the host mirror (seeded from the device row: its D2H
+    and decode are inside the failover time).  Then hold the breaker open
+    through the degraded window: the recovery probe's row read fails too.
+    Returns (the first mirror answer, failover seconds)."""
+    from redisson_tpu_torch import chaos
+
+    eng = client._engine
+    served = eng.obs.degraded_ops
+    for p in KIND_POINTS[kind]:
+        chaos.inject(p, "error", 1.0)
+    t0 = time.perf_counter()
+    while True:
+        before = served.get((kind,))
+        try:
+            res = op()
+        except typed_errors():
+            check(time.perf_counter() - t0 < 60, f"{kind} never failed over")
+            continue
+        check(served.get((kind,)) > before, f"{kind}: an op reached the failing device")
+        break
+    failover_s = time.perf_counter() - t0
+    check(eng.health.degraded_kind(kind) and eng.health.state() != "healthy",
+          f"{kind}: health does not show the degraded kind")
+    chaos.inject("dispatch.read_row", "error", 1.0)
+    return res, failover_s
+
+
+def heal(client, kind: str) -> float:
+    """Clear the schedule and poll until the breaker closed and the mirrors
+    reconciled; the reconcile's own seconds (encode + H2D)."""
+    from redisson_tpu_torch import chaos
+
+    eng = client._engine
+    eng.reconcile_seconds.pop(kind, None)
+    chaos.clear()
+    # The reconcile records its time after it releases the mirror lock.
+    until(lambda: not eng._mirrors and not eng.health.any_degraded
+          and eng.health.board.open_count() == 0 and kind in eng.reconcile_seconds,
+          f"{kind} reconcile")
+    return eng.reconcile_seconds[kind]
+
+
+def words_on_card(bits: np.ndarray, row_units: int, dev) -> torch.Tensor:
+    """A bool bitmap as the int32 bit-view row the card holds."""
+    padded = np.zeros(row_units * 32, bool)
+    padded[: bits.size] = bits
+    words = np.packbits(padded, bitorder="little").view(np.uint32)
+    return torch.from_numpy(words.view(np.int32).copy()).to(dev)
+
+
+def p9_bloom(client, rng, dev) -> dict:
+    from redisson_tpu_torch.utils import hashing
+
+    bf = client.get_bloom_filter("p9-cfg1")
+    check(bf.try_init(1_000_000, 0.01), "try_init refused")
+    load = np.arange(1 << 20, dtype=np.uint64)
+    for i in range(4):
+        bf.add_all_async(load[i << 18 : (i + 1) << 18]).result()
+    g = golden_bloom(bf, load)
+
+    def reduce(keys):
+        return hashing.km_reduce_mod(
+            *hashing.hash128_np(*hashing.encode_uint64_batch(keys)), g.size)
+
+    first, failover_s = trip(client, "bloom", "p9-cfg1", lambda: bf.add(1 << 40))
+    check(first == bool(g.add_hashed(*reduce(np.array([1 << 40], np.uint64)))[0]),
+          "bloom: the first mirror answer differs from golden")
+    adds = rng.integers(0, 1 << 21, 1 << 17).astype(np.uint64)
+    probes = rng.integers(0, 1 << 22, 1 << 17).astype(np.uint64)
+    t0 = time.perf_counter()
+    got_add = bf.add_all_async(adds).result()
+    got_has = bf.contains_each(probes)
+    window_s = time.perf_counter() - t0
+    check(np.array_equal(got_add, g.add_hashed(*reduce(adds))), "bloom: degraded adds differ")
+    check(np.array_equal(got_has, g.contains_hashed(*reduce(probes))),
+          "bloom: degraded contains differ")
+    reconcile_s = heal(client, "bloom")
+    e = client._engine.registry.lookup("p9-cfg1")
+    check(torch.equal(row_view(client, "p9-cfg1"), words_on_card(g.bits, e.pool.row_units, dev)),
+          "bloom: the reconciled row differs from golden")
+    return {"failover_s": failover_s, "degraded_ops": 2 << 17,
+            "degraded_ops_per_s": (2 << 17) / window_s, "reconcile_s": reconcile_s}
+
+
+def p9_hll(client) -> dict:
+    from redisson_tpu_torch.ops import golden
+
+    h = client.get_hyper_log_log("p9-cfg2")
+    base = np.arange(1 << 21, dtype=np.uint64)
+    h.add_all_async(base).result()
+    g = golden.GoldenHyperLogLog()
+    g.add_hashed(*hll_lanes(base))
+
+    def golden_add(keys) -> bool:
+        before = g.regs.copy()
+        g.add_hashed(*hll_lanes(keys))
+        return bool(np.any(g.regs != before))
+
+    first, failover_s = trip(client, "hll", "p9-cfg2", lambda: h.add(1 << 40))
+    check(first == golden_add(np.array([1 << 40], np.uint64)), "hll: first mirror answer")
+    calls = np.arange(1 << 21, (1 << 21) + (1 << 19), dtype=np.uint64).reshape(64, -1)
+    t0 = time.perf_counter()
+    got = [h.add_all(keys) for keys in calls]
+    count = h.count()
+    window_s = time.perf_counter() - t0
+    check(got == [golden_add(keys) for keys in calls], "hll: degraded PFADD results differ")
+    check(count == g.count(), f"hll: degraded count {count} vs golden {g.count()}")
+    reconcile_s = heal(client, "hll")
+    check(torch.equal(row_view(client, "p9-cfg2"), torch.from_numpy(g.regs).to(row_view(
+        client, "p9-cfg2").device)), "hll: the reconciled registers differ from golden")
+    check(h.count() == count, "hll: count after reconcile")
+    return {"failover_s": failover_s, "degraded_ops": 1 << 19,
+            "degraded_ops_per_s": (1 << 19) / window_s, "reconcile_s": reconcile_s}
+
+
+def golden_ops(bits: np.ndarray, idx: np.ndarray, op: str) -> np.ndarray:
+    """Previous bit per op, one op at a time, on a bool bitmap."""
+    prev = np.empty(len(idx), bool)
+    for j, i in enumerate(idx.tolist()):
+        prev[j] = bits[i]
+        if op == "set":
+            bits[i] = True
+        elif op == "clear":
+            bits[i] = False
+        elif op == "flip":
+            bits[i] = not prev[j]
+    return prev
+
+
+def p9_bitset(client, rng, dev) -> dict:
+    nbits = 1 << 30
+    eng = client._engine
+    bs = client.get_bit_set("p9-cfg3")
+    bits = np.zeros(nbits, bool)
+    warm = rng.integers(0, nbits, 1 << 21).astype(np.uint32)
+    warm[0] = nbits - 1
+    bs.set_many(warm)
+    bits[warm] = True
+    first, failover_s = trip(client, "bitset", "p9-cfg3", lambda: bs.set(12345))
+    check(first == golden_ops(bits, np.array([12345]), "set")[0], "bitset: first mirror answer")
+    mirror_bytes = eng._mirrors["p9-cfg3"].bits.nbytes
+    parts = [(op, rng.integers(0, nbits, 1 << 16).astype(np.uint32))
+             for op in ("set", "clear", "flip", "get")]
+    parts[2][1][:4096] = parts[0][1][:4096]  # flips that meet this window's sets
+    t0 = time.perf_counter()
+    got = []
+    for op, idx in parts:
+        if op == "set":
+            got.append(bs.set_many(idx))
+        elif op == "clear":
+            got.append(eng.bitset_set("p9-cfg3", idx, False).result())
+        elif op == "flip":
+            got.append(eng.bitset_flip("p9-cfg3", idx).result())
+        else:
+            got.append(bs.get_many(idx))
+    window_s = time.perf_counter() - t0
+    for (op, idx), res in zip(parts, got):
+        check(np.array_equal(res, golden_ops(bits, idx, op)), f"bitset: degraded {op} differs")
+    check(bs.cardinality() == int(bits.sum()), "bitset: degraded cardinality")
+    reconcile_s = heal(client, "bitset")
+    e = eng.registry.lookup("p9-cfg3")
+    check(torch.equal(row_view(client, "p9-cfg3"), words_on_card(bits, e.pool.row_units, dev)),
+          "bitset: the reconciled row differs from golden")
+    return {"failover_s": failover_s, "degraded_ops": 1 << 18,
+            "degraded_ops_per_s": (1 << 18) / window_s, "reconcile_s": reconcile_s,
+            "mirror_host_bytes": int(mirror_bytes)}
+
+
+def p9_cms(client, rng) -> dict:
+    """K1 through a trip: 2**20 events on K1, 2**18 on the host mirror,
+    2**20 on K1 again."""
+    from redisson_tpu_torch.ops import cms_seq, golden
+    from redisson_tpu_torch.utils import hashing
+
+    d, w = 5, 1 << 16
+    cms = client.get_count_min_sketch("p9-cms")
+    check(cms.try_init(d, w), "try_init refused")
+
+    def reduce(keys):
+        return hashing.km_reduce_mod(*hashing.hash128_np(*hashing.encode_uint64_batch(keys)), w)
+
+    table = np.zeros((d, w), np.uint32)
+    cells = []  # every event's d cells, for the plain uint32 sum
+
+    def k1_window(events):
+        nonlocal table
+        h1w, h2w = reduce(events)
+        before = cms_seq.LAUNCHES
+        est = cms.add_all_seq(events)
+        launched = cms_seq.LAUNCHES - before
+        check(launched == -(-len(events) // client._engine._SEQ_CHUNK),
+              f"cms: {launched} K1 launches")
+        table, want = cms_seq.golden_seq(table, h1w, h2w, np.ones(len(events), np.uint32),
+                                         d=d, w=w)
+        check(np.array_equal(est, want), "cms: K1 estimates differ from golden_seq")
+        cells.append((h1w, h2w))
+        return launched
+
+    def mirror_call(events, fn):
+        nonlocal table
+        h1w, h2w = reduce(events)
+        g = golden.GoldenCountMinSketch(d, w)
+        g.counts = table.copy()
+        g.add_hashed(h1w, h2w)
+        want = g.estimate_hashed(h1w, h2w)
+        got = fn()
+        table = g.counts
+        cells.append((h1w, h2w))
+        check(np.array_equal(np.asarray(got), want),
+              "cms: degraded estimates differ from the whole-call golden model")
+
+    k1_window(zipf_keys(rng, 1 << 20))
+    key = np.array([1 << 40], np.uint64)
+    first, failover_s = trip(client, "cms", "p9-cms", lambda: cms.add_all(key))
+    mirror_call(key, lambda: first)
+    events = zipf_keys(rng, 1 << 18)
+    t0 = time.perf_counter()
+    mirror_call(events, lambda: cms.add_all_seq(events))
+    window_s = time.perf_counter() - t0
+    reconcile_s = heal(client, "cms")
+    k1_after = k1_window(zipf_keys(rng, 1 << 20))
+    plain = np.zeros(d * w, np.uint64)
+    for h1w, h2w in cells:
+        idx = h1w.astype(np.uint64)
+        for r in range(d):
+            np.add.at(plain, r * w + idx, 1)
+            idx = (idx + h2w) % w
+    check(np.array_equal(tenant_row(client, "p9-cms")[: d * w],
+                         (plain % (1 << 32)).astype(np.uint32)),
+          "cms: the table differs from the uint32 sum of every event")
+    return {"failover_s": failover_s, "degraded_ops": 1 << 18,
+            "degraded_ops_per_s": (1 << 18) / window_s, "reconcile_s": reconcile_s,
+            "k1_launches_after_reconcile": k1_after}
+
+
+def p9_soak(client, seed: int) -> dict:
+    """4 threads of mixed multi-tenant ops under a seeded 5% schedule over
+    every dispatch, fetch and staged H2D: every call resolves (a value or a
+    typed error), and after clearing no breaker is open, no mirror is left,
+    and every acknowledged write reads back."""
+    from redisson_tpu_torch import chaos
+
+    eng = client._engine
+    n_threads, n_calls = 4, 400
+    for t in range(n_threads):
+        check(client.get_bloom_filter(f"soak-bf{t}").try_init(100_000, 0.01), "try_init")
+        eng.bitset_ensure(f"soak-bs{t}", 1 << 16)
+        check(client.get_count_min_sketch(f"soak-cms{t}").try_init(4, 4096), "try_init")
+    acked = [{"bloom": [], "bits": [], "cms": 0, "hll": 0} for _ in range(n_threads)]
+    failed, untyped = [0] * n_threads, []
+    typed = typed_errors()
+
+    def worker(t):
+        rng = np.random.default_rng(seed * 100 + t)
+        bf = client.get_bloom_filter(f"soak-bf{t}")
+        bs = client.get_bit_set(f"soak-bs{t}")
+        cms = client.get_count_min_sketch(f"soak-cms{t}")
+        hll = client.get_hyper_log_log(f"soak-h{t}")
+        for i in range(n_calls):
+            keys = rng.integers(0, 1 << 20, 32).astype(np.uint64)
+            try:
+                if i % 5 == 0:
+                    bf.add_all_async(keys).result()
+                    acked[t]["bloom"].append(keys)
+                elif i % 5 == 1:
+                    idx = (keys % (1 << 16)).astype(np.uint32)
+                    bs.set_many_async(idx).result()
+                    acked[t]["bits"].append(idx)
+                elif i % 5 == 2:
+                    cms.add_all(keys)
+                    acked[t]["cms"] += len(keys)
+                elif i % 5 == 3:
+                    hll.add_all(keys)
+                    acked[t]["hll"] += 1
+                else:
+                    bf.contains_each(keys)
+                    bs.get_many((keys % (1 << 16)).astype(np.uint32))
+            except typed:
+                failed[t] += 1
+            except Exception as e:  # noqa: BLE001 - the check below reports it
+                untyped.append(repr(e))
+
+    chaos.install(chaos.ChaosSchedule(seed=seed, rate=0.05,
+                                      points=("dispatch", "fetch", "h2d.staging")))
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(n_threads)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    soak_s = time.perf_counter() - t0
+    injected = sum(chaos.counts().values())
+    chaos.clear()
+    check(not any(th.is_alive() for th in threads), "soak workers hung")
+    check(not untyped, f"untyped failures in the soak: {untyped[:3]}")
+    recover_s = until(lambda: eng.health.board.open_count() == 0 and not eng._mirrors
+                      and not eng.health.any_degraded, "soak recovery", 60)
+    for t in range(n_threads):
+        bf = client.get_bloom_filter(f"soak-bf{t}")
+        for keys in acked[t]["bloom"]:
+            check(bf.contains_all(keys) == len(keys), "soak: an acked bloom add was lost")
+        bs = client.get_bit_set(f"soak-bs{t}")
+        for idx in acked[t]["bits"]:
+            check(bs.get_many(idx).all(), "soak: an acked bitset set was lost")
+        total = client.get_count_min_sketch(f"soak-cms{t}").total_count()
+        check(total >= acked[t]["cms"], f"soak: CMS total {total} < acked {acked[t]['cms']}")
+    return {"calls": n_threads * n_calls, "failed_calls": sum(failed),
+            "faults_injected": injected, "soak_s": soak_s,
+            "degrade_events": eng.health.degrade_events,
+            "recoveries": eng.health.recoveries, "recover_s": recover_s}
+
+
+def p9_stall(dev) -> dict:
+    """A real stall: a sleep kernel ahead of one launch on the executor's
+    stream outlasts fetch_timeout_ms, so the waiter gets
+    DispatchTimeoutError, the fetch timeout and a breaker failure are
+    recorded, and the op still lands (applied but reported failed)."""
+    from redisson_tpu_torch.executor.failures import DispatchTimeoutError
+    from redisson_tpu_torch.obs import total
+
+    client = p9_client(fetch_timeout_ms=50)
+    try:
+        eng = client._engine
+        bf = client.get_bloom_filter("stall")
+        check(bf.try_init(100_000, 0.01), "try_init refused")
+        warm = np.arange(4096, dtype=np.uint64)
+        bf.add_all_async(warm).result()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(1 << 20)
+        end.record()
+        torch.cuda.synchronize()
+        cycles = int((1 << 20) * 1000.0 / start.elapsed_time(end))  # ~1 s
+        keys = np.arange(1 << 20, (1 << 20) + 4096, dtype=np.uint64)
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        fut = bf.add_all_async(keys)
+        try:
+            fut.result()
+            fail("the stalled launch came home within fetch_timeout_ms")
+        except DispatchTimeoutError:
+            waited_s = time.perf_counter() - t0
+        failures = max(b.failures for b in eng.health.board._breakers.values())
+        timeouts = total(eng.obs.fetch_timeouts)
+        check(timeouts == 1 and failures >= 1,
+              f"fetch timeouts {timeouts}, breaker failures {failures}")
+        torch.cuda.synchronize()
+        until(fut.done, "the stalled launch")
+        check(bf.contains_all(keys) == len(keys), "the stalled op did not land")
+        return {"fetch_timeout_ms": 50, "stall_cycles": cycles, "waited_s": waited_s,
+                "fetch_timeouts": timeouts, "breaker_failures": failures}
+    finally:
+        client.shutdown()
+
+
+def count_dispatches(ex):
+    """Counting spies on every executor method that launches work;
+    ``counts["restore"]()`` removes them."""
+    names = (*_DISPATCHES, "cms_update_estimate_seq", "bloom_contains_keys_st",
+             "bloom_add_keys_st")
+    counts = {"n": 0}
+    for name in names:
+        orig = getattr(ex, name)
+
+        def spy(*a, _orig=orig, **k):
+            counts["n"] += 1
+            return _orig(*a, **k)
+
+        setattr(ex, name, spy)
+
+    def restore():
+        for name in names:
+            delattr(ex, name)
+
+    counts["restore"] = restore
+    return counts
+
+
+def p9_overload(client) -> dict:
+    from redisson_tpu_torch import chaos
+    from redisson_tpu_torch.executor.failures import (
+        DeadlineExceededError,
+        TenantThrottledError,
+    )
+
+    eng = client._engine
+    bf = client.get_bloom_filter("p9-over")
+    check(bf.try_init(1_000_000, 0.01), "try_init refused")
+    bf.add_all_async(np.arange(1024, dtype=np.uint64)).result()
+    launches = count_dispatches(eng.executor)
+    chaos.inject("overload.pressure", "pressure", 1.0, latency_s=30.0)
+    shed_us = []
+    for i in range(1000):
+        t0 = time.perf_counter()
+        try:
+            with client.op_deadline(50):
+                if i % 2:
+                    bf.add(i)
+                else:
+                    bf.contains(i)
+            fail("a deadline call under pressure was not shed")
+        except DeadlineExceededError as e:
+            check(e.stage == "admission", f"shed at {e.stage}")
+        shed_us.append((time.perf_counter() - t0) * 1e6)
+    check(launches["n"] == 0, f"{launches['n']} launches for shed calls")
+    for i in range(10):
+        check(bf.add(1 << 30 | i) and bf.contains(1 << 30 | i), "a no-deadline call")
+    check(launches["n"] > 0, "no-deadline calls did not launch")
+    chaos.clear()
+    launches["restore"]()
+
+    victim = client.get_bloom_filter("p9-victim")
+    check(victim.try_init(1_000_000, 0.01), "try_init refused")
+    burster = client.get_bloom_filter("p9-burster")
+    check(burster.try_init(1_000_000, 0.01), "try_init refused")
+    eng.governor.set_limits(rate_limit=4_000_000, burst=1_000_000)
+
+    def victim_run(duration_s, tag):
+        acked, failures, ops = [], [], [0]
+        stop = time.perf_counter() + duration_s
+
+        def vt(t):
+            rng = np.random.default_rng(t)
+            while time.perf_counter() < stop:
+                keys = rng.integers(0, 1 << 40, 128).astype(np.uint64)
+                try:
+                    victim.add_all_async(keys).result()
+                    acked.append(keys)
+                    check(victim.contains_all_async(keys).result().all(), "victim read")
+                    ops[0] += 256
+                except Exception as e:  # noqa: BLE001 - the check below reports it
+                    failures.append(repr(e))
+
+        threads = [threading.Thread(target=vt, args=(t,)) for t in range(3)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        check(not any(th.is_alive() for th in threads), "victim threads hung")
+        check(not failures, f"victim ops failed ({tag}): {failures[:3]}")
+        return ops[0] / (time.perf_counter() - t0), acked
+
+    alone, acked = victim_run(1.5, "alone")
+    stop = threading.Event()
+    burst = {"ok": [], "throttled": 0}
+
+    def burster_run():
+        i = 0
+        while not stop.is_set():
+            keys = np.arange(i << 20, (i + 1) << 20, dtype=np.uint64)
+            try:
+                burster.add_all_async(keys).result()
+                burst["ok"].append(keys)
+            except TenantThrottledError:
+                burst["throttled"] += 1
+                time.sleep(0.001)
+            i += 1
+
+    bt = threading.Thread(target=burster_run)
+    bt.start()
+    try:
+        contested, acked2 = victim_run(1.5, "burst")
+    finally:
+        stop.set()
+        bt.join(timeout=60)
+    eng.governor.set_limits(rate_limit=0, burst=0)
+    check(burst["throttled"] > 0, "the burster was never throttled")
+    for keys in acked + acked2:
+        check(victim.contains_all(keys) == len(keys), "an acked victim write was lost")
+    for keys in burst["ok"]:
+        check(burster.contains_all(keys) == len(keys), "an acked burster write was lost")
+    return {"shed_calls": 1000, "shed_p50_us": float(np.percentile(shed_us, 50)),
+            "shed_p99_us": float(np.percentile(shed_us, 99)),
+            "victim_ops_per_s_alone": alone, "victim_ops_per_s_with_burster": contested,
+            "burster_throttled_calls": burst["throttled"],
+            "burster_acked_calls": len(burst["ok"])}
+
+
+def phase_failover(rng, seed: int, card: str) -> None:
+    from redisson_tpu_torch.obs import total
+
+    dev = torch.device("cuda")
+    log({"phase": 9, "knobs": {**P9_KNOBS, **P9_RETRY}, "card": card})
+    client = p9_client()
+    try:
+        kinds = {"bloom": p9_bloom(client, rng, dev), "hll": p9_hll(client),
+                 "bitset": p9_bitset(client, rng, dev), "cms": p9_cms(client, rng)}
+        served = {k: client._engine.obs.degraded_ops.get((k,)) for k in kinds}
+        soak = p9_soak(client, seed)
+        overload = p9_overload(client)
+        degraded_total = total(client._engine.obs.degraded_ops)
+    finally:
+        client.shutdown()
+    stall = p9_stall(dev)
+    log({"phase": 9, "kinds": kinds, "degraded_ops_served": served,
+         "degraded_ops_total": degraded_total, "soak": soak, "stall": stall,
+         "overload": overload, "card": card})
 
 
 def main(argv=None) -> int:
@@ -1048,19 +1631,29 @@ def main(argv=None) -> int:
     try:
         cms_seq.LAUNCHES = 0  # count the main path's launches only
         g = phase_bloom(client, rng, card)
+        check_healthy(client, 2)
         phase_tenants(client, rng)
+        check_healthy(client, 3)
         phase_cms(client, rng, card)
+        check_healthy(client, 4)
         kernel["launches"] = cms_seq.LAUNCHES
         check(kernel["launches"] > 0, "the main path never launched K1")
         phase_hll(client, rng, card)
+        check_healthy(client, 5)
         phase_bitset(client, rng, card)
+        check_healthy(client, 6)
         cms_seq.LAUNCHES = 0  # phase 8's path, counted on its own
         phase_lifecycle(client, rng, g, args.seed, card)
+        check_healthy(client, 8)
         check(cms_seq.LAUNCHES > 0, "phase 8 never launched K1")
         kernel["launches"] += cms_seq.LAUNCHES
     finally:
         client.shutdown()
     phase_interleaved(rng)
+    cms_seq.LAUNCHES = 0  # phase 9's path, counted on its own
+    phase_failover(rng, args.seed, card)
+    check(cms_seq.LAUNCHES > 0, "phase 9 never launched K1")
+    kernel["launches"] += cms_seq.LAUNCHES
     log({"kernels": [kernel]})
     print(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})

@@ -3,7 +3,7 @@
 Parity with ``redisson_tpu/client.py`` for the sketch objects this
 package carries: ``get_bloom_filter``, ``get_hyper_log_log``,
 ``get_bit_set``, ``get_count_min_sketch``, ``create_batch``, ``collect``,
-``defer_fetch``, ``snapshot`` and ``shutdown``.
+``defer_fetch``, ``op_deadline``, ``snapshot`` and ``shutdown``.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import contextlib
 import os
 from typing import Optional
 
+from redisson_tpu_torch import overload
 from redisson_tpu_torch.config import Config
 from redisson_tpu_torch.grid.batch import Batch
 from redisson_tpu_torch.objects import BitSet, BloomFilter, CountMinSketch, HyperLogLog
@@ -59,6 +60,21 @@ class RedissonTorchClient(CamelCompatMixin):
         fetched only on ``.result()`` or ``collect``, so it has nothing to
         suppress and is a no-op, kept for the same client code."""
         return contextlib.nullcontext()
+
+    def op_deadline(self, ms: Optional[float] = None):
+        """Attach an end-to-end deadline of ``ms`` milliseconds to every
+        sketch op submitted inside the returned context on this thread
+        (default: ``op_deadline_ms`` of the config).  Past the deadline
+        ops are shed before dispatch with DeadlineExceededError instead of
+        queueing; 0 (or a 0 default) pushes an explicit no-deadline frame
+        that shadows any outer scope.
+
+            with client.op_deadline(50):
+                bf.add_all_async(keys).result()
+        """
+        if ms is None:
+            ms = self.config.gpu_sketch.op_deadline_ms
+        return overload.deadline_scope(ms / 1000.0 if ms else None)
 
     def snapshot(self, directory: Optional[str] = None) -> None:
         """Snapshot the whole sketch keyspace to ``directory`` (default:

@@ -27,6 +27,43 @@ class GpuSketchConfig:
         # A producer's submit() blocks once this many ops are queued ahead
         # of the flush thread.  0 -> 8 x max_batch.
         self.max_queued_ops = 0
+        # Pop-time merge cap while launches retire slowly (the put-RT
+        # EWMA past the coalescer's slow_launch_s): a backlog may merge
+        # past max_batch up to this bound.  0 disables.
+        self.max_batch_slow_phase = 0
+        # AIMD in-flight window: shrink toward min_inflight while launches
+        # retire slowly, grow back toward max_inflight when they are fast.
+        self.adaptive_inflight = True
+        self.min_inflight = 2
+        # Adaptive flush window: batch_window_us is the BASE; an arrival-
+        # rate + queue-pressure controller moves the live window inside
+        # [min_window_us, max_window_us].  0 -> base/2 .. base*8.
+        self.adaptive_window = True
+        self.min_window_us = 0
+        self.max_window_us = 0
+        # Circuit breakers: this many consecutive failures of one op path
+        # OPEN its circuit (the kind's objects fail over to host golden
+        # mirrors); after breaker_open_ms a probe dispatch tests the
+        # device and, on success, the mirrors reconcile back.
+        self.breaker_failure_threshold = 5
+        self.breaker_open_ms = 1000
+        # Dispatch retry backoff: retry_interval_ms doubling per attempt,
+        # capped here, scaled by a uniform +-retry_jitter factor.
+        self.retry_max_backoff_ms = 2000
+        self.retry_jitter = 0.2
+        # Overload control plane.  op_deadline_ms: the default deadline
+        # client.op_deadline() falls back to (0 = none); ops whose
+        # deadline expires are shed strictly pre-dispatch.
+        # fetch_timeout_ms bounds a no-deadline blocking .result(); a
+        # fetch timeout records a breaker failure.
+        self.op_deadline_ms = 0
+        self.fetch_timeout_ms = 120_000
+        # Per-tenant fairness: token-bucket rate (ops/s, 0 = unlimited),
+        # burst (0 -> 2x the rate), and a queued+in-flight op quota
+        # (0 = unlimited); over-quota tenants are shed first.
+        self.tenant_rate_limit = 0
+        self.tenant_burst_ops = 0
+        self.tenant_max_inflight = 0
         # The completer fetches several pending launches' results with one
         # device-side concatenation and one D2H.
         self.mailbox_collect = True
@@ -58,6 +95,11 @@ class Config:
         # a final snapshot on shutdown; an interval > 0 adds periodic ones.
         self.snapshot_dir: Optional[str] = None
         self.snapshot_interval_s: float = 0.0
+        # → Config#retryAttempts / #retryInterval: a dispatch that fails
+        # before writing pool state is re-dispatched up to retry_attempts
+        # times in all, after a jittered exponential backoff.
+        self.retry_attempts = 3
+        self.retry_interval_ms = 1500
 
     def set_codec(self, codec) -> "Config":
         self.codec = codec

@@ -4,9 +4,13 @@ Imports stay lazy (PEP 562 ``__getattr__``), so importing the failure
 types never imports the device layer."""
 
 from redisson_tpu_torch.executor.failures import (
+    DeadlineExceededError,
     DispatchTimeoutError,
     KernelExecutionError,
+    NonRetryableDispatchError,
     RedissonTpuError,
+    RetryExhaustedError,
+    TenantThrottledError,
 )
 
 __all__ = [
@@ -14,7 +18,11 @@ __all__ = [
     "TorchCommandExecutor",
     "RedissonTpuError",
     "DispatchTimeoutError",
+    "DeadlineExceededError",
     "KernelExecutionError",
+    "NonRetryableDispatchError",
+    "RetryExhaustedError",
+    "TenantThrottledError",
 ]
 
 

@@ -11,7 +11,13 @@ Counterpart of ``redisson_tpu/executor/tpu_executor.py``:
   (pinned memory on CUDA);
 - kernels update pool state in place under the dispatch lock;
 - results come back as ``LazyResult``: a device tensor plus a transform,
-  copied to the host on ``.result()``.
+  copied to the host on ``.result()``;
+- the dispatch wrapper ``_locked`` is the chaos point
+  ``dispatch.<method>``, sheds ops whose ambient deadline lapsed before
+  they reach the device, and turns a failure after the method's first
+  in-place pool write into ``NonRetryableDispatchError``, so no retry
+  applies an op twice.  The ``fetch`` and ``h2d.staging`` chaos points
+  sit at the D2H result copy and the staged H2D copy.
 
 PyTorch runs eagerly, so there is no compile cache; bucketing is kept
 because padded ops are part of the semantics the JAX package defines
@@ -23,11 +29,17 @@ from __future__ import annotations
 import functools
 import math
 import threading
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from redisson_tpu_torch import chaos as _chaos, overload as _ovl
+from redisson_tpu_torch.executor.failures import (
+    DeadlineExceededError,
+    NonRetryableDispatchError,
+)
 from redisson_tpu_torch.ops import (
     bitops,
     bloom as bloom_ops,
@@ -63,6 +75,10 @@ class LazyResult:
         if self._done is None:
             v = self._value
             if isinstance(v, torch.Tensor):
+                # Only a real device fetch can fault here: host results
+                # (mirror answers, ImmediateResult) have no transfer.
+                if _chaos.ENABLED:
+                    _chaos.fire("fetch")
                 v = v.cpu().numpy()
             self.resolve_from(v)
         return self._done
@@ -144,9 +160,93 @@ def _trim_lanes(blocks):
     return blocks[:, :used], L
 
 
+# Row-maintenance methods exempt from the direct-dispatch deadline shed:
+# they run inside compound engine operations (delete's detach -> zero,
+# a migration's copy -> zero, reconcile's write-back, dumps) where an
+# abort between steps would tear state — a detached but unzeroed row
+# could be reallocated carrying stale bits.  Every serving-path method
+# sheds.
+_DEADLINE_EXEMPT = frozenset(("read_row", "write_row", "zero_row", "copy_row"))
+
+
+def _nops_of(name: str, args) -> int:
+    """Best-effort op count of a dispatch call: the longest sized operand
+    after the pool (the per-op column).  str/bytes args never count, and
+    write_row's payload is a row image, not an op batch."""
+    if name == "write_row":
+        return 1
+    best = 1
+    for a in args[1:]:
+        if isinstance(a, (str, bytes)):
+            continue
+        try:
+            n = len(a)
+        except TypeError:
+            continue
+        best = max(best, n)
+    return best
+
+
 def _locked(fn):
-    """Serialize a dispatch method on the executor's dispatch lock: every
-    method that reads or updates pool state in place, and pool growth."""
+    """Serialize a dispatch method on the executor's dispatch lock (every
+    method that reads or updates pool state in place) and guard it:
+
+    - an op whose ambient deadline (overload.deadline_scope) has lapsed
+      sheds before the lock and again after the lock wait, strictly
+      before the device sees it (row maintenance exempt, see
+      ``_DEADLINE_EXEMPT``);
+    - chaos point ``dispatch.<method>`` fires under the lock, before the
+      body runs;
+    - a failure after the body's first in-place write of a pool it was
+      given surfaces as NonRetryableDispatchError.  PyTorch bumps a
+      tensor's version counter on every in-place op, views included, and
+      K1's wrapper bumps it by hand (it writes through a raw pointer), so
+      an unchanged version proves the pools untouched and the dispatch
+      safe to retry."""
+    name = fn.__name__
+    fault_point = "dispatch." + name
+    sheddable = name not in _DEADLINE_EXEMPT
+
+    def _shed_expired(self, args, stage: str) -> None:
+        nops = _nops_of(name, args)
+        obs = self.obs
+        if obs is not None:
+            obs.shed_ops.inc(("deadline",), nops)
+            obs.deadline_exceeded.inc(("direct",), nops)
+        raise DeadlineExceededError(
+            f"op deadline expired {stage} direct dispatch ({name}, {nops} ops)",
+            stage="direct",
+        )
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        deadline = _ovl.current_deadline() if sheddable else None
+        if deadline is not None and time.monotonic() >= deadline:
+            _shed_expired(self, args, "before")
+        with self._dispatch_lock:
+            if _chaos.ENABLED:
+                _chaos.fire(fault_point)
+            if deadline is not None and time.monotonic() >= deadline:
+                _shed_expired(self, args, "waiting for the lock of")
+            pools = [a for a in args if isinstance(getattr(a, "state", None), torch.Tensor)]
+            versions = [p.state._version for p in pools]
+            try:
+                return fn(self, *args, **kwargs)
+            except NonRetryableDispatchError:
+                raise
+            except Exception as e:
+                if any(p.state._version != v for p, v in zip(pools, versions)):
+                    raise NonRetryableDispatchError(
+                        f"{name} failed after writing pool state: {e!r}"
+                    ) from e
+                raise
+
+    return wrapper
+
+
+def _serialized(fn):
+    """The dispatch lock alone: whole-pool transport for snapshots, which
+    is not a dispatch (no chaos point, no deadline)."""
 
     @functools.wraps(fn)
     def wrapper(self, *args, **kwargs):
@@ -174,6 +274,8 @@ class TorchCommandExecutor:
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
         self._dispatch_lock = threading.RLock()
+        # The engine's Observability bundle (direct-dispatch shed counts).
+        self.obs = None
 
     # -- pool-state factory ------------------------------------------------
 
@@ -215,12 +317,12 @@ class TorchCommandExecutor:
         # state[:-1] drops the old scratch element; extra brings the new one.
         return torch.cat([state[:-1], extra])
 
-    @_locked
+    @_serialized
     def state_to_host(self, pool) -> np.ndarray:
         """The pool's elements, byte-identical to the JAX executor's."""
         return self._host_view(pool.state)
 
-    @_locked
+    @_serialized
     def state_from_host(self, pool, arr: np.ndarray) -> None:
         pool.state = self._to_device(pool, arr)
 
@@ -265,6 +367,8 @@ class TorchCommandExecutor:
         return _as_u32(host.numpy()), host
 
     def _ship(self, host: torch.Tensor) -> torch.Tensor:
+        if _chaos.ENABLED:  # staged-H2D fault point, before the copy
+            _chaos.fire("h2d.staging", data=host.numpy())
         return host.to(self.device, non_blocking=True)
 
     def collect_group(self, lazies) -> None:

@@ -16,14 +16,18 @@ client-side analog of Redis RDB persistence):
 
 The pool layout, the dump header and the snapshot metadata are the JAX
 package's, key for key, so a dump or snapshot of either package restores
-into the other.
+into the other.  While a breaker is open, DUMP and snapshots take a
+degraded object's bytes from its host mirror (the device row is stale
+then), so they keep every mirror-acked write.  Chaos points:
+``snapshot.save`` (dump and snapshot), ``snapshot.load`` (restore and
+restore_snapshot) and ``snapshot.rename`` (between the tmp-file fsync and
+the renames).
 
 Left out here, with the queue items that bring them: the topology change
 and the reshard branch of ``restore_snapshot`` (multi-GPU); the journal
-gate and its records (the durability tier); chaos points, degraded
-mirrors, residency tiers and the near cache (engine completeness).  A
-snapshot taken on a mesh, or holding host/disk-resident tenants, is
-refused rather than misread.
+gate and its records (the durability tier); residency tiers and the near
+cache.  A snapshot taken on a mesh, or holding host/disk-resident
+tenants, is refused rather than misread.
 
 Mixed into TorchSketchEngine (objects/engines.py).
 """
@@ -42,6 +46,7 @@ from typing import Optional
 
 import numpy as np
 
+from redisson_tpu_torch import chaos as _chaos
 from redisson_tpu_torch.tenancy.registry import TenantEntry, spec_for
 
 _log = logging.getLogger(__name__)
@@ -106,8 +111,9 @@ def safe_load_npy(buf: io.BytesIO) -> np.ndarray:
 
 class SketchDurabilityMixin:
     """Requires: self.registry, self.executor, self.topk, self._drain(),
-    self.delete(), and ``_sweeper``/``_snapshotter`` (None) and
-    ``_snapshot_lock`` set by the engine."""
+    self.delete(), ``_sweeper``/``_snapshotter`` (None) and
+    ``_snapshot_lock`` set by the engine, and the degraded-mirror surface
+    (self._mirrors, self._mirror_lock, self._host_row)."""
 
     def _reap_row(self, pool, row: int) -> None:
         """Zero-then-free a detached row, atomic against reallocation
@@ -127,9 +133,12 @@ class SketchDurabilityMixin:
         if self.registry.detach_if(entry.name, entry) is not None:
             self._drain()
             self._reap_row(entry.pool, entry.row)
-            # The heavy-hitter table dies with the object: a successor
-            # under this name must not inherit it.
+            # The heavy-hitter table and a degraded mirror die with the
+            # object: a successor under this name must not inherit them.
             self.topk.drop(entry.name)
+            if self._mirrors:
+                with self._mirror_lock:
+                    self._mirrors.pop(entry.name, None)
         return True
 
     def _live_lookup(self, name: str):
@@ -203,8 +212,11 @@ class SketchDurabilityMixin:
         entry = self._live_lookup(name)
         if entry is None:
             return None
-        self._drain()
-        row = self.executor.read_row(entry.pool, entry.row)
+        if _chaos.ENABLED:
+            _chaos.fire("snapshot.save")
+        # A degraded entry's truth is its mirror: dumping the device row
+        # would roll back every mirror-acked write on a later RESTORE.
+        row = self._host_row(entry)
         header = json.dumps(
             {
                 "v": _DUMP_VERSION,
@@ -223,6 +235,8 @@ class SketchDurabilityMixin:
     def restore(self, name: str, data: bytes, replace: bool = False) -> None:
         """Recreate an object from ``dump`` bytes.  BUSYKEY analog: raises
         if the name exists and ``replace`` is False."""
+        if _chaos.ENABLED:
+            _chaos.fire("snapshot.load", data=data)
         if len(data) < 8 or data[:4] != _DUMP_MAGIC:
             raise ValueError("not a sketch dump (bad magic)")
         (hlen,) = struct.unpack("<I", data[4:8])
@@ -257,6 +271,8 @@ class SketchDurabilityMixin:
         fsynced), so neither a concurrent restore nor a host crash sees a
         torn snapshot.  One snapshot at a time (the periodic snapshotter,
         explicit calls and shutdown share the tmp names)."""
+        if _chaos.ENABLED:
+            _chaos.fire("snapshot.save")
         os.makedirs(directory, exist_ok=True)
         with self._snapshot_lock:
             self._drain()
@@ -265,13 +281,15 @@ class SketchDurabilityMixin:
 
     def _snapshot_capture(self):
         """Point-in-time (meta, arrays) under the engine locks, in the
-        registry-then-dispatch order that try_create -> alloc_row uses
-        (the JAX package deadlocked a periodic snapshot against object
-        creation when the order was inverted): no create, delete, growth
-        or launch interleaves with the D2H reads.  No file I/O here."""
-        with self.registry._lock, self.executor._dispatch_lock:
+        mirror -> registry -> dispatch order that reconcile (mirror ->
+        write_row) and try_create -> alloc_row use (the JAX package
+        deadlocked a periodic snapshot against object creation when the
+        order was inverted): no create, delete, growth, launch or mirror
+        op interleaves with the D2H reads.  No file I/O here."""
+        with self._mirror_lock, self.registry._lock, self.executor._dispatch_lock:
             arrays, pool_meta = {}, []
-            for i, pool in enumerate(self.registry.pools()):
+            pools = self.registry.pools()
+            for i, pool in enumerate(pools):
                 arrays[f"pool_{i}"] = self.executor.state_to_host(pool)
                 pool_meta.append({
                     "key": list(pool.spec.key),
@@ -279,6 +297,18 @@ class SketchDurabilityMixin:
                     "class_key": list(pool.spec.class_key),
                     "capacity": pool.capacity,
                 })
+            if self._mirrors:
+                # Degraded overlay: a mirrored entry's truth lives on the
+                # host — patch its row into the captured array so a
+                # snapshot taken mid-degradation keeps mirror-acked writes.
+                pool_idx = {id(p): i for i, p in enumerate(pools)}
+                for e in self.registry.entries():
+                    mirror = self._mirrors.get(e.name)
+                    if mirror is None:
+                        continue
+                    u = e.pool.row_units
+                    arr = arrays[f"pool_{pool_idx[id(e.pool)]}"]
+                    arr[e.row * u : (e.row + 1) * u] = mirror.encode(u)
             tenants = [
                 {
                     "name": e.name,
@@ -322,6 +352,10 @@ class SketchDurabilityMixin:
             json.dump(meta, f)
             f.flush()
             os.fsync(f.fileno())
+        if _chaos.ENABLED:
+            # The crash window between write and rename: a fault here
+            # must leave the previous snapshot intact and loadable.
+            _chaos.fire("snapshot.rename")
         os.replace(tmp_npz, os.path.join(directory, _SNAP_POOLS))
         os.replace(tmp_meta, os.path.join(directory, _SNAP_META))
         _fsync_dir(directory)
@@ -335,6 +369,8 @@ class SketchDurabilityMixin:
         pools_path = os.path.join(directory, _SNAP_POOLS)
         if not (os.path.exists(meta_path) and os.path.exists(pools_path)):
             return False
+        if _chaos.ENABLED:
+            _chaos.fire("snapshot.load")
         with open(meta_path) as f:
             meta = json.load(f)
         if "pools_crc" in meta:

@@ -7,9 +7,17 @@ TorchCommandExecutor, with the BatchCoalescer in front when
 ``coalesce`` is on.  The routing and the ops each call becomes follow
 the JAX engine, so both packages return the same answers and hold the
 same pool bytes.  The object lifecycle (TTL, exists/delete/rename,
-DUMP/RESTORE, snapshots) comes from ``objects/durability.py``.  The
-journal, near cache, degraded mirrors, residency tiers and replicas are
-not part of the port yet.
+DUMP/RESTORE, snapshots) comes from ``objects/durability.py``.
+
+Failure and overload handling, as in the JAX engine: per-op-path circuit
+breakers (``health``) whose opening fails the kind's objects over to
+host golden mirrors (``objects/degraded.py``) that serve reads and
+writes until a probe succeeds and the mirrors reconcile back to the
+device; every entry point that touches a row crosses
+``_serve_degraded`` (or ``_host_row``) first.  ``_submit`` applies the
+per-tenant governor and carries the ambient deadline
+(``overload.deadline_scope``) into the coalescer.  The journal, near
+cache, residency tiers and replicas are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -23,15 +31,24 @@ from typing import Optional
 
 import numpy as np
 
-from redisson_tpu_torch.executor.coalescer import BatchCoalescer, HintedFuture
+from redisson_tpu_torch import chaos as _chaos, overload as _ovl
+from redisson_tpu_torch.executor.coalescer import (
+    BatchCoalescer,
+    HintedFuture,
+    _op_label,
+)
+from redisson_tpu_torch.executor.failures import NonRetryableDispatchError
+from redisson_tpu_torch.executor.health import DispatchHealth
 from redisson_tpu_torch.executor.torch_executor import (
     LazyResult,
     TorchCommandExecutor,
 )
 from redisson_tpu_torch.objects.base import MappedFuture
+from redisson_tpu_torch.objects.degraded import _bits_from_words, mirror_for_entry
 from redisson_tpu_torch.objects.durability import SketchDurabilityMixin
+from redisson_tpu_torch.obs import Observability
 from redisson_tpu_torch.ops import bitset as bitset_ops, golden
-from redisson_tpu_torch.tenancy import PoolKind, TenantRegistry
+from redisson_tpu_torch.tenancy import PoolKind, TenantGovernor, TenantRegistry
 from redisson_tpu_torch.tenancy.registry import class_words_for_bits
 from redisson_tpu_torch.utils import hashing
 
@@ -239,6 +256,37 @@ class TorchSketchEngine(SketchDurabilityMixin):
             initial_capacity=INITIAL_TENANTS_PER_CLASS,
             dispatch_lock=self.executor._dispatch_lock,
         )
+        self.obs = Observability()
+        self.executor.obs = self.obs
+        # Per-(shard, opcode) circuit breakers: when one opens, the
+        # kind's objects fail over to host golden mirrors and reconcile
+        # back when it closes.
+        self.health = DispatchHealth(
+            failure_threshold=cfg.breaker_failure_threshold,
+            open_s=cfg.breaker_open_ms / 1000.0,
+        )
+        self.health.reconcile_cb = self._reconcile_kind
+        # Per-tenant fair load shedding at the submit boundary; built even
+        # with both limits 0 (inactive) so set_limits works live.
+        self.governor = TenantGovernor(
+            rate_limit=cfg.tenant_rate_limit,
+            burst=cfg.tenant_burst_ops,
+            max_inflight=cfg.tenant_max_inflight,
+            obs=self.obs,
+        )
+        self._mirrors: dict = {}  # name -> degraded-mode mirror
+        self._mirror_lock = threading.RLock()
+        # Bumped (under the lock) whenever reconcile writes mirrors back:
+        # a seed row read before the bump may predate the write-back and
+        # is discarded (see _degraded).
+        self._mirror_epoch = 0
+        self.reconcile_seconds: dict = {}  # kind -> last write-back, s
+        # Injected faults count in this engine's registry; the closure is
+        # kept so shutdown unhooks exactly it.
+        self._chaos_observer = (
+            lambda point, kind: self.obs.faults_injected.inc((point, kind))
+        )
+        _chaos.set_observer(self._chaos_observer)
         self.topk = TopKStore()
         self.coalescer = None
         if cfg.coalesce:
@@ -246,11 +294,25 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 batch_window_us=cfg.batch_window_us,
                 max_batch=cfg.max_batch,
                 max_inflight=cfg.max_inflight,
+                retry_attempts=config.retry_attempts,
+                retry_interval_s=config.retry_interval_ms / 1000.0,
                 max_queued_ops=cfg.max_queued_ops,
+                adaptive_inflight=cfg.adaptive_inflight,
+                min_inflight=cfg.min_inflight,
+                adaptive_window=cfg.adaptive_window,
+                min_window_us=cfg.min_window_us,
+                max_window_us=cfg.max_window_us,
                 group_collect=(
                     self.executor.collect_group if cfg.mailbox_collect else None
                 ),
+                obs=self.obs,
+                retry_max_backoff_s=cfg.retry_max_backoff_ms / 1000.0,
+                retry_jitter=cfg.retry_jitter,
+                health=self.health,
+                max_batch_slow_phase=cfg.max_batch_slow_phase,
+                fetch_timeout_s=cfg.fetch_timeout_ms / 1000.0,
             )
+        self._register_health_gauges()
         self._sweeper = None
         self._snapshotter = None
         # One snapshot at a time: the periodic snapshotter, explicit calls
@@ -262,14 +324,57 @@ class TorchSketchEngine(SketchDurabilityMixin):
             try:
                 self.restore_snapshot(config.snapshot_dir)
             except Exception:
+                self._stop_health()
                 self._stop_coalescer()
                 raise
             if config.snapshot_interval_s > 0:
                 self._start_snapshotter(config.snapshot_dir, config.snapshot_interval_s)
 
+    def _register_health_gauges(self) -> None:
+        """Render-time gauges: breaker state, objects serving degraded,
+        and the coalescer's queue, windows and admission estimate."""
+        reg = self.obs.registry
+        c = self.coalescer
+        if c is not None:
+            for name, help_, fn in (
+                ("rtpu_coalescer_queued_ops", "ops queued ahead of the flush thread",
+                 lambda: c._queued_ops),
+                ("rtpu_inflight_launches", "dispatched-but-uncollected launches",
+                 lambda: c._uncollected),
+                ("rtpu_inflight_limit", "adaptive (AIMD) in-flight launch window",
+                 lambda: c._inflight_limit),
+                ("rtpu_completion_backlog", "launches awaiting the completer thread",
+                 lambda: c._completions.qsize()),
+                ("rtpu_flush_window_us", "live adaptive flush window",
+                 lambda: c.window_s * 1e6),
+                ("rtpu_flush_merge_cap", "live pop-time merge cap", c.merge_cap),
+                ("rtpu_admission_est_wait_us",
+                 "last admission-control queue-wait estimate",
+                 lambda: c.last_est_wait_s * 1e6),
+            ):
+                reg.gauge_callback(name, help_, fn)
+        reg.gauge_callback(
+            "rtpu_breaker_state",
+            "circuit state by shard/op (0 closed, 1 open, 2 half-open)",
+            self.health.board.state_codes,
+            labelnames=("shard", "op"),
+        )
+        reg.gauge_callback(
+            "rtpu_degraded_objects",
+            "sketches currently serving from the host golden mirror "
+            "because a breaker is open",
+            lambda: len(self._mirrors),
+        )
+
+    def _stop_health(self) -> None:
+        _chaos.unset_observer(self._chaos_observer)
+        self.health.shutdown()
+
     def shutdown(self) -> None:
-        """Stop the snapshotter and the sweeper, write the final snapshot
-        (best effort, logged on failure), then stop the coalescer."""
+        """Unhook the chaos observer and stop the health monitor, stop the
+        snapshotter and the sweeper, write the final snapshot (best
+        effort, logged on failure), then stop the coalescer."""
+        self._stop_health()
         self._stop_snapshotter()
         self._stop_sweeper()
         if self.config.snapshot_dir:
@@ -288,11 +393,176 @@ class TorchSketchEngine(SketchDurabilityMixin):
         if self.coalescer is not None:
             self.coalescer.drain()
 
-    def _submit(self, key, dispatch, arrays, nops, pool_key=None, meta=None):
-        fut = self.coalescer.submit(
-            key, dispatch, arrays, nops, pool_key=pool_key, meta=meta
+    def _submit(self, key, dispatch, arrays, nops, pool_key=None, meta=None,
+                tenant=None):
+        """Queue ops on the coalescer.  The tenant governor sheds an
+        over-quota tenant here, before its ops cost anyone queue wait;
+        the ambient deadline rides into the coalescer (admission control
+        and queue shedding) and bounds the returned future's wait."""
+        deadline = _ovl.current_deadline()
+        gov = self.governor
+        governed = tenant is not None and gov.active
+        if governed:
+            gov.admit(tenant, nops)  # raises TenantThrottledError
+        try:
+            fut = self.coalescer.submit(
+                key, dispatch, arrays, nops, pool_key=pool_key, meta=meta,
+                tenant=tenant, deadline=deadline,
+            )
+        except BaseException:
+            if governed:
+                gov.release(tenant, nops)
+            raise
+        if governed and gov.max_inflight > 0:
+            fut.add_done_callback(lambda _f: gov.release(tenant, nops))
+        return HintedFuture(fut, self.coalescer, deadline=deadline,
+                            op=_op_label(key), nops=nops)
+
+    # -- graceful degradation: host golden-mirror failover -----------------
+
+    def _degraded(self, entry) -> bool:
+        """True when ``entry`` must serve from its host mirror.  The
+        healthy fast path is one attribute read and a branch — no lock,
+        no dict probe (a mirror exists only while its kind is degraded:
+        the flag clears under the mirror lock with the last mirror).
+
+        Seeding a missing mirror runs OUTSIDE the mirror lock (its drain
+        and row read can take seconds, and every degraded op of every
+        kind serializes on that lock).  The install re-checks under the
+        lock: a racing seeder's mirror wins, a reconcile that cleared the
+        kind mid-seed routes back to the device, and a reconcile that
+        WROTE mirrors back mid-seed (epoch bump) discards the possibly
+        stale row and retries."""
+        if not self.health.any_degraded:
+            return False
+        if entry.name in self._mirrors:
+            return True
+        for _ in range(4):
+            with self._mirror_lock:
+                if entry.name in self._mirrors:
+                    return True
+                if not self.health.degraded_kind(entry.kind):
+                    return False
+                epoch = self._mirror_epoch
+            row = self._seed_row(entry)
+            with self._mirror_lock:
+                if entry.name in self._mirrors:
+                    return True
+                if not self.health.degraded_kind(entry.kind):
+                    return False
+                if self._mirror_epoch != epoch:
+                    continue  # reconciled mid-seed: the row may be stale
+                if row is None:
+                    return False
+                self._install_mirror(entry, row)
+                return True
+        return False  # flapping hard: let the device surface the failure
+
+    def _seed_row(self, entry):
+        """The entry's device row for mirror seeding (no lock held).  A
+        few retries ride out a partial fault schedule; when the device is
+        unreachable (a sticky CUDA error poisons the context for good),
+        None — the op then goes to the device and fails typed instead of
+        silently serving empty state."""
+        try:
+            self._drain()
+        except Exception:
+            pass  # queued segments fail typed on their own futures
+        for _ in range(4):
+            try:
+                return self.executor.read_row(entry.pool, entry.row)
+            except Exception:
+                continue
+        return None
+
+    def _install_mirror(self, entry, row) -> None:
+        """Install ``entry``'s mirror from ``row`` (under the mirror lock)
+        and register the kind's recovery probe: a real read dispatch
+        against the degraded pool, through the full ``_locked`` path, run
+        by the health monitor while the breaker is open."""
+        self._mirrors[entry.name] = mirror_for_entry(entry, row)
+        pool, prow = entry.pool, entry.row
+        self.health.ensure_probe(entry.kind, lambda: self.executor.read_row(pool, prow))
+
+    def _mirror_call(self, entry, nops: int, fn):
+        """Apply a degraded-mode op to the entry's mirror (serialized by
+        the mirror lock) and count it in ``degraded_ops``; an
+        ImmediateResult, or None when the mirror was reconciled away
+        between the check and the call."""
+        with self._mirror_lock:
+            mirror = self._mirrors.get(entry.name)
+            if mirror is None:
+                return None
+            out = fn(mirror)
+        self.obs.degraded_ops.inc((entry.kind,), nops)
+        return ImmediateResult(out)
+
+    def _serve_degraded(self, entry, nops: int, fn):
+        """The failover boundary every entry point crosses: the mirror's
+        ImmediateResult when ``entry`` serves degraded, else None (the op
+        proceeds to the device).  Every method that touches ``entry``'s
+        row calls this (or _host_row) first, or acked state diverges from
+        what reconcile writes back."""
+        if self._degraded(entry):
+            return self._mirror_call(entry, nops, fn)
+        return None
+
+    def _host_row(self, entry) -> np.ndarray:
+        """``entry``'s current truth in device-row layout: its mirror's
+        encoding while one is live (the device row is stale then), else
+        the device row.  Serves merge sources, BITOP operands and DUMP."""
+        if self._mirrors:
+            with self._mirror_lock:
+                mirror = self._mirrors.get(entry.name)
+                if mirror is not None:
+                    return np.asarray(mirror.encode(entry.pool.row_units))
+        self._drain()
+        return np.asarray(self.executor.read_row(entry.pool, entry.row))
+
+    def _reconcile_kind(self, kind: str) -> bool:
+        """Breaker-close hook (health.reconcile_cb): write every mirrored
+        row of ``kind`` back to the device, then drop the mirrors — the
+        device resumes from exactly the state the mirror served.  False
+        (stay degraded; the breaker re-opens) if any write fails.  The
+        write-back's wall time per kind (mirror encode + H2D) lands in
+        ``reconcile_seconds``, the stall every op of the kind rode out."""
+        t0 = time.monotonic()
+        try:
+            return self._reconcile_kind_inner(kind)
+        finally:
+            self.reconcile_seconds[kind] = time.monotonic() - t0
+
+    def _reconcile_kind_inner(self, kind: str) -> bool:
+        """The write-back holds the mirror lock: a degraded op between a
+        write-back and the mirror's removal would land in a mirror about
+        to be discarded.  The degraded flag clears under the same lock,
+        so no serving thread sees "kind degraded, mirror missing" and
+        seeds an orphan mirror."""
+        with self._mirror_lock:
+            for n in [n for n, m in self._mirrors.items() if m.kind == kind]:
+                entry = self.registry.lookup(n)
+                if entry is None:  # deleted while degraded
+                    del self._mirrors[n]
+                    continue
+                # Sized to the entry's CURRENT pool: a degraded-window
+                # bitset grow may have migrated it to a larger class.
+                row = self._mirrors[n].encode(entry.pool.row_units)
+                try:
+                    self.executor.write_row(entry.pool, entry.row, row)
+                except Exception:
+                    return False
+                del self._mirrors[n]
+            self._mirror_epoch += 1
+            self.health.clear_degraded(kind)
+        return True
+
+    def probe(self, name: str) -> bool:
+        """Existence probe that never mutates (no expiry reap) and takes
+        only the registry's lock."""
+        entry = self.registry.lookup(name)
+        return entry is not None and (
+            entry.expire_at is None or time.time() < entry.expire_at
         )
-        return HintedFuture(fut, self.coalescer)
 
     def collect_results(self, lazies) -> None:
         """Mailbox collect for the bulk APIs: honors ``mailbox_collect``;
@@ -333,6 +603,9 @@ class TorchSketchEngine(SketchDurabilityMixin):
         self._drain()
         self._reap_row(entry.pool, entry.row)
         self.topk.drop(name)
+        if self._mirrors:
+            with self._mirror_lock:
+                self._mirrors.pop(name, None)
         return not was_expired
 
     def rename(self, old: str, new: str) -> bool:
@@ -349,6 +622,12 @@ class TorchSketchEngine(SketchDurabilityMixin):
         if dest is not None:
             self._reap_row(dest.pool, dest.row)
         self.topk.rename(old, new)
+        if self._mirrors:
+            with self._mirror_lock:
+                self._mirrors.pop(new, None)
+                m = self._mirrors.pop(old, None)
+                if m is not None:
+                    self._mirrors[new] = m
         return True
 
     def names(self, kind=None) -> list:
@@ -382,6 +661,9 @@ class TorchSketchEngine(SketchDurabilityMixin):
 
     def bloom_count(self, name) -> LazyResult:
         entry = self._require(name, PoolKind.BLOOM)
+        res = self._serve_degraded(entry, 1, lambda mir: mir.count())
+        if res is not None:
+            return res
         self._drain()
         return self.executor.bloom_count(
             entry.pool, entry.row, entry.params["size"], entry.params["hash_iterations"]
@@ -462,6 +744,16 @@ class TorchSketchEngine(SketchDurabilityMixin):
         B, L = blocks.shape
         lengths = np.asarray(lengths, np.uint32)
         uniform = np.ndim(is_add) == 0
+        if self._degraded(entry):
+            # Degraded: hash on the host (the mirror takes reduced hashes)
+            # and serve from the golden mirror.
+            flags = np.full(B, bool(is_add)) if uniform else np.asarray(is_add, bool)
+            h1m, h2m = hashing.km_reduce_mod(
+                *hashing.hash128_np(blocks, np.broadcast_to(lengths, (B,))), m)
+            res = self._mirror_call(entry, B, lambda mir: mir.mixed(h1m, h2m, flags))
+            if res is not None:
+                return res
+            # reconciled mid-call: on to the device
         if self.coalescer is not None and uniform:
             if lengths.ndim == 0:
                 len_meta = int(lengths)
@@ -475,6 +767,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 B,
                 pool_key=id(pool),
                 meta=(entry.row, m, bool(is_add), len_meta),
+                tenant=entry.name,
             )
         lengths = np.broadcast_to(lengths, (B,))
         flags = np.full(B, bool(is_add)) if uniform else np.asarray(is_add, bool)
@@ -489,6 +782,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 (rows, m_arr, blocks, lengths, flags),
                 B,
                 pool_key=id(pool),
+                tenant=entry.name,
             )
         return self.executor.bloom_mixed_keys(
             pool, rows, m_arr, k, blocks, lengths, flags
@@ -496,7 +790,8 @@ class TorchSketchEngine(SketchDurabilityMixin):
 
     def bloom_add_encoded(self, name, blocks, lengths):
         entry = self._require(name, PoolKind.BLOOM)
-        if self.config.gpu_sketch.exact_add_semantics:
+        # The mixed-keys path owns the degraded-mirror failover.
+        if self.config.gpu_sketch.exact_add_semantics or self._degraded(entry):
             return self._bloom_submit_mixed_keys(entry, blocks, lengths, True)
         m, k = entry.params["size"], entry.params["hash_iterations"]
         self._drain()
@@ -507,7 +802,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
 
     def bloom_contains_encoded(self, name, blocks, lengths):
         entry = self._require(name, PoolKind.BLOOM)
-        if self.coalescer is not None:
+        if self.coalescer is not None or self._degraded(entry):
             return self._bloom_submit_mixed_keys(entry, blocks, lengths, False)
         m, k = entry.params["size"], entry.params["hash_iterations"]
         return self.executor.bloom_contains_keys_st(
@@ -538,6 +833,10 @@ class TorchSketchEngine(SketchDurabilityMixin):
         grew.  Coalesced: one segment per HLL pool, per-op changed flags
         reduced with ``any``."""
         entry = self.hll_ensure(name)
+        res = self._serve_degraded(
+            entry, len(c0), lambda mir: bool(np.any(mir.add_changed(c0, c1, c2))))
+        if res is not None:
+            return res
         if self.coalescer is not None:
             pool = entry.pool
             rows = np.full(len(c0), entry.row, np.int32)
@@ -549,19 +848,22 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 (rows, c0, c1, c2),
                 len(c0),
                 pool_key=id(pool),
+                tenant=entry.name,
             )
             return MappedFuture(fut, lambda v: bool(np.any(v)))
         return self.executor.hll_add_single(entry.pool, entry.row, c0, c1, c2)
 
     def hll_add_encoded(self, name, blocks, lengths):
         """PFADD of raw codec lanes: without the coalescer the device
-        hashes them (``hll_add_keys_single``); with it, the host does."""
+        hashes them (``hll_add_keys_single``); with it, or while the
+        object serves degraded, the host does."""
         if self.coalescer is None:
             entry = self.hll_ensure(name)
-            return self.executor.hll_add_keys_single(
-                entry.pool, entry.row, blocks,
-                np.broadcast_to(np.asarray(lengths, np.uint32), (blocks.shape[0],)),
-            )
+            if not self._degraded(entry):
+                return self.executor.hll_add_keys_single(
+                    entry.pool, entry.row, blocks,
+                    np.broadcast_to(np.asarray(lengths, np.uint32), (blocks.shape[0],)),
+                )
         c0, c1, c2, _ = hashing.murmur3_x86_128(blocks, lengths)
         return self.hll_add(name, c0, c1, c2)
 
@@ -569,6 +871,9 @@ class TorchSketchEngine(SketchDurabilityMixin):
         entry = self._lookup_kind(name, PoolKind.HLL)
         if entry is None:
             return ImmediateResult(0)
+        res = self._serve_degraded(entry, 1, lambda mir: mir.count())
+        if res is not None:
+            return res
         self._drain()
         return self.executor.hll_count(entry.pool, entry.row)
 
@@ -583,7 +888,16 @@ class TorchSketchEngine(SketchDurabilityMixin):
         self._drain()
         regs = None
         for e in entries:
-            r = self.executor.read_row(e.pool, e.row)
+            r = None
+            if self._mirrors:
+                # A degraded entry contributes its mirror's registers (its
+                # device row is stale), copied under the mirror lock.
+                with self._mirror_lock:
+                    mir = self._mirrors.get(e.name)
+                    if mir is not None:
+                        r = mir.regs.copy()
+            if r is None:
+                r = self.executor.read_row(e.pool, e.row)
             regs = r if regs is None else np.maximum(regs, r)
         hist = np.bincount(regs, minlength=golden.HLL_Q + 2)
         return int(round(golden.ertl_estimate(hist)))
@@ -595,6 +909,13 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 if e is not None]
         if not srcs:
             return
+        if self._degraded(entry):
+            # Merge on the host: each source gives its current truth (its
+            # mirror if degraded, else its device row), gathered before
+            # the dest's mirror lock is taken.
+            rows = [self._host_row(e) for e in srcs]
+            if self._mirror_call(entry, 1, lambda mir: mir.merge_rows(rows)) is not None:
+                return
         self._drain()
         self.executor.hll_merge(entry.pool, entry.row, [e.row for e in srcs])
 
@@ -691,10 +1012,22 @@ class TorchSketchEngine(SketchDurabilityMixin):
                     else:
                         groups.append([e.pool, [(nops, e.row, op)], off, off + nops])
                     off += nops
-                results = [
-                    self._bitset_dispatch_group(pool, cols[0][lo:hi], runs)
-                    for pool, runs, lo, hi in groups
-                ]
+                results = []
+                for pool, runs, lo, hi in groups:
+                    try:
+                        results.append(
+                            self._bitset_dispatch_group(pool, cols[0][lo:hi], runs))
+                    except NonRetryableDispatchError:
+                        raise
+                    except Exception as exc:
+                        if not results:
+                            raise  # nothing applied yet: retryable
+                        # Earlier groups already changed rows: a retry
+                        # would apply OP_SET/OP_FLIP twice.
+                        raise NonRetryableDispatchError(
+                            "a later group of a split mixed-bit launch failed "
+                            "after earlier groups applied"
+                        ) from exc
             return results[0] if len(results) == 1 else _ConcatLazy(results)
 
         return self._submit(
@@ -704,9 +1037,16 @@ class TorchSketchEngine(SketchDurabilityMixin):
             len(idx),
             pool_key=id(entry.pool),
             meta=(entry, opcode),
+            tenant=entry.name,
         )
 
     def _bitset_rw(self, opcode: int, method, entry, idx):
+        res = self._serve_degraded(
+            entry, len(idx),
+            lambda mir: mir.mixed(idx, np.full(len(idx), opcode, np.uint32)),
+        )
+        if res is not None:
+            return res
         if self.coalescer is not None:
             return self._bitset_submit_mixed(entry, idx, opcode)
         # Placement and dispatch atomic vs a concurrent migration.
@@ -738,6 +1078,13 @@ class TorchSketchEngine(SketchDurabilityMixin):
             return ImmediateResult(np.zeros(len(idx), bool))
         in_range = idx < entry.pool.row_units * 32
         safe_idx = np.where(in_range, idx, 0).astype(np.uint32)
+        res = self._serve_degraded(
+            entry, len(idx),
+            lambda mir: mir.mixed(
+                safe_idx, np.full(len(idx), bitset_ops.OP_GET, np.uint32)) & in_range,
+        )
+        if res is not None:
+            return res
         if self.coalescer is not None:
             fut = self._bitset_submit_mixed(entry, safe_idx, bitset_ops.OP_GET)
             return MappedFuture(fut, lambda v: v & in_range)
@@ -747,27 +1094,37 @@ class TorchSketchEngine(SketchDurabilityMixin):
 
     def bitset_set_range(self, name, from_bit, to_bit, value: bool):
         entry = self.bitset_ensure(name, int(to_bit))
+        res = self._serve_degraded(
+            entry, 1, lambda mir: mir.set_range(int(from_bit), int(to_bit), bool(value)))
+        if res is not None:
+            return res
         self._drain()
         return self.executor.bitset_set_range(
             entry.pool, entry.row, int(from_bit), int(to_bit), value
         )
 
-    def _bitset_scalar(self, name, empty: int, method, *args) -> int:
+    def _bitset_scalar(self, name, empty: int, mirror_fn, method, *args) -> int:
         entry = self._lookup_kind(name, PoolKind.BITSET)
         if entry is None:
             return empty
+        res = self._serve_degraded(entry, 1, mirror_fn)
+        if res is not None:
+            return int(res.result())
         self._drain()
         return int(method(entry.pool, entry.row, *args).result())
 
     def bitset_cardinality(self, name) -> int:
-        return self._bitset_scalar(name, 0, self.executor.bitset_cardinality)
+        return self._bitset_scalar(
+            name, 0, lambda mir: mir.cardinality(), self.executor.bitset_cardinality)
 
     def bitset_length(self, name) -> int:
-        return self._bitset_scalar(name, 0, self.executor.bitset_length)
+        return self._bitset_scalar(
+            name, 0, lambda mir: mir.length(), self.executor.bitset_length)
 
     def bitset_bitpos(self, name, target_bit: int) -> int:
         return self._bitset_scalar(
-            name, -1 if target_bit else 0, self.executor.bitset_bitpos, target_bit
+            name, -1 if target_bit else 0, lambda mir: mir.bitpos(int(target_bit)),
+            self.executor.bitset_bitpos, target_bit,
         )
 
     def bitset_bitop(self, dest: str, src_names, op: str) -> None:
@@ -781,12 +1138,31 @@ class TorchSketchEngine(SketchDurabilityMixin):
             (self.bitset_capacity_bits(n) for n in (dest, *src_names)), default=0
         ) or 32 * 32
         dst = self._bitset_entry_with_capacity(dest, max_bits)
-        srcs, src_nbits = [], []
+        srcs, src_nbits, src_entries = [], [], []
         for n in src_names:
             e = self._bitset_entry_with_capacity(n, max_bits)
             srcs.append(e.row)
             src_nbits.append(e.params.get("nbits", 0))
+            src_entries.append(e)
         nbits = -(-src_nbits[0] // 8) * 8 if op == "not" else max(src_nbits, default=0)
+        if self._degraded(dst):
+            # BITOP on the host: decode every source's current truth (all
+            # operands share one size class after the grow above),
+            # combine, and REPLACE the dest mirror.
+            nb_phys = dst.pool.row_units * 32
+            src_bits = [_bits_from_words(self._host_row(e), nb_phys) for e in src_entries]
+            if op == "not":
+                out = np.zeros(nb_phys, bool)
+                out[:nbits] = ~src_bits[0][:nbits]
+            else:
+                fn = {"and": np.logical_and, "or": np.logical_or,
+                      "xor": np.logical_xor}[op]
+                out = src_bits[0].copy()
+                for b in src_bits[1:]:
+                    out = fn(out, b)
+            if self._mirror_call(dst, 1, lambda mir: mir.replace_bits(out)) is not None:
+                dst.params["nbits"] = nbits
+                return
         self._drain()
         self.executor.bitset_bitop(
             dst.pool, dst.row, srcs, op, limit_bits=nbits if op == "not" else None
@@ -800,6 +1176,11 @@ class TorchSketchEngine(SketchDurabilityMixin):
         if entry is None:
             return b""
         nbytes = -(-entry.params.get("nbits", 0) // 8)
+        res = self._serve_degraded(
+            entry, 1,
+            lambda mir: np.packbits(mir.bits, bitorder="little").tobytes()[:nbytes])
+        if res is not None:
+            return res.result()
         self._drain()
         return self.executor.read_row(entry.pool, entry.row).tobytes()[:nbytes]
 
@@ -817,6 +1198,9 @@ class TorchSketchEngine(SketchDurabilityMixin):
         """Total inserted weight: every increment adds its weight to one
         cell per depth row, so row 0's sum is the total."""
         entry = self._require(name, PoolKind.CMS)
+        res = self._serve_degraded(entry, 1, lambda mir: mir.total())
+        if res is not None:
+            return int(res.result())
         self._drain()
         row = self.executor.read_row(entry.pool, entry.row)
         return int(np.asarray(row[: entry.params["width"]], np.uint64).sum())
@@ -825,6 +1209,8 @@ class TorchSketchEngine(SketchDurabilityMixin):
         """Zero a CMS's counters in place; the object and its top-K
         configuration stay."""
         entry = self._require(name, PoolKind.CMS)
+        if self._serve_degraded(entry, 1, lambda mir: mir.reset()) is not None:
+            return
         self._drain()
         self.executor.zero_row(entry.pool, entry.row)
 
@@ -842,6 +1228,12 @@ class TorchSketchEngine(SketchDurabilityMixin):
             srcs.append(e)
         if not srcs:
             return
+        if self._degraded(entry):
+            # CMS.MERGE on the host: each source's current truth summed
+            # into the dest mirror (see hll_merge_with).
+            rows = [self._host_row(e) for e in srcs]
+            if self._mirror_call(entry, 1, lambda mir: mir.merge_rows(rows)) is not None:
+                return
         self._drain()
         self.executor.cms_merge(entry.pool, entry.row, [e.row for e in srcs])
 
@@ -851,6 +1243,10 @@ class TorchSketchEngine(SketchDurabilityMixin):
         h1w, h2w = hashing.km_reduce_mod(H1, H2, w)
         rows = np.full(len(H1), entry.row, np.int32)
         wts = np.asarray(weights, np.uint32)
+        res = self._serve_degraded(
+            entry, len(H1), lambda mir: mir.update_estimate(h1w, h2w, wts))
+        if res is not None:
+            return res
         if self.coalescer is not None:
             # Updates and estimates share one segment per (pool, d, w);
             # estimate ops ride with weight 0.
@@ -863,6 +1259,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 (rows, h1w, h2w, wts),
                 len(H1),
                 pool_key=id(pool),
+                tenant=entry.name,
             )
         return self.executor.cms_update_estimate(
             entry.pool, rows, h1w, h2w, wts, d, w
@@ -872,6 +1269,11 @@ class TorchSketchEngine(SketchDurabilityMixin):
         entry = self._require(name, PoolKind.CMS)
         d, w = entry.params["depth"], entry.params["width"]
         h1w, h2w = hashing.km_reduce_mod(H1, H2, w)
+        res = self._serve_degraded(
+            entry, len(H1),
+            lambda mir: mir.update_estimate(h1w, h2w, np.zeros(len(H1), np.uint32)))
+        if res is not None:
+            return res
         rows = np.full(len(H1), entry.row, np.int32)
         if self.coalescer is not None:
             pool = entry.pool
@@ -883,6 +1285,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 (rows, h1w, h2w, np.zeros(len(H1), np.uint32)),
                 len(H1),
                 pool_key=id(pool),
+                tenant=entry.name,
             )
         return self.executor.cms_estimate(entry.pool, rows, h1w, h2w, d, w)
 
@@ -890,13 +1293,15 @@ class TorchSketchEngine(SketchDurabilityMixin):
         """Streaming add+estimate via kernel K1: op j's estimate is its
         at-sequence-point value.  Falls back to the vectorized path (whose
         estimates include the whole batch) in exactly the JAX engine's
-        cases: no sequential kernel, ``(d*w) % 128 != 0``,
+        cases: the object serves degraded (its mirror has whole-call
+        semantics), no sequential kernel, ``(d*w) % 128 != 0``,
         ``d*w*4 > 8 MiB``, or an empty batch.  K1 itself has none of these
         limits; the gate keeps both packages' answers the same."""
         entry = self._require(name, PoolKind.CMS)
         d, w = entry.params["depth"], entry.params["width"]
         if (
-            not self.executor.supports_seq_cms
+            self._degraded(entry)
+            or not self.executor.supports_seq_cms
             or (d * w) % 128 != 0
             or d * w * 4 > (8 << 20)
             or len(H1) == 0

@@ -113,6 +113,10 @@ def cms_update_estimate_seq(table, h1w, h2w, weights, *, d: int, w: int):
         )
     if rc != 0:
         raise RuntimeError(f"cms_seq kernel launch failed: CUDA error {rc}")
+    # The kernel wrote the table through a raw pointer: bump its version
+    # counter as an in-place PyTorch op would, so the executor's dispatch
+    # wrapper sees the write (a failure after it must not be retried).
+    torch.autograd.graph.increment_version(table)
     LAUNCHES += 1
     return est
 

@@ -14,16 +14,22 @@ takes the executor's dispatch lock, so it never races a launch.  Lock
 order, as in the JAX package: the registry lock before the dispatch lock
 (``try_create`` -> ``alloc_row`` -> ``_grow``; snapshot capture and
 restore take them in the same order).
+
+``TenantGovernor`` is the per-tenant admission side of the overload
+control plane: a token bucket and an in-flight quota per tenant, checked
+at the engine's submit boundary.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import numpy as np
 
+from redisson_tpu_torch.executor.failures import TenantThrottledError
 from redisson_tpu_torch.ops.golden import HLL_M
 
 
@@ -106,6 +112,177 @@ class SizeClassPool:
         self.capacity = new_cap
         self.generation += 1
         self._free.extend(range(new_cap - 1, old_cap - 1, -1))
+
+
+class _TokenBucket:
+    """Classic token bucket: ``rate`` tokens/s refill up to ``burst``;
+    ``take(n)`` consumes or refuses atomically (caller holds the
+    governor lock)."""
+
+    __slots__ = ("tokens", "stamp")
+
+    def __init__(self, burst: float, now: float):
+        self.tokens = burst  # start full: a fresh tenant gets its burst
+        self.stamp = now
+
+    def take(self, n: int, rate: float, burst: float, now: float) -> bool:
+        self.tokens = min(burst, self.tokens + (now - self.stamp) * rate)
+        self.stamp = now
+        # A FULL bucket admits even an oversize n (tokens go negative:
+        # debt repaid by refill) — otherwise a single bulk submit larger
+        # than the burst could never pass at any rate.
+        if self.tokens >= n or self.tokens >= burst:
+            self.tokens -= n
+            return True
+        return False
+
+
+class TenantGovernor:
+    """Per-tenant fair-load-shedding quotas (counterpart of the JAX
+    package's ``TenantGovernor``): a token-bucket RATE limit plus a
+    queued+in-flight op quota, enforced at the engine's submit boundary — an over-quota
+    tenant is shed there (TenantThrottledError, strictly pre-dispatch)
+    BEFORE its ops can build the queue wait every other tenant would
+    share.  Within-quota tenants never trip this layer, which is the
+    fairness guarantee: during one tenant's burst, the burst is what
+    gets shed.
+
+    Limits are live-settable (``set_limits``); a rate or quota of 0
+    disables that check.  All
+    state is host-side and O(active tenants)."""
+
+    def __init__(self, *, rate_limit: float = 0.0, burst: float = 0.0,
+                 max_inflight: int = 0, obs=None,
+                 clock=time.monotonic):
+        self._lock = threading.Lock()
+        self._clock = clock
+        self._buckets: dict[str, _TokenBucket] = {}
+        self._inflight: dict[str, int] = {}
+        self.obs = obs
+        self.throttled_ops = 0  # lifetime shed ops (stats)
+        self.set_limits(rate_limit=rate_limit, burst=burst,
+                        max_inflight=max_inflight)
+
+    @property
+    def active(self) -> bool:
+        return self.rate_limit > 0 or self.max_inflight > 0
+
+    def set_limits(self, rate_limit: Optional[float] = None,
+                   burst: Optional[float] = None,
+                   max_inflight: Optional[int] = None) -> None:
+        """Apply new limits; buckets AND in-flight charges reset so a
+        limit change takes effect immediately (a tenant throttled under
+        the old limits starts the new ones clean — generous, never
+        unfair).  The in-flight reset matters for a disable/re-enable
+        cycle: release() is skipped while max_inflight is 0, so charges
+        left from before the disable would otherwise throttle the
+        tenant forever once re-enabled (stale releases after the reset
+        are harmless — release() clamps at zero)."""
+        with self._lock:
+            if rate_limit is not None:
+                self.rate_limit = max(0.0, float(rate_limit))
+            if burst is not None:
+                self._burst_cfg = max(0.0, float(burst))
+            if max_inflight is not None:
+                self.max_inflight = max(0, int(max_inflight))
+            self.burst = (
+                self._burst_cfg if self._burst_cfg > 0
+                else 2.0 * self.rate_limit
+            )
+            self._buckets.clear()
+            self._inflight.clear()
+
+    def admit(self, tenant: str, n: int) -> None:
+        """Charge ``n`` ops to ``tenant``; raises TenantThrottledError
+        when a quota refuses.  On success the tenant's in-flight count
+        is raised — pair with release() when the ops resolve."""
+        with self._lock:
+            if self.max_inflight > 0:
+                cur = self._inflight.get(tenant, 0)
+                # An oversize single submit is admitted when the tenant
+                # has NOTHING in flight (the same carve-out the token
+                # bucket and the coalescer queue bound make) — without
+                # it a bulk op larger than the quota could never
+                # succeed at any retry rate.
+                if cur > 0 and cur + n > self.max_inflight:
+                    self._note_shed(tenant, n)
+                    raise TenantThrottledError(
+                        tenant, "inflight",
+                        f"{cur} queued+in-flight + {n} > quota "
+                        f"{self.max_inflight}",
+                    )
+            if self.rate_limit > 0:
+                now = self._clock()
+                b = self._buckets.get(tenant)
+                if b is None:
+                    b = self._buckets[tenant] = _TokenBucket(
+                        self.burst, now
+                    )
+                if not b.take(n, self.rate_limit, self.burst, now):
+                    self._note_shed(tenant, n)
+                    raise TenantThrottledError(
+                        tenant, "rate",
+                        f"{n} ops over the {self.rate_limit:g} ops/s "
+                        f"bucket (burst {self.burst:g})",
+                    )
+            if self.max_inflight > 0:
+                self._inflight[tenant] = self._inflight.get(tenant, 0) + n
+
+    def peek_over_quota(self, tenant: str) -> bool:
+        """Non-consuming quota probe: True when ``tenant`` would be
+        refused right now — its token bucket is empty after refill, or its
+        in-flight quota is full.  Reads only; no tokens are taken and no
+        shed is counted, so a peek never penalizes a tenant that then
+        does not submit."""
+        if not self.active:
+            return False
+        with self._lock:
+            if self.max_inflight > 0:
+                if self._inflight.get(tenant, 0) >= self.max_inflight:
+                    return True
+            if self.rate_limit > 0:
+                b = self._buckets.get(tenant)
+                if b is None:  # fresh tenant: full burst available
+                    return False
+                now = self._clock()
+                tokens = min(
+                    self.burst,
+                    b.tokens + (now - b.stamp) * self.rate_limit,
+                )
+                # Mirrors take(): a FULL bucket admits anything; below
+                # full, at least one token must be available.
+                return tokens < 1.0 and tokens < self.burst
+        return False
+
+    def release(self, tenant: str, n: int) -> None:
+        """Return ``n`` in-flight ops (the submit's futures resolved —
+        success or failure, both free the quota)."""
+        if self.max_inflight <= 0:
+            return
+        with self._lock:
+            cur = self._inflight.get(tenant, 0) - n
+            if cur > 0:
+                self._inflight[tenant] = cur
+            else:
+                self._inflight.pop(tenant, None)
+
+    def _note_shed(self, tenant: str, n: int) -> None:
+        self.throttled_ops += n
+        if self.obs is not None:
+            self.obs.tenant_throttled.inc((tenant,), n)
+            self.obs.shed_ops.inc(("tenant",), n)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "rate_limit": self.rate_limit,
+                "burst": self.burst,
+                "max_inflight": self.max_inflight,
+                "throttled_ops": self.throttled_ops,
+                "tenants_tracked": max(
+                    len(self._buckets), len(self._inflight)
+                ),
+            }
 
 
 @dataclass

@@ -38,9 +38,16 @@ def test_ops_of_one_pool_apply_in_order_and_merge(coalescer):
     assert len(launches) < 10 and sum(launches) == 40  # submits coalesced
 
 
-def test_failed_dispatch_attributes_each_op_range(coalescer):
-    def boom(cols):
+class _FailingFetch:
+    def result(self):
         raise RuntimeError("device gone")
+
+
+def test_failed_dispatch_attributes_each_op_range(coalescer):
+    # A completion-time failure (the result fetch) is not retried: every
+    # op of the launch fails with its own range.
+    def boom(cols):
+        return _FailingFetch()
 
     f1 = coalescer.submit(("bad",), boom, (np.zeros(3),), 3)
     f2 = coalescer.submit(("bad",), boom, (np.zeros(5),), 5)

@@ -305,3 +305,94 @@ def test_snapshot_round_trip_of_a_giant_row_matches_cpu(cuda, tmp_path):
         finally:
             c.config.snapshot_dir = None  # no shutdown snapshot
             c.shutdown()
+
+
+# (kind, class_key, params) of each kind's mirror at its config size.
+_MIRROR_KINDS = {
+    "bloom": ("bloom", (1 << 19,), {"size": 9_585_059, "hash_iterations": 7}),
+    "bitset": ("bitset", (1 << 25,), {"nbits": 1 << 30}),
+    "hll": ("hll", (), {}),
+    "cms": ("cms", (5, 65536), {"depth": 5, "width": 65536}),
+}
+
+
+def _random_pool(kind, class_key, rng):
+    from redisson_tpu_torch.tenancy.registry import spec_for
+
+    u = spec_for(kind, class_key).row_units
+    if kind == "hll":
+        return rng.integers(0, 52, 2 * u + 1).astype(np.uint8)
+    return rng.integers(0, 1 << 32, 2 * u + 1, dtype=np.uint64).astype(np.uint32)
+
+
+@pytest.mark.parametrize("kind", list(_MIRROR_KINDS))
+def test_mirror_seed_encode_round_trip_matches_cpu(cuda, kind):
+    """A degraded mirror seeded from a card row decodes to the same model
+    as one seeded from the CPU row, encodes back to the row's bytes, and a
+    reconcile write_row of it leaves the card row equal to those words."""
+    from redisson_tpu_torch.objects.degraded import mirror_for_entry
+    from redisson_tpu_torch.tenancy import TenantEntry
+
+    pool_kind, class_key, params = _MIRROR_KINDS[kind]
+    state = _random_pool(pool_kind, class_key, np.random.default_rng(8))
+    encoded = []
+    for dev in ("cpu", cuda.type):
+        ex, pool = _executor_pool(dev, pool_kind, class_key, state)
+        entry = TenantEntry("t0", pool_kind, pool, 1, dict(params))
+        row = ex.read_row(pool, 1)
+        mirror = mirror_for_entry(entry, row)
+        enc = mirror.encode(pool.row_units)
+        if kind == "bloom":  # bits past m are not part of the filter
+            m = params["size"]
+            want = np.unpackbits(row.view(np.uint8), bitorder="little")[:m]
+            assert np.array_equal(np.unpackbits(enc.view(np.uint8), bitorder="little")[:m], want)
+        else:
+            assert np.array_equal(enc, row)
+        ex.zero_row(pool, 1)
+        ex.write_row(pool, 1, enc)  # reconcile's write-back
+        after = ex.state_to_host(pool)
+        u = pool.row_units
+        assert np.array_equal(after[u : 2 * u], enc)
+        assert np.array_equal(after[:u], state[:u])  # the neighbour row untouched
+        encoded.append(enc)
+    assert np.array_equal(encoded[0], encoded[1])
+
+
+def test_stalled_launch_times_out_and_lands(cuda):
+    """A sleep kernel ahead of one launch on the executor's stream
+    outlasts fetch_timeout_ms: DispatchTimeoutError, a fetch timeout and a
+    breaker failure are recorded, and the op still lands."""
+    import time
+
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+    from redisson_tpu_torch.executor.failures import DispatchTimeoutError
+    from redisson_tpu_torch.obs import total
+
+    c = rt.create(rt.Config().set_codec(LongCodec()).use_gpu_sketch(
+        device=cuda.type, fetch_timeout_ms=50))
+    try:
+        eng = c._engine
+        bf = c.get_bloom_filter("stall")
+        bf.try_init(10_000, 0.01)
+        bf.add_all_async(np.arange(512, dtype=np.uint64)).result()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(1 << 20)
+        end.record()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int((1 << 20) * 500.0 / start.elapsed_time(end)))  # ~0.5 s
+        keys = np.arange(1000, 1512, dtype=np.uint64)
+        fut = bf.add_all_async(keys)
+        with pytest.raises(DispatchTimeoutError):
+            fut.result()
+        assert total(eng.obs.fetch_timeouts) == 1
+        assert max(b.failures for b in eng.health.board._breakers.values()) == 1
+        torch.cuda.synchronize()
+        deadline = time.monotonic() + 5.0
+        while not fut.done():
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        assert bf.contains_all(keys) == len(keys)
+    finally:
+        c.shutdown()
