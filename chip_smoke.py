@@ -59,6 +59,24 @@ the main path through the public client at full size:
            fetch_timeout_ms (DispatchTimeoutError, a breaker failure, and
            the op still lands).  Phases 2-8 end with no op served degraded
            and every breaker closed
+  phase 10 the host tiers on fresh clients: (10a) 102,400 Bloom tenants
+           of 10,000 keys / 1% over a 1024-row device budget (all but
+           1016 born on the host; a 256 MiB host cap spills the cold tail
+           to blobs under build/), a 40,960-op zipf(1.1) stream of
+           128-key ops, every per-op result equal to an all-resident
+           client's and 256 sampled tenants byte-equal across the tiers;
+           four CMS(5, 65536), two HLLs and two 2**24-bit BitSets forced
+           through demote, spill, load and promote with their bytes
+           unchanged, then K1 on each promoted CMS row equal to
+           golden_seq; the hot pass of the 256 hottest tenants tiered
+           against all-resident (hot_ratio); transition p50/p99.
+           (10b) config 1's filter with 100,000 keys, 4096 + 4096 zipf(1.3)
+           single-key contains with the near cache on and off: equal
+           answers, a cached negative retired by an add.  (10c) the first
+           batch per bucket with and without pre-warm, each arm in a
+           child process (``--p10c-child``); no first launch after
+           prewarm_wait.  (10d) phase 3's run with the near cache on and
+           off, in turns.  Then the BitSet answers past 2**31 bits
 
 Every failed check raises, so the script exits non-zero.  Without a CUDA
 device it exits with code 2 before printing any result.  The line before
@@ -394,7 +412,7 @@ def phase_bloom(client, rng, card: str):
 # -- phase 3: multi-tenant coalesced runs -------------------------------------
 
 
-def phase_tenants(client, rng) -> None:
+def phase_tenants(client, rng, phase=3) -> float:
     from redisson_tpu_torch.ops import golden
 
     n_tenants, n_threads, per_op = 1000, 4, 256
@@ -466,10 +484,12 @@ def phase_tenants(client, rng) -> None:
                     for i, f in enumerate(flags)
                 ])
             check(np.array_equal(got, want), f"tenant {name} {kind} differs from golden")
-    log({"phase": 3, "tenants": n_tenants, "threads": n_threads,
-         "ops": n_tenants * 5 * per_op, "ops_per_s": n_tenants * 5 * per_op / wall_s,
+    ops_per_s = n_tenants * 5 * per_op / wall_s
+    log({"phase": phase, "tenants": n_tenants, "threads": n_threads,
+         "ops": n_tenants * 5 * per_op, "ops_per_s": ops_per_s,
          "flushes": len(runs_per_flush), "max_runs_per_flush": max(runs_per_flush),
          "results_equal_golden": True})
+    return ops_per_s
 
 
 # -- phase 4: config 5, CMS streaming top-K -----------------------------------
@@ -1598,15 +1618,440 @@ def phase_failover(rng, seed: int, card: str) -> None:
          "overload": overload, "card": card})
 
 
+# -- phase 10: the residency ladder, the near cache and pre-warm ----------------
+
+# Phase 10a: bench.py config 11's shape at a population a multi-tenant
+# deployment holds — 100x the device-row budget in Bloom tenants of
+# 10,000 keys / 1% FPP, a zipf(1.1) tenant stream of 128-key ops with an
+# add every third op, the cold tail past a 256 MiB host cap spilling to
+# disk, and config 11's 30 s heat half-life.  The hot set is the stream's
+# actual head; the tenant ids are a seeded permutation of the zipf ranks,
+# so the hot set is mostly born cold and has to be promoted by heat.
+# The stream is cut from 65,536 ops to 40,960 for the script's time
+# limit (the tiered stream ran at 171-174 ops/s on the card); at this
+# length the ~17,500 tenants it touches still overflow the host cap, so
+# the cold tail spills.  The population and the budget are not cut.
+P10 = {"pop": 102_400, "budget": 1024, "ops": 40_960, "keys": 128, "hot": 256,
+       "hot_keys": 1 << 14, "hot_passes": 4, "host_bytes": 256 << 20,
+       "cms": (4, 5, 1 << 16), "cms_events": 1 << 18, "seq_events": 1 << 15,
+       "hlls": 2, "hll_keys": 1 << 20, "bitsets": 2, "bitset_bits": 1 << 24,
+       "sample": 256, "nc_keys": 100_000, "nc_reads": 4096}
+P10_DEVICE = "cuda"
+
+
+def p10_client(**kw):
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+
+    return rt.create(rt.Config().set_codec(LongCodec()).use_gpu_sketch(
+        device=P10_DEVICE, **kw))
+
+
+def p10_truth(client, name: str) -> np.ndarray:
+    """The object's state in device-row layout, whatever its tier (a DISK
+    tenant loads)."""
+    eng = client._engine
+    return np.asarray(eng._host_row(eng.registry.lookup(name))).copy()
+
+
+def p10_stream(client, names, stream, keys):
+    """The op stream, issued pipelined (config 11's loop): per-op results
+    packed 8 per byte, the errors, and the seconds it took."""
+    from collections import deque
+
+    out = np.zeros((len(stream), keys.shape[1] // 8), np.uint8)
+    errors = 0
+    futs = deque()
+
+    def collect(j, f):
+        nonlocal errors
+        try:
+            out[j] = np.packbits(np.asarray(f.result(), bool))
+        except Exception:
+            errors += 1
+
+    t0 = time.perf_counter()
+    for j, t in enumerate(stream):
+        bf = client.get_bloom_filter(names[t])
+        futs.append((j, bf.add_all_async(keys[j]) if j % 3 == 0
+                     else bf.contains_all_async(keys[j])))
+        while futs and futs[0][1].done():
+            collect(*futs.popleft())
+    while futs:
+        collect(*futs.popleft())
+    return out, errors, time.perf_counter() - t0
+
+
+def p10_hot_pass(client, names, hot, rng) -> float:
+    """Config 11's hot pass: contains over the hot set, 2**14 keys per op,
+    all issued before any is collected; key-ops/s."""
+    keys = [rng.integers(0, 1 << 40, P10["hot_keys"], dtype=np.uint64)
+            for _ in range(P10["hot_passes"])]
+    filters = [client.get_bloom_filter(names[t]) for t in hot]
+    for f in filters:  # warm-up outside the clock
+        f.contains_all_async(keys[0]).result()
+    if P10_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for kp in keys:
+        futs = [f.contains_all_async(kp) for f in filters]
+        for fu in futs:
+            fu.result()
+    return P10["hot_passes"] * len(filters) * P10["hot_keys"] / (time.perf_counter() - t0)
+
+
+def p10_other_kinds(client, rng) -> list:
+    """The four CMSes, two HLLs and two BitSets the ladder moves whole;
+    created before the Bloom population, so they hold device rows."""
+    n_cms, d, w = P10["cms"]
+    names = []
+    for i in range(n_cms):
+        cms = client.get_count_min_sketch(f"p10-cms{i}")
+        check(cms.try_init(d, w), "try_init refused")
+        cms.add_all(zipf_keys(rng, P10["cms_events"]))  # the multi-tenant path
+        names.append(f"p10-cms{i}")
+    for i in range(P10["hlls"]):
+        client.get_hyper_log_log(f"p10-hll{i}").add_all(
+            rng.integers(0, 1 << 40, P10["hll_keys"], dtype=np.uint64))
+        names.append(f"p10-hll{i}")
+    for i in range(P10["bitsets"]):
+        bs = client.get_bit_set(f"p10-bs{i}")
+        bs.set(P10["bitset_bits"] - 1)
+        bs.set_many(rng.integers(0, P10["bitset_bits"], 1 << 20), True)
+        names.append(f"p10-bs{i}")
+    return names
+
+
+def p10_force_ladder(client, names, rng) -> dict:
+    """Each object through demote -> spill -> load -> promote, its bytes
+    equal to the pre-demotion bytes at every tier; then K1 on each promoted
+    CMS row, its estimates equal to golden_seq on the host."""
+    from redisson_tpu_torch.ops import cms_seq
+    from redisson_tpu_torch.utils import hashing
+
+    rm = client._engine.residency
+    for n in names:
+        if client._engine.registry.lookup(n).row < 0:
+            # The ladder may have demoted it (or spilled it) while the
+            # stream ran: back to the card first.
+            rm.load(n)
+            check(rm.promote(n), f"promotion of {n} refused")
+        before = p10_truth(client, n)
+        for step in (rm.demote, rm.spill, rm.load, rm.promote):
+            check(step(n), f"{step.__name__} of {n} refused")
+            check(np.array_equal(p10_truth(client, n), before),
+                  f"{n} changed on {step.__name__}")
+        e = client._engine.registry.lookup(n)
+        check(e.row >= 0 and e.residency == "device", f"{n} not back on the card")
+    _, d, w = P10["cms"]
+    launches = 0
+    for n in names:
+        if not n.startswith("p10-cms"):
+            continue
+        table = p10_truth(client, n)[: d * w].reshape(d, w)
+        events = zipf_keys(rng, P10["seq_events"])
+        before = cms_seq.LAUNCHES
+        est = client.get_count_min_sketch(n).add_all_seq(events)
+        launched = cms_seq.LAUNCHES - before
+        check(launched >= 1, f"K1 never launched on the promoted row of {n}")
+        launches += launched
+        h1w, h2w = hashing.km_reduce_mod(
+            *hashing.hash128_np(*hashing.encode_uint64_batch(events)), w)
+        want_table, want = cms_seq.golden_seq(
+            table, h1w, h2w, np.ones(len(events), np.uint32), d=d, w=w)
+        check(np.array_equal(np.asarray(est, np.uint32), want),
+              f"K1 on the promoted row of {n} differs from golden_seq")
+        check(np.array_equal(p10_truth(client, n)[: d * w].reshape(d, w), want_table),
+              f"{n} table after K1 differs from golden_seq")
+    return {"objects": len(names), "k1_launches_on_promoted_rows": launches,
+            "bytes_equal_on_every_tier": True, "k1_equals_golden_seq": True}
+
+
+def p10_sample(rm_client, names, hot, rng) -> np.ndarray:
+    """256 tenants: the hot set's head and tenants on each tier at the end."""
+    eng = rm_client._engine
+    by_tier = {"device": [], "host": [], "disk": []}
+    for i, n in enumerate(names):
+        e = eng.registry.lookup(n)
+        tier = "device" if e.row >= 0 else ("host" if n in eng._mirrors else
+                                             "disk" if e.residency == "disk" else None)
+        if tier is not None and len(by_tier[tier]) < 64:
+            by_tier[tier].append(i)
+    picked = list(hot[:64])
+    for ids in by_tier.values():
+        picked += ids
+    rest = rng.choice(len(names), P10["sample"], replace=False)
+    picked = list(dict.fromkeys(int(i) for i in picked + list(rest)))[: P10["sample"]]
+    return np.asarray(picked), {k: len(v) for k, v in by_tier.items()}
+
+
+def phase_tiered(rng, card: str) -> None:
+    from redisson_tpu_torch.obs import total
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    blob_dir = tempfile.mkdtemp(prefix="phase10-blobs-", dir=build)
+    pop, budget = P10["pop"], P10["budget"]
+    names = [f"p10-{i}" for i in range(pop)]
+    perm = rng.permutation(pop)
+    stream = perm[rng.zipf(1.1, P10["ops"]) % pop]
+    keys = rng.integers(0, 1 << 40, (P10["ops"], P10["keys"]), dtype=np.uint64)
+    counts = np.bincount(stream, minlength=pop)
+    hot = np.argsort(-counts, kind="stable")[: P10["hot"]]
+    tiered = p10_client(residency_device_rows=budget,
+                        residency_max_host_bytes=P10["host_bytes"],
+                        residency_dir=blob_dir, residency_heat_half_life_s=30.0)
+    resident = None
+    try:
+        eng, rm = tiered._engine, tiered._engine.residency
+        others = p10_other_kinds(tiered, rng)
+        t0 = time.perf_counter()
+        for n in names:
+            tiered.get_bloom_filter(n).try_init(10_000, 0.01)
+        create_s = time.perf_counter() - t0
+        born_cold = sum(1 for n in names if eng.registry.lookup(n).row < 0)
+        check(rm.device_rows_used() <= budget, "creation grew past the device budget")
+        check(born_cold == pop - (budget - len(others)), f"{born_cold} born cold")
+        res_t, err_t, mixed_t = p10_stream(tiered, names, stream, keys)
+        st_stream = rm.stats()
+        # The thread stops here: the forced ladder and the convergence
+        # below drive maintain() by hand, as config 11 does.
+        rm.shutdown()
+        check(rm.errors == 0, f"{rm.errors} maintenance cycles failed")
+        ladder = p10_force_ladder(tiered, others, rng)
+        for t in hot:  # heat for the hot set (config 11 warms it too)
+            for _ in range(4):
+                tiered.get_bloom_filter(names[t]).contains_all_async(keys[0, :8]).result()
+        for _ in range(8):
+            rm.maintain()
+        hot_resident = sum(1 for t in hot if eng.registry.lookup(names[t]).row >= 0)
+        hot_tiered = p10_hot_pass(tiered, names, hot, rng)
+        rm.maintain()
+        rm.maintain()  # the second reclaims what the first quarantined
+        used = rm.device_rows_used()
+        check(used <= budget, f"{used} device rows in use past the budget {budget}")
+        check(rm.errors == 0, "maintenance failed")
+
+        resident = p10_client()
+        for n in names:
+            resident.get_bloom_filter(n).try_init(10_000, 0.01)
+        res_r, err_r, mixed_r = p10_stream(resident, names, stream, keys)
+        check(err_t == 0 and err_r == 0, f"stream errors: tiered {err_t}, resident {err_r}")
+        check(np.array_equal(res_t, res_r),
+              f"{int(np.sum(np.any(res_t != res_r, axis=1)))} ops differ tiered vs all-resident")
+        hot_res = p10_hot_pass(resident, names, hot, rng)
+        sample, sample_tiers = p10_sample(tiered, names, hot, rng)
+        check(all(sample_tiers.values()), f"a tier is empty at the end: {sample_tiers}")
+        for i in sample:
+            e = resident._engine.registry.lookup(names[i])
+            check(np.array_equal(p10_truth(tiered, names[i]),
+                                 resident._engine.executor.read_row(e.pool, e.row)),
+                  f"{names[i]} differs tiered vs all-resident")
+        check(total(eng.obs.degraded_ops) == 0, "phase 10a: ops were served degraded")
+        st = rm.stats()
+        resident_rows = sum(p.used_rows() for p in resident._engine.registry.pools())
+        log({"phase": "10a", "population": pop, "device_rows_budget": budget,
+             "born_cold": born_cold, "create_s": create_s,
+             "ops": P10["ops"], "keys_per_op": P10["keys"],
+             "tiered_mixed_ops_per_s": P10["ops"] / mixed_t,
+             "tiered_mixed_keys_per_s": P10["ops"] * P10["keys"] / mixed_t,
+             "resident_mixed_ops_per_s": P10["ops"] / mixed_r,
+             "resident_mixed_keys_per_s": P10["ops"] * P10["keys"] / mixed_r,
+             "hot_set": len(hot), "hot_device_resident": hot_resident,
+             "tiered_hot_keys_per_s": hot_tiered, "resident_hot_keys_per_s": hot_res,
+             "hot_ratio": hot_res / hot_tiered, "hot_ratio_bar": 1.25,
+             "errors": err_t + err_r + rm.errors, "per_op_results_equal": True,
+             "sample": len(sample), "sample_tiers": sample_tiers,
+             "sample_bytes_equal": True, "device_rows_used": used,
+             "resident_device_rows": resident_rows,
+             "tiers_after_stream": st_stream, "tiers": st,
+             "transition_ms": rm.latency_ms((50, 99)), "ladder": ladder,
+             "card": card})
+    finally:
+        tiered.shutdown()
+        if resident is not None:
+            resident.shutdown()
+        shutil.rmtree(blob_dir, ignore_errors=True)
+
+
+def phase_nearcache(rng, card: str) -> None:
+    """10b: bench.py bench_nearcache_hotkeys' shape at config 1's filter."""
+    client = p10_client()
+    try:
+        bf = client.get_bloom_filter("p10-nc")
+        check(bf.try_init(1_000_000, 0.01), "try_init refused")
+        loaded = np.arange(P10["nc_keys"], dtype=np.uint64)
+        bf.add_all(loaded)
+        g = golden_bloom(bf, loaded)
+        nc = client._engine.nearcache
+        n = P10["nc_reads"]
+        reads = (rng.zipf(1.3, 2 * n) % (2 * P10["nc_keys"])).astype(np.uint64)
+
+        def run():
+            answers = [bf.contains(k) for k in reads[:n]]  # warm
+            h0, m0 = nc.hits, nc.misses
+            lat = np.empty(n)
+            t0 = time.perf_counter()
+            for i, k in enumerate(reads[n:]):
+                s = time.perf_counter()
+                answers.append(bf.contains(k))
+                lat[i] = time.perf_counter() - s
+            dt = time.perf_counter() - t0
+            hits, misses = nc.hits - h0, nc.misses - m0
+            return answers, {"ops_per_s": n / dt, "p50_us": float(np.percentile(lat, 50)) * 1e6,
+                             "p99_us": float(np.percentile(lat, 99)) * 1e6,
+                             "hit_rate": hits / max(1, hits + misses)}
+
+        on, on_stats = run()
+        nc.set_enabled(False)
+        off, off_stats = run()
+        nc.set_enabled(True)
+        check(on == off, "answers differ with the near cache on and off")
+        check(np.array_equal(np.asarray(on), golden_contains(g, reads)),
+              "near-cache answers differ from golden")
+        ghost = np.uint64(1 << 41)
+        check(bf.contains(ghost) is False and bf.contains(ghost) is False, "ghost present")
+        h0 = nc.hits
+        check(bf.contains(ghost) is False and nc.hits == h0 + 1, "the negative was not cached")
+        check(bf.add(ghost) is True, "ghost add")
+        check(bf.contains(ghost) is True, "a cached negative outlived the add")
+        log({"phase": "10b", "config": "bloom 1M keys 1% FPP, 100,000 added",
+             "reads": n, "zipf": 1.3, "cache_on": on_stats, "cache_off": off_stats,
+             "answers_equal": True, "negative_retired_by_add": True, "card": card})
+    finally:
+        client.shutdown()
+
+
+def p10c_child(mode: str) -> int:
+    """10c in a fresh process: first-batch latency per bucket with pre-warm
+    (``warm``) or without (``cold``); prints one JSON line."""
+    from redisson_tpu_torch.executor import prewarm
+
+    rng = np.random.default_rng(100)
+    client = p10_client(prewarm=mode == "warm")
+    try:
+        bf = client.get_bloom_filter("p10c-bf")
+        bf.try_init(1_000_000, 0.01)
+        bf.add(np.uint64(0))  # the first submit reveals the codec's ladder
+        bs = client.get_bit_set("p10c-bs")
+        bs.set(1 << 20)
+        hll = client.get_hyper_log_log("p10c-hll")
+        hll.add(np.uint64(0))
+        cms = client.get_count_min_sketch("p10c-cms")
+        cms.try_init(5, 1 << 16)
+        t0 = time.perf_counter()
+        drained = client.prewarm_wait(600)
+        wait_s = time.perf_counter() - t0
+        cfg = client.config.gpu_sketch
+        ladder, b = [], cfg.min_bucket
+        while b <= cfg.max_batch:
+            ladder.append(b)
+            b *= 2
+        before = prewarm.first_launch_count()
+        first_ms = {"bloom": {}, "bitset": {}, "hll": {}, "cms": {}}
+        for b in ladder:
+            keys = rng.integers(0, 1 << 40, b, dtype=np.uint64)
+            idx = rng.integers(0, 1 << 20, b)
+            for kind, op in (("bloom", lambda: bf.add_all_async(keys)),
+                             ("bitset", lambda: bs.set_many_async(idx, True)),
+                             ("hll", lambda: hll.add_all_async(keys)),
+                             ("cms", lambda: cms.add_all_async(keys))):
+                torch.cuda.synchronize()
+                s = time.perf_counter()
+                op().result()
+                torch.cuda.synchronize()
+                first_ms[kind][b] = (time.perf_counter() - s) * 1e3
+        after = prewarm.first_launch_count()
+        pw = client._engine.prewarmer
+        print(json.dumps({"mode": mode, "drained": drained, "prewarm_wait_s": wait_s,
+                          "warmed": 0 if pw is None else pw.warmed,
+                          "first_launches_before": before, "first_launches_after": after,
+                          "first_batch_ms": first_ms}), flush=True)
+    finally:
+        client.shutdown()
+    return 0
+
+
+def phase_prewarm(card: str) -> None:
+    """10c: each arm in its own process, so the cold one is really cold."""
+    out = {}
+    for mode in ("warm", "cold"):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--p10c-child", mode], capture_output=True, text=True,
+                              timeout=600)
+        check(proc.returncode == 0, f"10c {mode} arm failed:\n{proc.stderr[-4000:]}")
+        out[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+    warm = out["warm"]
+    check(warm["drained"] is True, "prewarm_wait did not drain")
+    check(warm["first_launches_after"] == warm["first_launches_before"],
+          f"{warm['first_launches_after'] - warm['first_launches_before']} first "
+          f"launches after prewarm_wait")
+    log({"phase": "10c", "warm": warm, "cold": out["cold"], "card": card})
+
+
+def phase_bitset_past_2_31(card: str) -> None:
+    """The BitSet contract past 2**31 bits (int64 end to end) on fresh
+    2**32-bit BitSets, 512 MiB each on the card."""
+    client = p10_client()
+    try:
+        got = {}
+        bs = client.get_bit_set("p10-big")
+        bs.set(2**31)
+        got["length_after_set_2_31"] = bs.length()
+        bs.set(2**32 - 1)
+        got["length_after_set_2_32_minus_1"] = bs.length()
+        bs2 = client.get_bit_set("p10-big2")
+        bs2.set(3 * 2**30)
+        got["first_set_bit_after_set_3_2_30"] = bs2.first_set_bit()
+        bs3 = client.get_bit_set("p10-big3")
+        bs3.set_range(2**31 - 64, 2**31 + 64)
+        got["cardinality_after_set_range"] = bs3.cardinality()
+        want = {"length_after_set_2_31": 2147483649,
+                "length_after_set_2_32_minus_1": 4294967296,
+                "first_set_bit_after_set_3_2_30": 3221225472,
+                "cardinality_after_set_range": 128}
+        check(got == want, f"BitSet past 2**31: {got}")
+        log({"phase": "10-bitset", **got, "card": card})
+    finally:
+        client.shutdown()
+
+
+def phase_nearcache_tenants(card: str) -> None:
+    """10d: phase 3's 1000-tenant run (reads of 256 keys, under the near
+    cache's 1024-key cutoff) on fresh clients with the near cache on and
+    off, in turns: what the default costs reads the cache rarely hits."""
+    rates = {"on": [], "off": []}
+    for arm in ("on", "off", "off", "on"):
+        client = p10_client(nearcache=arm == "on")
+        try:
+            rates[arm].append(phase_tenants(client, np.random.default_rng(3),
+                                            phase=f"10d-{arm}"))
+        finally:
+            client.shutdown()
+    log({"phase": "10d", "ops_per_s": rates, "card": card})
+
+
+def phase_tiers(rng, card: str) -> None:
+    log({"phase": 10, "sizes": P10, "card": card})
+    phase_tiered(rng, card)
+    phase_nearcache(rng, card)
+    phase_nearcache_tenants(card)
+    phase_prewarm(card)
+    phase_bitset_past_2_31(card)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-k1", metavar="SOURCE",
                     help="a K1 source with the one-warp-per-row interface, timed beside K1")
+    ap.add_argument("--p10c-child", choices=("warm", "cold"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.p10c_child:
+        return p10c_child(args.p10c_child)
 
     import redisson_tpu_torch as rt
     from redisson_tpu_torch.codecs import LongCodec
@@ -1637,6 +2082,7 @@ def main(argv=None) -> int:
         phase_cms(client, rng, card)
         check_healthy(client, 4)
         kernel["launches"] = cms_seq.LAUNCHES
+        by_phase = kernel["launches_by_phase"] = {"2-4": cms_seq.LAUNCHES}
         check(kernel["launches"] > 0, "the main path never launched K1")
         phase_hll(client, rng, card)
         check_healthy(client, 5)
@@ -1647,6 +2093,7 @@ def main(argv=None) -> int:
         check_healthy(client, 8)
         check(cms_seq.LAUNCHES > 0, "phase 8 never launched K1")
         kernel["launches"] += cms_seq.LAUNCHES
+        by_phase["8"] = cms_seq.LAUNCHES
     finally:
         client.shutdown()
     phase_interleaved(rng)
@@ -1654,6 +2101,12 @@ def main(argv=None) -> int:
     phase_failover(rng, args.seed, card)
     check(cms_seq.LAUNCHES > 0, "phase 9 never launched K1")
     kernel["launches"] += cms_seq.LAUNCHES
+    by_phase["9"] = cms_seq.LAUNCHES
+    cms_seq.LAUNCHES = 0  # phase 10's path, counted on its own
+    phase_tiers(rng, card)
+    check(cms_seq.LAUNCHES > 0, "phase 10 never launched K1")
+    kernel["launches"] += cms_seq.LAUNCHES
+    by_phase["10"] = cms_seq.LAUNCHES
     log({"kernels": [kernel]})
     print(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})

@@ -22,6 +22,11 @@ point                   where it fires
 ``snapshot.save``       snapshot()/dump() I/O
 ``snapshot.load``       restore_snapshot()/restore() I/O
 ``snapshot.rename``     between the snapshot tmp-file fsync and its rename
+``storage.spill``       a residency spill, after the blob is framed and
+                        before it is written (storage/residency.py)
+``storage.load``        a residency load, before the blob is read
+``prewarm``             each pre-warm task, before its warm launch
+                        (executor/prewarm.py)
 ``overload.pressure``   read through :func:`bias` by the coalescer's
                         admission estimate (kind ``pressure``)
 ======================  ====================================================

@@ -3,7 +3,8 @@
 Parity with ``redisson_tpu/client.py`` for the sketch objects this
 package carries: ``get_bloom_filter``, ``get_hyper_log_log``,
 ``get_bit_set``, ``get_count_min_sketch``, ``create_batch``, ``collect``,
-``defer_fetch``, ``op_deadline``, ``snapshot`` and ``shutdown``.
+``defer_fetch``, ``op_deadline``, ``prewarm_wait``, ``snapshot`` and
+``shutdown``.
 """
 
 from __future__ import annotations
@@ -75,6 +76,12 @@ class RedissonTorchClient(CamelCompatMixin):
         if ms is None:
             ms = self.config.gpu_sketch.op_deadline_ms
         return overload.deadline_scope(ms / 1000.0 if ms else None)
+
+    def prewarm_wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until the bucket pre-warmer has driven every scheduled
+        ladder (True on drained; trivially True when pre-warm is off).
+        A warm launch that failed raises here."""
+        return self._engine.prewarm_wait(timeout)
 
     def snapshot(self, directory: Optional[str] = None) -> None:
         """Snapshot the whole sketch keyspace to ``directory`` (default:

@@ -71,6 +71,42 @@ class GpuSketchConfig:
         # selects the single-tenant bulk add whose newly-added flags are
         # taken against the state before the call (ops/fastpath.py).
         self.exact_add_semantics = True
+        # Bucket pre-warming (executor/prewarm.py): a background thread
+        # drives every (op, bucket) of the ladder up to max_batch on pool
+        # attach, so no serving-path op pays a first launch.  Off by
+        # default, as in the JAX package.  Pools whose state exceeds
+        # prewarm_max_state_bytes are not warmed (a warm pass needs a
+        # scratch state of the same shape on the card).
+        self.prewarm = False
+        self.prewarm_max_state_bytes = 1 << 28
+        # Near cache (cache/nearcache.py): the epoch-guarded host read
+        # tier — small reads (contains/GETBIT/PFCOUNT/CMS estimate and the
+        # bitset and CMS scalars) answer from host memory while their
+        # epoch tag holds.  On by default, as in the JAX package.
+        # Batches larger than nearcache_max_batch bypass it; the tenant
+        # quota 0 means max_bytes / 8.
+        self.nearcache = True
+        self.nearcache_max_bytes = 64 << 20
+        self.nearcache_tenant_quota_bytes = 0
+        self.nearcache_shards = 8
+        self.nearcache_max_batch = 1024
+        # Residency ladder (storage/residency.py): device rows are a cache
+        # over host golden mirrors over disk blobs.  A budget of 0 device
+        # rows keeps every tenant resident; past the budget, cold rows
+        # demote to exact host mirrors and new tenants are born on the
+        # host; mirrors spill to residency_dir once host bytes exceed
+        # residency_max_host_bytes (0 = never spill);
+        # residency_max_disk_bytes caps the blob tier (0 = unlimited);
+        # objects whose decayed access heat (half-life
+        # residency_heat_half_life_s) reaches residency_promote_heat
+        # promote back.  The JAX package's names and defaults.
+        self.residency_device_rows = 0
+        self.residency_max_host_bytes = 0
+        self.residency_max_disk_bytes = 0
+        self.residency_promote_heat = 4.0
+        self.residency_heat_half_life_s = 10.0
+        self.residency_interval_ms = 200
+        self.residency_dir: Optional[str] = None
 
     def to_dict(self) -> dict:
         return dict(self.__dict__)

@@ -41,6 +41,7 @@ from redisson_tpu_torch.executor.failures import (
     NonRetryableDispatchError,
 )
 from redisson_tpu_torch.ops import (
+    _build,
     bitops,
     bloom as bloom_ops,
     bitset as bitset_ops,
@@ -187,6 +188,43 @@ def _nops_of(name: str, args) -> int:
     return best
 
 
+# First launches, process-wide: the set of (op, bucket, device, pool
+# signature) keys every executor has dispatched, and their count.  A first
+# launch is where the one-time costs of the card land — CUDA's lazy load
+# of a kernel module on its first launch, the caching allocator's first
+# block of a bucket's staging and result sizes — plus one key for the K1
+# build (``ops/_build.py``).  The pre-warmer (executor/prewarm.py) drives
+# the same keys through the lock-free method bodies, so a warm serving
+# path adds none; ``first_launch_count`` is what shows it.
+_ROW_OPS = frozenset(("read_row", "write_row", "zero_row", "copy_row"))
+_first_lock = threading.Lock()
+_first_launched: set = set()
+_first_launches = 0
+
+
+def first_launch_count() -> int:
+    """Process-wide count of first launches (monotonic)."""
+    return _first_launches
+
+
+def _note_first_launch(key) -> None:
+    global _first_launches
+    if key in _first_launched:  # the common case: a set probe, no lock
+        return
+    with _first_lock:
+        if key not in _first_launched:
+            _first_launched.add(key)
+            _first_launches += 1
+
+
+def _launch_key(ex, name: str, args) -> tuple:
+    pool = args[0] if args else None
+    spec = getattr(pool, "spec", None)
+    sig = () if spec is None else (spec.key, pool.capacity)
+    bucket = 0 if name in _ROW_OPS else ex._bucket(_nops_of(name, args))
+    return (name, bucket, str(ex.device), sig)
+
+
 def _locked(fn):
     """Serialize a dispatch method on the executor's dispatch lock (every
     method that reads or updates pool state in place) and guard it:
@@ -219,6 +257,11 @@ def _locked(fn):
         )
 
     @functools.wraps(fn)
+    def counted(self, *args, **kwargs):
+        _note_first_launch(_launch_key(self, name, args))
+        return fn(self, *args, **kwargs)
+
+    @functools.wraps(fn)
     def wrapper(self, *args, **kwargs):
         deadline = _ovl.current_deadline() if sheddable else None
         if deadline is not None and time.monotonic() >= deadline:
@@ -231,7 +274,7 @@ def _locked(fn):
             pools = [a for a in args if isinstance(getattr(a, "state", None), torch.Tensor)]
             versions = [p.state._version for p in pools]
             try:
-                return fn(self, *args, **kwargs)
+                return counted(self, *args, **kwargs)
             except NonRetryableDispatchError:
                 raise
             except Exception as e:
@@ -241,6 +284,9 @@ def _locked(fn):
                     ) from e
                 raise
 
+    # The lock-free body (first launches still counted): the pre-warmer
+    # calls it against private scratch pools.
+    wrapper.__wrapped__ = counted
     return wrapper
 
 
@@ -584,6 +630,8 @@ class TorchCommandExecutor:
         B = h1w.shape[0]
         a, b, wt = self._op_cols(B, h1w, h2w, weights)
         table = pool.state[row * pool.row_units : row * pool.row_units + d * w]
+        if self.device.type == "cuda" and not _build.loaded("cms_seq"):
+            _note_first_launch(("k1.build", str(self.device)))
         est = cms_seq.cms_update_estimate_seq(table, a, b, wt, d=d, w=w)
         return LazyResult(est, transform=_as_u32)
 

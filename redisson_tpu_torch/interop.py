@@ -49,8 +49,13 @@ def load_sketch_rows(client, name: str, kind: str, params: dict, row: np.ndarray
         raise ValueError(
             f"row of {row.shape} words; {kind} {params} rows hold {units}"
         )
-    entry, created = engine.registry.try_create(name, kind, class_key, params)
-    if not created:
-        raise ValueError(f"object {name!r} already exists")
-    engine.executor.write_row(entry.pool, entry.row, row)
+    with engine._journal_gate:
+        entry, created = engine.registry.try_create(name, kind, class_key, params)
+        if not created:
+            raise ValueError(f"object {name!r} already exists")
+        if entry.row < 0:  # born cold past the device-row budget
+            engine._install_residency_mirror(entry, row=row)
+        else:
+            engine.executor.write_row(entry.pool, entry.row, row)
+        engine.nearcache.drop_object(name)
     return handle

@@ -79,6 +79,11 @@ class BloomMirror:
         h1m = np.asarray(h1m, np.uint32)
         h2m = np.asarray(h2m, np.uint32)
         is_add = np.asarray(is_add, bool)
+        if not is_add.any():
+            # Contains only: nothing changes between ops, so one
+            # vectorized probe is the sequential answer.
+            self.ops += len(h1m)
+            return np.asarray(self.model.contains_hashed(h1m, h2m), bool)
         out = np.zeros(len(h1m), bool)
         for j in range(len(h1m)):
             a, b = h1m[j : j + 1], h2m[j : j + 1]

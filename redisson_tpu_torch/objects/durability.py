@@ -18,16 +18,20 @@ The pool layout, the dump header and the snapshot metadata are the JAX
 package's, key for key, so a dump or snapshot of either package restores
 into the other.  While a breaker is open, DUMP and snapshots take a
 degraded object's bytes from its host mirror (the device row is stale
-then), so they keep every mirror-acked write.  Chaos points:
+then), so they keep every mirror-acked write.  Residency tiers travel
+too: a HOST-resident tenant's mirror is captured as a standalone array
+(``tier_array``), a DISK-resident one by its blob's file name and CRC
+(``residency_blobs`` lists them, and blob GC keeps every file the latest
+snapshot names); restore reinstates both tiers.  Delete, rename and
+expiry drop tier and near-cache state with the object.  Chaos points:
 ``snapshot.save`` (dump and snapshot), ``snapshot.load`` (restore and
 restore_snapshot) and ``snapshot.rename`` (between the tmp-file fsync and
 the renames).
 
 Left out here, with the queue items that bring them: the topology change
 and the reshard branch of ``restore_snapshot`` (multi-GPU); the journal
-gate and its records (the durability tier); residency tiers and the near
-cache.  A snapshot taken on a mesh, or holding host/disk-resident
-tenants, is refused rather than misread.
+records behind the commit gate (the durability tier).  A snapshot taken
+on a mesh is refused rather than misread.
 
 Mixed into TorchSketchEngine (objects/engines.py).
 """
@@ -85,6 +89,11 @@ def _fsync_dir(directory: str) -> None:
         os.close(fd)
 
 
+def _tiered(t: dict) -> bool:
+    """A snapshot tenant on the host or disk tier (no device row)."""
+    return t.get("residency", "device") != "device" or int(t["row"]) < 0
+
+
 def safe_load_npy(buf: io.BytesIO) -> np.ndarray:
     """np.load for UNTRUSTED dump payloads: a forged .npy header can
     declare a huge shape, so the declared size is checked against the
@@ -112,13 +121,18 @@ def safe_load_npy(buf: io.BytesIO) -> np.ndarray:
 class SketchDurabilityMixin:
     """Requires: self.registry, self.executor, self.topk, self._drain(),
     self.delete(), ``_sweeper``/``_snapshotter`` (None) and
-    ``_snapshot_lock`` set by the engine, and the degraded-mirror surface
-    (self._mirrors, self._mirror_lock, self._host_row)."""
+    ``_snapshot_lock`` set by the engine, the degraded-mirror surface
+    (self._mirrors, self._mirror_lock, self._host_row), the commit gate
+    (self._journal_gate), self.nearcache and self.residency."""
 
     def _reap_row(self, pool, row: int) -> None:
         """Zero-then-free a detached row, atomic against reallocation
-        under the dispatch lock (a row is reusable only once clean)."""
+        under the dispatch lock (a row is reusable only once clean).  A
+        HOST/DISK-resident entry (row < 0) owns none."""
+        if row < 0:
+            return
         with self.executor._dispatch_lock:
+            # rtpulint: disable=RT001 zero-then-free must be atomic vs reallocation under the dispatch lock (the discipline residency.reclaim cites): releasing between would hand out a dirty row
             self.executor.zero_row(pool, row)
             pool.free_row(row)
 
@@ -127,15 +141,24 @@ class SketchDurabilityMixin:
     def _expire_if_due(self, entry) -> bool:
         """True if ``entry`` expired (and was reaped) just now.  Reaps by
         entry IDENTITY (detach_if), so a racing reaper never removes a
-        fresh object re-created under the same name."""
+        fresh object re-created under the same name.  Under the commit
+        gate, like delete: a tier transition of the same entry either
+        completes first (its row is then quarantined, not reaped here) or
+        finds the entry gone."""
         if entry is None or entry.expire_at is None or time.time() < entry.expire_at:
             return False
-        if self.registry.detach_if(entry.name, entry) is not None:
+        with self._journal_gate:
+            if self.registry.detach_if(entry.name, entry) is None:
+                return True
             self._drain()
             self._reap_row(entry.pool, entry.row)
-            # The heavy-hitter table and a degraded mirror die with the
-            # object: a successor under this name must not inherit them.
+            # The heavy-hitter table, cached reads (a structural epoch
+            # advance), residency state (heat, host bytes, the disk blob)
+            # and a mirror die with the object: a successor under this
+            # name must not inherit them.
             self.topk.drop(entry.name)
+            self.nearcache.drop_object(entry.name)
+            self.residency.drop(entry.name)
             if self._mirrors:
                 with self._mirror_lock:
                     self._mirrors.pop(entry.name, None)
@@ -235,6 +258,10 @@ class SketchDurabilityMixin:
     def restore(self, name: str, data: bytes, replace: bool = False) -> None:
         """Recreate an object from ``dump`` bytes.  BUSYKEY analog: raises
         if the name exists and ``replace`` is False."""
+        with self._journal_gate:
+            self._restore_impl(name, data, replace)
+
+    def _restore_impl(self, name: str, data: bytes, replace: bool) -> None:
         if _chaos.ENABLED:
             _chaos.fire("snapshot.load", data=data)
         if len(data) < 8 or data[:4] != _DUMP_MAGIC:
@@ -259,9 +286,17 @@ class SketchDurabilityMixin:
         entry, created = self.registry.try_create(name, d["kind"], class_key, d["params"])
         if not created:  # raced a concurrent creator
             raise ValueError(f"BUSYKEY: {name!r} already exists")
-        self.executor.write_row(entry.pool, entry.row, row)
+        if entry.row < 0:
+            # Born cold (created past the device budget): the restored
+            # state lives in a HOST mirror until heat promotes it.
+            self._install_residency_mirror(entry, row=row)
+        else:
+            self.executor.write_row(entry.pool, entry.row, row)
         # Unconditional: also clears a ghost table when the dump has none.
         self.topk.import_decoded(topk_decoded, name)
+        # RESTORE replaces readable state wholesale: retire every cached
+        # read of this name (structural epoch advance).
+        self.nearcache.drop_object(name)
 
     # -- Snapshots (client-side RDB analog) --------------------------------
 
@@ -275,9 +310,17 @@ class SketchDurabilityMixin:
             _chaos.fire("snapshot.save")
         os.makedirs(directory, exist_ok=True)
         with self._snapshot_lock:
-            self._drain()
-            meta, arrays = self._snapshot_capture()
+            # The gate holds writers and tier transitions off across
+            # drain → capture, so the capture is one point in time.
+            with self._journal_gate:
+                # rtpulint: disable=RT001 the drain barrier MUST run inside the snapshot lock: it is what makes the capture consistent, and the only waiters on this lock are other whole-snapshot callers (periodic/explicit/shutdown), never the write path
+                self._drain()
+                meta, arrays = self._snapshot_capture()
             self._snapshot_write(directory, meta, arrays)
+            # Blob GC barrier: the latest durable snapshot now names
+            # exactly these blob files; retired blobs outside the set may
+            # be deleted.
+            self.residency.note_snapshot_refs(meta["residency_blobs"])
 
     def _snapshot_capture(self):
         """Point-in-time (meta, arrays) under the engine locks, in the
@@ -304,13 +347,22 @@ class SketchDurabilityMixin:
                 pool_idx = {id(p): i for i, p in enumerate(pools)}
                 for e in self.registry.entries():
                     mirror = self._mirrors.get(e.name)
-                    if mirror is None:
+                    if mirror is None or e.row < 0:
                         continue
                     u = e.pool.row_units
                     arr = arrays[f"pool_{pool_idx[id(e.pool)]}"]
                     arr[e.row * u : (e.row + 1) * u] = mirror.encode(u)
-            tenants = [
-                {
+            # Residency tiers: a HOST-resident tenant's truth is its
+            # mirror — captured as a standalone array; a DISK-resident
+            # tenant's truth is its blob — captured by exact file name and
+            # CRC (blobs are versioned, and GC never deletes a file the
+            # latest snapshot names).  A born-cold tenant with neither has
+            # all-zero state and restores as a first-touch zero mirror.
+            disk_index = self.residency.disk_index()
+            blob_refs = []
+            tenants = []
+            for j, e in enumerate(self.registry.entries()):
+                t = {
                     "name": e.name,
                     "kind": e.kind,
                     "pool_key": list(e.pool.spec.key),
@@ -320,10 +372,25 @@ class SketchDurabilityMixin:
                     "replica_rows": e.replica_rows,
                     "residency": e.residency,
                 }
-                for e in self.registry.entries()
-            ]
+                if e.row < 0:
+                    mirror = self._mirrors.get(e.name)
+                    info = disk_index.get(e.name)
+                    if mirror is not None:
+                        key = f"tier_{j}"
+                        arrays[key] = np.asarray(mirror.encode(e.pool.row_units))
+                        t["residency"] = "host"
+                        t["tier_array"] = key
+                    elif info is not None:
+                        t["residency"] = "disk"
+                        t["blob"] = info["file"]
+                        t["blob_crc"] = int(info["crc"])
+                        t["blob_nbytes"] = int(info["nbytes"])
+                        blob_refs.append(info["file"])
+                    else:
+                        t["residency"] = "host"  # born cold: zeros
+                tenants.append(t)
             meta = {
-                "residency_blobs": [],
+                "residency_blobs": blob_refs,
                 "version": _DUMP_VERSION,
                 "pools": pool_meta,
                 "tenants": tenants,
@@ -385,14 +452,6 @@ class SketchDurabilityMixin:
                 f"snapshot was taken on {meta['num_shards']} shards; this "
                 f"engine restores single-device snapshots only"
             )
-        if meta.get("residency_blobs") or any(
-            t.get("residency", "device") != "device" or int(t["row"]) < 0
-            for t in meta["tenants"]
-        ):
-            raise ValueError(
-                "snapshot holds host- or disk-resident tenants; this engine "
-                "has no residency tiers"
-            )
         topk_decoded = type(self.topk).decode_state(meta.get("topk"))
         with np.load(pools_path) as data, \
                 self.registry._lock, self.executor._dispatch_lock:
@@ -414,7 +473,24 @@ class SketchDurabilityMixin:
                     )
                 arrays.append(arr)
                 capacity[spec.key] = cap
-            placed = [(tuple(t["pool_key"]), int(t["row"])) for t in meta["tenants"]]
+            # HOST/DISK tenants own no row (and need no pool of their own
+            # in the snapshot: a tenant born cold into a fresh size class
+            # has none).
+            tiered = [t for t in meta["tenants"] if _tiered(t)]
+            for t in tiered:
+                if t.get("residency") == "disk":
+                    # A missing blob would silently lose the object:
+                    # refuse before the first mutation.
+                    blob_dir = self.residency.directory
+                    if not t.get("blob") or not blob_dir or not os.path.exists(
+                            os.path.join(blob_dir, t["blob"])):
+                        raise ValueError(
+                            f"residency blob {t.get('blob')!r} for {t['name']!r} "
+                            f"is missing (residency_dir={blob_dir!r})")
+                if t.get("tier_array") and t["tier_array"] not in data.files:
+                    raise ValueError(f"snapshot tenant {t['name']!r} lacks its tier array")
+            placed = [(tuple(t["pool_key"]), int(t["row"]))
+                      for t in meta["tenants"] if not _tiered(t)]
             if len(set(placed)) != len(placed) or not all(
                 0 <= row < capacity.get(key, 0) for key, row in placed
             ):
@@ -428,17 +504,48 @@ class SketchDurabilityMixin:
                 pool.generation += 1
                 self.executor.state_from_host(pool, arrays[i])
             by_key = {tuple(p.spec.key): p for p in self.registry.pools()}
+            pending_mirrors = []  # (entry, row array): HOST tenants
+            pending_disk = []  # (name, file, crc, nbytes): DISK tenants
             for t in meta["tenants"]:
-                pool = by_key[tuple(t["pool_key"])]
-                row = int(t["row"])
-                pool._free.remove(row)
-                self.registry._tenants[t["name"]] = TenantEntry(
-                    t["name"], t["kind"], pool, row, dict(t["params"]),
-                    t.get("expire_at"),
-                )
+                if _tiered(t):
+                    # HOST/DISK tenant: no device row; its tier installs
+                    # after the registry/dispatch locks are released (the
+                    # mirror lock orders before them engine-wide).
+                    pool = by_key.get(tuple(t["pool_key"]))
+                    if pool is None:
+                        pool = self.registry.pool_for(t["kind"], tuple(t["pool_key"])[1:])
+                    tier = t.get("residency", "host")
+                    entry = TenantEntry(
+                        t["name"], t["kind"], pool, -1, dict(t["params"]),
+                        t.get("expire_at"), residency=tier,
+                    )
+                    self.registry._tenants[t["name"]] = entry
+                    if tier == "disk":
+                        pending_disk.append((
+                            t["name"], t["blob"], int(t.get("blob_crc", 0)),
+                            int(t.get("blob_nbytes", 0)),
+                        ))
+                    elif t.get("tier_array"):
+                        pending_mirrors.append((entry, np.asarray(data[t["tier_array"]])))
+                    # else: born cold — zeros on first touch.
+                else:
+                    pool = by_key[tuple(t["pool_key"])]
+                    row = int(t["row"])
+                    pool._free.remove(row)
+                    self.registry._tenants[t["name"]] = TenantEntry(
+                        t["name"], t["kind"], pool, row, dict(t["params"]),
+                        t.get("expire_at"),
+                    )
                 if t.get("expire_at") is not None:
                     self._ensure_sweeper()
+        for entry, rowdata in pending_mirrors:
+            self._install_residency_mirror(entry, row=rowdata)
+        for name, fname, crc, nbytes in pending_disk:
+            self.residency.adopt_blob(name, fname, crc, nbytes)
         self.topk.import_decoded(topk_decoded)
+        # Whole-keyspace event: every cached read predates the restored
+        # state.
+        self.nearcache.invalidate_all()
         return True
 
     def _start_snapshotter(self, directory: str, interval_s: float) -> None:

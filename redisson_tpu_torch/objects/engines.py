@@ -16,8 +16,21 @@ writes until a probe succeeds and the mirrors reconcile back to the
 device; every entry point that touches a row crosses
 ``_serve_degraded`` (or ``_host_row``) first.  ``_submit`` applies the
 per-tenant governor and carries the ambient deadline
-(``overload.deadline_scope``) into the coalescer.  The journal, near
-cache, residency tiers and replicas are not part of the port yet.
+(``overload.deadline_scope``) into the coalescer.
+
+The host tiers, as in the JAX engine: the near cache
+(``cache/nearcache.py``) answers small reads while their epoch tag
+holds — every mutating entry point crosses ``_nc_mutate``; the
+residency ladder (``storage/residency.py``) makes device rows a cache
+over host golden mirrors over disk blobs — a HOST entry serves from its
+mirror through the same ``_serve_degraded`` boundary (without a breaker
+or a degraded count), a DISK or born-cold entry loads first, and every
+read that captured ``entry.row`` before that check resolves it through
+``_tier_row``.  Every mutating entry point holds ``_journal_gate``
+across its check-residency → submit window, so no transition interleaves
+with a write.  The pre-warmer (``executor/prewarm.py``) takes first
+launches off the serving path.  The journal behind the gate and the
+replicas are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -32,6 +45,8 @@ from typing import Optional
 import numpy as np
 
 from redisson_tpu_torch import chaos as _chaos, overload as _ovl
+from redisson_tpu_torch.cache import ShardedLRUStore, SketchNearCache
+from redisson_tpu_torch.executor import prewarm
 from redisson_tpu_torch.executor.coalescer import (
     BatchCoalescer,
     HintedFuture,
@@ -42,12 +57,18 @@ from redisson_tpu_torch.executor.health import DispatchHealth
 from redisson_tpu_torch.executor.torch_executor import (
     LazyResult,
     TorchCommandExecutor,
+    _trim_lanes,
 )
 from redisson_tpu_torch.objects.base import MappedFuture
-from redisson_tpu_torch.objects.degraded import _bits_from_words, mirror_for_entry
+from redisson_tpu_torch.objects.degraded import (
+    _bits_from_words,
+    _words_from_bits,
+    mirror_for_entry,
+)
 from redisson_tpu_torch.objects.durability import SketchDurabilityMixin
 from redisson_tpu_torch.obs import Observability
 from redisson_tpu_torch.ops import bitset as bitset_ops, golden
+from redisson_tpu_torch.storage import ResidencyManager
 from redisson_tpu_torch.tenancy import PoolKind, TenantGovernor, TenantRegistry
 from redisson_tpu_torch.tenancy.registry import class_words_for_bits
 from redisson_tpu_torch.utils import hashing
@@ -55,6 +76,27 @@ from redisson_tpu_torch.utils import hashing
 # Initial rows per size-class pool (the JAX package's default; pools then
 # double, so both packages' pools keep one shape).
 INITIAL_TENANTS_PER_CLASS = 8
+
+
+class _EpochGuard:
+    """Entry+exit write-epoch bump around a mutating engine call (see
+    cache/nearcache.py module doc: the entry bump retires stale serving
+    the moment the write is in flight; the exit bump retires installs
+    whose reads were captured inside the entry→submit window)."""
+
+    __slots__ = ("_bump", "_name")
+
+    def __init__(self, bump, name):
+        self._bump = bump
+        self._name = name
+
+    def __enter__(self):
+        self._bump(self._name)
+        return self
+
+    def __exit__(self, *exc):
+        self._bump(self._name)
+        return False
 
 
 class ImmediateResult(LazyResult):
@@ -258,6 +300,20 @@ class TorchSketchEngine(SketchDurabilityMixin):
         )
         self.obs = Observability()
         self.executor.obs = self.obs
+        # Near cache: the epoch-guarded host read tier.  Built even when
+        # disabled, so its epoch bookkeeping is coherent whenever it is
+        # switched on.
+        self.nearcache = SketchNearCache(
+            ShardedLRUStore(
+                max_bytes=cfg.nearcache_max_bytes,
+                nshards=cfg.nearcache_shards,
+                tenant_quota_bytes=cfg.nearcache_tenant_quota_bytes,
+                on_evict=lambda tenant, nbytes: self.obs.nearcache_evictions.inc(),
+            ),
+            obs=self.obs,
+            enabled=cfg.nearcache,
+            max_batch=cfg.nearcache_max_batch,
+        )
         # Per-(shard, opcode) circuit breakers: when one opens, the
         # kind's objects fail over to host golden mirrors and reconcile
         # back when it closes.
@@ -312,6 +368,29 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 max_batch_slow_phase=cfg.max_batch_slow_phase,
                 fetch_timeout_s=cfg.fetch_timeout_ms / 1000.0,
             )
+        # Bucket pre-warming: a background thread drives the (op, bucket)
+        # ladder on pool attach, so serving ops never pay a first launch.
+        self.prewarmer = None
+        self._prewarm_seen: set = set()
+        if cfg.prewarm:
+            self.prewarmer = prewarm.BucketPrewarmer(
+                self.executor,
+                max_batch=cfg.max_batch,
+                max_state_bytes=cfg.prewarm_max_state_bytes,
+                obs=self.obs,
+            )
+        # The residency ladder: built BEFORE the restore below so a
+        # snapshot can reinstate HOST/DISK tenants; the alloc gate and the
+        # background thread arm AFTER it.
+        self.residency = ResidencyManager(self, cfg, obs=self.obs)
+        # The commit gate: every mutating entry point holds it across its
+        # check-residency → submit window, and every tier transition and
+        # snapshot capture holds it, so no write is in flight between
+        # "the op decided device" and "the row moved".  (The JAX package's
+        # journal appends under it too; the port has no journal yet.)  A
+        # plain RLock: strictly the outermost lock of every path that
+        # takes it.
+        self._journal_gate = threading.RLock()
         self._register_health_gauges()
         self._sweeper = None
         self._snapshotter = None
@@ -319,16 +398,23 @@ class TorchSketchEngine(SketchDurabilityMixin):
         # and shutdown write the same tmp files.  Strictly outermost.
         self._snapshot_lock = threading.Lock()
         # Checkpoint/resume: restore from the configured directory, then
-        # arm periodic snapshots (never while the restore runs).
+        # arm the ladder, then periodic snapshots (never while the restore
+        # runs).
         if config.snapshot_dir:
             try:
                 self.restore_snapshot(config.snapshot_dir)
             except Exception:
                 self._stop_health()
+                self._stop_prewarmer()
                 self._stop_coalescer()
                 raise
-            if config.snapshot_interval_s > 0:
-                self._start_snapshotter(config.snapshot_dir, config.snapshot_interval_s)
+        # Creates past the device budget now birth HOST-resident, and the
+        # maintenance thread starts once a budget is armed.
+        self.registry.alloc_gate = self.residency.device_full
+        if cfg.residency_device_rows > 0 or cfg.residency_max_host_bytes > 0:
+            self.residency.start()
+        if config.snapshot_dir and config.snapshot_interval_s > 0:
+            self._start_snapshotter(config.snapshot_dir, config.snapshot_interval_s)
 
     def _register_health_gauges(self) -> None:
         """Render-time gauges: breaker state, objects serving degraded,
@@ -359,22 +445,48 @@ class TorchSketchEngine(SketchDurabilityMixin):
             self.health.board.state_codes,
             labelnames=("shard", "op"),
         )
+        if self.prewarmer is not None:
+            reg.gauge_callback(
+                "rtpu_prewarm_pending",
+                "pre-warm tasks queued or running",
+                self.prewarmer.pending,
+            )
         reg.gauge_callback(
             "rtpu_degraded_objects",
             "sketches currently serving from the host golden mirror "
-            "because a breaker is open",
-            lambda: len(self._mirrors),
+            "because a breaker is open (demoted sketches are not "
+            "degraded and count in rtpu_residency_host_bytes instead)",
+            lambda: max(0, len(self._mirrors) - self.residency.host_objects()),
         )
+        for name, help_, fn in (
+            ("rtpu_residency_device_rows",
+             "device rows in use across all sketch pools (the residency "
+             "ladder's fast tier; compare residency_device_rows budget)",
+             self.residency.device_rows_used),
+            ("rtpu_residency_host_bytes",
+             "bytes of sketch state held in HOST-resident mirrors",
+             self.residency.host_bytes),
+            ("rtpu_residency_disk_bytes",
+             "bytes of sketch state spilled to disk blobs",
+             self.residency.disk_bytes),
+            ("rtpu_nearcache_bytes", "host bytes held by the near cache",
+             self.nearcache.store.bytes),
+            ("rtpu_nearcache_entries", "entries held by the near cache",
+             self.nearcache.store.entries),
+        ):
+            reg.gauge_callback(name, help_, fn)
 
     def _stop_health(self) -> None:
         _chaos.unset_observer(self._chaos_observer)
         self.health.shutdown()
 
     def shutdown(self) -> None:
-        """Unhook the chaos observer and stop the health monitor, stop the
-        snapshotter and the sweeper, write the final snapshot (best
-        effort, logged on failure), then stop the coalescer."""
+        """Unhook the chaos observer and stop the health monitor and the
+        residency thread, stop the snapshotter and the sweeper, write the
+        final snapshot (best effort, logged on failure), then stop the
+        pre-warmer and the coalescer."""
         self._stop_health()
+        self.residency.shutdown()
         self._stop_snapshotter()
         self._stop_sweeper()
         if self.config.snapshot_dir:
@@ -382,7 +494,12 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 self.snapshot(self.config.snapshot_dir)
             except Exception:
                 _log.exception("snapshot on shutdown to %s failed", self.config.snapshot_dir)
+        self._stop_prewarmer()
         self._stop_coalescer()
+
+    def _stop_prewarmer(self) -> None:
+        if self.prewarmer is not None:
+            self.prewarmer.shutdown()
 
     def _stop_coalescer(self) -> None:
         if self.coalescer is not None:
@@ -392,6 +509,42 @@ class TorchSketchEngine(SketchDurabilityMixin):
         """Direct state reads must observe all queued coalesced ops."""
         if self.coalescer is not None:
             self.coalescer.drain()
+
+    def _nc_mutate(self, name: str, structural: bool = False):
+        """Near-cache write discipline for a mutating op on ``name``:
+        bump the write epoch at entry AND exit (structural ops bump the
+        structural epoch too — they retire monotone positives).  Every
+        path that can change the object's readable state crosses this
+        (or drop_object/invalidate_all) — mirror-served writes included,
+        which it gets for free by wrapping the ENGINE entry points those
+        paths all flow through."""
+        nc = self.nearcache
+        return _EpochGuard(nc.note_structural if structural else nc.note_write, name)
+
+    def prewarm_wait(self, timeout=None) -> bool:
+        """Block until the bucket pre-warmer has driven every scheduled
+        ladder (True on drained; trivially True when pre-warm is off).
+        A warm launch that failed raises here."""
+        if self.prewarmer is None:
+            return True
+        return self.prewarmer.wait_idle(timeout)
+
+    def _prewarm_keyed(self, pool, k: int, L: int, blocks, lengths) -> None:
+        """Register the device-hash warm ladders for an observed codec
+        signature (lane count L, trim depth Lt and the const-length flag
+        are parts of the launch shapes only real key bytes reveal).
+        Called once per coarse (pool, k, L) signature — the caller's
+        seen-set gate keeps the scans below off the per-submit path."""
+        Lt = _trim_lanes(blocks)[0].shape[1]
+        const = lengths.ndim == 0 or bool(np.all(lengths == lengths[0]))
+        self.prewarmer.register(
+            pool, ("bloom_mixkr", k, L, Lt, const),
+            prewarm.warm_bloom_mixed_keys_runs(k, L, Lt, const),
+        )
+        self.prewarmer.register(
+            pool, ("bloom_mixk", k, L, Lt),
+            prewarm.warm_bloom_mixed_keys(k, L, Lt),
+        )
 
     def _submit(self, key, dispatch, arrays, nops, pool_key=None, meta=None,
                 tenant=None):
@@ -421,10 +574,18 @@ class TorchSketchEngine(SketchDurabilityMixin):
     # -- graceful degradation: host golden-mirror failover -----------------
 
     def _degraded(self, entry) -> bool:
-        """True when ``entry`` must serve from its host mirror.  The
-        healthy fast path is one attribute read and a branch — no lock,
-        no dict probe (a mirror exists only while its kind is degraded:
-        the flag clears under the mirror lock with the last mirror).
+        """True when ``entry`` must serve from its host mirror: a breaker
+        has failed its kind over, or it is not DEVICE-resident.  The
+        healthy fast path is an attribute read, a dict probe and a branch
+        — no lock.
+
+        Residency ladder: the same boundary serves DEMOTED sketches — a
+        HOST-resident entry's mirror answers here (no breaker, no
+        degraded flag), a DISK-resident or born-cold entry loads its
+        mirror first.  The membership probe is lock-free (GIL-atomic): a
+        stale True is re-checked by _mirror_call under the lock, and a
+        promote racing a stale False repoints entry.row to a fully
+        written device row BEFORE dropping the mirror.
 
         Seeding a missing mirror runs OUTSIDE the mirror lock (its drain
         and row read can take seconds, and every degraded op of every
@@ -433,10 +594,12 @@ class TorchSketchEngine(SketchDurabilityMixin):
         kind mid-seed routes back to the device, and a reconcile that
         WROTE mirrors back mid-seed (epoch bump) discards the possibly
         stale row and retries."""
-        if not self.health.any_degraded:
-            return False
+        if entry.row < 0 and entry.name not in self._mirrors:
+            self._ensure_resident(entry)
         if entry.name in self._mirrors:
             return True
+        if not self.health.any_degraded:
+            return False
         for _ in range(4):
             with self._mirror_lock:
                 if entry.name in self._mirrors:
@@ -457,6 +620,42 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 self._install_mirror(entry, row)
                 return True
         return False  # flapping hard: let the device surface the failure
+
+    def _ensure_resident(self, entry) -> None:
+        """Row-less entry (DISK-resident, or born cold past the device
+        budget): install its HOST mirror — from the CRC-checked blob, or
+        from zeros for a never-touched tenant.  A corrupt or missing blob
+        raises (the op fails typed; serving garbage state is the one
+        thing a tier must never do)."""
+        self.residency.load(entry.name)
+
+    def _tier_row(self, entry, row0: int) -> int:
+        """Resolve the device row for a READ dispatch that captured
+        ``row0`` BEFORE its residency check and then got no mirror
+        result.  Readers do not hold the gate, so a transition can
+        interleave with their check→dispatch window:
+
+        - a PROMOTE racing the check leaves row0 at -1 while entry.row is
+          already live (promote repoints the row before dropping the
+          mirror) — re-read it;
+        - a DEMOTE racing it leaves row0 pointing at the QUARANTINED row,
+          whose contents stay identical to the pre-demotion state until a
+          later maintenance cycle's post-drain reclaim — dispatching
+          against it is linearizable (the read began before the demotion
+          completed).
+
+        Every read site captures entry.row before its
+        _serve_degraded/_degraded check and resolves through here —
+        reading entry.row AFTER the check races the demote's row
+        retirement."""
+        return entry.row if row0 < 0 else row0
+
+    def _install_residency_mirror(self, entry, row=None, mirror=None):
+        """Install ``entry`` as HOST-resident from a row array or a
+        ready-made mirror (snapshot restore, a DUMP restored into a
+        born-cold entry).  The residency manager owns the mirror install
+        and the host-bytes accounting in one place."""
+        self.residency.install_host(entry, row=row, mirror=mirror)
 
     def _seed_row(self, entry):
         """The entry's device row for mirror seeding (no lock held).  A
@@ -485,16 +684,22 @@ class TorchSketchEngine(SketchDurabilityMixin):
         self.health.ensure_probe(entry.kind, lambda: self.executor.read_row(pool, prow))
 
     def _mirror_call(self, entry, nops: int, fn):
-        """Apply a degraded-mode op to the entry's mirror (serialized by
-        the mirror lock) and count it in ``degraded_ops``; an
-        ImmediateResult, or None when the mirror was reconciled away
-        between the check and the call."""
+        """Apply a degraded-mode or demoted-tier op to the entry's mirror
+        (serialized by the mirror lock); an ImmediateResult, or None when
+        the mirror was reconciled or promoted away between the check and
+        the call.  Demoted is NOT degraded: a residency mirror's serves
+        count in ``residency.host_serves``, never in ``degraded_ops``."""
         with self._mirror_lock:
             mirror = self._mirrors.get(entry.name)
             if mirror is None:
                 return None
             out = fn(mirror)
-        self.obs.degraded_ops.inc((entry.kind,), nops)
+            demoted = getattr(mirror, "residency", None) is not None
+            if demoted:
+                # Under the mirror lock: every demoted serve holds it.
+                self.residency.host_serves += nops
+        if not demoted:
+            self.obs.degraded_ops.inc((entry.kind,), nops)
         return ImmediateResult(out)
 
     def _serve_degraded(self, entry, nops: int, fn):
@@ -509,15 +714,20 @@ class TorchSketchEngine(SketchDurabilityMixin):
 
     def _host_row(self, entry) -> np.ndarray:
         """``entry``'s current truth in device-row layout: its mirror's
-        encoding while one is live (the device row is stale then), else
-        the device row.  Serves merge sources, BITOP operands and DUMP."""
+        encoding while one is live (the device row is stale then, or
+        there is none), else the device row.  Serves merge sources, BITOP
+        operands and DUMP; a DISK-resident entry loads its mirror first."""
+        row0 = entry.row  # BEFORE the residency check (see _tier_row)
+        if row0 < 0 and entry.name not in self._mirrors:
+            self._ensure_resident(entry)
         if self._mirrors:
             with self._mirror_lock:
                 mirror = self._mirrors.get(entry.name)
                 if mirror is not None:
                     return np.asarray(mirror.encode(entry.pool.row_units))
         self._drain()
-        return np.asarray(self.executor.read_row(entry.pool, entry.row))
+        return np.asarray(
+            self.executor.read_row(entry.pool, self._tier_row(entry, row0)))
 
     def _reconcile_kind(self, kind: str) -> bool:
         """Breaker-close hook (health.reconcile_cb): write every mirrored
@@ -539,7 +749,12 @@ class TorchSketchEngine(SketchDurabilityMixin):
         so no serving thread sees "kind degraded, mirror missing" and
         seeds an orphan mirror."""
         with self._mirror_lock:
-            for n in [n for n, m in self._mirrors.items() if m.kind == kind]:
+            # Residency mirrors are NOT breaker state: a demoted sketch
+            # has no device row to write back to, and its mirror stays
+            # the truth after the breaker closes.
+            names = [n for n, m in self._mirrors.items()
+                     if m.kind == kind and getattr(m, "residency", None) is None]
+            for n in names:
                 entry = self.registry.lookup(n)
                 if entry is None:  # deleted while degraded
                     del self._mirrors[n]
@@ -548,6 +763,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 # bitset grow may have migrated it to a larger class.
                 row = self._mirrors[n].encode(entry.pool.row_units)
                 try:
+                    # rtpulint: disable=RT001 write-back MUST hold the mirror lock: a degraded op interleaving between write-back and mirror drop would apply to a mirror about to be discarded (lost acked write); the degraded flag clears atomically with the mirrors below
                     self.executor.write_row(entry.pool, entry.row, row)
                 except Exception:
                     return False
@@ -585,6 +801,11 @@ class TorchSketchEngine(SketchDurabilityMixin):
         entry = self._live_lookup(name)
         if entry is not None and entry.kind != kind:
             raise TypeError(f"object {name!r} holds a {entry.kind}, not a {kind}")
+        if entry is not None:
+            # Residency heat feed: every read and write path resolves its
+            # entry here (or via the ensure paths, which also touch) —
+            # one decayed-counter bump per API call.
+            self.residency.touch(name)
         return entry
 
     def exists(self, name: str) -> bool:
@@ -596,39 +817,54 @@ class TorchSketchEngine(SketchDurabilityMixin):
         the row is reusable only once clean.  An expired but unswept
         entry is freed too, but reports False (Redis DEL on an expired
         key)."""
-        entry = self.registry.detach(name)
-        if entry is None:
-            return False
-        was_expired = entry.expire_at is not None and time.time() >= entry.expire_at
-        self._drain()
-        self._reap_row(entry.pool, entry.row)
-        self.topk.drop(name)
-        if self._mirrors:
-            with self._mirror_lock:
-                self._mirrors.pop(name, None)
-        return not was_expired
+        with self._journal_gate:
+            entry = self.registry.detach(name)
+            if entry is None:
+                return False
+            was_expired = entry.expire_at is not None and time.time() >= entry.expire_at
+            self._drain()
+            self._reap_row(entry.pool, entry.row)
+            self.topk.drop(name)
+            # Structural epoch advance + entry drop: a successor object
+            # under this name continues the epoch sequence, so an
+            # in-flight read of the OLD object never installs as fresh.
+            self.nearcache.drop_object(name)
+            if self._mirrors:
+                with self._mirror_lock:
+                    self._mirrors.pop(name, None)
+            # Residency state dies with the object: heat, host-bytes
+            # accounting, and the disk blob (retired into blob GC).
+            self.residency.drop(name)
+            return not was_expired
 
     def rename(self, old: str, new: str) -> bool:
         """RENAME: False (nothing changes) when ``old`` is missing or
         expired.  Queued ops are drained first: queued bitset ops resolve
         their row by entry at flush time, and must land before the names
         move.  A displaced destination's row is zeroed before reuse."""
-        if old == new or self._live_lookup(old) is None:
-            return False
-        self._drain()
-        ok, dest = self.registry.rename_detach_dest(old, new)
-        if not ok:  # the source expired since the check
-            return False
-        if dest is not None:
-            self._reap_row(dest.pool, dest.row)
-        self.topk.rename(old, new)
-        if self._mirrors:
-            with self._mirror_lock:
-                self._mirrors.pop(new, None)
-                m = self._mirrors.pop(old, None)
-                if m is not None:
-                    self._mirrors[new] = m
-        return True
+        with self._journal_gate:
+            if old == new or self._live_lookup(old) is None:
+                return False
+            self._drain()
+            ok, dest = self.registry.rename_detach_dest(old, new)
+            if not ok:  # the source expired since the check
+                return False
+            if dest is not None:
+                self._reap_row(dest.pool, dest.row)
+            self.topk.rename(old, new)
+            # Both names change identity: drop entries + structural bumps.
+            self.nearcache.drop_object(old)
+            self.nearcache.drop_object(new)
+            if self._mirrors:
+                with self._mirror_lock:
+                    self._mirrors.pop(new, None)
+                    m = self._mirrors.pop(old, None)
+                    if m is not None:
+                        self._mirrors[new] = m
+            # Residency state follows the rename (heat, host bytes, the
+            # blob index; a displaced destination's blob retires).
+            self.residency.rename(old, new)
+            return True
 
     def names(self, kind=None) -> list:
         for e in self.registry.entries():
@@ -653,20 +889,36 @@ class TorchSketchEngine(SketchDurabilityMixin):
             "expected_insertions": expected_insertions,
             "false_probability": false_probability,
         }
-        self._live_lookup(name)  # reap an expired holder before tryInit
-        _, created = self.registry.try_create(
-            name, PoolKind.BLOOM, (class_words_for_bits(m),), params
-        )
+        with self._journal_gate:
+            self._live_lookup(name)  # reap an expired holder before tryInit
+            _, created = self.registry.try_create(
+                name, PoolKind.BLOOM, (class_words_for_bits(m),), params
+            )
+        # (The JAX engine registers its host-hashed bloom ladder here; the
+        # port hashes Bloom keys on the card, and the keyed ladders
+        # register on the first submit, _bloom_submit_mixed_keys.)
         return created
 
     def bloom_count(self, name) -> LazyResult:
+        nc = self.nearcache
+        captured = nc.epochs(name)  # before entry resolution, see contains
         entry = self._require(name, PoolKind.BLOOM)
+        if nc.active(1):
+            return nc.lookup_scalar(
+                "bloom", name, ("count",),
+                lambda: self._bloom_count_dispatch(entry), captured=captured,
+            )
+        return self._bloom_count_dispatch(entry)
+
+    def _bloom_count_dispatch(self, entry) -> LazyResult:
+        row0 = entry.row  # BEFORE the residency check (see _tier_row)
         res = self._serve_degraded(entry, 1, lambda mir: mir.count())
         if res is not None:
             return res
         self._drain()
         return self.executor.bloom_count(
-            entry.pool, entry.row, entry.params["size"], entry.params["hash_iterations"]
+            entry.pool, self._tier_row(entry, row0),
+            entry.params["size"], entry.params["hash_iterations"],
         )
 
     def bloom_replicate(self, name: str) -> bool:
@@ -744,6 +996,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
         B, L = blocks.shape
         lengths = np.asarray(lengths, np.uint32)
         uniform = np.ndim(is_add) == 0
+        row0 = entry.row  # BEFORE the residency check (see _tier_row)
         if self._degraded(entry):
             # Degraded: hash on the host (the mirror takes reduced hashes)
             # and serve from the golden mirror.
@@ -753,7 +1006,16 @@ class TorchSketchEngine(SketchDurabilityMixin):
             res = self._mirror_call(entry, B, lambda mir: mir.mixed(h1m, h2m, flags))
             if res is not None:
                 return res
-            # reconciled mid-call: on to the device
+            # reconciled or promoted mid-call: on to the device
+        if self.prewarmer is not None and B:
+            # Codec-shaped signatures are unknown at pool attach: the
+            # first sight of a coarse (pool, k, L) signature schedules
+            # its ladders in the background; the seen-set keeps the
+            # scans off every later submit.
+            coarse = (id(pool), k, L)
+            if coarse not in self._prewarm_seen:
+                self._prewarm_seen.add(coarse)
+                self._prewarm_keyed(pool, k, L, blocks, lengths)
         if self.coalescer is not None and uniform:
             if lengths.ndim == 0:
                 len_meta = int(lengths)
@@ -766,12 +1028,12 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 (blocks,),
                 B,
                 pool_key=id(pool),
-                meta=(entry.row, m, bool(is_add), len_meta),
+                meta=(self._tier_row(entry, row0), m, bool(is_add), len_meta),
                 tenant=entry.name,
             )
         lengths = np.broadcast_to(lengths, (B,))
         flags = np.full(B, bool(is_add)) if uniform else np.asarray(is_add, bool)
-        rows = np.full(B, entry.row, np.int32)
+        rows = np.full(B, self._tier_row(entry, row0), np.int32)
         m_arr = np.full(B, m, np.uint32)
         if self.coalescer is not None:
             return self._submit(
@@ -789,24 +1051,47 @@ class TorchSketchEngine(SketchDurabilityMixin):
         )
 
     def bloom_add_encoded(self, name, blocks, lengths):
-        entry = self._require(name, PoolKind.BLOOM)
-        # The mixed-keys path owns the degraded-mirror failover.
-        if self.config.gpu_sketch.exact_add_semantics or self._degraded(entry):
-            return self._bloom_submit_mixed_keys(entry, blocks, lengths, True)
-        m, k = entry.params["size"], entry.params["hash_iterations"]
-        self._drain()
-        return self.executor.bloom_add_keys_st(
-            entry.pool, entry.row, m, k, blocks,
-            np.broadcast_to(np.asarray(lengths, np.uint32), (blocks.shape[0],)),
-        )
+        with self._nc_mutate(name), self._journal_gate:
+            entry = self._require(name, PoolKind.BLOOM)
+            # The mixed-keys path owns the degraded-mirror failover.
+            if self.config.gpu_sketch.exact_add_semantics or self._degraded(entry):
+                return self._bloom_submit_mixed_keys(entry, blocks, lengths, True)
+            m, k = entry.params["size"], entry.params["hash_iterations"]
+            self._drain()
+            return self.executor.bloom_add_keys_st(
+                entry.pool, entry.row, m, k, blocks,
+                np.broadcast_to(np.asarray(lengths, np.uint32), (blocks.shape[0],)),
+            )
 
     def bloom_contains_encoded(self, name, blocks, lengths):
+        nc = self.nearcache
+        # Epoch capture BEFORE entry resolution: a delete racing the
+        # lookup bumps epochs in between, and a late capture would tag
+        # the old object's results as fresh for its successor.
+        captured = nc.epochs(name)
         entry = self._require(name, PoolKind.BLOOM)
+        if nc.active(blocks.shape[0]):
+            lengths_arr = np.asarray(lengths)
+
+            def fetch(idx):
+                if idx is None:
+                    return self._bloom_contains_encoded_dispatch(entry, blocks, lengths)
+                sub_l = lengths if lengths_arr.ndim == 0 else lengths_arr[idx]
+                return self._bloom_contains_encoded_dispatch(entry, blocks[idx], sub_l)
+
+            return nc.lookup_batch(
+                "bloom", name, nc.encoded_keys(blocks, lengths), np.bool_,
+                fetch, monotone=True, captured=captured,
+            )
+        return self._bloom_contains_encoded_dispatch(entry, blocks, lengths)
+
+    def _bloom_contains_encoded_dispatch(self, entry, blocks, lengths):
+        row0 = entry.row  # BEFORE the residency check (see _tier_row)
         if self.coalescer is not None or self._degraded(entry):
             return self._bloom_submit_mixed_keys(entry, blocks, lengths, False)
         m, k = entry.params["size"], entry.params["hash_iterations"]
         return self.executor.bloom_contains_keys_st(
-            entry.pool, entry.row, m, k, blocks,
+            entry.pool, self._tier_row(entry, row0), m, k, blocks,
             np.broadcast_to(np.asarray(lengths, np.uint32), (blocks.shape[0],)),
         )
 
@@ -818,20 +1103,34 @@ class TorchSketchEngine(SketchDurabilityMixin):
             return self.bloom_contains_encoded(name, blocks, lengths)
         if flags.all():
             return self.bloom_add_encoded(name, blocks, lengths)
-        entry = self._require(name, PoolKind.BLOOM)
-        return self._bloom_submit_mixed_keys(entry, blocks, lengths, flags)
+        with self._nc_mutate(name), self._journal_gate:
+            entry = self._require(name, PoolKind.BLOOM)
+            return self._bloom_submit_mixed_keys(entry, blocks, lengths, flags)
 
     # -- hll ---------------------------------------------------------------
 
     def hll_ensure(self, name):
         self._live_lookup(name)  # reap an expired holder first
         entry, _ = self.registry.try_create(name, PoolKind.HLL, (), {})
+        self.residency.touch(name)  # heat feed (see _lookup_kind)
+        if self.prewarmer is not None:
+            # Seen-set gate: hll_ensure runs on EVERY op — register once
+            # per pool, off the hot path.
+            coarse = (id(entry.pool), "hll")
+            if coarse not in self._prewarm_seen:
+                self._prewarm_seen.add(coarse)
+                self.prewarmer.register(
+                    entry.pool, ("hll_add",), prewarm.warm_hll_add_changed())
         return entry
 
     def hll_add(self, name, c0, c1, c2):
         """PFADD of host-hashed lanes; the result is True iff a register
         grew.  Coalesced: one segment per HLL pool, per-op changed flags
         reduced with ``any``."""
+        with self._nc_mutate(name), self._journal_gate:
+            return self._hll_add_impl(name, c0, c1, c2)
+
+    def _hll_add_impl(self, name, c0, c1, c2):
         entry = self.hll_ensure(name)
         res = self._serve_degraded(
             entry, len(c0), lambda mir: bool(np.any(mir.add_changed(c0, c1, c2))))
@@ -858,24 +1157,36 @@ class TorchSketchEngine(SketchDurabilityMixin):
         hashes them (``hll_add_keys_single``); with it, or while the
         object serves degraded, the host does."""
         if self.coalescer is None:
-            entry = self.hll_ensure(name)
-            if not self._degraded(entry):
-                return self.executor.hll_add_keys_single(
-                    entry.pool, entry.row, blocks,
-                    np.broadcast_to(np.asarray(lengths, np.uint32), (blocks.shape[0],)),
-                )
+            with self._nc_mutate(name), self._journal_gate:
+                entry = self.hll_ensure(name)
+                if not self._degraded(entry):
+                    return self.executor.hll_add_keys_single(
+                        entry.pool, entry.row, blocks,
+                        np.broadcast_to(np.asarray(lengths, np.uint32), (blocks.shape[0],)),
+                    )
         c0, c1, c2, _ = hashing.murmur3_x86_128(blocks, lengths)
         return self.hll_add(name, c0, c1, c2)
 
     def hll_count(self, name):
+        nc = self.nearcache
+        captured = nc.epochs(name)  # before entry resolution
         entry = self._lookup_kind(name, PoolKind.HLL)
         if entry is None:
             return ImmediateResult(0)
+        if nc.active(1):
+            return nc.lookup_scalar(
+                "hll", name, ("count",),
+                lambda: self._hll_count_dispatch(entry), captured=captured,
+            )
+        return self._hll_count_dispatch(entry)
+
+    def _hll_count_dispatch(self, entry):
+        row0 = entry.row  # BEFORE the residency check (see _tier_row)
         res = self._serve_degraded(entry, 1, lambda mir: mir.count())
         if res is not None:
             return res
         self._drain()
-        return self.executor.hll_count(entry.pool, entry.row)
+        return self.executor.hll_count(entry.pool, self._tier_row(entry, row0))
 
     def hll_count_with(self, name, other_names) -> int:
         """PFCOUNT over several keys (the union's cardinality) without
@@ -889,21 +1200,29 @@ class TorchSketchEngine(SketchDurabilityMixin):
         regs = None
         for e in entries:
             r = None
+            row0 = e.row  # BEFORE the residency check (see _tier_row)
+            if row0 < 0 and e.name not in self._mirrors:
+                self._ensure_resident(e)  # DISK/born-cold union source
             if self._mirrors:
-                # A degraded entry contributes its mirror's registers (its
-                # device row is stale), copied under the mirror lock.
+                # A degraded or demoted entry contributes its mirror's
+                # registers (its device row is stale or absent), copied
+                # under the mirror lock.
                 with self._mirror_lock:
                     mir = self._mirrors.get(e.name)
                     if mir is not None:
                         r = mir.regs.copy()
             if r is None:
-                r = self.executor.read_row(e.pool, e.row)
+                r = self.executor.read_row(e.pool, self._tier_row(e, row0))
             regs = r if regs is None else np.maximum(regs, r)
         hist = np.bincount(regs, minlength=golden.HLL_Q + 2)
         return int(round(golden.ertl_estimate(hist)))
 
     def hll_merge_with(self, name, other_names) -> None:
         """PFMERGE: this = max(this, sources)."""
+        with self._nc_mutate(name), self._journal_gate:
+            self._hll_merge_with_impl(name, other_names)
+
+    def _hll_merge_with_impl(self, name, other_names) -> None:
         entry = self.hll_ensure(name)
         srcs = [e for e in (self._lookup_kind(n, PoolKind.HLL) for n in other_names)
                 if e is not None]
@@ -916,8 +1235,26 @@ class TorchSketchEngine(SketchDurabilityMixin):
             rows = [self._host_row(e) for e in srcs]
             if self._mirror_call(entry, 1, lambda mir: mir.merge_rows(rows)) is not None:
                 return
+        if any(e.row < 0 for e in srcs):
+            # A source without a device row (HOST/DISK tier): merge its
+            # truth on the host into the destination row.
+            self._merge_on_host(entry, srcs, np.maximum)
+            return
         self._drain()
         self.executor.hll_merge(entry.pool, entry.row, [e.row for e in srcs])
+
+    def _merge_on_host(self, entry, srcs, combine) -> None:
+        """dst row = combine(dst row, each source's truth), read and
+        written through the host: the merge path for a device-resident
+        destination with a source on the host or disk tier (the device
+        merge takes source rows on the card only).  The caller holds the
+        gate, so no write lands on the destination in between."""
+        rows = [self._host_row(e) for e in srcs]
+        self._drain()
+        dst = np.asarray(self.executor.read_row(entry.pool, entry.row))
+        for r in rows:
+            dst = combine(dst, np.asarray(r, dst.dtype))
+        self.executor.write_row(entry.pool, entry.row, dst)
 
     # -- bitset ------------------------------------------------------------
 
@@ -929,6 +1266,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
         entry, created = self.registry.try_create(
             name, PoolKind.BITSET, (class_words_for_bits(min_bits),), {"nbits": 0}
         )
+        self.residency.touch(name)  # heat feed (see _lookup_kind)
         if not created:
             self._bitset_grow(entry, min_bits)
         return entry
@@ -938,13 +1276,36 @@ class TorchSketchEngine(SketchDurabilityMixin):
         # Logical length: Redis string-length semantics (SETBIT grows the
         # value to cover the highest index ever touched).
         entry.params["nbits"] = max(entry.params.get("nbits", 0), int(min_bits))
+        if self.prewarmer is not None:
+            # Seen-set gate: bitset_ensure runs on EVERY op (see
+            # hll_ensure) — register once per pool, off the hot path.
+            coarse = (id(entry.pool), "bitset")
+            if coarse not in self._prewarm_seen:
+                self._prewarm_seen.add(coarse)
+                self.prewarmer.register(
+                    entry.pool, ("bs_mixed_runs",), prewarm.warm_bitset_mixed_runs())
+                self.prewarmer.register(
+                    entry.pool, ("bs_mixed",), prewarm.warm_bitset_mixed())
         return entry
 
     def _bitset_grow(self, entry, min_bits: int) -> None:
         """Auto-grow of Redis bitmaps: migrate the tenant to a larger size
-        class."""
+        class.  Structural for the near cache: entry and exit bumps
+        bracket the whole commit, so no read captured mid-migration can
+        install."""
         need_words = class_words_for_bits(min_bits)
-        if need_words > entry.pool.row_units:
+        if need_words <= entry.pool.row_units:
+            return
+        with self._nc_mutate(entry.name, structural=True):
+            if entry.row < 0:
+                # HOST/DISK residency: no device row to migrate — repoint
+                # the entry to the larger size class.  The mirror's golden
+                # model grows on demand, the blob loader zero-pads, and
+                # promote/encode size to the entry's CURRENT pool.
+                # Mutating callers hold the gate, so no transition can
+                # interleave.
+                entry.pool = self.registry.pool_for(PoolKind.BITSET, (need_words,))
+                return
             self._bitset_migrate(entry, need_words)
 
     def _bitset_migrate(self, entry, need_words: int) -> None:
@@ -965,6 +1326,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
                     continue
                 new_row = new_pool.alloc_row()
                 self.executor.copy_row(old_pool, old_row, new_pool, new_row)
+                # rtpulint: disable=RT001 zero-then-free must be atomic vs reallocation (the _reap_row discipline): releasing between would hand out a dirty row
                 self.executor.zero_row(old_pool, old_row)
                 old_pool.free_row(old_row)
                 entry.pool, entry.row = new_pool, new_row
@@ -999,35 +1361,88 @@ class TorchSketchEngine(SketchDurabilityMixin):
         the old, freed row."""
 
         def dispatch(cols, metas):
+            offs = [0]
+            for nops, _m in metas:
+                offs.append(offs[-1] + nops)
+            # Residency stragglers: a chunk whose entry DEMOTED between
+            # submit and flush serves from the mirror — flush-time
+            # residency resolution, the same discipline as the flush-time
+            # row resolution below.  Applied OUTSIDE the dispatch lock:
+            # mirror → dispatch is the engine-wide lock order (snapshot
+            # capture, reconcile, promote).  A None from _mirror_call
+            # means the entry promoted mid-flight — its row is live again
+            # and the group pass re-reads it under the lock.
+            mirror_parts = {}
+            # Rows as this pass saw them: a reader chunk (readers enqueue
+            # gate-free) whose entry demotes after this pass dispatches
+            # against the quarantined row, intact until a later drain —
+            # linearizable, as in _tier_row.
+            rows_seen = [e.row for _n, (e, _op) in metas]
+            for mi, (nops, (e, op)) in enumerate(metas):
+                if rows_seen[mi] >= 0:
+                    continue
+                gidx = np.asarray(cols[0][offs[mi]:offs[mi + 1]])
+                ops_col = np.full(nops, op, np.uint32)
+                res = None
+                for _ in range(4):
+                    res = self._mirror_call(
+                        e, nops, lambda mir, g=gidx, o=ops_col: mir.mixed(g, o))
+                    if res is not None or e.row >= 0:
+                        break
+                    # Row-less with no mirror: the entry SPILLED between
+                    # this chunk queueing and the flush (spill drains
+                    # first, but readers enqueue gate-free) — reload the
+                    # mirror and re-apply.  load_nowait, never load: the
+                    # gate holder may be draining on THIS flush.
+                    if not self.residency.load_nowait(e):
+                        time.sleep(0.001)
+                if res is not None:
+                    mirror_parts[mi] = res
+                elif e.row < 0:
+                    raise NonRetryableDispatchError(
+                        f"bitset chunk for {e.name!r} has neither a device "
+                        f"row nor a loadable mirror")
             with self.executor._dispatch_lock:  # atomic vs a migration commit
-                # Consecutive chunks grouped by their resolved pool (more
-                # than one group only when a migration committed
-                # mid-segment); op order is kept.
-                groups = []  # [pool, runs, lo, hi]
+                # Consecutive device chunks grouped by their resolved pool
+                # (op order is kept — groups split at chunk boundaries and
+                # at mirror-served chunks); more than one group only when
+                # a migration or a demotion committed mid-segment.
+                groups = []  # ["dev", pool, runs, lo, hi] | ["mir", res, None, lo, hi]
                 off = 0
-                for nops, (e, op) in metas:
-                    if groups and groups[-1][0] is e.pool:
-                        groups[-1][1].append((nops, e.row, op))
-                        groups[-1][3] = off + nops
+                for mi, (nops, (e, op)) in enumerate(metas):
+                    part = mirror_parts.get(mi)
+                    row = e.row if e.row >= 0 else rows_seen[mi]
+                    if part is not None:
+                        groups.append(["mir", part, None, off, off + nops])
+                    elif groups and groups[-1][0] == "dev" and groups[-1][1] is e.pool:
+                        groups[-1][2].append((nops, row, op))
+                        groups[-1][4] = off + nops
                     else:
-                        groups.append([e.pool, [(nops, e.row, op)], off, off + nops])
+                        groups.append(["dev", e.pool, [(nops, row, op)], off, off + nops])
                     off += nops
                 results = []
-                for pool, runs, lo, hi in groups:
+                # Mirror parts already applied: a later failure must not
+                # be retried blind (it would re-apply them).
+                applied = bool(mirror_parts)
+                for tag, pool, runs, lo, hi in groups:
+                    if tag == "mir":
+                        results.append(pool)  # the ImmediateResult
+                        continue
                     try:
                         results.append(
                             self._bitset_dispatch_group(pool, cols[0][lo:hi], runs))
                     except NonRetryableDispatchError:
                         raise
                     except Exception as exc:
-                        if not results:
+                        if not applied:
                             raise  # nothing applied yet: retryable
-                        # Earlier groups already changed rows: a retry
+                        # Earlier groups already changed state: a retry
                         # would apply OP_SET/OP_FLIP twice.
                         raise NonRetryableDispatchError(
                             "a later group of a split mixed-bit launch failed "
                             "after earlier groups applied"
                         ) from exc
+                    applied = True
             return results[0] if len(results) == 1 else _ConcatLazy(results)
 
         return self._submit(
@@ -1055,29 +1470,47 @@ class TorchSketchEngine(SketchDurabilityMixin):
             return method(entry.pool, rows, idx)
 
     def bitset_set(self, name, idx, value: bool):
-        """SETBIT of every index to ``value``; previous bit per op."""
+        """SETBIT of every index to ``value``; previous bit per op.
+        Clearing bits retires monotone positives: a structural bump."""
         idx = np.asarray(idx, np.uint32)
-        entry = self.bitset_ensure(name, int(idx.max()) + 1 if idx.size else 1)
-        if value:
-            return self._bitset_rw(bitset_ops.OP_SET, self.executor.bitset_set, entry, idx)
-        return self._bitset_rw(
-            bitset_ops.OP_CLEAR, self.executor.bitset_clear_bits, entry, idx
-        )
+        with self._nc_mutate(name, structural=not value), self._journal_gate:
+            entry = self.bitset_ensure(name, int(idx.max()) + 1 if idx.size else 1)
+            if value:
+                return self._bitset_rw(bitset_ops.OP_SET, self.executor.bitset_set, entry, idx)
+            return self._bitset_rw(
+                bitset_ops.OP_CLEAR, self.executor.bitset_clear_bits, entry, idx
+            )
 
     def bitset_flip(self, name, idx):
         idx = np.asarray(idx, np.uint32)
-        entry = self.bitset_ensure(name, int(idx.max()) + 1 if idx.size else 1)
-        return self._bitset_rw(bitset_ops.OP_FLIP, self.executor.bitset_flip, entry, idx)
+        # Flips clear bits: structural.
+        with self._nc_mutate(name, structural=True), self._journal_gate:
+            entry = self.bitset_ensure(name, int(idx.max()) + 1 if idx.size else 1)
+            return self._bitset_rw(bitset_ops.OP_FLIP, self.executor.bitset_flip, entry, idx)
 
     def bitset_get(self, name, idx):
         """GETBIT; an index past the row's capacity reads 0 (it is sent as
         index 0 and its result masked)."""
         idx = np.asarray(idx, np.uint32)
+        nc = self.nearcache
+        captured = nc.epochs(name)  # before entry resolution
         entry = self._lookup_kind(name, PoolKind.BITSET)
         if entry is None:
             return ImmediateResult(np.zeros(len(idx), bool))
+        if nc.active(len(idx)):
+            return nc.lookup_batch(
+                "bitset", name, [int(i) for i in idx], np.bool_,
+                lambda midx: self._bitset_get_dispatch(
+                    entry, idx if midx is None else idx[midx]),
+                monotone=True,  # OP_CLEAR/OP_FLIP/replace are structural
+                captured=captured,
+            )
+        return self._bitset_get_dispatch(entry, idx)
+
+    def _bitset_get_dispatch(self, entry, idx):
         in_range = idx < entry.pool.row_units * 32
         safe_idx = np.where(in_range, idx, 0).astype(np.uint32)
+        row0 = entry.row  # BEFORE the residency check (see _tier_row)
         res = self._serve_degraded(
             entry, len(idx),
             lambda mir: mir.mixed(
@@ -1088,42 +1521,61 @@ class TorchSketchEngine(SketchDurabilityMixin):
         if self.coalescer is not None:
             fut = self._bitset_submit_mixed(entry, safe_idx, bitset_ops.OP_GET)
             return MappedFuture(fut, lambda v: v & in_range)
-        rows = np.full(len(idx), entry.row, np.int32)
+        rows = np.full(len(idx), self._tier_row(entry, row0), np.int32)
         res = self.executor.bitset_get(entry.pool, rows, safe_idx)
         return MappedFuture(res, lambda v: v & in_range)
 
     def bitset_set_range(self, name, from_bit, to_bit, value: bool):
-        entry = self.bitset_ensure(name, int(to_bit))
-        res = self._serve_degraded(
-            entry, 1, lambda mir: mir.set_range(int(from_bit), int(to_bit), bool(value)))
-        if res is not None:
-            return res
-        self._drain()
-        return self.executor.bitset_set_range(
-            entry.pool, entry.row, int(from_bit), int(to_bit), value
-        )
+        with self._nc_mutate(name, structural=not value), self._journal_gate:
+            entry = self.bitset_ensure(name, int(to_bit))
+            res = self._serve_degraded(
+                entry, 1, lambda mir: mir.set_range(int(from_bit), int(to_bit), bool(value)))
+            if res is not None:
+                return res
+            self._drain()
+            return self.executor.bitset_set_range(
+                entry.pool, entry.row, int(from_bit), int(to_bit), value
+            )
 
-    def _bitset_scalar(self, name, empty: int, mirror_fn, method, *args) -> int:
+    def _nc_scalar(self, kind, name, key, dispatch, captured) -> int:
+        """Near-cache plumbing shared by every scalar read-through (bitset
+        cardinality/length/bitpos, CMS total): epoch-tagged, one host
+        int.  ``captured``: the epoch pair sampled before entry
+        resolution."""
+        nc = self.nearcache
+        if nc.active(1):
+            return int(nc.lookup_scalar(kind, name, key, dispatch, captured=captured).result())
+        return int(dispatch().result())
+
+    def _bitset_scalar(self, name, empty: int, key, mirror_fn, method, *args) -> int:
+        captured = self.nearcache.epochs(name)  # before entry resolution
         entry = self._lookup_kind(name, PoolKind.BITSET)
         if entry is None:
             return empty
-        res = self._serve_degraded(entry, 1, mirror_fn)
-        if res is not None:
-            return int(res.result())
-        self._drain()
-        return int(method(entry.pool, entry.row, *args).result())
+
+        def dispatch():
+            row0 = entry.row  # BEFORE the residency check (see _tier_row)
+            res = self._serve_degraded(entry, 1, mirror_fn)
+            if res is not None:
+                return res
+            self._drain()
+            return method(entry.pool, self._tier_row(entry, row0), *args)
+
+        return self._nc_scalar("bitset", name, key, dispatch, captured)
 
     def bitset_cardinality(self, name) -> int:
         return self._bitset_scalar(
-            name, 0, lambda mir: mir.cardinality(), self.executor.bitset_cardinality)
+            name, 0, ("card",), lambda mir: mir.cardinality(),
+            self.executor.bitset_cardinality)
 
     def bitset_length(self, name) -> int:
         return self._bitset_scalar(
-            name, 0, lambda mir: mir.length(), self.executor.bitset_length)
+            name, 0, ("len",), lambda mir: mir.length(), self.executor.bitset_length)
 
     def bitset_bitpos(self, name, target_bit: int) -> int:
         return self._bitset_scalar(
-            name, -1 if target_bit else 0, lambda mir: mir.bitpos(int(target_bit)),
+            name, -1 if target_bit else 0, ("bitpos", int(target_bit)),
+            lambda mir: mir.bitpos(int(target_bit)),
             self.executor.bitset_bitpos, target_bit,
         )
 
@@ -1134,6 +1586,11 @@ class TorchSketchEngine(SketchDurabilityMixin):
         longest source's; unary NOT complements the source's whole
         byte-aligned string and is masked there, so the row's tail bits
         stay 0."""
+        # dest is REPLACED: structural.
+        with self._nc_mutate(dest, structural=True), self._journal_gate:
+            self._bitset_bitop_impl(dest, src_names, op)
+
+    def _bitset_bitop_impl(self, dest: str, src_names, op: str) -> None:
         max_bits = max(
             (self.bitset_capacity_bits(n) for n in (dest, *src_names)), default=0
         ) or 32 * 32
@@ -1145,10 +1602,13 @@ class TorchSketchEngine(SketchDurabilityMixin):
             src_nbits.append(e.params.get("nbits", 0))
             src_entries.append(e)
         nbits = -(-src_nbits[0] // 8) * 8 if op == "not" else max(src_nbits, default=0)
-        if self._degraded(dst):
+        row_less = any(e.row < 0 for e in src_entries)
+        if self._degraded(dst) or row_less:
             # BITOP on the host: decode every source's current truth (all
             # operands share one size class after the grow above),
-            # combine, and REPLACE the dest mirror.
+            # combine, and REPLACE the dest — its mirror while it has
+            # one, else its device row (a source on the host or disk
+            # tier has no row for the device BITOP to read).
             nb_phys = dst.pool.row_units * 32
             src_bits = [_bits_from_words(self._host_row(e), nb_phys) for e in src_entries]
             if op == "not":
@@ -1161,6 +1621,12 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 for b in src_bits[1:]:
                     out = fn(out, b)
             if self._mirror_call(dst, 1, lambda mir: mir.replace_bits(out)) is not None:
+                dst.params["nbits"] = nbits
+                return
+            if row_less and dst.row >= 0:
+                self._drain()
+                self.executor.write_row(
+                    dst.pool, dst.row, _words_from_bits(out, dst.pool.row_units))
                 dst.params["nbits"] = nbits
                 return
         self._drain()
@@ -1176,47 +1642,67 @@ class TorchSketchEngine(SketchDurabilityMixin):
         if entry is None:
             return b""
         nbytes = -(-entry.params.get("nbits", 0) // 8)
+        row0 = entry.row  # BEFORE the residency check (see _tier_row)
         res = self._serve_degraded(
             entry, 1,
             lambda mir: np.packbits(mir.bits, bitorder="little").tobytes()[:nbytes])
         if res is not None:
             return res.result()
         self._drain()
-        return self.executor.read_row(entry.pool, entry.row).tobytes()[:nbytes]
+        return self.executor.read_row(
+            entry.pool, self._tier_row(entry, row0)).tobytes()[:nbytes]
 
     # -- cms ---------------------------------------------------------------
 
     def cms_try_init(self, name, depth: int, width: int) -> bool:
-        self._live_lookup(name)  # reap an expired holder before tryInit
-        _, created = self.registry.try_create(
-            name, PoolKind.CMS, (depth, width),
-            {"depth": depth, "width": width},
-        )
+        with self._journal_gate:
+            self._live_lookup(name)  # reap an expired holder before tryInit
+            entry, created = self.registry.try_create(
+                name, PoolKind.CMS, (depth, width),
+                {"depth": depth, "width": width},
+            )
+        if self.prewarmer is not None:
+            self.prewarmer.register(
+                entry.pool, ("cms_updest", depth, width),
+                prewarm.warm_cms_update_estimate(depth, width),
+            )
         return created
 
     def cms_total(self, name) -> int:
         """Total inserted weight: every increment adds its weight to one
         cell per depth row, so row 0's sum is the total."""
+        captured = self.nearcache.epochs(name)  # before entry resolution
         entry = self._require(name, PoolKind.CMS)
-        res = self._serve_degraded(entry, 1, lambda mir: mir.total())
-        if res is not None:
-            return int(res.result())
-        self._drain()
-        row = self.executor.read_row(entry.pool, entry.row)
-        return int(np.asarray(row[: entry.params["width"]], np.uint64).sum())
+        w = entry.params["width"]
+
+        def dispatch():
+            row0 = entry.row  # BEFORE the residency check (see _tier_row)
+            res = self._serve_degraded(entry, 1, lambda mir: mir.total())
+            if res is not None:
+                return res
+            self._drain()
+            row = self.executor.read_row(entry.pool, self._tier_row(entry, row0))
+            return ImmediateResult(int(np.asarray(row[:w], np.uint64).sum()))
+
+        return self._nc_scalar("cms", name, ("total",), dispatch, captured)
 
     def cms_reset(self, name) -> None:
         """Zero a CMS's counters in place; the object and its top-K
-        configuration stay."""
-        entry = self._require(name, PoolKind.CMS)
-        if self._serve_degraded(entry, 1, lambda mir: mir.reset()) is not None:
-            return
-        self._drain()
-        self.executor.zero_row(entry.pool, entry.row)
+        configuration stay.  Counters are REPLACED: structural."""
+        with self._nc_mutate(name, structural=True), self._journal_gate:
+            entry = self._require(name, PoolKind.CMS)
+            if self._serve_degraded(entry, 1, lambda mir: mir.reset()) is not None:
+                return
+            self._drain()
+            self.executor.zero_row(entry.pool, entry.row)
 
     def cms_merge(self, name, other_names) -> None:
         """CMS.MERGE: this += each source, counter for counter (mod 2**32);
         every source must share this sketch's geometry."""
+        with self._nc_mutate(name), self._journal_gate:
+            self._cms_merge_impl(name, other_names)
+
+    def _cms_merge_impl(self, name, other_names) -> None:
         entry = self._require(name, PoolKind.CMS)
         srcs = []
         for n in other_names:
@@ -1234,19 +1720,28 @@ class TorchSketchEngine(SketchDurabilityMixin):
             rows = [self._host_row(e) for e in srcs]
             if self._mirror_call(entry, 1, lambda mir: mir.merge_rows(rows)) is not None:
                 return
+        if any(e.row < 0 for e in srcs):
+            self._merge_on_host(entry, srcs, np.add)  # uint32: wraps mod 2**32
+            return
         self._drain()
         self.executor.cms_merge(entry.pool, entry.row, [e.row for e in srcs])
 
     def cms_add(self, name, H1, H2, weights):
+        with self._nc_mutate(name), self._journal_gate:
+            return self._cms_add_impl(name, H1, H2, weights)
+
+    def _cms_add_impl(self, name, H1, H2, weights):
         entry = self._require(name, PoolKind.CMS)
         d, w = entry.params["depth"], entry.params["width"]
         h1w, h2w = hashing.km_reduce_mod(H1, H2, w)
-        rows = np.full(len(H1), entry.row, np.int32)
         wts = np.asarray(weights, np.uint32)
         res = self._serve_degraded(
             entry, len(H1), lambda mir: mir.update_estimate(h1w, h2w, wts))
         if res is not None:
             return res
+        # After the residency check (writers hold the gate: the row is
+        # stable; a born-cold entry has none until promoted).
+        rows = np.full(len(H1), entry.row, np.int32)
         if self.coalescer is not None:
             # Updates and estimates share one segment per (pool, d, w);
             # estimate ops ride with weight 0.
@@ -1266,15 +1761,33 @@ class TorchSketchEngine(SketchDurabilityMixin):
         )
 
     def cms_estimate(self, name, H1, H2):
+        nc = self.nearcache
+        captured = nc.epochs(name)  # before entry resolution
         entry = self._require(name, PoolKind.CMS)
+        if nc.active(len(H1)):
+            H1a, H2a = np.asarray(H1), np.asarray(H2)
+            return nc.lookup_batch(
+                "cms", name, nc.hashed_keys(H1a, H2a), np.uint32,
+                lambda idx: self._cms_estimate_dispatch(
+                    entry,
+                    H1a if idx is None else H1a[idx],
+                    H2a if idx is None else H2a[idx],
+                ),
+                monotone=False,  # any add can raise an estimate
+                captured=captured,
+            )
+        return self._cms_estimate_dispatch(entry, H1, H2)
+
+    def _cms_estimate_dispatch(self, entry, H1, H2):
         d, w = entry.params["depth"], entry.params["width"]
         h1w, h2w = hashing.km_reduce_mod(H1, H2, w)
+        row0 = entry.row  # BEFORE the residency check (see _tier_row)
         res = self._serve_degraded(
             entry, len(H1),
             lambda mir: mir.update_estimate(h1w, h2w, np.zeros(len(H1), np.uint32)))
         if res is not None:
             return res
-        rows = np.full(len(H1), entry.row, np.int32)
+        rows = np.full(len(H1), self._tier_row(entry, row0), np.int32)
         if self.coalescer is not None:
             pool = entry.pool
             return self._submit(
@@ -1296,7 +1809,14 @@ class TorchSketchEngine(SketchDurabilityMixin):
         cases: the object serves degraded (its mirror has whole-call
         semantics), no sequential kernel, ``(d*w) % 128 != 0``,
         ``d*w*4 > 8 MiB``, or an empty batch.  K1 itself has none of these
-        limits; the gate keeps both packages' answers the same."""
+        limits; the gate keeps both packages' answers the same.  A row
+        that the residency ladder demoted serves from its mirror (whole
+        call semantics, like the degraded case); once promoted back, K1
+        runs on its new row."""
+        with self._nc_mutate(name), self._journal_gate:
+            return self._cms_add_seq_impl(name, H1, H2, weights)
+
+    def _cms_add_seq_impl(self, name, H1, H2, weights):
         entry = self._require(name, PoolKind.CMS)
         d, w = entry.params["depth"], entry.params["width"]
         if (
@@ -1306,7 +1826,9 @@ class TorchSketchEngine(SketchDurabilityMixin):
             or d * w * 4 > (8 << 20)
             or len(H1) == 0
         ):
-            return self.cms_add(name, H1, H2, weights)
+            # _cms_add_impl, not cms_add: this call already holds the
+            # gate and bumped the epochs.
+            return self._cms_add_impl(name, H1, H2, weights)
         h1w, h2w = hashing.km_reduce_mod(H1, H2, w)
         weights = np.asarray(weights, np.uint32)
         self._drain()  # sequential semantics: all queued ops land first

@@ -2,10 +2,12 @@
 
 Counterpart of ``redisson_tpu/obs/__init__.py`` for what the port records
 so far: the failure-and-overload counters (degraded serving, injected
-faults, shedding, deadlines, tenant throttling, fetch timeouts), with the
-JAX package's names and labels, in one :class:`MetricsRegistry`.  The
-engine registers the health gauges (breaker state, degraded objects,
-coalescer queue and windows) on the same registry.
+faults, shedding, deadlines, tenant throttling, fetch timeouts), the near
+cache's hits, misses and evictions, and the residency ladder's
+transitions, with the JAX package's names and labels, in one
+:class:`MetricsRegistry`.  The engine registers the health gauges
+(breaker state, degraded objects, coalescer queue and windows) and the
+tier and near-cache occupancy gauges on the same registry.
 """
 
 from __future__ import annotations
@@ -47,6 +49,37 @@ class Observability:
             "rtpu_fetch_timeouts",
             "blocking result waits that hit the fetch timeout, by op",
             ("op",))
+        # Near cache: hit/miss by result kind; evictions come from the
+        # store's on_evict hook, byte occupancy is a render-time gauge.
+        self.nearcache_hits = r.counter(
+            "rtpu_nearcache_hits",
+            "reads answered from the host near cache, by object kind",
+            ("kind",))
+        self.nearcache_misses = r.counter(
+            "rtpu_nearcache_misses",
+            "near-cache probes that went to the device, by object kind",
+            ("kind",))
+        self.nearcache_evictions = r.counter(
+            "rtpu_nearcache_evictions",
+            "near-cache entries evicted (quota or budget pressure)")
+        # Residency ladder transitions (storage/residency.py); tier
+        # occupancy (device rows, host and disk bytes) is a set of
+        # render-time gauges the engine registers.
+        self.residency_promotions = r.counter(
+            "rtpu_residency_promotions",
+            "sketches promoted back to a device row (host/disk tier "
+            "→ device)")
+        self.residency_demotions = r.counter(
+            "rtpu_residency_demotions",
+            "sketches demoted from a device row to an exact host "
+            "golden mirror (demoted is NOT degraded)")
+        self.residency_spills = r.counter(
+            "rtpu_residency_spills",
+            "host mirrors spilled to CRC-framed per-object disk blobs")
+        self.residency_loads = r.counter(
+            "rtpu_residency_loads",
+            "disk blobs loaded back into host mirrors (first touch of "
+            "a DISK-resident sketch)")
 
 
 def total(family: Family) -> float:

@@ -25,7 +25,9 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+# rtpulint: disable=RT006 keyed by the fixed kernel names of csrc/ (one entry per source file), never by tenant or object names
 _libs: dict = {}
+# rtpulint: disable=RT006 keyed by the fixed kernel names of csrc/, like _libs
 BUILD_LOG: dict = {}  # name -> nvcc's output (ptxas register/spill report)
 
 
@@ -42,6 +44,29 @@ def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def _publish(tmp: Path, final: Path) -> None:
+    """tmp -> final, durably: the tmp file's bytes are fsynced before the
+    rename and the directory after it, so a crash never leaves a name
+    whose bytes are torn (concurrent builders never see half a file)."""
+    fd = os.open(tmp, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+    os.replace(tmp, final)
+    fd = os.open(final.parent, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def loaded(name: str) -> bool:
+    """Whether ``csrc/<name>.cu`` is already built and loaded here."""
+    with _lock:
+        return name in _libs
 
 
 def build(names) -> float:
@@ -69,8 +94,11 @@ def build(names) -> float:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
-        out.with_suffix(".log").write_text(log)
-        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+        _publish(tmp, out)
+        # The report follows the library, by the same tmp -> rename path.
+        log_tmp = out.with_suffix(f".log.{os.getpid()}.tmp")
+        log_tmp.write_text(log)
+        _publish(log_tmp, out.with_suffix(".log"))
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0

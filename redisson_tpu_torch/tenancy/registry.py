@@ -88,6 +88,10 @@ class SizeClassPool:
         )
         self._free: list[int] = list(range(self.capacity - 1, -1, -1))
         self.generation = 0  # bumped on every growth and snapshot restore
+        # Optional growth callback (set by the engine's BucketPrewarmer):
+        # growth changes the pool's launch signature, so the warm ladder
+        # re-runs against the new layout.
+        self.on_grow = None
 
     @property
     def row_units(self) -> int:
@@ -112,6 +116,12 @@ class SizeClassPool:
         self.capacity = new_cap
         self.generation += 1
         self._free.extend(range(new_cap - 1, old_cap - 1, -1))
+        cb = self.on_grow
+        if cb is not None:
+            cb(self)
+
+    def used_rows(self) -> int:
+        return self.capacity - len(self._free)
 
 
 class _TokenBucket:
@@ -290,8 +300,11 @@ class TenantEntry:
     """One named sketch object's placement + parameters.  ``expire_at``:
     absolute wall-clock deadline (``time.time()``) after which the object
     no longer exists; None = no TTL.  ``replica_rows`` (read replicas on
-    a mesh) is always None on one card and ``residency`` always
-    "device"; both are kept so snapshots carry the JAX package's keys."""
+    a mesh) is always None on one card; it is kept so snapshots carry
+    the JAX package's keys.  ``residency`` (storage/residency.py):
+    "device" — ``row`` is live; "host" — row is ROW_NONE (-1) and the
+    truth is a golden mirror; "disk" — row is ROW_NONE and the truth is
+    a blob."""
 
     name: str
     kind: str
@@ -311,6 +324,12 @@ class TenantRegistry:
         self._lock = threading.RLock()
         self._tenants: dict[str, TenantEntry] = {}
         self._pools: dict[tuple, SizeClassPool] = {}
+        # Residency alloc gate: when set and True at create time,
+        # try_create births the tenant HOST-resident (row -1, a
+        # zero-seeded mirror installs on first touch) instead of growing
+        # a pool past the device-rows budget — the card holds the
+        # working set, not the keyspace.
+        self.alloc_gate = None
 
     def lookup(self, name: str) -> Optional[TenantEntry]:
         with self._lock:
@@ -381,7 +400,14 @@ class TenantRegistry:
                     )
                 return entry, False
             pool = self.pool_for(kind, class_key)
-            entry = TenantEntry(name, kind, pool, pool.alloc_row(), dict(params))
+            gate = self.alloc_gate
+            if gate is not None and gate():
+                # Born cold: device budget full — no row; the engine's
+                # first-touch load installs a zero-seeded host mirror.
+                entry = TenantEntry(name, kind, pool, -1, dict(params),
+                                    residency="host")
+            else:
+                entry = TenantEntry(name, kind, pool, pool.alloc_row(), dict(params))
             self._tenants[name] = entry
             return entry, True
 

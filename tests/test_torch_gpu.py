@@ -396,3 +396,121 @@ def test_stalled_launch_times_out_and_lands(cuda):
         assert bf.contains_all(keys) == len(keys)
     finally:
         c.shutdown()
+
+
+# -- the residency ladder, pre-warm and the BitSet past 2**31, on the card ----
+
+
+def _client(**kw):
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+
+    return rt.create(rt.Config().set_codec(LongCodec()).use_gpu_sketch(**kw))
+
+
+def test_residency_ladder_on_the_card_matches_cpu(cuda, tmp_path):
+    """Phase 10a at a small size: Bloom tenants born cold past a device
+    budget, a zipf stream, forced demote → spill → load → promote of a
+    CMS, an HLL and a BitSet, then K1 on the promoted CMS row — every
+    answer and every row equal to the same run on the CPU."""
+    rng = np.random.default_rng(10)
+    n_bf, budget = 64, 8
+    stream = rng.zipf(1.1, 600) % n_bf
+    keys = rng.integers(0, 1 << 40, (600, 16)).astype(np.uint64)
+    ev = (rng.zipf(1.2, 5000) % 3000).astype(np.uint64)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        c = _client(device=dev, residency_device_rows=budget,
+                    residency_dir=str(tmp_path / dev))
+        try:
+            eng, rm = c._engine, c._engine.residency
+            # The other kinds first: they hold device rows to move.
+            cms = c.get_count_min_sketch("cms")
+            cms.try_init(5, 65536)
+            cms.add_all(ev[:1000])
+            hll = c.get_hyper_log_log("hll")
+            hll.add_all(ev)
+            bs = c.get_bit_set("bs")
+            bs.set_many(ev.astype(np.int64) * 7, True)
+            for i in range(n_bf):
+                c.get_bloom_filter(f"t{i}").try_init(10_000, 0.01)
+            answers = []
+            for j, t in enumerate(stream):
+                bf = c.get_bloom_filter(f"t{t}")
+                res = bf.add_all_async(keys[j]) if j % 3 == 0 else bf.contains_all_async(keys[j])
+                answers.append(np.asarray(res.result()).tolist())
+            rm.shutdown()  # transitions by hand from here on
+            for n in ("cms", "hll", "bs"):
+                if eng.registry.lookup(n).row < 0:  # the thread demoted it
+                    rm.load(n)
+                    assert rm.promote(n), n
+                assert rm.demote(n) and rm.spill(n) and rm.load(n) and rm.promote(n), n
+            before = cms_seq.LAUNCHES
+            seq = cms.add_all_seq(ev)
+            launched = cms_seq.LAUNCHES - before
+            rm.maintain()
+            rm.maintain()  # the second reclaims what the first quarantined
+            assert rm.device_rows_used() <= budget
+            assert rm.errors == 0
+            rows = {n: np.asarray(eng._host_row(eng.registry.lookup(n)))
+                    for n in ("cms", "hll", "bs", "t0")}
+            out[dev] = (answers, np.asarray(seq), rows, launched)
+        finally:
+            c.shutdown()
+    assert out["cuda"][0] == out["cpu"][0]
+    assert np.array_equal(out["cuda"][1], out["cpu"][1])
+    for n in out["cpu"][2]:
+        assert np.array_equal(out["cuda"][2][n], out["cpu"][2][n]), n
+    assert out["cuda"][3] >= 1  # K1 ran on the promoted row
+
+
+def test_no_first_launch_after_prewarm_on_the_card(cuda):
+    from redisson_tpu_torch.executor import prewarm
+
+    c = _client(prewarm=True, max_batch=4096)
+    try:
+        bf = c.get_bloom_filter("pw-bf")
+        bf.try_init(100_000, 0.01)
+        bf.add_all(np.arange(64, dtype=np.uint64))
+        hll = c.get_hyper_log_log("pw-hll")
+        hll.add(1)
+        bs = c.get_bit_set("pw-bs")
+        bs.set((1 << 16) - 1)  # its size class before the window (a grow is a new pool)
+        cms = c.get_count_min_sketch("pw-cms")
+        cms.try_init(4, 4096)
+        assert c.prewarm_wait(300)
+        before = prewarm.first_launch_count()
+        rng = np.random.default_rng(2)
+        for b in c._engine.prewarmer.ladder():
+            keys = rng.integers(0, 1 << 40, b).astype(np.uint64)
+            bf.add_all(keys)
+            bf.contains_all(keys)
+            hll.add_all(keys)
+            bs.set_many(rng.integers(0, 1 << 16, b), True)
+            cms.add_all(keys)
+        c._engine._drain()
+        torch.cuda.synchronize()
+        assert prewarm.first_launch_count() == before
+    finally:
+        c.shutdown()
+
+
+def test_bitset_past_2_31_on_the_card(cuda):
+    """The BitSet contract past 2**31 bits, in int64 end to end, on a
+    fresh 2**32-bit BitSet (512 MiB on the card)."""
+    c = _client()
+    try:
+        bs = c.get_bit_set("big")
+        bs.set(2**31)
+        assert bs.length() == 2147483649
+        bs.set(2**32 - 1)
+        assert bs.length() == 4294967296
+        bs2 = c.get_bit_set("big2")
+        bs2.set(3 * 2**30)
+        assert bs2.first_set_bit() == 3221225472
+        bs3 = c.get_bit_set("big3")
+        bs3.set_range(2**31 - 64, 2**31 + 64)
+        assert bs3.cardinality() == 128
+        assert bs3.first_set_bit() == 2**31 - 64 and bs3.length() == 2**31 + 64
+    finally:
+        c.shutdown()
