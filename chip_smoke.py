@@ -77,6 +77,25 @@ the main path through the public client at full size:
            child process (``--p10c-child``); no first launch after
            prewarm_wait.  (10d) phase 3's run with the near cache on and
            off, in turns.  Then the BitSet answers past 2**31 bits
+  phase 11 the RESP front door on fresh card clients, with the native
+           codec required (RTPU_REQUIRE_NATIVE_RESP=1): (11a) config 1 over
+           the wire — BF.RESERVE cfg1 0.01 1000000, 2**20 keys as BF.MADD
+           commands of 1024 keys from 4 pipelining connections, every flag
+           within the golden model's bounds, the row equal to the golden
+           bitmap, 131,072 outside keys through BF.MEXISTS equal to golden
+           and the FPP within 3 sigma; wire ops/s.  (11b) config 6's
+           pipelined stream (4 connections, 256-deep batches, zipf(1.3)
+           spans of Bloom, strings and bitmap) on a vectorizing and a
+           sequential server: every connection's replies and the rows
+           byte-identical; cmds/s, fusion ratio, response-cache hit rate,
+           and the device idle share over one pass.  (11c) config 8: 1000
+           idle connections and 32 closed-loop single-command clients in
+           child processes, reactor against thread-per-connection: a fixed
+           serving-thread count, replies equal to a sequential replay;
+           cmds/s, p50/p99.  (11d) ``python -m redisson_tpu_torch --device
+           cuda`` with a snapshot directory: a session over every family,
+           SIGTERM (drain, snapshot, exit 0), a reboot that answers every
+           read as before; INFO server names the card
 
 Every failed check raises, so the script exits non-zero.  Without a CUDA
 device it exits with code 2 before printing any result.  The line before
@@ -2040,6 +2059,659 @@ def phase_tiers(rng, card: str) -> None:
     phase_bitset_past_2_31(card)
 
 
+# -- phase 11: the RESP front door ---------------------------------------------
+
+P11 = {"keys": 1 << 20, "madd": 1024, "conns": 4, "window": 16,
+       "read": 131_072, "mexists": 1024, "fpp": 0.01, "capacity": 1_000_000,
+       "c6_conns": 4, "c6_depth": 256, "c6_batches": 8, "c6_items": 512,
+       "c6_filter": 100_000,
+       "c8_idle": 1000, "c8_active": 32, "c8_procs": 8, "c8_pass_s": 3.0,
+       "c8_items": 512}
+P11_DEVICE = "cuda"
+
+
+def wire(cmds) -> bytes:
+    from redisson_tpu_torch.serve.wireutil import wire_command
+
+    return b"".join(wire_command(c) for c in cmds)
+
+
+def read_frames(sock, n: int, timeout: float = 300.0) -> list:
+    """Exactly ``n`` complete reply frames from ``sock``, as bytes."""
+    from redisson_tpu_torch.serve.wireutil import skip_reply_frame
+
+    sock.settimeout(timeout)
+    buf, out, pos = b"", [], 0
+    while True:
+        try:
+            while len(out) < n:
+                end = skip_reply_frame(buf, pos)
+                out.append(buf[pos:end])
+                pos = end
+        except (IndexError, ValueError):
+            pass
+        if len(out) >= n:
+            check(pos == len(buf), "extra reply bytes after the expected frames")
+            return out
+        chunk = sock.recv(1 << 20)
+        check(bool(chunk), f"connection closed after {len(out)} of {n} replies")
+        buf += chunk
+
+
+def roundtrip(server, cmds) -> list:
+    import socket
+
+    s = socket.create_connection((server.host, server.port))
+    try:
+        s.sendall(wire(cmds))
+        return read_frames(s, len(cmds))
+    finally:
+        s.close()
+
+
+def int_array(frame: bytes) -> np.ndarray:
+    """The integers of a RESP array reply of integers."""
+    parts = frame.split(b"\r\n")
+    check(parts[0][:1] == b"*", f"not an array reply: {frame[:40]!r}")
+    n = int(parts[0][1:])
+    check(all(p[:1] == b":" for p in parts[1:1 + n]), "not an integer array")
+    return np.array([int(p[1:]) for p in parts[1:1 + n]], np.int64)
+
+
+def p11_client(**kw):
+    import redisson_tpu_torch as rt
+
+    return rt.create(rt.Config().use_gpu_sketch(device=P11_DEVICE, **kw))
+
+
+def p11_server(client):
+    from redisson_tpu_torch.serve.resp import RespServer
+
+    return RespServer(client, max_connections=4096)
+
+
+def wire_hashes(client, items, m: int):
+    """(h1 mod m, h2 mod m) of wire items as the server hashes them: the
+    client codec's bytes, murmur3 x86-128."""
+    from redisson_tpu_torch import codecs
+    from redisson_tpu_torch.utils import hashing
+
+    return hashing.km_reduce_mod(
+        *hashing.hash128_np(*codecs.encode_batch(client.config.codec, items)), m)
+
+
+def c11_keys(lo: int, hi: int) -> list:
+    return [b"%d" % i for i in range(lo, hi)]
+
+
+def phase_wire_bloom(rng, card: str) -> None:
+    """11a: config 1 over the wire at full size."""
+    import socket
+
+    from redisson_tpu_torch.ops import golden
+
+    n, per, conns = P11["keys"], P11["madd"], P11["conns"]
+    client = p11_client()
+    server = p11_server(client)
+    try:
+        check(roundtrip(server, [[b"BF.RESERVE", b"cfg1", b"%g" % P11["fpp"],
+                                  b"%d" % P11["capacity"]]]) == [b"+OK\r\n"],
+              "BF.RESERVE refused")
+        bf = client.get_bloom_filter("cfg1")
+        m, k = bf.get_size(), bf.get_hash_iterations()
+        # Warm-up on a filter of the same size class (first launches of
+        # each op, the reactor's first ticks) outside the timed window.
+        roundtrip(server, [[b"BF.RESERVE", b"warm", b"%g" % P11["fpp"],
+                            b"%d" % P11["capacity"]]]
+                  + [[b"BF.MADD", b"warm"] + c11_keys(i * per, (i + 1) * per)
+                     for i in range(8)]
+                  + [[b"BF.MEXISTS", b"warm"] + c11_keys(i * per, (i + 1) * per)
+                     for i in range(8)])
+        n_cmds = n // per
+        # Connection c sends commands c, c + conns, ... in pipelined windows.
+        streams = [[[b"BF.MADD", b"cfg1"] + c11_keys(j * per, (j + 1) * per)
+                    for j in range(c, n_cmds, conns)] for c in range(conns)]
+        payloads = [[wire(s[i:i + P11["window"]]) for i in range(0, len(s), P11["window"])]
+                    for s in streams]
+        replies = [None] * conns
+        errors = []
+
+        def load(c):
+            try:
+                sock = socket.create_connection((server.host, server.port))
+                out = []
+                for i, p in enumerate(payloads[c]):
+                    sock.sendall(p)
+                    out += read_frames(sock, min(P11["window"], len(streams[c]) - i * P11["window"]))
+                sock.close()
+                replies[c] = out
+            except Exception as e:  # surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=load, args=(c,)) for c in range(conns)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        add_s = time.perf_counter() - t0
+        check(not errors, f"wire load failed: {errors[:1]}")
+        # Golden model: the flags of one connection's commands depend on
+        # the other connections' adds only through the interleaving.  A
+        # reply is right when it lies between the two orders the golden
+        # model bounds it by: 1 only if the key's bits were not all set by
+        # the earlier keys of its own connection (a sequential golden
+        # filter per connection), and 0 only if every one of its bits is
+        # set by some OTHER key of the whole load.
+        h1, h2 = wire_hashes(client, c11_keys(0, n), m)
+        g = golden.GoldenBloomFilter(m, k)
+        idx = g._indexes(h1, h2)
+        hits = np.bincount(idx.reshape(-1).astype(np.int64), minlength=m)
+        own = np.zeros((n, k), np.int64)  # a key's own hits on each of its bits
+        for j in range(k):
+            same = idx == idx[:, j:j + 1]
+            own[:, j] = same.sum(axis=1)
+        covered_by_others = np.all(hits[idx.astype(np.int64)] - own > 0, axis=1)
+        n_added = 0
+        for c in range(conns):
+            seq = golden.GoldenBloomFilter(m, k)
+            keys = np.concatenate([np.arange(j * per, (j + 1) * per)
+                                   for j in range(c, n_cmds, conns)])
+            upper = seq.add_hashed(h1[keys], h2[keys])
+            flags = np.concatenate([int_array(f) for f in replies[c]])
+            check(flags.shape == keys.shape and np.isin(flags, (0, 1)).all(),
+                  "BF.MADD replies malformed")
+            check(np.all(flags <= upper), "BF.MADD reported a key new whose bits "
+                  "its own connection had already set")
+            check(np.all(flags >= ~covered_by_others[keys]), "BF.MADD reported a "
+                  "key present whose bits no other key sets")
+            n_added += int(flags.sum())
+        check(0.97 * n <= n_added <= n, f"added {n_added} of {n}")
+        g.bits[idx.reshape(-1)] = True
+        words = tenant_row(client, "cfg1")
+        gbits = np.zeros(words.shape[0] * 32, bool)
+        gbits[:m] = g.bits
+        check(np.array_equal(words, np.packbits(gbits, bitorder="little").view(np.uint32)),
+              "11a: filter row differs from the golden bitmap")
+        # Read: keys outside the loaded set, BF.MEXISTS over 4 connections.
+        outside = rng.integers(3 * n, 8 * n, P11["read"])
+        items = [b"%d" % v for v in outside]
+        per_r = P11["mexists"]
+        cmds = [[b"BF.MEXISTS", b"cfg1"] + items[i:i + per_r]
+                for i in range(0, len(items), per_r)]
+        rstreams = [cmds[c::conns] for c in range(conns)]
+        rreplies = [None] * conns
+
+        def read(c):
+            try:
+                sock = socket.create_connection((server.host, server.port))
+                out = []
+                for i in range(0, len(rstreams[c]), P11["window"]):
+                    part = rstreams[c][i:i + P11["window"]]
+                    sock.sendall(wire(part))
+                    out += read_frames(sock, len(part))
+                sock.close()
+                rreplies[c] = out
+            except Exception as e:
+                errors.append(e)
+
+        threads = [threading.Thread(target=read, args=(c,)) for c in range(conns)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        read_s = time.perf_counter() - t0
+        check(not errors, f"wire read failed: {errors[:1]}")
+        o1, o2 = wire_hashes(client, items, m)
+        want = g.contains_hashed(o1, o2)
+        got = np.zeros(len(items), bool)
+        for c in range(conns):
+            for j, f in enumerate(rreplies[c]):
+                lo = (c + j * conns) * per_r
+                got[lo:lo + per_r] = int_array(f).astype(bool)
+        check(np.array_equal(got, want), "11a: BF.MEXISTS differs from golden")
+        fpp = float(got.mean())
+        p_theory = (1.0 - np.exp(-k * n / m)) ** k
+        sigma = np.sqrt(p_theory * (1.0 - p_theory) / len(items))
+        check(abs(fpp - p_theory) <= 3 * sigma,
+              f"11a: FPP {fpp} vs expected {p_theory} +- {3 * sigma}")
+        check_healthy(client, "11a")
+        log({"phase": "11a", "config": "bloom 1M keys 1% FPP over RESP",
+             "connections": conns, "madd_keys_per_cmd": per,
+             "wire_add_ops_per_s": n / add_s, "wire_contains_ops_per_s": len(items) / read_s,
+             "added": n_added, "fpp": fpp, "fpp_expected": p_theory,
+             "fpp_3sigma": 3 * sigma, "row_equals_golden": True,
+             "native_parser": bool(server.reactor and server.reactor.native_tick),
+             "card": card})
+    finally:
+        server.close()
+        client.shutdown()
+
+
+def config6_seed_cmds() -> list:
+    """Config 6's keyspace: the 100,000-key / 1% filter holding the even
+    hot items, four strings, a bitmap with its even offsets set."""
+    n_items = P11["c6_items"]
+    cmds = [[b"BF.RESERVE", b"fd-bf", b"0.01", b"%d" % P11["c6_filter"]]]
+    cmds += [[b"BF.MADD", b"fd-bf"] + [b"%d" % i for i in range(j, min(j + 64, n_items), 2)]
+             for j in range(0, n_items, 64)]
+    cmds += [[b"SET", b"fd-s%d" % i, b"value-%d" % i] for i in range(4)]
+    cmds += [[b"SETBIT", b"fd-bs", b"%d" % i, b"1"] for i in range(0, 64, 2)]
+    return cmds
+
+
+def config6_batches(seed: int, n_batches: int, depth: int) -> list:
+    """Config 6's pipelined traffic (``bench.py::bench_config6_frontdoor``):
+    spans of 16-48 commands on one family — Bloom 0.5 (15% BF.ADD among
+    BF.EXISTS), strings 0.3 (4% SET among GET), bitmap 0.2 (20% SETBIT
+    among GETBIT) — over zipf(1.3) keys on 512 hot items.  A SET writes
+    its key's seed value, so what a GET returns does not depend on how
+    the connections interleave."""
+    rng = np.random.default_rng(seed)
+    n_items = P11["c6_items"]
+    out = []
+    for _ in range(n_batches):
+        cmds = []
+        while len(cmds) < depth:
+            burst = min(int(rng.integers(16, 49)), depth - len(cmds))
+            hot = (rng.zipf(1.3, burst) - 1) % n_items
+            fam = rng.random()
+            for i in range(burst):
+                w = rng.random()
+                if fam < 0.5:
+                    op = b"BF.ADD" if w < 0.15 else b"BF.EXISTS"
+                    cmds.append([op, b"fd-bf", b"%d" % hot[i]])
+                elif fam < 0.8:
+                    key = int(hot[i]) % 4
+                    cmds.append([b"SET", b"fd-s%d" % key, b"value-%d" % key] if w < 0.04
+                                else [b"GET", b"fd-s%d" % key])
+                else:
+                    off = b"%d" % (hot[i] % 64)
+                    cmds.append([b"SETBIT", b"fd-bs", off, b"1"] if w < 0.2
+                                else [b"GETBIT", b"fd-bs", off])
+        out.append(cmds)
+    return out
+
+
+def config6_pass(server, batches_per_conn) -> tuple:
+    """One pass: connection c streams its batches, one pipelined batch in
+    flight at a time.  Returns (reply bytes per connection, seconds)."""
+    import socket
+
+    conns = len(batches_per_conn)
+    payloads = [[wire(b) for b in bs] for bs in batches_per_conn]
+    out = [None] * conns
+    errors = []
+
+    def worker(c):
+        try:
+            sock = socket.create_connection((server.host, server.port))
+            got = []
+            for b, p in zip(batches_per_conn[c], payloads[c]):
+                sock.sendall(p)
+                got += read_frames(sock, len(b))
+            sock.close()
+            out[c] = b"".join(got)
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(c,)) for c in range(conns)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    dt = time.perf_counter() - t0
+    check(not errors, f"config 6 pass failed: {errors[:1]}")
+    return out, dt
+
+
+def frontdoor_totals(server) -> dict:
+    from redisson_tpu_torch.obs import total
+
+    o = server.obs
+    return {"fused": total(o.resp_fused_cmds), "cmds": total(o.resp_commands),
+            "hits": total(o.resp_cache_hits), "misses": total(o.resp_cache_misses)}
+
+
+def device_idle_share(fn) -> dict:
+    """Wall, device busy (the union of the kernel and memcpy intervals the
+    profiler saw) and idle share of one call of ``fn``; None where the
+    profiler saw no device activity."""
+    import profile_port
+
+    if P11_DEVICE != "cuda":
+        return {"wall_ms": None, "device_busy_ms": None, "idle_share": None}
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile")
+    os.makedirs(out_dir, exist_ok=True)
+    row = profile_port.profile_pass("frontdoor", fn, out_dir, warm=False)
+    return {k: row[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                "top_device_ms")}
+
+
+def phase_config6(card: str, seed: int) -> None:
+    """11b: config 6's stream on a vectorizing and a sequential server."""
+    P, depth, nb = P11["c6_conns"], P11["c6_depth"], P11["c6_batches"]
+    batches = config6_batches(seed, P * nb, depth)
+    per_conn = [batches[c * nb:(c + 1) * nb] for c in range(P)]
+    arms = {}
+    for vec in (True, False):
+        client = p11_client(batch_window_us=200)
+        client.config.resp_vectorize = vec
+        server = p11_server(client)
+        try:
+            roundtrip(server, config6_seed_cmds())
+            config6_pass(server, per_conn)  # warm: every write of the stream lands once
+            before = frontdoor_totals(server)
+            replies, dt = config6_pass(server, per_conn)
+            after = frontdoor_totals(server)
+            d = {k: after[k] - before[k] for k in after}
+            prof = device_idle_share(lambda: config6_pass(server, per_conn)) if vec else None
+            check_healthy(client, "11b")
+            arms[vec] = {"replies": replies, "dt": dt, "d": d, "prof": prof,
+                         "rows": (tenant_row(client, "fd-bf"), tenant_row(client, "fd-bs"))}
+        finally:
+            server.close()
+            client.shutdown()
+    for c in range(P):
+        check(arms[True]["replies"][c] == arms[False]["replies"][c],
+              f"11b: connection {c}'s replies differ between the arms")
+    for a, b in zip(arms[True]["rows"], arms[False]["rows"]):
+        check(np.array_equal(a, b), "11b: rows differ between the arms")
+    n_cmds = P * nb * depth
+    d = arms[True]["d"]
+    log({"phase": "11b", "config": "config 6 front door", "connections": P,
+         "depth": depth, "batches_per_conn": nb, "cmds": n_cmds,
+         "cmds_per_s": n_cmds / arms[True]["dt"],
+         "unfused_cmds_per_s": n_cmds / arms[False]["dt"],
+         "fusion_ratio": d["fused"] / d["cmds"] if d["cmds"] else 0.0,
+         "response_cache_hit_rate": d["hits"] / (d["hits"] + d["misses"])
+         if d["hits"] + d["misses"] else 0.0,
+         "replies_equal": True, "rows_equal": True,
+         "profile_one_pass": arms[True]["prof"], "card": card})
+
+
+def config8_seed_cmds() -> list:
+    n_items = P11["c8_items"]
+    cmds = [[b"BF.RESERVE", b"rx-bf", b"0.01", b"100000"]]
+    cmds += [[b"BF.MADD", b"rx-bf"] + [b"%d" % i for i in range(j, j + 64)]
+             for j in range(0, n_items, 64)]
+    cmds += [[b"SET", b"rx-s%d" % i, b"value-%d" % i] for i in range(4)]
+    cmds += [[b"SETBIT", b"rx-bs", b"%d" % i, b"1"] for i in range(0, 64, 2)]
+    for _ in range(3):  # the fused paths' first launches, outside the passes
+        cmds += [[b"BF.EXISTS", b"rx-bf", b"%d" % i] for i in range(32)]
+        cmds += [[b"BF.ADD", b"rx-bf", b"%d" % i] if i % 4 == 0 else
+                 [b"BF.EXISTS", b"rx-bf", b"%d" % i] for i in range(32)]
+        cmds += [[b"GETBIT", b"rx-bs", b"%d" % (i % 64)] for i in range(32)]
+        cmds += [[b"GET", b"rx-s%d" % (i % 4)] for i in range(16)]
+    return cmds
+
+
+def config8_command(rng) -> list:
+    """One command of config 8's closed-loop clients
+    (``bench.py::bench_config8_reactor``): 3% BF.ADD, 35% BF.EXISTS, 50%
+    GET, the rest GETBIT, over zipf(1.3) on 512 hot items."""
+    hot = int((rng.zipf(1.3) - 1) % P11["c8_items"])
+    r = rng.random()
+    if r < 0.03:
+        return [b"BF.ADD", b"rx-bf", b"%d" % hot]
+    if r < 0.38:
+        return [b"BF.EXISTS", b"rx-bf", b"%d" % hot]
+    if r < 0.88:
+        return [b"GET", b"rx-s%d" % (hot % 4)]
+    return [b"GETBIT", b"rx-bs", b"%d" % (hot % 64)]
+
+
+def config8_client_proc(host, port, conns, seconds, seed, q):
+    """Closed-loop single-command clients in a child process (so the
+    clients do not share the server's interpreter): one thread per
+    connection, one command in flight.  Puts (count, seconds, latencies,
+    the distinct (command, reply) pairs seen)."""
+    import socket
+
+    counts = [0] * conns
+    lats = [[] for _ in range(conns)]
+    seen = [dict() for _ in range(conns)]
+
+    def worker(t):
+        rng = np.random.default_rng(seed * 100 + t)
+        sock = socket.create_connection((host, port))
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        stop = time.perf_counter() + seconds
+        try:
+            while time.perf_counter() < stop:
+                cmd = config8_command(rng)
+                t0 = time.perf_counter()
+                sock.sendall(wire([cmd]))
+                rep = read_frames(sock, 1, timeout=60.0)[0]
+                lats[t].append(time.perf_counter() - t0)
+                counts[t] += 1
+                seen[t].setdefault(tuple(cmd), set()).add(rep)
+        finally:
+            sock.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(conns)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    pairs = {}
+    for s in seen:
+        for k, v in s.items():
+            pairs.setdefault(k, set()).update(v)
+    q.put((sum(counts), time.perf_counter() - t0, [x for la in lats for x in la],
+           {k: sorted(v) for k, v in pairs.items()}))
+
+
+def serving_threads() -> int:
+    return sum(1 for t in threading.enumerate() if t.name.startswith("rtpu-resp"))
+
+
+def open_fds() -> int:
+    try:
+        return len(os.listdir("/proc/self/fd"))
+    except OSError:
+        return -1
+
+
+def phase_config8(card: str, seed: int) -> None:
+    """11c: config 8's traffic, reactor against thread-per-connection."""
+    import multiprocessing as mp
+    import resource
+    import socket
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < hard:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    soft, _ = resource.getrlimit(resource.RLIMIT_NOFILE)
+    # Both ends of an idle connection live in this process: 2 fds each.
+    idle_n = min(P11["c8_idle"], max(0, (soft - 512) // 2))
+    ctx = mp.get_context("spawn")
+    out = {}
+    for arm in (True, False):
+        client = p11_client(batch_window_us=200)
+        client.config.resp_reactor = arm
+        server = p11_server(client)
+        idle = []
+        try:
+            roundtrip(server, config8_seed_cmds())
+            threads_base = serving_threads()  # before any idle connection
+            for _ in range(idle_n):
+                idle.append(socket.create_connection((server.host, server.port), timeout=10))
+            threads_idle = serving_threads()
+
+            def measure(seconds):
+                q = ctx.Queue()
+                per = P11["c8_active"] // P11["c8_procs"]
+                procs = [ctx.Process(target=config8_client_proc,
+                                     args=(server.host, server.port, per, seconds, seed + i, q))
+                         for i in range(P11["c8_procs"])]
+                for p in procs:
+                    p.start()
+                res = [q.get(timeout=seconds + 120) for _ in procs]
+                for p in procs:
+                    p.join(timeout=30)
+                return res
+
+            measure(1.0)  # warm
+            threads_loaded = serving_threads()
+            res = measure(P11["c8_pass_s"])
+            total = sum(r[0] for r in res)
+            dt = float(np.median([r[1] for r in res]))
+            lat = np.sort(np.concatenate([np.asarray(r[2]) for r in res]))
+            pairs = {}
+            for r in res:
+                for k, v in r[3].items():
+                    pairs.setdefault(k, set()).update(v)
+            # Every distinct command got one reply only, equal to a
+            # sequential replay on one connection.
+            cmds = sorted(pairs)
+            check(all(len(v) == 1 for v in pairs.values()),
+                  "11c: one command got different replies")
+            replay = roundtrip(server, [list(c) for c in cmds])
+            check(all(pairs[c] == {r} for c, r in zip(cmds, replay)),
+                  "11c: replies differ from a sequential replay")
+            nthreads = server.reactor.nthreads if server.reactor is not None else 0
+            if arm:
+                # Fixed: the same serving threads (the reactor's and the
+                # accept thread) however many connections are open.
+                check(threads_idle == threads_base and threads_loaded <= threads_base + 1,
+                      f"11c: serving threads {threads_base} -> {threads_idle} idle, "
+                      f"{threads_loaded} loaded, with a reactor of {nthreads}")
+            check_healthy(client, "11c")
+            out["reactor" if arm else "reactor_off"] = {
+                "cmds_per_s": total / dt, "p50_ms": float(lat[len(lat) // 2] * 1e3),
+                "p99_ms": float(lat[int(len(lat) * 0.99)] * 1e3),
+                "serving_threads_before_conns": threads_base,
+                "serving_threads_idle": threads_idle,
+                "serving_threads_loaded": threads_loaded,
+                "process_fds": open_fds(), "distinct_cmds": len(cmds)}
+        finally:
+            for s in idle:
+                s.close()
+            server.close()
+            client.shutdown()
+    log({"phase": "11c", "config": "config 8 reactor", "idle_conns": idle_n,
+         "idle_target": P11["c8_idle"], "active_conns": P11["c8_active"],
+         "fd_soft_limit": soft, **out, "card": card})
+
+
+def c11d_boot(port: int, sdir: str):
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    return subprocess.Popen(
+        [sys.executable, "-m", "redisson_tpu_torch", "--port", str(port),
+         "--device", P11_DEVICE, "--snapshot-dir", sdir],
+        cwd=str(Path(__file__).resolve().parent), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def c11d_connect(port: int, proc, timeout: float = 180.0):
+    import socket
+
+    t0 = time.perf_counter()
+    while True:
+        try:
+            return socket.create_connection(("127.0.0.1", port), timeout=120)
+        except OSError:
+            if proc.poll() is not None:
+                fail(f"server exited: {proc.communicate()[0][-2000:]}")
+            check(time.perf_counter() - t0 < timeout, "server did not start")
+            time.sleep(0.2)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+C11D_WRITES = [
+    [b"PING"], [b"SET", b"cli-k", b"v"], [b"INCR", b"cli-n"], [b"INCR", b"cli-n"],
+    [b"BF.RESERVE", b"cli-bf", b"0.01", b"1000"], [b"BF.ADD", b"cli-bf", b"alpha"],
+    [b"BF.EXISTS", b"cli-bf", b"alpha"], [b"PFADD", b"cli-h", b"a", b"b", b"c"],
+    [b"PFCOUNT", b"cli-h"], [b"SETBIT", b"cli-bs", b"77", b"1"],
+    [b"GETBIT", b"cli-bs", b"77"], [b"CMS.INITBYDIM", b"cli-cms", b"1024", b"4"],
+    [b"CMS.INCRBY", b"cli-cms", b"x", b"5", b"y", b"2"], [b"CMS.QUERY", b"cli-cms", b"x", b"y"],
+    [b"TOPK.RESERVE", b"cli-tk", b"2"], [b"TOPK.ADD", b"cli-tk", b"a", b"b", b"a", b"c", b"a"],
+    [b"TOPK.LIST", b"cli-tk", b"WITHCOUNT"],
+]
+C11D_READS = [
+    [b"GET", b"cli-k"], [b"GET", b"cli-n"], [b"BF.EXISTS", b"cli-bf", b"alpha"],
+    [b"BF.EXISTS", b"cli-bf", b"nope"], [b"PFCOUNT", b"cli-h"], [b"GETBIT", b"cli-bs", b"77"],
+    [b"GETBIT", b"cli-bs", b"78"], [b"CMS.QUERY", b"cli-cms", b"x", b"y", b"z"],
+    [b"TOPK.LIST", b"cli-tk", b"WITHCOUNT"], [b"DBSIZE"], [b"TYPE", b"cli-bf"],
+]
+
+
+def phase_entry_point(card: str) -> None:
+    """11d: ``python -m redisson_tpu_torch`` boots, serves, drains and
+    snapshots on SIGTERM, and a reboot on the same directory answers every
+    read as before."""
+    import signal
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    sdir = tempfile.mkdtemp(prefix="phase11d-", dir=str(build))
+    try:
+        answers = []
+        for boot in range(2):
+            port = free_port()
+            t0 = time.perf_counter()
+            proc = c11d_boot(port, sdir)
+            try:
+                sock = c11d_connect(port, proc)
+                boot_s = time.perf_counter() - t0
+                if boot == 0:
+                    sock.sendall(wire(C11D_WRITES))
+                    w = read_frames(sock, len(C11D_WRITES))
+                    check(not any(f.startswith(b"-") for f in w), f"11d: write failed: {w}")
+                sock.sendall(wire(C11D_READS + [[b"INFO", b"server"]]))
+                r = read_frames(sock, len(C11D_READS) + 1)
+                sock.close()
+                info = r[-1].decode()
+                check(f"rtpu_device:{P11_DEVICE}" in info, f"11d: INFO server: {info}")
+                if P11_DEVICE == "cuda":
+                    check(torch.cuda.get_device_name(0) in info, "11d: INFO lacks the card")
+                answers.append(r[:-1])
+                proc.send_signal(signal.SIGTERM)
+                out, _ = proc.communicate(timeout=180)
+                check(proc.returncode == 0, f"11d: exit {proc.returncode}: {out[-2000:]}")
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate(timeout=30)
+            if boot == 0:
+                check(os.path.exists(os.path.join(sdir, "grid_store.bin")),
+                      "11d: no grid_store.bin after SIGTERM")
+                first_boot_s = boot_s
+        check(answers[0] == answers[1], f"11d: reboot answers differ: {answers}")
+        check(answers[0][0] == b"$1\r\nv\r\n" and answers[0][1] == b"$1\r\n2\r\n"
+              and answers[0][2] == b":1\r\n", f"11d: wrong answers {answers[0]}")
+        log({"phase": "11d", "entry_point": "python -m redisson_tpu_torch",
+             "boot_s": first_boot_s, "reboot_s": boot_s, "reads": len(C11D_READS),
+             "reads_equal_after_restart": True, "info_server_card": True, "card": card})
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+
+
+def phase_frontdoor(rng, seed: int, card: str) -> None:
+    os.environ["RTPU_REQUIRE_NATIVE_RESP"] = "1"
+    from redisson_tpu_torch.serve import native_codec
+
+    check(native_codec.get_parser() is not None and native_codec.get_ticker() is not None,
+          "the native RESP codec did not build")
+    phase_wire_bloom(rng, card)
+    phase_config6(card, seed)
+    phase_config8(card, seed)
+    phase_entry_point(card)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2107,6 +2779,7 @@ def main(argv=None) -> int:
     check(cms_seq.LAUNCHES > 0, "phase 10 never launched K1")
     kernel["launches"] += cms_seq.LAUNCHES
     by_phase["10"] = cms_seq.LAUNCHES
+    phase_frontdoor(rng, args.seed, card)
     log({"kernels": [kernel]})
     print(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})

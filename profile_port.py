@@ -13,6 +13,13 @@ runs it again under ``torch.profiler`` and prints one JSON line per pass:
   bitset_mixed    config 3: 8 alternating set_many_async / get_many_async
                   of 2**21 uniform indexes on a 2**30-bit RBitSet, resolved
                   with collect
+  frontdoor_config6  config 6 over the RESP wire: an in-process
+                  ``RespServer`` on its own card client (default codec) and
+                  4 loopback connections, each streaming 8 pipelined
+                  256-command batches of ``chip_smoke.config6_batches``
+                  (zipf(1.3) spans of BF.ADD/BF.EXISTS, GET/SET,
+                  SETBIT/GETBIT); the pass's device share is what the wire's
+                  host work (parse, vectorize, encode) leaves the card
 
 Each line has the pass's wall time (host clock, ending in a device
 synchronize), the device busy time (union of the CUDA kernel and memcpy
@@ -53,10 +60,11 @@ def _busy_us(events) -> float:
     return busy
 
 
-def profile_pass(name: str, fn, out_dir: str) -> dict:
+def profile_pass(name: str, fn, out_dir: str, warm: bool = True) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    fn()  # warm-up: the first CUDA launch of each op is not the steady state
+    if warm:
+        fn()  # the first CUDA launch of each op is not the steady state
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -154,7 +162,70 @@ def main(argv=None) -> int:
             print(json.dumps(row), flush=True)
     finally:
         client.shutdown()
+    print(json.dumps(dict(frontdoor_pass(args.seed, out_dir), card=card)), flush=True)
     return 0
+
+
+def frontdoor_pass(seed: int, out_dir: str) -> dict:
+    """Config 6's pipelined stream through an in-process RESP server."""
+    import chip_smoke
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.serve.resp import RespServer
+
+    client = rt.create(rt.Config().use_gpu_sketch(batch_window_us=200))
+    server = RespServer(client)
+    try:
+        chip_smoke.roundtrip(server, chip_smoke.config6_seed_cmds())
+        conns, n_batches = 4, 8
+        batches = chip_smoke.config6_batches(seed, conns * n_batches, 256)
+        per_conn = [batches[c * n_batches:(c + 1) * n_batches] for c in range(conns)]
+        row = profile_pass("frontdoor_config6",
+                           lambda: chip_smoke.config6_pass(server, per_conn), out_dir)
+        row["cmds"] = conns * n_batches * 256
+        row["cmds_per_s"] = row["cmds"] / (row["wall_ms"] / 1e3)
+        row["host_split_ms"] = frontdoor_host_split(server, batches)
+        return row
+    finally:
+        server.close()
+        client.shutdown()
+
+
+def frontdoor_host_split(server, batches) -> dict:
+    """Where a pass's host time goes, measured on the same batches without
+    sockets: ``parse`` frames every payload with the native codec;
+    ``dispatch`` runs the parsed batches through ``_dispatch_merged`` (run
+    scanning, engine calls and their waits, reply encoding) on one
+    thread; ``encode`` builds the RESP request bytes a client sends.
+    The socket pass's wall minus ``dispatch`` is the loop's share (recv,
+    the reactor tick, send, the client threads)."""
+    import socket as _socket
+
+    from redisson_tpu_torch.serve import native_codec, resp
+    from redisson_tpu_torch.serve.wireutil import wire_command
+
+    t0 = time.perf_counter()
+    payloads = [b"".join(wire_command(c) for c in b) for b in batches]
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    parser = native_codec.get_parser()
+    t0 = time.perf_counter()
+    parsed = []
+    for p in payloads:
+        frames, _, _ = parser.parse(p)
+        parsed.append(frames)
+    parse_ms = (time.perf_counter() - t0) * 1e3
+    sock = _socket.socket()
+    ctx = resp._ConnCtx(sock, server=server)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for frames in parsed:
+        pos = 0
+        while pos < len(frames):
+            _, n = server._dispatch_merged(frames[pos:], [ctx] * (len(frames) - pos))
+            pos += n
+    torch.cuda.synchronize()
+    dispatch_ms = (time.perf_counter() - t0) * 1e3
+    sock.close()
+    return {"client_encode": encode_ms, "parse": parse_ms, "dispatch": dispatch_ms}
 
 
 if __name__ == "__main__":

@@ -1,10 +1,13 @@
-"""RedissonTorchClient — the entry-point facade of the port's slice.
+"""RedissonTorchClient — the entry-point facade of the port.
 
-Parity with ``redisson_tpu/client.py`` for the sketch objects this
-package carries: ``get_bloom_filter``, ``get_hyper_log_log``,
-``get_bit_set``, ``get_count_min_sketch``, ``create_batch``, ``collect``,
-``defer_fetch``, ``op_deadline``, ``prewarm_wait``, ``snapshot`` and
-``shutdown``.
+Parity with ``redisson_tpu/client.py`` for what this package carries:
+the sketch objects (``get_bloom_filter``, ``get_hyper_log_log``,
+``get_bit_set``, ``get_count_min_sketch``) on the engine, and the host
+grid's buckets, counters and RKeys (``get_bucket(s)``,
+``get_atomic_long``/``double``, the adders, ``get_id_generator``,
+``get_keys``) over one logical keyspace spanning both backends; plus
+``create_batch``, ``collect``, ``defer_fetch``, ``op_deadline``,
+``prewarm_wait``, ``snapshot`` and ``shutdown``.
 """
 
 from __future__ import annotations
@@ -15,7 +18,19 @@ from typing import Optional
 
 from redisson_tpu_torch import overload
 from redisson_tpu_torch.config import Config
-from redisson_tpu_torch.grid.batch import Batch
+from redisson_tpu_torch.grid import (
+    AtomicDouble,
+    AtomicLong,
+    Batch,
+    BinaryStream,
+    Bucket,
+    Buckets,
+    DoubleAdder,
+    GridStore,
+    IdGenerator,
+    Keys,
+    LongAdder,
+)
 from redisson_tpu_torch.objects import BitSet, BloomFilter, CountMinSketch, HyperLogLog
 from redisson_tpu_torch.objects.base import CamelCompatMixin
 from redisson_tpu_torch.objects.engines import TorchSketchEngine
@@ -30,6 +45,38 @@ class RedissonTorchClient(CamelCompatMixin):
             )
         self.config = config
         self._engine = TorchSketchEngine(config)
+        # The RESP front door records into the engine's registry, so one
+        # exposition carries both.
+        self.obs = self._engine.obs
+        self._grid = GridStore()
+        # One logical keyspace across both backends: creating an object
+        # under a name the other backend holds is WRONGTYPE.  Wired to
+        # the lock-free ``probe`` on each side — guards run while holding
+        # the caller's own lock, so a locking lookup would deadlock.
+        self._engine.foreign_exists = self._grid.probe
+        self._grid.foreign_exists = self._engine.probe
+        # Store-level identity changes of grid names retire their cached
+        # near-cache entries ("grid:"-prefixed tenants).
+        nc = self._engine.nearcache
+        self._grid.on_invalidate = lambda name: nc.drop_object("grid:" + name)
+        self._grid.on_invalidate_all = nc.invalidate_all
+        # Restore-on-create for the host keyspace too (the sketch side
+        # restored inside the engine): one snapshot directory carries the
+        # whole logical keyspace, the periodic snapshotter's included.
+        if config.snapshot_dir:
+            try:
+                self._grid.restore_from(
+                    os.path.join(config.snapshot_dir, "grid_store.bin")
+                )
+            except Exception:
+                # The engine is already running (threads, device state,
+                # maybe an armed snapshotter that would overwrite the
+                # files being debugged): tear it down before failing.
+                self._engine.shutdown()
+                raise
+            self._engine.snapshot_extra = lambda d: self._grid.snapshot_to(
+                os.path.join(d, "grid_store.bin")
+            )
 
     def get_bloom_filter(self, name: str) -> BloomFilter:
         return BloomFilter(name, self)
@@ -42,6 +89,36 @@ class RedissonTorchClient(CamelCompatMixin):
 
     def get_count_min_sketch(self, name: str) -> CountMinSketch:
         return CountMinSketch(name, self)
+
+    # -- buckets / counters (host grid) ------------------------------------
+
+    def get_bucket(self, name: str) -> Bucket:
+        return Bucket(name, self)
+
+    def get_buckets(self) -> Buckets:
+        return Buckets(self)
+
+    def get_binary_stream(self, name: str) -> BinaryStream:
+        return BinaryStream(name, self)
+
+    def get_atomic_long(self, name: str) -> AtomicLong:
+        return AtomicLong(name, self)
+
+    def get_atomic_double(self, name: str) -> AtomicDouble:
+        return AtomicDouble(name, self)
+
+    def get_long_adder(self, name: str) -> LongAdder:
+        return LongAdder(name, self)
+
+    def get_double_adder(self, name: str) -> DoubleAdder:
+        return DoubleAdder(name, self)
+
+    def get_id_generator(self, name: str) -> IdGenerator:
+        return IdGenerator(name, self)
+
+    def get_keys(self) -> Keys:
+        """→ RedissonClient#getKeys: RKeys over both backends."""
+        return Keys(self)
 
     def create_batch(self) -> Batch:
         """→ RedissonClient#createBatch: the deferred-execution facade."""
@@ -84,15 +161,20 @@ class RedissonTorchClient(CamelCompatMixin):
         return self._engine.prewarm_wait(timeout)
 
     def snapshot(self, directory: Optional[str] = None) -> None:
-        """Snapshot the whole sketch keyspace to ``directory`` (default:
-        ``Config.snapshot_dir``)."""
+        """Snapshot the whole logical keyspace — sketch pools and the host
+        grid — to ``directory`` (default: ``Config.snapshot_dir``)."""
         directory = directory or self.config.snapshot_dir
         if not directory:
             raise ValueError("no snapshot directory configured")
         os.makedirs(directory, exist_ok=True)
         self._engine.snapshot(directory)
+        if self._engine.snapshot_extra is None:
+            # No configured directory, so the engine has no hook: the
+            # host keyspace goes beside the pools here.
+            self._grid.snapshot_to(os.path.join(directory, "grid_store.bin"))
 
     def shutdown(self) -> None:
-        """→ Redisson#shutdown (writes the final snapshot when
-        ``Config.snapshot_dir`` is set)."""
+        """→ Redisson#shutdown (the engine's final snapshot, when
+        ``Config.snapshot_dir`` is set, writes ``grid_store.bin`` too)."""
         self._engine.shutdown()
+        self._grid.shutdown()

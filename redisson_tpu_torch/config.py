@@ -58,6 +58,11 @@ class GpuSketchConfig:
         # fetch timeout records a breaker failure.
         self.op_deadline_ms = 0
         self.fetch_timeout_ms = 120_000
+        # RESP ingress shedding: past this coalescer queue pressure
+        # (0..1) the front door refuses engine-bound commands with -BUSY,
+        # keeping the handshake/admin/introspection surface.  1.0
+        # effectively disables it; must be > 0.
+        self.admission_watermark = 0.9
         # Per-tenant fairness: token-bucket rate (ops/s, 0 = unlimited),
         # burst (0 -> 2x the rate), and a queued+in-flight op quota
         # (0 = unlimited); over-quota tenants are shed first.
@@ -136,9 +141,49 @@ class Config:
         # times in all, after a jittered exponential backoff.
         self.retry_attempts = 3
         self.retry_interval_ms = 1500
+        # -- RESP front door (serve/), the JAX package's names and
+        # defaults.  requirepass: every connection must AUTH (or HELLO
+        # ... AUTH) first; None = open, the redis-server default.
+        self.requirepass: Optional[str] = None
+        # RESP scripting (Python bodies, the JAX package's switch): not
+        # ported yet — EVAL answers as an unknown command — but a server
+        # refuses it on a non-loopback bind without requirepass, as there.
+        self.enable_python_scripts = False
+        # Fuse runs of adjacent pipelined commands on one (object,
+        # family) into single engine calls, demuxing per-command replies
+        # in order (byte-identical to sequential execution).
+        self.resp_vectorize = True
+        # Response cache for repeated identical reads inside one pipeline
+        # window: entry bound, 0 disables; any write retires it.
+        self.resp_response_cache_size = 64
+        # Reactor front door: a fixed pool of selector event loops that
+        # drain every ready connection per tick into one merged
+        # parse -> vectorize -> dispatch pass (ops of different
+        # connections fuse).  False restores thread-per-connection.
+        self.resp_reactor = True
+        self.resp_reactor_threads = 1
+        # Slow-client protection (client-output-buffer-limit): a reply
+        # holding more than this many unsent bytes past its grace drops
+        # the connection (0 = unlimited); a send making no progress for
+        # soft_seconds is dropped (0 = the idle timeout).  Both
+        # live-settable with CONFIG SET.
+        self.client_output_buffer_limit = 0
+        self.client_output_buffer_soft_seconds = 0.0
 
     def set_codec(self, codec) -> "Config":
         self.codec = codec
+        return self
+
+    def set_requirepass(self, password: Optional[str]) -> "Config":
+        """→ BaseConfig#setPassword: require AUTH on the RESP front
+        door."""
+        self.requirepass = password
+        return self
+
+    def set_enable_python_scripts(self, enabled: bool) -> "Config":
+        """The JAX package's scripting switch (see the attribute): a
+        server refuses it on a non-loopback bind without requirepass."""
+        self.enable_python_scripts = enabled
         return self
 
     def use_gpu_sketch(self, **kwargs) -> "Config":
@@ -147,3 +192,62 @@ class Config:
         self.gpu_sketch.enabled = True
         self.gpu_sketch.update(kwargs)
         return self
+
+    # -- serialization (the JAX package's Config.from_dict/from_yaml for
+    # the keys this package reads) ------------------------------------------
+
+    _SIMPLE_KEYS = (
+        "snapshot_dir",
+        "snapshot_interval_s",
+        "retry_attempts",
+        "retry_interval_ms",
+        "requirepass",
+        "enable_python_scripts",
+        "resp_vectorize",
+        "resp_response_cache_size",
+        "resp_reactor",
+        "resp_reactor_threads",
+        "client_output_buffer_limit",
+        "client_output_buffer_soft_seconds",
+    )
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Config":
+        """A config from a mapping: top-level keys, ``codec`` by class
+        name, and a ``gpu_sketch`` (or the JAX package's ``tpu_sketch``)
+        mapping of backend knobs; the backend is enabled."""
+        from redisson_tpu_torch import codecs
+
+        cfg = cls()
+        d = dict(d)
+        codec_name = d.pop("codec", None)
+        if codec_name:
+            codec_cls = getattr(codecs, codec_name, None)
+            if codec_cls is None:
+                raise ValueError(f"unknown codec: {codec_name}")
+            cfg.codec = codec_cls()
+        backend = d.pop("gpu_sketch", None) or d.pop("tpu_sketch", None) or {}
+        for k, v in d.items():
+            if k not in cls._SIMPLE_KEYS:
+                raise ValueError(f"unknown config key: {k}")
+            setattr(cfg, k, v)
+        backend = {k: v for k, v in backend.items() if k != "enabled"}
+        return cfg.use_gpu_sketch(**backend)
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "Config":
+        """→ Config.fromYAML for a file: PyYAML when installed, else
+        JSON (a YAML subset)."""
+        import json
+
+        with open(path) as f:
+            text = f.read()
+        try:
+            import yaml  # type: ignore
+
+            data = yaml.safe_load(text)
+        except ImportError:
+            data = json.loads(text)
+        if not isinstance(data or {}, dict):
+            raise ValueError("config must parse to a mapping")
+        return cls.from_dict(data or {})

@@ -283,6 +283,7 @@ class SketchDurabilityMixin:
             if not replace:
                 raise ValueError(f"BUSYKEY: {name!r} already exists")
             self.delete(name)
+        self._guard_foreign(name)  # one keyspace: RESTORE can't shadow grid
         entry, created = self.registry.try_create(name, d["kind"], class_key, d["params"])
         if not created:  # raced a concurrent creator
             raise ValueError(f"BUSYKEY: {name!r} already exists")
@@ -317,10 +318,17 @@ class SketchDurabilityMixin:
                 self._drain()
                 meta, arrays = self._snapshot_capture()
             self._snapshot_write(directory, meta, arrays)
+            self._last_save_ts = time.time()  # LASTSAVE
             # Blob GC barrier: the latest durable snapshot now names
             # exactly these blob files; retired blobs outside the set may
             # be deleted.
             self.residency.note_snapshot_refs(meta["residency_blobs"])
+            # Companion-state hook (the client wires the grid keyspace
+            # here): runs outside the engine locks, inside the snapshot
+            # lock, so periodic, explicit and shutdown snapshots persist
+            # the whole logical keyspace, not just the sketch pools.
+            if self.snapshot_extra is not None:
+                self.snapshot_extra(directory)
 
     def _snapshot_capture(self):
         """Point-in-time (meta, arrays) under the engine locks, in the

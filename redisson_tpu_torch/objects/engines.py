@@ -344,6 +344,13 @@ class TorchSketchEngine(SketchDurabilityMixin):
         )
         _chaos.set_observer(self._chaos_observer)
         self.topk = TopKStore()
+        # Wired by the client to the grid store's lock-free ``probe`` —
+        # one logical keyspace across both backends (WRONGTYPE on
+        # cross-backend reuse).
+        self.foreign_exists = None
+        # Companion-state snapshot hook (the client wires the grid
+        # keyspace's grid_store.bin here).
+        self.snapshot_extra = None
         self.coalescer = None
         if cfg.coalesce:
             self.coalescer = BatchCoalescer(
@@ -772,6 +779,19 @@ class TorchSketchEngine(SketchDurabilityMixin):
             self.health.clear_degraded(kind)
         return True
 
+    def _guard_foreign(self, name: str) -> None:
+        """Cross-backend WRONGTYPE: creating a sketch under a name the data
+        grid holds is an error, not a shadow object.  ``foreign_exists``
+        is the grid's lock-free probe (wired by the client)."""
+        if (
+            self.foreign_exists is not None
+            and self.registry.lookup(name) is None
+            and self.foreign_exists(name)
+        ):
+            raise TypeError(
+                f"object {name!r} is held by the data grid (WRONGTYPE)"
+            )
+
     def probe(self, name: str) -> bool:
         """Existence probe that never mutates (no expiry reap) and takes
         only the registry's lock."""
@@ -845,6 +865,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
         with self._journal_gate:
             if old == new or self._live_lookup(old) is None:
                 return False
+            self._guard_foreign(new)
             self._drain()
             ok, dest = self.registry.rename_detach_dest(old, new)
             if not ok:  # the source expired since the check
@@ -891,6 +912,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
         }
         with self._journal_gate:
             self._live_lookup(name)  # reap an expired holder before tryInit
+            self._guard_foreign(name)
             _, created = self.registry.try_create(
                 name, PoolKind.BLOOM, (class_words_for_bits(m),), params
             )
@@ -1111,6 +1133,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
 
     def hll_ensure(self, name):
         self._live_lookup(name)  # reap an expired holder first
+        self._guard_foreign(name)
         entry, _ = self.registry.try_create(name, PoolKind.HLL, (), {})
         self.residency.touch(name)  # heat feed (see _lookup_kind)
         if self.prewarmer is not None:
@@ -1263,6 +1286,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
         that holds ``min_bits``, without extending its logical length
         (BITOP operands keep their true lengths)."""
         self._live_lookup(name)  # reap an expired holder first
+        self._guard_foreign(name)
         entry, created = self.registry.try_create(
             name, PoolKind.BITSET, (class_words_for_bits(min_bits),), {"nbits": 0}
         )
@@ -1657,6 +1681,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
     def cms_try_init(self, name, depth: int, width: int) -> bool:
         with self._journal_gate:
             self._live_lookup(name)  # reap an expired holder before tryInit
+            self._guard_foreign(name)
             entry, created = self.registry.try_create(
                 name, PoolKind.CMS, (depth, width),
                 {"depth": depth, "width": width},

@@ -3,9 +3,11 @@
 Counterpart of ``redisson_tpu/obs/__init__.py`` for what the port records
 so far: the failure-and-overload counters (degraded serving, injected
 faults, shedding, deadlines, tenant throttling, fetch timeouts), the near
-cache's hits, misses and evictions, and the residency ladder's
-transitions, with the JAX package's names and labels, in one
-:class:`MetricsRegistry`.  The engine registers the health gauges
+cache's hits, misses and evictions, the residency ladder's transitions,
+and the RESP front door's families (per-command calls, errors and
+latency; ingress sheds; fused runs and the response cache; reactor ticks
+and cross-connection fusion; slow-client disconnects), with the JAX
+package's names and labels, in one :class:`MetricsRegistry`.  The engine registers the health gauges
 (breaker state, degraded objects, coalescer queue and windows) and the
 tier and near-cache occupancy gauges on the same registry.
 """
@@ -80,6 +82,107 @@ class Observability:
             "rtpu_residency_loads",
             "disk blobs loaded back into host mirrors (first touch of "
             "a DISK-resident sketch)")
+        # RESP front door, per command: calls, errors, execution time
+        # (INFO commandstats / latencystats).
+        self.resp_commands = r.counter(
+            "rtpu_resp_commands", "RESP commands processed", ("cmd",))
+        self.resp_errors = r.counter(
+            "rtpu_resp_errors", "RESP commands that returned an error",
+            ("cmd",))
+        self.resp_latency = r.histogram(
+            "rtpu_resp_command_seconds", "RESP command execution time",
+            ("cmd",))
+        self.slow_client_disconnects = r.counter(
+            "rtpu_slow_client_disconnects",
+            "connections dropped by the output-buffer limits, by cause",
+            ("cause",))
+        self.resp_ingress_shed = r.counter(
+            "rtpu_resp_ingress_shed",
+            "RESP commands (or transactions) refused at ingress, by "
+            "reason (pressure = admission watermark, tenant = over-quota "
+            "tenant peek, conn_limit = max connections) — "
+            "COMMAND-denominated, unlike the ops-denominated "
+            "rtpu_shed_ops", ("reason",))
+        # Front-door vectorization: pipelined command runs fused into
+        # single engine calls, and the response cache for repeated
+        # identical reads inside one window.
+        self.resp_fused_cmds = r.counter(
+            "rtpu_resp_fused_cmds",
+            "RESP commands absorbed into fused front-door runs, by family",
+            ("family",))
+        self.resp_fused_ops = r.counter(
+            "rtpu_resp_fused_ops",
+            "engine ops carried by fused front-door runs, by family",
+            ("family",))
+        self.resp_fused_runs = r.counter(
+            "rtpu_resp_fused_runs",
+            "fused front-door runs dispatched, by family", ("family",))
+        self.resp_cache_hits = r.counter(
+            "rtpu_resp_response_cache_hits",
+            "pipelined replies served from the response cache")
+        self.resp_cache_misses = r.counter(
+            "rtpu_resp_response_cache_misses",
+            "response-cache probes that executed the command")
+        # Reactor front door: event-loop ticks, connections ready per
+        # tick, and ops that fused into one engine call together with
+        # ops from OTHER connections.
+        self.reactor_ticks = r.counter(
+            "rtpu_reactor_ticks",
+            "reactor event-loop ticks that processed at least one event")
+        self.reactor_ready_conns = r.counter(
+            "rtpu_reactor_ready_conns",
+            "connections found ready across reactor ticks (avg per tick "
+            "= this / rtpu_reactor_ticks)")
+        self.cross_conn_fused_ops = r.counter(
+            "rtpu_cross_conn_fused_ops",
+            "engine ops fused into a launch together with ops from OTHER "
+            "connections, by family", ("family",))
+
+    def record_resp_command(self, cmd: str, duration_s: float,
+                            error: bool) -> None:
+        self.resp_commands.inc((cmd,))
+        if error:
+            self.resp_errors.inc((cmd,))
+        self.resp_latency.observe((cmd,), duration_s)
+
+    def reset_command_stats(self) -> None:
+        """CONFIG RESETSTAT: zero the RESP per-command families."""
+        self.resp_commands.reset()
+        self.resp_errors.reset()
+        self.resp_latency.reset()
+
+    def command_stats(self) -> dict:
+        """{cmd: {calls, errors, usec, usec_per_call}} for INFO
+        commandstats."""
+        out = {}
+        errs = {lv: c.value for lv, c in self.resp_errors.items()}
+        lat = dict(self.resp_latency.items())
+        for (cmd,), c in self.resp_commands.items():
+            calls = int(c.value)
+            h = lat.get((cmd,))
+            usec = int((h.sum if h is not None else 0.0) * 1e6)
+            out[cmd] = {
+                "calls": calls,
+                "errors": int(errs.get((cmd,), 0)),
+                "usec": usec,
+                "usec_per_call": round(usec / calls, 2) if calls else 0.0,
+            }
+        return out
+
+    def latency_stats(self) -> dict:
+        """{cmd: {p50_us, p99_us, p999_us}} for INFO latencystats."""
+        out = {}
+        for (cmd,), c in self.resp_latency.items():
+            if c.count == 0:
+                continue
+            p50, p99, p999 = self.resp_latency.percentiles(
+                (cmd,), (50, 99, 99.9))
+            out[cmd] = {
+                "p50_us": p50 * 1e6,
+                "p99_us": p99 * 1e6,
+                "p999_us": p999 * 1e6,
+            }
+        return out
 
 
 def total(family: Family) -> float:

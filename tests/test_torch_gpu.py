@@ -514,3 +514,31 @@ def test_bitset_past_2_31_on_the_card(cuda):
         assert bs3.first_set_bit() == 2**31 - 64 and bs3.length() == 2**31 + 64
     finally:
         c.shutdown()
+
+
+# -- the RESP front door on the card (chip_smoke.py phase 11 at a small size) --
+
+
+@pytest.fixture
+def p11_small(cuda, monkeypatch):
+    import chip_smoke as cs
+
+    monkeypatch.setenv("RTPU_REQUIRE_NATIVE_RESP", "1")
+    monkeypatch.setattr(cs, "P11_DEVICE", "cuda")
+    monkeypatch.setattr(cs, "P11", dict(cs.P11, keys=1 << 16, madd=512, read=8192,
+                                        mexists=512, capacity=60_000))
+    return cs
+
+
+def test_wire_bloom_on_the_card(p11_small):
+    """11a's checks at 65,536 keys: BF.MADD flags within the golden
+    bounds, the row equal to the golden bitmap, BF.MEXISTS equal to
+    golden, the FPP within 3 sigma, no op served degraded."""
+    p11_small.phase_wire_bloom(np.random.default_rng(1), "test")
+
+
+def test_entry_point_restart_on_the_card(p11_small):
+    """11d's checks: ``python -m redisson_tpu_torch --device cuda`` with a
+    snapshot directory, SIGTERM exits 0, the reboot answers every read as
+    before, and INFO server names the card."""
+    p11_small.phase_entry_point("test")

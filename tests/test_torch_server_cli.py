@@ -1,0 +1,209 @@
+"""``python -m redisson_tpu_torch`` — the standalone-server deployment shape
+of the port (the counterpart of ``tests/test_server_cli.py``).
+
+Boots a real subprocess with ``--device cpu``, drives it over TCP,
+restarts it on the same snapshot directory and requires every acked
+write back (the server drains its connections before the final snapshot,
+sketches and ``grid_store.bin`` alike).  A snapshot directory written by
+a JAX client boots in the port's server with every read equal to the JAX
+server's.  Without ``--device cpu`` the server refuses to start where
+there is no card; and neither the server's modules nor the scripts
+import jax or the JAX package.
+"""
+
+import os
+import re
+import signal
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import redisson_tpu  # noqa: E402
+from redisson_tpu.serve.resp import RespServer as JaxRespServer  # noqa: E402
+from redisson_tpu_torch.serve.wireutil import exchange  # noqa: E402
+
+REPO = Path(__file__).parent.parent
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(port, snap_dir, *extra):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.Popen(
+        [sys.executable, "-m", "redisson_tpu_torch", "--port", str(port),
+         "--snapshot-dir", str(snap_dir), *extra],
+        cwd=str(REPO), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+    )
+
+
+def _connect(port, proc, deadline_s=90.0):
+    t0 = time.monotonic()
+    while True:
+        try:
+            return socket.create_connection(("127.0.0.1", port), timeout=60)
+        except OSError:
+            if proc.poll() is not None:
+                raise AssertionError(proc.communicate()[0][-2000:])
+            if time.monotonic() - t0 > deadline_s:
+                raise
+            time.sleep(0.2)
+
+
+def _stop(proc):
+    proc.send_signal(signal.SIGTERM)
+    out, _ = proc.communicate(timeout=120)
+    return proc.returncode, out
+
+
+def _cmds(*cmds):
+    return [[a if isinstance(a, bytes) else str(a).encode() for a in c] for c in cmds]
+
+
+def test_standalone_server_round_trip(tmp_path):
+    port = _free_port()
+    proc = _spawn(port, tmp_path / "snap", "--device", "cpu")
+    try:
+        s = _connect(port, proc)
+        assert exchange(s, _cmds(
+            ["PING"], ["SET", "cli-k", "v"], ["INCR", "cli-n"],
+            ["BF.RESERVE", "cli-bf", "0.01", "1000"], ["BF.ADD", "cli-bf", "alpha"],
+            ["BF.EXISTS", "cli-bf", "alpha"], ["PFADD", "cli-h", "a", "b"],
+            ["SETBIT", "cli-bs", "9", "1"],
+            ["CMS.INITBYDIM", "cli-cms", "256", "4"], ["CMS.INCRBY", "cli-cms", "x", "3"],
+            ["TOPK.RESERVE", "cli-tk", "2"], ["TOPK.ADD", "cli-tk", "a", "a", "b"],
+        )) == [b"PONG", b"OK", 1, b"OK", 1, 1, 1, 0, b"OK", [3], b"OK",
+               [None, None, None]]
+        info = exchange(s, [[b"INFO", b"server"]])[0]
+        assert b"rtpu_device:cpu" in info
+        s.close()
+        # Graceful shutdown drains connections, then snapshots.
+        rc, out = _stop(proc)
+        assert rc == 0, out[-2000:]
+        assert sorted(os.listdir(tmp_path / "snap")) == [
+            "grid_store.bin", "sketch_meta.json", "sketch_pools.npz"]
+        port2 = _free_port()
+        proc2 = _spawn(port2, tmp_path / "snap", "--device", "cpu")
+        try:
+            s2 = _connect(port2, proc2)
+            assert exchange(s2, _cmds(
+                ["BF.EXISTS", "cli-bf", "alpha"], ["BF.EXISTS", "cli-bf", "nope"],
+                ["GET", "cli-k"], ["GET", "cli-n"], ["PFCOUNT", "cli-h"],
+                ["GETBIT", "cli-bs", "9"], ["CMS.QUERY", "cli-cms", "x"],
+                ["TOPK.LIST", "cli-tk"],
+            )) == [1, 0, b"v", b"1", 2, 1, [3], [b"a", b"b"]]
+            s2.close()
+        finally:
+            rc2, _ = _stop(proc2)
+            assert rc2 == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+
+
+_JAX_READS = _cmds(
+    ["GET", "j-str"], ["GET", "j-cnt"], ["BF.EXISTS", "j-bf", "in"],
+    ["BF.MEXISTS", "j-bf", "in", "out", "in2"], ["PFCOUNT", "j-h"],
+    ["GETBIT", "j-bs", "1000"], ["GETBIT", "j-bs", "7"], ["BITCOUNT", "j-bs"],
+    ["CMS.QUERY", "j-cms", "a", "b", "zz"], ["TOPK.LIST", "j-tk", "WITHCOUNT"],
+    ["TYPE", "j-lst"], ["DBSIZE"], ["EXISTS", "j-map", "j-str", "j-bf"],
+)
+
+
+def test_jax_snapshot_dir_boots_in_the_port_server(tmp_path):
+    """A JAX client's snapshot directory (sketch pools, registry and
+    grid_store.bin with strings and lists/maps) boots in the port's
+    server; every read equals the JAX server's on the same directory."""
+    sdir = tmp_path / "jsnap"
+    cfg = redisson_tpu.Config().use_tpu_sketch(min_bucket=64)
+    cfg.snapshot_dir = str(sdir)
+    jc = redisson_tpu.create(cfg)
+    js = JaxRespServer(jc)
+    try:
+        s = socket.create_connection((js.host, js.port))
+        exchange(s, _cmds(
+            ["SET", "j-str", "hello"], ["INCRBY", "j-cnt", "7"],
+            ["BF.RESERVE", "j-bf", "0.01", "2000"], ["BF.MADD", "j-bf", "in", "in2"],
+            ["PFADD", "j-h", "a", "b", "c"], ["SETBIT", "j-bs", "1000", "1"],
+            ["CMS.INITBYDIM", "j-cms", "512", "4"], ["CMS.INCRBY", "j-cms", "a", "4", "b", "1"],
+            ["TOPK.RESERVE", "j-tk", "2"], ["TOPK.ADD", "j-tk", "x", "y", "x"],
+            ["RPUSH", "j-lst", "1", "2"], ["HSET", "j-map", "f", "v"],
+        ))
+        want = exchange(s, _JAX_READS)
+        s.close()
+    finally:
+        js.close()
+        jc.shutdown()  # the final snapshot
+    assert {"grid_store.bin", "sketch_meta.json", "sketch_pools.npz"} <= set(os.listdir(sdir))
+    port = _free_port()
+    proc = _spawn(port, sdir, "--device", "cpu")
+    try:
+        s = _connect(port, proc)
+        got = exchange(s, _JAX_READS)
+        s.close()
+    finally:
+        rc, out = _stop(proc)
+    assert rc == 0, out[-2000:]
+    assert [repr(x) for x in got] == [repr(x) for x in want]
+    assert want[0] == b"hello" and want[2] == 1 and want[10] == b"list"
+
+
+def test_refuses_to_start_without_a_card():
+    """Without ``--device cpu`` the server needs a card: here (no CUDA)
+    it exits non-zero, and says why, before binding anything."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-m", "redisson_tpu_torch", "--port", str(_free_port())],
+        cwd=str(REPO), env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+def test_server_modules_import_neither_jax_nor_the_reference():
+    """The front door, the reactor, the entry point and the scripts load
+    with jax and redisson_tpu blocked and serve on the CPU; no module of
+    the port, nor chip_smoke.py or profile_port.py, has an import of
+    either."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['redisson_tpu'] = None\n"
+        "import chip_smoke, profile_port\n"
+        "import redisson_tpu_torch as rt\n"
+        "from redisson_tpu_torch import __main__ as m\n"
+        "from redisson_tpu_torch.serve import reactor, native_codec\n"
+        "from redisson_tpu_torch.serve.resp import RespServer\n"
+        "from redisson_tpu_torch.serve.wireutil import exchange\n"
+        "import socket\n"
+        "c = rt.create(rt.Config().use_gpu_sketch(device='cpu'))\n"
+        "srv = RespServer(c)\n"
+        "s = socket.create_connection((srv.host, srv.port))\n"
+        "r = exchange(s, [[b'SET', b'a', b'1'], [b'INCR', b'a'], [b'BF.RESERVE', b'f', b'0.01', b'10'],"
+        " [b'BF.ADD', b'f', b'x'], [b'GET', b'a']])\n"
+        "assert r == [b'OK', 2, b'OK', 1, b'2'], r\n"
+        "s.close(); srv.close(); c.shutdown()\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    pat = re.compile(r"^\s*(import|from)\s+(jax|redisson_tpu)(\.|\s|$)", re.M)
+    files = list((REPO / "redisson_tpu_torch").rglob("*.py"))
+    files += [REPO / "chip_smoke.py", REPO / "profile_port.py"]
+    offenders = [str(f) for f in files if pat.search(f.read_text())]
+    assert not offenders, offenders
