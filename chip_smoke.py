@@ -96,6 +96,29 @@ the main path through the public client at full size:
            cuda`` with a snapshot directory: a session over every family,
            SIGTERM (drain, snapshot, exit 0), a reboot that answers every
            read as before; INFO server names the card
+  phase 12 the data grid on fresh card clients: (12a) config 5 through
+           its real pipe at bench_config5_stream_topk's shape — CMS(5,
+           65536) with top-20 tracking, 16,000,000 zipf(1.2) % 100,000
+           uint64 events published as 32,768-event array messages (one
+           warm message first) through RTopic -> TopicCmsBridge ->
+           add_all_async -> cms_add -> coalescer -> cms_update_estimate;
+           the table equals the golden count-min over every event,
+           total_count() and events_ingested equal the event count, top-10
+           recall 1.0, no op served degraded; events/s, dispatches and
+           events per dispatch, the device idle share of the timed window.
+           (12b) the grid families over the wire on a card server (reactor
+           on): a session of lists, hashes, sets, sorted sets with the SCAN
+           family and the STORE commands, streams with a consumer group,
+           geo and WRONGTYPE, byte-equal to a CPU server's replies and to
+           Redis's literal replies where known; pub/sub across two
+           connections; a BLPOP parked while another connection pipelines
+           1000 BF.MEXISTS/GET commands, all answered, the serving-thread
+           count unchanged, then woken by an LPUSH.  (12c) ``python -m
+           redisson_tpu_torch`` with a snapshot directory: lists, hashes,
+           sorted sets, a stream with a consumer group and a geo set over
+           the wire, SIGTERM, a reboot that answers every read equal.  K1
+           launches in phase 12 are counted and must be 0: the bridge takes
+           the vectorized cms_add, not K1
 
 Every failed check raises, so the script exits non-zero.  Without a CUDA
 device it exits with code 2 before printing any result.  The line before
@@ -2375,7 +2398,7 @@ def frontdoor_totals(server) -> dict:
             "hits": total(o.resp_cache_hits), "misses": total(o.resp_cache_misses)}
 
 
-def device_idle_share(fn) -> dict:
+def device_idle_share(fn, name: str = "frontdoor") -> dict:
     """Wall, device busy (the union of the kernel and memcpy intervals the
     profiler saw) and idle share of one call of ``fn``; None where the
     profiler saw no device activity."""
@@ -2385,7 +2408,7 @@ def device_idle_share(fn) -> dict:
         return {"wall_ms": None, "device_busy_ms": None, "idle_share": None}
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile")
     os.makedirs(out_dir, exist_ok=True)
-    row = profile_port.profile_pass("frontdoor", fn, out_dir, warm=False)
+    row = profile_port.profile_pass(name, fn, out_dir, warm=False)
     return {k: row[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
                                 "top_device_ms")}
 
@@ -2712,6 +2735,474 @@ def phase_frontdoor(rng, seed: int, card: str) -> None:
     phase_entry_point(card)
 
 
+# -- phase 12: the data grid, the RTopic -> CMS pipe, pub/sub, blocking pops ---
+
+P12 = {"events": 16_000_000, "msg": 1 << 15, "keys": 100_000, "d": 5, "w": 1 << 16,
+       "top_k": 20, "batch_size": 1 << 15, "flush_s": 0.05, "pipeline": 1000}
+P12_DEVICE = "cuda"
+
+# The grid session of 12b: lists, hashes, sets, sorted sets (SCAN family,
+# STORE commands), streams with a consumer group, geo, WRONGTYPE between a
+# Bloom key and a list key.  bytes = the literal Redis reply (the pairs of
+# tests/test_resp_wire_fixtures.py and Redis's documented GEO replies);
+# None = equal to the CPU server's bytes only; ("prefix", p) / ("shape", p)
+# = both replies start with p (error codes; random picks and idle times).
+P12_GRID = [
+    # the literal pairs of tests/test_resp_wire_fixtures.py
+    ([b"RPUSH", b"l", b"a", b"b"], b":2\r\n"),
+    ([b"LPUSH", b"l", b"z"], b":3\r\n"),
+    ([b"LRANGE", b"l", b"0", b"-1"], b"*3\r\n$1\r\nz\r\n$1\r\na\r\n$1\r\nb\r\n"),
+    ([b"LPOP", b"l"], b"$1\r\nz\r\n"),
+    ([b"LLEN", b"l"], b":2\r\n"),
+    ([b"HSET", b"h", b"f1", b"v1"], b":1\r\n"),
+    ([b"HGET", b"h", b"f1"], b"$2\r\nv1\r\n"),
+    ([b"HEXISTS", b"h", b"f1"], b":1\r\n"),
+    ([b"HLEN", b"h"], b":1\r\n"),
+    ([b"SADD", b"s", b"a", b"b"], b":2\r\n"),
+    ([b"SISMEMBER", b"s", b"a"], b":1\r\n"),
+    ([b"SISMEMBER", b"s", b"q"], b":0\r\n"),
+    ([b"SCARD", b"s"], b":2\r\n"),
+    ([b"ZADD", b"z", b"1.5", b"m"], b":1\r\n"),
+    ([b"ZSCORE", b"z", b"m"], b"$3\r\n1.5\r\n"),
+    ([b"ZCARD", b"z"], b":1\r\n"),
+    ([b"HSET", b"s", b"f"], ("prefix", b"-ERR")),
+    ([b"LPOP", b"h"], ("prefix", b"-WRONGTYPE")),
+    # lists
+    ([b"RPUSH", b"l", b"c", b"a", b"d"], b":5\r\n"),
+    ([b"LINDEX", b"l", b"-1"], b"$1\r\nd\r\n"),
+    ([b"LINDEX", b"l", b"99"], b"$-1\r\n"),
+    ([b"LSET", b"l", b"1", b"B"], b"+OK\r\n"),
+    ([b"LSET", b"l", b"99", b"B"], ("prefix", b"-ERR")),
+    ([b"LPOS", b"l", b"a"], b":0\r\n"),
+    ([b"LPOS", b"l", b"a", b"RANK", b"2"], b":3\r\n"),
+    ([b"LPOS", b"l", b"a", b"COUNT", b"0"], b"*2\r\n:0\r\n:3\r\n"),
+    ([b"LREM", b"l", b"1", b"a"], b":1\r\n"),
+    ([b"LRANGE", b"l", b"0", b"-1"], None),
+    ([b"LTRIM", b"l", b"0", b"2"], b"+OK\r\n"),
+    ([b"LPUSHX", b"l", b"x"], b":4\r\n"),
+    ([b"RPUSHX", b"nolist", b"x"], b":0\r\n"),
+    ([b"RPOPLPUSH", b"l", b"l2"], None),
+    ([b"LMOVE", b"l", b"l2", b"LEFT", b"RIGHT"], None),
+    ([b"LRANGE", b"l2", b"0", b"-1"], None),
+    ([b"RPOP", b"l"], None),
+    ([b"RPOP", b"ghostlist"], b"$-1\r\n"),
+    ([b"BLPOP", b"l2", b"1"], b"*2\r\n$2\r\nl2\r\n$1\r\na\r\n"),
+    ([b"BRPOP", b"emptyl", b"l2", b"1"], b"*2\r\n$2\r\nl2\r\n$1\r\nx\r\n"),
+    ([b"TYPE", b"l"], b"+list\r\n"),
+    # hashes
+    ([b"HSET", b"h", b"f2", b"v2", b"f3", b"v3"], b":2\r\n"),
+    ([b"HMGET", b"h", b"f1", b"nope", b"f3"], b"*3\r\n$2\r\nv1\r\n$-1\r\n$2\r\nv3\r\n"),
+    ([b"HGETALL", b"h"], None),
+    ([b"HKEYS", b"h"], None),
+    ([b"HVALS", b"h"], None),
+    ([b"HSETNX", b"h", b"f1", b"x"], b":0\r\n"),
+    ([b"HSETNX", b"h", b"f4", b"x"], b":1\r\n"),
+    ([b"HINCRBY", b"h", b"n", b"5"], b":5\r\n"),
+    ([b"HINCRBY", b"h", b"n", b"-2"], b":3\r\n"),
+    ([b"HINCRBY", b"h", b"f1", b"1"], ("prefix", b"-ERR")),
+    ([b"HDEL", b"h", b"f4", b"nope"], b":1\r\n"),
+    ([b"HSCAN", b"h", b"0", b"COUNT", b"100"], None),
+    ([b"HSCAN", b"h", b"0", b"MATCH", b"f*", b"COUNT", b"1"], None),
+    ([b"HSCAN", b"h", b"0", b"NOVALUES"], None),
+    ([b"HRANDFIELD", b"h", b"-3"], ("shape", b"*3\r\n")),
+    ([b"TYPE", b"h"], b"+hash\r\n"),
+    # sets
+    ([b"SADD", b"s2", b"b", b"c"], b":2\r\n"),
+    ([b"SMISMEMBER", b"s", b"a", b"c"], b"*2\r\n:1\r\n:0\r\n"),
+    ([b"SINTER", b"s", b"s2"], b"*1\r\n$1\r\nb\r\n"),
+    ([b"SUNION", b"s", b"s2"], None),
+    ([b"SDIFF", b"s", b"s2"], b"*1\r\n$1\r\na\r\n"),
+    ([b"SINTERCARD", b"2", b"s", b"s2"], b":1\r\n"),
+    ([b"SUNIONSTORE", b"su", b"s", b"s2"], b":3\r\n"),
+    ([b"SDIFFSTORE", b"sd", b"s", b"s2"], b":1\r\n"),
+    ([b"SINTERSTORE", b"si", b"s", b"s2"], b":1\r\n"),
+    ([b"SMEMBERS", b"sd"], b"*1\r\n$1\r\na\r\n"),
+    ([b"SMOVE", b"s", b"s2", b"a"], b":1\r\n"),
+    ([b"SREM", b"s2", b"a", b"zz"], b":1\r\n"),
+    ([b"SSCAN", b"su", b"0", b"COUNT", b"100"], None),
+    ([b"SSCAN", b"su", b"0", b"MATCH", b"[ab]"], None),
+    ([b"SRANDMEMBER", b"su", b"-2"], ("shape", b"*2\r\n")),
+    ([b"SPOP", b"si"], b"$1\r\nb\r\n"),
+    ([b"TYPE", b"su"], b"+set\r\n"),
+    # sorted sets
+    ([b"ZADD", b"z", b"2", b"n", b"3", b"o", b"0.25", b"p"], b":3\r\n"),
+    ([b"ZRANGE", b"z", b"0", b"-1", b"WITHSCORES"], None),
+    ([b"ZREVRANGE", b"z", b"0", b"1", b"WITHSCORES"], None),
+    ([b"ZRANK", b"z", b"o"], b":3\r\n"),
+    ([b"ZREVRANK", b"z", b"o"], b":0\r\n"),
+    ([b"ZCOUNT", b"z", b"1", b"(3"], b":2\r\n"),
+    ([b"ZRANGEBYSCORE", b"z", b"-inf", b"+inf", b"WITHSCORES", b"LIMIT", b"1", b"2"], None),
+    ([b"ZINCRBY", b"z", b"0.5", b"m"], b"$1\r\n2\r\n"),
+    ([b"ZADD", b"z2", b"10", b"m", b"20", b"q"], b":2\r\n"),
+    ([b"ZUNIONSTORE", b"zu", b"2", b"z", b"z2", b"WEIGHTS", b"1", b"2"], b":5\r\n"),
+    ([b"ZINTERSTORE", b"zi", b"2", b"z", b"z2", b"AGGREGATE", b"MAX"], b":1\r\n"),
+    ([b"ZRANGE", b"zu", b"0", b"-1", b"WITHSCORES"], None),
+    ([b"ZSCORE", b"zi", b"m"], b"$2\r\n10\r\n"),
+    ([b"ZSCAN", b"zu", b"0", b"COUNT", b"100"], None),
+    ([b"ZSCAN", b"zu", b"0", b"MATCH", b"m*"], None),
+    ([b"ZADD", b"lex", b"0", b"a", b"0", b"b", b"0", b"c", b"0", b"d"], b":4\r\n"),
+    ([b"ZRANGEBYLEX", b"lex", b"[b", b"(d"], b"*2\r\n$1\r\nb\r\n$1\r\nc\r\n"),
+    ([b"ZRANGEBYLEX", b"lex", b"-", b"+", b"LIMIT", b"1", b"2"], None),
+    ([b"ZRANDMEMBER", b"z", b"-2"], ("shape", b"*2\r\n")),
+    ([b"ZPOPMIN", b"z"], b"*2\r\n$1\r\np\r\n$4\r\n0.25\r\n"),
+    ([b"ZPOPMAX", b"z", b"2"], None),
+    ([b"ZREMRANGEBYSCORE", b"zu", b"-inf", b"(20"], b":3\r\n"),
+    ([b"ZREM", b"zu", b"q", b"zz"], b":1\r\n"),
+    ([b"TYPE", b"z"], b"+zset\r\n"),
+    # streams with a consumer group
+    ([b"XADD", b"st", b"1-1", b"f", b"v1"], b"$3\r\n1-1\r\n"),
+    ([b"XADD", b"st", b"2-0", b"f", b"v2", b"g", b"w"], b"$3\r\n2-0\r\n"),
+    ([b"XADD", b"st", b"3-0", b"f", b"v3"], b"$3\r\n3-0\r\n"),
+    ([b"XADD", b"st", b"1-0", b"f", b"bad"], ("prefix", b"-ERR")),
+    ([b"XLEN", b"st"], b":3\r\n"),
+    ([b"XRANGE", b"st", b"-", b"+"], None),
+    ([b"XRANGE", b"st", b"-", b"+", b"COUNT", b"1"], None),
+    ([b"XREVRANGE", b"st", b"+", b"-"], None),
+    ([b"XGROUP", b"CREATE", b"st", b"g1", b"0"], b"+OK\r\n"),
+    ([b"XGROUP", b"CREATE", b"st", b"g1", b"0"], ("prefix", b"-BUSYGROUP")),
+    ([b"XREADGROUP", b"GROUP", b"g1", b"c1", b"COUNT", b"2", b"STREAMS", b"st", b">"], None),
+    ([b"XPENDING", b"st", b"g1"], None),
+    ([b"XPENDING", b"st", b"g1", b"-", b"+", b"10"],
+     ("shape", b"*2\r\n*4\r\n$3\r\n1-1\r\n$2\r\nc1\r\n:")),
+    ([b"XACK", b"st", b"g1", b"1-1"], b":1\r\n"),
+    ([b"XACK", b"st", b"g1", b"1-1"], b":0\r\n"),
+    ([b"XAUTOCLAIM", b"st", b"g1", b"c2", b"0", b"0"], None),
+    ([b"XCLAIM", b"st", b"g1", b"c3", b"0", b"2-0"], None),
+    ([b"XREAD", b"COUNT", b"10", b"STREAMS", b"st", b"1-1"], None),
+    ([b"XINFO", b"STREAM", b"st"], None),
+    ([b"XDEL", b"st", b"3-0"], b":1\r\n"),
+    ([b"XTRIM", b"st", b"MAXLEN", b"1"], b":1\r\n"),
+    ([b"XLEN", b"st"], b":1\r\n"),
+    ([b"XREADGROUP", b"GROUP", b"nog", b"c1", b"STREAMS", b"st", b">"], ("prefix", b"-NOGROUP")),
+    ([b"TYPE", b"st"], b"+stream\r\n"),
+    # geo
+    ([b"GEOADD", b"Sicily", b"13.361389", b"38.115556", b"Palermo",
+      b"15.087269", b"37.502669", b"Catania"], b":2\r\n"),
+    ([b"GEODIST", b"Sicily", b"Palermo", b"Catania"], b"$11\r\n166274.1516\r\n"),
+    ([b"GEODIST", b"Sicily", b"Palermo", b"Catania", b"km"], b"$8\r\n166.2742\r\n"),
+    ([b"GEODIST", b"Sicily", b"Palermo", b"Nowhere"], b"$-1\r\n"),
+    ([b"GEOPOS", b"Sicily", b"Palermo", b"Nowhere"], None),
+    ([b"GEOHASH", b"Sicily", b"Palermo", b"Catania"], b"*2\r\n$11\r\nsqc8b49rnyw\r\n$11\r\nsqdtr74hyu4\r\n"),
+    ([b"GEOSEARCH", b"Sicily", b"FROMLONLAT", b"15", b"37", b"BYRADIUS",
+      b"200", b"km", b"ASC", b"WITHCOORD", b"WITHDIST"], None),
+    ([b"GEOSEARCH", b"Sicily", b"FROMMEMBER", b"Palermo", b"BYBOX",
+      b"400", b"400", b"km", b"DESC", b"COUNT", b"1"], None),
+    ([b"GEOSEARCHSTORE", b"near", b"Sicily", b"FROMLONLAT", b"15", b"37",
+      b"BYRADIUS", b"100", b"km", b"STOREDIST"], b":1\r\n"),
+    ([b"ZRANGE", b"near", b"0", b"-1", b"WITHSCORES"], None),
+    ([b"GEOADD", b"Sicily", b"XX", b"CH", b"13.5", b"38.0", b"Palermo"], b":1\r\n"),
+    ([b"GEOADD", b"Sicily", b"200", b"100", b"bad"], ("prefix", b"-ERR")),
+    # one keyspace: WRONGTYPE between a Bloom key and a list key
+    ([b"BF.RESERVE", b"bfk", b"0.01", b"100"], b"+OK\r\n"),
+    ([b"LPUSH", b"bfk", b"x"], ("prefix", b"-WRONGTYPE")),
+    ([b"SADD", b"bfk", b"x"], ("prefix", b"-WRONGTYPE")),
+    ([b"BF.ADD", b"l2", b"x"], ("prefix", b"-ERR")),
+    ([b"BF.RESERVE", b"l", b"0.01", b"100"], ("prefix", b"-WRONGTYPE")),
+    ([b"HSET", b"s", b"f", b"v"], ("prefix", b"-WRONGTYPE")),
+    ([b"XADD", b"h", b"*", b"f", b"v"], ("prefix", b"-WRONGTYPE")),
+    ([b"GEOADD", b"l", b"1", b"1", b"m"], ("prefix", b"-WRONGTYPE")),
+    ([b"SCAN", b"0", b"COUNT", b"1000"], None),
+    ([b"DBSIZE"], b":17\r\n"),
+    # transactions over the grid
+    ([b"MULTI"], b"+OK\r\n"),
+    ([b"RPUSH", b"tl", b"1", b"2"], b"+QUEUED\r\n"),
+    ([b"HSET", b"th", b"f", b"v"], b"+QUEUED\r\n"),
+    ([b"BLPOP", b"tl", b"0"], b"+QUEUED\r\n"),
+    ([b"BLPOP", b"tnone", b"0"], b"+QUEUED\r\n"),
+    ([b"EXEC"], b"*4\r\n:2\r\n:1\r\n*2\r\n$2\r\ntl\r\n$1\r\n1\r\n*-1\r\n"),
+    ([b"MULTI"], b"+OK\r\n"),
+    ([b"SUBSCRIBE", b"ch"], ("prefix", b"-ERR")),
+    ([b"EXEC"], ("prefix", b"-EXECABORT")),
+]
+
+
+def p12_dispatch_counter(client):
+    """Wrap the executor's ``cms_update_estimate`` (the dispatch the bridge's
+    ``cms_add`` reaches through the coalescer): counts calls and ops."""
+    ex = client._engine.executor
+    orig = ex.cms_update_estimate
+    seen = {"calls": 0, "ops": 0}
+
+    def counted(pool, rows, *a, **kw):
+        seen["calls"] += 1
+        seen["ops"] += len(rows)
+        return orig(pool, rows, *a, **kw)
+
+    ex.cms_update_estimate = counted
+    return seen
+
+
+def phase_config5_pipe(card: str) -> dict:
+    """12a: config 5 through its real pipe at bench_config5_stream_topk's
+    shape: publish -> delivery pool -> TopicCmsBridge -> add_all_async ->
+    cms_add -> coalescer -> cms_update_estimate on the card."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+    from redisson_tpu_torch.ops import golden
+    from redisson_tpu_torch.serve import TopicCmsBridge
+    from redisson_tpu_torch.utils import hashing
+
+    d, w, n, chunk = P12["d"], P12["w"], P12["events"], P12["msg"]
+    client = rt.create(rt.Config().set_codec(LongCodec()).use_gpu_sketch(device=P12_DEVICE))
+    try:
+        cms = client.get_count_min_sketch("c5")
+        check(cms.try_init(d, w, track_top_k=P12["top_k"]), "12a: try_init refused")
+        bridge = TopicCmsBridge(client, "c5-events", "c5", batch_size=P12["batch_size"],
+                                flush_interval_s=P12["flush_s"])
+        topic = client.get_topic("c5-events")
+        stream = (np.random.default_rng(3).zipf(1.2, size=n) % P12["keys"]).astype(np.uint64)
+        topic.publish(stream[:chunk])  # one warm message first
+        check(client._topic_bus.drain(timeout=300), "12a: warm delivery stuck")
+        bridge.flush()
+        seen = p12_dispatch_counter(client)
+        timed = {}
+
+        def window():
+            t0 = time.perf_counter()
+            for i in range(chunk, n, chunk):
+                topic.publish(stream[i:i + chunk])
+            check(client._topic_bus.drain(timeout=600), "12a: delivery stuck")
+            bridge.close()
+            timed["s"] = time.perf_counter() - t0
+
+        if P12_DEVICE == "cuda":
+            idle = device_idle_share(window, name="config5_pipe")
+        else:  # a CPU rehearsal: no device to profile
+            window()
+            idle = {"wall_ms": None, "device_busy_ms": None, "idle_share": None}
+        seen = dict(seen)  # the window's dispatches (top_k's reads come later)
+        timed_events = n - chunk
+        check(bridge.events_ingested == n, f"12a: bridge ingested {bridge.events_ingested}")
+        check(cms.total_count() == n, f"12a: total_count {cms.total_count()} != {n}")
+        g = golden.GoldenCountMinSketch(d, w)
+        for i in range(0, n, 1 << 21):
+            part = stream[i:i + (1 << 21)]
+            g.add_hashed(*hashing.km_reduce_mod(
+                *hashing.hash128_np(*hashing.encode_uint64_batch(part)), w))
+        row = tenant_row(client, "c5")
+        check(np.array_equal(row[:d * w].reshape(d, w), g.counts),
+              "12a: CMS table differs from golden")
+        true_top = set(np.argsort(-np.bincount(stream.astype(np.int64)))[:10].tolist())
+        recall = len({int(k) for k, _ in cms.top_k(10)} & true_top) / 10.0
+        check(recall == 1.0, f"12a: top-10 recall {recall}")
+        check(seen["ops"] == timed_events, f"12a: dispatched {seen['ops']} of {timed_events}")
+        check_healthy(client, "12a")
+        out = {"phase": "12a", "config": f"config 5: RTopic -> TopicCmsBridge -> CMS({d}, {w})",
+               "events": n, "timed_events": timed_events, "msg_events": chunk,
+               "events_per_s": timed_events / timed["s"], "window_s": timed["s"],
+               "cms_update_estimate_dispatches": seen["calls"],
+               "events_per_dispatch": seen["ops"] / max(1, seen["calls"]),
+               "table_equals_golden": True, "lost_events": 0, "top10_recall": recall,
+               "device_wall_ms": idle["wall_ms"], "device_busy_ms": idle["device_busy_ms"],
+               "device_idle_share": idle["idle_share"], "card": card}
+        log(out)
+        return out
+    finally:
+        client.shutdown()
+
+
+def p12_server(device: str, reactor: bool = True):
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.serve.resp import RespServer
+
+    client = rt.create(rt.Config().use_gpu_sketch(device=device))
+    client.config.resp_reactor = reactor
+    return client, RespServer(client)
+
+
+def p12_session(server, cmds) -> list:
+    import socket
+
+    s = socket.create_connection((server.host, server.port))
+    try:
+        out = []
+        for c in cmds:
+            s.sendall(wire([c]))
+            out += read_frames(s, 1)
+        return out
+    finally:
+        s.close()
+
+
+def p12_serving_threads() -> list:
+    import threading
+
+    return sorted(t.name for t in threading.enumerate() if t.name.startswith("rtpu-resp"))
+
+
+def phase_grid_wire(card: str) -> dict:
+    """12b: the grid families over the wire on a card server (reactor on)
+    against a ``device="cpu"`` port server in this process; pub/sub across
+    two connections; a parked BLPOP while another connection pipelines."""
+    import socket
+
+    cc, cs = p12_server(P12_DEVICE)
+    hc, hs = p12_server("cpu")
+    out = {"phase": "12b"}
+    try:
+        check(cs.reactor is not None, "12b: the card server runs no reactor")
+        cmds = [c for c, _ in P12_GRID]
+        t0 = time.perf_counter()
+        got = p12_session(cs, cmds)
+        out["session_s"] = time.perf_counter() - t0
+        ref = p12_session(hs, cmds)
+        literal = 0
+        for (cmd, want), a, b in zip(P12_GRID, got, ref):
+            if isinstance(want, tuple):
+                check(a.startswith(want[1]) and b.startswith(want[1]),
+                      f"12b: {cmd}: {a!r} / {b!r}")
+                if want[0] == "shape":
+                    continue
+            check(a == b, f"12b: {cmd}: card {a!r} != cpu {b!r}")
+            if isinstance(want, bytes):
+                check(a == want, f"12b: {cmd}: {a!r} != Redis's {want!r}")
+                literal += 1
+        out.update(commands=len(cmds), equal_to_cpu_server=True, literal_replies=literal)
+        # pub/sub across two connections
+        sub = socket.create_connection((cs.host, cs.port))
+        pub = socket.create_connection((cs.host, cs.port))
+        try:
+            sub.sendall(wire([[b"SUBSCRIBE", b"p12-ch"]]))
+            ack = read_frames(sub, 1)[0]
+            check(ack == b"*3\r\n$9\r\nsubscribe\r\n$6\r\np12-ch\r\n:1\r\n", f"12b: ack {ack!r}")
+            pub.sendall(wire([[b"PUBLISH", b"p12-ch", b"hello"], [b"PUBLISH", b"nobody", b"x"]]))
+            counts = read_frames(pub, 2)
+            check(counts == [b":1\r\n", b":0\r\n"], f"12b: PUBLISH counts {counts}")
+            push = read_frames(sub, 1)[0]
+            check(push == b"*3\r\n$7\r\nmessage\r\n$6\r\np12-ch\r\n$5\r\nhello\r\n",
+                  f"12b: push {push!r}")
+        finally:
+            sub.close()
+            pub.close()
+        out["pubsub_frames_checked"] = True
+        # a parked BLPOP while another connection pipelines
+        n = P12["pipeline"]
+        pre = [[b"BF.RESERVE", b"p12-bf", b"0.01", b"10000"],
+               [b"BF.MADD", b"p12-bf"] + [b"k%d" % i for i in range(64)],
+               [b"SET", b"p12-s", b"val"]]
+        check(not any(f.startswith(b"-") for f in roundtrip(cs, pre)), "12b: setup failed")
+        blocker = socket.create_connection((cs.host, cs.port))
+        other = socket.create_connection((cs.host, cs.port))
+        waker = socket.create_connection((cs.host, cs.port))
+        try:
+            base = p12_serving_threads()
+            blocker.sendall(wire([[b"BLPOP", b"p12-q", b"0"]]))
+            deadline = time.monotonic() + 30
+            while not cc._grid.cond._waiters:
+                check(time.monotonic() < deadline, "12b: BLPOP never parked")
+                time.sleep(0.005)
+            threads = p12_serving_threads()
+            batch = [[b"BF.MEXISTS", b"p12-bf", b"k%d" % (i % 64), b"k%d" % ((i + 7) % 64)]
+                     if i % 2 == 0 else [b"GET", b"p12-s"] for i in range(n)]
+            t0 = time.perf_counter()
+            other.sendall(wire(batch))
+            frames = read_frames(other, n)
+            pipe_s = time.perf_counter() - t0
+            want = [b"*2\r\n:1\r\n:1\r\n" if i % 2 == 0 else b"$3\r\nval\r\n"
+                    for i in range(n)]
+            check(frames == want, "12b: pipelined replies wrong while BLPOP parked")
+            check(p12_serving_threads() == threads,
+                  f"12b: serving threads {threads} -> {p12_serving_threads()}")
+            blocker.setblocking(False)
+            try:
+                early = blocker.recv(1 << 10)
+            except BlockingIOError:
+                early = b""
+            blocker.setblocking(True)
+            check(early == b"", f"12b: BLPOP answered early: {early!r}")
+            waker.sendall(wire([[b"LPUSH", b"p12-q", b"wake"]]))
+            check(read_frames(waker, 1) == [b":1\r\n"], "12b: LPUSH failed")
+            popped = read_frames(blocker, 1)[0]
+            check(popped == b"*2\r\n$5\r\np12-q\r\n$4\r\nwake\r\n", f"12b: BLPOP {popped!r}")
+            deadline = time.monotonic() + 30  # the pop's worker exits
+            while p12_serving_threads() != base:
+                check(time.monotonic() < deadline,
+                      f"12b: serving threads {base} -> {p12_serving_threads()}")
+                time.sleep(0.01)
+        finally:
+            for s in (blocker, other, waker):
+                s.close()
+        out.update(blpop_parked_pipelined=n, pipelined_cmds_per_s=n / pipe_s,
+                   serving_threads=len(base), serving_threads_while_parked=len(threads),
+                   serving_threads_unchanged=True)
+        check_healthy(cc, "12b")
+        out["card"] = card
+        log(out)
+        return out
+    finally:
+        cs.close()
+        cc.shutdown()
+        hs.close()
+        hc.shutdown()
+
+
+C12C_WRITES = [
+    [b"RPUSH", b"r-l", b"a", b"b", b"c"], [b"LPUSH", b"r-l", b"z"],
+    [b"HSET", b"r-h", b"f1", b"v1", b"f2", b"v2"], [b"HINCRBY", b"r-h", b"n", b"7"],
+    [b"ZADD", b"r-z", b"1.5", b"a", b"2", b"b", b"0.25", b"c"],
+    [b"XADD", b"r-st", b"1-1", b"f", b"v1"], [b"XADD", b"r-st", b"2-0", b"f", b"v2"],
+    [b"XGROUP", b"CREATE", b"r-st", b"g", b"0"],
+    [b"XREADGROUP", b"GROUP", b"g", b"c1", b"COUNT", b"1", b"STREAMS", b"r-st", b">"],
+    [b"GEOADD", b"r-g", b"13.361389", b"38.115556", b"Palermo",
+     b"15.087269", b"37.502669", b"Catania"],
+    [b"SADD", b"r-s", b"x", b"y"],
+]
+C12C_READS = [
+    [b"LRANGE", b"r-l", b"0", b"-1"], [b"HGETALL", b"r-h"],
+    [b"ZRANGE", b"r-z", b"0", b"-1", b"WITHSCORES"], [b"XRANGE", b"r-st", b"-", b"+"],
+    [b"XPENDING", b"r-st", b"g"], [b"XINFO", b"STREAM", b"r-st"],
+    [b"GEODIST", b"r-g", b"Palermo", b"Catania", b"km"], [b"GEOPOS", b"r-g", b"Palermo"],
+    [b"SMEMBERS", b"r-s"], [b"TYPE", b"r-st"], [b"DBSIZE"],
+]
+
+
+def phase_grid_restart(card: str) -> dict:
+    """12c: ``python -m redisson_tpu_torch`` with a snapshot directory: grid
+    writes over the wire, SIGTERM, a reboot that answers every read equal."""
+    import signal
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    sdir = tempfile.mkdtemp(prefix="phase12c-", dir=str(build))
+    try:
+        answers = []
+        for boot in range(2):
+            port = free_port()
+            proc = c11d_boot(port, sdir)
+            try:
+                sock = c11d_connect(port, proc)
+                if boot == 0:
+                    sock.sendall(wire(C12C_WRITES))
+                    w = read_frames(sock, len(C12C_WRITES))
+                    check(not any(f.startswith(b"-") for f in w), f"12c: write failed: {w}")
+                sock.sendall(wire(C12C_READS))
+                answers.append(read_frames(sock, len(C12C_READS)))
+                sock.close()
+                proc.send_signal(signal.SIGTERM)
+                out, _ = proc.communicate(timeout=180)
+                check(proc.returncode == 0, f"12c: exit {proc.returncode}: {out[-2000:]}")
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate(timeout=30)
+        check(answers[0] == answers[1], f"12c: reboot answers differ: {answers}")
+        check(answers[0][0] == b"*4\r\n$1\r\nz\r\n$1\r\na\r\n$1\r\nb\r\n$1\r\nc\r\n"
+              and answers[0][6] == b"$8\r\n166.2742\r\n", f"12c: wrong answers {answers[0]}")
+        out = {"phase": "12c", "entry_point": "python -m redisson_tpu_torch",
+               "writes": len(C12C_WRITES), "reads": len(C12C_READS),
+               "reads_equal_after_restart": True, "card": card}
+        log(out)
+        return out
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+
+
+def phase_grid(card: str) -> None:
+    phase_config5_pipe(card)
+    phase_grid_wire(card)
+    phase_grid_restart(card)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2780,6 +3271,10 @@ def main(argv=None) -> int:
     kernel["launches"] += cms_seq.LAUNCHES
     by_phase["10"] = cms_seq.LAUNCHES
     phase_frontdoor(rng, args.seed, card)
+    cms_seq.LAUNCHES = 0  # phase 12's path: the bridge takes cms_add, not K1
+    phase_grid(card)
+    by_phase["12"] = cms_seq.LAUNCHES
+    check(by_phase["12"] == 0, "phase 12's bridge launched K1")
     log({"kernels": [kernel]})
     print(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})

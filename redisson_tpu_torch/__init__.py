@@ -4,7 +4,9 @@ Redisson's probabilistic objects over stacked multi-tenant device pools,
 on an NVIDIA GPU through PyTorch, with hand-written CUDA kernels where
 the JAX package has Pallas kernels.  It carries RBloomFilter
 add/contains on the coalesced path, RHyperLogLog, RBitSet and
-RCountMinSketch with streaming top-K.  It never imports ``jax`` or
+RCountMinSketch with streaming top-K, the host data grid (buckets,
+counters, maps, sets, lists, sorted sets, queues, streams, geo, time
+series, topics) and the RESP front door.  It never imports ``jax`` or
 ``redisson_tpu``; the JAX package is the reference its tests hold it
 against.
 

@@ -3,11 +3,13 @@
 Parity with ``redisson_tpu/client.py`` for what this package carries:
 the sketch objects (``get_bloom_filter``, ``get_hyper_log_log``,
 ``get_bit_set``, ``get_count_min_sketch``) on the engine, and the host
-grid's buckets, counters and RKeys (``get_bucket(s)``,
-``get_atomic_long``/``double``, the adders, ``get_id_generator``,
-``get_keys``) over one logical keyspace spanning both backends; plus
-``create_batch``, ``collect``, ``defer_fetch``, ``op_deadline``,
-``prewarm_wait``, ``snapshot`` and ``shutdown``.
+grid over one logical keyspace spanning both backends: buckets, counters
+and RKeys; maps, multimaps, sets, lists and sorted sets; the queue
+family; streams, geo and time series; topics on the client's delivery
+bus (``get_topic``, ``get_pattern_topic``, ``get_sharded_topic``,
+``get_reliable_topic``); plus ``create_batch``, ``collect``,
+``defer_fetch``, ``op_deadline``, ``prewarm_wait``, ``snapshot`` and
+``shutdown``.
 """
 
 from __future__ import annotations
@@ -23,13 +25,43 @@ from redisson_tpu_torch.grid import (
     AtomicLong,
     Batch,
     BinaryStream,
+    BlockingDeque,
+    BlockingQueue,
     Bucket,
     Buckets,
+    DelayedQueue,
+    Deque,
     DoubleAdder,
+    Geo,
     GridStore,
     IdGenerator,
     Keys,
+    LexSortedSet,
+    List_,
+    ListMultimap,
+    ListMultimapCache,
     LongAdder,
+    Map,
+    MapCache,
+    PatternTopic,
+    PriorityBlockingQueue,
+    PriorityDeque,
+    PriorityQueue,
+    Queue,
+    ReliableTopic,
+    RingBuffer,
+    ScoredSortedSet,
+    Set_,
+    SetCache,
+    SetMultimap,
+    SetMultimapCache,
+    ShardedTopic,
+    SortedSet,
+    Stream,
+    TimeSeries,
+    Topic,
+    TopicBus,
+    TransferQueue,
 )
 from redisson_tpu_torch.objects import BitSet, BloomFilter, CountMinSketch, HyperLogLog
 from redisson_tpu_torch.objects.base import CamelCompatMixin
@@ -77,6 +109,9 @@ class RedissonTorchClient(CamelCompatMixin):
             self._engine.snapshot_extra = lambda d: self._grid.snapshot_to(
                 os.path.join(d, "grid_store.bin")
             )
+        # Pub/sub delivery pool (the PublishSubscribeService analog):
+        # topic listeners run here, the RTopic -> CMS ingest bridge too.
+        self._topic_bus = TopicBus(n_threads=config.threads)
 
     def get_bloom_filter(self, name: str) -> BloomFilter:
         return BloomFilter(name, self)
@@ -115,6 +150,108 @@ class RedissonTorchClient(CamelCompatMixin):
 
     def get_id_generator(self, name: str) -> IdGenerator:
         return IdGenerator(name, self)
+
+    # -- maps / multimaps ---------------------------------------------------
+
+    def get_map(self, name: str) -> Map:
+        return Map(name, self)
+
+    def get_map_cache(self, name: str) -> MapCache:
+        return MapCache(name, self)
+
+    def get_list_multimap(self, name: str) -> ListMultimap:
+        return ListMultimap(name, self)
+
+    def get_set_multimap(self, name: str) -> SetMultimap:
+        return SetMultimap(name, self)
+
+    def get_list_multimap_cache(self, name: str) -> ListMultimapCache:
+        return ListMultimapCache(name, self)
+
+    def get_set_multimap_cache(self, name: str) -> SetMultimapCache:
+        return SetMultimapCache(name, self)
+
+    # -- sets / lists ------------------------------------------------------
+
+    def get_set(self, name: str) -> Set_:
+        return Set_(name, self)
+
+    def get_set_cache(self, name: str) -> SetCache:
+        return SetCache(name, self)
+
+    def get_list(self, name: str) -> List_:
+        return List_(name, self)
+
+    def get_sorted_set(self, name: str) -> SortedSet:
+        return SortedSet(name, self)
+
+    def get_scored_sorted_set(self, name: str) -> ScoredSortedSet:
+        return ScoredSortedSet(name, self)
+
+    def get_lex_sorted_set(self, name: str) -> LexSortedSet:
+        return LexSortedSet(name, self)
+
+    # -- queues ------------------------------------------------------------
+
+    def get_queue(self, name: str) -> Queue:
+        return Queue(name, self)
+
+    def get_deque(self, name: str) -> Deque:
+        return Deque(name, self)
+
+    def get_blocking_queue(self, name: str) -> BlockingQueue:
+        return BlockingQueue(name, self)
+
+    def get_blocking_deque(self, name: str) -> BlockingDeque:
+        return BlockingDeque(name, self)
+
+    def get_delayed_queue(self, destination_queue) -> DelayedQueue:
+        """→ RedissonClient#getDelayedQueue(RQueue): feeds the given queue."""
+        return DelayedQueue(
+            f"{destination_queue.get_name()}:delayed", self, destination_queue
+        )
+
+    def get_priority_queue(self, name: str) -> PriorityQueue:
+        return PriorityQueue(name, self)
+
+    def get_priority_blocking_queue(self, name: str) -> PriorityBlockingQueue:
+        return PriorityBlockingQueue(name, self)
+
+    def get_priority_deque(self, name: str) -> PriorityDeque:
+        return PriorityDeque(name, self)
+
+    def get_transfer_queue(self, name: str) -> TransferQueue:
+        return TransferQueue(name, self)
+
+    def get_ring_buffer(self, name: str) -> RingBuffer:
+        return RingBuffer(name, self)
+
+    # -- streams / geo / time series ---------------------------------------
+
+    def get_stream(self, name: str) -> Stream:
+        """→ RedissonClient#getStream (XADD/XREADGROUP family)."""
+        return Stream(name, self)
+
+    def get_geo(self, name: str) -> Geo:
+        return Geo(name, self)
+
+    def get_time_series(self, name: str) -> TimeSeries:
+        return TimeSeries(name, self)
+
+    # -- messaging ---------------------------------------------------------
+
+    def get_topic(self, name: str) -> Topic:
+        return Topic(name, self)
+
+    def get_sharded_topic(self, name: str) -> ShardedTopic:
+        return ShardedTopic(name, self)
+
+    def get_pattern_topic(self, pattern: str) -> PatternTopic:
+        return PatternTopic(pattern, self)
+
+    def get_reliable_topic(self, name: str) -> ReliableTopic:
+        """→ RedissonClient#getReliableTopic (stream-backed, at-least-once)."""
+        return ReliableTopic(name, self)
 
     def get_keys(self) -> Keys:
         """→ RedissonClient#getKeys: RKeys over both backends."""
@@ -178,3 +315,4 @@ class RedissonTorchClient(CamelCompatMixin):
         ``Config.snapshot_dir`` is set, writes ``grid_store.bin`` too)."""
         self._engine.shutdown()
         self._grid.shutdown()
+        self._topic_bus.shutdown()

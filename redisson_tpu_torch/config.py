@@ -130,6 +130,7 @@ class Config:
         from redisson_tpu_torch.codecs import DEFAULT_CODEC
 
         self.codec = DEFAULT_CODEC
+        self.threads = 4  # topic delivery pool (reference: `threads`)
         self.gpu_sketch = GpuSketchConfig()
         # Snapshots (the JAX package's names and defaults): with a
         # directory set, the engine restores from it on create and writes
@@ -174,6 +175,10 @@ class Config:
         self.codec = codec
         return self
 
+    def set_threads(self, n: int) -> "Config":
+        self.threads = n
+        return self
+
     def set_requirepass(self, password: Optional[str]) -> "Config":
         """→ BaseConfig#setPassword: require AUTH on the RESP front
         door."""
@@ -197,6 +202,7 @@ class Config:
     # the keys this package reads) ------------------------------------------
 
     _SIMPLE_KEYS = (
+        "threads",
         "snapshot_dir",
         "snapshot_interval_s",
         "retry_attempts",

@@ -60,6 +60,64 @@ class GridObject(CamelCompatMixin):
     def _dec_key(self, data: bytes) -> Any:
         return self._codec.decode_key(data)
 
+    # -- near-cache reach ---------------------------------------------------
+    #
+    # Hot grid SCALAR reads (XLEN, GEOPOS/GEODIST-class) ride the sketch
+    # engine's epoch-guarded near cache: grid keys live under a
+    # ``grid:``-prefixed tenant so they can never collide with a sketch
+    # tenant, every mutator bumps the write epoch, and the store-level
+    # delete/rename/expiry paths invalidate through GridStore's hook.
+    # Reads and writes both run under the one grid store lock, so the
+    # capture-before-compute / install-if-unmoved discipline is exactly
+    # the engine's (cache/nearcache.py module doc).
+
+    def _nc_store(self):
+        return getattr(
+            getattr(self._client, "_engine", None), "nearcache", None
+        )
+
+    def _nc_bump(self, structural: bool = False) -> None:
+        nc = self._nc_store()
+        if nc is not None:
+            note = nc.note_structural if structural else nc.note_write
+            note("grid:" + self._name)
+
+    def _nc_scalar(self, kind: str, key, compute):
+        """Epoch-tagged scalar read-through; falls straight through to
+        ``compute()`` when the tier is off.
+
+        Cached values carry the key's TTL DEADLINE: a probe past it
+        recomputes (which lazily reaps) instead of serving the
+        pre-expiry value for up to a sweep interval — expiry is
+        observed at read time, exactly like an uncached read.  TTL
+        *changes* (EXPIRE/PERSIST) invalidate through the store hook,
+        so a stale deadline can never outlive the command that moved
+        it."""
+        nc = self._nc_store()
+        if nc is None or not nc.active(1):
+            return compute()
+        import time as _time
+
+        from redisson_tpu_torch.cache.lru import MISS
+
+        tenant = "grid:" + self._name
+        captured = nc.epochs(tenant)
+        hit = nc.probe(tenant, key)
+        if hit is not MISS:
+            v, deadline = hit
+            if deadline is None or _time.time() < deadline:
+                nc._count(kind, 1, 0)
+                return v
+        nc._count(kind, 0, 1)
+        v = compute()
+        # Deadline AFTER compute: an EXPIRE landing between the two
+        # bumps the epoch (store hook) and retires this install.
+        deadline = self._store.peek_expire_at(self._name)
+        nc.install(
+            tenant, key, (v, deadline), captured=captured, monotone=False
+        )
+        return v
+
     # -- keyspace ops (→ RedissonObject) -----------------------------------
 
     def is_exists(self) -> bool:

@@ -1,16 +1,14 @@
-"""RBatch — → org/redisson/RedissonBatch.java; counterpart of
-``redisson_tpu/grid/batch.py`` for the sketch objects.
+"""RBatch — → org/redisson/RedissonBatch.java; the port's copy of
+``redisson_tpu/grid/batch.py``.
 
 ``client.create_batch()`` hands out batch-scoped object facades; every
 method call queues and returns a placeholder future; ``execute()`` runs
 the queue in submission order and returns a ``BatchResult`` with one
 response per call.  Sync-named sketch calls ride their objects'
 ``_DEFERRED`` forms, so one ``execute()`` coalesces into a few device
-dispatches (the reference pipelines a batch by construction).
-
-The JAX package's batch also runs data-grid objects (maps, buckets,
-queues) on a serial worker; the grid is not ported yet, so that branch
-waits for it.
+dispatches (the reference pipelines a batch by construction); data-grid
+calls (maps, buckets, queues, ...) run on one serial worker in
+submission order beside them.
 """
 
 from __future__ import annotations
@@ -105,34 +103,67 @@ class Batch:
     def execute(self) -> BatchResult:
         """Run every queued call in submission order; one response per
         call.  A batch runs once (reference semantics).  Deferred and
-        ``*_async`` calls are resolved after the whole queue is issued,
-        so their dispatches coalesce; other calls run with their sync
-        contract in order."""
+        ``*_async`` sketch calls are resolved after the whole queue is
+        issued, so their dispatches coalesce; grid calls run on one serial
+        worker in order; other calls run with their sync contract."""
         if self._executed:
             raise RuntimeError("batch was already executed")
         self._executed = True
+        from redisson_tpu_torch.grid.base import GridObject
+
+        serial = None  # per-execute single worker: grid ops leave the
+        # caller thread but keep submission order (the one-connection
+        # pipeline ordering of the reference batch)
         staged: list[tuple] = []  # (pending future or None, BatchFuture)
-        for obj, meth, args, kwargs, fut in self._ops:
-            # camelCase spellings first, or 'addAll' would match neither the
-            # _DEFERRED table nor the *_async rule.
-            if not hasattr(type(obj), meth):
-                meth = camel_to_snake(meth)
-            deferred = type(obj)._DEFERRED.get(meth)
-            if deferred is not None:
-                staged.append((getattr(obj, deferred)(*args, **kwargs), fut))
-                continue
-            result = getattr(obj, meth)(*args, **kwargs)
-            if meth.endswith("_async") and hasattr(result, "result"):
-                staged.append((result, fut))
-            else:
-                fut._set(result)
-                staged.append((None, fut))
-        responses = []
-        for pending, fut in staged:
-            if pending is not None:
-                fut._set(pending.result())
-            responses.append(fut.result())
-        return BatchResult(responses)
+        try:
+            for obj, meth, args, kwargs, fut in self._ops:
+                # camelCase spellings first, or 'addAll' would match
+                # neither the _DEFERRED table nor the *_async rule.
+                if not hasattr(type(obj), meth):
+                    meth = camel_to_snake(meth)
+                deferred = getattr(type(obj), "_DEFERRED", {}).get(meth)
+                if deferred is not None:
+                    staged.append(
+                        (getattr(obj, deferred)(*args, **kwargs), fut)
+                    )
+                    continue
+                if isinstance(obj, GridObject):
+                    # ALL grid ops — sync- and async-named — run on ONE
+                    # serial worker in submission order, so a get never
+                    # observes the map before an earlier fast_put_async.
+                    # *_async names call the sync form: the batch pipeline
+                    # itself is the asynchrony.  Blocking ops act at
+                    # execute(), like commands in a Redis MULTI.
+                    if meth.endswith("_async"):
+                        sync_meth = meth[: -len("_async")]
+                        if hasattr(obj, sync_meth):
+                            meth = sync_meth
+                    if serial is None:
+                        from concurrent.futures import ThreadPoolExecutor
+
+                        serial = ThreadPoolExecutor(
+                            max_workers=1, thread_name_prefix="rtpu-batch"
+                        )
+                    staged.append(
+                        (serial.submit(getattr(obj, meth), *args, **kwargs),
+                         fut)
+                    )
+                    continue
+                result = getattr(obj, meth)(*args, **kwargs)
+                if meth.endswith("_async") and hasattr(result, "result"):
+                    staged.append((result, fut))
+                else:
+                    fut._set(result)
+                    staged.append((None, fut))
+            responses = []
+            for pending, fut in staged:
+                if pending is not None:
+                    fut._set(pending.result())
+                responses.append(fut.result())
+            return BatchResult(responses)
+        finally:
+            if serial is not None:
+                serial.shutdown(wait=False)
 
     def discard(self) -> None:
         """→ RBatch#discard."""

@@ -11,11 +11,10 @@ wait on a condition tied to that lock (the pub/sub-wakeup analog of
 BLPOP, → SURVEY.md §3.3).
 
 The port's copy of ``redisson_tpu/grid/store.py``.  The snapshot codec
-covers every kind the JAX package persists — including lists, maps,
-sets, sorted sets and streams, whose facades the port does not carry
-yet — so a ``grid_store.bin`` written by either package restores into
-the other and is written back byte for byte.  The op-journal capture
-hooks and the load-map keyspace hook wait for those subsystems.
+covers every kind the JAX package persists, so a ``grid_store.bin``
+written by either package restores into the other and is written back
+byte for byte.  The op-journal capture hooks and the load-map keyspace
+hook wait for those subsystems.
 """
 
 from __future__ import annotations
@@ -24,7 +23,6 @@ import fnmatch
 import threading
 import time
 from typing import Any, Callable, Optional
-
 
 
 def _fsync_dir(path: str) -> None:
@@ -36,66 +34,6 @@ def _fsync_dir(path: str) -> None:
         os.fsync(fd)
     finally:
         os.close(fd)
-
-
-# Value containers of the kinds whose facades the port does not carry yet
-# (RMap/RMapCache, RSetCache, RStream): the JAX package's layouts, so the
-# snapshot codec round-trips them and the sweeper prunes their TTLs.
-
-
-class _MapValue:
-    """dict: key bytes -> [value bytes, expire_at|None, max_idle_s|None,
-    last_access] (``redisson_tpu/grid/maps.py:_MapValue``)."""
-
-    __slots__ = ("data",)
-
-    def __init__(self):
-        self.data: dict[bytes, list] = {}
-
-    def live(self, kb: bytes, now: Optional[float] = None):
-        slot = self.data.get(kb)
-        if slot is None:
-            return None
-        now = now or time.time()
-        _vb, exp, idle, last = slot
-        if (exp is not None and now >= exp) or (
-            idle is not None and now - last >= idle
-        ):
-            del self.data[kb]
-            return None
-        return slot
-
-    def prune_expired(self, now: float) -> None:
-        for kb in list(self.data.keys()):
-            self.live(kb, now)
-
-
-class SetCacheValue:
-    """dict: member bytes -> expire_at|None (``SetCache._Value``)."""
-
-    __slots__ = ("data",)
-
-    def __init__(self):
-        self.data: dict[bytes, Optional[float]] = {}
-
-    def prune_expired(self, now: float) -> None:
-        for vb, exp in list(self.data.items()):
-            if exp is not None and now >= exp:
-                del self.data[vb]
-
-
-class _StreamValue:
-    """Stream entries by (ms, seq) id, consumer groups with their pending
-    lists (``redisson_tpu/grid/streams.py:_StreamValue``)."""
-
-    __slots__ = ("entries", "last_id", "groups", "max_deleted_id", "added")
-
-    def __init__(self):
-        self.entries: dict[tuple, dict] = {}  # insertion-ordered by id
-        self.last_id: tuple = (0, 0)
-        self.groups: dict[str, dict] = {}
-        self.max_deleted_id: tuple = (0, 0)
-        self.added = 0
 
 
 class GridEntry:
@@ -189,6 +127,11 @@ class GridStore:
             self.cond.notify_all()
             return e
 
+    def notify(self) -> None:
+        """Wake blocked takers after a mutation (BLPOP-wakeup analog)."""
+        with self.lock:
+            self.cond.notify_all()
+
     # -- keyspace admin (RKeys backing) ------------------------------------
 
     def exists(self, name: str) -> bool:
@@ -275,6 +218,14 @@ class GridStore:
             return max(0, int((e.expire_at - time.time()) * 1000))
 
     # -- sweeper (EvictionScheduler analog) --------------------------------
+
+    def peek_expire_at(self, name: str):
+        """The entry's TTL deadline (or None) WITHOUT reaping — the
+        near-cache reach tags cached scalars with it so a hit can
+        observe the deadline exactly, not at the next sweep."""
+        with self.lock:
+            e = self._data.get(name)
+            return None if e is None else e.expire_at
 
     def _ensure_sweeper(self) -> None:
         if self._sweeper is None or not self._sweeper.is_alive():
@@ -414,7 +365,9 @@ class GridStore:
         if t == "set":
             return {blobs[i]: None for i in desc["m"]}
         if t == "setc":
-            v = SetCacheValue()
+            from redisson_tpu_torch.grid.collections import SetCache
+
+            v = SetCache._Value()
             v.data = {blobs[i]: exp for i, exp in desc["m"]}
             return v
         if t == "zset":
@@ -422,6 +375,8 @@ class GridStore:
         if t == "lex":
             return set(desc["m"])
         if t == "map":
+            from redisson_tpu_torch.grid.maps import _MapValue
+
             v = _MapValue()
             now = time.time()
             # last_access carries over as ELAPSED idle: an entry that had
@@ -441,6 +396,8 @@ class GridStore:
         if t == "ring":
             return {"cap": int(desc["cap"]), "items": [blobs[i] for i in desc["m"]]}
         if t == "stream":
+            from redisson_tpu_torch.grid.streams import _StreamValue
+
             v = _StreamValue()
             v.entries = {
                 (int(ms), int(sq)): {blobs[ki]: blobs[vi] for ki, vi in fm}

@@ -24,12 +24,11 @@ with a small FIXED pool of reactor threads built on ``selectors``
   the buffered backlog (hard byte bound after its grace, no-progress
   stall bound, idle-timeout fallback — the same policy
   _ConnCtx._send_bounded applies on the thread path);
-* commands that may legitimately block or run long (SAVE's snapshot,
-  DEBUG, EXEC's replay, and — once they are ported — blocking pops,
-  pub/sub registration and scripts) are handed off to a dedicated
-  worker thread so one parked client can never stall the event loop —
-  the worker-thread population tracks the number of BLOCKED clients,
-  not the number of connected ones.
+* commands that may legitimately block (BLPOP, blocking XREAD, pub/sub
+  registration, SAVE's snapshot, DEBUG, EXEC's replay) are handed off to
+  a dedicated worker thread so one parked client can never stall the
+  event loop — the worker-thread population tracks the number of
+  BLOCKED clients, not the number of connected ones.
 
 10k mostly-idle connections therefore cost file descriptors instead of
 threads, and the thread count is fixed at ``resp_reactor_threads`` (+
@@ -145,6 +144,9 @@ class _StreamFramer:
     def buffered(self) -> int:
         return len(self._buf) + sum(len(c) for c in self._chunks)
 
+    def at_frame_boundary(self) -> bool:
+        return not self._buf and not self._chunks
+
     def feed(self, data: bytes) -> None:
         self._chunks.append(data)
 
@@ -242,7 +244,7 @@ class _RConn:
         self.framer = None if self.tickbuf is not None else _StreamFramer()
         self.pending: deque = deque()  # (family, argv) not-yet-dispatched
         # Guards outbuf + progress stamps: enqueue() runs cross-thread
-        # (detached workers), flush on the reactor.
+        # (pub/sub pushes, detached workers), flush on the reactor.
         self.wlock = threading.Lock()
         self.outbuf = bytearray()
         self.backlog_t0 = 0.0  # when outbuf last went empty -> non-empty
@@ -257,6 +259,11 @@ class _RConn:
         self.registered = False
         self.cur_mask = 0  # interest set currently in the selector
         self.ctx = _ReactorCtx(sock, server, self)
+
+    def at_frame_boundary(self) -> bool:
+        if self.tickbuf is not None and self.tickbuf.have:
+            return False
+        return self.framer is None or self.framer.at_frame_boundary()
 
     def enqueue(self, frame: bytes) -> None:
         """Append a reply/push frame to the ordered output backlog
@@ -717,6 +724,11 @@ class _Reactor(threading.Thread):
             rconn.last_activity = time.monotonic()
             rconn.busy = False
             self._attention.add(rconn)  # GIL-atomic; loop re-examines
+            if rconn.closing and rconn.ctx.subs:
+                # The connection died while this worker ran (e.g. a
+                # SUBSCRIBE racing a peer reset): drop any listener the
+                # close sweep could not see yet.
+                self._unsubscribe_all(rconn)
             self.wake()
 
     # -- writes / slow-client protection ------------------------------------
@@ -817,7 +829,16 @@ class _Reactor(threading.Thread):
                 idle_s and not rconn.busy
                 and now - rconn.last_activity > idle_s
             ):
-                self._close_conn(rconn)
+                if (
+                    rconn.ctx.subs
+                    and rconn.at_frame_boundary()
+                    and not rconn.pending
+                ):
+                    # Subscribers may idle legitimately — but only at a
+                    # frame boundary (same exemption as _serve_conn).
+                    rconn.last_activity = now
+                else:
+                    self._close_conn(rconn)
             # Re-park the fd if a paused/unregistered conn regained
             # interest outside the normal paths.
             if (
@@ -860,6 +881,15 @@ class _Reactor(threading.Thread):
             server._conns.discard(sock)
             server._conn_idle.notify_all()
 
+    def _unsubscribe_all(self, rconn: _RConn) -> None:
+        bus = self.server._client._topic_bus
+        for channel, lid in list(rconn.ctx.subs.items()):
+            rconn.ctx.subs.pop(channel, None)
+            try:
+                bus.unsubscribe(channel, lid)
+            except Exception:
+                pass
+
     def _close_conn(self, rconn: _RConn) -> None:
         if rconn.closed:
             return
@@ -877,6 +907,7 @@ class _Reactor(threading.Thread):
             except (KeyError, OSError, ValueError):
                 pass
             rconn.registered = False
+        self._unsubscribe_all(rconn)
         try:
             rconn.sock.close()
         except OSError:

@@ -16,10 +16,24 @@ reply bytes, for the command families this package carries:
   CMS.INITBYDIM CMS.INCRBY CMS.QUERY CMS.MERGE CMS.INFO
   TOPK.RESERVE TOPK.ADD TOPK.INCRBY TOPK.QUERY TOPK.COUNT TOPK.LIST TOPK.INFO
   SAVE BGSAVE LASTSAVE INFO CONFIG DEBUG OBJECT
+  LPUSH RPUSH LPUSHX RPUSHX LPOP RPOP LLEN LRANGE LINDEX LSET LREM
+  LTRIM RPOPLPUSH LMOVE LPOS  BLPOP BRPOP        (condvar blocking pops)
+  HSET HGET HDEL HLEN HGETALL HMGET HKEYS HVALS HEXISTS HSETNX HINCRBY
+  HRANDFIELD
+  SADD SREM SISMEMBER SCARD SMEMBERS SMISMEMBER SPOP SRANDMEMBER SMOVE
+  SINTER SUNION SDIFF SINTERSTORE SUNIONSTORE SDIFFSTORE SINTERCARD
+  ZADD ZSCORE ZRANGE ZCARD ZREM ZINCRBY ZRANK ZCOUNT ZRANGEBYSCORE
+  ZPOPMIN ZPOPMAX ZREVRANGE ZREVRANK ZREMRANGEBYSCORE ZRANDMEMBER
+  ZUNIONSTORE ZINTERSTORE ZRANGEBYLEX        (weights/aggregate; lex)
+  HSCAN SSCAN ZSCAN                  (tagged resume cursors, MATCH/COUNT)
+  XADD XLEN XRANGE XREVRANGE XDEL XTRIM XREAD XREADGROUP XGROUP XACK
+  XPENDING XCLAIM XAUTOCLAIM XINFO                 (streams + groups/PEL)
+  GEOADD GEOPOS GEODIST GEOHASH GEOSEARCH GEOSEARCHSTORE
+  PUBLISH SUBSCRIBE UNSUBSCRIBE           (push replies; '>' on RESP3)
 
-Any other command (lists, hashes, sets, sorted sets, streams, geo,
-pub/sub, scripting, cluster and replication verbs) answers exactly as the
-JAX package answers a command it lacks: ``-ERR unknown command 'NAME'``.
+Any other command (scripting, cluster and replication verbs) answers
+exactly as the JAX package answers a command it lacks: ``-ERR unknown
+command 'NAME'``.
 
 Values travel as raw bytes (RESP bulk strings) through a ByteArray-style
 codec boundary: what a foreign client SETs is exactly what it GETs.  The
@@ -257,6 +271,10 @@ class _Reader:
     def __init__(self, sock: socket.socket):
         self._sock = sock
         self._buf = b""
+        # True while a multi-part frame is partially parsed: an idle
+        # timeout that fires here must close the connection (continuing
+        # would desync the protocol stream), see _serve_conn.
+        self.frame_started = False
         # Native batch parser (serve/native_codec.py): one C call frames
         # a whole pipelined recv; parsed-ahead commands queue here.  None
         # → pure-Python slow path (no compiler / RTPU_NO_NATIVE_RESP).
@@ -266,6 +284,9 @@ class _Reader:
 
         self._native = native_codec.get_parser()
         self._pending: "deque[list[bytes]]" = deque()
+
+    def at_frame_boundary(self) -> bool:
+        return not self.frame_started and not self._buf and not self._pending
 
     def _read_line(self) -> Optional[bytes]:
         while b"\r\n" not in self._buf:
@@ -295,6 +316,7 @@ class _Reader:
 
         while True:
             if self._pending:
+                self.frame_started = False
                 return self._pending.popleft()
             if self._buf:
                 frames, consumed, err = self._native.parse(self._buf)
@@ -307,18 +329,27 @@ class _Reader:
                     # to the slow path, which reproduces the Python
                     # behavior exactly (split / RespError path).
                     return self._read_command_py()
-                # Incomplete frame: block for more bytes.
+                # Incomplete frame: block for more bytes.  Flag it so an
+                # idle timeout firing here closes the connection instead
+                # of desyncing the stream (see _serve_conn).
+                self.frame_started = True
             data = self._sock.recv(65536)
             if not data:
                 return None
             self._buf += data
 
     def _read_command_py(self) -> Optional[list[bytes]]:
+        self.frame_started = False
         line = self._read_line()
         if line is None:
             return None
+        # Set until the frame parses COMPLETELY — a timeout propagating
+        # out mid-frame leaves it set and the caller must close (resuming
+        # would desync the stream).
+        self.frame_started = True
         if not line.startswith(b"*"):
             # inline command (redis-cli fallback)
+            self.frame_started = False
             return line.split()
         try:
             n = int(line[1:])
@@ -345,11 +376,13 @@ class _Reader:
             if data is None:
                 return None
             args.append(data)
+        self.frame_started = False
         return args
 
 
 class _ConnCtx:
-    """Per-connection state: serialized writes, the MULTI/EXEC
+    """Per-connection state: serialized writes (pub/sub pushes interleave
+    with replies), this connection's channel subscriptions, the MULTI/EXEC
     transaction queue, protocol version, name and deadline override."""
 
     def __init__(self, sock: socket.socket, server: "RespServer" = None):
@@ -368,6 +401,7 @@ class _ConnCtx:
         self.in_multi = False
         self.queued: list = []  # commands queued since MULTI
         self.in_exec = False  # replaying an EXEC (blocking cmds don't block)
+        self.subs: dict[str, int] = {}  # channel -> bus listener id
         self.proto = 2  # RESP protocol version; HELLO 3 upgrades
         self.client_name: Optional[str] = None
         # Per-connection op-deadline override (CLIENT DEADLINE):
@@ -677,7 +711,12 @@ class RespServer:
                 try:
                     cmd = reader.read_command()
                 except socket.timeout:
-                    return  # idle past idle_timeout_s: reclaim the slot
+                    # Subscribers may idle legitimately — but only at a
+                    # frame boundary; a timeout mid-frame (or with bytes
+                    # buffered) would desync the protocol on resume.
+                    if ctx.subs and reader.at_frame_boundary():
+                        continue
+                    return  # reclaim the slot
                 except OSError:
                     return  # peer reset/aborted: plain disconnect
                 except ProtocolError as e:
@@ -701,9 +740,11 @@ class RespServer:
                 if pending:
                     batch = [cmd]
                     while pending and len(batch) < 1024:
-                        # Collect up to the first command that blocks or
-                        # writes to the socket itself (_PIPELINE_STOP:
-                        # reply order must be command order).
+                        # Collect up to the first command that blocks
+                        # (BLPOP would hold earlier replies hostage) or
+                        # whose handler writes to the socket ITSELF
+                        # (SUBSCRIBE's ack would overtake buffered
+                        # replies — reply order must be command order).
                         if not pending[0]:
                             # Empty frame in a pipeline: skip, no reply.
                             pending.popleft()
@@ -721,6 +762,9 @@ class RespServer:
                 else:
                     ctx.send(self._safe_dispatch(cmd, ctx))
         finally:
+            # Drop this connection's subscriptions with it.
+            for channel, lid in list(ctx.subs.items()):
+                self._client._topic_bus.unsubscribe(channel, lid)
             conn.close()
             with self._conn_lock:
                 self._nconn -= 1
@@ -800,7 +844,16 @@ class RespServer:
         if tspan is not None:
             tspan.end(error=err)
         if not queueing:
-            self.obs.record_resp_command(name, dt, err)
+            if self._blocked(name, cmd, ctx):
+                # Condvar-parked wait is not execution time: a routine
+                # `BLPOP q 30` would otherwise drive latencystats to
+                # +Inf (Redis also excludes blocked time).  Calls and
+                # errors still count.
+                self.obs.resp_commands.inc((name,))
+                if err:
+                    self.obs.resp_errors.inc((name,))
+            else:
+                self.obs.record_resp_command(name, dt, err)
         return reply
 
     def _dispatch_deadlined(self, cmd: list, ctx: "_ConnCtx",
@@ -822,6 +875,21 @@ class RespServer:
         the tracing plane (``obs/trace``, ROADMAP queue 1 item 6), whose
         head-sampled span the JAX package opens here."""
         return None
+
+    @staticmethod
+    def _blocked(name: str, cmd: list, ctx: "_ConnCtx") -> bool:
+        """True when this invocation may have parked waiting for data —
+        its wall time is wait, not work, so it must not feed latency
+        histograms.  Inside EXEC every command runs non-blocking
+        (recorded normally), and XREAD/XREADGROUP block only with an
+        explicit BLOCK option."""
+        if ctx.in_exec:
+            return False
+        if name in ("BLPOP", "BRPOP"):
+            return True
+        if name in ("XREAD", "XREADGROUP"):
+            return any(a.upper() == b"BLOCK" for a in cmd[1:])
+        return False
 
     def _monitor_feed(self, name: str, cmd: list, ctx: "_ConnCtx") -> None:
         """The MONITOR stream's feed point: a no-op until MONITOR lands
@@ -1595,7 +1663,14 @@ class RespServer:
             )
         if ctx.in_multi and name not in ("EXEC", "DISCARD", "MULTI", "RESET"):
             # Redis MULTI semantics: commands queue (validated for
-            # existence only) and run contiguously at EXEC.
+            # existence only) and run contiguously at EXEC.  Pub/sub
+            # commands are rejected like Redis does — their push replies
+            # would break the EXEC array framing.
+            if name in ("SUBSCRIBE", "UNSUBSCRIBE"):
+                ctx.queued = None  # poison: EXEC must abort
+                raise RespError(
+                    f"{name} is not allowed in transactions"
+                )
             if getattr(
                 self, "_cmd_" + name.replace(".", "_"), None
             ) is None and getattr(
@@ -1697,10 +1772,13 @@ class RespServer:
         return _encode_simple("OK")
 
     def _cmdctx_RESET(self, args, ctx: _ConnCtx):
-        """→ Redis RESET: abort MULTI, revert to RESP2 defaults, and
-        de-authenticate when a password is set."""
+        """→ Redis RESET: abort MULTI, drop subscriptions, revert to
+        RESP2 defaults, and de-authenticate when a password is set."""
         ctx.in_multi = False
         ctx.queued = []
+        for channel, lid in list(ctx.subs.items()):
+            self._client._topic_bus.unsubscribe(channel, lid)
+        ctx.subs.clear()
         ctx.proto = 2
         ctx.client_name = None
         if self._requirepass:
@@ -2272,6 +2350,197 @@ class RespServer:
             nxt = 0
         return b"*2\r\n" + _encode_bulk(str(nxt)) + _encode_array(page)
 
+    @staticmethod
+    def _parse_scan_opts(args, i):
+        pattern, count, novalues = None, 10, False
+        while i < len(args):
+            opt = args[i].decode().upper()
+            if opt == "MATCH":
+                pattern = args[i + 1].decode("latin-1")
+                i += 2
+            elif opt == "COUNT":
+                count = int(args[i + 1])
+                if count < 1:
+                    raise RespError("syntax error")
+                i += 2
+            elif opt == "NOVALUES":
+                novalues = True
+                i += 1
+            else:
+                raise RespError("syntax error")
+        return pattern, count, novalues
+
+    def _collection_scan(self, tag: str, key: bytes, cursor: int,
+                         items: list, pattern, count: int):
+        """Shared HSCAN/SSCAN/ZSCAN cursor engine (SURVEY §2.1 iterators
+        row): ``items`` is [(sort_bytes, reply_items_tuple)]; resume
+        state holds the LAST sort key returned, so members present for
+        the whole iteration are always returned even across concurrent
+        deletes.  States live in the same LRU table as SCAN's, tagged
+        with (command, key) so a cursor replayed against a different
+        command or key terminates instead of desyncing."""
+        import bisect
+        import fnmatch
+
+        with self._scan_lock:
+            state = None if cursor == 0 else self._scan_states.pop(cursor, None)
+            if cursor != 0 and (
+                not isinstance(state, tuple)
+                or state[:2] != (tag, key)
+            ):
+                return b"*2\r\n" + _encode_bulk("0") + _encode_array([])
+            after = None if state is None else state[2]
+        if pattern is not None:
+            items = [
+                it for it in items
+                if fnmatch.fnmatch(it[0].decode("latin-1"), pattern)
+            ]
+        items.sort(key=lambda it: it[0])
+        start = (
+            0 if after is None
+            else bisect.bisect_right([it[0] for it in items], after)
+        )
+        page = items[start : start + count]
+        if start + count < len(items):
+            with self._scan_lock:
+                self._scan_next += 1
+                nxt = self._scan_next
+                self._scan_states[nxt] = (tag, key, page[-1][0])
+                while len(self._scan_states) > 1024:  # LRU cap
+                    self._scan_states.pop(next(iter(self._scan_states)))
+        else:
+            nxt = 0
+        flat = [x for _, reply in page for x in reply]
+        return b"*2\r\n" + _encode_bulk(str(nxt)) + _encode_array(flat)
+
+    def _cmd_HSCAN(self, args):
+        pattern, count, novalues = self._parse_scan_opts(args, 2)
+        m = self._map(args[0])
+        items = [
+            (k, (k,) if novalues else (k, v))
+            for k, v in m.entry_set()
+        ]
+        return self._collection_scan(
+            "HSCAN", args[0], int(args[1]), items, pattern, count
+        )
+
+    def _cmd_SSCAN(self, args):
+        pattern, count, _ = self._parse_scan_opts(args, 2)
+        s = self._set(args[0])
+        items = [(v, (v,)) for v in s.read_all()]
+        return self._collection_scan(
+            "SSCAN", args[0], int(args[1]), items, pattern, count
+        )
+
+    def _cmd_ZSCAN(self, args):
+        pattern, count, _ = self._parse_scan_opts(args, 2)
+        z = self._zset(args[0])
+        items = [
+            (m, (m, _fmt_score(sc).encode()))
+            for m, sc in z.entry_range(0, -1)
+        ]
+        return self._collection_scan(
+            "ZSCAN", args[0], int(args[1]), items, pattern, count
+        )
+
+    def _zstore(self, args, intersect: bool):
+        """ZUNIONSTORE/ZINTERSTORE dest numkeys key... [WEIGHTS w...]
+        [AGGREGATE SUM|MIN|MAX] — atomic replace of dest, returns the
+        stored cardinality."""
+        dest = args[0]
+        numkeys = int(args[1])
+        keys = args[2 : 2 + numkeys]
+        weights = [1.0] * numkeys
+        agg = "SUM"
+        i = 2 + numkeys
+        while i < len(args):
+            opt = args[i].decode().upper()
+            if opt == "WEIGHTS":
+                ws = args[i + 1 : i + 1 + numkeys]
+                if len(ws) != numkeys:
+                    # zip() would silently drop the unweighted keys
+                    raise RespError("syntax error")
+                weights = [float(a) for a in ws]
+                i += 1 + numkeys
+            elif opt == "AGGREGATE":
+                agg = args[i + 1].decode().upper()
+                if agg not in ("SUM", "MIN", "MAX"):
+                    raise RespError("syntax error")
+                i += 2
+            else:
+                raise RespError("syntax error")
+        with self._client._grid.lock:  # atomic multi-key read + replace
+            maps = []
+            for k, w in zip(keys, weights):
+                entries = {
+                    m: sc * w for m, sc in self._zset(k).entry_range(0, -1)
+                }
+                maps.append(entries)
+            if intersect:
+                members = set(maps[0]) if maps else set()
+                for d in maps[1:]:
+                    members &= set(d)
+            else:
+                members = set()
+                for d in maps:
+                    members |= set(d)
+            out = {}
+            for m in members:
+                vals = [d[m] for d in maps if m in d]
+                out[m] = (
+                    sum(vals) if agg == "SUM"
+                    else min(vals) if agg == "MIN" else max(vals)
+                )
+            dz = self._zset(dest)
+            dz.delete()
+            for m, sc in out.items():
+                dz.add(sc, m)
+            return _encode_int(len(out))
+
+    def _cmd_ZUNIONSTORE(self, args):
+        return self._zstore(args, intersect=False)
+
+    def _cmd_ZINTERSTORE(self, args):
+        return self._zstore(args, intersect=True)
+
+    def _cmd_ZRANGEBYLEX(self, args):
+        """Lexicographic range over same-score members: '[m' inclusive,
+        '(m' exclusive, '-'/'+' unbounded; LIMIT offset count."""
+        lo, hi = args[1], args[2]
+        offset, count = 0, None
+        if len(args) >= 6 and args[3].decode().upper() == "LIMIT":
+            offset, count = int(args[4]), int(args[5])
+
+        def bound(b):
+            if b in (b"-", b"+"):
+                return None, True
+            if b[:1] == b"[":
+                return b[1:], True
+            if b[:1] == b"(":
+                return b[1:], False
+            raise RespError("min or max not valid string range item")
+
+        lo_v, lo_inc = bound(lo)
+        hi_v, hi_inc = bound(hi)
+
+        def in_range(m):
+            if lo == b"+" or hi == b"-":
+                return False  # inverted/empty ranges match nothing
+            if lo != b"-" and (m < lo_v or (m == lo_v and not lo_inc)):
+                return False
+            if hi != b"+" and (m > hi_v or (m == hi_v and not hi_inc)):
+                return False
+            return True
+
+        members = sorted(
+            m for m, _ in self._zset(args[0]).entry_range(0, -1)
+        )
+        out = [m for m in members if in_range(m)]
+        if count is None or count < 0:
+            out = out[offset:]  # Redis: negative count = all remaining
+        else:
+            out = out[offset : offset + count]
+        return _encode_array(out)
 
     def _cmd_ECHO(self, args):
         return _encode_bulk(args[0])
@@ -2336,6 +2605,143 @@ class RespServer:
             ne.expire_at = e.expire_at
             return _encode_int(1)
 
+
+    def _cmd_LMOVE(self, args):
+        """LMOVE src dst LEFT|RIGHT LEFT|RIGHT — the RPOPLPUSH
+        generalization, atomic under the grid lock."""
+        wherefrom = args[2].decode().upper()
+        whereto = args[3].decode().upper()
+        if wherefrom not in ("LEFT", "RIGHT") or whereto not in ("LEFT", "RIGHT"):
+            raise RespError("syntax error")
+        src, dst = self._list(args[0]), self._list(args[1])
+        grid = self._client._grid
+        with grid.lock:
+            # Destination kind check BEFORE popping (the pattern
+            # poll_last_and_offer_first_to uses): a WRONGTYPE destination
+            # discovered after the pop would lose the element.
+            de = grid.get_entry(self._s(args[1]))
+            if de is not None and de.kind not in ("list", "queue"):
+                raise TypeError(
+                    f"object {self._s(args[1])!r} holds a {de.kind}, "
+                    f"not a list"
+                )
+            v = (
+                src.poll_first() if wherefrom == "LEFT" else src.poll_last()
+            )
+            if v is None:
+                return _encode_bulk(None)
+            if whereto == "LEFT":
+                dst.add_first(v)
+            else:
+                dst.add_last(v)
+        return _encode_bulk(v)
+
+    def _cmd_SINTERCARD(self, args):
+        numkeys = int(args[0])
+        keys = args[1 : 1 + numkeys]
+        limit = None
+        if len(args) > 1 + numkeys:
+            if args[1 + numkeys].decode().upper() != "LIMIT":
+                raise RespError("syntax error")
+            limit = int(args[2 + numkeys])
+            if limit < 0:
+                raise RespError("LIMIT can't be negative")
+        with self._client._grid.lock:
+            acc = None
+            for k in keys:
+                members = set(self._set(k).read_all())
+                acc = members if acc is None else (acc & members)
+                if not acc:
+                    break
+        n = 0 if acc is None else len(acc)
+        if limit:  # LIMIT 0 = unlimited, like Redis
+            n = min(n, limit)
+        return _encode_int(n)
+
+    def _cmd_LPOS(self, args):
+        """LPOS key element [RANK r] [COUNT c]."""
+        rank, count = 1, None
+        i = 2
+        while i < len(args):
+            opt = args[i].decode().upper()
+            if opt == "RANK":
+                rank = int(args[i + 1])
+                if rank == 0:
+                    raise RespError("RANK can't be zero")
+                i += 2
+            elif opt == "COUNT":
+                count = int(args[i + 1])
+                if count < 0:
+                    raise RespError("COUNT can't be negative")
+                i += 2
+            else:
+                raise RespError("syntax error")
+        items = self._listidx(args[0]).read_all()
+        target = args[1]
+        matches = [ix for ix, v in enumerate(items) if v == target]
+        if rank < 0:
+            matches = list(reversed(matches))[(-rank - 1):]
+        else:
+            matches = matches[(rank - 1):]
+        if count is None:
+            return (
+                _encode_int(matches[0]) if matches else _encode_bulk(None)
+            )
+        if count == 0:
+            return _encode_array(matches)
+        return _encode_array(matches[:count])
+
+    def _cmd_HRANDFIELD(self, args):
+        import random
+
+        entries = self._map(args[0]).entry_set()
+        if len(args) == 1:
+            if not entries:
+                return _encode_bulk(None)
+            return _encode_bulk(random.choice(entries)[0])
+        count = int(args[1])
+        withvalues = (
+            len(args) > 2 and args[2].decode().upper() == "WITHVALUES"
+        )
+        if count >= 0:  # distinct fields, up to the hash size
+            picked = random.sample(entries, min(count, len(entries)))
+        else:  # negative: repeats allowed, exactly |count| results
+            picked = (
+                [random.choice(entries) for _ in range(-count)]
+                if entries else []
+            )
+        flat = []
+        for f, v in picked:
+            flat.append(f)
+            if withvalues:
+                flat.append(v)
+        return _encode_array(flat)
+
+    def _cmd_ZRANDMEMBER(self, args):
+        import random
+
+        entries = self._zset(args[0]).entry_range(0, -1)
+        if len(args) == 1:
+            if not entries:
+                return _encode_bulk(None)
+            return _encode_bulk(random.choice(entries)[0])
+        count = int(args[1])
+        withscores = (
+            len(args) > 2 and args[2].decode().upper() == "WITHSCORES"
+        )
+        if count >= 0:
+            picked = random.sample(entries, min(count, len(entries)))
+        else:
+            picked = (
+                [random.choice(entries) for _ in range(-count)]
+                if entries else []
+            )
+        flat = []
+        for m, sc in picked:
+            flat.append(m)
+            if withscores:
+                flat.append(_fmt_score(sc).encode())
+        return _encode_array(flat)
 
     def _cmd_KEYS(self, args):
         pattern = self._s(args[0]) if args else "*"
@@ -3125,6 +3531,487 @@ class RespServer:
             ]
         )
 
+    # lists
+
+    def _list(self, key: bytes):
+        # Redis lists ARE deques (LPUSH/RPOP both ends).
+        from redisson_tpu_torch.grid.queues import Deque
+
+        return self._raw(Deque(self._s(key), self._client))
+
+    def _cmd_RPUSH(self, args):
+        lst = self._list(args[0])
+        for v in args[1:]:
+            lst.offer(v)
+        return _encode_int(lst.size())
+
+    def _cmd_LPUSH(self, args):
+        lst = self._list(args[0])
+        for v in args[1:]:
+            lst.add_first(v)
+        return _encode_int(lst.size())
+
+    def _cmd_LPUSHX(self, args):
+        with self._client._grid.lock:
+            if not self._client._grid.exists(self._s(args[0])):
+                return _encode_int(0)
+            return self._cmd_LPUSH(args)
+
+    def _cmd_RPUSHX(self, args):
+        with self._client._grid.lock:
+            if not self._client._grid.exists(self._s(args[0])):
+                return _encode_int(0)
+            return self._cmd_RPUSH(args)
+
+    def _cmd_LPOP(self, args):
+        return _encode_bulk(self._list(args[0]).poll_first())
+
+    def _cmd_RPOP(self, args):
+        return _encode_bulk(self._list(args[0]).poll_last())
+
+    def _bpop(self, args, first: bool, nonblocking: bool = False) -> bytes:
+        """BLPOP/BRPOP: condvar-parked on the grid store (no poll pump) —
+        the store's offer() notifies the same condition BlockingQueue
+        uses.  Multi-key form checks keys in argument order each wakeup,
+        Redis-style.  ``nonblocking``: inside MULTI/EXEC a blocking
+        command returns nil immediately (Redis transaction semantics)."""
+        import time as _time
+
+        if len(args) < 2:
+            raise RespError("wrong number of arguments for 'blpop'")
+        *keys, timeout = args
+        t = float(timeout)
+        qs = [(self._s(k), self._list(k)) for k in keys]
+        store = qs[0][1]._store
+        deadline = None if t == 0 else _time.monotonic() + t
+        with store.cond:
+            while True:
+                for name, q in qs:
+                    v = q.poll_first() if first else q.poll_last()
+                    if v is not None:
+                        return b"*2\r\n" + _encode_bulk(name) + _encode_bulk(v)
+                if nonblocking:
+                    return b"*-1\r\n"  # in EXEC: never block
+                if deadline is None:
+                    store.cond.wait(timeout=1.0)
+                else:
+                    remaining = deadline - _time.monotonic()
+                    if remaining <= 0:
+                        return b"*-1\r\n"  # null array: timed out
+                    store.cond.wait(timeout=remaining)
+
+    def _cmdctx_BLPOP(self, args, ctx: _ConnCtx):
+        return self._bpop(args, first=True, nonblocking=ctx.in_exec)
+
+    def _cmdctx_BRPOP(self, args, ctx: _ConnCtx):
+        return self._bpop(args, first=False, nonblocking=ctx.in_exec)
+
+    def _cmd_LLEN(self, args):
+        return _encode_int(self._list(args[0]).size())
+
+    def _listidx(self, key: bytes):
+        # Index-addressed view of the same "list" store entry (List and
+        # Deque share KIND, → RList over one Redis list key).
+        from redisson_tpu_torch.grid.collections import List_
+
+        return self._raw(List_(self._s(key), self._client))
+
+    def _cmd_LRANGE(self, args):
+        lst = self._listidx(args[0])
+        start, end = int(args[1]), int(args[2])
+        n = lst.size()
+        if start < 0:
+            start = max(0, n + start)
+        end = n + end if end < 0 else end
+        if start > end or start >= n:
+            return _encode_array([])
+        return _encode_array(lst.sub_list(start, min(end, n - 1) + 1))
+
+    def _cmd_LINDEX(self, args):
+        lst = self._listidx(args[0])
+        i = int(args[1])
+        n = lst.size()
+        if i < 0:
+            i += n
+        if not 0 <= i < n:
+            return _encode_bulk(None)
+        return _encode_bulk(lst.get(i))
+
+    def _cmd_LSET(self, args):
+        lst = self._listidx(args[0])
+        i = int(args[1])
+        n = lst.size()
+        if i < 0:
+            i += n
+        if not 0 <= i < n:
+            raise RespError("index out of range")
+        lst.set(i, args[2])
+        return _encode_simple("OK")
+
+    def _cmd_LREM(self, args):
+        lst = self._listidx(args[0])
+        count = int(args[1])
+        with self._client._grid.lock:  # atomic scan+remove
+            vals = lst.sub_list(0, lst.size())
+            idxs = [i for i, v in enumerate(vals) if v == args[2]]
+            if count > 0:
+                idxs = idxs[:count]  # head-first
+            elif count < 0:
+                idxs = idxs[count:]  # tail-first, Redis count<0
+            for i in reversed(idxs):
+                lst.remove_at(i)
+        return _encode_int(len(idxs))
+
+    def _cmd_LTRIM(self, args):
+        lst = self._listidx(args[0])
+        start, end = int(args[1]), int(args[2])
+        n = lst.size()
+        if start < 0:
+            start = max(0, n + start)
+        end = n + end if end < 0 else min(end, n - 1)
+        if start > end:
+            lst.trim(1, 0)  # keep-nothing: Redis empties the list
+        else:
+            lst.trim(start, end)  # grid trim is [from, to] INCLUSIVE
+        return _encode_simple("OK")
+
+    def _cmd_RPOPLPUSH(self, args):
+        v = self._list(args[0]).poll_last_and_offer_first_to(
+            self._s(args[1])
+        )
+        return _encode_bulk(v)
+
+    # hashes
+
+    def _map(self, key: bytes):
+        from redisson_tpu_torch.grid.maps import Map
+
+        m = self._raw(Map(self._s(key), self._client))
+        m._enc_key = m._enc
+        m._dec_key = m._dec
+        return m
+
+    def _cmd_HSET(self, args):
+        m = self._map(args[0])
+        n = 0
+        for i in range(1, len(args), 2):
+            if m.fast_put(args[i], args[i + 1]):
+                n += 1
+        return _encode_int(n)
+
+    def _cmd_HGET(self, args):
+        return _encode_bulk(self._map(args[0]).get(args[1]))
+
+    def _cmd_HDEL(self, args):
+        return _encode_int(self._map(args[0]).fast_remove(*args[1:]))
+
+    def _cmd_HLEN(self, args):
+        return _encode_int(self._map(args[0]).size())
+
+    def _cmd_HGETALL(self, args):
+        flat = []
+        for k, v in self._map(args[0]).read_all_map().items():
+            flat.extend([k, v])
+        return _encode_array(flat)
+
+    def _cmd_HMGET(self, args):
+        m = self._map(args[0])
+        return _encode_array([m.get(f) for f in args[1:]])
+
+    def _cmd_HKEYS(self, args):
+        return _encode_array(self._map(args[0]).key_set())
+
+    def _cmd_HVALS(self, args):
+        return _encode_array(self._map(args[0]).values())
+
+    def _cmd_HEXISTS(self, args):
+        return _encode_int(int(self._map(args[0]).contains_key(args[1])))
+
+    def _cmd_HSETNX(self, args):
+        m = self._map(args[0])
+        prev = m.put_if_absent(args[1], args[2])
+        return _encode_int(int(prev is None))
+
+    def _cmd_HINCRBY(self, args):
+        m = self._map(args[0])
+        # Stored values are raw bytes over RESP: interpret as integer.
+        with self._client._grid.lock:
+            cur = m.get(args[1])
+            new = (int(cur) if cur is not None else 0) + int(args[2])
+            m.fast_put(args[1], str(new).encode())
+        return _encode_int(new)
+
+    # sets
+
+    def _set(self, key: bytes):
+        from redisson_tpu_torch.grid.collections import Set_
+
+        return self._raw(Set_(self._s(key), self._client))
+
+    def _cmd_SADD(self, args):
+        s = self._set(args[0])
+        return _encode_int(sum(int(s.add(v)) for v in args[1:]))
+
+    def _cmd_SREM(self, args):
+        s = self._set(args[0])
+        return _encode_int(sum(int(s.remove(v)) for v in args[1:]))
+
+    def _cmd_SISMEMBER(self, args):
+        return _encode_int(int(self._set(args[0]).contains(args[1])))
+
+    def _cmd_SCARD(self, args):
+        return _encode_int(self._set(args[0]).size())
+
+    def _cmd_SMEMBERS(self, args):
+        return _encode_array(self._set(args[0]).read_all())
+
+    def _cmd_SMISMEMBER(self, args):
+        s = self._set(args[0])
+        return _encode_array([int(s.contains(v)) for v in args[1:]])
+
+    def _cmd_SPOP(self, args):
+        s = self._set(args[0])
+        if len(args) > 1:
+            count = int(args[1])
+            if count < 0:
+                raise RespError("value is out of range, must be positive")
+            return _encode_array(s.remove_random(min(count, s.size())))
+        out = s.remove_random(1)
+        return _encode_bulk(out[0] if out else None)
+
+    def _cmd_SRANDMEMBER(self, args):
+        s = self._set(args[0])
+        if len(args) > 1:
+            count = int(args[1])
+            if count < 0:
+                # Redis: |count| members, duplicates allowed.
+                import random as _random
+
+                vals = s.read_all()
+                if not vals:
+                    return _encode_array([])
+                return _encode_array(_random.choices(vals, k=-count))
+            return _encode_array(s.random(min(count, s.size())))
+        out = s.random(1)
+        return _encode_bulk(out[0] if out else None)
+
+    def _cmd_SMOVE(self, args):
+        # Raw-bytes SMOVE: the grid's move() resolves the destination
+        # through the client codec; RESP values are raw, so move by hand
+        # under the store lock.
+        src, dst = self._set(args[0]), self._set(args[1])
+        with self._client._grid.lock:
+            self._client._grid.get_entry(self._s(args[1]), "set")
+            if not src.remove(args[2]):
+                return _encode_int(0)
+            dst.add(args[2])
+        return _encode_int(1)
+
+    # SINTER/SUNION/SDIFF combine via raw per-set reads: the grid's
+    # read_intersection/read_union resolve other sets through the
+    # CLIENT's codec, but every RESP-stored value is raw bytes.
+
+    def _cmd_SINTER(self, args):
+        sets = [set(self._set(a).read_all()) for a in args]
+        return _encode_array(sorted(set.intersection(*sets)))
+
+    def _cmd_SUNION(self, args):
+        out: set = set()
+        for a in args:
+            out.update(self._set(a).read_all())
+        return _encode_array(sorted(out))
+
+    def _cmd_SDIFF(self, args):
+        first = self._set(args[0])
+        out = first.read_all()
+        others = set()
+        for a in args[1:]:
+            others.update(self._set(a).read_all())
+        return _encode_array([v for v in out if v not in others])
+
+    def _store_set(self, dest: bytes, members) -> bytes:
+        with self._client._grid.lock:
+            if not members:
+                # Redis deletes the destination on an empty result.
+                self._client._grid.delete(self._s(dest))
+            else:
+                self._client._grid.put_entry(
+                    self._s(dest), "set", {vb: None for vb in members}
+                )
+        return _encode_int(len(members))
+
+    def _cmd_SINTERSTORE(self, args):
+        sets = [set(self._set(a).read_all()) for a in args[1:]]
+        return self._store_set(args[0], sorted(set.intersection(*sets)))
+
+    def _cmd_SUNIONSTORE(self, args):
+        out: set = set()
+        for a in args[1:]:
+            out.update(self._set(a).read_all())
+        return self._store_set(args[0], sorted(out))
+
+    def _cmd_SDIFFSTORE(self, args):
+        first = self._set(args[1]).read_all()
+        others: set = set()
+        for a in args[2:]:
+            others.update(self._set(a).read_all())
+        return self._store_set(args[0], [v for v in first if v not in others])
+
+    # sorted sets
+
+    def _zset(self, key: bytes):
+        from redisson_tpu_torch.grid.collections import ScoredSortedSet
+
+        return self._raw(ScoredSortedSet(self._s(key), self._client))
+
+    def _cmd_ZADD(self, args):
+        z = self._zset(args[0])
+        n = 0
+        for i in range(1, len(args), 2):
+            n += int(z.add(float(args[i]), args[i + 1]))
+        return _encode_int(n)
+
+    def _cmd_ZSCORE(self, args):
+        score = self._zset(args[0]).get_score(args[1])
+        return _encode_bulk(None if score is None else _fmt_score(score))
+
+    def _cmd_ZRANGE(self, args):
+        z = self._zset(args[0])
+        withscores = len(args) > 3 and args[3].decode().upper() == "WITHSCORES"
+        if not withscores:
+            return _encode_array(z.value_range(int(args[1]), int(args[2])))
+        flat = []
+        for member, score in z.entry_range(int(args[1]), int(args[2])):
+            flat.extend([member, _fmt_score(score)])
+        return _encode_array(flat)
+
+    def _cmd_ZCARD(self, args):
+        return _encode_int(self._zset(args[0]).size())
+
+    def _cmd_ZREM(self, args):
+        z = self._zset(args[0])
+        return _encode_int(sum(int(z.remove(m)) for m in args[1:]))
+
+    def _cmd_ZINCRBY(self, args):
+        new = self._zset(args[0]).add_score(args[2], float(args[1]))
+        return _encode_bulk(_fmt_score(new))
+
+    def _cmd_ZRANK(self, args):
+        r = self._zset(args[0]).rank(args[1])
+        return b"$-1\r\n" if r is None else _encode_int(r)
+
+    @staticmethod
+    def _score_bound(raw: bytes):
+        """Redis score-bound syntax: '(x' exclusive, -inf/+inf."""
+        if raw.startswith(b"("):
+            return float(raw[1:]), False
+        return float(raw), True
+
+    def _score_filtered(self, z, lo_raw: bytes, hi_raw: bytes):
+        lo, lo_inc = self._score_bound(lo_raw)
+        hi, hi_inc = self._score_bound(hi_raw)
+        out = []
+        for m in z.value_range_by_score(lo, hi):
+            s = z.get_score(m)
+            if (s > lo or (lo_inc and s == lo)) and (
+                s < hi or (hi_inc and s == hi)
+            ):
+                out.append((m, s))
+        return out
+
+    def _cmd_ZCOUNT(self, args):
+        return _encode_int(
+            len(self._score_filtered(self._zset(args[0]), args[1], args[2]))
+        )
+
+    def _cmd_ZRANGEBYSCORE(self, args):
+        z = self._zset(args[0])
+        withscores = False
+        offset, count = 0, None
+        i = 3
+        while i < len(args):
+            opt = args[i].upper()
+            if opt == b"WITHSCORES":
+                withscores = True
+                i += 1
+            elif opt == b"LIMIT":
+                offset, count = int(args[i + 1]), int(args[i + 2])
+                i += 3
+            else:
+                raise RespError(f"syntax error near {args[i].decode()!r}")
+        entries = self._score_filtered(z, args[1], args[2])
+        if count is not None:
+            entries = entries[offset : offset + count if count >= 0 else None]
+        elif offset:
+            entries = entries[offset:]
+        if not withscores:
+            return _encode_array([m for m, _ in entries])
+        flat = []
+        for m, s in entries:
+            flat.extend([m, _fmt_score(s)])
+        return _encode_array(flat)
+
+    def _zpop(self, args, first: bool):
+        z = self._zset(args[0])
+        count = int(args[1]) if len(args) > 1 else 1
+        flat = []
+        with self._client._grid.lock:  # atomic peek+remove per entry
+            for _ in range(count):
+                entries = (
+                    z.entry_range(0, 0) if first else z.entry_range(-1, -1)
+                )
+                if not entries:
+                    break
+                member, score = entries[0]
+                z.remove(member)
+                flat.extend([member, _fmt_score(score)])
+        return _encode_array(flat)
+
+    def _cmd_ZPOPMIN(self, args):
+        return self._zpop(args, True)
+
+    def _cmd_ZPOPMAX(self, args):
+        return self._zpop(args, False)
+
+    def _cmd_ZREVRANGE(self, args):
+        z = self._zset(args[0])
+        withscores = any(a.upper() == b"WITHSCORES" for a in args[3:])
+        start, end = int(args[1]), int(args[2])
+        # rev-range indexes count from the HIGHEST score; n derives from
+        # the ONE snapshot (a second size() call could race a mutation).
+        entries = list(reversed(z.entry_range(0, -1)))
+        n = len(entries)
+        if start < 0:
+            start = max(0, n + start)
+        if end < 0:
+            end = n + end
+            if end < 0:
+                return _encode_array([])  # beyond-left end: empty, Redis
+        entries = entries[start : end + 1]
+        if not withscores:
+            return _encode_array([m for m, _ in entries])
+        flat = []
+        for m, sc in entries:
+            flat.extend([m, _fmt_score(sc)])
+        return _encode_array(flat)
+
+    def _cmd_ZREVRANK(self, args):
+        z = self._zset(args[0])
+        r = z.rank(args[1])
+        if r is None:
+            return b"$-1\r\n"
+        return _encode_int(z.size() - 1 - r)
+
+    def _cmd_ZREMRANGEBYSCORE(self, args):
+        z = self._zset(args[0])
+        with self._client._grid.lock:  # atomic filter+remove (RLock)
+            members = [
+                m for m, _ in self._score_filtered(z, args[1], args[2])
+            ]
+            for m in members:
+                z.remove(m)
+        return _encode_int(len(members))
+
     # protocol negotiation (→ RESP3's HELLO; the reference speaks
     # RESP2/RESP3 through Netty — SURVEY.md §2.4 comm row)
 
@@ -3223,6 +4110,76 @@ class RespServer:
                 out += _encode_bulk(v)
         return out
 
+    # pub/sub (push replies — the SUBSCRIBE protocol shape; RESP3
+    # connections get true push frames '>')
+
+    @staticmethod
+    def _push_hdr(ctx: _ConnCtx) -> bytes:
+        return b">3\r\n" if ctx.proto == 3 else b"*3\r\n"
+
+    def _cmd_PUBLISH(self, args):
+        n = self._client._topic_bus.publish(self._s(args[0]), args[1])
+        return _encode_int(n)
+
+    def _cmdctx_SUBSCRIBE(self, args, ctx: _ConnCtx):
+        if not args:
+            raise RespError("wrong number of arguments for 'subscribe'")
+        for raw in args:
+            channel = self._s(raw)
+            already = channel in ctx.subs
+            # Ack FIRST, then register: a concurrent PUBLISH must not push
+            # its 'message' frame ahead of this channel's 'subscribe' ack.
+            ctx.send(
+                self._push_hdr(ctx)
+                + _encode_bulk(b"subscribe")
+                + _encode_bulk(raw)
+                + _encode_int(len(ctx.subs) + (0 if already else 1))
+            )
+            if already:
+                continue
+
+            def on_msg(ch, message, _name=raw):
+                payload = (
+                    message
+                    if isinstance(message, bytes)
+                    else str(message).encode()
+                )
+                ctx.send(
+                    self._push_hdr(ctx)
+                    + _encode_bulk(b"message")
+                    + _encode_bulk(_name)
+                    + _encode_bulk(payload)
+                )
+
+            ctx.subs[channel] = self._client._topic_bus.subscribe(
+                channel, on_msg
+            )
+        return b""  # acks already pushed in order
+
+    def _cmdctx_UNSUBSCRIBE(self, args, ctx: _ConnCtx):
+        channels = [self._s(a) for a in args] or list(ctx.subs)
+        if not channels:
+            # Redis replies even when nothing was subscribed — an empty
+            # reply would wedge the client waiting forever.
+            return (
+                self._push_hdr(ctx)
+                + _encode_bulk(b"unsubscribe")
+                + _encode_bulk(None)
+                + _encode_int(0)
+            )
+        out = b""
+        for channel in channels:
+            lid = ctx.subs.pop(channel, None)
+            if lid is not None:
+                self._client._topic_bus.unsubscribe(channel, lid)
+            out += (
+                self._push_hdr(ctx)
+                + _encode_bulk(b"unsubscribe")
+                + _encode_bulk(channel.encode())
+                + _encode_int(len(ctx.subs))
+            )
+        return out
+
     # counters — one NUMERIC key per name: Redis INCR/INCRBYFLOAT share a
     # string key, so the int and float forms here must interoperate (the
     # entry's kind converts with the operation; INCR on a non-integral
@@ -3299,3 +4256,604 @@ class RespServer:
     def _cmd_DECR(self, args):
         return _encode_int(self._numeric_incr(args[0], -1, False))
 
+    # streams (→ the reference's RStream command surface over
+    # grid/streams.py; reply shapes follow Redis XADD/XRANGE/XREAD/
+    # XREADGROUP/XACK/XPENDING/XCLAIM/XAUTOCLAIM)
+
+    def _stream(self, key: bytes):
+        from redisson_tpu_torch.grid.streams import Stream
+
+        s = self._raw(Stream(self._s(key), self._client))
+        s._enc_key = s._enc
+        s._dec_key = s._dec
+        return s
+
+    @staticmethod
+    def _stream_entries_reply(entries) -> bytes:
+        """[(id, {field: value})] → RESP [[id, [f1, v1, ...]], ...]."""
+        out = b"*" + str(len(entries)).encode() + b"\r\n"
+        for eid, fields in entries:
+            flat = []
+            for f, v in fields.items():
+                flat.extend([f, v])
+            out += b"*2\r\n" + _encode_bulk(eid) + _encode_array(flat)
+        return out
+
+    def _cmd_XADD(self, args):
+        key = args[0]
+        i = 1
+        nomkstream = False
+        maxlen = None
+        while i < len(args):
+            opt = args[i].decode().upper()
+            if opt == "NOMKSTREAM":
+                nomkstream = True
+                i += 1
+            elif opt == "MAXLEN":
+                i += 1
+                if args[i] in (b"~", b"="):  # approximate trim: exact here
+                    i += 1
+                maxlen = int(args[i])
+                i += 1
+            else:
+                break
+        entry_id = self._s(args[i])
+        i += 1
+        if (len(args) - i) % 2 != 0 or len(args) == i:
+            raise RespError("wrong number of arguments for 'xadd' command")
+        fields = {args[j]: args[j + 1] for j in range(i, len(args), 2)}
+        try:
+            new_id = self._stream(key).add(
+                fields, entry_id, maxlen=maxlen, nomkstream=nomkstream
+            )
+        except ValueError as e:
+            # Distinguish ordering violations from unparseable ids — a
+            # client debugging 'notanid' must not be pointed at ordering.
+            if "greater than" in str(e):
+                raise RespError(
+                    "The ID specified in XADD is equal or smaller than "
+                    "the target stream top item"
+                ) from e
+            raise RespError(
+                "Invalid stream ID specified as stream command argument"
+            ) from e
+        return _encode_bulk(None if new_id is None else new_id)
+
+    def _cmd_XLEN(self, args):
+        return _encode_int(self._stream(args[0]).size())
+
+    def _cmd_XRANGE(self, args):
+        count = None
+        if len(args) >= 5 and args[3].decode().upper() == "COUNT":
+            count = int(args[4])
+        entries = self._stream(args[0]).range(
+            self._s(args[1]), self._s(args[2]), count
+        )
+        return self._stream_entries_reply(entries)
+
+    def _cmd_XREVRANGE(self, args):
+        count = None
+        if len(args) >= 5 and args[3].decode().upper() == "COUNT":
+            count = int(args[4])
+        entries = self._stream(args[0]).rev_range(
+            self._s(args[1]), self._s(args[2]), count
+        )
+        return self._stream_entries_reply(entries)
+
+    def _cmd_XDEL(self, args):
+        return _encode_int(
+            self._stream(args[0]).remove(*[self._s(a) for a in args[1:]])
+        )
+
+    def _cmd_XTRIM(self, args):
+        i = 1
+        if args[i].decode().upper() != "MAXLEN":
+            raise RespError("syntax error")
+        i += 1
+        if args[i] in (b"~", b"="):
+            i += 1
+        return _encode_int(self._stream(args[0]).trim(int(args[i])))
+
+    @staticmethod
+    def _parse_xread_opts(args, want_group: bool):
+        """Shared XREAD/XREADGROUP option walk → (group, consumer,
+        count, block_s, keys, ids, noack)."""
+        group = consumer = None
+        count = block_s = None
+        noack = False
+        i = 0
+        if want_group:
+            if args[i].decode().upper() != "GROUP":
+                raise RespError("syntax error")
+            group, consumer = args[i + 1].decode(), args[i + 2].decode()
+            i += 3
+        while i < len(args):
+            opt = args[i].decode().upper()
+            if opt == "COUNT":
+                count = int(args[i + 1])
+                i += 2
+            elif opt == "BLOCK":
+                # BLOCK 0 = wait indefinitely (the Redis contract); the
+                # wait loop still wakes each second, so a closed server
+                # unsticks at shutdown.
+                block_s = int(args[i + 1]) / 1000.0 or float("inf")
+                i += 2
+            elif opt == "NOACK":
+                noack = True
+                i += 1
+            elif opt == "STREAMS":
+                i += 1
+                break
+            else:
+                raise RespError("syntax error")
+        rest = args[i:]
+        if not rest or len(rest) % 2 != 0:
+            raise RespError(
+                "Unbalanced XREAD list of streams: for each stream key "
+                "an ID or '$' must be specified."
+            )
+        half = len(rest) // 2
+        return group, consumer, count, block_s, rest[:half], rest[half:], noack
+
+    @staticmethod
+    def _xread_reply(out) -> bytes:
+        if not out:
+            return b"*-1\r\n"  # nil: nothing new
+        reply = b"*" + str(len(out)).encode() + b"\r\n"
+        for k, entries in out:
+            reply += (
+                b"*2\r\n" + _encode_bulk(k)
+                + RespServer._stream_entries_reply(entries)
+            )
+        return reply
+
+    def _cmdctx_XREAD(self, args, ctx: _ConnCtx):
+        import time as _time
+
+        _, _, count, block_s, keys, ids, _ = self._parse_xread_opts(
+            args, False
+        )
+        if ctx.in_exec:
+            block_s = None  # like Redis: no blocking inside MULTI/EXEC
+        # Resolve '$' ONCE, before any waiting: a blocked read must see
+        # entries added after THIS call, not chase the advancing tail.
+        starts = []
+        for k, sid in zip(keys, ids):
+            s_ = self._s(sid)
+            if s_ == "$":
+                s_ = self._stream(k).last_id()
+            starts.append(s_)
+        deadline = (
+            None if block_s is None else _time.monotonic() + block_s
+        )
+        grid = self._client._grid
+        while True:
+            out = []
+            for k, start in zip(keys, starts):
+                entries = self._stream(k).read(start, count)
+                if entries:
+                    out.append((k, entries))
+            if out or deadline is None:
+                return self._xread_reply(out)
+            remaining = deadline - _time.monotonic()
+            if remaining <= 0:
+                return self._xread_reply([])
+            with grid.cond:  # woken by any XADD (store-wide notify)
+                grid.cond.wait(timeout=min(remaining, 1.0))
+
+    def _cmdctx_XREADGROUP(self, args, ctx: _ConnCtx):
+        import time as _time
+
+        group, consumer, count, block_s, keys, ids, noack = (
+            self._parse_xread_opts(args, True)
+        )
+        if ctx.in_exec:
+            block_s = None
+        starts = [self._s(sid) for sid in ids]
+        # Redis shape rules: '>' streams with nothing new are OMITTED;
+        # explicit-id streams always appear (possibly with an empty
+        # array) and make the command non-blocking.
+        any_explicit = any(s_ != ">" for s_ in starts)
+        deadline = (
+            None
+            if block_s is None or any_explicit
+            else _time.monotonic() + block_s
+        )
+        grid = self._client._grid
+        while True:
+            out = []
+            got_new = False
+            for k, start in zip(keys, starts):
+                try:
+                    entries = self._stream(k).read_group(
+                        group, consumer, count, start, noack=noack
+                    )
+                except ValueError as e:
+                    if "NOGROUP" not in str(e):
+                        # e.g. an unparseable start id, not a missing group
+                        raise RespError(
+                            "Invalid stream ID specified as stream "
+                            "command argument"
+                        ) from e
+                    raise RespError(
+                        f"NOGROUP No such consumer group '{group}' for "
+                        f"key name '{self._s(k)}'"
+                    ) from e
+                if start == ">":
+                    if entries:
+                        out.append((k, entries))
+                        got_new = True
+                else:
+                    out.append((k, entries))
+            if got_new or any_explicit or deadline is None:
+                return self._xread_reply(out)
+            remaining = deadline - _time.monotonic()
+            if remaining <= 0:
+                return self._xread_reply([])
+            with grid.cond:
+                grid.cond.wait(timeout=min(remaining, 1.0))
+
+    def _cmd_XGROUP(self, args):
+        sub = args[0].decode().upper()
+        if sub == "CREATE":
+            key, group, from_id = args[1], args[2].decode(), self._s(args[3])
+            mkstream = any(
+                a.decode().upper() == "MKSTREAM" for a in args[4:]
+            )
+            try:
+                self._stream(key).create_group(
+                    group, from_id, mkstream=mkstream
+                )
+            except ValueError as e:
+                if "already exists" not in str(e):
+                    # unparseable start id — NOT a duplicate group (a
+                    # client treating BUSYGROUP as 'proceed' would then
+                    # hit NOGROUP, a state impossible on real Redis)
+                    raise RespError(
+                        "Invalid stream ID specified as stream command "
+                        "argument"
+                    ) from e
+                raise RespError(
+                    "BUSYGROUP Consumer Group name already exists"
+                ) from e
+            except RuntimeError as e:
+                raise RespError(
+                    "The XGROUP subcommand requires the key to exist. Note "
+                    "that for CREATE you may want to use the MKSTREAM "
+                    "option to create an empty stream automatically."
+                ) from e
+            return _encode_simple("OK")
+        if sub == "DESTROY":
+            return _encode_int(
+                int(self._stream(args[1]).remove_group(args[2].decode()))
+            )
+        raise RespError(f"Unknown XGROUP subcommand {sub}")
+
+    def _cmd_XACK(self, args):
+        try:
+            return _encode_int(
+                self._stream(args[0]).ack(
+                    args[1].decode(), *[self._s(a) for a in args[2:]]
+                )
+            )
+        except ValueError:
+            return _encode_int(0)  # Redis: XACK on a missing group is 0
+
+    def _cmd_XPENDING(self, args):
+        s = self._stream(args[0])
+        group = args[1].decode()
+        if len(args) == 2:  # summary form
+            try:
+                p = s.pending(group)
+            except ValueError as e:
+                raise self._nogroup(args[0], group, e) from e
+            consumers = [
+                [c.encode(), str(n).encode()]
+                for c, n in p["consumers"].items()
+            ]
+            out = (
+                b"*4\r\n" + _encode_int(p["total"])
+                + _encode_bulk(p["lowest_id"])
+                + _encode_bulk(p["highest_id"])
+            )
+            if consumers:
+                out += b"*" + str(len(consumers)).encode() + b"\r\n"
+                for pair in consumers:
+                    out += _encode_array(pair)
+            else:
+                out += b"*-1\r\n"
+            return out
+        # range form: [IDLE ms] start end count [consumer] — the int
+        # parses stay OUTSIDE the NOGROUP mapping (a malformed count on
+        # a live group is a value error, not a missing group).
+        i = 2
+        min_idle_ms = 0
+        if args[i].decode().upper() == "IDLE":
+            min_idle_ms = int(args[i + 1])
+            i += 2
+        start, end, count = (
+            self._s(args[i]), self._s(args[i + 1]), int(args[i + 2])
+        )
+        consumer = args[i + 3].decode() if len(args) > i + 3 else None
+        try:
+            rows = s.pending_range(group, start, end, count, consumer)
+        except ValueError as e:
+            raise self._nogroup(args[0], group, e) from e
+        if min_idle_ms:
+            rows = [r for r in rows if r["idle_ms"] >= min_idle_ms]
+        out = b"*" + str(len(rows)).encode() + b"\r\n"
+        for r in rows:
+            out += (
+                b"*4\r\n" + _encode_bulk(r["id"])
+                + _encode_bulk(r["consumer"].encode())
+                + _encode_int(int(r["idle_ms"]))
+                + _encode_int(r["delivered"])
+            )
+        return out
+
+    def _nogroup(self, key: bytes, group: str, e: Exception) -> RespError:
+        """Map the grid's NOGROUP ValueError to the -NOGROUP code every
+        stock client keys on (the create-group-on-NOGROUP pattern)."""
+        if "NOGROUP" not in str(e):
+            raise e
+        return RespError(
+            f"NOGROUP No such consumer group '{group}' for key name "
+            f"'{self._s(key)}'"
+        )
+
+    def _cmd_XCLAIM(self, args):
+        s = self._stream(args[0])
+        try:
+            claimed = s.claim(
+                args[1].decode(), args[2].decode(), int(args[3]),
+                *[self._s(a) for a in args[4:]],
+            )
+        except ValueError as e:
+            raise self._nogroup(args[0], args[1].decode(), e) from e
+        return self._stream_entries_reply(claimed)
+
+    def _cmd_XAUTOCLAIM(self, args):
+        s = self._stream(args[0])
+        count = 100
+        justid = False
+        i = 5
+        while i < len(args):
+            opt = args[i].decode().upper()
+            if opt == "COUNT":
+                count = int(args[i + 1])
+                i += 2
+            elif opt == "JUSTID":
+                justid = True
+                i += 1
+            else:
+                raise RespError("syntax error")
+        try:
+            cursor, claimed, deleted = s.auto_claim(
+                args[1].decode(), args[2].decode(), int(args[3]),
+                self._s(args[4]), count, with_cursor=True, justid=justid,
+            )
+        except ValueError as e:
+            raise self._nogroup(args[0], args[1].decode(), e) from e
+        # 7.0 reply: [next-cursor, entries, deleted-ids].  The cursor is
+        # '0-0' only when the whole PEL was examined — a COUNT-truncated
+        # sweep returns the id to continue from (clients loop until 0-0).
+        # The third element names the ids the sweep dropped from the PEL
+        # because their entries were deleted from the stream.
+        body = (
+            _encode_array([eid for eid, _ in claimed])
+            if justid  # bare ids, per the JUSTID contract
+            else self._stream_entries_reply(claimed)
+        )
+        return (
+            b"*3\r\n" + _encode_bulk(cursor.encode()) + body
+            + _encode_array([d.encode() for d in deleted])
+        )
+
+    def _cmd_XINFO(self, args):
+        sub = args[0].decode().upper()
+        s = self._stream(args[1])
+        if sub == "STREAM":
+            flat = [
+                b"length", s.size(),
+                b"last-generated-id", s.last_id().encode(),
+                b"groups", len(s.list_groups()),
+            ]
+            return _encode_array(flat)
+        if sub == "GROUPS":
+            groups = s.list_groups()
+            out = b"*" + str(len(groups)).encode() + b"\r\n"
+            for g in groups:
+                out += _encode_array([
+                    b"name", g["name"].encode(),
+                    b"consumers", g["consumers"],
+                    b"pending", g["pending"],
+                    b"last-delivered-id", g["last_delivered_id"].encode(),
+                ])
+            return out
+        if sub == "CONSUMERS":
+            try:
+                rows = s.list_consumers(args[2].decode())
+            except ValueError as e:
+                raise self._nogroup(args[1], args[2].decode(), e) from e
+            out = b"*" + str(len(rows)).encode() + b"\r\n"
+            for r in rows:
+                out += _encode_array([
+                    b"name", r["name"].encode(), b"pending", r["pending"],
+                ])
+            return out
+        raise RespError(f"Unknown XINFO subcommand {sub}")
+
+    # geo (→ RGeo over grid/geo.py; GEOSEARCH option grammar follows
+    # Redis 6.2)
+
+    def _geo(self, key: bytes):
+        from redisson_tpu_torch.grid.geo import Geo
+
+        return self._raw(Geo(self._s(key), self._client))
+
+    def _cmd_GEOADD(self, args):
+        # [NX|XX] [CH] flags precede the lon/lat/member triples — a
+        # coordinate position can never BE a flag, so this walk is safe.
+        i = 1
+        nx = xx = ch = False
+        while i < len(args):
+            opt = args[i].decode("latin-1").upper()
+            if opt == "NX":
+                nx = True
+            elif opt == "XX":
+                xx = True
+            elif opt == "CH":
+                ch = True
+            else:
+                break
+            i += 1
+        if nx and xx:
+            raise RespError(
+                "XX and NX options at the same time are not compatible"
+            )
+        if (len(args) - i) % 3 != 0 or len(args) == i:
+            raise RespError("syntax error")
+        entries = [
+            (float(args[j]), float(args[j + 1]), args[j + 2])
+            for j in range(i, len(args), 3)
+        ]
+        geo = self._geo(args[0])
+        try:
+            if not (nx or xx or ch):
+                return _encode_int(geo.add_entries(*entries))
+            added = changed = 0
+            with self._client._grid.lock:
+                for lon, lat, m in entries:
+                    existed = geo.pos(m) != {}
+                    if (nx and existed) or (xx and not existed):
+                        continue
+                    before = geo.pos(m).get(m)
+                    added += geo.add(lon, lat, m)
+                    if before != geo.pos(m).get(m):
+                        changed += 1
+            return _encode_int(changed if ch else added)
+        except ValueError as e:
+            raise RespError(f"invalid longitude,latitude pair ({e})") from e
+
+    def _cmd_GEOPOS(self, args):
+        pos = self._geo(args[0]).pos(*args[1:])
+        out = b"*" + str(len(args) - 1).encode() + b"\r\n"
+        for m in args[1:]:
+            p = pos.get(m)
+            if p is None:
+                out += b"*-1\r\n"
+            else:
+                out += _encode_array([
+                    f"{p[0]:.17g}".encode(), f"{p[1]:.17g}".encode(),
+                ])
+        return out
+
+    def _cmd_GEODIST(self, args):
+        unit = args[3].decode().lower() if len(args) > 3 else "m"
+        d = self._geo(args[0]).dist(args[1], args[2], unit)
+        return _encode_bulk(None if d is None else f"{d:.4f}".encode())
+
+    def _cmd_GEOHASH(self, args):
+        hashes = self._geo(args[0]).hash(*args[1:])
+        return _encode_array([
+            hashes.get(m, "").encode() or None for m in args[1:]
+        ])
+
+    @staticmethod
+    def _parse_geosearch(args, i, allow_storedist: bool = False):
+        """GEOSEARCH option walk from index ``i`` → (search kwargs,
+        with-flags).  Option words are only recognized at option
+        POSITIONS — operand slots (the FROMMEMBER member) are consumed
+        raw, so a member whose bytes spell an option name stays a
+        member."""
+        kw = {}
+        with_coord = with_dist = with_hash = False
+        n = len(args)
+        while i < n:
+            try:
+                opt = args[i].decode().upper()
+            except UnicodeDecodeError:
+                raise RespError("syntax error")  # binary junk in options
+            if opt == "FROMMEMBER":
+                kw["member"] = args[i + 1]
+                i += 2
+            elif opt == "FROMLONLAT":
+                kw["longitude"] = float(args[i + 1])
+                kw["latitude"] = float(args[i + 2])
+                i += 3
+            elif opt == "BYRADIUS":
+                kw["radius"] = float(args[i + 1])
+                kw["unit"] = args[i + 2].decode().lower()
+                i += 3
+            elif opt == "BYBOX":
+                kw["width"] = float(args[i + 1])
+                kw["height"] = float(args[i + 2])
+                kw["unit"] = args[i + 3].decode().lower()
+                i += 4
+            elif opt in ("ASC", "DESC"):
+                kw["order"] = opt.lower()
+                i += 1
+            elif opt == "COUNT":
+                kw["count"] = int(args[i + 1])
+                if kw["count"] <= 0:
+                    # hits[:0] / hits[:-n] would silently drop members
+                    raise RespError("COUNT must be > 0")
+                i += 2
+                if i < n and args[i].decode().upper() == "ANY":
+                    kw["count_any"] = True
+                    i += 1
+            elif opt == "WITHCOORD":
+                with_coord = True
+                i += 1
+            elif opt == "WITHDIST":
+                with_dist = True
+                i += 1
+            elif opt == "WITHHASH":
+                with_hash = True
+                i += 1
+            elif allow_storedist and opt == "STOREDIST":
+                kw["storedist"] = True
+                i += 1
+            else:
+                raise RespError("syntax error")
+        return kw, with_coord, with_dist, with_hash
+
+    def _cmd_GEOSEARCH(self, args):
+        kw, wc, wd, wh = self._parse_geosearch(args, 1)
+        try:
+            rows = self._geo(args[0]).search(
+                with_coord=wc, with_dist=wd, with_hash=wh, **kw
+            )
+        except ValueError as e:
+            raise RespError(str(e)) from e
+        if not (wc or wd or wh):
+            return _encode_array(rows)
+        out = b"*" + str(len(rows)).encode() + b"\r\n"
+        for r in rows:
+            parts = [_encode_bulk(r["member"])]
+            if wd:
+                parts.append(_encode_bulk(f"{r['dist']:.4f}".encode()))
+            if wh:
+                parts.append(_encode_int(r["hash"]))
+            if wc:
+                parts.append(_encode_array([
+                    f"{r['coord'][0]:.17g}".encode(),
+                    f"{r['coord'][1]:.17g}".encode(),
+                ]))
+            out += b"*" + str(len(parts)).encode() + b"\r\n" + b"".join(parts)
+        return out
+
+    def _cmd_GEOSEARCHSTORE(self, args):
+        dest, src = self._s(args[0]), args[1]
+        # STOREDIST parses POSITIONALLY inside the option walk (a member
+        # named 'storedist' must stay a member, not become the flag).
+        kw, _, _, _ = self._parse_geosearch(args, 2, allow_storedist=True)
+        store_dist = kw.pop("storedist", False)
+        unit = kw.pop("unit", "m")
+        try:
+            n = self._geo(src).search_and_store(
+                dest, store_dist=store_dist, unit=unit, **kw
+            )
+        except ValueError as e:
+            raise RespError(str(e)) from e
+        return _encode_int(n)

@@ -542,3 +542,34 @@ def test_entry_point_restart_on_the_card(p11_small):
     snapshot directory, SIGTERM exits 0, the reboot answers every read as
     before, and INFO server names the card."""
     p11_small.phase_entry_point("test")
+
+
+# -- the data grid on the card (chip_smoke.py phase 12 at a small size) --------
+
+
+@pytest.fixture
+def p12_small(cuda, monkeypatch):
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "P11_DEVICE", "cuda")
+    monkeypatch.setattr(cs, "P12_DEVICE", "cuda")
+    monkeypatch.setattr(cs, "P12", dict(cs.P12, events=1 << 20, msg=1 << 14))
+    return cs
+
+
+def test_bridge_fed_cms_on_the_card_equals_golden(p12_small):
+    """12a's checks at 2**20 events: a CMS(5, 65536) fed through
+    RTopic -> TopicCmsBridge -> cms_add on the card equals the golden
+    count-min over every event, loses none, finds the top 10, and no op
+    is served degraded; the bridge does not take K1."""
+    before = cms_seq.LAUNCHES
+    out = p12_small.phase_config5_pipe("test")
+    assert out["table_equals_golden"] and out["top10_recall"] == 1.0
+    assert cms_seq.LAUNCHES == before
+
+
+def test_grid_wire_on_the_card_equals_cpu(p12_small):
+    """12b's checks: the grid session on a card server equals a CPU
+    server's replies byte for byte, pub/sub frames, and a parked BLPOP
+    while 1000 pipelined commands are answered."""
+    p12_small.phase_grid_wire("test")

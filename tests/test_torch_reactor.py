@@ -7,12 +7,10 @@ thread path's (and to the JAX server's), whatever the tick boundaries,
 the cross-connection fusion or the worker handoffs — while the serving
 thread count stays FIXED as connections scale.
 
-The reference cases that need blocking pops or pub/sub
+A parked BLPOP and a SUBSCRIBE ride worker threads off the event loop
 (``test_blocking_command_does_not_stall_other_connections``,
-``test_pubsub_across_reactor_connections``) wait for the port's lists
-and topics; the multi-connection soak here replaces the reference's
-RPOPLPUSH/BLPOP worker-handoff commands with ``DEBUG SLEEP 0``, which
-rides the same detach-to-worker gate.
+``test_pubsub_across_reactor_connections``), and the multi-connection
+soak carries the reference's RPOPLPUSH/BLPOP worker-handoff commands.
 """
 
 import random
@@ -156,6 +154,51 @@ class TestReactorBasics:
         finally:
             slow.close()
             other.close()
+
+    def test_blocking_command_does_not_stall_other_connections(self, rx):
+        """A parked BLPOP rides a worker thread: other connections keep
+        being served — 1000 pipelined reads answered while it waits, with
+        no serving thread added — and an LPUSH from another connection
+        wakes it."""
+        _client, server = rx
+        blocker = socket.create_connection((server.host, server.port))
+        other = socket.create_connection((server.host, server.port))
+        try:
+            blocker.sendall(_wire([b"BLPOP", b"rx-q", b"5"]))
+            deadline = time.monotonic() + 5
+            while not _client._grid.cond._waiters:  # parked on a worker
+                assert time.monotonic() < deadline, "BLPOP never parked"
+                time.sleep(0.005)
+            threads = _serving_threads()
+            t0 = time.monotonic()
+            assert _roundtrip(server, [[b"PING"]], sock=other) == [b"+PONG\r\n"]
+            assert time.monotonic() - t0 < 2.0, "reactor stalled by BLPOP"
+            frames = _roundtrip(server, [[b"GET", b"rx-none"]] * 1000, sock=other)
+            assert frames == [b"$-1\r\n"] * 1000
+            assert _serving_threads() == threads
+            _roundtrip(server, [[b"LPUSH", b"rx-q", b"v"]], sock=other)
+            frames, _ = _recv_replies(blocker, 1)
+            assert frames[0] == b"*2\r\n$4\r\nrx-q\r\n$1\r\nv\r\n"
+        finally:
+            blocker.close()
+            other.close()
+
+    def test_pubsub_across_reactor_connections(self, rx):
+        _client, server = rx
+        sub = socket.create_connection((server.host, server.port))
+        pub = socket.create_connection((server.host, server.port))
+        try:
+            sub.sendall(_wire([b"SUBSCRIBE", b"rx-chan"]))
+            frames, _ = _recv_replies(sub, 1)
+            assert b"subscribe" in frames[0]
+            _roundtrip(server, [[b"PUBLISH", b"rx-chan", b"hello"]], sock=pub)
+            frames, _ = _recv_replies(sub, 1)
+            assert frames[0] == (
+                b"*3\r\n$7\r\nmessage\r\n$7\r\nrx-chan\r\n$5\r\nhello\r\n"
+            )
+        finally:
+            sub.close()
+            pub.close()
 
     def test_large_reply_requeue_path(self, rx):
         _client, server = rx
@@ -383,7 +426,8 @@ def _conn_stream(conn_id: int, rng: random.Random, n: int):
     immutable fixtures (cross-connection fusion), writes stay on keys
     PRIVATE to this connection."""
     p = b"c%d" % conn_id
-    cmds = [[b"BF.RESERVE", p + b"-bf", b"0.01", b"2000"]]
+    cmds = [[b"BF.RESERVE", p + b"-bf", b"0.01", b"2000"],
+            [b"LPUSH", p + b"-q", b"seed"]]
     it = lambda: b"it%d" % rng.randrange(40)  # noqa: E731
 
     def one():
@@ -418,16 +462,23 @@ def _conn_stream(conn_id: int, rng: random.Random, n: int):
             if q < 0.9:
                 return [b"GET", k]
             return [b"APPEND", k, b"x"]
-        if r < 0.90:  # private counters
-            return [b"INCR", p + b"-n"]
-        if r < 0.94:  # worker-handoff coverage (the detach gate)
-            return [b"DEBUG", b"SLEEP", b"0"]
+        if r < 0.90:  # worker-handoff coverage: non-empty blocking pop
+            return [b"RPOPLPUSH", p + b"-q", p + b"-q"]
+        if r < 0.94:
+            return [b"BLPOP", p + b"-q", b"1"]
         if r < 0.97:  # structural barrier on private keys
             return [b"DEL", p + b"-s%d" % rng.randrange(3)]
         return [b"STRLEN", p + b"-s0"]
 
     cmds += [one() for _ in range(n)]
-    return cmds
+    # BLPOP consumes the queue seed: re-prime so later BLPOPs stay
+    # deterministic (the RPOPLPUSH rotation keeps length constant).
+    fixed = []
+    for c in cmds:
+        fixed.append(c)
+        if c[0] == b"BLPOP":
+            fixed.append([b"LPUSH", p + b"-q", b"seed"])
+    return fixed
 
 
 def _run_soak(server, streams):

@@ -1,14 +1,21 @@
 """The port's RESP front door against the JAX package's, byte for byte.
 
-The fixture table of ``tests/test_resp_wire_fixtures.py`` restricted to
-the families the port serves (connection, strings, counters, keyspace,
-bitmaps, HLL, Bloom, CMS, Top-K, transactions), extended with more
-commands of those families, runs as ONE session against a JAX
-``RespServer`` (CPU backend) and a port ``RespServer``
-(``device="cpu"``): every reply must equal the JAX server's bytes, and
-the literal Redis reply where the table gives one.  TTL-valued replies
-are compared by range.  A command of a family the port does not carry
-yet gets exactly the reply the JAX server gives a command it lacks.
+The fixture table of ``tests/test_resp_wire_fixtures.py`` (connection,
+strings, counters, keyspace, bitmaps, HLL, Bloom, CMS, Top-K,
+transactions; then lists, hashes, sets, sorted sets with the SCAN family
+and the STORE commands, streams with a consumer group, geo and WRONGTYPE
+across the families), extended with more commands of each family, runs
+as sessions against a JAX ``RespServer`` (CPU backend) and a port
+``RespServer`` (``device="cpu"``): every reply must equal the JAX
+server's bytes, and the literal Redis reply where the table gives one.
+TTL-valued replies are compared by range; replies of the random commands
+(HRANDFIELD, SRANDMEMBER, ZRANDMEMBER) and of XPENDING's idle times by
+shape.  Pub/sub runs across two connections on both servers.  A command
+of a family the port does not carry yet (scripting, cluster, replication,
+the telemetry verbs) gets exactly the reply the JAX server gives a
+command it lacks.  The family tests of ``tests/test_resp_scan_family.py``
+and the stream/geo half of ``tests/test_resp_streams_geo_script.py`` run
+on a port server.
 
 Also here: the admin surfaces earlier slices left for the front door —
 ``INFO nearcache`` and ``CONFIG SET nearcache*`` (tests/test_nearcache.py
@@ -19,6 +26,7 @@ degraded flag with ``DEBUG INJECT`` and its loopback/requirepass gate
 """
 
 import socket
+import threading
 import time
 
 import pytest
@@ -27,6 +35,9 @@ torch = pytest.importorskip("torch")
 
 import redisson_tpu  # noqa: E402
 import redisson_tpu_torch as rt  # noqa: E402
+import test_resp_scan_family as _ref_scan  # noqa: E402
+import test_resp_streams_geo_script as _ref_sg  # noqa: E402
+from test_resp_server import RespClient  # noqa: E402
 from redisson_tpu.serve.resp import RespServer as JaxRespServer  # noqa: E402
 from redisson_tpu_torch import chaos  # noqa: E402
 from redisson_tpu_torch.serve.resp import RespError, RespServer  # noqa: E402
@@ -261,13 +272,182 @@ FIXTURES = [
     ([b"DBSIZE"], b":0\r\n"),
 ]
 
+# The grid families: lists, hashes, sets, sorted sets (SCAN family, STORE
+# commands), streams with a consumer group, geo, and WRONGTYPE between a
+# Bloom key and a list key.  ("shape", prefix) = both replies start with
+# the prefix (random picks, idle times).  Stream ids are explicit: XADD *
+# ids are milliseconds of the wall clock.
+GRID = [
+    # the literal pairs of tests/test_resp_wire_fixtures.py
+    ([b"RPUSH", b"l", b"a", b"b"], b":2\r\n"),
+    ([b"LPUSH", b"l", b"z"], b":3\r\n"),
+    ([b"LRANGE", b"l", b"0", b"-1"], b"*3\r\n$1\r\nz\r\n$1\r\na\r\n$1\r\nb\r\n"),
+    ([b"LPOP", b"l"], b"$1\r\nz\r\n"),
+    ([b"LLEN", b"l"], b":2\r\n"),
+    ([b"HSET", b"h", b"f1", b"v1"], b":1\r\n"),
+    ([b"HGET", b"h", b"f1"], b"$2\r\nv1\r\n"),
+    ([b"HEXISTS", b"h", b"f1"], b":1\r\n"),
+    ([b"HLEN", b"h"], b":1\r\n"),
+    ([b"SADD", b"s", b"a", b"b"], b":2\r\n"),
+    ([b"SISMEMBER", b"s", b"a"], b":1\r\n"),
+    ([b"SISMEMBER", b"s", b"q"], b":0\r\n"),
+    ([b"SCARD", b"s"], b":2\r\n"),
+    ([b"ZADD", b"z", b"1.5", b"m"], b":1\r\n"),
+    ([b"ZSCORE", b"z", b"m"], b"$3\r\n1.5\r\n"),
+    ([b"ZCARD", b"z"], b":1\r\n"),
+    ([b"HSET", b"s", b"f"], ("prefix", b"-ERR")),
+    ([b"LPOP", b"h"], ("prefix", b"-WRONGTYPE")),
+    # lists
+    ([b"RPUSH", b"l", b"c", b"a", b"d"], b":5\r\n"),
+    ([b"LINDEX", b"l", b"-1"], b"$1\r\nd\r\n"),
+    ([b"LINDEX", b"l", b"99"], b"$-1\r\n"),
+    ([b"LSET", b"l", b"1", b"B"], b"+OK\r\n"),
+    ([b"LSET", b"l", b"99", b"B"], ("prefix", b"-ERR")),
+    ([b"LPOS", b"l", b"a"], b":0\r\n"),
+    ([b"LPOS", b"l", b"a", b"RANK", b"2"], b":3\r\n"),
+    ([b"LPOS", b"l", b"a", b"COUNT", b"0"], b"*2\r\n:0\r\n:3\r\n"),
+    ([b"LREM", b"l", b"1", b"a"], b":1\r\n"),
+    ([b"LRANGE", b"l", b"0", b"-1"], None),
+    ([b"LTRIM", b"l", b"0", b"2"], b"+OK\r\n"),
+    ([b"LPUSHX", b"l", b"x"], b":4\r\n"),
+    ([b"RPUSHX", b"nolist", b"x"], b":0\r\n"),
+    ([b"RPOPLPUSH", b"l", b"l2"], None),
+    ([b"LMOVE", b"l", b"l2", b"LEFT", b"RIGHT"], None),
+    ([b"LRANGE", b"l2", b"0", b"-1"], None),
+    ([b"RPOP", b"l"], None),
+    ([b"RPOP", b"ghostlist"], b"$-1\r\n"),
+    ([b"BLPOP", b"l2", b"1"], b"*2\r\n$2\r\nl2\r\n$1\r\na\r\n"),
+    ([b"BRPOP", b"emptyl", b"l2", b"1"], b"*2\r\n$2\r\nl2\r\n$1\r\nx\r\n"),
+    ([b"TYPE", b"l"], b"+list\r\n"),
+    # hashes
+    ([b"HSET", b"h", b"f2", b"v2", b"f3", b"v3"], b":2\r\n"),
+    ([b"HMGET", b"h", b"f1", b"nope", b"f3"], b"*3\r\n$2\r\nv1\r\n$-1\r\n$2\r\nv3\r\n"),
+    ([b"HGETALL", b"h"], None),
+    ([b"HKEYS", b"h"], None),
+    ([b"HVALS", b"h"], None),
+    ([b"HSETNX", b"h", b"f1", b"x"], b":0\r\n"),
+    ([b"HSETNX", b"h", b"f4", b"x"], b":1\r\n"),
+    ([b"HINCRBY", b"h", b"n", b"5"], b":5\r\n"),
+    ([b"HINCRBY", b"h", b"n", b"-2"], b":3\r\n"),
+    ([b"HINCRBY", b"h", b"f1", b"1"], ("prefix", b"-ERR")),
+    ([b"HDEL", b"h", b"f4", b"nope"], b":1\r\n"),
+    ([b"HSCAN", b"h", b"0", b"COUNT", b"100"], None),
+    ([b"HSCAN", b"h", b"0", b"MATCH", b"f*", b"COUNT", b"1"], None),
+    ([b"HSCAN", b"h", b"0", b"NOVALUES"], None),
+    ([b"HRANDFIELD", b"h", b"-3"], ("shape", b"*3\r\n")),
+    ([b"TYPE", b"h"], b"+hash\r\n"),
+    # sets
+    ([b"SADD", b"s2", b"b", b"c"], b":2\r\n"),
+    ([b"SMISMEMBER", b"s", b"a", b"c"], b"*2\r\n:1\r\n:0\r\n"),
+    ([b"SINTER", b"s", b"s2"], b"*1\r\n$1\r\nb\r\n"),
+    ([b"SUNION", b"s", b"s2"], None),
+    ([b"SDIFF", b"s", b"s2"], b"*1\r\n$1\r\na\r\n"),
+    ([b"SINTERCARD", b"2", b"s", b"s2"], b":1\r\n"),
+    ([b"SUNIONSTORE", b"su", b"s", b"s2"], b":3\r\n"),
+    ([b"SDIFFSTORE", b"sd", b"s", b"s2"], b":1\r\n"),
+    ([b"SINTERSTORE", b"si", b"s", b"s2"], b":1\r\n"),
+    ([b"SMEMBERS", b"sd"], b"*1\r\n$1\r\na\r\n"),
+    ([b"SMOVE", b"s", b"s2", b"a"], b":1\r\n"),
+    ([b"SREM", b"s2", b"a", b"zz"], b":1\r\n"),
+    ([b"SSCAN", b"su", b"0", b"COUNT", b"100"], None),
+    ([b"SSCAN", b"su", b"0", b"MATCH", b"[ab]"], None),
+    ([b"SRANDMEMBER", b"su", b"-2"], ("shape", b"*2\r\n")),
+    ([b"SPOP", b"si"], b"$1\r\nb\r\n"),
+    ([b"TYPE", b"su"], b"+set\r\n"),
+    # sorted sets
+    ([b"ZADD", b"z", b"2", b"n", b"3", b"o", b"0.25", b"p"], b":3\r\n"),
+    ([b"ZRANGE", b"z", b"0", b"-1", b"WITHSCORES"], None),
+    ([b"ZREVRANGE", b"z", b"0", b"1", b"WITHSCORES"], None),
+    ([b"ZRANK", b"z", b"o"], b":3\r\n"),
+    ([b"ZREVRANK", b"z", b"o"], b":0\r\n"),
+    ([b"ZCOUNT", b"z", b"1", b"(3"], b":2\r\n"),
+    ([b"ZRANGEBYSCORE", b"z", b"-inf", b"+inf", b"WITHSCORES", b"LIMIT", b"1", b"2"], None),
+    ([b"ZINCRBY", b"z", b"0.5", b"m"], b"$1\r\n2\r\n"),
+    ([b"ZADD", b"z2", b"10", b"m", b"20", b"q"], b":2\r\n"),
+    ([b"ZUNIONSTORE", b"zu", b"2", b"z", b"z2", b"WEIGHTS", b"1", b"2"], b":5\r\n"),
+    ([b"ZINTERSTORE", b"zi", b"2", b"z", b"z2", b"AGGREGATE", b"MAX"], b":1\r\n"),
+    ([b"ZRANGE", b"zu", b"0", b"-1", b"WITHSCORES"], None),
+    ([b"ZSCORE", b"zi", b"m"], b"$2\r\n10\r\n"),
+    ([b"ZSCAN", b"zu", b"0", b"COUNT", b"100"], None),
+    ([b"ZSCAN", b"zu", b"0", b"MATCH", b"m*"], None),
+    ([b"ZADD", b"lex", b"0", b"a", b"0", b"b", b"0", b"c", b"0", b"d"], b":4\r\n"),
+    ([b"ZRANGEBYLEX", b"lex", b"[b", b"(d"], b"*2\r\n$1\r\nb\r\n$1\r\nc\r\n"),
+    ([b"ZRANGEBYLEX", b"lex", b"-", b"+", b"LIMIT", b"1", b"2"], None),
+    ([b"ZRANDMEMBER", b"z", b"-2"], ("shape", b"*2\r\n")),
+    ([b"ZPOPMIN", b"z"], b"*2\r\n$1\r\np\r\n$4\r\n0.25\r\n"),
+    ([b"ZPOPMAX", b"z", b"2"], None),
+    ([b"ZREMRANGEBYSCORE", b"zu", b"-inf", b"(20"], b":3\r\n"),
+    ([b"ZREM", b"zu", b"q", b"zz"], b":1\r\n"),
+    ([b"TYPE", b"z"], b"+zset\r\n"),
+    # streams with a consumer group
+    ([b"XADD", b"st", b"1-1", b"f", b"v1"], b"$3\r\n1-1\r\n"),
+    ([b"XADD", b"st", b"2-0", b"f", b"v2", b"g", b"w"], b"$3\r\n2-0\r\n"),
+    ([b"XADD", b"st", b"3-0", b"f", b"v3"], b"$3\r\n3-0\r\n"),
+    ([b"XADD", b"st", b"1-0", b"f", b"bad"], ("prefix", b"-ERR")),
+    ([b"XLEN", b"st"], b":3\r\n"),
+    ([b"XRANGE", b"st", b"-", b"+"], None),
+    ([b"XRANGE", b"st", b"-", b"+", b"COUNT", b"1"], None),
+    ([b"XREVRANGE", b"st", b"+", b"-"], None),
+    ([b"XGROUP", b"CREATE", b"st", b"g1", b"0"], b"+OK\r\n"),
+    ([b"XGROUP", b"CREATE", b"st", b"g1", b"0"], ("prefix", b"-BUSYGROUP")),
+    ([b"XREADGROUP", b"GROUP", b"g1", b"c1", b"COUNT", b"2", b"STREAMS", b"st", b">"], None),
+    ([b"XPENDING", b"st", b"g1"], None),
+    ([b"XPENDING", b"st", b"g1", b"-", b"+", b"10"],
+     ("shape", b"*2\r\n*4\r\n$3\r\n1-1\r\n$2\r\nc1\r\n:")),
+    ([b"XACK", b"st", b"g1", b"1-1"], b":1\r\n"),
+    ([b"XACK", b"st", b"g1", b"1-1"], b":0\r\n"),
+    ([b"XAUTOCLAIM", b"st", b"g1", b"c2", b"0", b"0"], None),
+    ([b"XCLAIM", b"st", b"g1", b"c3", b"0", b"2-0"], None),
+    ([b"XREAD", b"COUNT", b"10", b"STREAMS", b"st", b"1-1"], None),
+    ([b"XINFO", b"STREAM", b"st"], None),
+    ([b"XDEL", b"st", b"3-0"], b":1\r\n"),
+    ([b"XTRIM", b"st", b"MAXLEN", b"1"], b":1\r\n"),
+    ([b"XLEN", b"st"], b":1\r\n"),
+    ([b"XREADGROUP", b"GROUP", b"nog", b"c1", b"STREAMS", b"st", b">"], ("prefix", b"-NOGROUP")),
+    ([b"TYPE", b"st"], b"+stream\r\n"),
+    # geo
+    ([b"GEOADD", b"Sicily", b"13.361389", b"38.115556", b"Palermo",
+      b"15.087269", b"37.502669", b"Catania"], b":2\r\n"),
+    ([b"GEODIST", b"Sicily", b"Palermo", b"Catania"], b"$11\r\n166274.1516\r\n"),
+    ([b"GEODIST", b"Sicily", b"Palermo", b"Catania", b"km"], b"$8\r\n166.2742\r\n"),
+    ([b"GEODIST", b"Sicily", b"Palermo", b"Nowhere"], b"$-1\r\n"),
+    ([b"GEOPOS", b"Sicily", b"Palermo", b"Nowhere"], None),
+    ([b"GEOHASH", b"Sicily", b"Palermo", b"Catania"], b"*2\r\n$11\r\nsqc8b49rnyw\r\n$11\r\nsqdtr74hyu4\r\n"),
+    ([b"GEOSEARCH", b"Sicily", b"FROMLONLAT", b"15", b"37", b"BYRADIUS",
+      b"200", b"km", b"ASC", b"WITHCOORD", b"WITHDIST"], None),
+    ([b"GEOSEARCH", b"Sicily", b"FROMMEMBER", b"Palermo", b"BYBOX",
+      b"400", b"400", b"km", b"DESC", b"COUNT", b"1"], None),
+    ([b"GEOSEARCHSTORE", b"near", b"Sicily", b"FROMLONLAT", b"15", b"37",
+      b"BYRADIUS", b"100", b"km", b"STOREDIST"], b":1\r\n"),
+    ([b"ZRANGE", b"near", b"0", b"-1", b"WITHSCORES"], None),
+    ([b"GEOADD", b"Sicily", b"XX", b"CH", b"13.5", b"38.0", b"Palermo"], b":1\r\n"),
+    ([b"GEOADD", b"Sicily", b"200", b"100", b"bad"], ("prefix", b"-ERR")),
+    # one keyspace: WRONGTYPE between a Bloom key and a list key
+    ([b"BF.RESERVE", b"bfk", b"0.01", b"100"], b"+OK\r\n"),
+    ([b"LPUSH", b"bfk", b"x"], ("prefix", b"-WRONGTYPE")),
+    ([b"SADD", b"bfk", b"x"], ("prefix", b"-WRONGTYPE")),
+    ([b"BF.ADD", b"l2", b"x"], ("prefix", b"-ERR")),
+    ([b"BF.RESERVE", b"l", b"0.01", b"100"], ("prefix", b"-WRONGTYPE")),
+    ([b"HSET", b"s", b"f", b"v"], ("prefix", b"-WRONGTYPE")),
+    ([b"XADD", b"h", b"*", b"f", b"v"], ("prefix", b"-WRONGTYPE")),
+    ([b"GEOADD", b"l", b"1", b"1", b"m"], ("prefix", b"-WRONGTYPE")),
+    ([b"SCAN", b"0", b"COUNT", b"1000"], None),
+    ([b"DBSIZE"], b":17\r\n"),
+    # transactions over the grid
+    ([b"MULTI"], b"+OK\r\n"),
+    ([b"RPUSH", b"tl", b"1", b"2"], b"+QUEUED\r\n"),
+    ([b"HSET", b"th", b"f", b"v"], b"+QUEUED\r\n"),
+    ([b"BLPOP", b"tl", b"0"], b"+QUEUED\r\n"),
+    ([b"BLPOP", b"tnone", b"0"], b"+QUEUED\r\n"),
+    ([b"EXEC"], b"*4\r\n:2\r\n:1\r\n*2\r\n$2\r\ntl\r\n$1\r\n1\r\n*-1\r\n"),
+    ([b"MULTI"], b"+OK\r\n"),
+    ([b"SUBSCRIBE", b"ch"], ("prefix", b"-ERR")),
+    ([b"EXEC"], ("prefix", b"-EXECABORT")),
+]
+
 # Families the port does not carry yet: each must answer exactly as the
 # JAX server answers a command it lacks.
 WAITING = [
-    [b"LPUSH", b"l", b"a"], [b"HSET", b"h", b"f", b"v"],
-    [b"SADD", b"s", b"a"], [b"ZADD", b"z", b"1", b"m"],
-    [b"XADD", b"st", b"*", b"f", b"v"], [b"GEOADD", b"g", b"1", b"2", b"m"],
-    [b"BLPOP", b"l", b"1"], [b"SUBSCRIBE", b"ch"], [b"PUBLISH", b"ch", b"m"],
     [b"EVAL", b"return 1", b"0"], [b"FUNCTION", b"LIST"],
     [b"CLUSTER", b"INFO"], [b"WAIT", b"0", b"0"], [b"SLOWLOG", b"GET"],
     [b"MONITOR"], [b"BGREWRITEAOF"], [b"REPLCONF", b"ACK", b"0"],
@@ -291,15 +471,14 @@ def _int_reply(frame):
     return int(frame[1:-2])
 
 
-def test_wire_fixtures_byte_exact_on_both_servers(servers):
-    js, ts = servers
-    cmds = [c for c, _ in FIXTURES]
-    got_j = _session(js, cmds)
-    got_t = _session(ts, cmds)
-    diff = [(c, t, j) for (c, w), j, t in zip(FIXTURES, got_j, got_t)
-            if t != j and not (isinstance(w, tuple) and w[0] == "ttl")]
+def _check_table(table, got_j, got_t):
+    diff = [(c, t, j) for (c, w), j, t in zip(table, got_j, got_t)
+            if t != j and not (isinstance(w, tuple) and w[0] in ("ttl", "shape"))]
     assert not diff, diff
-    for (cmd, want), j, t in zip(FIXTURES, got_j, got_t):
+    for (cmd, want), j, t in zip(table, got_j, got_t):
+        if isinstance(want, tuple) and want[0] == "shape":
+            assert j.startswith(want[1]) and t.startswith(want[1]), (cmd, j, t)
+            continue
         if isinstance(want, tuple) and want[0] == "ttl":
             for frame in (j, t):
                 assert want[1] <= _int_reply(frame) <= want[2], (cmd, frame)
@@ -313,6 +492,102 @@ def test_wire_fixtures_byte_exact_on_both_servers(servers):
         assert t == j, (cmd, t, j)
         if want is not None:
             assert t == want, (cmd, t, want)
+
+
+def test_wire_fixtures_byte_exact_on_both_servers(servers):
+    js, ts = servers
+    cmds = [c for c, _ in FIXTURES]
+    _check_table(FIXTURES, _session(js, cmds), _session(ts, cmds))
+
+
+@pytest.mark.parametrize("reactor", [True, False])
+def test_grid_families_byte_exact_on_both_servers(reactor):
+    """The grid session on fresh servers (reactor and thread path): every
+    reply equals the JAX server's bytes, and the literal Redis reply
+    where the table gives one."""
+    jc, js = _jax_pair()
+    tc = rt.create(rt.Config().use_gpu_sketch(device="cpu", min_bucket=64))
+    tc.config.resp_reactor = reactor
+    ts = RespServer(tc)
+    try:
+        cmds = [c for c, _ in GRID]
+        _check_table(GRID, _session(js, cmds), _session(ts, cmds))
+    finally:
+        ts.close()
+        tc.shutdown()
+        js.close()
+        jc.shutdown()
+
+
+def _pubsub_session(server):
+    """Two subscribers (RESP2 and RESP3) and a publisher: the acks, the
+    PUBLISH counts and every pushed frame, in order."""
+    sub = socket.create_connection((server.host, server.port))
+    sub3 = socket.create_connection((server.host, server.port))
+    pub = socket.create_connection((server.host, server.port))
+    out = []
+    try:
+        sub.sendall(wire_command([b"SUBSCRIBE", b"ch"]))
+        out += _read_frames(sub, 1)
+        sub.sendall(wire_command([b"SUBSCRIBE", b"ch", b"ch2"]))
+        out += _read_frames(sub, 2)
+        # HELLO 3 answers a RESP3 map ('%'): read up to the PING after it.
+        sub3.sendall(wire_command([b"HELLO", b"3"]) + wire_command([b"PING"]))
+        sub3.settimeout(30)
+        hello = b""
+        while not hello.endswith(b"+PONG\r\n"):
+            chunk = sub3.recv(1 << 16)
+            assert chunk, "connection closed during HELLO 3"
+            hello += chunk
+        sub3.sendall(wire_command([b"SUBSCRIBE", b"ch2"]))
+        out += _read_frames(sub3, 1)
+        out += exchange_frames(pub, [[b"PUBLISH", b"ch", b"hello"]])
+        out += _read_frames(sub, 1)
+        out += exchange_frames(pub, [[b"PUBLISH", b"ch2", b"x" * 300]])
+        out += _read_frames(sub, 1) + _read_frames(sub3, 1)
+        out += exchange_frames(pub, [[b"PUBLISH", b"nobody", b"m"]])
+        sub.sendall(wire_command([b"UNSUBSCRIBE", b"ch"]))
+        out += _read_frames(sub, 1)
+        out += exchange_frames(pub, [[b"PUBLISH", b"ch", b"gone"]])
+        sub.sendall(wire_command([b"UNSUBSCRIBE"]))
+        out += _read_frames(sub, 1)
+        out += exchange_frames(pub, [[b"PUBLISH", b"ch2", b"last"]])
+        out += _read_frames(sub3, 1)
+        # A subscriber that disconnects drops its listener with it.
+        sub3.close()
+        deadline = time.monotonic() + 5
+        while True:
+            n = exchange_frames(pub, [[b"PUBLISH", b"ch2", b"after"]])[0]
+            if n == b":0\r\n" or time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+        out.append(n)
+        return out
+    finally:
+        for s in (sub, sub3, pub):
+            s.close()
+
+
+def exchange_frames(sock, cmds):
+    for c in cmds:
+        sock.sendall(wire_command(c))
+    return _read_frames(sock, len(cmds))
+
+
+def test_pubsub_fixture_on_both_servers(servers):
+    """The pub/sub fixture of ``tests/test_resp_wire_fixtures.py`` (the
+    subscribe ack frame), extended to PUBLISH counts, message pushes on
+    RESP2 and RESP3 ('>' frames), UNSUBSCRIBE acks and the drop of a
+    disconnected subscriber's listener: byte-identical on both servers."""
+    js, ts = servers
+    got_j, got_t = _pubsub_session(js), _pubsub_session(ts)
+    assert got_t == got_j
+    assert got_t[0] == b"*3\r\n$9\r\nsubscribe\r\n$2\r\nch\r\n:1\r\n"
+    assert got_t[4] == b":1\r\n"  # PUBLISH ch reaches one subscriber
+    assert got_t[5] == b"*3\r\n$7\r\nmessage\r\n$2\r\nch\r\n$5\r\nhello\r\n"
+    assert got_t[6] == b":2\r\n"
+    assert got_t[8].startswith(b">3\r\n$7\r\nmessage\r\n")
+    assert got_t[-1] == b":0\r\n"
 
 
 def test_waiting_families_answer_as_unknown_commands(servers):
@@ -638,3 +913,107 @@ def test_scripting_switch_refused_on_an_open_bind():
             srv.close()
     finally:
         c.shutdown()
+
+
+# -- the family tests of test_resp_scan_family.py and the stream/geo half of
+# -- test_resp_streams_geo_script.py, on a port server ------------------------
+
+@pytest.fixture
+def resp():
+    client = _port_client()
+    server = RespServer(client)
+    conn = RespClient(server.host, server.port)
+    yield conn
+    conn.close()
+    server.close()
+    client.shutdown()
+
+
+@pytest.fixture
+def stack():
+    client = _port_client()
+    server = RespServer(client)
+    conn = RespClient(server.host, server.port)
+    yield client, conn
+    conn.close()
+    server.close()
+    client.shutdown()
+
+
+class TestHscan(_ref_scan.TestHscan):
+    pass
+
+
+class TestSscanZscan(_ref_scan.TestSscanZscan):
+    pass
+
+
+class TestZsetStores(_ref_scan.TestZsetStores):
+    pass
+
+
+class TestZrangebylex(_ref_scan.TestZrangebylex):
+    pass
+
+
+class TestScanReviewFixes(_ref_scan.TestReviewFixes):
+    pass
+
+
+class TestRespStreams(_ref_sg.TestRespStreams):
+    pass
+
+
+class TestRespGeo(_ref_sg.TestRespGeo):
+    pass
+
+
+def _blocked_xread(client, conn, args):
+    """Run a blocking XREAD on ``conn`` in a thread; return it once the
+    server parks it on the grid store's condition (polled with a
+    deadline) — a parked read has not returned."""
+    got = []
+    t = threading.Thread(target=lambda: got.append(conn.cmd(*args)))
+    t.start()
+    deadline = time.monotonic() + 5
+    while not client._grid.cond._waiters:
+        assert time.monotonic() < deadline, "XREAD never parked"
+        time.sleep(0.005)
+    assert t.is_alive()  # parked, not an instant nil
+    return t, got
+
+
+class TestStreamGeoReviewFixes(_ref_sg.TestReviewFixes):
+    def test_xread_block_zero_means_forever(self, stack):
+        """BLOCK 0 must wait (Redis semantics), not return instantly —
+        an entry added by another connection releases it."""
+        client, c = stack
+        t, got = _blocked_xread(client, c, ("XREAD", "BLOCK", 0, "STREAMS", "bk", "$"))
+        c2 = RespClient(c._sock.getpeername()[0], c._sock.getpeername()[1])
+        try:
+            eid = c2.cmd("XADD", "bk", "*", "f", "v").decode()
+        finally:
+            c2.close()
+        t.join(10)
+        assert not t.is_alive()
+        assert got[0][0][1][0][0].decode() == eid
+
+
+class TestHighSweepFixes(_ref_sg.TestHighSweepFixes):
+    # Scripting waits for its slice (EVAL answers as an unknown command).
+    test_eval_numkeys_validation = None
+    test_script_flush_unregisters_python_side = None
+
+    def test_xread_block_multiple_streams(self, stack):
+        """BLOCK must work across >1 stream (it silently returned nil)."""
+        client, c = stack
+        t, got = _blocked_xread(
+            client, c, ("XREAD", "BLOCK", 5000, "STREAMS", "ms1", "ms2", "$", "$"))
+        c2 = RespClient(c._sock.getpeername()[0], c._sock.getpeername()[1])
+        try:
+            c2.cmd("XADD", "ms2", "*", "f", "v")
+        finally:
+            c2.close()
+        t.join(10)
+        assert not t.is_alive()
+        assert got[0][0][0] == b"ms2"

@@ -175,10 +175,10 @@ def test_refuses_to_start_without_a_card():
 
 
 def test_server_modules_import_neither_jax_nor_the_reference():
-    """The front door, the reactor, the entry point and the scripts load
-    with jax and redisson_tpu blocked and serve on the CPU; no module of
-    the port, nor chip_smoke.py or profile_port.py, has an import of
-    either."""
+    """The front door, the reactor, the grid families, the ingest bridge,
+    the entry point and the scripts load with jax and redisson_tpu blocked
+    and serve on the CPU; no module of the port, nor chip_smoke.py or
+    profile_port.py, has an import of either."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -189,13 +189,21 @@ def test_server_modules_import_neither_jax_nor_the_reference():
         "from redisson_tpu_torch.serve import reactor, native_codec\n"
         "from redisson_tpu_torch.serve.resp import RespServer\n"
         "from redisson_tpu_torch.serve.wireutil import exchange\n"
+        "from redisson_tpu_torch.serve import TopicCmsBridge\n"
+        "from redisson_tpu_torch.grid import (topics, maps, multimaps, collections,"
+        " queues, streams, geo, timeseries)\n"
         "import socket\n"
+        "import numpy as np\n"
         "c = rt.create(rt.Config().use_gpu_sketch(device='cpu'))\n"
         "srv = RespServer(c)\n"
         "s = socket.create_connection((srv.host, srv.port))\n"
         "r = exchange(s, [[b'SET', b'a', b'1'], [b'INCR', b'a'], [b'BF.RESERVE', b'f', b'0.01', b'10'],"
-        " [b'BF.ADD', b'f', b'x'], [b'GET', b'a']])\n"
-        "assert r == [b'OK', 2, b'OK', 1, b'2'], r\n"
+        " [b'BF.ADD', b'f', b'x'], [b'GET', b'a'], [b'RPUSH', b'l', b'x'], [b'XADD', b's', b'1-1',"
+        " b'f', b'v'], [b'GEOADD', b'g', b'1', b'2', b'm'], [b'PUBLISH', b'ch', b'm']])\n"
+        "assert r == [b'OK', 2, b'OK', 1, b'2', 1, b'1-1', 1, 0], r\n"
+        "cms = c.get_count_min_sketch('cms'); cms.try_init(4, 1024)\n"
+        "b = TopicCmsBridge(c, 't', 'cms'); c.get_topic('t').publish(np.arange(9, dtype=np.uint64))\n"
+        "b.close(); assert b.events_ingested == 9 and cms.total_count() == 9\n"
         "s.close(); srv.close(); c.shutdown()\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
