@@ -119,6 +119,32 @@ the main path through the public client at full size:
            the wire, SIGTERM, a reboot that answers every read equal.  K1
            launches in phase 12 are counted and must be 0: the bridge takes
            the vectorized cms_add, not K1
+  phase 13 the coordination and services half on fresh card clients:
+           (13a) config 1 through ``client.reactive()``: try_init(1,048,576,
+           0.01), asyncio.gather of 4 add_all_async awaits of 262,144 keys,
+           then of 4 contains_each awaits of 2**20 keys; the row, every
+           contains flag and the FPP equal a sync client's run of the same
+           keys and the golden model, the sync run's add flags equal the
+           sequential golden model and each concurrent await's lie within
+           phase 11a's bounds; keys/s beside phase 2's.  (13b) an executor
+           service with 4 workers runs 4 tasks, each add_all_seq of 524,288
+           zipf(1.2) events into its own CMS(5, 65536): K1 launches, every
+           estimate and table equal to golden_seq.  (13c) 8 threads x 500
+           rounds of lock, BitSet cardinality() on the card, set that bit,
+           unlock: the set bits are exactly 0..3999; a 2-permit semaphore
+           around 8 threads' HLL add_all never sees a third holder and the
+           registers equal the golden model; a transaction over a map and
+           a bucket commits and a conflicting one raises
+           TransactionException; lock-hold p50/p99.  (13d) a LocalCachedMap
+           of 100,000 entries read twice: the second pass's hit rate and get
+           p50/p99, and two handles agree after a put through either.
+           (13e) get_nodes() is the card, ping_all(), 100 pings' p50/p99, a
+           1 s failure monitor without a down event.  (13f) a profiler trace
+           of a 262,144-key Bloom pass holds CUDA kernel events,
+           device_memory() reports the card's total memory, ops_total grows
+           by exactly the pass's ops, and the scrape endpoint on loopback
+           serves every family of the registry.  K1 launches in phase 13
+           are counted (13b) and must be more than 0
 
 Every failed check raises, so the script exits non-zero.  Without a CUDA
 device it exits with code 2 before printing any result.  The line before
@@ -443,6 +469,8 @@ def phase_bloom(client, rng, card: str):
     sigma = np.sqrt(p_theory * (1.0 - p_theory) / len(outside))
     check(abs(fpp - p_theory) <= 3 * sigma,
           f"measured FPP {fpp} vs expected {p_theory} +- {3 * sigma}")
+    RATES.update(add_ops_per_s=n_load / add_s,
+                 contains_ops_per_s=sum(map(len, batches)) / contains_s)
     log({"phase": 2, "config": "bloom 1M keys 1% FPP", "added": n_added,
          "add_ops_per_s": n_load / add_s,
          "contains_ops_per_s": sum(map(len, batches)) / contains_s,
@@ -3203,6 +3231,425 @@ def phase_grid(card: str) -> None:
     phase_grid_restart(card)
 
 
+# -- phase 13: the coordination and services half ------------------------------
+
+P13 = {"keys": 1 << 20, "add_chunk": 1 << 18, "contains": 1 << 20, "fpp": 0.01,
+       "capacity": 1_048_576, "cms_tasks": 4, "cms_events": 524_288, "d": 5,
+       "w": 1 << 16, "lock_threads": 8, "lock_rounds": 500, "sem_threads": 8,
+       "sem_keys": 1 << 16, "lcm_entries": 100_000, "pings": 100,
+       "monitor_s": 1.0, "prof_keys": 262_144}
+P13_DEVICE = "cuda"
+# Phase 2's rates, printed beside phase 13a's.
+RATES: dict = {}
+
+
+def p13_client(**kw):
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+
+    return rt.create(rt.Config().set_codec(LongCodec()).use_gpu_sketch(
+        device=P13_DEVICE, **kw))
+
+
+def pctl_us(samples) -> dict:
+    s = np.asarray(samples, np.float64) * 1e6
+    return {"p50_us": float(np.percentile(s, 50)), "p99_us": float(np.percentile(s, 99))}
+
+
+def bloom_seq_flags(idx: np.ndarray, m: int) -> np.ndarray:
+    """GoldenBloomFilter.add_hashed's per-key flags from an empty filter,
+    vectorized: a key is new exactly when it is the first key to set one
+    of its bits."""
+    n = idx.shape[0]
+    first = np.full(m, n, np.int64)
+    np.minimum.at(first, idx.reshape(-1).astype(np.int64),
+                  np.repeat(np.arange(n, dtype=np.int64), idx.shape[1]))
+    return np.any(first[idx.astype(np.int64)] == np.arange(n)[:, None], axis=1)
+
+
+def cms_seq_unit(h1w, h2w, d: int, w: int):
+    """cms_seq.golden_seq for unit weights from an empty table, vectorized:
+    an event's estimate is the least, over its d cells, of the events so
+    far (itself included) that hit the cell."""
+    n = len(h1w)
+    idx = np.asarray(h1w, np.int64).copy()
+    step = np.asarray(h2w, np.int64)
+    est = np.full(n, np.iinfo(np.int64).max)
+    table = np.zeros((d, w), np.uint32)
+    pos = np.arange(n)
+    for r in range(d):
+        if r:
+            idx += step
+            idx[idx >= w] -= w
+        order = np.argsort(idx, kind="stable")
+        s = idx[order]
+        start = np.maximum.accumulate(np.where(np.r_[True, s[1:] != s[:-1]], pos, 0))
+        seen = np.empty(n, np.int64)
+        seen[order] = pos - start + 1
+        est = np.minimum(est, seen)
+        table[r] = np.bincount(idx, minlength=w)
+    return table, est.astype(np.uint32)
+
+
+def p13a_reactive_bloom(card: str) -> dict:
+    """13a: config 1 through the reactive facade, against a sync client's
+    run of the same keys and the golden model."""
+    import asyncio
+
+    from redisson_tpu_torch.ops import golden
+    from redisson_tpu_torch.utils import hashing
+
+    n, chunk = P13["keys"], P13["add_chunk"]
+    chunks = [np.arange(i * chunk, (i + 1) * chunk, dtype=np.uint64) for i in range(n // chunk)]
+    rng = np.random.default_rng(13)
+    batches = [rng.integers(0, 2 * n, P13["contains"]).astype(np.uint64) for _ in range(4)]
+    client, sync = p13_client(), p13_client()
+    try:
+        rc = client.reactive()
+        warm = client.get_bloom_filter("p13-warm")  # first launches, untimed
+        check(warm.try_init(P13["capacity"], P13["fpp"]), "try_init refused")
+        warm.add_all_async(chunks[0]).result()
+        warm.contains_each(batches[0])
+
+        async def run():
+            bf = rc.get_bloom_filter("p13-cfg1")
+            check(await bf.try_init(P13["capacity"], P13["fpp"]), "reactive try_init refused")
+            t0 = time.perf_counter()
+            added = await asyncio.gather(*[bf.add_all_async(c) for c in chunks])
+            add_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            hits = await asyncio.gather(*[bf.contains_each(b) for b in batches])
+            return added, add_s, hits, time.perf_counter() - t0
+
+        added, add_s, hits, contains_s = asyncio.run(run())
+        sbf = sync.get_bloom_filter("p13-cfg1")
+        check(sbf.try_init(P13["capacity"], P13["fpp"]), "sync try_init refused")
+        s_added = [np.asarray(sbf.add_all_async(c).result()) for c in chunks]
+        s_hits = [np.asarray(sbf.contains_each(b)) for b in batches]
+
+        bf = client.get_bloom_filter("p13-cfg1")
+        m, k = bf.get_size(), bf.get_hash_iterations()
+        g = golden.GoldenBloomFilter(m, k)
+        allk = np.concatenate(chunks)
+        h1, h2 = hashing.km_reduce_mod(*hashing.hash128_np(*hashing.encode_uint64_batch(allk)), m)
+        idx = g._indexes(h1, h2)
+        small = golden.GoldenBloomFilter(m, k)
+        check(np.array_equal(bloom_seq_flags(idx[:4096], m), small.add_hashed(h1[:4096], h2[:4096])),
+              "13a: the vectorized sequential flags differ from GoldenBloomFilter")
+        # The sync run is one stream in chunk order: its flags are the
+        # sequential golden model's, exactly.
+        check(np.array_equal(np.concatenate(s_added), bloom_seq_flags(idx, m)),
+              "13a: the sync client's add flags differ from the golden model")
+        # The 4 reactive awaits run concurrently, so a flag depends on how
+        # the other awaits' keys interleaved: it must lie between the
+        # bounds of phase 11a (1 only if the key's bits were not all set by
+        # earlier keys of its own await; 0 only if other keys set every
+        # one of its bits).
+        hitc = np.bincount(idx.reshape(-1).astype(np.int64), minlength=m)
+        own = np.zeros(idx.shape, np.int64)
+        for j in range(k):
+            own[:, j] = (idx == idx[:, j:j + 1]).sum(axis=1)
+        covered = np.all(hitc[idx.astype(np.int64)] - own > 0, axis=1)
+        for i, a in enumerate(added):
+            a = np.asarray(a)
+            sl = slice(i * chunk, (i + 1) * chunk)
+            check(a.shape == (chunk,), "13a: add flags malformed")
+            check(np.all(a <= bloom_seq_flags(idx[sl], m)),
+                  "13a: a key reported new whose bits its own await had set")
+            check(np.all(a >= ~covered[sl]), "13a: a key reported present that no other key covers")
+        n_added = int(sum(np.sum(a) for a in added))
+        check(0.97 * n <= n_added <= n, f"13a: added {n_added} of {n}")
+        g.bits[idx.reshape(-1)] = True
+        row, srow = tenant_row(client, "p13-cfg1"), tenant_row(sync, "p13-cfg1")
+        gbits = np.zeros(row.shape[0] * 32, bool)
+        gbits[:m] = g.bits
+        check(np.array_equal(row, np.packbits(gbits, bitorder="little").view(np.uint32))
+              and np.array_equal(row, srow), "13a: the row differs from the golden bitmap")
+        for b, h, sh in zip(batches, hits, s_hits):
+            check(np.array_equal(np.asarray(h), sh) and np.array_equal(sh, golden_contains(g, b)),
+                  "13a: contains differs from the sync client or the golden model")
+        fpp = float(np.mean([np.asarray(h)[b >= n].mean() for b, h in zip(batches, hits)]))
+        s_fpp = float(np.mean([h[b >= n].mean() for b, h in zip(batches, s_hits)]))
+        check(fpp == s_fpp, "13a: the FPP differs from the sync client's")
+        check_healthy(client, "13a")
+        check_healthy(sync, "13a")
+        out = {"phase": "13a", "config": "bloom 1M keys 1% FPP through reactive()",
+               "add_ops_per_s": n / add_s, "contains_ops_per_s": 4 * P13["contains"] / contains_s,
+               "phase2_add_ops_per_s": RATES.get("add_ops_per_s"),
+               "phase2_contains_ops_per_s": RATES.get("contains_ops_per_s"),
+               "added": n_added, "fpp_outside_keys": fpp, "row_equals_golden_and_sync": True,
+               "card": card}
+        log(out)
+        return out
+    finally:
+        client.shutdown()
+        sync.shutdown()
+
+
+def p13b_executor_k1(client, rng, card: str) -> dict:
+    """13b: an executor service whose tasks drive K1 (add_all_seq)."""
+    from redisson_tpu_torch.ops import cms_seq
+    from redisson_tpu_torch.utils import hashing
+
+    d, w, n, tasks = P13["d"], P13["w"], P13["cms_events"], P13["cms_tasks"]
+    ex = client.get_executor_service("p13")
+    ex.register_workers(tasks)
+    streams = [zipf_keys(rng, n) for _ in range(tasks)]
+
+    def task(i):
+        cms = client.get_count_min_sketch(f"p13-cms-{i}")
+        check(cms.try_init(d, w), "try_init refused")
+        return np.asarray(cms.add_all_seq(streams[i]))
+
+    before = cms_seq.LAUNCHES
+    t0 = time.perf_counter()
+    futs = [ex.submit(task, i) for i in range(tasks)]
+    ests = [f.result(600) for f in futs]
+    dt = time.perf_counter() - t0
+    launches = cms_seq.LAUNCHES - before
+    ex.shutdown()
+    chunk = client._engine._SEQ_CHUNK
+    check(launches == tasks * -(-n // chunk), f"13b: {launches} K1 launches")
+    for i, est in enumerate(ests):
+        h1w, h2w = hashing.km_reduce_mod(
+            *hashing.hash128_np(*hashing.encode_uint64_batch(streams[i])), w)
+        if i == 0:  # the vectorized twin against golden_seq itself
+            t_ref, e_ref = cms_seq.golden_seq(np.zeros((d, w), np.uint32), h1w[:8192],
+                                              h2w[:8192], np.ones(8192, np.uint32), d=d, w=w)
+            t_vec, e_vec = cms_seq_unit(h1w[:8192], h2w[:8192], d, w)
+            check(np.array_equal(t_ref, t_vec) and np.array_equal(e_ref, e_vec),
+                  "13b: the vectorized golden_seq differs from golden_seq")
+        table, want = cms_seq_unit(h1w, h2w, d, w)
+        check(np.array_equal(est, want), f"13b: task {i}'s estimates differ from golden_seq")
+        row = tenant_row(client, f"p13-cms-{i}")
+        check(np.array_equal(row[: d * w].reshape(d, w), table),
+              f"13b: task {i}'s table differs from golden_seq")
+    out = {"phase": "13b", "config": "executor service, 4 tasks of CMS(5, 65536) add_all_seq",
+           "events": tasks * n, "events_per_s": tasks * n / dt, "k1_launches": launches,
+           "estimates_and_tables_equal_golden_seq": True, "card": card}
+    log(out)
+    return out
+
+
+def p13c_locks(client, card: str) -> dict:
+    """13c: a lock around card state, a semaphore around HLL adds, and a
+    transaction over a map and a bucket."""
+    from redisson_tpu_torch.grid import TransactionException
+    from redisson_tpu_torch.ops import golden
+
+    threads, rounds = P13["lock_threads"], P13["lock_rounds"]
+    bs = client.get_bit_set("p13-bs")
+    holds, errors = [], []
+
+    def locked_rounds():
+        lk = client.get_lock("p13-lk")
+        mine = []
+        try:
+            for _ in range(rounds):
+                lk.lock()
+                t0 = time.perf_counter()
+                try:
+                    bs.set(bs.cardinality())
+                finally:
+                    mine.append(time.perf_counter() - t0)
+                    lk.unlock()
+        except Exception as e:  # surfaced below
+            errors.append(e)
+        holds.extend(mine)
+
+    ts = [threading.Thread(target=locked_rounds) for _ in range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    lock_s = time.perf_counter() - t0
+    check(not errors, f"13c: lock rounds failed: {errors[:1]}")
+    total = threads * rounds
+    got = np.asarray(bs.get_many(np.arange(total + 64)))
+    check(got[:total].all() and not got[total:].any() and bs.cardinality() == total
+          and bs.length() == total, "13c: the set bits are not exactly 0..%d" % (total - 1))
+
+    sem = client.get_semaphore("p13-sem")
+    check(sem.try_set_permits(2), "13c: try_set_permits refused")
+    hll = client.get_hyper_log_log("p13-hll")
+    state = {"holders": 0, "peak": 0}
+    guard = threading.Lock()
+    keys = [np.arange(i * P13["sem_keys"], (i + 1) * P13["sem_keys"], dtype=np.uint64)
+            for i in range(P13["sem_threads"])]
+
+    def permitted(i):
+        try:
+            sem.acquire()
+            try:
+                with guard:
+                    state["holders"] += 1
+                    state["peak"] = max(state["peak"], state["holders"])
+                hll.add_all(keys[i])
+                with guard:
+                    state["holders"] -= 1
+            finally:
+                sem.release()
+        except Exception as e:
+            errors.append(e)
+
+    ts = [threading.Thread(target=permitted, args=(i,)) for i in range(P13["sem_threads"])]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    check(not errors, f"13c: semaphore rounds failed: {errors[:1]}")
+    check(1 <= state["peak"] <= 2, f"13c: {state['peak']} semaphore holders at once")
+    check(sem.available_permits() == 2, "13c: permits leaked")
+    g = golden.GoldenHyperLogLog()
+    for kk in keys:
+        g.add_hashed(*hll_lanes(kk))
+    check(np.array_equal(tenant_row(client, "p13-hll"), g.regs),
+          "13c: HLL registers differ from the golden model")
+
+    tx = client.create_transaction()
+    tx.get_map("p13-m").put(1, 1)
+    tx.get_bucket("p13-b").set(7)
+    check(client.get_bucket("p13-b").get() is None, "13c: a write was visible before commit")
+    tx.commit()
+    check(client.get_map("p13-m").get(1) == 1 and client.get_bucket("p13-b").get() == 7,
+          "13c: the commit did not apply")
+    tx2 = client.create_transaction()
+    tx2.get_bucket("p13-b").get()
+    client.get_bucket("p13-b").set(8)
+    tx2.get_bucket("p13-b").set(9)
+    tx2.get_map("p13-m").put(1, 2)
+    try:
+        tx2.commit()
+        fail("13c: a conflicting transaction committed")
+    except TransactionException:
+        pass
+    check(client.get_bucket("p13-b").get() == 8 and client.get_map("p13-m").get(1) == 1,
+          "13c: the conflicting transaction applied a write")
+    out = {"phase": "13c", "config": "8 threads x 500 lock rounds around a BitSet on the card",
+           "rounds": total, "rounds_per_s": total / lock_s,
+           "lock_hold": pctl_us(holds), "semaphore_peak_holders": state["peak"],
+           "bits_exact": True, "transaction_conflict_raised": True, "card": card}
+    log(out)
+    return out
+
+
+def p13d_local_cached_map(client, card: str) -> dict:
+    """13d: a LocalCachedMap of 100,000 entries read twice."""
+    n = P13["lcm_entries"]
+    m = client.get_local_cached_map("p13-lcm", cache_size=1 << 17, cache_max_bytes=256 << 20)
+    m.put_all({i: i * 3 for i in range(n)})
+    client._topic_bus.drain(timeout=60)
+    got = [m.get(i) for i in range(n)]
+    check(got == [i * 3 for i in range(n)], "13d: first pass read wrong values")
+    h0 = m.cache_stats()["hits"]
+    lat = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        v = m.get(i)
+        lat.append(time.perf_counter() - t0)
+        check(v == i * 3, "13d: second pass read a wrong value")
+    hit_rate = (m.cache_stats()["hits"] - h0) / n
+    other = client.get_local_cached_map("p13-lcm", cache_size=1 << 17, cache_max_bytes=256 << 20)
+    m.put(n, 1)
+    client._topic_bus.drain(timeout=10)
+    check(other.get(n) == 1, "13d: a second handle missed a put through the first")
+    other.put(n, 2)
+    client._topic_bus.drain(timeout=10)
+    check(m.get(n) == 2 and other.get(7) == 21, "13d: the handles disagree")
+    out = {"phase": "13d", "config": "LocalCachedMap 100,000 entries, two read passes",
+           "second_pass_hit_rate": hit_rate, "get": pctl_us(lat), "card": card}
+    log(out)
+    return out
+
+
+def p13e_nodes(client, card: str) -> dict:
+    """13e: the node is the card; pings and a failure monitor."""
+    ng = client.get_nodes_group()
+    nodes = ng.get_nodes()
+    check(len(nodes) == 1, f"13e: {len(nodes)} nodes")
+    kind = torch.cuda.get_device_name(0) if P13_DEVICE == "cuda" else "cpu"
+    info = nodes[0].info()
+    check(info["device_kind"] == kind, f"13e: device_kind {info['device_kind']!r}")
+    check(ng.ping_all(), "13e: ping_all failed")
+    lat = []
+    for _ in range(P13["pings"]):
+        t0 = time.perf_counter()
+        check(nodes[0].ping(), "13e: a ping failed")
+        lat.append(time.perf_counter() - t0)
+    mon = client.get_failure_monitor(interval_s=0.1)
+    events = []
+    mon.add_listener(events.append)
+    mon.start()
+    time.sleep(P13["monitor_s"])
+    mon.stop()
+    check(not events and not mon.down_shards(), f"13e: the monitor saw {events}")
+    out = {"phase": "13e", "node": info, "ping": pctl_us(lat), "monitor_events": 0, "card": card}
+    log(out)
+    return out
+
+
+def p13f_profiler_metrics(client, card: str) -> dict:
+    """13f: a profiler trace of a Bloom pass, device memory, the metrics'
+    op count and the scrape endpoint."""
+    import urllib.request
+
+    n = P13["prof_keys"]
+    bf = client.get_bloom_filter("p13-prof")
+    check(bf.try_init(P13["capacity"], P13["fpp"]), "try_init refused")
+    bf.add_all_async(np.arange(1024, dtype=np.uint64)).result()  # first launches
+    ops0 = client.get_metrics()["ops_total"]
+    prof = client.get_profiler()
+    tmp = tempfile.mkdtemp(prefix="p13-trace-")
+    try:
+        with prof.trace(tmp):
+            with prof.annotate("p13f-bloom-pass"):
+                bf.add_all_async(np.arange(1024, 1024 + n, dtype=np.uint64)).result()
+        with open(prof.last_trace) as f:
+            events = json.load(f)["traceEvents"]
+        trace_bytes = os.path.getsize(prof.last_trace)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if P13_DEVICE == "cuda":
+        check(kernels, "13f: the trace holds no CUDA kernel event")
+    ops = client.get_metrics()["ops_total"] - ops0
+    check(ops == n, f"13f: ops_total grew by {ops}, the pass submitted {n}")
+    mem = prof.device_memory()
+    if P13_DEVICE == "cuda":
+        total = torch.cuda.get_device_properties(0).total_memory
+        check(mem["gpu:0"]["bytes_limit"] == total,
+              f"13f: device_memory {mem['gpu:0']} vs total_memory {total}")
+    srv = client.start_metrics_endpoint("127.0.0.1", 0)
+    body = urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/metrics", timeout=30).read().decode()
+    fams = [ln.split()[2] for ln in client.obs.registry.render_prometheus().splitlines()
+            if ln.startswith("# TYPE ")]
+    check(fams and all(f"# TYPE {f} " in body for f in fams)
+          and "redisson_tpu_ops_total" in body, "13f: the endpoint misses a family")
+    out = {"phase": "13f", "trace_events": len(events), "trace_kernel_events": len(kernels),
+           "trace_bytes": trace_bytes, "ops_total_delta": ops, "device_memory": mem,
+           "endpoint_families": len(fams), "card": card}
+    log(out)
+    return out
+
+
+def phase_services(rng, card: str) -> None:
+    """Phase 13: the coordination and services half on fresh card clients."""
+    p13a_reactive_bloom(card)
+    client = p13_client()
+    try:
+        p13b_executor_k1(client, rng, card)
+        check_healthy(client, "13b")
+        p13c_locks(client, card)
+        check_healthy(client, "13c")
+        p13d_local_cached_map(client, card)
+        p13e_nodes(client, card)
+        p13f_profiler_metrics(client, card)
+        check_healthy(client, "13")
+    finally:
+        client.shutdown()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3275,6 +3722,11 @@ def main(argv=None) -> int:
     phase_grid(card)
     by_phase["12"] = cms_seq.LAUNCHES
     check(by_phase["12"] == 0, "phase 12's bridge launched K1")
+    cms_seq.LAUNCHES = 0  # phase 13's path: K1 through the executor service
+    phase_services(rng, card)
+    check(cms_seq.LAUNCHES > 0, "phase 13 never launched K1")
+    kernel["launches"] += cms_seq.LAUNCHES
+    by_phase["13"] = cms_seq.LAUNCHES
     log({"kernels": [kernel]})
     print(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})

@@ -7,15 +7,21 @@ grid over one logical keyspace spanning both backends: buckets, counters
 and RKeys; maps, multimaps, sets, lists and sorted sets; the queue
 family; streams, geo and time series; topics on the client's delivery
 bus (``get_topic``, ``get_pattern_topic``, ``get_sharded_topic``,
-``get_reliable_topic``); plus ``create_batch``, ``collect``,
-``defer_fetch``, ``op_deadline``, ``prewarm_wait``, ``snapshot`` and
-``shutdown``.
+``get_reliable_topic``); the local cached map, JCache and the JSON
+bucket; locks and synchronizers; the coordination services (executor,
+remote, transaction, script, function, live objects, map-reduce); the
+reactive facade; the admin surface (nodes and their failure monitor,
+metrics, the Prometheus endpoint, the profiler); plus ``create_batch``,
+``collect``, ``defer_fetch``, ``op_deadline``, ``prewarm_wait``,
+``snapshot`` and ``shutdown``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
+import uuid
 from typing import Optional
 
 from redisson_tpu_torch import overload
@@ -29,40 +35,61 @@ from redisson_tpu_torch.grid import (
     BlockingQueue,
     Bucket,
     Buckets,
+    CacheManager,
+    CountDownLatch,
     DelayedQueue,
     Deque,
     DoubleAdder,
+    ExecutorService,
+    FairLock,
+    FencedLock,
+    FunctionService,
     Geo,
     GridStore,
     IdGenerator,
+    JCache,
     Keys,
     LexSortedSet,
     List_,
     ListMultimap,
     ListMultimapCache,
+    LiveObjectService,
+    LocalCachedMap,
+    Lock,
     LongAdder,
     Map,
     MapCache,
+    MapReduce,
+    MultiLock,
     PatternTopic,
+    PermitExpirableSemaphore,
     PriorityBlockingQueue,
     PriorityDeque,
     PriorityQueue,
     Queue,
+    RateLimiter,
+    ReadWriteLock,
     ReliableTopic,
+    RemoteService,
     RingBuffer,
     ScoredSortedSet,
+    ScriptService,
+    Semaphore,
     Set_,
     SetCache,
     SetMultimap,
     SetMultimapCache,
     ShardedTopic,
     SortedSet,
+    SpinLock,
     Stream,
     TimeSeries,
     Topic,
     TopicBus,
+    Transaction,
     TransferQueue,
 )
+from redisson_tpu_torch.grid.buckets import JsonBucket
 from redisson_tpu_torch.objects import BitSet, BloomFilter, CountMinSketch, HyperLogLog
 from redisson_tpu_torch.objects.base import CamelCompatMixin
 from redisson_tpu_torch.objects.engines import TorchSketchEngine
@@ -76,6 +103,10 @@ class RedissonTorchClient(CamelCompatMixin):
                 "call Config().use_gpu_sketch()"
             )
         self.config = config
+        # Per-client identity for lock ownership (→ the reference's
+        # connection-manager UUID in the UUID:threadId lock value); id()
+        # of a collected client can be recycled, so it must not be used.
+        self.id = uuid.uuid4().hex
         self._engine = TorchSketchEngine(config)
         # The RESP front door records into the engine's registry, so one
         # exposition carries both.
@@ -112,6 +143,19 @@ class RedissonTorchClient(CamelCompatMixin):
         # Pub/sub delivery pool (the PublishSubscribeService analog):
         # topic listeners run here, the RTopic -> CMS ingest bridge too.
         self._topic_bus = TopicBus(n_threads=config.threads)
+        # Name-shared services and the per-client admin singletons
+        # (script/function services, failure monitor, metrics endpoint,
+        # profiler) are created under this lock.
+        self._services_lock = threading.Lock()
+        self._executor_services: dict = {}
+        self._remote_services: dict = {}
+        self._script_service = None
+        self._function_service = None
+        self._failure_monitor = None
+        self._metrics_http = None
+        self._metrics_http_req = None
+        self._profiler = None
+        self._shutdown = False
 
     def get_bloom_filter(self, name: str) -> BloomFilter:
         return BloomFilter(name, self)
@@ -158,6 +202,11 @@ class RedissonTorchClient(CamelCompatMixin):
 
     def get_map_cache(self, name: str) -> MapCache:
         return MapCache(name, self)
+
+    def get_local_cached_map(self, name: str, **options) -> LocalCachedMap:
+        """→ RedissonClient#getLocalCachedMap (near cache + invalidation
+        topic)."""
+        return LocalCachedMap(name, self, **options)
 
     def get_list_multimap(self, name: str) -> ListMultimap:
         return ListMultimap(name, self)
@@ -253,6 +302,194 @@ class RedissonTorchClient(CamelCompatMixin):
         """→ RedissonClient#getReliableTopic (stream-backed, at-least-once)."""
         return ReliableTopic(name, self)
 
+    # -- caches, JSON, admin, reactive ----------------------------------------
+
+    def get_jcache(self, name: str, **config) -> JCache:
+        """→ org.redisson.jcache.JCache (JSR-107 facade)."""
+        return JCache(name, self, **config)
+
+    def get_cache_manager(self) -> CacheManager:
+        return CacheManager(self)
+
+    def get_json_bucket(self, name: str) -> JsonBucket:
+        """→ RedissonClient#getJsonBucket."""
+        return JsonBucket(name, self)
+
+    def get_nodes_group(self):
+        """→ RedissonClient#getNodesGroup: the engine's device as a node
+        (ping / info)."""
+        from redisson_tpu_torch.serve.nodes import NodesGroup
+
+        return NodesGroup(self)
+
+    def reactive(self):
+        """→ RedissonClient's reactive facade: every object method returns
+        an asyncio awaitable (see reactive.py)."""
+        from redisson_tpu_torch.reactive import ReactiveClient
+
+        return ReactiveClient(self)
+
+    rx = reactive  # → RedissonRxClient spelling
+
+    def get_failure_monitor(self, interval_s: float = 1.0):
+        """The shared background monitor surfacing a dead device as typed
+        events (the topology-monitor analog).  Not started automatically:
+        call ``.start()``."""
+        from redisson_tpu_torch.serve.nodes import FailureMonitor
+
+        with self._services_lock:  # one shared monitor, race-free create
+            if self._failure_monitor is None:
+                self._failure_monitor = FailureMonitor(
+                    self.get_nodes_group(), interval_s=interval_s
+                )
+            return self._failure_monitor
+
+    # -- locks & synchronizers ---------------------------------------------
+
+    def get_lock(self, name: str) -> Lock:
+        return Lock(name, self)
+
+    def get_fair_lock(self, name: str) -> FairLock:
+        return FairLock(name, self)
+
+    def get_spin_lock(self, name: str) -> SpinLock:
+        return SpinLock(name, self)
+
+    def get_fenced_lock(self, name: str) -> FencedLock:
+        return FencedLock(name, self)
+
+    def get_multi_lock(self, *locks) -> MultiLock:
+        return MultiLock(*locks)
+
+    get_red_lock = get_multi_lock  # → RedissonRedLock (deprecated alias)
+
+    def get_read_write_lock(self, name: str) -> ReadWriteLock:
+        return ReadWriteLock(name, self)
+
+    def get_semaphore(self, name: str) -> Semaphore:
+        return Semaphore(name, self)
+
+    def get_permit_expirable_semaphore(self, name: str) -> PermitExpirableSemaphore:
+        return PermitExpirableSemaphore(name, self)
+
+    def get_count_down_latch(self, name: str) -> CountDownLatch:
+        return CountDownLatch(name, self)
+
+    def get_rate_limiter(self, name: str) -> RateLimiter:
+        return RateLimiter(name, self)
+
+    # -- services ----------------------------------------------------------
+
+    def get_executor_service(self, name: str) -> ExecutorService:
+        """→ RedissonClient#getExecutorService (``register_workers(n)`` is
+        the RedissonNode analog).  Name-shared: every handle for ``name``
+        is one service — workers registered through one handle run tasks
+        submitted through any other."""
+        with self._services_lock:
+            svc = self._executor_services.get(name)
+            if svc is None or svc.is_shutdown():
+                svc = ExecutorService(name, self)
+                self._executor_services[name] = svc
+            return svc
+
+    def get_remote_service(self, name: str = "remote") -> RemoteService:
+        """→ RedissonClient#getRemoteService.  Name-shared like
+        get_executor_service."""
+        with self._services_lock:
+            svc = self._remote_services.get(name)
+            if svc is None:
+                svc = RemoteService(name, self)
+                self._remote_services[name] = svc
+            return svc
+
+    def create_transaction(self) -> Transaction:
+        """→ RedissonClient#createTransaction (optimistic)."""
+        return Transaction(self)
+
+    def get_script(self) -> ScriptService:
+        """→ RedissonClient#getScript: named atomic procedures (Python
+        callables run under the grid lock).  One shared instance per
+        client, so registrations survive re-getting the handle."""
+        with self._services_lock:
+            if self._script_service is None:
+                self._script_service = ScriptService(self)
+            return self._script_service
+
+    def get_function(self) -> FunctionService:
+        """→ RedissonClient#getFunction: libraries of named atomic
+        procedures with FCALL/FCALL_RO semantics."""
+        with self._services_lock:
+            if self._function_service is None:
+                self._function_service = FunctionService(self)
+            return self._function_service
+
+    def get_live_object_service(self) -> LiveObjectService:
+        """→ RedissonClient#getLiveObjectService."""
+        return LiveObjectService(self)
+
+    def get_map_reduce(self, source_map, **options) -> MapReduce:
+        """→ RMap#mapReduce entry point."""
+        return MapReduce(self, source_map, **options)
+
+    # -- metrics, scrape endpoint, profiler ----------------------------------
+
+    def get_metrics(self) -> dict:
+        """Coalescer/batch metrics snapshot: the flat keys of
+        ``serve.metrics.Metrics`` (ops_total, p99_wait_ms, ...) plus
+        ``commands``, the per-RESP-command calls/usec (populated when a
+        RespServer fronts this client)."""
+        out = self._engine.metrics.snapshot()
+        out["commands"] = self.obs.command_stats()
+        return out
+
+    def render_prometheus(self) -> str:
+        """Full Prometheus text exposition: the aggregate metrics (typed
+        counter/gauge) plus every labeled family in the obs registry."""
+        return (
+            self._engine.metrics.render_prometheus()
+            + self.obs.registry.render_prometheus()
+        )
+
+    def start_metrics_endpoint(self, host: str = "127.0.0.1", port: int = 0):
+        """Start (or return the already-running) Prometheus scrape
+        endpoint serving :meth:`render_prometheus` at ``/metrics``."""
+        from redisson_tpu_torch.obs.promhttp import MetricsHTTPServer
+
+        with self._services_lock:
+            srv = self._metrics_http
+            if srv is not None:
+                # Never hand back a server bound elsewhere than asked: the
+                # requested scrape target would not exist.  Compared with
+                # both the resolved and the requested host, so repeating
+                # an unresolved name ("localhost") is not a conflict.
+                req_host, _ = self._metrics_http_req
+                if port not in (0, srv.port) or host not in (
+                    srv.host, req_host
+                ):
+                    raise RuntimeError(
+                        "metrics endpoint already running on "
+                        f"{srv.host}:{srv.port}; close it before "
+                        f"rebinding to {host}:{port}"
+                    )
+                return srv
+            srv = MetricsHTTPServer(
+                self.render_prometheus, host=host, port=port
+            )
+            self._metrics_http = srv
+            self._metrics_http_req = (host, port)
+            return srv
+
+    def get_profiler(self):
+        """→ a ``torch.profiler`` trace of the engine's device (host and,
+        on a card, CUDA activity).  One shared instance per client: start()
+        on one handle and stop() on another must pair up."""
+        from redisson_tpu_torch.serve.metrics import Profiler
+
+        with self._services_lock:
+            if self._profiler is None:
+                self._profiler = Profiler(self._engine.executor.device)
+            return self._profiler
+
     def get_keys(self) -> Keys:
         """→ RedissonClient#getKeys: RKeys over both backends."""
         return Keys(self)
@@ -313,6 +550,15 @@ class RedissonTorchClient(CamelCompatMixin):
     def shutdown(self) -> None:
         """→ Redisson#shutdown (the engine's final snapshot, when
         ``Config.snapshot_dir`` is set, writes ``grid_store.bin`` too)."""
+        if self._failure_monitor is not None:
+            self._failure_monitor.stop()
+        if self._metrics_http is not None:
+            self._metrics_http.close()
+            self._metrics_http = None
         self._engine.shutdown()
         self._grid.shutdown()
         self._topic_bus.shutdown()
+        self._shutdown = True
+
+    def is_shutdown(self) -> bool:
+        return self._shutdown

@@ -198,8 +198,8 @@ class Config:
         self.gpu_sketch.update(kwargs)
         return self
 
-    # -- serialization (the JAX package's Config.from_dict/from_yaml for
-    # the keys this package reads) ------------------------------------------
+    # -- serialization (the JAX package's Config.to_dict/from_dict/
+    # from_yaml/from_json/to_json for the keys this package reads) -----------
 
     _SIMPLE_KEYS = (
         "threads",
@@ -216,6 +216,12 @@ class Config:
         "client_output_buffer_limit",
         "client_output_buffer_soft_seconds",
     )
+
+    def to_dict(self) -> dict:
+        d = {k: getattr(self, k) for k in self._SIMPLE_KEYS}
+        d["codec"] = type(self.codec).__name__
+        d["gpu_sketch"] = self.gpu_sketch.to_dict()
+        return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "Config":
@@ -257,3 +263,14 @@ class Config:
         if not isinstance(data or {}, dict):
             raise ValueError("config must parse to a mapping")
         return cls.from_dict(data or {})
+
+    @classmethod
+    def from_json(cls, text: str) -> "Config":
+        import json
+
+        return cls.from_dict(json.loads(text))
+
+    def to_json(self) -> str:
+        import json
+
+        return json.dumps(self.to_dict(), indent=2)

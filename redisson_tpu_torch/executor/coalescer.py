@@ -157,7 +157,7 @@ class HintedFuture:
 
 class BatchCoalescer:
     def __init__(self, *, batch_window_us: int, max_batch: int,
-                 max_inflight: int = 8, retry_attempts: int = 3,
+                 metrics=None, max_inflight: int = 8, retry_attempts: int = 3,
                  retry_interval_s: float = 0.05, max_queued_ops: int = 0,
                  adaptive_inflight: bool = True, min_inflight: int = 2,
                  adaptive_window: bool = True, min_window_us: int = 0,
@@ -192,6 +192,8 @@ class BatchCoalescer:
         self._ops_seen = 0  # monotonic submitted-op counter (under _lock)
         self._rate_mark = (time.monotonic(), 0)
         self.obs = obs
+        # serve.metrics.Metrics: one record_batch per retired launch.
+        self.metrics = metrics
         # RedisExecutor-style retry budget for dispatch-time failures.
         self.retry_attempts = max(1, retry_attempts)
         self.retry_interval_s = retry_interval_s
@@ -760,6 +762,7 @@ class BatchCoalescer:
                         self._health.record_failure(op, e)
                     self._release_launch_slot(None)
                     first = False
+                    self._record_batch(seg, t0)
                     for fut, start, n, _, _dl in seg.futures:
                         if fut.set_running_or_notify_cancel():
                             fut.set_exception(
@@ -774,9 +777,21 @@ class BatchCoalescer:
                 # launch (~5-sample EWMAs; GIL-atomic float stores).
                 self._service_ewma_s += 0.2 * (time.monotonic() - t0 - self._service_ewma_s)
                 self._ops_per_launch_ewma += 0.2 * (seg.nops - self._ops_per_launch_ewma)
+                self._record_batch(seg, t0)
                 for fut, start, n, _, _dl in seg.futures:
                     if fut.set_running_or_notify_cancel():
                         fut.set_result(None if res is None else res[start : start + n])
+
+    def _record_batch(self, seg: _Segment, t0: float) -> None:
+        """Wait (born -> flush) and flush (flush -> retire) of one retired
+        launch, failed or not, as the JAX package records them; recorded
+        before its futures resolve, so a caller whose result is home
+        reads its ops in the metrics."""
+        if self.metrics is not None:
+            self.metrics.record_batch(
+                nops=seg.nops, wait_s=t0 - seg.born,
+                flush_s=time.monotonic() - t0,
+            )
 
     def drain(self, timeout: float = 30.0) -> None:
         """Barrier: block until every segment submitted before this call

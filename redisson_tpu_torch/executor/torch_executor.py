@@ -261,6 +261,24 @@ def _locked(fn):
         _note_first_launch(_launch_key(self, name, args))
         return fn(self, *args, **kwargs)
 
+    def _recorded(self, args, kwargs):
+        metrics = self.metrics
+        if metrics is None or self._dispatch_recording:
+            # No direct-dispatch recorder, or a nested wrapped call (the
+            # outermost wrapper records; the dispatch lock is reentrant
+            # and held, so the plain attribute is safe).
+            return counted(self, *args, **kwargs)
+        self._dispatch_recording = True
+        t0 = time.monotonic()
+        try:
+            out = counted(self, *args, **kwargs)
+        finally:
+            self._dispatch_recording = False
+        metrics.record_dispatch(
+            nops=_nops_of(name, args), enqueue_s=time.monotonic() - t0
+        )
+        return out
+
     @functools.wraps(fn)
     def wrapper(self, *args, **kwargs):
         deadline = _ovl.current_deadline() if sheddable else None
@@ -274,7 +292,7 @@ def _locked(fn):
             pools = [a for a in args if isinstance(getattr(a, "state", None), torch.Tensor)]
             versions = [p.state._version for p in pools]
             try:
-                return counted(self, *args, **kwargs)
+                return _recorded(self, args, kwargs)
             except NonRetryableDispatchError:
                 raise
             except Exception as e:
@@ -322,6 +340,10 @@ class TorchCommandExecutor:
         self._dispatch_lock = threading.RLock()
         # The engine's Observability bundle (direct-dispatch shed counts).
         self.obs = None
+        # The engine's serve.metrics.Metrics when no coalescer records in
+        # front (direct dispatch): each outermost dispatch records once.
+        self.metrics = None
+        self._dispatch_recording = False
 
     # -- pool-state factory ------------------------------------------------
 

@@ -300,6 +300,13 @@ class TorchSketchEngine(SketchDurabilityMixin):
         )
         self.obs = Observability()
         self.executor.obs = self.obs
+        # Ops/batches and wait/flush reservoirs behind client.get_metrics:
+        # the coalescer records each launch it retires; with no coalescer
+        # in front, the executor's dispatch wrapper records instead (both
+        # would double-count).
+        from redisson_tpu_torch.serve.metrics import Metrics
+
+        self.metrics = Metrics()
         # Near cache: the epoch-guarded host read tier.  Built even when
         # disabled, so its epoch bookkeeping is coherent whenever it is
         # switched on.
@@ -356,6 +363,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
             self.coalescer = BatchCoalescer(
                 batch_window_us=cfg.batch_window_us,
                 max_batch=cfg.max_batch,
+                metrics=self.metrics,
                 max_inflight=cfg.max_inflight,
                 retry_attempts=config.retry_attempts,
                 retry_interval_s=config.retry_interval_ms / 1000.0,
@@ -375,6 +383,8 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 max_batch_slow_phase=cfg.max_batch_slow_phase,
                 fetch_timeout_s=cfg.fetch_timeout_ms / 1000.0,
             )
+        else:
+            self.executor.metrics = self.metrics
         # Bucket pre-warming: a background thread drives the (op, bucket)
         # ladder on pool attach, so serving ops never pay a first launch.
         self.prewarmer = None

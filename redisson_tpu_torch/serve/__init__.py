@@ -1,11 +1,12 @@
 """Serving: the RESP front door (``resp.RespServer``), its reactor event
-loops, the native wire codec, the client-side wire helpers, and the
-RTopic -> CountMinSketch ingest bridge (``ingest.TopicCmsBridge``).  Boot
-a standalone server with ``python -m redisson_tpu_torch``.
+loops, the native wire codec, the client-side wire helpers, the
+RTopic -> CountMinSketch ingest bridge (``ingest.TopicCmsBridge``), the
+engine's metrics and profiler (``metrics``) and the device nodes with
+their failure monitor (``nodes``).  Boot a standalone server with
+``python -m redisson_tpu_torch``.
 
-The JAX package's per-core front door (``serve/multicore.py``), device
-probes (``serve/nodes.py``) and profiler metrics (``serve/metrics.py``)
-are not ported yet.
+The JAX package's per-core front door (``serve/multicore.py``) is not
+ported yet.
 """
 
 from redisson_tpu_torch.serve.ingest import TopicCmsBridge

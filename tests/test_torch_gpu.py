@@ -573,3 +573,63 @@ def test_grid_wire_on_the_card_equals_cpu(p12_small):
     server's replies byte for byte, pub/sub frames, and a parked BLPOP
     while 1000 pipelined commands are answered."""
     p12_small.phase_grid_wire("test")
+
+
+# -- the coordination and services half on the card (phase 13, small) ---------
+
+
+@pytest.fixture
+def p13_small(cuda, monkeypatch):
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "P13_DEVICE", "cuda")
+    monkeypatch.setattr(cs, "P13", dict(
+        cs.P13, keys=1 << 16, add_chunk=1 << 14, contains=1 << 16,
+        capacity=65_536, cms_events=1 << 16, lock_threads=4, lock_rounds=50,
+        sem_threads=4, sem_keys=1 << 12, lcm_entries=5000, pings=20,
+        monitor_s=0.3, prof_keys=1 << 14))
+    return cs
+
+
+def test_node_ping_and_info_on_the_card(cuda):
+    """The node is the card: info names it, ping runs a tensor op on it."""
+    client = _client(device="cuda")
+    try:
+        nodes = client.get_nodes_group().get_nodes()
+        assert len(nodes) == 1 and nodes[0].address == "gpu:0"
+        info = nodes[0].info()
+        assert info["device_kind"] == torch.cuda.get_device_name(0)
+        assert info["bytes_limit"] == torch.cuda.get_device_properties(0).total_memory
+        assert client.get_nodes_group().ping_all()
+    finally:
+        client.shutdown()
+
+
+def test_profiler_trace_holds_a_cuda_kernel_event(p13_small):
+    """13f at a small size: the Bloom pass's kernels, launched by the
+    coalescer's thread, are in the trace; the op count is exact."""
+    client = p13_small.p13_client()
+    try:
+        out = p13_small.p13f_profiler_metrics(client, "test")
+        assert out["trace_kernel_events"] > 0
+    finally:
+        client.shutdown()
+
+
+def test_reactive_bloom_on_the_card_equals_sync_client(p13_small):
+    """13a at a small size: reactive awaits against a sync client's run of
+    the same keys and the golden model."""
+    out = p13_small.p13a_reactive_bloom("test")
+    assert out["row_equals_golden_and_sync"]
+
+
+def test_executor_tasks_launch_k1_on_the_card(p13_small):
+    """13b at a small size: K1 launched from executor workers equals
+    golden_seq."""
+    client = p13_small.p13_client()
+    try:
+        before = cms_seq.LAUNCHES
+        out = p13_small.p13b_executor_k1(client, np.random.default_rng(13), "test")
+        assert out["k1_launches"] == cms_seq.LAUNCHES - before > 0
+    finally:
+        client.shutdown()

@@ -175,15 +175,18 @@ def test_refuses_to_start_without_a_card():
 
 
 def test_server_modules_import_neither_jax_nor_the_reference():
-    """The front door, the reactor, the grid families, the ingest bridge,
-    the entry point and the scripts load with jax and redisson_tpu blocked
-    and serve on the CPU; no module of the port, nor chip_smoke.py or
-    profile_port.py, has an import of either."""
+    """The front door, the reactor, the grid families, the coordination
+    and services half (locks, services, cron, LocalCachedMap, JCache, the
+    integrations, the reactive facade, nodes, metrics and the scrape
+    endpoint), the ingest bridge, the entry point and the scripts load
+    with jax and redisson_tpu blocked and serve on the CPU; no module of
+    the port, nor chip_smoke.py, profile_port.py or compare_rates.py, has
+    an import of either."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['redisson_tpu'] = None\n"
-        "import chip_smoke, profile_port\n"
+        "import chip_smoke, profile_port, compare_rates\n"
         "import redisson_tpu_torch as rt\n"
         "from redisson_tpu_torch import __main__ as m\n"
         "from redisson_tpu_torch.serve import reactor, native_codec\n"
@@ -191,7 +194,11 @@ def test_server_modules_import_neither_jax_nor_the_reference():
         "from redisson_tpu_torch.serve.wireutil import exchange\n"
         "from redisson_tpu_torch.serve import TopicCmsBridge\n"
         "from redisson_tpu_torch.grid import (topics, maps, multimaps, collections,"
-        " queues, streams, geo, timeseries)\n"
+        " queues, streams, geo, timeseries, locks, services, cron, jcache,"
+        " local_cached_map)\n"
+        "from redisson_tpu_torch import integrations, reactive\n"
+        "from redisson_tpu_torch.serve import nodes, metrics\n"
+        "from redisson_tpu_torch.obs import promhttp\n"
         "import socket\n"
         "import numpy as np\n"
         "c = rt.create(rt.Config().use_gpu_sketch(device='cpu'))\n"
@@ -203,7 +210,12 @@ def test_server_modules_import_neither_jax_nor_the_reference():
         "assert r == [b'OK', 2, b'OK', 1, b'2', 1, b'1-1', 1, 0], r\n"
         "cms = c.get_count_min_sketch('cms'); cms.try_init(4, 1024)\n"
         "b = TopicCmsBridge(c, 't', 'cms'); c.get_topic('t').publish(np.arange(9, dtype=np.uint64))\n"
-        "b.close(); assert b.events_ingested == 9 and cms.total_count() == 9\n"
+        "b.close(); assert b.events_ingested == 9 and cms.total_count() == 9\n"        "lk = c.get_lock('lk'); lk.lock(); lk.unlock()\n"
+        "ex = c.get_executor_service('ex'); ex.register_workers(1)\n"
+        "assert ex.submit(cms.total_count).result(30) == 9; ex.shutdown()\n"
+        "assert c.get_nodes_group().ping_all() and c.get_metrics()['ops_total'] > 0\n"
+        "import asyncio\n"
+        "assert asyncio.run(c.reactive().get_bucket('rx').get()) is None\n"
         "s.close(); srv.close(); c.shutdown()\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -212,6 +224,6 @@ def test_server_modules_import_neither_jax_nor_the_reference():
     assert out.returncode == 0, out.stderr
     pat = re.compile(r"^\s*(import|from)\s+(jax|redisson_tpu)(\.|\s|$)", re.M)
     files = list((REPO / "redisson_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "profile_port.py"]
+    files += [REPO / "chip_smoke.py", REPO / "profile_port.py", REPO / "compare_rates.py"]
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders
