@@ -145,6 +145,38 @@ the main path through the public client at full size:
            by exactly the pass's ops, and the scrape endpoint on loopback
            serves every family of the registry.  K1 launches in phase 13
            are counted (13b) and must be more than 0
+  phase 14 the op journal, crash recovery and replication on fresh card
+           clients (directories under build/, df -T printed once): (14a)
+           config 1's 2**20 keys as 1024 add_all calls of 1024 keys from 4
+           threads in four arms on one client — journal off, appendfsync
+           no, everysec, always, each on a fresh filter whose row must
+           equal the golden bitmap; keys/s, records, journal bytes per key,
+           fsyncs, records per fsync (group commit) and the fsync p50/p99;
+           then config 5 (CMS(5, 65536)) add_all_seq of 2**20 zipf(1.2)
+           events under always (K1; estimates equal golden_seq, table
+           equal golden).  (14b) a child (``--p14-child``) runs the always
+           Bloom arm, a snapshot, the CMS stream, an HLL PFADD of 2**21
+           keys and a 2**30-bit BitSet's set_many of 2**21 indexes, one ACK
+           per resolved call; SIGKILL after the last ack; a fresh card
+           client restores, replays and writes back: every row equal to
+           the golden state of the acked ops, the live K1 table equal to
+           the rebuilt one, and 2**18 more events through K1 on the
+           recovered row equal to golden_seq; recovery seconds, records
+           and rows.  (14c) ``python -m redisson_tpu_torch.chaos.crashchild
+           --device cuda`` for 3 seeds x {always, everysec}, plus runs with
+           --snapshot-every 50 and --residency-every 25, killed at seeded
+           ack counts, recovered on the card and matched to a golden
+           prefix (always: covering every ack; everysec: every ack older
+           than 2.5 s).  (14d) a primary and a replica RespServer on two
+           card clients: FULLRESYNC of config 1 + config 5, then 2**20 keys
+           of BF.MADD from 4 connections with WAIT 1 1000 every 64
+           commands; replica rows byte-equal, -READONLY, a dropped link
+           resyncing partially, FAILOVER, every WAIT-covered write read
+           back from the promoted node.  (14e) ``python -m
+           redisson_tpu_torch --journal-dir --snapshot-dir`` with CONFIG
+           SET appendfsync always, SIGKILLed mid-pipeline and rebooted:
+           every acknowledged SET and BF.MADD key reads back.  K1 launches
+           in phase 14 (14a, 14b's recovered row, 14d) must be more than 0
 
 Every failed check raises, so the script exits non-zero.  Without a CUDA
 device it exits with code 2 before printing any result.  The line before
@@ -164,6 +196,7 @@ import argparse
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -3650,13 +3683,696 @@ def phase_services(rng, card: str) -> None:
         client.shutdown()
 
 
+# -- phase 14: the op journal, crash recovery and replication ----------------
+
+P14 = {"keys": 1 << 20, "chunk": 1024, "threads": 4, "capacity": 1_048_576,
+       "fpp": 0.01, "cms_events": 1 << 20, "d": 5, "w": 1 << 16,
+       "hll_keys": 1 << 21, "bs_bits": 1 << 30, "bs_idx": 1 << 21,
+       "big_chunk": 1 << 18, "k1_after": 1 << 18, "soak_seeds": (0, 1, 2),
+       "soak_ops": 300, "repl_keys": 1 << 20, "repl_conns": 4, "repl_madd": 1024,
+       "wait_every": 64, "e_batches": 40, "e_batch": 50, "e_kill_after": 20}
+P14_DEVICE = "cuda"
+
+
+def p14_sync() -> None:
+    if P14_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def p14_client(base=None, fsync="always", journal=True, snap=True, **kw):
+    """A fresh client on the card with LongCodec; ``base`` holds its
+    journal/ and snap/ directories."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+
+    cfg = rt.Config().set_codec(LongCodec()).use_gpu_sketch(device=P14_DEVICE, **kw)
+    if base is not None and journal:
+        cfg.journal_dir = os.path.join(base, "journal")
+        cfg.journal_fsync = fsync
+    if base is not None and snap:
+        cfg.snapshot_dir = os.path.join(base, "snap")
+    return rt.create(cfg)
+
+
+def p14_abandon(client) -> None:
+    """Shut a client down without its final snapshot and with the journal
+    closed first (the next boot on the directory recovers its tail)."""
+    eng = client._engine
+    j, eng.journal = eng.journal, None
+    if j is not None:
+        j.close()
+    eng.config.snapshot_dir = client.config.snapshot_dir = None
+    client.shutdown()
+
+
+def p14_streams(seed: int) -> dict:
+    """The phase's inputs, a pure function of the seed (the crash child
+    and the parent regenerate the same arrays)."""
+    rng = np.random.default_rng(seed + 14)
+    return {
+        "bloom": rng.integers(0, 1 << 62, P14["keys"], dtype=np.uint64),
+        "cms": zipf_keys(rng, P14["cms_events"]),
+        "hll": rng.integers(0, 1 << 62, P14["hll_keys"], dtype=np.uint64),
+        "bs": rng.integers(0, P14["bs_bits"], P14["bs_idx"], dtype=np.uint64).astype(np.uint32),
+    }
+
+
+def p14_bloom_load(client, name: str, keys: np.ndarray, ack=None) -> float:
+    """Config 1: try_init(capacity, fpp), then the keys as add_all calls of
+    ``chunk`` keys from ``threads`` threads; the wall seconds."""
+    bf = client.get_bloom_filter(name)
+    check(bf.try_init(P14["capacity"], P14["fpp"]), "try_init refused")
+    chunk, nthreads = P14["chunk"], P14["threads"]
+    n = len(keys) // chunk
+    errors = []
+
+    def worker(t):
+        try:
+            for i in range(t, n, nthreads):
+                bf.add_all(keys[i * chunk:(i + 1) * chunk])
+                if ack is not None:
+                    ack("bloom", i)
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(nthreads)]
+    p14_sync()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    dt = time.perf_counter() - t0
+    check(not errors, f"bloom load failed: {errors[:1]}")
+    return dt
+
+
+def p14_bloom_words(client, name: str, keys: np.ndarray) -> np.ndarray:
+    """The golden bitmap of ``keys`` in ``name``'s row layout."""
+    bf = client.get_bloom_filter(name)
+    g = golden_bloom(bf, keys)
+    units = client._engine.registry.lookup(name).pool.row_units
+    gbits = np.zeros(units * 32, bool)
+    gbits[: g.size] = g.bits
+    return np.packbits(gbits, bitorder="little").view(np.uint32)
+
+
+def p14_golden_hll(keys: np.ndarray) -> np.ndarray:
+    from redisson_tpu_torch.ops import golden
+
+    idx, rank = golden.hll_index_rank(*hll_lanes(keys))
+    regs = np.zeros(golden.HLL_M, np.uint8)
+    np.maximum.at(regs, np.asarray(idx, np.int64), np.asarray(rank, np.uint8))
+    return regs
+
+
+def p14_golden_bits(idx: np.ndarray, nbits: int) -> np.ndarray:
+    words = np.zeros(nbits // 32, np.uint32)
+    np.bitwise_or.at(words, idx >> 5, np.uint32(1) << (idx & 31).astype(np.uint32))
+    return words
+
+
+def p14_golden_cms(events: np.ndarray):
+    from redisson_tpu_torch.utils import hashing
+
+    h1w, h2w = hashing.km_reduce_mod(
+        *hashing.hash128_np(*hashing.encode_uint64_batch(events)), P14["w"])
+    return h1w, h2w
+
+
+def p14_df(path: str) -> str:
+    out = subprocess.run(["df", "-T", path], capture_output=True, text=True, timeout=60)
+    return " ".join(out.stdout.strip().splitlines()[-1].split())
+
+
+def p14_fsync_pctl(obs) -> dict:
+    p50, p99 = obs.journal_fsync_us.percentiles((), [50, 99])
+    return {"fsync_p50_us": p50 * 1e6, "fsync_p99_us": p99 * 1e6}
+
+
+def p14a_appendfsync(streams, base: str, card: str) -> None:
+    """14a: the cost of appendfsync on the main path — config 1's load in
+    four arms on one client (journal off, no, everysec, always), each on
+    a fresh filter; then config 5's K1 stream under always."""
+    from redisson_tpu_torch.ops import cms_seq
+
+    client = p14_client(base, fsync="everysec", snap=False)
+    eng, obs = client._engine, client._engine.obs
+    keys = streams["bloom"]
+    want = None
+    arms = {}
+    try:
+        # Warm-up on a filter of the same size class, so no arm pays the
+        # process's first launches.
+        eng.journal_set_enabled(False)
+        p14_bloom_load(client, "p14a-warm", keys[: 64 * P14["chunk"]])
+        for arm in ("off", "no", "everysec", "always"):
+            if arm == "off":
+                eng.journal_set_enabled(False)
+            else:
+                eng.journal_set_enabled(True)
+                eng.journal_set_policy(arm)
+            check((eng.journal is None) == (arm == "off"), f"14a: journal state in arm {arm}")
+            obs.journal_fsync_us.reset()
+            st0 = eng.journal.stats() if eng.journal is not None else None
+            dt = p14_bloom_load(client, f"p14a-{arm}", keys)
+            out = {"keys_per_s": len(keys) / dt, "seconds": dt}
+            if st0 is not None:
+                check(eng.journal_fence(timeout=60), "14a: fence timed out")
+                st = eng.journal.stats()
+                recs = st["records_written"] - st0["records_written"]
+                fs = st["fsyncs"] - st0["fsyncs"]
+                out.update(records=recs, journal_bytes_per_key=(
+                    st["bytes_written"] - st0["bytes_written"]) / len(keys),
+                    fsyncs=fs, records_per_fsync=recs / max(1, fs),
+                    **p14_fsync_pctl(obs))
+                check(recs == len(keys) // P14["chunk"] + 1, f"14a: {recs} records in arm {arm}")
+            if want is None:
+                want = p14_bloom_words(client, f"p14a-{arm}", keys)
+            check(np.array_equal(tenant_row(client, f"p14a-{arm}"), want),
+                  f"14a: arm {arm}'s row differs from the golden bitmap")
+            arms[arm] = out
+        # Config 5 under always: K1 on the journaled path.
+        d, w = P14["d"], P14["w"]
+        cms = client.get_count_min_sketch("p14a-cms")
+        check(cms.try_init(d, w), "try_init refused")
+        events = streams["cms"]
+        before = cms_seq.LAUNCHES
+        p14_sync()
+        t0 = time.perf_counter()
+        est = cms.add_all_seq(events)
+        dt = time.perf_counter() - t0
+        launches = cms_seq.LAUNCHES - before
+        check(launches == -(-len(events) // eng._SEQ_CHUNK), f"14a: {launches} K1 launches")
+        h1w, h2w = p14_golden_cms(events)
+        table, g_est = cms_seq_unit(h1w, h2w, d, w)
+        check(np.array_equal(np.asarray(est, np.uint32), g_est), "14a: estimates != golden_seq")
+        check(np.array_equal(tenant_row(client, "p14a-cms")[: d * w].reshape(d, w), table),
+              "14a: CMS table != golden")
+        check_healthy(client, "14a")
+        log({"phase": "14a", "config": "config 1 bloom 1M / 1% from 4 threads; config 5 cms",
+             "keys": len(keys), "calls_per_arm": len(keys) // P14["chunk"], "arms": arms,
+             "always_vs_off_keys_per_s": arms["always"]["keys_per_s"] / arms["off"]["keys_per_s"],
+             "cms_events": len(events), "cms_events_per_s_always": len(events) / dt,
+             "cms_k1_launches": launches, "rows_equal_golden": True,
+             "cms_equals_golden_seq": True, "filesystem": p14_df(base), "card": card})
+    finally:
+        p14_abandon(client)
+
+
+def p14_child(base: str, seed: int) -> int:
+    """14b's crash child: the always Bloom arm, a snapshot, then the CMS
+    stream (K1), an HLL PFADD and a 2**30-bit BitSet's set_many, journaled
+    under always; one ``ACK`` line per resolved call, the live rows saved,
+    ``LAST``, and then it waits for its SIGKILL."""
+    streams = p14_streams(seed)
+    lock = threading.Lock()
+
+    def ack(kind, i):
+        with lock:
+            sys.stdout.write(f"ACK {kind} {i}\n")
+            sys.stdout.flush()
+
+    client = p14_client(base, fsync="always")
+    eng = client._engine
+    times = {"bloom_s": p14_bloom_load(client, "p14b-bloom", streams["bloom"], ack)}
+    segs = eng.journal.stats()["segments"]
+    t0 = time.perf_counter()
+    eng.snapshot(client.config.snapshot_dir)
+    times["snapshot_s"] = time.perf_counter() - t0
+    retired = segs + 1 - eng.journal.stats()["segments"]  # mark_snapshot rotates one in
+    cms = client.get_count_min_sketch("p14b-cms")
+    cms.try_init(P14["d"], P14["w"])
+    big = P14["big_chunk"]
+    t0 = time.perf_counter()
+    for i in range(0, len(streams["cms"]), big):
+        cms.add_all_seq(streams["cms"][i:i + big])
+        ack("cms", i // big)
+    times["cms_s"] = time.perf_counter() - t0
+    hll = client.get_hyper_log_log("p14b-hll")
+    t0 = time.perf_counter()
+    for i in range(0, len(streams["hll"]), big):
+        hll.add_all(streams["hll"][i:i + big])
+        ack("hll", i // big)
+    times["hll_s"] = time.perf_counter() - t0
+    bs = client.get_bit_set("p14b-bs")
+    bs.set(P14["bs_bits"] - 1, False)  # size the row to 2**30 bits
+    t0 = time.perf_counter()
+    for i in range(0, len(streams["bs"]), big):
+        bs.set_many(streams["bs"][i:i + big], True)
+        ack("bs", i // big)
+    times["bs_s"] = time.perf_counter() - t0
+    eng._drain()
+    np.savez(os.path.join(base, "live_rows.npz"), **{
+        n: np.asarray(eng.executor.read_row(e.pool, e.row))
+        for n, e in ((e.name, e) for e in eng.registry.entries())})
+    print(json.dumps({"child": "14b", "segments_retired_by_snapshot": retired,
+                      "journal": eng.journal.stats(), **times}), flush=True)
+    print("LAST", flush=True)
+    time.sleep(3600)  # the parent's SIGKILL lands here, before any shutdown
+    return 0
+
+
+def p14b_kill9(streams, base: str, seed: int, card: str) -> None:
+    """14b: SIGKILL a child after its last ack, boot a fresh card client
+    on its directories and hold every recovered row to the acked golden
+    state; then K1 on the recovered CMS row."""
+    import signal
+
+    from redisson_tpu_torch.ops import cms_seq
+
+    cfg = json.dumps({"P14": P14, "device": P14_DEVICE})
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--p14-child",
+                             base, "--seed", str(seed), "--p14-config", cfg],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    acks, child = 0, None
+    try:
+        for line in proc.stdout:
+            if line.startswith("ACK "):
+                acks += 1
+            elif line.startswith("{"):
+                child = json.loads(line)
+            elif line.strip() == "LAST":
+                break
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        err = proc.stderr.read()
+        proc.stdout.close()
+        proc.stderr.close()
+    check(child is not None, f"14b: the child never finished its stream:\n{err[-4000:]}")
+    big = P14["big_chunk"]
+    want_acks = (len(streams["bloom"]) // P14["chunk"]
+                 + sum(-(-len(streams[k]) // big) for k in ("cms", "hll", "bs")))
+    check(acks == want_acks, f"14b: {acks} acks, expected {want_acks}")
+    live = dict(np.load(os.path.join(base, "live_rows.npz")))
+    p14_sync()
+    t0 = time.perf_counter()
+    client = p14_client(base, fsync="always")
+    p14_sync()
+    boot_s = time.perf_counter() - t0
+    try:
+        eng = client._engine
+        rs = eng.recovery_stats or {}
+        check(all(p.state.device.type == P14_DEVICE for p in eng.registry.pools()),
+              "14b: a recovered pool is not on the card")
+        d, w = P14["d"], P14["w"]
+        h1w, h2w = p14_golden_cms(streams["cms"])
+        gcms, _ = cms_seq_unit(h1w, h2w, d, w)
+        golden_rows = {
+            "p14b-bloom": p14_bloom_words(client, "p14b-bloom", streams["bloom"]),
+            "p14b-hll": p14_golden_hll(streams["hll"]),
+            "p14b-bs": p14_golden_bits(np.r_[streams["bs"]], P14["bs_bits"]),
+        }
+        rows = {e.name: np.asarray(eng.executor.read_row(e.pool, e.row))
+                for e in eng.registry.entries()}
+        check(set(rows) == set(live) == {"p14b-bloom", "p14b-cms", "p14b-hll", "p14b-bs"},
+              f"14b: recovered names {sorted(rows)}")
+        for n, g in golden_rows.items():
+            check(np.array_equal(rows[n], g), f"14b: recovered {n} != golden")
+            check(np.array_equal(live[n], g), f"14b: live {n} != golden")
+        check(np.array_equal(rows["p14b-cms"][: d * w].reshape(d, w), gcms),
+              "14b: recovered CMS table != golden")
+        check(np.array_equal(live["p14b-cms"], rows["p14b-cms"]),
+              "14b: the table K1 wrote live != the table recovery rebuilt")
+        # K1 on the recovered row.
+        more = zipf_keys(np.random.default_rng(seed + 141), P14["k1_after"])
+        m1, m2 = p14_golden_cms(more)
+        g_table, g_est = cms_seq.golden_seq(gcms, m1, m2, np.ones(len(more), np.uint32),
+                                            d=d, w=w)
+        before = cms_seq.LAUNCHES
+        est = client.get_count_min_sketch("p14b-cms").add_all_seq(more)
+        k1 = cms_seq.LAUNCHES - before
+        check(k1 > 0, "14b: K1 did not launch on the recovered row")
+        check(np.array_equal(np.asarray(est, np.uint32), g_est), "14b: K1 estimates != golden_seq")
+        check(np.array_equal(tenant_row(client, "p14b-cms")[: d * w].reshape(d, w), g_table),
+              "14b: K1 table on the recovered row != golden_seq")
+        check_healthy(client, "14b")
+        log({"phase": "14b", "acked_calls": acks, "child": child, "boot_s": boot_s,
+             "recovery_s": rs.get("seconds"), "records_replayed": rs.get("records"),
+             "replayed_records_per_s": rs.get("records", 0) / max(1e-9, rs.get("seconds", 0)),
+             "rows_written": rs.get("rows_written"),
+             "segments_retired_by_snapshot": child["segments_retired_by_snapshot"],
+             "rows_equal_acked_golden": True, "live_k1_table_equals_recovered": True,
+             "k1_on_recovered_row_launches": k1, "card": card})
+    finally:
+        p14_abandon(client)
+
+
+def p14c_soak(base: str, card: str) -> None:
+    """14c: the JAX package's kill -9 soak with the port's crash child on
+    the card: seeds x {always, everysec}, one run with mid-stream
+    snapshots and one with forced residency transitions, all children at
+    once; each killed at an ack count drawn from random.Random(seed);
+    recovery on the card; rows matched against a golden prefix."""
+    import random
+    import signal
+
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.chaos import crashchild
+    from redisson_tpu_torch.codecs import LongCodec
+
+    ops = P14["soak_ops"]
+    runs = [(s, f, ()) for s in P14["soak_seeds"] for f in ("always", "everysec")]
+    runs += [(3, "always", ("--snapshot-every", "50")),
+             (4, "always", ("--residency-every", "25"))]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    procs = []
+    for i, (seed, fsync, extra) in enumerate(runs):
+        d = os.path.join(base, f"run{i}")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "redisson_tpu_torch.chaos.crashchild", "--dir", d,
+             "--fsync", fsync, "--seed", str(seed), "--ops", str(ops), "--device", P14_DEVICE,
+             *extra], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True, env=env,
+            cwd=str(Path(__file__).resolve().parent)))
+    results = [None] * len(runs)
+
+    def drive(i):
+        seed, fsync, _ = runs[i]
+        proc = procs[i]
+        kill_at = random.Random(seed).randrange(40, ops - 20)
+        acked = {}
+        for line in proc.stdout:
+            parts = line.split()
+            if len(parts) == 3 and parts[0] == "ACK":
+                acked[int(parts[1])] = float(parts[2])
+                if int(parts[1]) >= kill_at:
+                    break
+        kill_time = time.time()
+        proc.send_signal(signal.SIGKILL)
+        for line in proc.stdout:
+            parts = line.split()
+            if len(parts) == 3 and parts[0] == "ACK":
+                acked[int(parts[1])] = float(parts[2])
+        proc.wait(timeout=60)
+        results[i] = (acked, kill_time, kill_at)
+
+    threads = [threading.Thread(target=drive, args=(i,)) for i in range(len(runs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    children_s = time.perf_counter() - t0
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.stdout.close()
+    out = []
+    for i, (seed, fsync, extra) in enumerate(runs):
+        check(results[i] is not None, f"14c: run {i} never finished")
+        acked, kill_time, kill_at = results[i]
+        check(acked and max(acked) >= kill_at, f"14c: run {i} stopped at {max(acked or [0])}")
+        d = os.path.join(base, f"run{i}")
+        client = crashchild.build_client(d, fsync, residency=bool(extra and "resid" in extra[0]),
+                                         device=P14_DEVICE)
+        eng = client._engine
+        try:
+            check(all(p.state.device.type == P14_DEVICE for p in eng.registry.pools()),
+                  "14c: a recovered pool is not on the card")
+            eng._drain()
+            rows = {e.name: np.asarray(eng._host_row(e)).copy() for e in eng.registry.entries()}
+            rs = eng.recovery_stats or {}
+        finally:
+            p14_abandon(client)
+        if fsync == "always":
+            lower = max(acked) + 1
+        else:
+            covered = [j for j, ts in acked.items() if ts <= kill_time - 2.5]
+            lower = (max(covered) + 1) if covered else 0
+        golden = rt.create(rt.Config().set_codec(LongCodec()).use_gpu_sketch(
+            device="cpu", min_bucket=64))
+        matched = [None]
+
+        def same():
+            golden._engine._drain()
+            got = {e.name: np.asarray(golden._engine._host_row(e))
+                   for e in golden._engine.registry.entries()}
+            return set(got) == set(rows) and all(np.array_equal(got[n], rows[n]) for n in got)
+
+        class _Hit(Exception):
+            pass
+
+        def on_ack(j):
+            if j + 1 >= lower and same():
+                matched[0] = j + 1
+                raise _Hit()
+
+        try:
+            if lower <= 0 and same():
+                matched[0] = 0
+            else:
+                crashchild.apply_ops(golden, seed, ops, ack=on_ack)
+        except _Hit:
+            pass
+        finally:
+            golden.shutdown()
+        check(matched[0] is not None,
+              f"14c: run {i} ({fsync} {extra}) matches no golden prefix >= {lower}")
+        out.append({"seed": seed, "fsync": fsync, "extra": " ".join(extra),
+                    "max_acked": max(acked), "golden_prefix": matched[0], "lower": lower,
+                    "records_replayed": rs.get("records"), "recovery_s": rs.get("seconds")})
+    log({"phase": "14c", "runs": out, "children_wall_s": children_s,
+         "every_acked_write_recovered": True, "card": card})
+
+
+def p14_cmds(server, cmds):
+    from redisson_tpu_torch.serve.wireutil import exchange
+
+    s = socket.create_connection((server.host, server.port), timeout=120)
+    try:
+        return exchange(s, cmds)
+    finally:
+        s.close()
+
+
+def p14d_replication(streams, base: str, card: str) -> None:
+    """14d: a primary and a replica RespServer, each on its own card
+    client in this process: FULLRESYNC of config 1 and config 5, then 4
+    connections of BF.MADD with WAIT 1 every 64 commands, a dropped link
+    that resyncs partially, -READONLY, and FAILOVER."""
+    from redisson_tpu_torch.serve.resp import RespServer
+    from redisson_tpu_torch.serve.wireutil import ReplyError, exchange
+
+    pc = p14_client(os.path.join(base, "primary"), fsync="everysec")
+    ps = RespServer(pc)
+    rc = rs = None
+    try:
+        t_load = p14_bloom_load(pc, "p14d", streams["bloom"])
+        cms = pc.get_count_min_sketch("p14d-cms")
+        cms.try_init(P14["d"], P14["w"])
+        cms.add_all_seq(streams["cms"])
+        rc = p14_client(os.path.join(base, "replica"), journal=False)
+        rs = RespServer(rc)
+        t0 = time.perf_counter()
+        link = rs.start_replication_from(ps.host, ps.port)
+        head = pc._engine.journal.last_seq()
+        until(lambda: link.applied >= head, "14d: replica bootstrap", timeout=600)
+        fullresync_s = time.perf_counter() - t0
+        check(link.full_resyncs == 1, "14d: expected one FULLRESYNC")
+        # The live stream: BF.MADD from 4 connections, WAIT 1 every 64.
+        extra = np.random.default_rng(1414).integers(0, 1 << 62, P14["repl_keys"],
+                                                     dtype=np.uint64)
+        conns, madd = P14["repl_conns"], P14["repl_madd"]
+        per = len(extra) // conns
+        waits, lag_max, errors = [], [0], []
+        stop = threading.Event()
+
+        def monitor():
+            while not stop.is_set():
+                lag_max[0] = max(lag_max[0], link.lag_ops())
+                time.sleep(0.005)
+
+        def sender(c):
+            try:
+                s = socket.create_connection((ps.host, ps.port), timeout=120)
+                mine = extra[c * per:(c + 1) * per]
+                cmds = [("BF.MADD", "p14d", *map(str, mine[i:i + madd].tolist()))
+                        for i in range(0, len(mine), madd)]
+                for i in range(0, len(cmds), P14["wait_every"]):
+                    replies = exchange(s, cmds[i:i + P14["wait_every"]])
+                    check(not any(isinstance(r, ReplyError) for r in replies), "14d: MADD error")
+                    w0 = time.perf_counter()
+                    (n,) = exchange(s, [("WAIT", "1", "1000")])
+                    waits.append(time.perf_counter() - w0)
+                    check(n == 1, f"14d: WAIT 1 answered {n}")
+                s.close()
+            except BaseException as e:
+                errors.append(e)
+
+        rec0 = link.applied
+        mon = threading.Thread(target=monitor)
+        mon.start()
+        t0 = time.perf_counter()
+        senders = [threading.Thread(target=sender, args=(c,)) for c in range(conns)]
+        for t in senders:
+            t.start()
+        for t in senders:
+            t.join()
+        head = pc._engine.journal.last_seq()
+        until(lambda: link.applied >= head, "14d: replica catch-up", timeout=600)
+        stream_s = time.perf_counter() - t0
+        stop.set()
+        mon.join()
+        check(not errors, f"14d: sender failed: {errors[:1]}")
+        applied = link.applied - rec0
+        prow = {n: tenant_row(pc, n) for n in ("p14d", "p14d-cms")}
+        check(all(np.array_equal(tenant_row(rc, n), r) for n, r in prow.items()),
+              "14d: replica rows != primary rows")
+        all_keys = np.concatenate([streams["bloom"], extra])
+        check(np.array_equal(prow["p14d"], p14_bloom_words(pc, "p14d", all_keys)),
+              "14d: primary row != golden")
+        # -READONLY on the replica.
+        (r,) = p14_cmds(rs, [("BF.MADD", "p14d", "1")])
+        check(isinstance(r, ReplyError) and r.code == "READONLY", f"14d: replica write got {r}")
+        # A dropped link resyncs partially.
+        hub = ps._repl_hub()
+        fr0, pr0 = hub.fullresyncs, pc.obs.repl_partial_resyncs.get(())
+        link._sock.close()
+        p14_cmds(ps, [("BF.MADD", "p14d", "7", "8", "9")])
+        head = pc._engine.journal.last_seq()
+        until(lambda: link.applied >= head and link.link_up, "14d: partial resync", timeout=120)
+        check(pc.obs.repl_partial_resyncs.get(()) == pr0 + 1 and hub.fullresyncs == fr0,
+              "14d: the dropped link did not resync partially")
+        # FAILOVER promotes the replica; every WAIT-covered write reads back.
+        check(p14_cmds(rs, [("FAILOVER",)]) == [b"OK"], "14d: FAILOVER refused")
+        check(rs.replica_link is None, "14d: still a replica after FAILOVER")
+        check(p14_cmds(rs, [("BF.MADD", "p14d", "424242")]) == [[1]], "14d: promoted write")
+        probe = all_keys[:: max(1, len(all_keys) // 65536)]
+        got = rc.get_bloom_filter("p14d").contains_each(probe)
+        check(bool(np.all(got)), "14d: a WAIT-covered write is missing on the promoted node")
+        check_healthy(pc, "14d")
+        check_healthy(rc, "14d")
+        w_us = np.asarray(waits) * 1e6
+        log({"phase": "14d", "primary_load_s": t_load, "fullresync_s": fullresync_s,
+             "fullresync_tar_bytes": link.last_resync_bytes, "stream_keys": len(extra),
+             "stream_s": stream_s, "replica_applied_records": applied,
+             "replica_applied_records_per_s": applied / stream_s,
+             "replica_max_lag_ops": lag_max[0], "waits": len(waits),
+             "wait_p50_us": float(np.percentile(w_us, 50)),
+             "wait_p99_us": float(np.percentile(w_us, 99)),
+             "rows_equal": True, "readonly": True, "partial_resync": True,
+             "failover": True, "card": card})
+    finally:
+        if rs is not None:
+            rs.close()
+        ps.close()
+        for c in (rc, pc):
+            if c is not None:
+                p14_abandon(c)
+
+
+def p14e_entry_point(base: str, card: str) -> None:
+    """14e: ``python -m redisson_tpu_torch --journal-dir --snapshot-dir``
+    under appendfsync always, SIGKILLed in the middle of a pipelined
+    SET/BF.MADD stream, then rebooted: every acknowledged write reads
+    back."""
+    import signal
+
+    from redisson_tpu_torch.serve.wireutil import exchange
+
+    sdir, jdir = os.path.join(base, "snap"), os.path.join(base, "journal")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+
+    def boot():
+        port = free_port()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "redisson_tpu_torch", "--port", str(port), "--device",
+             P14_DEVICE, "--snapshot-dir", sdir, "--journal-dir", jdir],
+            cwd=str(Path(__file__).resolve().parent), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return proc, c11d_connect(port, proc)
+
+    proc, sock = boot()
+    acked_sets, acked_keys = [], []
+    try:
+        check(exchange(sock, [("CONFIG", "SET", "appendfsync", "always"),
+                              ("BF.RESERVE", "p14e", "0.01", "100000")]) == [b"OK", b"OK"],
+              "14e: setup")
+        nb, bsz = P14["e_batches"], P14["e_batch"]
+        for b in range(nb):
+            cmds = []
+            for j in range(bsz):
+                k = b * bsz + j
+                cmds.append(("SET", f"p14e-{k}", str(k * 7)) if j % 2 else
+                            ("BF.MADD", "p14e", *(str(k * 1000 + x) for x in range(16))))
+            sock.sendall(wire([[str(a).encode() for a in c] for c in cmds]))
+            frames = read_frames(sock, len(cmds))
+            for c, f in zip(cmds, frames):
+                check(not f.startswith(b"-"), f"14e: {c[0]} failed: {f[:200]}")
+                if c[0] == "SET":
+                    acked_sets.append((c[1], c[2]))
+                else:
+                    acked_keys.extend(c[2:])
+            if b == P14["e_kill_after"]:
+                # Mid-stream: the next batch is on the wire, unanswered.
+                sock.sendall(wire([[b"SET", b"p14e-inflight", b"x"]] * bsz))
+                proc.send_signal(signal.SIGKILL)
+                break
+        proc.wait(timeout=60)
+        check(proc.returncode == -signal.SIGKILL, f"14e: exit {proc.returncode}")
+        sock.close()
+        t0 = time.perf_counter()
+        proc, sock = boot()
+        reboot_s = time.perf_counter() - t0
+        gets = exchange(sock, [("GET", k) for k, _ in acked_sets])
+        check(gets == [v.encode() for _, v in acked_sets], "14e: an acked SET was lost")
+        hits = exchange(sock, [("BF.MEXISTS", "p14e", *acked_keys)])[0]
+        check(all(int(h) == 1 for h in hits), "14e: an acked BF.MADD key was lost")
+        info = exchange(sock, [("INFO", "persistence")])[0].decode()
+        check("aof_enabled:1" in info, "14e: the rebooted server has no journal")
+        log({"phase": "14e", "acked_sets": len(acked_sets), "acked_bloom_keys": len(acked_keys),
+             "reboot_s": reboot_s, "all_acked_writes_read_back": True,
+             "aof": [ln for ln in info.split("\r\n") if ln.startswith("aof_replayed")],
+             "card": card})
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.communicate(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate(timeout=30)
+        sock.close()
+
+
+def phase_durability(seed: int, card: str) -> None:
+    """Phase 14: the op journal, kill -9 recovery and the replication
+    stream on fresh card clients."""
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    base = tempfile.mkdtemp(prefix="phase14-", dir=str(build))
+    try:
+        t0 = time.perf_counter()
+        streams = p14_streams(seed)
+        p14a_appendfsync(streams, os.path.join(base, "a"), card)
+        p14b_kill9(streams, os.path.join(base, "b"), seed, card)
+        p14c_soak(os.path.join(base, "c"), card)
+        p14d_replication(streams, os.path.join(base, "d"), card)
+        p14e_entry_point(os.path.join(base, "e"), card)
+        log({"phase": 14, "seconds": time.perf_counter() - t0, "card": card})
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-k1", metavar="SOURCE",
                     help="a K1 source with the one-warp-per-row interface, timed beside K1")
     ap.add_argument("--p10c-child", choices=("warm", "cold"), help=argparse.SUPPRESS)
+    ap.add_argument("--p14-child", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--p14-config", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.p14_child:
+        global P14_DEVICE
+        cfg = json.loads(args.p14_config)
+        P14.update(cfg["P14"])
+        P14_DEVICE = cfg["device"]
+        return p14_child(args.p14_child, args.seed)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3727,6 +4443,11 @@ def main(argv=None) -> int:
     check(cms_seq.LAUNCHES > 0, "phase 13 never launched K1")
     kernel["launches"] += cms_seq.LAUNCHES
     by_phase["13"] = cms_seq.LAUNCHES
+    cms_seq.LAUNCHES = 0  # phase 14's path: K1 under the journal and on a recovered row
+    phase_durability(args.seed, card)
+    check(cms_seq.LAUNCHES > 0, "phase 14 never launched K1")
+    kernel["launches"] += cms_seq.LAUNCHES
+    by_phase["14"] = cms_seq.LAUNCHES
     log({"kernels": [kernel]})
     print(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})

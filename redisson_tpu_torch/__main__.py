@@ -7,9 +7,12 @@ Redisson) can use the keyspace without any Python embedding.
 On SIGINT/SIGTERM the server drains its connections (every acked reply
 was dispatched), then the client shuts down, writing the final snapshot
 to ``--snapshot-dir`` (sketch pools and ``grid_store.bin``), which the
-next boot on the same directory restores.  The port of
-``redisson_tpu/__main__.py``; its per-core front door, replication,
-cluster, metrics-endpoint and federation flags wait for their modules.
+next boot on the same directory restores.  ``--journal-dir`` adds the
+op journal (the acked tail between snapshots survives a kill -9, and it
+feeds the replication stream); ``--replica-of HOST:PORT`` boots a read
+replica by full resync from that primary.  The port of
+``redisson_tpu/__main__.py``; its per-core front door, cluster,
+metrics-endpoint and federation flags wait for their modules.
 """
 
 from __future__ import annotations
@@ -43,6 +46,17 @@ def main(argv=None) -> int:
     p.add_argument(
         "--snapshot-interval-s", type=float, default=0.0,
         help="arm periodic snapshots (requires --snapshot-dir)",
+    )
+    p.add_argument(
+        "--journal-dir",
+        help="op-journal directory: tail-of-log durability between "
+        "snapshots, and the replication stream's source on a primary",
+    )
+    p.add_argument(
+        "--replica-of", default=None, metavar="HOST:PORT",
+        help="boot as a read-only replica of this primary: full-resync "
+        "bootstrap (snapshot + stream tail), then follow the replication "
+        "stream (requires a snapshot dir)",
     )
     p.add_argument("--max-connections", type=int, default=256)
     p.add_argument("--idle-timeout-s", type=float, default=300.0)
@@ -98,6 +112,10 @@ def main(argv=None) -> int:
             p.error("--snapshot-interval-s requires a snapshot dir "
                     "(--snapshot-dir or config file)")
         cfg.snapshot_interval_s = args.snapshot_interval_s
+    if args.journal_dir:
+        cfg.journal_dir = args.journal_dir
+    if args.replica_of:
+        cfg.replica_of = args.replica_of
     if args.requirepass:
         cfg.requirepass = args.requirepass
     if args.no_resp_vectorize:
@@ -108,6 +126,30 @@ def main(argv=None) -> int:
         if args.resp_reactor_threads < 1:
             p.error("--resp-reactor-threads must be >= 1")
         cfg.resp_reactor_threads = args.resp_reactor_threads
+
+    if cfg.replica_of:
+        # Replica boot: pull the primary's snapshot and wipe local
+        # durability state BEFORE the engine restores, so the process
+        # comes up at one consistent (replid, offset) and never replays
+        # stale local segments over the primary's snapshot.
+        host_m, _, port_m = str(cfg.replica_of).rpartition(":")
+        if not host_m or not port_m.isdigit():
+            p.error("--replica-of needs HOST:PORT")
+        if not cfg.snapshot_dir:
+            p.error("--replica-of requires a snapshot dir "
+                    "(--snapshot-dir or config file)")
+        from redisson_tpu_torch.durability.replica import bootstrap_full_resync
+
+        replid, snap_seq = bootstrap_full_resync(
+            host_m, int(port_m), cfg.snapshot_dir, cfg.journal_dir,
+            f"{args.host}:{args.port}", listening_port=args.port,
+        )
+        # The RESP door hands this to the ReplicaLink so its first PSYNC
+        # continues from the restored cut instead of re-shipping the
+        # snapshot it was just built from.
+        cfg._repl_bootstrap_id = replid
+        print(f"replica of {cfg.replica_of}: FULLRESYNC {replid} at seq {snap_seq}",
+              flush=True)
 
     client = redisson_tpu_torch.create(cfg)
     server = RespServer(

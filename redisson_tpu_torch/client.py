@@ -140,6 +140,22 @@ class RedissonTorchClient(CamelCompatMixin):
             self._engine.snapshot_extra = lambda d: self._grid.snapshot_to(
                 os.path.join(d, "grid_store.bin")
             )
+        # Grid keyspace journaling: grid mutations enter the engine's op
+        # journal (the total order the replication stream ships) as
+        # full-state records.
+        eng = self._engine
+        self._grid.on_journal = eng._journal_rec
+        self._grid.on_journal_ack = lambda seq: eng._ack(None, seq)
+        self._grid.journal_live = lambda: eng.journal is not None
+        # Records the engine-init replay deferred (the grid store did not
+        # exist yet) apply now, AFTER the grid snapshot restore: they are
+        # the post-cut tail, in seq order, and full-state records make
+        # re-application safe.
+        pending = getattr(eng, "_pending_grid_replay", None)
+        if pending:
+            for rec in pending:
+                self._grid.apply_journal_record(rec)
+            eng._pending_grid_replay = []
         # Pub/sub delivery pool (the PublishSubscribeService analog):
         # topic listeners run here, the RTopic -> CMS ingest bridge too.
         self._topic_bus = TopicBus(n_threads=config.threads)

@@ -170,6 +170,28 @@ class Config:
         # live-settable with CONFIG SET.
         self.client_output_buffer_limit = 0
         self.client_output_buffer_soft_seconds = 0.0
+        # Crash-safe durability, the JAX package's knobs and defaults:
+        # with a journal_dir set, every accepted sketch and grid mutation
+        # appends a CRC32-framed record (durability/journal.py); recovery
+        # = restore_snapshot + tail replay through the host golden
+        # mirrors into device rows.  ``journal_fsync`` is appendfsync
+        # always|everysec|no (live via CONFIG SET appendfsync): under
+        # ``always`` an op's ack resolves only after its record is
+        # fsynced.  Segments rotate at journal_max_segment_bytes; a
+        # completed snapshot retires the covered ones (BGREWRITEAOF).
+        # Off by default.
+        self.journal_dir: Optional[str] = None
+        self.journal_fsync: str = "everysec"
+        self.journal_max_segment_bytes: int = 64 << 20
+        # Replication: ``replica_of`` ("host:port") makes this node a
+        # read replica (full resync from the primary's snapshot tar, then
+        # its journal stream; -READONLY on writes).
+        # ``repl_backlog_bytes`` bounds the primary's partial-resync
+        # ring; ``repl_max_staleness_ops`` > 0 makes a replica that far
+        # behind refuse keyed reads with -STALEREAD (0 = never refuse).
+        self.replica_of: Optional[str] = None
+        self.repl_backlog_bytes = 4 << 20
+        self.repl_max_staleness_ops = 0
 
     def set_codec(self, codec) -> "Config":
         self.codec = codec
@@ -215,6 +237,12 @@ class Config:
         "resp_reactor_threads",
         "client_output_buffer_limit",
         "client_output_buffer_soft_seconds",
+        "journal_dir",
+        "journal_fsync",
+        "journal_max_segment_bytes",
+        "replica_of",
+        "repl_backlog_bytes",
+        "repl_max_staleness_ops",
     )
 
     def to_dict(self) -> dict:

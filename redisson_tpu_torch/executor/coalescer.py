@@ -210,6 +210,11 @@ class BatchCoalescer:
         self._service_ewma_s = 0.0
         self._ops_per_launch_ewma = 0.0
         self.last_est_wait_s = 0.0  # rtpu_admission_est_wait_us gauge
+        # Journal lag (durability/journal.py lag_s), wired by the engine
+        # while a journal is attached: under appendfsync always an ack
+        # waits for its fsync, so a slow disk sheds deadline-carrying
+        # load instead of queueing it unboundedly.
+        self.journal_lag_s = None
         self.max_queued_ops = max_queued_ops if max_queued_ops > 0 else 8 * max_batch
         self._queued_ops = 0
         # AIMD bound on dispatched-but-uncollected launches: a counter and
@@ -380,8 +385,9 @@ class BatchCoalescer:
         ahead of it (queued ops at the observed ops per launch, plus
         dispatched-but-uncollected) times the phase-corrected service
         estimate, over the live in-flight window.  Zero until the first
-        launch retires.  The ``overload.pressure`` chaos point inflates
-        it deterministically (chaos.bias)."""
+        launch retires; plus the journal's fsync lag when one is wired.
+        The ``overload.pressure`` chaos point inflates it
+        deterministically (chaos.bias)."""
         svc = self._phase_service_s()
         if svc <= 0.0:
             est = 0.0
@@ -389,6 +395,9 @@ class BatchCoalescer:
             opl = max(1.0, self._ops_per_launch_ewma)
             launches_ahead = self._queued_ops / opl + self._uncollected
             est = svc * launches_ahead / max(1, self._inflight_limit)
+        jl = self.journal_lag_s
+        if jl is not None:
+            est += jl()
         if _chaos.ENABLED:
             est += _chaos.bias("overload.pressure")
         self.last_est_wait_s = est

@@ -372,7 +372,16 @@ class TorchCommandExecutor:
             host = np.ascontiguousarray(data, dtype=np.uint8)
         else:
             host = np.ascontiguousarray(data, dtype=np.uint32).view(np.int32)
-        return torch.from_numpy(host.copy()).to(self.device)
+        if self.device.type != "cuda":
+            return torch.from_numpy(host.copy())
+        # One host copy into pinned memory, then one DMA: a 128 MiB row
+        # (journal recovery's writeback, a promotion) crosses in one copy.
+        staged = torch.empty(
+            host.shape, dtype=torch.uint8 if host.dtype == np.uint8 else torch.int32,
+            pin_memory=True,
+        )
+        staged.numpy()[...] = host
+        return staged.to(self.device)
 
     def make_pool_state(self, capacity: int, row_units: int, dtype=np.uint32):
         """Flat [capacity*row_units + 1]; trailing scratch element."""

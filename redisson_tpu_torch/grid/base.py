@@ -15,14 +15,35 @@ from typing import Any, Optional
 from redisson_tpu_torch.objects.base import CamelCompatMixin
 
 
+def _journal_wrap(fn):
+    """After the wrapped mutator returns, journal the object's full
+    current state through the store (capture is atomic under the store
+    lock, so seq order equals state order even when the method already
+    released the lock — see GridStore._journal_capture)."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        res = fn(self, *args, **kwargs)
+        store = self._store
+        if store.journal_active():
+            store.journal_entry(self._name)
+        return res
+
+    return wrapper
+
+
 def journaled(*method_names):
-    """Class decorator naming an object's MUTATOR methods, as in the JAX
-    package, where it routes each through the op journal (full-state grid
-    records for replicas and crash recovery).  The port has no op journal
-    yet, so the decorator is a no-op that keeps the mutator lists beside
-    their classes for the journal to wire up when it lands."""
+    """Class decorator: route the named MUTATOR methods through the op
+    journal, so replicas and crash recovery mirror grid mutations.  Grid
+    records are full-entry-state and idempotent; read-only methods must
+    NOT be listed (every record costs an encode + a journal append).
+    The ``_async`` twins wrap the sync methods via ``__getattr__``, so
+    decorating the sync form covers both."""
 
     def deco(cls):
+        for n in method_names:
+            setattr(cls, n, _journal_wrap(getattr(cls, n)))
         return cls
 
     return deco

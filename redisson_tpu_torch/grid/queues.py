@@ -85,8 +85,10 @@ class Queue(GridObject):
             dest = self._client.get_queue(dest_name)
             dest._entry().value.insert(0, vb)
             # The destination is mutated RAW (not through a decorated
-            # method): the op journal, once ported, captures it here, as
-            # the JAX package does.
+            # method), so it journals here; the wrapper's own capture of
+            # self follows with a higher seq, and its durability ack
+            # covers this record too (fsync is seq-ordered).
+            self._store._journal_capture(dest_name)
             self._store.notify()
             return self._dec(vb)
 
@@ -419,6 +421,7 @@ class RingBuffer(Queue):
                 return None
             vb = e.value["items"].pop()
             self._client.get_queue(dest_name)._entry().value.insert(0, vb)
+            self._store._journal_capture(dest_name)  # raw dest write, as above
             self._store.notify()
             return self._dec(vb)
 

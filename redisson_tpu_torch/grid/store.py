@@ -13,8 +13,9 @@ BLPOP, → SURVEY.md §3.3).
 The port's copy of ``redisson_tpu/grid/store.py``.  The snapshot codec
 covers every kind the JAX package persists, so a ``grid_store.bin``
 written by either package restores into the other and is written back
-byte for byte.  The op-journal capture hooks and the load-map keyspace
-hook wait for those subsystems.
+byte for byte.  Mutations reach the op journal as full-state
+``grid.state``/``grid.del`` records (``on_journal`` hooks, wired by the
+client); the load-map keyspace hook waits for that subsystem.
 """
 
 from __future__ import annotations
@@ -71,11 +72,150 @@ class GridStore:
         # must be leaf-safe: they are called under ``self.lock``.
         self.on_invalidate = None
         self.on_invalidate_all = None
+        # Op-journal reach: the client wires these to the sketch engine's
+        # journal seam so grid mutations enter the SAME total order the
+        # replication stream ships.  Grid records are full-entry-state
+        # (idempotent, last-write-wins on replay), captured+appended
+        # atomically under ``self.lock`` — so seq order equals capture
+        # order and the highest seq for a name carries its newest state.
+        # ``on_journal(op, name, **fields) -> seq|None`` is called under
+        # the lock (it only takes the journal's queue lock — ordering
+        # grid.store → journal.queue, never reversed);
+        # ``on_journal_ack(seq)`` is called OUTSIDE it (under
+        # appendfsync=always it blocks on the fsync fence).
+        self.on_journal = None
+        self.on_journal_ack = None
+        # ``journal_live() -> bool``, wired with the hooks: whether a
+        # journal is attached right now (CONFIG SET appendonly switches
+        # it live).  A capture encodes the object's whole state, so with
+        # the journal off it must not run at all.
+        self.journal_live = None
+        # True while applying replicated/replayed records: the apply
+        # path must never re-journal what it applies.
+        self.journal_suspended = False
 
     def _note_invalidate(self, name: str) -> None:
         hook = self.on_invalidate
         if hook is not None:
             hook(name)
+
+    # -- op-journal capture/apply ------------------------------------------
+
+    @staticmethod
+    def _pack_blobs(blobs) -> bytes:
+        """Length-prefixed blob list as one bytes field (the record
+        codec ships bytes as a uint8 array)."""
+        import struct
+
+        parts = [struct.pack("<I", len(blobs))]
+        for b in blobs:
+            parts.append(struct.pack("<I", len(b)))
+            parts.append(bytes(b))
+        return b"".join(parts)
+
+    @staticmethod
+    def _unpack_blobs(data) -> list:
+        import struct
+
+        if hasattr(data, "tobytes"):  # decoded records carry uint8 arrays
+            data = data.tobytes()
+        (n,) = struct.unpack_from("<I", data, 0)
+        off = 4
+        out = []
+        for _ in range(n):
+            (ln,) = struct.unpack_from("<I", data, off)
+            off += 4
+            out.append(bytes(data[off : off + ln]))
+            off += ln
+        if len(out) != n:
+            raise ValueError("truncated grid blob pack")
+        return out
+
+    def journal_active(self) -> bool:
+        """True while grid mutations must be journaled: the hooks are
+        wired, a journal is attached and this is not a replay."""
+        live = self.journal_live
+        return (
+            self.on_journal is not None and not self.journal_suspended
+            and live is not None and live()
+        )
+
+    def _journal_capture(self, name: str):
+        """Append one full-state record for ``name`` as it stands RIGHT
+        NOW (a ``grid.del`` when absent/expired) and return the seq.
+        MUST run under ``self.lock`` — capture+append atomicity is what
+        makes seq order equal state order.  None when journaling is off
+        (no encode then), suspended, or the kind has no codec (such kinds don't snapshot
+        either, so replicas/recovery can't see them anyway)."""
+        if not self.journal_active():
+            return None
+        hook = self.on_journal
+        e = self._data.get(name)
+        if e is None or e.expired(time.time()):
+            return hook("grid.del", name)
+        blobs: list = []
+
+        def add_blob(b) -> int:
+            blobs.append(bytes(b))
+            return len(blobs) - 1
+
+        desc = self._enc_entry(e.kind, e.value, add_blob)
+        if desc is None:
+            return None
+        import json
+
+        return hook(
+            "grid.state", name,
+            kind=e.kind,
+            desc=json.dumps(desc, separators=(",", ":")),
+            expire_at=e.expire_at,
+            blobs=self._pack_blobs(blobs),
+        )
+
+    def _journal_ack(self, seq) -> None:
+        """Durability fence for a captured record — call OUTSIDE the
+        store lock (blocks on fsync under appendfsync=always)."""
+        ack = self.on_journal_ack
+        if ack is not None and seq is not None:
+            ack(seq)
+
+    def journal_entry(self, name: str) -> None:
+        """Capture + ack one name's state: the per-mutator hook the
+        ``journaled`` decorator (grid/base.py) calls after a mutation
+        returns."""
+        with self.lock:
+            seq = self._journal_capture(name)
+        self._journal_ack(seq)
+
+    def apply_journal_record(self, rec: dict) -> None:
+        """Install one ``grid.state``/``grid.del`` record — the replica
+        stream-apply and journal-recovery entry point.  Full-state
+        semantics: idempotent, latest-seq-wins."""
+        op = rec["op"]
+        name = rec["name"]
+        prev = self.journal_suspended
+        self.journal_suspended = True
+        try:
+            if op == "grid.del":
+                self.delete(name)
+                return
+            if op != "grid.state":
+                raise ValueError(f"not a grid journal record: {op!r}")
+            import json
+
+            blobs = self._unpack_blobs(rec["blobs"])
+            value = self._dec_entry(json.loads(rec["desc"]), blobs)
+            exp = rec.get("expire_at")
+            with self.lock:
+                e = GridEntry(str(rec["kind"]), value)
+                e.expire_at = exp
+                self._data[name] = e
+                self._note_invalidate(name)
+                if exp is not None:
+                    self._ensure_sweeper()
+                self.cond.notify_all()
+        finally:
+            self.journal_suspended = prev
 
     def _guard_foreign(self, name: str) -> None:
         if self.foreign_exists is not None and self.foreign_exists(name):
@@ -145,6 +285,8 @@ class GridStore:
             del self._data[name]
             self._note_invalidate(name)
             self.cond.notify_all()
+            seq = self._journal_capture(name)
+        self._journal_ack(seq)
         return True
 
     def rename(self, old: str, new: str) -> bool:
@@ -161,6 +303,11 @@ class GridStore:
             self._data[new] = e
             self._note_invalidate(old)
             self._note_invalidate(new)
+            # Two full-state records (old absent, new present) — rename
+            # needs no record type of its own under last-write-wins.
+            self._journal_capture(old)
+            seq = self._journal_capture(new)
+        self._journal_ack(seq)
         return True
 
     def names(self, pattern: Optional[str] = None) -> list[str]:
@@ -186,6 +333,8 @@ class GridStore:
             e.expire_at = time.time() + ttl_s
             self._note_invalidate(name)
             self._ensure_sweeper()
+            seq = self._journal_capture(name)
+        self._journal_ack(seq)
         return True
 
     def expire_at(self, name: str, epoch_s: float) -> bool:
@@ -196,6 +345,8 @@ class GridStore:
             e.expire_at = float(epoch_s)
             self._note_invalidate(name)
             self._ensure_sweeper()
+            seq = self._journal_capture(name)
+        self._journal_ack(seq)
         return True
 
     def clear_expire(self, name: str) -> bool:
@@ -205,6 +356,8 @@ class GridStore:
                 return False
             e.expire_at = None
             self._note_invalidate(name)
+            seq = self._journal_capture(name)
+        self._journal_ack(seq)
         return True
 
     def remain_ttl_ms(self, name: str) -> int:

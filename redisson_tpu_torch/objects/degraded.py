@@ -94,6 +94,13 @@ class BloomMirror:
         self.ops += len(h1m)
         return out
 
+    def add_state(self, h1m, h2m) -> None:
+        """The state effect of a batch of adds, vectorized (setting bits
+        is order-free; journal replay needs no per-op results)."""
+        idx = self.model._indexes(np.asarray(h1m, np.uint32), np.asarray(h2m, np.uint32))
+        self.model.bits[idx.reshape(-1)] = True
+        self.ops += len(idx)
+
     def count(self) -> int:
         return self.model.cardinality_estimate()
 
@@ -143,6 +150,27 @@ class BitsetMirror:
                 prev[j] = bool(self.model.get(i)[0])
         self.ops += len(idx)
         return prev
+
+    def assign(self, idx, value: bool) -> None:
+        """The state effect of SET or CLEAR of every index, vectorized
+        (one value for all: order-free; journal replay needs no per-op
+        results)."""
+        idx = np.asarray(idx, np.int64)
+        if idx.size:
+            self.model._grow(int(idx.max()) + 1)
+            self.model.bits[idx] = bool(value)
+        self.ops += len(idx)
+
+    def flip_state(self, idx) -> None:
+        """The state effect of FLIP of every index, vectorized: an index
+        flipped an odd number of times ends inverted."""
+        idx = np.asarray(idx, np.int64)
+        if idx.size:
+            self.model._grow(int(idx.max()) + 1)
+            u, c = np.unique(idx, return_counts=True)
+            odd = u[(c & 1) == 1]
+            self.model.bits[odd] = ~self.model.bits[odd]
+        self.ops += len(idx)
 
     def set_range(self, from_bit: int, to_bit: int, value: bool) -> None:
         """SETRANGE analog — [from_bit, to_bit) assignment (the
@@ -197,6 +225,15 @@ class HllMirror:
                 changed[j] = True
         self.ops += len(idx)
         return changed
+
+    def add_state(self, c0, c1, c2) -> None:
+        """The state effect of a batch of adds, vectorized (a register
+        keeps the max rank that hit it: order-free)."""
+        idx, rank = golden.hll_index_rank(
+            np.asarray(c0, np.uint32), np.asarray(c1, np.uint32), np.asarray(c2, np.uint32)
+        )
+        np.maximum.at(self.regs, np.asarray(idx, np.int64), np.asarray(rank, np.uint8))
+        self.ops += len(idx)
 
     def merge_rows(self, rows) -> None:
         """PFMERGE into this mirror: max of registers per source row

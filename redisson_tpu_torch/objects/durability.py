@@ -28,10 +28,15 @@ expiry drop tier and near-cache state with the object.  Chaos points:
 restore_snapshot) and ``snapshot.rename`` (between the tmp-file fsync and
 the renames).
 
-Left out here, with the queue items that bring them: the topology change
-and the reshard branch of ``restore_snapshot`` (multi-GPU); the journal
-records behind the commit gate (the durability tier).  A snapshot taken
-on a mesh is refused rather than misread.
+Journal coordination, as in the JAX package: TTL changes and RESTORE
+append ``obj.expire``/``obj.persist``/``obj.restore`` records under the
+commit gate; a snapshot records the journal's cut under the gate (its
+``journal_seq``) and retires the covered segments once its files are
+durable, and a restore hands that cut to the tail replay.
+
+Left out here, with the queue item that brings them: the topology change
+and the reshard branch of ``restore_snapshot`` (multi-GPU).  A snapshot
+taken on a mesh is refused rather than misread.
 
 Mixed into TorchSketchEngine (objects/engines.py).
 """
@@ -175,20 +180,27 @@ class SketchDurabilityMixin:
         return self.expire_at(name, time.time() + ttl_s)
 
     def expire_at(self, name: str, ts: float) -> bool:
-        entry = self._live_lookup(name)
-        if entry is None:
-            return False
-        entry.expire_at = float(ts)
-        self._ensure_sweeper()
-        return True
+        with self._journal_gate:
+            entry = self._live_lookup(name)
+            if entry is None:
+                return False
+            entry.expire_at = float(ts)
+            # Journaled as the absolute deadline (the PEXPIREAT form):
+            # replay re-arms it, and a deadline already past at recovery
+            # lazily reaps, as the live path would.
+            seq = self._journal_rec("obj.expire", name, at=float(ts))
+            self._ensure_sweeper()
+        return self._ack(True, seq)  # fence outside the gate
 
     def clear_expire(self, name: str) -> bool:
         """PERSIST analog: True if a TTL was removed."""
-        entry = self._live_lookup(name)
-        if entry is None or entry.expire_at is None:
-            return False
-        entry.expire_at = None
-        return True
+        with self._journal_gate:
+            entry = self._live_lookup(name)
+            if entry is None or entry.expire_at is None:
+                return False
+            entry.expire_at = None
+            seq = self._journal_rec("obj.persist", name)
+        return self._ack(True, seq)  # fence outside the gate
 
     def remain_ttl_ms(self, name: str) -> int:
         """PTTL convention: -2 absent, -1 no TTL, else remaining ms."""
@@ -260,6 +272,12 @@ class SketchDurabilityMixin:
         if the name exists and ``replace`` is False."""
         with self._journal_gate:
             self._restore_impl(name, data, replace)
+            # Journaled as the raw dump blob (wholesale state replace):
+            # replay routes back through restore() itself.
+            seq = self._journal_rec(
+                "obj.restore", name, data=data, replace=bool(replace)
+            )
+        self._ack(None, seq)  # fence outside the gate
 
     def _restore_impl(self, name: str, data: bytes, replace: bool) -> None:
         if _chaos.ENABLED:
@@ -306,19 +324,31 @@ class SketchDurabilityMixin:
         metadata, in fsynced tmp files renamed into place (directory
         fsynced), so neither a concurrent restore nor a host crash sees a
         torn snapshot.  One snapshot at a time (the periodic snapshotter,
-        explicit calls and shutdown share the tmp names)."""
+        explicit calls and shutdown share the tmp names).
+
+        Journal coordination: the gate is held across drain → cut →
+        capture, so the cut recorded in the metadata splits the records
+        exactly into snapshot-covered (retired by ``mark_snapshot`` once
+        the files are durable) and tail (replayed at recovery)."""
         if _chaos.ENABLED:
             _chaos.fire("snapshot.save")
         os.makedirs(directory, exist_ok=True)
         with self._snapshot_lock:
             # The gate holds writers and tier transitions off across
             # drain → capture, so the capture is one point in time.
+            journal = self.journal
             with self._journal_gate:
                 # rtpulint: disable=RT001 the drain barrier MUST run inside the snapshot lock: it is what makes the capture consistent, and the only waiters on this lock are other whole-snapshot callers (periodic/explicit/shutdown), never the write path
                 self._drain()
+                journal_cut = journal.cut() if journal is not None else 0
                 meta, arrays = self._snapshot_capture()
+            meta["journal_seq"] = journal_cut
             self._snapshot_write(directory, meta, arrays)
             self._last_save_ts = time.time()  # LASTSAVE
+            if journal is not None:
+                # The snapshot covering records <= cut is durable: retire
+                # the covered segments (the BGREWRITEAOF analog).
+                journal.mark_snapshot(journal_cut)
             # Blob GC barrier: the latest durable snapshot now names
             # exactly these blob files; retired blobs outside the set may
             # be deleted.
@@ -407,7 +437,6 @@ class SketchDurabilityMixin:
                 "topk": self.topk.export_state(),
                 "num_shards": 1,
                 "mbit_threshold_words": _MBIT_THRESHOLD_STAMP,
-                "journal_seq": 0,
             }
         return meta, arrays
 
@@ -461,6 +490,9 @@ class SketchDurabilityMixin:
                 f"engine restores single-device snapshots only"
             )
         topk_decoded = type(self.topk).decode_state(meta.get("topk"))
+        # Journal recovery barrier: records with seq <= this are covered
+        # by the snapshot; the tail replays on top.
+        restored_seq = int(meta.get("journal_seq") or 0)
         with np.load(pools_path) as data, \
                 self.registry._lock, self.executor._dispatch_lock:
             if self.registry.entries():
@@ -551,6 +583,7 @@ class SketchDurabilityMixin:
         for name, fname, crc, nbytes in pending_disk:
             self.residency.adopt_blob(name, fname, crc, nbytes)
         self.topk.import_decoded(topk_decoded)
+        self._restored_journal_seq = restored_seq
         # Whole-keyspace event: every cached read predates the restored
         # state.
         self.nearcache.invalidate_all()

@@ -29,8 +29,18 @@ read that captured ``entry.row`` before that check resolves it through
 ``_tier_row``.  Every mutating entry point holds ``_journal_gate``
 across its check-residency → submit window, so no transition interleaves
 with a write.  The pre-warmer (``executor/prewarm.py``) takes first
-launches off the serving path.  The journal behind the gate and the
-replicas are not part of the port yet.
+launches off the serving path.
+
+Durability, as in the JAX engine: with ``Config.journal_dir`` set, every
+accepted mutation appends one record to the op journal
+(``durability/journal.py``) inside the gate, in the order the gate
+admits the ops, built from the host arrays the call already holds (raw
+codec lanes for keyed Bloom adds, never a device tensor).  Under
+``appendfsync always`` the returned result acks only once its record is
+fsynced (``_DurableResult``; synchronous mutators wait in ``_ack``,
+outside the gate).  Construction restores the snapshot, then replays the
+journal tail through the golden mirrors into the device rows
+(``durability/recovery.py``).
 """
 
 from __future__ import annotations
@@ -104,6 +114,48 @@ class ImmediateResult(LazyResult):
 
     def __init__(self, value):
         super().__init__(value)
+
+
+class _DurableResult:
+    """Ack gate for ``appendfsync=always``: the caller's ``.result()``
+    returns only after the op's journal record is fsynced — group commit
+    batches the fsyncs, so a burst of writers amortizes one disk barrier.
+    Wraps any result-like (LazyResult, ImmediateResult, HintedFuture,
+    MappedFuture).  The wait runs on the caller's thread."""
+
+    __slots__ = ("_res", "_journal", "_seq")
+
+    def __init__(self, res, journal, seq):
+        self._res = res
+        self._journal = journal
+        self._seq = seq
+
+    def result(self, timeout=None):
+        v = self._res.result(timeout)
+        if not self._journal.wait_durable(self._seq, timeout):
+            # A timed-out durability wait must NOT ack: returning the
+            # value here would report a write durable that a crash can
+            # still lose.
+            raise TimeoutError(
+                f"journal record {self._seq} not fsynced within "
+                f"{timeout}s (appendfsync=always durability fence)"
+            )
+        return v
+
+    def get(self):
+        return self.result()
+
+    def done(self):
+        inner = getattr(self._res, "done", None)
+        return (
+            (inner() if inner is not None else True)
+            and self._journal.is_durable(self._seq)
+        )
+
+    def add_done_callback(self, fn):
+        # Delegated un-gated: quota releases key off the DEVICE
+        # resolution; the durability gate applies to the ack (result()).
+        self._res.add_done_callback(fn)
 
 
 class _ConcatLazy:
@@ -401,13 +453,18 @@ class TorchSketchEngine(SketchDurabilityMixin):
         # background thread arm AFTER it.
         self.residency = ResidencyManager(self, cfg, obs=self.obs)
         # The commit gate: every mutating entry point holds it across its
-        # check-residency → submit window, and every tier transition and
-        # snapshot capture holds it, so no write is in flight between
-        # "the op decided device" and "the row moved".  (The JAX package's
-        # journal appends under it too; the port has no journal yet.)  A
-        # plain RLock: strictly the outermost lock of every path that
-        # takes it.
+        # check-residency → journal-append → submit window, and every tier
+        # transition and snapshot capture holds it, so no write is in
+        # flight between "the op decided device" and "the row moved", and
+        # a record can never land before a snapshot's cut while its
+        # device effect lands after the capture (truncated from the
+        # journal AND missing from the snapshot).  A plain RLock: strictly
+        # the outermost lock of every path that takes it.
         self._journal_gate = threading.RLock()
+        self.journal = None
+        self._journal_replaying = False
+        self._restored_journal_seq = 0
+        self.recovery_stats = None  # set by durability.recovery.replay_journal
         self._register_health_gauges()
         self._sweeper = None
         self._snapshotter = None
@@ -417,14 +474,18 @@ class TorchSketchEngine(SketchDurabilityMixin):
         # Checkpoint/resume: restore from the configured directory, then
         # arm the ladder, then periodic snapshots (never while the restore
         # runs).
-        if config.snapshot_dir:
-            try:
+        # Then the journal tail replays on top of the snapshot (never
+        # while the snapshotter runs: it arms last).
+        try:
+            if config.snapshot_dir:
                 self.restore_snapshot(config.snapshot_dir)
-            except Exception:
-                self._stop_health()
-                self._stop_prewarmer()
-                self._stop_coalescer()
-                raise
+            if config.journal_dir:
+                self._journal_attach(config.journal_dir, recover=True)
+        except Exception:
+            self._stop_health()
+            self._stop_prewarmer()
+            self._stop_coalescer()
+            raise
         # Creates past the device budget now birth HOST-resident, and the
         # maintenance thread starts once a budget is armed.
         self.registry.alloc_gate = self.residency.device_full
@@ -492,6 +553,18 @@ class TorchSketchEngine(SketchDurabilityMixin):
              self.nearcache.store.entries),
         ):
             reg.gauge_callback(name, help_, fn)
+        # Journal lag and segment count: 0 while journaling is off, so a
+        # live CONFIG SET appendonly yes is visible without re-wiring.
+        reg.gauge_callback(
+            "rtpu_journal_lag_ops",
+            "journal records appended but not yet fsynced",
+            lambda: 0 if self.journal is None else self.journal.lag_ops(),
+        )
+        reg.gauge_callback(
+            "rtpu_journal_segments",
+            "live journal segment files",
+            lambda: 0 if self.journal is None else self.journal.stats()["segments"],
+        )
 
     def _stop_health(self) -> None:
         _chaos.unset_observer(self._chaos_observer)
@@ -500,8 +573,9 @@ class TorchSketchEngine(SketchDurabilityMixin):
     def shutdown(self) -> None:
         """Unhook the chaos observer and stop the health monitor and the
         residency thread, stop the snapshotter and the sweeper, write the
-        final snapshot (best effort, logged on failure), then stop the
-        pre-warmer and the coalescer."""
+        final snapshot (best effort, logged on failure), close the journal
+        (drain + final fsync, so a clean shutdown replays nothing), then
+        stop the pre-warmer and the coalescer."""
         self._stop_health()
         self.residency.shutdown()
         self._stop_snapshotter()
@@ -511,6 +585,11 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 self.snapshot(self.config.snapshot_dir)
             except Exception:
                 _log.exception("snapshot on shutdown to %s failed", self.config.snapshot_dir)
+        j, self.journal = self.journal, None
+        if j is not None:
+            if self.coalescer is not None:
+                self.coalescer.journal_lag_s = None
+            j.close()
         self._stop_prewarmer()
         self._stop_coalescer()
 
@@ -587,6 +666,121 @@ class TorchSketchEngine(SketchDurabilityMixin):
             fut.add_done_callback(lambda _f: gov.release(tenant, nops))
         return HintedFuture(fut, self.coalescer, deadline=deadline,
                             op=_op_label(key), nops=nops)
+
+    # -- crash-safe durability: the op journal ------------------------------
+
+    def _journal_attach(self, jdir: str, recover: bool, fresh: bool = False) -> None:
+        """Open (and optionally recover) the op journal.  ``recover``
+        replays the post-snapshot tail through the golden mirrors into
+        device rows (durability/recovery.py); ``fresh`` wipes existing
+        segments first (the live-enable path: pre-enable state is covered
+        by the coordinating snapshot, and stale segments of an earlier
+        lineage must not replay on the next boot)."""
+        from redisson_tpu_torch.durability import OpJournal, replay_journal
+
+        cfg = self.config
+        j = OpJournal(
+            jdir, fsync_policy=cfg.journal_fsync,
+            max_segment_bytes=cfg.journal_max_segment_bytes,
+            obs=self.obs, fresh=fresh,
+        )
+        if recover:
+            try:
+                n = replay_journal(self, j, self._restored_journal_seq)
+            except BaseException:
+                j.close()
+                raise
+            if n:
+                self.obs.journal_replayed.inc((), n)
+        self.journal = j
+        if self.coalescer is not None:
+            self.coalescer.journal_lag_s = j.lag_s
+
+    def journal_set_enabled(self, enabled: bool) -> None:
+        """Live ``CONFIG SET appendonly yes|no``.  Enabling starts a FRESH
+        journal lineage and, when a snapshot dir is configured, takes a
+        coordinating snapshot so recovery = snapshot + tail; disabling
+        closes the journal after a final drain + fsync."""
+        if enabled:
+            jdir = self.config.journal_dir
+            if not jdir:
+                raise ValueError(
+                    "journal_dir is not configured (set Config.journal_dir "
+                    "before enabling appendonly)"
+                )
+            with self._journal_gate:
+                # Re-checked inside the gate: two racing enables must not
+                # both attach (the loser's wipe would orphan the winner's
+                # live segments).
+                if self.journal is not None:
+                    return
+                self._journal_attach(jdir, recover=False, fresh=True)
+            if self.config.snapshot_dir:
+                self.snapshot(self.config.snapshot_dir)
+        else:
+            with self._journal_gate:
+                j, self.journal = self.journal, None
+                if self.coalescer is not None:
+                    self.coalescer.journal_lag_s = None
+            if j is not None:
+                j.close()
+
+    def journal_set_policy(self, policy: str) -> None:
+        """Live ``CONFIG SET appendfsync always|everysec|no``."""
+        from redisson_tpu_torch.durability import FSYNC_POLICIES
+
+        if policy not in FSYNC_POLICIES:
+            raise ValueError(f"journal_fsync must be one of {FSYNC_POLICIES}, got {policy!r}")
+        self.config.journal_fsync = policy
+        j = self.journal
+        if j is not None:
+            j.set_policy(policy)
+
+    def journal_fence(self, timeout=None) -> bool:
+        """The WAIT fence: force an fsync covering every record appended
+        so far and block until it lands (True; False on timeout).
+        Trivially True with journaling off."""
+        j = self.journal
+        if j is None:
+            return True
+        return j.wait_durable(timeout=timeout)
+
+    def _journal_rec(self, op: str, name: str, **fields) -> Optional[int]:
+        """Append one ACCEPTED-mutation record; its seq, or None when
+        journaling is off or this is replay (a recovery never journals
+        its own replay)."""
+        j = self.journal
+        if j is None or self._journal_replaying:
+            return None
+        rec = {"op": op, "name": name}
+        rec.update(fields)
+        return j.append(rec)
+
+    def _durable(self, res, seq: Optional[int]):
+        """Gate a result-like's ack on its record's fsync under
+        ``appendfsync=always`` (the other policies' durability window is
+        the fsync cadence, not the ack)."""
+        j = self.journal
+        if seq is None or j is None or j.policy != "always":
+            return res
+        return _DurableResult(res, j, seq)
+
+    def _ack(self, value, seq: Optional[int]):
+        """Durability fence for synchronously returning mutations
+        (delete/rename/expire/merge/...): under ``always`` the method
+        returns only once its record is fsynced.  Called OUTSIDE the
+        gate: waiting under it would serialize every writer behind one
+        barrier (group commit amortizes because waiters overlap)."""
+        j = self.journal
+        if seq is not None and j is not None and j.policy == "always":
+            if not j.wait_durable(seq):
+                raise TimeoutError(f"journal record {seq} not fsynced")
+        return value
+
+    def _commit(self, res, op: str, name: str, **fields):
+        """Journal an accepted mutation and gate its ack: the one-call
+        form for result-returning engine methods."""
+        return self._durable(res, self._journal_rec(op, name, **fields))
 
     # -- graceful degradation: host golden-mirror failover -----------------
 
@@ -851,6 +1045,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
             entry = self.registry.detach(name)
             if entry is None:
                 return False
+            seq = self._journal_rec("obj.del", name)
             was_expired = entry.expire_at is not None and time.time() >= entry.expire_at
             self._drain()
             self._reap_row(entry.pool, entry.row)
@@ -865,7 +1060,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
             # Residency state dies with the object: heat, host-bytes
             # accounting, and the disk blob (retired into blob GC).
             self.residency.drop(name)
-            return not was_expired
+        return self._ack(not was_expired, seq)
 
     def rename(self, old: str, new: str) -> bool:
         """RENAME: False (nothing changes) when ``old`` is missing or
@@ -880,6 +1075,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
             ok, dest = self.registry.rename_detach_dest(old, new)
             if not ok:  # the source expired since the check
                 return False
+            seq = self._journal_rec("obj.rename", old, new=new)
             if dest is not None:
                 self._reap_row(dest.pool, dest.row)
             self.topk.rename(old, new)
@@ -895,7 +1091,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
             # Residency state follows the rename (heat, host bytes, the
             # blob index; a displaced destination's blob retires).
             self.residency.rename(old, new)
-            return True
+        return self._ack(True, seq)
 
     def names(self, kind=None) -> list:
         for e in self.registry.entries():
@@ -926,10 +1122,16 @@ class TorchSketchEngine(SketchDurabilityMixin):
             _, created = self.registry.try_create(
                 name, PoolKind.BLOOM, (class_words_for_bits(m),), params
             )
+            # Journaled only when the create WON (replay of a lost race
+            # must not re-parameterize the incumbent).
+            seq = self._journal_rec(
+                "bloom.init", name,
+                ei=int(expected_insertions), fp=float(false_probability),
+            ) if created else None
         # (The JAX engine registers its host-hashed bloom ladder here; the
         # port hashes Bloom keys on the card, and the keyed ladders
         # register on the first submit, _bloom_submit_mixed_keys.)
-        return created
+        return self._ack(created, seq)
 
     def bloom_count(self, name) -> LazyResult:
         nc = self.nearcache
@@ -1087,12 +1289,19 @@ class TorchSketchEngine(SketchDurabilityMixin):
             entry = self._require(name, PoolKind.BLOOM)
             # The mixed-keys path owns the degraded-mirror failover.
             if self.config.gpu_sketch.exact_add_semantics or self._degraded(entry):
-                return self._bloom_submit_mixed_keys(entry, blocks, lengths, True)
-            m, k = entry.params["size"], entry.params["hash_iterations"]
-            self._drain()
-            return self.executor.bloom_add_keys_st(
-                entry.pool, entry.row, m, k, blocks,
-                np.broadcast_to(np.asarray(lengths, np.uint32), (blocks.shape[0],)),
+                res = self._bloom_submit_mixed_keys(entry, blocks, lengths, True)
+            else:
+                m, k = entry.params["size"], entry.params["hash_iterations"]
+                self._drain()
+                res = self.executor.bloom_add_keys_st(
+                    entry.pool, entry.row, m, k, blocks,
+                    np.broadcast_to(np.asarray(lengths, np.uint32), (blocks.shape[0],)),
+                )
+            # Journaled as the raw codec lanes already on the host (replay
+            # hashes them there, bit-identical to the card's hash).
+            return self._commit(
+                res, "bloom.addk", name,
+                blocks=np.asarray(blocks), lengths=np.asarray(lengths),
             )
 
     def bloom_contains_encoded(self, name, blocks, lengths):
@@ -1137,7 +1346,18 @@ class TorchSketchEngine(SketchDurabilityMixin):
             return self.bloom_add_encoded(name, blocks, lengths)
         with self._nc_mutate(name), self._journal_gate:
             entry = self._require(name, PoolKind.BLOOM)
-            return self._bloom_submit_mixed_keys(entry, blocks, lengths, flags)
+            res = self._bloom_submit_mixed_keys(entry, blocks, lengths, flags)
+            if self.journal is None:
+                return res  # the ADD subset below is a copy: skip it
+            # The ADD subset only (contains ops change no state); adds of
+            # one call are order-independent.
+            lens_arr = np.asarray(lengths, np.uint32)
+            if lens_arr.ndim == 0:
+                lens_arr = np.full(blocks.shape[0], lens_arr, np.uint32)
+            return self._commit(
+                res, "bloom.addk", name,
+                blocks=np.asarray(blocks)[flags], lengths=lens_arr[flags],
+            )
 
     # -- hll ---------------------------------------------------------------
 
@@ -1161,7 +1381,13 @@ class TorchSketchEngine(SketchDurabilityMixin):
         grew.  Coalesced: one segment per HLL pool, per-op changed flags
         reduced with ``any``."""
         with self._nc_mutate(name), self._journal_gate:
-            return self._hll_add_impl(name, c0, c1, c2)
+            res = self._hll_add_impl(name, c0, c1, c2)
+            return self._commit(
+                res, "hll.add", name,
+                c0=np.asarray(c0, np.uint32),
+                c1=np.asarray(c1, np.uint32),
+                c2=np.asarray(c2, np.uint32),
+            )
 
     def _hll_add_impl(self, name, c0, c1, c2):
         entry = self.hll_ensure(name)
@@ -1193,9 +1419,14 @@ class TorchSketchEngine(SketchDurabilityMixin):
             with self._nc_mutate(name), self._journal_gate:
                 entry = self.hll_ensure(name)
                 if not self._degraded(entry):
-                    return self.executor.hll_add_keys_single(
+                    res = self.executor.hll_add_keys_single(
                         entry.pool, entry.row, blocks,
                         np.broadcast_to(np.asarray(lengths, np.uint32), (blocks.shape[0],)),
+                    )
+                    # Raw key lanes; replay hashes them on the host.
+                    return self._commit(
+                        res, "hll.addk", name,
+                        blocks=np.asarray(blocks), lengths=np.asarray(lengths),
                     )
         c0, c1, c2, _ = hashing.murmur3_x86_128(blocks, lengths)
         return self.hll_add(name, c0, c1, c2)
@@ -1254,6 +1485,8 @@ class TorchSketchEngine(SketchDurabilityMixin):
         """PFMERGE: this = max(this, sources)."""
         with self._nc_mutate(name), self._journal_gate:
             self._hll_merge_with_impl(name, other_names)
+            seq = self._journal_rec("hll.merge", name, srcs=[str(n) for n in other_names])
+        self._ack(None, seq)
 
     def _hll_merge_with_impl(self, name, other_names) -> None:
         entry = self.hll_ensure(name)
@@ -1510,17 +1743,20 @@ class TorchSketchEngine(SketchDurabilityMixin):
         with self._nc_mutate(name, structural=not value), self._journal_gate:
             entry = self.bitset_ensure(name, int(idx.max()) + 1 if idx.size else 1)
             if value:
-                return self._bitset_rw(bitset_ops.OP_SET, self.executor.bitset_set, entry, idx)
-            return self._bitset_rw(
-                bitset_ops.OP_CLEAR, self.executor.bitset_clear_bits, entry, idx
-            )
+                res = self._bitset_rw(bitset_ops.OP_SET, self.executor.bitset_set, entry, idx)
+            else:
+                res = self._bitset_rw(
+                    bitset_ops.OP_CLEAR, self.executor.bitset_clear_bits, entry, idx
+                )
+            return self._commit(res, "bitset.set", name, idx=idx, value=bool(value))
 
     def bitset_flip(self, name, idx):
         idx = np.asarray(idx, np.uint32)
         # Flips clear bits: structural.
         with self._nc_mutate(name, structural=True), self._journal_gate:
             entry = self.bitset_ensure(name, int(idx.max()) + 1 if idx.size else 1)
-            return self._bitset_rw(bitset_ops.OP_FLIP, self.executor.bitset_flip, entry, idx)
+            res = self._bitset_rw(bitset_ops.OP_FLIP, self.executor.bitset_flip, entry, idx)
+            return self._commit(res, "bitset.flip", name, idx=idx)
 
     def bitset_get(self, name, idx):
         """GETBIT; an index past the row's capacity reads 0 (it is sent as
@@ -1564,11 +1800,14 @@ class TorchSketchEngine(SketchDurabilityMixin):
             entry = self.bitset_ensure(name, int(to_bit))
             res = self._serve_degraded(
                 entry, 1, lambda mir: mir.set_range(int(from_bit), int(to_bit), bool(value)))
-            if res is not None:
-                return res
-            self._drain()
-            return self.executor.bitset_set_range(
-                entry.pool, entry.row, int(from_bit), int(to_bit), value
+            if res is None:
+                self._drain()
+                res = self.executor.bitset_set_range(
+                    entry.pool, entry.row, int(from_bit), int(to_bit), value
+                )
+            return self._commit(
+                res, "bitset.range", name,
+                frm=int(from_bit), to=int(to_bit), value=bool(value),
             )
 
     def _nc_scalar(self, kind, name, key, dispatch, captured) -> int:
@@ -1623,6 +1862,10 @@ class TorchSketchEngine(SketchDurabilityMixin):
         # dest is REPLACED: structural.
         with self._nc_mutate(dest, structural=True), self._journal_gate:
             self._bitset_bitop_impl(dest, src_names, op)
+            seq = self._journal_rec(
+                "bitset.bitop", dest, srcs=[str(n) for n in src_names], bop=str(op)
+            )
+        self._ack(None, seq)
 
     def _bitset_bitop_impl(self, dest: str, src_names, op: str) -> None:
         max_bits = max(
@@ -1696,12 +1939,15 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 name, PoolKind.CMS, (depth, width),
                 {"depth": depth, "width": width},
             )
+            seq = self._journal_rec(
+                "cms.init", name, depth=int(depth), width=int(width)
+            ) if created else None
         if self.prewarmer is not None:
             self.prewarmer.register(
                 entry.pool, ("cms_updest", depth, width),
                 prewarm.warm_cms_update_estimate(depth, width),
             )
-        return created
+        return self._ack(created, seq)
 
     def cms_total(self, name) -> int:
         """Total inserted weight: every increment adds its weight to one
@@ -1726,16 +1972,19 @@ class TorchSketchEngine(SketchDurabilityMixin):
         configuration stay.  Counters are REPLACED: structural."""
         with self._nc_mutate(name, structural=True), self._journal_gate:
             entry = self._require(name, PoolKind.CMS)
-            if self._serve_degraded(entry, 1, lambda mir: mir.reset()) is not None:
-                return
-            self._drain()
-            self.executor.zero_row(entry.pool, entry.row)
+            if self._serve_degraded(entry, 1, lambda mir: mir.reset()) is None:
+                self._drain()
+                self.executor.zero_row(entry.pool, entry.row)
+            seq = self._journal_rec("cms.reset", name)
+        self._ack(None, seq)
 
     def cms_merge(self, name, other_names) -> None:
         """CMS.MERGE: this += each source, counter for counter (mod 2**32);
         every source must share this sketch's geometry."""
         with self._nc_mutate(name), self._journal_gate:
             self._cms_merge_impl(name, other_names)
+            seq = self._journal_rec("cms.merge", name, srcs=[str(n) for n in other_names])
+        self._ack(None, seq)
 
     def _cms_merge_impl(self, name, other_names) -> None:
         entry = self._require(name, PoolKind.CMS)
@@ -1763,7 +2012,12 @@ class TorchSketchEngine(SketchDurabilityMixin):
 
     def cms_add(self, name, H1, H2, weights):
         with self._nc_mutate(name), self._journal_gate:
-            return self._cms_add_impl(name, H1, H2, weights)
+            res = self._cms_add_impl(name, H1, H2, weights)
+            return self._commit(
+                res, "cms.add", name,
+                h1=np.asarray(H1), h2=np.asarray(H2),
+                w=np.asarray(weights, np.uint32),
+            )
 
     def _cms_add_impl(self, name, H1, H2, weights):
         entry = self._require(name, PoolKind.CMS)
@@ -1849,7 +2103,16 @@ class TorchSketchEngine(SketchDurabilityMixin):
         call semantics, like the degraded case); once promoted back, K1
         runs on its new row."""
         with self._nc_mutate(name), self._journal_gate:
-            return self._cms_add_seq_impl(name, H1, H2, weights)
+            res = self._cms_add_seq_impl(name, H1, H2, weights)
+            # Same record as cms_add: the STATE effect of the sequential
+            # and the vectorized add is identical (only the returned
+            # estimates' sequence point differs), so replay shares one
+            # path.
+            return self._commit(
+                res, "cms.add", name,
+                h1=np.asarray(H1), h2=np.asarray(H2),
+                w=np.asarray(weights, np.uint32),
+            )
 
     def _cms_add_seq_impl(self, name, H1, H2, weights):
         entry = self._require(name, PoolKind.CMS)

@@ -137,6 +137,59 @@ class Observability:
             "rtpu_cross_conn_fused_ops",
             "engine ops fused into a launch together with ops from OTHER "
             "connections, by family", ("family",))
+        # Durability: the op journal's append volume, group-commit fsync
+        # latency, and recovery replay count.  Lag (appended-but-unfsynced
+        # records) and live segment count are render-time gauges the
+        # engine registers (rtpu_journal_lag_ops / rtpu_journal_segments).
+        self.journal_records = r.counter(
+            "rtpu_journal_records",
+            "op records appended to the durability journal")
+        self.journal_bytes = r.counter(
+            "rtpu_journal_bytes",
+            "bytes appended to the durability journal")
+        self.journal_fsync_us = r.histogram(
+            "rtpu_journal_fsync_us",
+            "journal group-commit fsync latency")
+        self.journal_replayed = r.counter(
+            "rtpu_journal_replayed",
+            "journal records replayed through the golden engine at "
+            "recovery")
+        # Replication: stream/ack volume counters plus offset/lag gauges
+        # read through source callables the RESP door wires (0.0 until
+        # then, so the families exist on every process whatever its
+        # role).
+        self.repl_acks = r.counter(
+            "rtpu_repl_acks",
+            "REPLCONF ACK frames accepted from replicas (primary side)")
+        self.repl_fullresyncs = r.counter(
+            "rtpu_repl_fullresyncs",
+            "full resynchronizations served (snapshot + stream tail "
+            "bootstrap) or performed (replica side)")
+        self.repl_partial_resyncs = r.counter(
+            "rtpu_repl_partial_resyncs",
+            "partial resynchronizations (PSYNC CONTINUE on a matching "
+            "replication id + backlog-covered offset)")
+        self.repl_stream_records = r.counter(
+            "rtpu_repl_stream_records",
+            "journal records applied from the replication stream "
+            "(replica side)")
+        self.failover_takeovers = r.counter(
+            "rtpu_failover_takeovers",
+            "promotions of this node to primary (manual FAILOVER)")
+        self.repl_offset_source = None  # wired by the RESP door
+        self.repl_lag_source = None
+        r.gauge_callback(
+            "rtpu_repl_offset",
+            "replication offset: journal head seq on a primary, last "
+            "applied stream seq on a replica",
+            lambda: float(self.repl_offset_source())
+            if self.repl_offset_source is not None else 0.0)
+        r.gauge_callback(
+            "rtpu_repl_lag_ops",
+            "replica staleness in journal records (master_offset - "
+            "applied; 0 on a primary)",
+            lambda: float(self.repl_lag_source())
+            if self.repl_lag_source is not None else 0.0)
 
     def record_resp_command(self, cmd: str, duration_s: float,
                             error: bool) -> None:

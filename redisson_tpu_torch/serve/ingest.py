@@ -50,7 +50,7 @@ class TopicCmsBridge:
         self._weight_fn = weight_fn
         self._lock = threading.Lock()
         self._idle = threading.Condition(self._lock)
-        self._active = 0  # _on_message calls currently executing
+        self._active = 0  # take-to-dispatch windows in progress
         self._buf: list = []
         self._weights: Optional[list] = [] if weight_fn else None
         # Array messages coalesce here up to max_launch_events before one
@@ -202,10 +202,23 @@ class TopicCmsBridge:
                     )
                     else None
                 )
-            if pending is not None:
-                self._dispatch(*pending)
-            if apending is not None:
-                self._dispatch(*self._concat_arrays(apending))
+                if pending is None and apending is None:
+                    continue
+                # Counted as active from the take to the dispatch: a
+                # flush() must not sample _inflight between the two, or
+                # it returns with these events neither buffered nor in
+                # flight (the JAX package's bridge has that window).
+                self._active += 1
+            try:
+                if pending is not None:
+                    self._dispatch(*pending)
+                if apending is not None:
+                    self._dispatch(*self._concat_arrays(apending))
+            finally:
+                with self._lock:
+                    self._active -= 1
+                    if self._active == 0:
+                        self._idle.notify_all()
 
     # -- control -----------------------------------------------------------
 
@@ -213,22 +226,25 @@ class TopicCmsBridge:
         """Drain the buffer and wait for every in-flight batch — including
         listener callbacks still executing on bus workers (their futures
         must land in ``_inflight`` before we sample it)."""
-        with self._idle:
-            while self._active > 0:
-                self._idle.wait(timeout=5.0)
-        with self._lock:
-            pending = self._take_locked() if self._buf else None
-            apending = self._take_arrays_locked() if self._abuf else None
-        if pending is not None:
-            self._dispatch(*pending)
-        if apending is not None:
-            self._dispatch(*self._concat_arrays(apending))
         while True:
-            with self._lock:
+            # Every take-to-dispatch window (listener calls and the
+            # deadline thread's flushes) is counted in _active: once it
+            # is 0 under the lock, each taken batch already sits in
+            # _inflight.
+            with self._idle:
+                while self._active > 0:
+                    self._idle.wait(timeout=5.0)
+                pending = self._take_locked() if self._buf else None
+                apending = self._take_arrays_locked() if self._abuf else None
                 batch, self._inflight = self._inflight, []
-            if not batch:
+            if pending is not None:
+                self._dispatch(*pending)
+            if apending is not None:
+                self._dispatch(*self._concat_arrays(apending))
+            if batch:
+                self._client.collect(batch)  # one flush, not N fetches
+            elif pending is None and apending is None:
                 return
-            self._client.collect(batch)  # one flush, not N fetches
 
     @property
     def events_ingested(self) -> int:

@@ -30,8 +30,11 @@ reply bytes, for the command families this package carries:
   XPENDING XCLAIM XAUTOCLAIM XINFO                 (streams + groups/PEL)
   GEOADD GEOPOS GEODIST GEOHASH GEOSEARCH GEOSEARCHSTORE
   PUBLISH SUBSCRIBE UNSUBSCRIBE           (push replies; '>' on RESP3)
+  WAIT BGREWRITEAOF REPLCONF RTPU.PSYNC RTPU.REPLFETCH FAILOVER
+                    (the journal fence and the replication stream; a
+                    replica answers writes -READONLY)
 
-Any other command (scripting, cluster and replication verbs) answers
+Any other command (scripting and cluster verbs) answers
 exactly as the JAX package answers a command it lacks: ``-ERR unknown
 command 'NAME'``.
 
@@ -52,6 +55,7 @@ import numpy as np
 
 from redisson_tpu_torch import chaos
 from redisson_tpu_torch import overload as _overload
+from redisson_tpu_torch.cluster.slots import command_keys as _command_keys
 from redisson_tpu_torch.executor.failures import (
     DeadlineExceededError,
     TenantThrottledError,
@@ -170,6 +174,16 @@ _NONMUTATING = frozenset((
     # through the apply path, not through the dispatched verb).
     "REPLCONF", "RTPU.PSYNC", "RTPU.REPLFETCH", "RTPU.CLUSTERPING",
     "RTPU.FAILOVER.AUTH",
+))
+
+# Commands a READ-ONLY replica still serves beyond the _NONMUTATING read
+# surface: admin and replication control.  NOT the write surface — a
+# replica's keyspace mutates only through its replication link, or the
+# -READONLY contract (and the no-dual-primary invariant it underwrites)
+# is fiction.
+_REPLICA_ADMIN = frozenset((
+    "CONFIG", "DEBUG", "CLUSTER", "REPLCONF", "SHUTDOWN", "RESET",
+    "MULTI", "EXEC", "DISCARD", "SUBSCRIBE", "UNSUBSCRIBE", "FAILOVER",
 ))
 
 # Response-CACHEABLE subset: deterministic pure keyspace reads whose
@@ -407,6 +421,11 @@ class _ConnCtx:
         # Per-connection op-deadline override (CLIENT DEADLINE):
         # None = server default (op_deadline_ms), 0 = no deadline.
         self.op_deadline_ms: Optional[int] = None
+        # Replication: set by REPLCONF IDENT — this connection belongs to
+        # a replica with that id; its ACKs land in the hub's per-replica
+        # table under this name.
+        self.repl_ident: Optional[str] = None
+        self.repl_listening_port = 0
 
     def _kill(self) -> None:
         try:
@@ -626,6 +645,21 @@ class RespServer:
                     self._sock.close()
                     raise
                 self.reactor = None
+        # Replication plane: the primary-side hub (journal tap → backlog
+        # ring → RTPU.REPLFETCH) exists whenever a journal does — a node
+        # is a streaming-capable primary by default.  ``replica_link`` is
+        # set when THIS node replicates from a primary (config.replica_of
+        # or start_replication_from); the link's presence IS the role bit
+        # (role:slave, the -READONLY gate, bounded-staleness refusals).
+        self.repl_hub = None
+        self.replica_link = None
+        self._repl_hub()  # eager when the journal is already attached
+        self.obs.repl_offset_source = self._repl_offset
+        self.obs.repl_lag_source = self._repl_lag
+        master = client.config.replica_of
+        if master:
+            host_m, _, port_m = str(master).rpartition(":")
+            self.start_replication_from(host_m, int(port_m))
         self._accept_thread = threading.Thread(
             target=self._accept_loop, name="rtpu-resp-accept", daemon=True
         )
@@ -802,6 +836,11 @@ class RespServer:
                 if remaining <= 0:
                     break
                 self._conn_idle.wait(timeout=remaining)
+        link, self.replica_link = self.replica_link, None
+        if link is not None:
+            link.stop()
+        if self.repl_hub is not None:
+            self.repl_hub.detach()
         # Reactors stop AFTER the drain: they are the threads that
         # observe the shutdowns above and tear each connection down.
         if self.reactor is not None:
@@ -1067,7 +1106,12 @@ class RespServer:
             cmd = batch[i]
             ctx = ctxs[i]
             name = cmd[0].decode("latin-1", "replace").upper()
-            plain = self.vectorize and self._ctx_fusable(ctx)
+            # A replica serves every command through _dispatch, whose
+            # -READONLY and staleness gates a fused run would bypass.
+            plain = (
+                self.vectorize and self._ctx_fusable(ctx)
+                and self.replica_link is None
+            )
             if plain and rc_cap > 0 and name in _CACHEABLE:
                 hit = self._rc_probe(rc, rc_state, name, cmd)
                 if hit is not None:
@@ -1644,6 +1688,27 @@ class RespServer:
             # Pre-auth surface is AUTH/HELLO/QUIT/RESET, like Redis
             # (pooled clients RESET connections before authenticating).
             raise RespError("NOAUTH Authentication required.")
+        link = self.replica_link
+        if link is not None:
+            # Replica role: reads only.  Writes arrive solely over the
+            # replication link — a client write accepted here would fork
+            # this replica's history from its primary's.
+            if (name not in _NONMUTATING and name not in _REPLICA_ADMIN
+                    and not name.startswith("RTPU.")):
+                raise RespError(
+                    "READONLY You can't write against a read only replica."
+                )
+            bound = int(self._client.config.repl_max_staleness_ops or 0)
+            if (bound > 0 and name in _NONMUTATING
+                    and link.lag_ops() > bound and _command_keys(cmd)):
+                # Bounded staleness: a keyed read on a replica that has
+                # fallen more than the configured op count behind is
+                # refused (retryable) instead of served silently stale.
+                raise RespError(
+                    f"STALEREAD replica is {link.lag_ops()} ops behind "
+                    f"its primary (bound {bound}); retry or read the "
+                    "primary"
+                )
         shed = self._shed_at_ingress(name, cmd, ctx)
         if shed is not None:
             # Overload control plane (plus the tenant peek): refuse
@@ -1797,9 +1862,6 @@ class RespServer:
         "maxmemory": "0",  # rtpulint: disable=RT004 client-compat stub, no live semantics
         "maxmemory-policy": "noeviction",  # rtpulint: disable=RT004 client-compat stub, no live semantics
         "save": "",  # rtpulint: disable=RT004 client-compat stub, no live semantics
-        # appendonly: the port has no op journal yet, so the row reports
-        # "no" and CONFIG SET refuses "yes".
-        "appendonly": "no",  # rtpulint: disable=RT004 client-compat stub until the op journal lands; CONFIG SET refuses yes
         "databases": "1",  # rtpulint: disable=RT004 client-compat stub, no live semantics
         "timeout": "0",  # rtpulint: disable=RT004 client-compat stub, no live semantics
         "proto-max-bulk-len": "536870912",  # rtpulint: disable=RT004 client-compat stub, no live semantics
@@ -1856,6 +1918,11 @@ class RespServer:
                 "residency-promote-heat": f"{rm.promote_heat:g}",
             })
         eng = getattr(self._client, "_engine", None)
+        # Durability: appendonly/appendfsync are LIVE — CONFIG SET
+        # enables/disables journaling and switches the fsync policy on
+        # the running engine.
+        table["appendonly"] = "yes" if eng.journal is not None else "no"  # rtpulint: disable=RT004 INFO persistence reports it under the Redis name aof_enabled, as the JAX server does
+        table["appendfsync"] = str(eng.config.journal_fsync)
         c = getattr(eng, "coalescer", None)
         if c is not None:
             table["fetch-timeout-ms"] = str(
@@ -2033,12 +2100,22 @@ class RespServer:
                             f"Invalid argument '{pairs[i + 1].decode()}' "
                             f"for CONFIG SET 'appendonly'"
                         )
-                    if v == "yes":
+                    if v == "yes" and not self._client.config.journal_dir:
                         # Refused BEFORE any table write: GET must never
                         # report yes without a live journal behind it.
                         raise RespError(
                             "appendonly needs Config.journal_dir on an "
                             "engine with the durability tier"
+                        )
+                elif key == "appendfsync":
+                    from redisson_tpu_torch.durability import FSYNC_POLICIES
+
+                    v = pairs[i + 1].decode().lower()
+                    if v not in FSYNC_POLICIES:
+                        raise RespError(
+                            f"argument must be one of "
+                            f"{'|'.join(FSYNC_POLICIES)} for CONFIG SET "
+                            f"'appendfsync'"
                         )
                 elif key.startswith("nearcache-"):
                     try:
@@ -2089,6 +2166,21 @@ class RespServer:
             for i in range(0, len(pairs), 2):
                 key = pairs[i].decode().lower()
                 val = pairs[i + 1].decode()
+                if key == "appendonly":
+                    # APPLY before the table write: journal attach can
+                    # fail at runtime (unwritable dir, disk full) though
+                    # validation passed — GET must never report yes
+                    # without a live journal behind it.
+                    try:
+                        self._client._engine.journal_set_enabled(
+                            val.lower() == "yes"
+                        )
+                    except (OSError, ValueError) as e:
+                        raise RespError(
+                            f"appendonly failed to apply: {e}"
+                        ) from e
+                elif key == "appendfsync":
+                    self._client._engine.journal_set_policy(val.lower())
                 self._config_table[key] = val
                 # Live-apply the validated tunables.
                 if key in self._OVERLOAD_KEYS:
@@ -2141,6 +2233,307 @@ class RespServer:
     def _cmd_LASTSAVE(self, args):
         eng = getattr(self._client, "_engine", None)
         return _encode_int(int(getattr(eng, "_last_save_ts", 0.0) or 0))
+
+    def _cmd_BGREWRITEAOF(self, args):
+        """The journal's rewrite IS a snapshot: a completed snapshot
+        records the journal cut and retires every covered segment
+        (mark_snapshot), which is exactly the AOF-rewrite compaction."""
+        eng, sdir = self._persist_engine()
+        if eng.journal is None:
+            raise RespError("appendonly is off (no journal to rewrite)")
+        threading.Thread(
+            target=self._bg_snapshot, args=(eng, sdir),
+            name="rtpu-bgrewrite", daemon=True,
+        ).start()
+        return _encode_simple("Background append only file rewriting started")
+
+    # -- durability fence and replication plane ----------------------------
+
+    def _cmd_WAIT(self, args):
+        """A JOURNAL-FSYNC FENCE plus a replica-ack fence.  With the
+        journal live it forces an fsync covering every record appended so
+        far — under any appendfsync policy — and blocks (up to the
+        command's timeout-ms) until it lands; then, with replicas
+        attached, it blocks until <numreplicas> of them ``REPLCONF
+        ACK``ed an offset covering every record appended so far, and
+        replies with the count that did (0 with no journal: the honest
+        standalone answer)."""
+        from redisson_tpu_torch.durability import JournalError
+
+        timeout_s = None
+        if len(args) >= 2:
+            ms = int(args[1])
+            timeout_s = ms / 1000.0 if ms > 0 else None
+        try:
+            if not self._client._engine.journal_fence(timeout=timeout_s):
+                raise RespError("BUSY RTPU journal fsync fence timed out")
+        except JournalError as e:
+            raise RespError(f"journal is broken: {e}") from e
+        hub = self._repl_hub()
+        if hub is None:
+            return _encode_int(0)
+        # Fence offset: everything appended up to now, captured AFTER the
+        # fsync fence — records appended while we waited are the next
+        # WAIT's problem, exactly Redis's WAIT contract.
+        fence_seq = hub.journal.last_seq()
+        numreplicas = int(args[0]) if args else 0
+        if numreplicas <= 0:
+            return _encode_int(hub.count_acked(fence_seq))
+        return _encode_int(hub.wait_acked(
+            fence_seq, numreplicas,
+            timeout_s if timeout_s is not None else float("inf"),
+        ))
+
+    def _repl_hub(self):
+        """The primary-side ReplicationHub over the CURRENT journal —
+        rebuilt when the journal object changes (a ``CONFIG SET
+        appendonly`` re-attach or a promotion makes a NEW lineage: a
+        fresh repl_id, so stale offsets can never partial-resync against
+        a different history)."""
+        j = self._client._engine.journal
+        hub = self.repl_hub
+        if j is None:
+            if hub is not None:
+                hub.detach()
+                self.repl_hub = None
+            return None
+        if hub is None or hub.journal is not j:
+            from redisson_tpu_torch.durability.replication import ReplicationHub
+
+            if hub is not None:
+                hub.detach()
+            hub = self.repl_hub = ReplicationHub(
+                j, obs=self.obs,
+                backlog_bytes=int(self._client.config.repl_backlog_bytes or (4 << 20)),
+            )
+        return hub
+
+    def _repl_offset(self) -> int:
+        """This node's replication offset: a replica reports what it
+        APPLIED; a primary reports its journal head."""
+        link = self.replica_link
+        if link is not None:
+            return int(link.applied)
+        j = self._client._engine.journal
+        return int(j.last_seq()) if j is not None else 0
+
+    def _repl_lag(self) -> int:
+        link = self.replica_link
+        return int(link.lag_ops()) if link is not None else 0
+
+    def start_replication_from(self, host: str, port: int,
+                               ident: Optional[str] = None,
+                               replid: Optional[str] = None):
+        """Turn this node into a replica of ``host:port``: start the pull
+        link (durability/replica.py).  The link's existence flips the
+        role to ``slave`` — the -READONLY gate and the bounded-staleness
+        refusals in _dispatch key off it."""
+        from redisson_tpu_torch.durability.replica import ReplicaLink
+
+        if ident is None:
+            import uuid
+
+            ident = uuid.uuid4().hex[:16]
+        link = ReplicaLink(
+            self._client, host, int(port), ident,
+            listening_port=self.port, obs=self.obs,
+            replid=replid or getattr(self._client.config, "_repl_bootstrap_id", None),
+        )
+        self.replica_link = link
+        link.start()
+        return link
+
+    def promote_to_primary(self, epoch: int = 0) -> None:
+        """Takeover: stop applying the primary's stream, snapshot the
+        promoted state — the local journal stayed EMPTY while
+        replicating (the apply path never re-journals), so the snapshot
+        is what makes this node's own crash recovery self-contained —
+        and start a fresh replication lineage for replicas that re-home
+        here.  ``epoch`` is the cluster failover epoch (0 without an
+        agent)."""
+        link, self.replica_link = self.replica_link, None
+        if link is not None:
+            link.stop()
+        sdir = self._client.config.snapshot_dir
+        if sdir:
+            try:
+                self._client.snapshot(sdir)
+            except Exception:
+                pass  # promotion never fails on snapshot I/O; LASTSAVE shows it
+        hub = self.repl_hub
+        if hub is not None:
+            # Fresh lineage: replicas of the dead primary carry ITS
+            # repl_id, which never matches a rebuilt hub — they full-
+            # resync against the promoted state.
+            hub.detach()
+            self.repl_hub = None
+        self._repl_hub()
+        self._promote_epoch = int(epoch)
+        self.obs.failover_takeovers.inc((), 1)
+
+    def _cmdctx_REPLCONF(self, args, ctx: "_ConnCtx"):
+        if not args:
+            raise RespError(
+                "wrong number of arguments for 'replconf' command"
+            )
+        sub = args[0].decode("latin-1", "replace").upper()
+        if sub == "IDENT":
+            # REPLCONF IDENT <replica-id> [listening-port] — names this
+            # connection's replica so its ACKs land in the hub table.
+            if len(args) < 2:
+                raise RespError(
+                    "REPLCONF IDENT <replica-id> [listening-port]"
+                )
+            ctx.repl_ident = self._s(args[1])
+            if len(args) > 2:
+                ctx.repl_listening_port = int(args[2])
+            return _encode_simple("OK")
+        if sub == "LISTENING-PORT":
+            ctx.repl_listening_port = int(args[1])
+            return _encode_simple("OK")
+        if sub == "ACK":
+            offset = int(args[1])
+            if chaos.ENABLED:
+                try:
+                    chaos.fire("repl.ack", {"offset": offset})
+                except (chaos.FaultInjected, chaos.CorruptionDetected):
+                    # A dropped/garbled ack is LOST, not an error — the
+                    # replica's next ack supersedes it (acks are
+                    # max-merged).  WAIT fences simply see it later.
+                    return _encode_simple("OK")
+            hub = self._repl_hub()
+            if hub is not None and ctx.repl_ident:
+                addr = ctx.addr
+                if ctx.repl_listening_port and ":" in addr:
+                    addr = "%s:%d" % (
+                        addr.rsplit(":", 1)[0], ctx.repl_listening_port
+                    )
+                hub.ack(ctx.repl_ident, offset, addr=addr)
+            return _encode_simple("OK")
+        if sub == "GETACK":
+            return _encode_simple("OK")
+        raise RespError(f"Unknown REPLCONF subcommand {sub}")
+
+    def _snapshot_tar(self) -> tuple:
+        """FULLRESYNC payload: take a REAL durable snapshot into the
+        configured snapshot_dir (engine.snapshot retires journal
+        segments, so shipping a temp-dir snapshot would break THIS
+        node's crash recovery), then tar the directory.  Returns
+        (snapshot's journal cut, tar bytes)."""
+        import io
+        import json
+        import os
+        import tarfile
+
+        eng, sdir = self._persist_engine()
+        self._client.snapshot(sdir)
+        # Exclude concurrent snapshots (BGSAVE / the periodic
+        # snapshotter) while reading meta + taring, so the cut seq and
+        # the files describe the SAME capture.
+        with eng._snapshot_lock:
+            snap_seq = 0
+            meta_path = os.path.join(sdir, "sketch_meta.json")
+            if os.path.exists(meta_path):
+                with open(meta_path) as f:
+                    snap_seq = int(json.load(f).get("journal_seq") or 0)
+            buf = io.BytesIO()
+            with tarfile.open(fileobj=buf, mode="w") as tf:
+                for fn in sorted(os.listdir(sdir)):
+                    if fn.endswith(".tmp"):
+                        continue  # a concurrent write's scratch files
+                    tf.add(os.path.join(sdir, fn), arcname=fn)
+        return snap_seq, buf.getvalue()
+
+    def _require_hub(self):
+        hub = self._repl_hub()
+        if hub is None:
+            raise RespError(
+                "NOJOURNAL replication requires the op journal "
+                "(set Config.journal_dir / appendonly yes)"
+            )
+        return hub
+
+    def _cmd_RTPU_PSYNC(self, args):
+        """RTPU.PSYNC <replid|?> <offset> → [CONTINUE, replid] when the
+        (lineage, offset) can partial-resync, else [FULLRESYNC, replid,
+        snap_seq, snapshot-tar]."""
+        if len(args) < 2:
+            raise RespError("RTPU.PSYNC <replid|?> <offset>")
+        hub = self._require_hub()
+        replid = self._s(args[0])
+        offset = int(args[1])
+        if replid != "?" and hub.can_continue(replid, offset):
+            hub.note_partial_resync()
+            return b"".join([
+                b"*2\r\n", _encode_bulk(b"CONTINUE"),
+                _encode_bulk(hub.repl_id.encode()),
+            ])
+        hub.note_full_resync()
+        snap_seq, tar_bytes = self._snapshot_tar()
+        return b"".join([
+            b"*4\r\n", _encode_bulk(b"FULLRESYNC"),
+            _encode_bulk(hub.repl_id.encode()),
+            _encode_int(snap_seq), _encode_bulk(tar_bytes),
+        ])
+
+    def _cmd_RTPU_REPLFETCH(self, args):
+        """RTPU.REPLFETCH <after> [maxn] [timeout-ms] → [replid,
+        master_offset, [[seq, crc, payload], ...]] — the stream's pull
+        verb.  Long-polls up to timeout-ms when the replica is caught up
+        (the reactor detaches it like the other blocking commands)."""
+        if not args:
+            raise RespError("RTPU.REPLFETCH <after> [maxn] [timeout-ms]")
+        hub = self._require_hub()
+        after = int(args[0])
+        maxn = int(args[1]) if len(args) > 1 else 512
+        timeout_ms = int(args[2]) if len(args) > 2 else 0
+        corrupt = False
+        if chaos.ENABLED:
+            try:
+                chaos.fire("repl.stream", {"after": after})
+            except chaos.FaultInjected:
+                # Dropped batch: the replica sees an empty fetch and
+                # re-polls — lost FRAMES are a latency event, never a
+                # lost write (the journal retains them).
+                return b"".join([
+                    b"*3\r\n", _encode_bulk(hub.repl_id.encode()),
+                    _encode_int(hub.journal.last_seq()), b"*0\r\n",
+                ])
+            except chaos.CorruptionDetected:
+                corrupt = True  # flip a byte in one OUTGOING payload
+        status, frames = hub.fetch(
+            after, max_n=maxn, timeout_s=max(0, timeout_ms) / 1000.0
+        )
+        if status != "CONTINUE":
+            raise RespError(
+                "NOBACKLOG offset fell off the replication backlog; "
+                "FULLRESYNC required"
+            )
+        if corrupt and frames:
+            seq0, crc0, payload0 = frames[0]
+            garbled = bytearray(payload0)
+            garbled[len(garbled) // 2] ^= 0x40
+            frames = [(seq0, crc0, bytes(garbled))] + list(frames[1:])
+        out = [
+            b"*3\r\n", _encode_bulk(hub.repl_id.encode()),
+            _encode_int(hub.journal.last_seq()),
+            b"*%d\r\n" % len(frames),
+        ]
+        for seq, crc, payload in frames:
+            out.append(b"*3\r\n")
+            out.append(_encode_int(seq))
+            out.append(_encode_int(crc))
+            out.append(_encode_bulk(payload))
+        return b"".join(out)
+
+    def _cmd_FAILOVER(self, args):
+        """Manual FAILOVER (operator surface): on a replica, promote it
+        to primary immediately (FAILOVER TAKEOVER semantics; epoch 0,
+        there being no cluster failover agent)."""
+        if self.replica_link is None:
+            raise RespError("FAILOVER requires a replica role")
+        self.promote_to_primary(epoch=0)
+        return _encode_simple("OK")
 
     def _cmd_DEBUG(self, args):
         sub = args[0].decode().upper()
@@ -2942,7 +3335,7 @@ class RespServer:
     # with their modules.
     _INFO_DEFAULT = (
         "server", "clients", "memory", "stats", "persistence",
-        "nearcache", "frontdoor", "overload", "keyspace",
+        "replication", "nearcache", "frontdoor", "overload", "keyspace",
     )
 
     def _device_lines(self) -> list:
@@ -3067,16 +3460,88 @@ class RespServer:
                         f"p99.9={st['p999_us']:g}"
                     )
             elif s == "persistence":
-                # Snapshot state (the rdb_* vocabulary stock tooling
-                # expects); the aof_* lines wait for the op journal.
+                # Snapshot + journal state: the aof_*/rdb_* vocabulary
+                # stock tooling expects, plus the journal's seq, lag and
+                # segment lines.
                 eng = getattr(self._client, "_engine", None)
+                j = eng.journal
                 lines += [
                     "# Persistence",
                     "loading:0",
                     f"rdb_last_save_time:"
                     f"{int(getattr(eng, '_last_save_ts', 0.0) or 0)}",
-                    "aof_enabled:0",
+                    f"aof_enabled:{0 if j is None else 1}",
                 ]
+                if j is not None:
+                    st = j.stats()
+                    replayed = sum(c.value for _, c in obs.journal_replayed.items())
+                    lines += [
+                        f"appendfsync:{st['policy']}",
+                        f"aof_last_seq:{st['last_seq']}",
+                        f"aof_durable_seq:{st['durable_seq']}",
+                        f"aof_pending_records:{st['lag_ops']}",
+                        f"aof_segments:{st['segments']}",
+                        f"aof_bytes_written:{st['bytes_written']}",
+                        f"aof_records_written:{st['records_written']}",
+                        f"aof_fsyncs:{st['fsyncs']}",
+                        f"aof_fsync_ewma_us:{st['fsync_ewma_us']:g}",
+                        f"aof_broken:{1 if st['broken'] else 0}",
+                        f"aof_replayed_records:{int(replayed)}",
+                    ]
+            elif s == "replication":
+                # Role + offsets on both ends: a primary lists its
+                # replicas' acked offsets (the WAIT fence's inputs), a
+                # replica its applied offset, link state and lag (the
+                # staleness bound's input).  Redis vocabulary where one
+                # exists.
+                link = self.replica_link
+                lines += [
+                    "# Replication",
+                    "role:%s" % ("slave" if link is not None else "master"),
+                ]
+                if link is not None:
+                    lines += [
+                        f"master_host:{link.master_host}",
+                        f"master_port:{link.master_port}",
+                        "master_link_status:%s" % (
+                            "up" if link.link_up else "down"
+                        ),
+                        f"master_replid:{link.replid or '-'}",
+                        f"slave_repl_offset:{link.applied}",
+                        f"master_repl_offset:{link.master_offset}",
+                        f"slave_lag_ops:{link.lag_ops()}",
+                        "slave_read_only:1",
+                        f"slave_full_resyncs:{link.full_resyncs}",
+                        f"slave_partial_resyncs:{link.partial_resyncs}",
+                        "connected_slaves:0",
+                    ]
+                else:
+                    hub = self._repl_hub()
+                    rows = hub.replica_rows() if hub is not None else []
+                    lines.append(f"connected_slaves:{len(rows)}")
+                    head = self._repl_offset()
+                    for i, (rid, addr, offset, age_s) in enumerate(rows):
+                        ip, _, rport = (addr or ":0").rpartition(":")
+                        lines.append(
+                            f"slave{i}:ip={ip},port={rport},"
+                            f"state=online,offset={offset},"
+                            f"lag={age_s:.3f},id={rid}"
+                        )
+                    lines += [
+                        "master_replid:%s" % (
+                            hub.repl_id if hub is not None else "-"
+                        ),
+                        f"master_repl_offset:{head}",
+                        "repl_backlog_active:%d" % (
+                            0 if hub is None else 1
+                        ),
+                        "repl_full_resyncs:%d" % (
+                            0 if hub is None else hub.fullresyncs
+                        ),
+                        "repl_partial_resyncs:%d" % (
+                            0 if hub is None else hub.partial_resyncs
+                        ),
+                    ]
             elif s == "nearcache":
                 # Sketch near cache: the epoch-guarded host
                 # read tier.  Section absent on the host engine (no tier
@@ -4093,7 +4558,8 @@ class RespServer:
             (b"proto", ctx.proto),
             (b"id", 1),
             (b"mode", b"standalone"),
-            (b"role", b"master"),
+            (b"role",
+             b"slave" if self.replica_link is not None else b"master"),
             (b"modules", []),
         ]
         if ctx.proto == 3:

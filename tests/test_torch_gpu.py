@@ -633,3 +633,103 @@ def test_executor_tasks_launch_k1_on_the_card(p13_small):
         assert out["k1_launches"] == cms_seq.LAUNCHES - before > 0
     finally:
         client.shutdown()
+
+
+def _journaled(device, d):
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+
+    cfg = rt.Config().set_codec(LongCodec()).use_gpu_sketch(device=device, min_bucket=64)
+    cfg.snapshot_dir = str(d / "snap")
+    cfg.journal_dir = str(d / "journal")
+    cfg.journal_fsync = "always"
+    return rt.create(cfg)
+
+
+def _abandon(client):
+    """Drop a client without its shutdown snapshot: the journal tail is
+    what the next boot recovers."""
+    eng = client._engine
+    j, eng.journal = eng.journal, None
+    if j is not None:
+        j.close()
+    eng.config.snapshot_dir = client.config.snapshot_dir = None
+    client.shutdown()
+
+
+def _journal_rows(client):
+    eng = client._engine
+    eng._drain()
+    return {e.name: np.asarray(eng.executor.read_row(e.pool, e.row)).copy()
+            for e in eng.registry.entries()}
+
+
+def test_journal_recovery_writes_back_into_card_rows(cuda, tmp_path):
+    """Journaled writes on the card (keyed Bloom lanes hashed on the card,
+    K1 on the CMS), a snapshot mid-way, then a kill: a fresh card client
+    restores, replays on the host and writes every touched row back to
+    the card — equal to the live card rows and to the same recovery on
+    the CPU, with every pool on the card."""
+    import shutil
+
+    rng = np.random.default_rng(14)
+    c = _journaled("cuda", tmp_path / "live")
+    bf = c.get_bloom_filter("bf")
+    bf.try_init(100_000, 0.01)
+    cms = c.get_count_min_sketch("cms")
+    cms.try_init(5, 1 << 12)
+    bs = c.get_bit_set("bs")
+    bf.add_all(rng.integers(0, 1 << 40, 5000).tolist())
+    cms.add_all_seq(list(rng.zipf(1.2, 3000) % 1000))
+    c._engine.snapshot(c.config.snapshot_dir)
+    bf.add_all(rng.integers(0, 1 << 40, 5000).tolist())
+    c.get_hyper_log_log("h").add_all(rng.integers(0, 1 << 40, 4000).tolist())
+    bs.set_many(rng.integers(0, 1 << 16, 3000).tolist(), True)
+    cms.add_all_seq(list(rng.zipf(1.2, 3000) % 1000))
+    want = _journal_rows(c)
+    _abandon(c)
+    shutil.copytree(tmp_path / "live", tmp_path / "cpu")
+    card, cpu = _journaled("cuda", tmp_path / "live"), _journaled("cpu", tmp_path / "cpu")
+    try:
+        assert card._engine.obs.journal_replayed.get(()) > 0
+        assert all(p.state.is_cuda for p in card._engine.registry.pools())
+        got, ref = _journal_rows(card), _journal_rows(cpu)
+        assert set(got) == set(want) == set(ref)
+        for n in want:
+            assert np.array_equal(got[n], want[n]), n
+            assert np.array_equal(ref[n], want[n]), n
+    finally:
+        _abandon(card)
+        _abandon(cpu)
+
+
+def test_k1_on_a_recovered_row_equals_golden_seq(cuda, tmp_path):
+    """K1 launches on a CMS row that recovery wrote back, and its per-op
+    estimates and table equal golden_seq from the recovered table."""
+    rng = np.random.default_rng(15)
+    d, w = 5, 1 << 12
+    c = _journaled("cuda", tmp_path)
+    cms = c.get_count_min_sketch("cms")
+    cms.try_init(d, w)
+    cms.add_all_seq(list(rng.zipf(1.2, 4000) % 1000))
+    _abandon(c)
+    c = _journaled("cuda", tmp_path)
+    try:
+        eng = c._engine
+        entry = eng.registry.lookup("cms")
+        table = np.asarray(eng.executor.read_row(entry.pool, entry.row)).view(np.uint32)[: d * w]
+        keys = list(rng.zipf(1.2, 4000) % 1000)
+        H1, H2 = c.get_count_min_sketch("cms")._hash128(keys)
+        from redisson_tpu_torch.utils import hashing
+
+        h1w, h2w = hashing.km_reduce_mod(H1, H2, w)
+        want_table, want_est = cms_seq.golden_seq(
+            table.reshape(d, w), h1w, h2w, np.ones(len(keys), np.uint32), d=d, w=w)
+        before = cms_seq.LAUNCHES
+        est = c.get_count_min_sketch("cms").add_all_seq(keys)
+        assert cms_seq.LAUNCHES > before
+        assert np.array_equal(np.asarray(est, np.uint32), np.asarray(want_est, np.uint32))
+        got = np.asarray(eng.executor.read_row(entry.pool, entry.row)).view(np.uint32)[: d * w]
+        assert np.array_equal(got, want_table.reshape(-1))
+    finally:
+        _abandon(c)

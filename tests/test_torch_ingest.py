@@ -337,6 +337,18 @@ def _feed(c, bridge_cls, stream, chunk, **kw):
     return _row(c, "fed"), cms.top_k(8)
 
 
+def _golden_cms_row(jc, stream, d, w):
+    """The golden count-min table of ``stream`` (the JAX package's golden
+    model over its codec's hashes of the keys), as uint32 cells."""
+    from redisson_tpu.ops.golden import GoldenCountMinSketch
+    from redisson_tpu.utils import hashing as jhashing
+
+    H1, H2 = jc.get_count_min_sketch("golden-keys")._hash128(stream)
+    g = GoldenCountMinSketch(d, w)
+    g.add_hashed(*jhashing.km_reduce_mod(H1, H2, w))
+    return g.counts.reshape(-1)
+
+
 @pytest.mark.parametrize("chunk,launch", [(1 << 11, 1 << 13), (3000, 1 << 18)])
 def test_bridge_fed_cms_row_byte_identical_to_jax(chunk, launch):
     """The same seeded zipf stream, published as array messages through
@@ -350,11 +362,24 @@ def test_bridge_fed_cms_row_byte_identical_to_jax(chunk, launch):
     rng = np.random.default_rng(12)
     stream = (rng.zipf(1.2, size=40_000) % 2000).astype(np.uint64)
     kw = dict(batch_size=4096, flush_interval_s=0.01, max_launch_events=launch)
+    d, w = 4, 1 << 12
     jc = redisson_tpu.create(redisson_tpu.Config().use_tpu_sketch(min_bucket=64))
     tc = _port_client()
     try:
+        golden = _golden_cms_row(jc, stream, d, w)
         jrow, jtop = _feed(jc, JaxTopicCmsBridge, stream, chunk, **kw)
         trow, ttop = _feed(tc, TopicCmsBridge, stream, chunk, **kw)
+        # The port's table is the golden count-min of the whole stream in
+        # every run (a count-min add commutes, so where the flushes fell
+        # cannot matter).
+        assert trow[: d * w].tobytes() == golden.tobytes()
+        sums = trow[: d * w].astype(np.uint64).reshape(d, w).sum(axis=1)
+        assert sums.tolist() == [len(stream)] * d
+        if jrow[: d * w].tobytes() != golden.tobytes():
+            # The JAX bridge's close() can return while its deadline
+            # thread still holds a taken batch (ROADMAP queue 3): that
+            # run has nothing to compare the port with.
+            return
         assert trow.tobytes() == jrow.tobytes()
         # The same top-K estimates; keys compared above the 8th estimate,
         # where no tie can reorder them (ties keep the candidates' arrival
@@ -362,9 +387,6 @@ def test_bridge_fed_cms_row_byte_identical_to_jax(chunk, launch):
         assert [e for _, e in ttop] == [e for _, e in jtop]
         floor = jtop[-1][1]
         assert {k for k, e in ttop if e > floor} == {k for k, e in jtop if e > floor}
-        d, w = 4, 1 << 12
-        sums = trow[: d * w].astype(np.uint64).reshape(d, w).sum(axis=1)
-        assert sums.tolist() == [len(stream)] * d
     finally:
         tc.shutdown()
         jc.shutdown()

@@ -449,8 +449,7 @@ GRID = [
 # JAX server answers a command it lacks.
 WAITING = [
     [b"EVAL", b"return 1", b"0"], [b"FUNCTION", b"LIST"],
-    [b"CLUSTER", b"INFO"], [b"WAIT", b"0", b"0"], [b"SLOWLOG", b"GET"],
-    [b"MONITOR"], [b"BGREWRITEAOF"], [b"REPLCONF", b"ACK", b"0"],
+    [b"CLUSTER", b"INFO"], [b"SLOWLOG", b"GET"], [b"MONITOR"],
 ]
 
 

@@ -178,8 +178,10 @@ def test_server_modules_import_neither_jax_nor_the_reference():
     """The front door, the reactor, the grid families, the coordination
     and services half (locks, services, cron, LocalCachedMap, JCache, the
     integrations, the reactive facade, nodes, metrics and the scrape
-    endpoint), the ingest bridge, the entry point and the scripts load
-    with jax and redisson_tpu blocked and serve on the CPU; no module of
+    endpoint), the ingest bridge, the durability tier (the journal,
+    recovery, the replication hub and link, the crash child), the entry
+    point and the scripts load with jax and redisson_tpu blocked and
+    serve on the CPU — a journaled client recovers its tail; no module of
     the port, nor chip_smoke.py, profile_port.py or compare_rates.py, has
     an import of either."""
     code = (
@@ -199,6 +201,17 @@ def test_server_modules_import_neither_jax_nor_the_reference():
         "from redisson_tpu_torch import integrations, reactive\n"
         "from redisson_tpu_torch.serve import nodes, metrics\n"
         "from redisson_tpu_torch.obs import promhttp\n"
+        "from redisson_tpu_torch.durability import journal, recovery, replication, replica\n"
+        "from redisson_tpu_torch.chaos import crashchild\n"
+        "import tempfile\n"
+        "d = tempfile.mkdtemp()\n"
+        "def jc():\n"
+        "    cfg = rt.Config().use_gpu_sketch(device='cpu')\n"
+        "    cfg.journal_dir = d; cfg.journal_fsync = 'always'\n"
+        "    return rt.create(cfg)\n"
+        "c1 = jc(); h = c1.get_hyper_log_log('h'); h.add_all(['a', 'b', 'c'])\n"
+        "c1._engine.journal.close(); c1._engine.journal = None; c1.shutdown()\n"
+        "c2 = jc(); assert c2.get_hyper_log_log('h').count() == 3; c2.shutdown()\n"
         "import socket\n"
         "import numpy as np\n"
         "c = rt.create(rt.Config().use_gpu_sketch(device='cpu'))\n"
