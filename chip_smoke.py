@@ -177,6 +177,32 @@ the main path through the public client at full size:
            SET appendfsync always, SIGKILLed mid-pipeline and rebooted:
            every acknowledged SET and BF.MADD key reads back.  K1 launches
            in phase 14 (14a, 14b's recovered row, 14d) must be more than 0
+  phase 15 the observability tier on fresh card clients: (15a) config 1 at
+           trace_sample_rate 1.0 inside client.trace: 4 x 262,144-key
+           add_all_async under a torch.profiler capture, then contains_many
+           of 2**20 keys; the row and flags equal golden, every span's four
+           phases sum to its end-to-end time within 1 us, spans = phase
+           histogram samples = coalesced launches, op_stats counts every
+           key, the trace holds a launch span per launch, and the spans'
+           device_dispatch + d2h_fetch and rtpu_tenant_device_us are at
+           least the kernel + memcpy time the capture saw; config 5
+           add_all_seq of 2**20 zipf(1.2) events under a second capture:
+           rtpu_dispatches{cms_update_estimate_seq} = K1 launches,
+           rtpu_dispatch_ops = 2**20, every K1 kernel launched inside an
+           rtpu:cms_update_estimate_seq region, estimates and table equal
+           golden_seq.  (15b) phase 2's add pass with the tier off, traced,
+           and key-sampled, in turns A B C C B A x 3; keys/s per arm.
+           (15c) a card RespServer (reactor, native codec): 256 BF.MADD of
+           1024 keys from 4 connections while a fifth is in MONITOR — every
+           command seen once in each connection's order with the
+           reference's rendering, no fused run, replies equal a sequential
+           replay in the monitor's order, SLOWLOG LEN and GET 128 with
+           Redis's truncation; an RTPU.TRACE prelude's trace holds the
+           command and launch spans; a Bloom breaker trip gives LATENCY
+           breaker-open and EVENTS health.breaker.open then close; INFO
+           events and telemetry field names; HOTKEYS over config 6's stream
+           names every key above N/128.  K1 launches in phase 15 must be
+           more than 0
 
 Every failed check raises, so the script exits non-zero.  Without a CUDA
 device it exits with code 2 before printing any result.  The line before
@@ -4358,6 +4384,561 @@ def phase_durability(seed: int, card: str) -> None:
         shutil.rmtree(base, ignore_errors=True)
 
 
+# -- phase 15: the observability tier on the card ----------------------------
+
+P15 = {"keys": 1 << 20, "chunk": 1 << 18, "capacity": 1_048_576, "fpp": 0.01,
+       "contains": 1 << 20, "cms_events": 1 << 20, "d": 5, "w": 1 << 16,
+       "rounds": 3, "madd": 1024, "madd_cmds": 256, "conns": 4, "window": 16,
+       "c6_batches": 8, "c6_depth": 256}
+P15_DEVICE = "cuda"
+# The fields of INFO telemetry and INFO events, as the JAX server names them.
+P15_TELEMETRY = ("trace_sample_rate", "trace_spans", "trace_traces", "trace_max_spans",
+                 "trace_sampled_total", "trace_evicted_total", "latency_monitor_threshold",
+                 "latency_events", "latency_samples", "monitors")
+P15_EVENTS = ("events_enabled", "events_len", "events_seq", "events_evicted", "events_max")
+PHASES = ("coalesce_wait", "host_stage", "device_dispatch", "d2h_fetch")
+
+
+def p15_sync() -> None:
+    if P15_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def p15_config(long_codec: bool = True, **kw):
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+
+    cfg = rt.Config().use_gpu_sketch(device=P15_DEVICE, **kw)
+    if long_codec:
+        cfg.set_codec(LongCodec())
+    return cfg
+
+
+def p15_capture(fn):
+    """``fn()`` under a torch.profiler capture (CPU activity, and CUDA on
+    the card); returns its result and the Chrome trace's events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if P15_DEVICE == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    p15_sync()
+    tmp = tempfile.mkdtemp(prefix="p15-trace-")
+    try:
+        with profile(activities=acts) as prof:
+            out = fn()
+            p15_sync()
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, events
+
+
+def device_us(events) -> float:
+    """Microseconds of CUDA kernel, memcpy and memset activity in a trace."""
+    return float(sum(e.get("dur", 0) for e in events
+                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")))
+
+
+def tenant_device_us(obs, tenant: str) -> float:
+    fam = obs.registry.family("rtpu_tenant_device_us_total")
+    return float(sum(c.value for (t, _op), c in fam.items() if t == tenant))
+
+
+def family_value(obs, family: str, labels: tuple) -> float:
+    c = dict(obs.registry.family(family).items()).get(labels)
+    return 0.0 if c is None else float(c.value)
+
+
+def k1_in_regions(events, n_launches: int) -> dict:
+    """Every K1 kernel of the trace was launched inside an
+    ``rtpu:cms_update_estimate_seq`` region, shown by either of the
+    trace's two links: the kernel's launch call (the runtime event of the
+    same correlation id) lies within such a region on the same thread, or
+    the kernel's external id (the innermost host op open at its launch)
+    is such a region's."""
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "cms_seq_kernel" in e.get("name", "")]
+    regions = [e for e in events if e.get("cat") == "user_annotation"
+               and e.get("name") == "rtpu:cms_update_estimate_seq"]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    region_ids = {r.get("args", {}).get("External id") for r in regions} - {None}
+    # A long process's later captures can miss device records (a whole
+    # smoke run's capture held 23 of 32 K1 kernels), so the kernels seen
+    # are bounded by the launches, and each one seen must sit in a region.
+    check(0 < len(kernels) <= n_launches,
+          f"15a: {len(kernels)} K1 kernels in the trace, {n_launches} launches")
+    check(len(regions) == n_launches,
+          f"15a: {len(regions)} rtpu:cms_update_estimate_seq regions, {n_launches} launches")
+    by_launch = by_external = 0
+    for k in kernels:
+        args = k.get("args", {})
+        rt_ev = launches.get(args.get("correlation"))
+        inside = rt_ev is not None and any(
+            r["tid"] == rt_ev["tid"] and r["pid"] == rt_ev["pid"]
+            and r["ts"] <= rt_ev["ts"] <= r["ts"] + r["dur"] for r in regions)
+        by_launch += inside
+        ext = args.get("External id") in region_ids
+        by_external += ext
+        check(inside or ext, f"15a: K1 kernel {args} was launched outside an "
+              "rtpu:cms_update_estimate_seq region")
+    return {"k1_kernels": len(kernels), "regions": len(regions),
+            "k1_in_region_by_launch_event": by_launch,
+            "k1_in_region_by_external_id": by_external,
+            "k1_kernel_us": float(sum(k.get("dur", 0) for k in kernels))}
+
+
+def p15a_spans(rng, card: str) -> dict:
+    """15a: spans, dispatch records, traces and load attribution see the
+    card's launches, K1's among them."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.ops import cms_seq
+
+    cfg = p15_config()
+    cfg.trace_sample_rate = 1.0
+    client = rt.create(cfg)
+    try:
+        obs = client.obs
+        n, chunk = P15["keys"], P15["chunk"]
+        bf = client.get_bloom_filter("p15-cfg1")
+        check(bf.try_init(P15["capacity"], P15["fpp"]), "try_init refused")
+        warm = client.get_bloom_filter("p15-warm")
+        check(warm.try_init(P15["capacity"], P15["fpp"]), "try_init refused")
+        warm.add_all_async(np.arange(chunk, dtype=np.uint64)).result()
+        warm.contains_many([np.arange(chunk, dtype=np.uint64)])
+        p15_sync()
+        obs.reset_op_stats()  # the spans, their families and the trace ring
+        batches0 = client.get_metrics()["batches_total"]
+
+        def add_pass():
+            futs = [bf.add_all_async(np.arange(i * chunk, (i + 1) * chunk, dtype=np.uint64))
+                    for i in range(n // chunk)]
+            return [f.result() for f in futs]
+
+        probes = rng.integers(0, 2 * n, P15["contains"]).astype(np.uint64)
+        with client.trace("p15") as root:
+            check(root is not None, "15a: client.trace minted no span at rate 1.0")
+            flags, add_events = p15_capture(add_pass)
+            add_spans = obs.spans.recent()
+            add_dev_tenant_us = tenant_device_us(obs, "p15-cfg1")
+            hits = bf.contains_many([probes])[0]
+        spans = obs.spans.recent()
+        check(len(spans) < 256, "15a: the span ring wrapped")
+        # Results: the row and every flag equal the golden model.
+        n_added = sum(int(np.sum(f)) for f in flags)
+        check(0.97 * n <= n_added <= n, f"15a: added {n_added} of {n}")
+        g = golden_bloom(bf, np.arange(n, dtype=np.uint64))
+        words = tenant_row(client, "p15-cfg1")
+        gbits = np.zeros(words.shape[0] * 32, bool)
+        gbits[: g.size] = g.bits
+        check(np.array_equal(words, np.packbits(gbits, bitorder="little").view(np.uint32)),
+              "15a: the row differs from the golden bitmap")
+        check(np.array_equal(hits, golden_contains(g, probes)), "15a: a flag differs from golden")
+        # Every span's phases partition its end-to-end time.
+        worst = 0.0
+        for s in spans:
+            ph = s.phases()
+            check(set(ph) == set(PHASES), f"15a: span phases {sorted(ph)}")
+            worst = max(worst, abs(sum(ph.values()) - s.end_to_end()))
+        check(worst <= 1e-6, f"15a: phases miss end_to_end by {worst * 1e6:.3f} us")
+        # Spans = phase-histogram samples = coalesced launches.
+        hist = obs.registry.family("rtpu_op_phase_seconds")
+        n_hist = sum(c.count for (_op, ph), c in hist.items() if ph == "device_dispatch")
+        launches = client.get_metrics()["batches_total"] - batches0
+        check(n_hist == len(spans) == launches,
+              f"15a: {n_hist} phase samples, {len(spans)} spans, {launches} launches")
+        ops = sum(st["ops"] for st in obs.op_stats().values())
+        check(ops == n + len(probes), f"15a: op_stats counts {ops} ops, {n + len(probes)} submitted")
+        # The trace holds one launch span per launch, each with its phases.
+        tspans = obs.trace.traces(root.trace_id)[root.trace_id]
+        lspans = [s for s in tspans if s["name"].startswith("launch:")]
+        check(len(lspans) == len(spans), f"15a: {len(lspans)} launch spans, {len(spans)} launches")
+        check(all(s["parent_id"] == root.span_id
+                  and all(p + "_us" in s["attrs"] for p in PHASES) for s in lspans),
+              "15a: a launch span lacks its parent or a phase")
+        # The spans cover the card: span device phases >= kernel + memcpy.
+        span_dev_us = sum((s.phases()["device_dispatch"] + s.phases()["d2h_fetch"]) * 1e6
+                          for s in add_spans)
+        card_us = device_us(add_events)
+        if P15_DEVICE == "cuda":
+            check(card_us > 0, "15a: the add pass's capture holds no device activity")
+        check(span_dev_us >= card_us,
+              f"15a: spans claim {span_dev_us:.1f} us of device phases, the card spent {card_us:.1f}")
+        check(add_dev_tenant_us >= card_us,
+              f"15a: rtpu_tenant_device_us {add_dev_tenant_us:.1f} < card {card_us:.1f} us")
+
+        # Config 5: K1's dispatch records and regions under a second capture.
+        d, w = P15["d"], P15["w"]
+        cms = client.get_count_min_sketch("p15-cms")
+        check(cms.try_init(d, w), "try_init refused")
+        wcms = client.get_count_min_sketch("p15-cms-warm")
+        check(wcms.try_init(d, w), "try_init refused")
+        wcms.add_all_seq(np.arange(1024, dtype=np.uint64))
+        events = (rng.zipf(1.2, P15["cms_events"]) % 100_000).astype(np.uint64)
+        key = ("cms_update_estimate_seq",)
+        d0 = family_value(obs, "rtpu_dispatches_total", key)
+        o0 = family_value(obs, "rtpu_dispatch_ops_total", key)
+        l0 = cms_seq.LAUNCHES
+        est, k1_events = p15_capture(lambda: cms.add_all_seq(events))
+        n_disp = family_value(obs, "rtpu_dispatches_total", key) - d0
+        n_ops = family_value(obs, "rtpu_dispatch_ops_total", key) - o0
+        n_k1 = cms_seq.LAUNCHES - l0
+        chunks = -(-len(events) // client._engine._SEQ_CHUNK)
+        check(n_disp == chunks, f"15a: {n_disp} K1 dispatch records for {chunks} chunks")
+        if P15_DEVICE == "cuda":
+            check(n_disp == n_k1, f"15a: {n_disp} dispatch records, {n_k1} K1 launches")
+            regions = k1_in_regions(k1_events, n_k1)
+        else:
+            regions = {"regions": sum(1 for e in k1_events if e.get("cat") == "user_annotation"
+                                      and e.get("name") == "rtpu:cms_update_estimate_seq")}
+            check(regions["regions"] == chunks, f"15a: {regions['regions']} K1 regions")
+        check(n_ops == len(events), f"15a: rtpu_dispatch_ops {n_ops}, {len(events)} events")
+        from redisson_tpu_torch.utils import hashing
+
+        h1w, h2w = hashing.km_reduce_mod(
+            *hashing.hash128_np(*hashing.encode_uint64_batch(events)), w)
+        table, g_est = cms_seq_unit(h1w, h2w, d, w)
+        check(np.array_equal(np.asarray(est, np.uint32), g_est), "15a: estimates != golden_seq")
+        check(np.array_equal(tenant_row(client, "p15-cms")[: d * w].reshape(d, w), table),
+              "15a: the CMS table != golden")
+        check_healthy(client, "15a")
+        out = {"phase": "15a", "config": "config 1 spans; config 5 K1 records",
+               "launches": launches, "spans": len(spans), "launch_spans_in_trace": len(lspans),
+               "phase_sum_worst_us": worst * 1e6, "ops": ops,
+               "add_pass_span_device_us": span_dev_us, "add_pass_card_us": card_us,
+               "add_pass_tenant_device_us": add_dev_tenant_us,
+               "span_over_card": span_dev_us / card_us if card_us else None,
+               "k1_dispatch_records": n_disp, "k1_launches": n_k1,
+               "k1_dispatch_ops": n_ops, **regions,
+               "phase_stats": obs.phase_stats(), "card": card}
+        log(out)
+        return out
+    finally:
+        client.obs.trace.set_sample_rate(0.0)
+        client.shutdown()
+
+
+def p15b_overhead(card: str) -> dict:
+    """15b: phase 2's add pass with the tier off (A), inside a trace scope
+    at rate 1.0 (B), and with the loadmap's key sampling at 1.0 (C), in
+    turns A B C C B A, three rounds."""
+    import redisson_tpu_torch as rt
+
+    client = rt.create(p15_config())
+    try:
+        obs = client.obs
+        n, chunk = P15["keys"], P15["chunk"]
+        keys = [np.arange(i * chunk, (i + 1) * chunk, dtype=np.uint64) for i in range(n // chunk)]
+        warm = client.get_bloom_filter("p15b-warm")
+        check(warm.try_init(P15["capacity"], P15["fpp"]), "try_init refused")
+        warm.add_all_async(keys[0]).result()
+        want = None
+        rates = {"A": [], "B": [], "C": []}
+        for i, arm in enumerate("ABCCBA" * P15["rounds"]):
+            obs.trace.set_sample_rate(1.0 if arm == "B" else 0.0)
+            obs.loadmap.sample_rate = 1.0 if arm == "C" else 0.0
+            name = f"p15b-{i}"
+            bf = client.get_bloom_filter(name)
+            check(bf.try_init(P15["capacity"], P15["fpp"]), "try_init refused")
+            if want is None:
+                g = golden_bloom(bf, np.arange(n, dtype=np.uint64))
+                words = tenant_row(client, name)
+                gbits = np.zeros(words.shape[0] * 32, bool)
+                gbits[: g.size] = g.bits
+                want = np.packbits(gbits, bitorder="little").view(np.uint32)
+            p15_sync()
+            t0 = time.perf_counter()
+            if arm == "B":
+                with client.trace("p15b") as span:
+                    check(span is not None, "15b: no span at rate 1.0")
+                    for f in [bf.add_all_async(k) for k in keys]:
+                        f.result()
+            else:
+                for f in [bf.add_all_async(k) for k in keys]:
+                    f.result()
+            rates[arm].append(n / (time.perf_counter() - t0))
+            check(np.array_equal(tenant_row(client, name), want),
+                  f"15b: arm {arm}'s row differs from the golden bitmap")
+            bf.delete()
+        obs.trace.set_sample_rate(0.0)
+        check_healthy(client, "15b")
+        med = {a: float(np.median(v)) for a, v in rates.items()}
+        out = {"phase": "15b", "config": "phase 2's add pass, tier off / traced / key-sampled",
+               "keys_per_s": {a: {"min": min(v), "median": med[a], "max": max(v)}
+                              for a, v in rates.items()},
+               "B_over_A": med["B"] / med["A"], "C_over_A": med["C"] / med["A"],
+               "rounds": P15["rounds"], "card": card}
+        log(out)
+        return out
+    finally:
+        client.obs.trace.set_sample_rate(0.0)
+        client.shutdown()
+
+
+def monitor_line(cmd) -> bytes:
+    """The reference's MONITOR rendering of one command (after the
+    timestamp and the client address)."""
+    return b" ".join(
+        b'"%s"' % a.replace(b"\\", b"\\\\").replace(b'"', b'\\"') for a in cmd)
+
+
+def slowlog_args(cmd) -> list:
+    """Redis's slowlog argument truncation: at most 32 arguments (the last
+    replaced by a count of the rest), at most 128 bytes each."""
+    shown = cmd[:31] if len(cmd) > 32 else cmd
+    out = [a if len(a) <= 128 else a[:128] + b"... (%d more bytes)" % (len(a) - 128)
+           for a in shown]
+    if len(cmd) > 32:
+        out.append(b"... (%d more arguments)" % (len(cmd) - 31))
+    return out
+
+
+def read_monitor(sock, want: int, timeout: float = 120.0) -> list:
+    """(address, rendered command) of MONITOR lines until ``want`` BF.MADD
+    lines arrived."""
+    import re
+
+    pat = re.compile(rb"^\+\d+\.\d{6} \[0 ([^\]]+)\] (.*)$")
+    sock.settimeout(timeout)
+    buf, out, seen = b"", [], 0
+    while seen < want:
+        chunk = sock.recv(1 << 20)
+        check(bool(chunk), f"15c: the monitor closed after {seen} BF.MADD lines")
+        buf += chunk
+        *lines, buf = buf.split(b"\r\n")
+        for ln in lines:
+            m = pat.match(ln)
+            check(m is not None, f"15c: malformed monitor line {ln[:80]!r}")
+            out.append((m.group(1).decode(), m.group(2)))
+            seen += m.group(2).startswith(b'"BF.MADD"')
+    check(buf == b"", "15c: a partial monitor line after the last BF.MADD")
+    return out
+
+
+def p15c_wire(rng, card: str, seed: int) -> dict:
+    """15c: MONITOR, SLOWLOG, LATENCY, EVENTS, TRACE and HOTKEYS over the
+    wire on a card server (reactor on, native codec required)."""
+    import json as _json
+
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.obs import total
+    from redisson_tpu_torch.serve.resp import RespServer
+    from redisson_tpu_torch.serve.wireutil import exchange
+
+    os.environ["RTPU_REQUIRE_NATIVE_RESP"] = "1"
+
+    def p15_server(**kw):
+        cfg = p15_config(long_codec=False, **P9_KNOBS, **kw)
+        cfg.retry_attempts = P9_RETRY["retry_attempts"]
+        cfg.retry_interval_ms = P9_RETRY["retry_interval_ms"]
+        client = rt.create(cfg)
+        return client, RespServer(client, max_connections=4096)
+
+    per, n_cmds, conns, win = P15["madd"], P15["madd_cmds"], P15["conns"], P15["window"]
+    cmds = [[b"BF.MADD", b"cfg1"] + c11_keys(j * per, (j + 1) * per) for j in range(n_cmds)]
+    client, server = p15_server()
+    out = {"phase": "15c", "card": card}
+    try:
+        check(server.reactor is not None, "15c: the reactor is off")
+        ctl = socket.create_connection((server.host, server.port))
+        r = exchange(ctl, [("CONFIG", "SET", "slowlog-log-slower-than", "0"),
+                           ("BF.RESERVE", "cfg1", "%g" % P15["fpp"], "%d" % P15["capacity"])])
+        check(r == [b"OK", b"OK"], f"15c: setup replies {r}")
+        mon = socket.create_connection((server.host, server.port))
+        mon.sendall(wire([[b"MONITOR"]]))
+        check(read_frames(mon, 1) == [b"+OK\r\n"], "15c: MONITOR refused")
+        check(len(server._monitors) == 1, "15c: the server holds no monitor")
+        fused0 = total(server.obs.resp_fused_runs)
+        # The load: connection c sends commands c, c + conns, ... in
+        # pipelined windows, while the monitor is attached.
+        streams = [cmds[c::conns] for c in range(conns)]
+        socks = [socket.create_connection((server.host, server.port)) for _ in range(conns)]
+        addrs = ["%s:%d" % s.getsockname()[:2] for s in socks]
+        replies = [None] * conns
+        errors = []
+
+        def load(c):
+            try:
+                got = []
+                for i in range(0, len(streams[c]), win):
+                    part = streams[c][i:i + win]
+                    socks[c].sendall(wire(part))
+                    got += read_frames(socks[c], len(part))
+                replies[c] = got
+            except Exception as e:  # surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=load, args=(c,)) for c in range(conns)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        load_s = time.perf_counter() - t0
+        check(not errors, f"15c: the load failed: {errors[:1]}")
+        lines = read_monitor(mon, n_cmds)
+        fused = total(server.obs.resp_fused_runs) - fused0
+        check(fused == 0, f"15c: {fused} runs fused while a monitor was attached")
+        # Every command exactly once, in each connection's send order, with
+        # the reference's rendering.
+        order = []
+        for c in range(conns):
+            mine = [body for addr, body in lines if addr == addrs[c]]
+            check(mine == [monitor_line(x) for x in streams[c]],
+                  f"15c: the monitor's lines of connection {c} differ from its commands")
+        by_line = {monitor_line(x): x for x in cmds}
+        order = [by_line[body] for _addr, body in lines if body.startswith(b'"BF.MADD"')]
+        check(len(order) == n_cmds and len({id(x) for x in order}) == n_cmds,
+              "15c: the monitor saw a command twice or missed one")
+        # SLOWLOG: the newest 128 commands, truncated as Redis truncates.
+        # Logged since the threshold went to 0: that CONFIG SET, BF.RESERVE,
+        # MONITOR, the load, and (for LEN) the SLOWLOG GET.
+        (entries,) = exchange(ctl, [("SLOWLOG", "GET", "128")])
+        (sl_len,) = exchange(ctl, [("SLOWLOG", "LEN")])
+        check(sl_len == min(n_cmds + 4, 128), f"15c: SLOWLOG LEN {sl_len}")
+        check(len(entries) == min(n_cmds + 3, 128), f"15c: SLOWLOG GET gave {len(entries)}")
+        newest = order[::-1][:128]
+        addr_of = {id(x): addrs[c] for c in range(conns) for x in streams[c]}
+        check(all(e[3] == slowlog_args(x) and e[4] == addr_of[id(x)].encode()
+                  for e, x in zip(entries, newest)),
+              "15c: SLOWLOG GET is not the newest commands with Redis's truncation")
+        ids = [e[0] for e in entries]
+        check(ids == sorted(ids, reverse=True), "15c: slowlog ids not newest first")
+        mon.close()
+        until(lambda: not server._monitors, "15c: the monitor's slot reclaimed", 30)
+        # Replies equal a sequential replay in the monitor's order.
+        rclient, rserver = p15_server()
+        try:
+            rserver.vectorize = False
+            roundtrip(rserver, [[b"BF.RESERVE", b"cfg1", b"%g" % P15["fpp"],
+                                 b"%d" % P15["capacity"]]])
+            replay = []
+            rs = socket.create_connection((rserver.host, rserver.port))
+            for i in range(0, len(order), win):
+                rs.sendall(wire(order[i:i + win]))
+                replay += read_frames(rs, len(order[i:i + win]))
+            rs.close()
+        finally:
+            rserver.close()
+            rclient.shutdown()
+        want = {id(x): f for x, f in zip(order, replay)}
+        check(all(replies[c][j] == want[id(x)] for c in range(conns)
+                  for j, x in enumerate(streams[c])),
+              "15c: a reply differs from the sequential replay")
+        out.update(monitor_cmds=n_cmds, monitor_lines=len(lines), fused_runs_attached=fused,
+                   load_cmds_per_s=n_cmds / load_s, slowlog_len=sl_len,
+                   replies_equal_replay=True)
+        for s in socks:
+            s.close()
+
+        # TRACE: the prelude gives a trace id; the command and launch spans.
+        tid, sid = "15" * 16, "ab" * 8
+        r = exchange(ctl, [("RTPU.TRACE", tid, sid), cmds[0]])
+        check(r[0] == b"OK" and len(r[1]) == per, f"15c: traced BF.MADD replied {r[0]}")
+        (docs,) = exchange(ctl, [("TRACE", "GET", tid)])
+        check(len(docs) == 1, f"15c: TRACE GET gave {len(docs)} documents")
+        spans = _json.loads(docs[0])["spans"]
+        cmd_span = [s for s in spans if s["name"] == "resp:BF.MADD"]
+        launch = [s for s in spans if s["name"].startswith("launch:")]
+        check(len(cmd_span) == 1 and cmd_span[0]["parent_id"] == sid,
+              "15c: the traced command's span is missing")
+        check(launch and all(s["parent_id"] == cmd_span[0]["span_id"]
+                             and all(p + "_us" in s["attrs"] for p in PHASES) for s in launch),
+              "15c: the launch span with its four phases is missing")
+        out.update(trace_spans=len(spans), trace_launch_spans=len(launch))
+
+        check_healthy(client, "15c")
+        # LATENCY and EVENTS: trip the Bloom breaker and clear it.
+        r = exchange(ctl, [("CONFIG", "SET", "latency-monitor-threshold", "1")])
+        check(r == [b"OK"], f"15c: CONFIG SET latency-monitor-threshold: {r}")
+        bf = client.get_bloom_filter("p15c-trip")
+        check(bf.try_init(10_000, 0.01), "try_init refused")
+        bf.add_all(["a", "b"])
+        trip(client, "bloom", "p15c-trip", lambda: bf.add("p15c-probe"))
+        heal(client, "bloom")
+
+        def events_of(kind=None):
+            cmd = ("EVENTS", "GET") if kind is None else ("EVENTS", "GET", "0", kind)
+            (doc,) = exchange(ctl, [cmd])
+            return _json.loads(doc)["events"]
+
+        until(lambda: events_of("health.breaker.close"), "15c: health.breaker.close", 30)
+        evs = events_of("health.")
+        kinds = [e["kind"] for e in evs]
+        check("health.breaker.open" in kinds and "health.breaker.close" in kinds
+              and kinds.index("health.breaker.open") < kinds.index("health.breaker.close"),
+              f"15c: EVENTS GET health. gave {kinds}")
+        seqs = [e["seq"] for e in events_of()]
+        check(seqs == sorted(set(seqs)), "15c: event seq not monotone")
+        (latest,) = exchange(ctl, [("LATENCY", "LATEST")])
+        check(any(row[0] == b"breaker-open" for row in latest),
+              f"15c: LATENCY LATEST names {[row[0] for row in latest]}")
+        info = {}
+        for sec in ("events", "telemetry"):
+            (txt,) = exchange(ctl, [("INFO", sec)])
+            info[sec] = [ln.split(":", 1)[0] for ln in txt.decode().split("\r\n")
+                         if ln and not ln.startswith("#")]
+        check(tuple(info["events"]) == P15_EVENTS, f"15c: INFO events fields {info['events']}")
+        check(tuple(info["telemetry"]) == P15_TELEMETRY,
+              f"15c: INFO telemetry fields {info['telemetry']}")
+        eng = client._engine
+        check(eng.health.board.open_count() == 0 and not eng._mirrors
+              and not eng.health.any_degraded, "15c: the breaker did not close")
+        out.update(events=kinds, latency_latest=[row[0].decode() for row in latest])
+        ctl.close()
+    finally:
+        server.close()
+        client.shutdown()
+
+    # HOTKEYS on config 6's stream with every key sampled.
+    P, depth, nb = P15["conns"], P15["c6_depth"], P15["c6_batches"]
+    batches = config6_batches(seed, P * nb, depth)
+    per_conn = [batches[c * nb:(c + 1) * nb] for c in range(P)]
+    client, server = p15_server(batch_window_us=200)
+    try:
+        roundtrip(server, [[b"CONFIG", b"SET", b"loadmap-key-sample-rate", b"1"]])
+        roundtrip(server, config6_seed_cmds())
+        lm = server.loadmap
+        ops0, hits0 = lm.totals()["ops"], total(server.obs.resp_cache_hits)
+        config6_pass(server, per_conn)
+        sent = sum(len(b) for b in batches)
+        counted = lm.totals()["ops"] - ops0
+        hits = total(server.obs.resp_cache_hits) - hits0
+        check(counted + hits == sent,
+              f"15c: loadmap ops {counted} + cache hits {hits} != {sent} commands sent")
+        counts: dict = {}
+        for b in batches:
+            for c in b:
+                counts[c[1]] = counts.get(c[1], 0) + 1
+        hs = socket.create_connection((server.host, server.port))
+        (flat,) = exchange(hs, [("HOTKEYS", "16")])
+        hs.close()
+        shown = set(flat[0::2])
+        heavy = {k for k, v in counts.items() if v > sent / 128}
+        check(heavy <= shown, f"15c: HOTKEYS {sorted(shown)} misses {sorted(heavy - shown)}")
+        (txt,) = roundtrip(server, [[b"INFO", b"loadstats"]])
+        check(b"loadmap_ops:" in txt and b"loadmap_hot_keys:" in txt, "15c: INFO loadstats")
+        check_healthy(client, "15c")
+        out.update(c6_cmds=sent, c6_cache_hits=hits, hot_keys=sorted(k.decode() for k in heavy))
+    finally:
+        server.close()
+        client.shutdown()
+    log(out)
+    return out
+
+
+def phase_telemetry(rng, seed: int, card: str) -> None:
+    """Phase 15: the observability tier on the card."""
+    p15a_spans(rng, card)
+    p15b_overhead(card)
+    p15c_wire(rng, card, seed)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4448,6 +5029,11 @@ def main(argv=None) -> int:
     check(cms_seq.LAUNCHES > 0, "phase 14 never launched K1")
     kernel["launches"] += cms_seq.LAUNCHES
     by_phase["14"] = cms_seq.LAUNCHES
+    cms_seq.LAUNCHES = 0  # phase 15's path: K1 under the dispatch records
+    phase_telemetry(rng, args.seed, card)
+    check(cms_seq.LAUNCHES > 0, "phase 15 never launched K1")
+    kernel["launches"] += cms_seq.LAUNCHES
+    by_phase["15"] = cms_seq.LAUNCHES
     log({"kernels": [kernel]})
     print(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})

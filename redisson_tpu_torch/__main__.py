@@ -80,6 +80,17 @@ def main(argv=None) -> int:
         "--resp-reactor-threads", type=int, default=None,
         help="reactor event-loop thread count (default from config, 1)",
     )
+    p.add_argument(
+        "--trace-sample-rate", type=float, default=None,
+        help="distributed-trace head-sampling probability in [0, 1] "
+        "(default 0 = tracing off; live via CONFIG SET "
+        "trace-sample-rate / TRACE SAMPLE)",
+    )
+    p.add_argument(
+        "--latency-monitor-threshold", type=int, default=None,
+        help="arm the LATENCY monitor at this many milliseconds "
+        "(0 = off, the redis default; live via CONFIG SET)",
+    )
     args = p.parse_args(argv)
 
     import redisson_tpu_torch
@@ -116,6 +127,14 @@ def main(argv=None) -> int:
         cfg.journal_dir = args.journal_dir
     if args.replica_of:
         cfg.replica_of = args.replica_of
+    if args.trace_sample_rate is not None:
+        if not 0.0 <= args.trace_sample_rate <= 1.0:
+            p.error("--trace-sample-rate must be in [0, 1]")
+        cfg.trace_sample_rate = args.trace_sample_rate
+    if args.latency_monitor_threshold is not None:
+        if args.latency_monitor_threshold < 0:
+            p.error("--latency-monitor-threshold must be >= 0")
+        cfg.latency_monitor_threshold_ms = args.latency_monitor_threshold
     if args.requirepass:
         cfg.requirepass = args.requirepass
     if args.no_resp_vectorize:

@@ -451,12 +451,37 @@ class RedissonTorchClient(CamelCompatMixin):
 
     def get_metrics(self) -> dict:
         """Coalescer/batch metrics snapshot: the flat keys of
-        ``serve.metrics.Metrics`` (ops_total, p99_wait_ms, ...) plus
-        ``commands``, the per-RESP-command calls/usec (populated when a
-        RespServer fronts this client)."""
+        ``serve.metrics.Metrics`` (ops_total, p99_wait_ms, ...) plus the
+        nested views:
+
+        - ``ops``: per engine-op latency and throughput (p50/p99 from the
+          lifecycle-span histograms);
+        - ``commands``: per RESP command calls/usec (populated when a
+          RespServer fronts this client);
+        - ``tenants``: ops submitted per named sketch object;
+        - ``phases``: per-op p50/p99 of the four launch phases;
+        - ``slowlog_len``: current slow-op ring occupancy;
+        - ``traces``: the bounded span ring grouped by trace id ({} while
+          sampling is off).
+        """
         out = self._engine.metrics.snapshot()
-        out["commands"] = self.obs.command_stats()
+        obs = self.obs
+        out["ops"] = obs.op_stats()
+        out["commands"] = obs.command_stats()
+        out["tenants"] = obs.tenant_stats()
+        out["phases"] = obs.phase_stats()
+        out["slowlog_len"] = len(obs.slowlog)
+        out["traces"] = obs.trace.traces()
         return out
+
+    def trace(self, name: str = "client"):
+        """Direct-API trace minting: ``with client.trace("my-batch") as
+        span:`` head-samples a root span and installs it as the thread's
+        ambient context, so every engine submit inside links its
+        coalescer launch (with the full phase breakdown) into the trace.
+        Yields the span, or None when the dice missed or sampling is
+        off."""
+        return self.obs.trace.span_scope(name)
 
     def render_prometheus(self) -> str:
         """Full Prometheus text exposition: the aggregate metrics (typed

@@ -170,6 +170,23 @@ class Config:
         # live-settable with CONFIG SET.
         self.client_output_buffer_limit = 0
         self.client_output_buffer_soft_seconds = 0.0
+        # Telemetry plane, the JAX package's knobs and defaults.
+        # ``trace_sample_rate``: head-based sampling probability of
+        # distributed request traces (obs/trace.py), 0.0 = off (the
+        # module guard makes the off path one attribute read per hook);
+        # live via CONFIG SET trace-sample-rate / TRACE SAMPLE.
+        # ``trace_max_spans``: the hard per-process span-ring bound.
+        # ``latency_monitor_threshold_ms``: latency-monitor-threshold —
+        # named latency events at or above it are sampled for LATENCY
+        # LATEST|HISTORY|DOCTOR; 0 disables.
+        # ``loadmap_key_sample_rate``: probability that a served command's
+        # keys feed the hot-key sketches (obs/loadmap.py; the per-slot
+        # vectors are always kept); live via CONFIG SET
+        # loadmap-key-sample-rate.
+        self.trace_sample_rate = 0.0
+        self.trace_max_spans = 2048
+        self.latency_monitor_threshold_ms = 0
+        self.loadmap_key_sample_rate = 0.01
         # Crash-safe durability, the JAX package's knobs and defaults:
         # with a journal_dir set, every accepted sketch and grid mutation
         # appends a CRC32-framed record (durability/journal.py); recovery
@@ -237,6 +254,10 @@ class Config:
         "resp_reactor_threads",
         "client_output_buffer_limit",
         "client_output_buffer_soft_seconds",
+        "trace_sample_rate",
+        "trace_max_spans",
+        "latency_monitor_threshold_ms",
+        "loadmap_key_sample_rate",
         "journal_dir",
         "journal_fsync",
         "journal_max_segment_bytes",

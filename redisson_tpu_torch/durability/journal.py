@@ -691,6 +691,12 @@ class OpJournal:
         obs = self.obs
         if obs is not None:
             obs.journal_fsync_us.observe((), dt)
+            lat = getattr(obs, "latency", None)
+            if lat is not None and lat.threshold_ms > 0:
+                # LATENCY "fsync-stall": a group-commit fsync that outlived
+                # the monitor threshold (under appendfsync always, every
+                # acked write of the batch rode it out).
+                lat.record("fsync-stall", dt * 1e3)
 
     def _rotate(self) -> None:
         """Close the live segment (already fsynced by the caller) and

@@ -189,6 +189,9 @@ class ReplicaLink(threading.Thread):
         self._stop_evt = threading.Event()
         self._sock: Optional[socket.socket] = None
 
+    def _events(self):
+        return getattr(self.obs, "events", None)
+
     # -- public surface ----------------------------------------------------
 
     def lag_ops(self) -> int:
@@ -223,6 +226,16 @@ class ReplicaLink(threading.Thread):
             except (OSError, ReplyError, ReplicaStreamError, ValueError):
                 pass
             finally:
+                if self.link_up:
+                    # Emit only on an up->down edge: a dead primary would
+                    # otherwise log one event per reconnect try.
+                    events = self._events()
+                    if events is not None:
+                        events.emit("repl.link.down", severity="warn",
+                                    master=f"{self.master_host}:"
+                                           f"{self.master_port}",
+                                    applied=self.applied,
+                                    lag=self.lag_ops())
                 self.link_up = False
                 s, self._sock = self._sock, None
                 if s is not None:
@@ -257,6 +270,10 @@ class ReplicaLink(threading.Thread):
             with self._lock:
                 self.replid = bytes(psync[1]).decode()
                 self.partial_resyncs += 1
+            events = self._events()
+            if events is not None:
+                events.emit("repl.partial_resync", side="replica",
+                            offset=self.applied)
         elif tag == "FULLRESYNC":
             self._full_resync(psync)
         else:
@@ -299,6 +316,7 @@ class ReplicaLink(threading.Thread):
         replid = bytes(psync[1]).decode()
         snap_seq = int(psync[2])
         tar_bytes = bytes(psync[3])
+        resync_t0 = time.monotonic()
         import shutil
         import tempfile
 
@@ -334,6 +352,15 @@ class ReplicaLink(threading.Thread):
                 self.last_resync_bytes = len(tar_bytes)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+        resync_ms = (time.monotonic() - resync_t0) * 1e3
+        events = self._events()
+        if events is not None:
+            events.emit("repl.full_resync", severity="warn",
+                        side="replica", snap_seq=snap_seq,
+                        bytes=len(tar_bytes), ms=round(resync_ms, 3))
+        lat = getattr(self.obs, "latency", None)
+        if lat is not None:
+            lat.record("full-resync", resync_ms)
 
     def _apply_batch(self, frames) -> int:
         """Verify then apply one REPLFETCH batch.  Verification is

@@ -167,12 +167,20 @@ class ReplicationHub:
             self.fullresyncs += 1
         if self.obs is not None:
             self.obs.repl_fullresyncs.inc((), 1)
+            events = getattr(self.obs, "events", None)
+            if events is not None:
+                events.emit("repl.full_resync", severity="warn",
+                            side="primary", repl_id=self.repl_id)
 
     def note_partial_resync(self) -> None:
         with self._lock:
             self.partial_resyncs += 1
         if self.obs is not None:
             self.obs.repl_partial_resyncs.inc((), 1)
+            events = getattr(self.obs, "events", None)
+            if events is not None:
+                events.emit("repl.partial_resync", side="primary",
+                            repl_id=self.repl_id)
 
     # -- the stream --------------------------------------------------------
 

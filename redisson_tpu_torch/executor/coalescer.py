@@ -36,6 +36,14 @@ Failures (executor/failures.py):
 Ordering: segments of one pool flush FIFO (a parked segment holds back
 its own pool's later segments), so a read submitted after a write
 observes it.
+
+Spans (obs/spans.py): with an ``obs`` bundle, each segment carries one
+lifecycle span, stamped at the end of its queue wait and of its host
+staging (``_stage``), after its dispatch enqueue, and at retire, so the
+four phases partition the launch's end-to-end time.  A sampled
+request's ambient trace context (obs/trace.py) links to the span of
+every launch its ops ride; a merged-away segment's links move to the
+head's span.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ import numpy as np
 import torch
 
 from redisson_tpu_torch import chaos as _chaos
+from redisson_tpu_torch.obs import trace as _trace
 from redisson_tpu_torch.executor.failures import (
     DeadlineExceededError,
     DispatchTimeoutError,
@@ -71,7 +80,7 @@ def _op_label(key) -> str:
 
 class _Segment:
     __slots__ = ("key", "pool_key", "dispatch", "chunks", "metas", "futures",
-                 "nops", "born", "not_before", "attempts")
+                 "nops", "born", "span", "not_before", "attempts")
 
     def __init__(self, key, pool_key, dispatch):
         self.key = key
@@ -84,6 +93,8 @@ class _Segment:
         self.futures: list[tuple] = []  # (future, start, n, tenant, deadline)
         self.nops = 0
         self.born = time.monotonic()
+        # Lifecycle span (obs/spans.py): one per launch, not per op.
+        self.span = None
         # Retry state: a transiently failed segment is parked with a
         # backoff deadline instead of sleeping the flush thread.
         self.not_before: Optional[float] = None
@@ -334,6 +345,8 @@ class BatchCoalescer:
                 or seg.nops + nops > self.max_batch
             ):
                 seg = _Segment(key, pool_key, dispatch)
+                if self.obs is not None:
+                    seg.span = self.obs.spans.start(_op_label(key))
                 if meta is not None:
                     seg.metas = []
                 self._open[key] = seg
@@ -343,6 +356,14 @@ class BatchCoalescer:
             seg.chunks.append(arrays)
             if meta is not None:
                 seg.metas.append((nops, meta))
+            if _trace.ENABLED and seg.span is not None:
+                # A sampled request's ambient context parents this launch:
+                # the span's finish records the launch, with its phases,
+                # into every linked trace.  One attribute read and a
+                # branch while tracing is off.
+                tctx = _trace.current()
+                if tctx is not None:
+                    seg.span.link(tctx)
             seg.futures.append((fut, seg.nops, nops, tenant, deadline))
             seg.nops += nops
             self._queued_ops += nops
@@ -437,6 +458,10 @@ class BatchCoalescer:
         """Fail every future of a fully expired segment with
         DeadlineExceededError — strictly pre-dispatch (a parked retry
         segment was dispatched but FAILED: equally unapplied)."""
+        if seg.span is not None:
+            seg.span.nops = seg.nops
+            seg.span.stamp("device_dispatch")
+            seg.span.finish(error=True)
         self._count_shed("deadline", "queue", seg.nops)
         e = DeadlineExceededError(
             f"op deadline expired while queued ({_op_label(seg.key)}, "
@@ -502,6 +527,9 @@ class BatchCoalescer:
                 break
             del self._order[i]
             self._detach_locked(nxt)
+            if nxt.span is not None:
+                # Its ops ride the head's span; trace links move with them.
+                nxt.span.abandon(into=head.span)
             head.chunks.extend(nxt.chunks)
             if head.metas is not None:
                 head.metas.extend(nxt.metas)
@@ -607,15 +635,26 @@ class BatchCoalescer:
                 # Stage first, then wait for a launch slot: host packing
                 # overlaps the launches in flight.
                 try:
-                    cols = [
-                        c[0] if len(c) == 1 else np.concatenate(c)
-                        for c in zip(*seg.chunks)
-                    ]
+                    cols = self._stage(seg)
                 except Exception as e:
                     stage_exc = e
                 if stage_exc is None:
                     self._acquire_launch_slot()
             self._flush(seg, cols, stage_exc)
+
+    def _stage(self, seg: _Segment) -> list:
+        """Host staging: concatenate the segment's per-submit chunks into
+        flush columns, before the launch-slot wait (it overlaps the
+        launches in flight); the span's host_stage phase is this work."""
+        if seg.span is not None:
+            seg.span.stamp("coalesce_wait")  # queue time ends here
+        cols = [
+            c[0] if len(c) == 1 else np.concatenate(c)
+            for c in zip(*seg.chunks)
+        ]
+        if seg.span is not None:
+            seg.span.stamp("host_stage")
+        return cols
 
     def _acquire_launch_slot(self) -> None:
         with self._inflight_cv:
@@ -661,8 +700,11 @@ class BatchCoalescer:
             base *= 1.0 + self.retry_jitter * (2.0 * self._rng.random() - 1.0)
         return max(0.0, base)
 
-    @staticmethod
-    def _fail_futures(seg: _Segment, e: BaseException) -> None:
+    def _fail_futures(self, seg: _Segment, e: BaseException) -> None:
+        if seg.span is not None:
+            seg.span.nops = seg.nops
+            seg.span.stamp("device_dispatch")
+            seg.span.finish(error=True)
         for fut, start, n, _, _dl in seg.futures:
             if fut.set_running_or_notify_cancel():
                 fut.set_exception(
@@ -722,6 +764,8 @@ class BatchCoalescer:
             # whose every result fetch fails would reset the breaker's
             # streak each launch and never open).  The completer records
             # success once the result is home.
+            if seg.span is not None:
+                seg.span.stamp("device_dispatch")  # enqueue done, async
             with self._lock:
                 self._inflight -= 1
             self._completions.put((seg, lazy, t0))
@@ -771,6 +815,10 @@ class BatchCoalescer:
                         self._health.record_failure(op, e)
                     self._release_launch_slot(None)
                     first = False
+                    if seg.span is not None:
+                        seg.span.nops = seg.nops
+                        seg.span.stamp("d2h_fetch")
+                        seg.span.finish(error=True)
                     self._record_batch(seg, t0)
                     for fut, start, n, _, _dl in seg.futures:
                         if fut.set_running_or_notify_cancel():
@@ -786,6 +834,25 @@ class BatchCoalescer:
                 # launch (~5-sample EWMAs; GIL-atomic float stores).
                 self._service_ewma_s += 0.2 * (time.monotonic() - t0 - self._service_ewma_s)
                 self._ops_per_launch_ewma += 0.2 * (seg.nops - self._ops_per_launch_ewma)
+                if seg.span is not None:
+                    seg.span.nops = seg.nops
+                    # Load attribution: the (tenant, nops) composition,
+                    # so the recorder splits the launch's device time per
+                    # tenant; only while a loadmap is armed.
+                    lm = self.obs.spans.loadmap
+                    if lm is not None and lm.enabled:
+                        seg.span.tenants = [
+                            (t, n) for _, _, n, t, _ in seg.futures
+                            if t is not None
+                        ] or None
+                    seg.span.stamp("d2h_fetch")
+                    seg.span.finish()
+                if self.obs is not None:
+                    # Per-tenant accounting, deferred from submit to here
+                    # so producers never pay the counter lock.
+                    for _, _, n, tenant, _dl in seg.futures:
+                        if tenant is not None:
+                            self.obs.tenant_ops.inc((tenant, op), n)
                 self._record_batch(seg, t0)
                 for fut, start, n, _, _dl in seg.futures:
                     if fut.set_running_or_notify_cancel():

@@ -242,6 +242,10 @@ class DispatchHealth:
         self._closed = False
         self.degrade_events = 0  # lifetime kind-degradations (introspection)
         self.recoveries = 0
+        # Observability bundle (set by the engine): breaker-open LATENCY
+        # samples and the health.* flight-recorder events.
+        self.obs = None
+        self._open_ms = open_s * 1e3
 
     # -- coalescer/executor surface ---------------------------------------
 
@@ -281,7 +285,15 @@ class DispatchHealth:
             self.any_degraded = bool(self._degraded)
 
     def _on_open(self, shard, opcode: str) -> None:
+        obs = self.obs
+        if obs is not None and obs.latency.threshold_ms > 0:
+            obs.latency.record("breaker-open", self._open_ms)
         kind = kind_of_op(opcode)
+        events = getattr(obs, "events", None)
+        if events is not None:
+            events.emit("health.breaker.open", severity="warn",
+                        shard=str(shard), opcode=opcode,
+                        kind=kind or "", open_ms=self._open_ms)
         with self._lock:
             if kind is not None and kind not in self._degraded:
                 self._degraded.add(kind)
@@ -327,12 +339,19 @@ class DispatchHealth:
                 ok = bool(cb(kind))
             except Exception:
                 ok = False
+        events = getattr(self.obs, "events", None)
         if ok:
             with self._lock:
                 self._degraded.discard(kind)  # idempotent (cb-less path)
                 self.any_degraded = bool(self._degraded)
                 self.recoveries += 1
+            if events is not None:
+                events.emit("health.breaker.close", shard=str(shard),
+                            opcode=opcode, kind=kind)
         else:
+            if events is not None:
+                events.emit("health.reconcile.failed", severity="error",
+                            shard=str(shard), opcode=opcode, kind=kind)
             self.board.force_open(shard, opcode)
             with self._lock:
                 # The monitor may have exited in the closed window —

@@ -243,6 +243,7 @@ def _locked(fn):
       safe to retry."""
     name = fn.__name__
     fault_point = "dispatch." + name
+    annotation = "rtpu:" + name
     sheddable = name not in _DEADLINE_EXEMPT
 
     def _shed_expired(self, args, stage: str) -> None:
@@ -262,21 +263,29 @@ def _locked(fn):
         return fn(self, *args, **kwargs)
 
     def _recorded(self, args, kwargs):
-        metrics = self.metrics
-        if metrics is None or self._dispatch_recording:
-            # No direct-dispatch recorder, or a nested wrapped call (the
+        obs, metrics = self.obs, self.metrics
+        if (obs is None and metrics is None) or self._dispatch_recording:
+            # Nothing to record into, or a nested wrapped call (the
             # outermost wrapper records; the dispatch lock is reentrant
             # and held, so the plain attribute is safe).
             return counted(self, *args, **kwargs)
         self._dispatch_recording = True
         t0 = time.monotonic()
         try:
-            out = counted(self, *args, **kwargs)
+            # Named region in a torch.profiler capture: the card's kernels
+            # launched inside correlate with the dispatch records by name.
+            with torch.profiler.record_function(annotation):
+                out = counted(self, *args, **kwargs)
         finally:
             self._dispatch_recording = False
-        metrics.record_dispatch(
-            nops=_nops_of(name, args), enqueue_s=time.monotonic() - t0
-        )
+        dur = time.monotonic() - t0
+        nops = _nops_of(name, args)
+        if metrics is not None:
+            # Direct dispatch (no coalescer in front): the only recorder
+            # of the legacy aggregate.
+            metrics.record_dispatch(nops=nops, enqueue_s=dur)
+        if obs is not None:
+            obs.record_dispatch(name, nops, dur)
         return out
 
     @functools.wraps(fn)

@@ -72,6 +72,11 @@ class GridStore:
         # must be leaf-safe: they are called under ``self.lock``.
         self.on_invalidate = None
         self.on_invalidate_all = None
+        # Load attribution: the serve layer wires this to the loadmap's
+        # exact per-slot key counters.  Called as ``on_keyspace(name,
+        # +1/-1)`` at every point the set of live names changes, UNDER
+        # ``self.lock`` — leaf-safe, like the invalidation hooks above.
+        self.on_keyspace = None
         # Op-journal reach: the client wires these to the sketch engine's
         # journal seam so grid mutations enter the SAME total order the
         # replication stream ships.  Grid records are full-entry-state
@@ -98,6 +103,11 @@ class GridStore:
         hook = self.on_invalidate
         if hook is not None:
             hook(name)
+
+    def _note_keyspace(self, name: str, delta: int) -> None:
+        hook = self.on_keyspace
+        if hook is not None:
+            hook(name, delta)
 
     # -- op-journal capture/apply ------------------------------------------
 
@@ -209,6 +219,8 @@ class GridStore:
             with self.lock:
                 e = GridEntry(str(rec["kind"]), value)
                 e.expire_at = exp
+                if name not in self._data:
+                    self._note_keyspace(name, +1)
                 self._data[name] = e
                 self._note_invalidate(name)
                 if exp is not None:
@@ -240,6 +252,7 @@ class GridStore:
             if e is not None and e.expired(time.time()):
                 del self._data[name]
                 self._note_invalidate(name)
+                self._note_keyspace(name, -1)
                 e = None
             if e is not None and kind is not None and e.kind != kind:
                 raise TypeError(f"object {name!r} holds a {e.kind}, not a {kind}")
@@ -252,6 +265,7 @@ class GridStore:
                 self._guard_foreign(name)
                 e = GridEntry(kind, factory())
                 self._data[name] = e
+                self._note_keyspace(name, +1)
             return e
 
     def put_entry(self, name: str, kind: str, value: Any) -> GridEntry:
@@ -263,6 +277,11 @@ class GridStore:
                 # which may have legitimately created it meanwhile.
                 self._guard_foreign(name)
             e = GridEntry(kind, value)
+            # An expired-unreaped prior still holds its +1 (only the reap
+            # paths decrement), so the overwrite transfers it: the count
+            # moves only when the name was genuinely absent.
+            if prior is None:
+                self._note_keyspace(name, +1)
             self._data[name] = e
             self.cond.notify_all()
             return e
@@ -284,6 +303,7 @@ class GridStore:
                 return False
             del self._data[name]
             self._note_invalidate(name)
+            self._note_keyspace(name, -1)
             self.cond.notify_all()
             seq = self._journal_capture(name)
         self._journal_ack(seq)
@@ -299,10 +319,14 @@ class GridStore:
             # One logical keyspace: renaming ONTO a sketch-held name would
             # leave it live on both backends.
             self._guard_foreign(new)
+            displaced = new in self._data
             del self._data[old]
             self._data[new] = e
             self._note_invalidate(old)
             self._note_invalidate(new)
+            self._note_keyspace(old, -1)
+            if not displaced:  # an overwrite transfers the displaced +1
+                self._note_keyspace(new, +1)
             # Two full-state records (old absent, new present) — rename
             # needs no record type of its own under last-write-wins.
             self._journal_capture(old)
@@ -318,6 +342,7 @@ class GridStore:
                 if e.expired(now):
                     del self._data[n]
                     self._note_invalidate(n)
+                    self._note_keyspace(n, -1)
                     continue
                 if pattern is None or fnmatch.fnmatchcase(n, pattern):
                     out.append(n)
@@ -396,6 +421,7 @@ class GridStore:
                 for n in dead:
                     del self._data[n]
                     self._note_invalidate(n)
+                    self._note_keyspace(n, -1)
                 if dead:
                     self.cond.notify_all()
                 # Let map-entry TTL structures prune themselves too.
@@ -696,6 +722,8 @@ class GridStore:
                     continue
                 ge = GridEntry(ent["kind"], self._dec_entry(ent["value"], blobs))
                 ge.expire_at = exp
+                if ent["name"] not in self._data:
+                    self._note_keyspace(ent["name"], +1)
                 self._data[ent["name"]] = ge
                 if exp is not None:
                     self._ensure_sweeper()

@@ -350,7 +350,11 @@ class TorchSketchEngine(SketchDurabilityMixin):
             initial_capacity=INITIAL_TENANTS_PER_CLASS,
             dispatch_lock=self.executor._dispatch_lock,
         )
-        self.obs = Observability()
+        self.obs = Observability(
+            trace_sample_rate=config.trace_sample_rate,
+            trace_max_spans=config.trace_max_spans,
+            latency_threshold_ms=config.latency_monitor_threshold_ms,
+        )
         self.executor.obs = self.obs
         # Ops/batches and wait/flush reservoirs behind client.get_metrics:
         # the coalescer records each launch it retires; with no coalescer
@@ -381,6 +385,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
             open_s=cfg.breaker_open_ms / 1000.0,
         )
         self.health.reconcile_cb = self._reconcile_kind
+        self.health.obs = self.obs  # breaker events and LATENCY samples
         # Per-tenant fair load shedding at the submit boundary; built even
         # with both limits 0 (inactive) so set_limits works live.
         self.governor = TenantGovernor(
@@ -564,6 +569,52 @@ class TorchSketchEngine(SketchDurabilityMixin):
             "rtpu_journal_segments",
             "live journal segment files",
             lambda: 0 if self.journal is None else self.journal.stats()["segments"],
+        )
+        # Tenant and pool occupancy, and the card's memory: scrape-time
+        # views (a short-TTL memo halves the registry lock hold when one
+        # scrape reads both registry gauges).
+        stats_memo = {"t": -1.0, "v": None}
+
+        def _stats():
+            now = time.monotonic()
+            if stats_memo["v"] is None or now - stats_memo["t"] > 0.2:
+                stats_memo["v"] = self.registry.stats()
+                stats_memo["t"] = now
+            return stats_memo["v"]
+
+        def _tenant_counts():
+            return {(k,): v for k, v in _stats()["tenants_by_kind"].items()}
+
+        def _pool_rows():
+            out = {}
+            for key, st in _stats()["pools"].items():
+                cls = "x".join(str(x) for x in key[1:]) or "-"
+                out[(key[0], cls, "used")] = st["used_rows"]
+                out[(key[0], cls, "capacity")] = st["capacity"]
+            return out
+
+        def _devmem():
+            from redisson_tpu_torch.serve.metrics import Profiler
+
+            out = {}
+            mem = Profiler(self.executor.device).device_memory()
+            for dev, stats in mem.items():
+                for stat, v in (stats or {}).items():
+                    if v is not None:
+                        out[(dev, stat)] = v
+            return out
+
+        reg.gauge_callback(
+            "rtpu_tenants", "registered sketch tenants by kind",
+            _tenant_counts, labelnames=("kind",),
+        )
+        reg.gauge_callback(
+            "rtpu_pool_rows", "size-class pool rows by kind/class/state",
+            _pool_rows, labelnames=("kind", "class", "state"),
+        )
+        reg.gauge_callback(
+            "rtpu_device_memory_bytes", "per-device memory stats",
+            _devmem, labelnames=("device", "stat"),
         )
 
     def _stop_health(self) -> None:
@@ -951,7 +1002,13 @@ class TorchSketchEngine(SketchDurabilityMixin):
         try:
             return self._reconcile_kind_inner(kind)
         finally:
-            self.reconcile_seconds[kind] = time.monotonic() - t0
+            dt = time.monotonic() - t0
+            self.reconcile_seconds[kind] = dt
+            # LATENCY "reconcile": the write-back stall, beside
+            # breaker-open and fsync-stall in LATENCY LATEST.
+            lat = self.obs.latency
+            if lat.threshold_ms > 0:
+                lat.record("reconcile", dt * 1e3)
 
     def _reconcile_kind_inner(self, kind: str) -> bool:
         """The write-back holds the mirror lock: a degraded op between a
@@ -1103,6 +1160,9 @@ class TorchSketchEngine(SketchDurabilityMixin):
         entry = self._lookup_kind(name, kind)
         if entry is None:
             raise RuntimeError(f"{kind} object {name!r} is not initialized")
+        # Per-tenant call counter: every op path (coalesced or direct),
+        # one inc per API call.
+        self.obs.tenant_calls.inc((name, kind))
         return entry
 
     # -- bloom -------------------------------------------------------------

@@ -1,26 +1,83 @@
 """Observability bundle of the port's engine.
 
-Counterpart of ``redisson_tpu/obs/__init__.py`` for what the port records
-so far: the failure-and-overload counters (degraded serving, injected
-faults, shedding, deadlines, tenant throttling, fetch timeouts), the near
-cache's hits, misses and evictions, the residency ladder's transitions,
-and the RESP front door's families (per-command calls, errors and
-latency; ingress sheds; fused runs and the response cache; reactor ticks
-and cross-connection fusion; slow-client disconnects), with the JAX
-package's names and labels, in one :class:`MetricsRegistry`.  The engine registers the health gauges
-(breaker state, degraded objects, coalescer queue and windows) and the
-tier and near-cache occupancy gauges on the same registry.
+Counterpart of ``redisson_tpu/obs/__init__.py``.  One ``Observability``
+per engine/client ties together:
+
+- ``registry`` — labeled counters, gauges and log2 histograms
+  (obs/registry.py) rendered as typed Prometheus text;
+- ``spans`` — per-launch lifecycle spans feeding the phase histograms and
+  the load map's device-time attribution (obs/spans.py);
+- ``slowlog`` — the SLOWLOG ring (obs/slowlog.py);
+- ``trace`` — the head-sampled distributed tracer (obs/trace.py);
+- ``latency`` — the LATENCY monitor (obs/latency.py);
+- ``events`` — the flight-recorder ring (obs/events.py);
+- ``loadmap`` — per-slot, per-key and per-tenant load (obs/loadmap.py).
+
+The families carry the JAX package's names, help text and labels.  The
+engine registers the health gauges (breaker state, degraded objects,
+coalescer queue and windows) and the tier and near-cache occupancy
+gauges on the same registry.
 """
 
 from __future__ import annotations
 
+from redisson_tpu_torch.obs.events import EventRing
+from redisson_tpu_torch.obs.latency import LatencyMonitor
+from redisson_tpu_torch.obs.loadmap import LoadMap
 from redisson_tpu_torch.obs.registry import Family, MetricsRegistry
+from redisson_tpu_torch.obs.slowlog import SlowLog, SlowLogEntry
+from redisson_tpu_torch.obs.spans import OpSpan, SpanRecorder
+from redisson_tpu_torch.obs.trace import Tracer
 
 
 class Observability:
-    def __init__(self):
+    def __init__(self, slowlog_max_len: int = 128,
+                 slowlog_threshold_us: int = 10_000,
+                 trace_sample_rate: float = 0.0,
+                 trace_max_spans: int = 2048,
+                 latency_threshold_ms: int = 0):
         r = MetricsRegistry()
         self.registry = r
+        # Telemetry plane: the latency monitor and the tracer's volume
+        # counters come first, so the recorders below can ride them.
+        self.latency_events = r.counter(
+            "rtpu_latency_events",
+            "latency-monitor samples recorded, by event "
+            "(command | slow-launch | fsync-stall | breaker-open | "
+            "migration | reconcile | election | rebalance-wave | "
+            "full-resync)", ("event",))
+        self.trace_sampled = r.counter(
+            "rtpu_trace_sampled",
+            "requests head-sampled into a distributed trace")
+        self.trace_spans = r.counter(
+            "rtpu_trace_spans",
+            "trace spans recorded into the bounded per-process ring")
+        self.latency = LatencyMonitor(
+            latency_threshold_ms, counter=self.latency_events)
+        self.trace = Tracer(
+            trace_sample_rate, max_spans=trace_max_spans,
+            sampled_counter=self.trace_sampled,
+            span_counter=self.trace_spans,
+        )
+        self.spans = SpanRecorder(r, latency=self.latency)
+        self.slowlog = SlowLog(slowlog_max_len, slowlog_threshold_us)
+        # Engine submit (per-tenant / per-object-type dimensions).
+        self.tenant_ops = r.counter(
+            "rtpu_tenant_ops", "sketch ops submitted, by tenant and op",
+            ("tenant", "op"), max_children=2048)
+        self.tenant_calls = r.counter(
+            "rtpu_tenant_calls", "sketch API calls, by tenant and kind",
+            ("tenant", "kind"), max_children=2048)
+        # Executor dispatch, per method (the direct-dispatch path; K1's
+        # ``cms_update_estimate_seq`` is one).
+        self.dispatches = r.counter(
+            "rtpu_dispatches", "executor dispatches, by method", ("method",))
+        self.dispatch_ops = r.counter(
+            "rtpu_dispatch_ops", "ops dispatched, by executor method",
+            ("method",))
+        self.dispatch_seconds = r.histogram(
+            "rtpu_dispatch_enqueue_seconds",
+            "host-side dispatch enqueue time, by method", ("method",))
         # Breaker state itself is a render-time gauge (rtpu_breaker_state,
         # registered by the engine).
         self.degraded_ops = r.counter(
@@ -137,6 +194,48 @@ class Observability:
             "rtpu_cross_conn_fused_ops",
             "engine ops fused into a launch together with ops from OTHER "
             "connections, by family", ("family",))
+        # Load attribution: device-time split per (tenant, op) — label
+        # cardinality is bounded twice (the loadmap folds cold tenants
+        # into "other" before the bump, max_children backstops it), and
+        # the per-slot planes export as render-time gauges over the
+        # top-N busiest slots only.
+        self.tenant_device_us = r.counter(
+            "rtpu_tenant_device_us",
+            "device-side launch microseconds attributed by tenant and "
+            "op (top-N tenants, cold ones fold into 'other')",
+            ("tenant", "op"), max_children=256)
+        self.loadmap = LoadMap()
+        self.loadmap.tenant_device_us_family = self.tenant_device_us
+        self.spans.loadmap = self.loadmap
+        _lm = self.loadmap
+        r.gauge_callback(
+            "rtpu_loadmap_slot_ops",
+            "commands accounted to the busiest slots (top-8 by ops — "
+            "bounded export of the 16384-slot load vector)",
+            lambda: {(str(s),): float(v) for s, v in _lm.top_slots(8)},
+            labelnames=("slot",))
+        r.gauge_callback(
+            "rtpu_loadmap_sampled_keys",
+            "keys sampled into the hot-key sketches at RESP ingress",
+            _lm.sampled_keys)
+        r.gauge_callback(
+            "rtpu_loadmap_tracked_keys",
+            "candidate keys currently monitored by the space-saving "
+            "top-k",
+            _lm.tracked_keys)
+        # Flight recorder: the control planes' causal event record
+        # (obs/events.py).  Kind cardinality is bounded by events.KINDS.
+        self.events_emitted = r.counter(
+            "rtpu_events_emitted",
+            "flight-recorder events emitted, by kind (bounded by the "
+            "events.KINDS catalog)", ("kind",))
+        self.events_evicted = r.counter(
+            "rtpu_events_evicted",
+            "flight-recorder events evicted from the bounded ring "
+            "(visible downstream as per-node seq gaps)")
+        self.events = EventRing(
+            counter=self.events_emitted,
+            evicted_counter=self.events_evicted)
         # Durability: the op journal's append volume, group-commit fsync
         # latency, and recovery replay count.  Lag (appended-but-unfsynced
         # records) and live segment count are render-time gauges the
@@ -198,6 +297,18 @@ class Observability:
             self.resp_errors.inc((cmd,))
         self.resp_latency.observe((cmd,), duration_s)
 
+    def record_dispatch(self, method: str, nops: int, dur_s: float) -> None:
+        self.dispatches.inc((method,))
+        self.dispatch_ops.inc((method,), nops)
+        self.dispatch_seconds.observe((method,), dur_s)
+
+    def reset_op_stats(self) -> None:
+        """Zero the span-derived families and the trace ring (benches
+        call this after warmup, so compile-era samples stay out of the
+        warm-path view)."""
+        self.spans.reset()
+        self.trace.reset()
+
     def reset_command_stats(self) -> None:
         """CONFIG RESETSTAT: zero the RESP per-command families."""
         self.resp_commands.reset()
@@ -206,7 +317,7 @@ class Observability:
 
     def command_stats(self) -> dict:
         """{cmd: {calls, errors, usec, usec_per_call}} for INFO
-        commandstats."""
+        commandstats and client.get_metrics()."""
         out = {}
         errs = {lv: c.value for lv, c in self.resp_errors.items()}
         lat = dict(self.resp_latency.items())
@@ -238,9 +349,64 @@ class Observability:
         return out
 
 
+    def op_stats(self) -> dict:
+        """{op: {ops, launches, p50_ms, p99_ms}} from the span
+        histograms — the per-command latency view of the engine."""
+        out = {}
+        ops = {lv: c.value for lv, c in self.spans._ops.items()}
+        for (op,), c in self.spans._total_hist.items():
+            if c.count == 0:
+                continue
+            p50, p99 = self.spans._total_hist.percentiles((op,), (50, 99))
+            out[op] = {
+                "ops": int(ops.get((op,), 0)),
+                "launches": int(c.count),
+                "p50_ms": p50 * 1e3,
+                "p99_ms": p99 * 1e3,
+            }
+        return out
+
+    def phase_stats(self) -> dict:
+        """{op: {phase: {launches, p50_ms, p99_ms}}} from the lifecycle
+        phase histograms (coalesce_wait / host_stage / device_dispatch /
+        d2h_fetch)."""
+        out: dict = {}
+        h = self.spans._phase_hist
+        for (op, phase), c in h.items():
+            if c.count == 0:
+                continue
+            p50, p99 = h.percentiles((op, phase), (50, 99))
+            out.setdefault(op, {})[phase] = {
+                "launches": int(c.count),
+                "p50_ms": round(p50 * 1e3, 3),
+                "p99_ms": round(p99 * 1e3, 3),
+            }
+        return out
+
+    def tenant_stats(self) -> dict:
+        """{tenant: ops} aggregated over op types."""
+        out: dict = {}
+        for (tenant, _op), c in self.tenant_ops.items():
+            out[tenant] = out.get(tenant, 0) + int(c.value)
+        return out
+
+
 def total(family: Family) -> float:
     """Sum of a family's children (every label set)."""
     return sum(c.value for _, c in family.items())
 
 
-__all__ = ["Family", "MetricsRegistry", "Observability", "total"]
+__all__ = [
+    "EventRing",
+    "Family",
+    "LatencyMonitor",
+    "LoadMap",
+    "MetricsRegistry",
+    "Observability",
+    "OpSpan",
+    "SlowLog",
+    "SlowLogEntry",
+    "SpanRecorder",
+    "Tracer",
+    "total",
+]

@@ -295,6 +295,12 @@ class _Reactor(threading.Thread):
     connections, a self-pipe for cross-thread wakeups, and the merged
     dispatch pass."""
 
+    # Dispatch-pass sequence number: traced commands annotate which tick
+    # carried them, correlating a trace with the cross-connection fusion
+    # window it rode.  A class attribute, so a harness that drives
+    # _run_pass without __init__ still reads 0.
+    tick_seq = 0
+
     def __init__(self, server, idx: int):
         super().__init__(name=f"rtpu-resp-reactor-{idx}", daemon=True)
         self.server = server
@@ -656,6 +662,7 @@ class _Reactor(threading.Thread):
                     ctxs.append(rconn.ctx)
                     owners.append(rconn)
         if cmds:
+            self.tick_seq += 1
             obs = server.obs
             if obs is not None:
                 obs.reactor_ticks.inc()
@@ -830,12 +837,13 @@ class _Reactor(threading.Thread):
                 and now - rconn.last_activity > idle_s
             ):
                 if (
-                    rconn.ctx.subs
+                    (rconn.ctx.subs or rconn.ctx.monitor)
                     and rconn.at_frame_boundary()
                     and not rconn.pending
                 ):
-                    # Subscribers may idle legitimately — but only at a
-                    # frame boundary (same exemption as _serve_conn).
+                    # Subscribers and monitors may idle legitimately — but
+                    # only at a frame boundary (same exemption as
+                    # _serve_conn).
                     rconn.last_activity = now
                 else:
                     self._close_conn(rconn)
@@ -908,6 +916,7 @@ class _Reactor(threading.Thread):
                 pass
             rconn.registered = False
         self._unsubscribe_all(rconn)
+        self.server._monitors.discard(rconn.ctx)
         try:
             rconn.sock.close()
         except OSError:

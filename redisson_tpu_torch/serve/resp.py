@@ -33,6 +33,10 @@ reply bytes, for the command families this package carries:
   WAIT BGREWRITEAOF REPLCONF RTPU.PSYNC RTPU.REPLFETCH FAILOVER
                     (the journal fence and the replication stream; a
                     replica answers writes -READONLY)
+  SLOWLOG TRACE RTPU.TRACE LATENCY EVENTS HOTKEYS MONITOR
+                    (the telemetry plane: slow-op ring, distributed
+                    traces and their wire prelude, the latency monitor,
+                    the flight recorder, hot keys, the command stream)
 
 Any other command (scripting and cluster verbs) answers
 exactly as the JAX package answers a command it lacks: ``-ERR unknown
@@ -46,6 +50,7 @@ thread-per-connection path stays selectable (``resp_reactor=False``).
 
 from __future__ import annotations
 
+import random as _random
 import socket
 import threading
 import time
@@ -56,6 +61,7 @@ import numpy as np
 from redisson_tpu_torch import chaos
 from redisson_tpu_torch import overload as _overload
 from redisson_tpu_torch.cluster.slots import command_keys as _command_keys
+from redisson_tpu_torch.obs import trace as _trace
 from redisson_tpu_torch.executor.failures import (
     DeadlineExceededError,
     TenantThrottledError,
@@ -213,6 +219,29 @@ _GET_RUN = frozenset((b"GET", b"MGET"))
 # Bound on ops one fused run may carry (memory + keeps fused launches in
 # the pre-warmed bucket ladder; a longer run simply splits).
 _RUN_MAX_OPS = 1 << 14
+
+
+# One-shot connection licenses: per-connection flags a prelude command
+# grants for exactly the next command.  The port carries one, the
+# RTPU.TRACE wire prelude (stitch one command into a remote trace).  The
+# preludes are transparent to each other (a migration pump sends
+# RTPU.TRACE + ASKING + RESTORE: the licensed hop is the RESTORE), so
+# ASKING — which the port answers as the JAX package's cluster-less
+# server does — never burns the trace prelude.
+_LICENSE_TRANSPARENT = frozenset(("ASKING", "RTPU.TRACE"))
+
+
+def consume_one_shot_licenses(ctx, name: str) -> None:
+    """Burn every one-shot license after a dispatched command.  Traced
+    commands consume the prelude inside ``_trace_begin``; keyless,
+    errored and untraceable commands must still burn it here, or it
+    leaks to a later unrelated command."""
+    if name in _LICENSE_TRANSPARENT:
+        return
+    if getattr(ctx, "asking", False):
+        ctx.asking = False
+    if getattr(ctx, "trace_next", None) is not None:
+        ctx.trace_next = None
 
 
 def _encode_error(s: str) -> bytes:
@@ -421,6 +450,14 @@ class _ConnCtx:
         # Per-connection op-deadline override (CLIENT DEADLINE):
         # None = server default (op_deadline_ms), 0 = no deadline.
         self.op_deadline_ms: Optional[int] = None
+        # Distributed-trace wire prelude: one-shot — RTPU.TRACE
+        # <trace_id> <span_id> parks the remote parent here; the NEXT
+        # command joins that trace (head sampling already happened at
+        # the remote hop) and consumes it.
+        self.trace_next = None
+        # MONITOR mode: every dispatched command streams to this
+        # connection as a +<ts> [db addr] "CMD" ... push.
+        self.monitor = False
         # Replication: set by REPLCONF IDENT — this connection belongs to
         # a replica with that id; its ACKs land in the hub's per-replica
         # table under this name.
@@ -601,6 +638,12 @@ class RespServer:
         # engine's registry, so one exposition carries both).
         self.obs = client.obs
         self._started = time.monotonic()
+        # MONITOR mode: live monitor connections' ctxs.  Read lock-free
+        # per command (GIL-atomic set ops; the common case is the empty
+        # set — one falsy check).  While any monitor is attached,
+        # front-door fusion is off so EVERY command flows through
+        # _safe_dispatch and feeds the stream.
+        self._monitors: set = set()
         self._conns_accepted = 0
         self._nconn = 0
         self._conn_lock = threading.Lock()
@@ -620,6 +663,18 @@ class RespServer:
         # is observable (INFO clients rejected_connections +
         # rtpu_resp_ingress_shed{conn_limit}).
         self._conns_refused = 0
+        # Load attribution: the obs bundle's loadmap gains its serving
+        # side here — the ingress key-sample rate, the exact keyspace
+        # hooks on both backends (the grid store and the sketch
+        # registry), and a one-scan seed of the per-slot key counters
+        # (standalone: everything lands in slot 0).  With both backends
+        # reporting every keyspace change, the counters are exact.
+        lm = self.loadmap = self.obs.loadmap
+        lm.sample_rate = float(client.config.loadmap_key_sample_rate)
+        client._grid.on_keyspace = lm.note_key
+        client._engine.registry.on_keyspace = lm.note_key
+        lm.seed_keys(client.get_keys().get_keys())
+        self._loadmap_keys_exact = True
         # Reactor front door: a small fixed pool of selector event-loop
         # threads replaces thread-per-connection serving — each tick
         # drains recv buffers across ALL ready connections and feeds one
@@ -745,10 +800,12 @@ class RespServer:
                 try:
                     cmd = reader.read_command()
                 except socket.timeout:
-                    # Subscribers may idle legitimately — but only at a
-                    # frame boundary; a timeout mid-frame (or with bytes
-                    # buffered) would desync the protocol on resume.
-                    if ctx.subs and reader.at_frame_boundary():
+                    # Subscribers (and monitors) may idle legitimately —
+                    # but only at a frame boundary; a timeout mid-frame
+                    # (or with bytes buffered) would desync the protocol
+                    # on resume.
+                    if (ctx.subs or ctx.monitor) and \
+                            reader.at_frame_boundary():
                         continue
                     return  # reclaim the slot
                 except OSError:
@@ -796,9 +853,11 @@ class RespServer:
                 else:
                     ctx.send(self._safe_dispatch(cmd, ctx))
         finally:
-            # Drop this connection's subscriptions with it.
+            # Drop this connection's subscriptions (and monitor slot) with
+            # it.
             for channel, lid in list(ctx.subs.items()):
                 self._client._topic_bus.unsubscribe(channel, lid)
+            self._monitors.discard(ctx)
             conn.close()
             with self._conn_lock:
                 self._nconn -= 1
@@ -854,26 +913,51 @@ class RespServer:
 
         Every dispatch is timed here — ONE clock read pair per command
         feeds the per-command counters and latency histogram (INFO
-        commandstats / latencystats, the registry families).
+        commandstats / latencystats, the registry families), the LATENCY
+        "command" event, and the SLOWLOG ring when the duration meets
+        the configured threshold.
 
         Commands merely QUEUED under MULTI are not recorded (EXEC's
-        replay re-enters here and records the real execution)."""
+        replay re-enters here and records the real execution — counting
+        the queue step too would double calls)."""
         t0 = time.perf_counter()
         err = False
         name = cmd[0].decode("latin-1", "replace").upper()
+        # Load attribution: slot 0 is the standalone bucket; the shed
+        # branch clears it (refused, not served).
+        ctx.load_slot = 0
         queueing = ctx.in_multi and name not in (
             "EXEC", "DISCARD", "MULTI", "RESET",
         )
-        if not queueing:
+        if self._monitors and not queueing:
+            # MONITOR stream: fed at dispatch, before execution.
             self._monitor_feed(name, cmd, ctx)
-        tspan = None if queueing else self._trace_begin(name, ctx)
+        # Distributed tracing: a remote RTPU.TRACE prelude forces the span
+        # into that trace even when this node's own sampling is off;
+        # otherwise head-sample here.  Off path: two attribute reads.
+        tspan = (
+            self._trace_begin(name, ctx)
+            if not queueing
+            and (ctx.trace_next is not None or _trace.ENABLED)
+            else None
+        )
         try:
-            reply = self._dispatch_deadlined(cmd, ctx, name)
+            if tspan is None:
+                reply = self._dispatch_deadlined(cmd, ctx, name)
+            else:
+                # Ambient scope: engine submits inside link this span, so
+                # the trace stitches through the coalescer's launch
+                # lifecycle (ingress → launch phases).
+                with _trace.scope(tspan.ctx()):
+                    reply = self._dispatch_deadlined(cmd, ctx, name)
         except Exception as e:
             # RespError / TypeError-WRONGTYPE / generic all map through
             # the ONE shared helper the fused-run demux also uses.
             err = True
             reply = self._fused_error_frame(e)
+        if not queueing:
+            # The trace prelude burns after ANY dispatched command.
+            consume_one_shot_licenses(ctx, name)
         if not queueing and name not in _NONMUTATING:
             # Any executed command that may have changed keyspace state
             # retires every response-cache entry (coarse, cheap, safe —
@@ -882,17 +966,47 @@ class RespServer:
         dt = time.perf_counter() - t0
         if tspan is not None:
             tspan.end(error=err)
+        obs = self.obs
         if not queueing:
+            lm = obs.loadmap
+            if lm.enabled:
+                slot = getattr(ctx, "load_slot", 0)
+                if slot is not None:
+                    # O(1) per-slot accounting: lock-free array bumps.
+                    # Bytes are the parsed argv and the encoded reply.
+                    lm.note_command(
+                        slot, name not in _NONMUTATING,
+                        sum(map(len, cmd)), len(reply),
+                    )
+                    rate = lm.sample_rate
+                    if rate > 0.0 and _random.random() < rate:
+                        keys = _command_keys(cmd)
+                        if keys:
+                            lm.sample_keys(keys)
             if self._blocked(name, cmd, ctx):
                 # Condvar-parked wait is not execution time: a routine
-                # `BLPOP q 30` would otherwise drive latencystats to
-                # +Inf (Redis also excludes blocked time).  Calls and
-                # errors still count.
-                self.obs.resp_commands.inc((name,))
+                # `BLPOP q 30` would otherwise file a 30 s SLOWLOG entry
+                # and drive latencystats to +Inf (Redis also excludes
+                # blocked time).  Calls and errors still count.
+                obs.resp_commands.inc((name,))
                 if err:
-                    self.obs.resp_errors.inc((name,))
+                    obs.resp_errors.inc((name,))
             else:
-                self.obs.record_resp_command(name, dt, err)
+                obs.record_resp_command(name, dt, err)
+                if obs.latency.threshold_ms > 0:
+                    obs.latency.record("command", dt * 1e3)
+                sl = obs.slowlog
+                if 0 <= sl.threshold_us <= dt * 1e6:
+                    # Sanitize only entries that will be kept.  A sampled
+                    # command's trace id rides the entry: TRACE GET <id>
+                    # answers where the time went.
+                    sl.maybe_add(
+                        dt, self._slowlog_sanitize(name, cmd), ctx.addr,
+                        ctx.client_name or "",
+                        trace_id=(
+                            tspan.trace_id if tspan is not None else ""
+                        ),
+                    )
         return reply
 
     def _dispatch_deadlined(self, cmd: list, ctx: "_ConnCtx",
@@ -909,11 +1023,33 @@ class RespServer:
 
     # -- telemetry hooks ----------------------------------------------------
 
+    def _node_label(self) -> str:
+        return f"{self.host}:{self.port}"
+
     def _trace_begin(self, name: str, ctx: "_ConnCtx"):
-        """A command's ingress span: a no-op (None) until the port has
-        the tracing plane (``obs/trace``, ROADMAP queue 1 item 6), whose
-        head-sampled span the JAX package opens here."""
-        return None
+        """Mint one command's ingress span: a parked RTPU.TRACE prelude
+        forces it into the remote trace (one-shot consume), else
+        head-sample against the live rate.  None = the dice missed.
+        ASKING never consumes the prelude — it is itself a prelude."""
+        tr = self.obs.trace
+        nxt = ctx.trace_next
+        if nxt is not None and name != "ASKING":
+            ctx.trace_next = None  # one-shot
+            span = tr.start("resp:" + name, nxt[0], nxt[1])
+        else:
+            span = tr.maybe_start("resp:" + name)
+            if span is None:
+                return None
+        span.annotate("node", self._node_label())
+        if ctx.addr:
+            span.annotate("addr", ctx.addr)
+        rc = getattr(ctx, "_rconn", None)
+        if rc is not None:
+            # Reactor front door: which event-loop tick carried this
+            # command (correlates the span with cross-connection fusion
+            # inside that tick).
+            span.annotate("tick", rc.reactor.tick_seq)
+        return span
 
     @staticmethod
     def _blocked(name: str, cmd: list, ctx: "_ConnCtx") -> bool:
@@ -931,8 +1067,29 @@ class RespServer:
         return False
 
     def _monitor_feed(self, name: str, cmd: list, ctx: "_ConnCtx") -> None:
-        """The MONITOR stream's feed point: a no-op until MONITOR lands
-        with the tracing plane (ROADMAP queue 1 item 6)."""
+        """Stream one dispatched command to every MONITOR connection (the
+        redis monitor wire shape: ``+<unix.micros> [0 <addr>] "CMD"
+        "arg" ...``).  Credentials are redacted exactly as in the
+        slowlog; MONITOR itself and a monitor's own commands are not
+        echoed.  Cross-thread sends ride each connection's ordered send
+        path (reactor outbuf / connection write lock) — the pub/sub push
+        mechanism."""
+        if name == "MONITOR" or ctx.monitor:
+            return
+        shown = self._slowlog_sanitize(name, cmd)
+        args = " ".join(
+            '"%s"' % a.decode("latin-1", "replace")
+            .replace("\\", "\\\\").replace('"', '\\"')
+            for a in shown
+        )
+        line = (
+            "+%.6f [0 %s] %s\r\n" % (time.time(), ctx.addr or "?", args)
+        ).encode("latin-1", "replace")
+        for mctx in tuple(self._monitors):
+            try:
+                mctx.send(line)
+            except Exception:
+                self._monitors.discard(mctx)
 
     # -- overload control plane ----------------------------------
 
@@ -1108,9 +1265,17 @@ class RespServer:
             name = cmd[0].decode("latin-1", "replace").upper()
             # A replica serves every command through _dispatch, whose
             # -READONLY and staleness gates a fused run would bypass.
+            # Telemetry barriers: while a MONITOR is attached every
+            # command must flow through _safe_dispatch to feed the
+            # stream; a command carrying a trace prelude takes the
+            # sequential path so its ingress span (and the one-shot
+            # consume) happen there.
             plain = (
                 self.vectorize and self._ctx_fusable(ctx)
                 and self.replica_link is None
+                and not self._monitors
+                # rtpulint: disable=RT012 fusion FENCE, not a dispatch: the prelude-carrying command falls through to _safe_dispatch below, which burns every license via consume_one_shot_licenses
+                and getattr(ctx, "trace_next", None) is None
             )
             if plain and rc_cap > 0 and name in _CACHEABLE:
                 hit = self._rc_probe(rc, rc_state, name, cmd)
@@ -1575,6 +1740,7 @@ class RespServer:
                 fam, j - i, len(items), names,
                 time.perf_counter() - t0, err=err,
             )
+            self._note_run_load(run, batch, i, frames, write=False)
             return frames, j
         if fam == "bloom":
             _, _, key, items, flags, shape = run
@@ -1612,6 +1778,7 @@ class RespServer:
                 fam, j - i, len(items), names,
                 time.perf_counter() - t0, err=err,
             )
+            self._note_run_load(run, batch, i, frames, write=any_add)
             return frames, j
         # fam == "bitset"
         _, _, key, idx, kinds, names = run
@@ -1648,7 +1815,30 @@ class RespServer:
         self._count_fused(
             fam, j - i, len(idx), names, time.perf_counter() - t0, err=err,
         )
+        self._note_run_load(run, batch, i, frames, write=any_write)
         return frames, j
+
+    def _note_run_load(self, run, batch, i, frames, write: bool) -> None:
+        """Per-slot accounting for one fused engine run: the run is ONE
+        O(1) accounting event carrying all its ops — its member commands
+        never pass _safe_dispatch.  mget runs are excluded (their members
+        do dispatch through _safe_dispatch, which accounts each one).
+        The run key stands in for the sampled key stream, weighted by the
+        run's op count."""
+        lm = self.loadmap
+        if not lm.enabled:
+            return
+        key, end = run[2], run[1]
+        nops = self._run_nops(run, i, end)
+        lm.note_command(
+            0, write,
+            sum(sum(map(len, batch[k])) for k in range(i, end)),
+            sum(len(f) for f in frames if f is not None),
+            nops=nops,
+        )
+        rate = lm.sample_rate
+        if rate > 0.0 and _random.random() < rate:
+            lm.sample_keys([key], nops)
 
     def _install_read_frames(self, rc, rc_state, batch, i, names, frames,
                              readable, err, wrote) -> None:
@@ -1680,6 +1870,23 @@ class RespServer:
             for nm in names:
                 obs.record_resp_command(nm, per, err is not None)
 
+    @staticmethod
+    def _slowlog_sanitize(name: str, cmd: list) -> list:
+        """Credentials must never sit in the slow-op ring or the MONITOR
+        stream (Redis obfuscates these the same way): AUTH's arguments
+        and the two args after a HELLO ... AUTH token are replaced."""
+        if name == "AUTH":
+            return [cmd[0]] + [b"(redacted)"] * (len(cmd) - 1)
+        if name == "HELLO":
+            out = list(cmd)
+            for i, a in enumerate(out):
+                if i > 0 and a.upper() == b"AUTH":
+                    for j in range(i + 1, min(i + 3, len(out))):
+                        out[j] = b"(redacted)"
+                    break
+            return out
+        return cmd
+
     def _dispatch(self, cmd: list[bytes], ctx: "_ConnCtx",
                   name: Optional[str] = None) -> bytes:
         if name is None:  # _safe_dispatch passes the decoded name along
@@ -1704,6 +1911,9 @@ class RespServer:
                 # Bounded staleness: a keyed read on a replica that has
                 # fallen more than the configured op count behind is
                 # refused (retryable) instead of served silently stale.
+                self.obs.events.emit("repl.stale_read", severity="warn",
+                                     lag=link.lag_ops(), bound=bound,
+                                     cmd=name)
                 raise RespError(
                     f"STALEREAD replica is {link.lag_ops()} ops behind "
                     f"its primary (bound {bound}); retry or read the "
@@ -1716,6 +1926,12 @@ class RespServer:
             # instead of letting it buy unbounded queue wait.  Strictly
             # pre-dispatch: a shed command was never executed, so no
             # acked state is involved.
+            lm = self.loadmap
+            if lm.enabled:
+                # Shed accounting: a shed command is demand the node
+                # refused, so it lands on its slot (standalone: 0).
+                lm.note_shed(0)
+                ctx.load_slot = None  # refused, not served: no op bump
             if shed == "tenant":
                 raise RespError(
                     "BUSY RTPU tenant over quota: command shed at "
@@ -1846,6 +2062,9 @@ class RespServer:
         ctx.subs.clear()
         ctx.proto = 2
         ctx.client_name = None
+        ctx.monitor = False  # RESET exits MONITOR mode (Redis parity)
+        self._monitors.discard(ctx)
+        ctx.trace_next = None
         if self._requirepass:
             ctx.authed = False
         return _encode_simple("RESET")
@@ -1865,6 +2084,11 @@ class RespServer:
         "databases": "1",  # rtpulint: disable=RT004 client-compat stub, no live semantics
         "timeout": "0",  # rtpulint: disable=RT004 client-compat stub, no live semantics
         "proto-max-bulk-len": "536870912",  # rtpulint: disable=RT004 client-compat stub, no live semantics
+        # Applied to the live slowlog ring on CONFIG SET (obs/slowlog.py;
+        # same defaults as redis-server).  Surfaced via SLOWLOG GET/LEN
+        # and CONFIG GET, not INFO — redis-server parity.
+        "slowlog-log-slower-than": "10000",  # rtpulint: disable=RT004 surfaced via SLOWLOG/CONFIG GET, not INFO (redis parity)
+        "slowlog-max-len": "128",  # rtpulint: disable=RT004 surfaced via SLOWLOG/CONFIG GET, not INFO (redis parity)
     }
 
     # Near-cache tunables live-apply to the engine's
@@ -1905,6 +2129,16 @@ class RespServer:
             "client-output-buffer-limit": str(self.output_buffer_limit),
             "client-output-buffer-soft-seconds":
                 f"{self.output_buffer_soft_seconds:g}",
+            # Telemetry plane: the live head-sampling rate (also settable
+            # via TRACE SAMPLE) and the latency-monitor arm threshold
+            # (0 = off, redis semantics).
+            "trace-sample-rate": f"{self.obs.trace.sample_rate:g}",
+            "latency-monitor-threshold":
+                str(self.obs.latency.threshold_ms),
+            # Load attribution: the key-sampling rate and master switch
+            # live-apply to the node's LoadMap.
+            "loadmap-key-sample-rate": f"{self.loadmap.sample_rate:g}",
+            "loadmap-enabled": "yes" if self.loadmap.enabled else "no",
         })
         rm = self._residency()
         if rm is not None:
@@ -1998,6 +2232,79 @@ class RespServer:
         "tenant-rate-limit", "tenant-burst-ops", "tenant-max-inflight",
         "client-output-buffer-limit", "client-output-buffer-soft-seconds",
     ))
+
+    # Telemetry knobs, bounds-validated before apply (the overload-knob
+    # pattern): a nonsense rate or threshold is refused, never acked into
+    # the table.
+    _TELEMETRY_KEYS = frozenset((
+        "trace-sample-rate", "latency-monitor-threshold",
+    ))
+
+    def _validate_telemetry_config(self, key: str, raw: bytes) -> None:
+        if key == "trace-sample-rate":
+            try:
+                fv = float(raw)
+            except ValueError:
+                raise RespError(
+                    f"Invalid argument '{raw.decode()}' for CONFIG SET "
+                    f"'{key}'"
+                )
+            if not 0.0 <= fv <= 1.0:
+                raise RespError(
+                    f"argument must be in [0, 1] for CONFIG SET '{key}'"
+                )
+        elif key == "latency-monitor-threshold":
+            try:
+                iv = int(raw)
+            except ValueError:
+                raise RespError(
+                    f"Invalid argument '{raw.decode()}' for CONFIG SET "
+                    f"'{key}'"
+                )
+            if iv < 0:
+                raise RespError(
+                    f"argument must be >= 0 for CONFIG SET '{key}' "
+                    f"(0 disables the latency monitor)"
+                )
+
+    def _apply_telemetry_config(self, key: str, val: str) -> None:
+        if key == "trace-sample-rate":
+            self.obs.trace.set_sample_rate(float(val))
+        elif key == "latency-monitor-threshold":
+            self.obs.latency.set_threshold_ms(int(val))
+
+    # Load-attribution knobs: the key-sampling rate and the master
+    # accounting switch, live-applied to the node's LoadMap.
+    _LOADMAP_KEYS = frozenset((
+        "loadmap-key-sample-rate", "loadmap-enabled",
+    ))
+
+    def _validate_loadmap_config(self, key: str, raw: bytes) -> None:
+        if key == "loadmap-key-sample-rate":
+            try:
+                fv = float(raw)
+            except ValueError:
+                raise RespError(
+                    f"Invalid argument '{raw.decode()}' for CONFIG SET "
+                    f"'{key}'"
+                )
+            if not 0.0 <= fv <= 1.0:
+                raise RespError(
+                    f"argument must be in [0, 1] for CONFIG SET '{key}'"
+                )
+        elif key == "loadmap-enabled":
+            if raw.decode("latin-1", "replace").lower() not in (
+                    "yes", "no", "1", "0", "true", "false", "on", "off"):
+                raise RespError(
+                    f"argument must be yes or no for CONFIG SET '{key}'"
+                )
+
+    def _apply_loadmap_config(self, key: str, val: str) -> None:
+        lm = self.loadmap
+        if key == "loadmap-key-sample-rate":
+            lm.sample_rate = float(val)
+        elif key == "loadmap-enabled":
+            lm.enabled = val.lower() in ("yes", "1", "true", "on")
 
     def _validate_overload_config(self, key: str, raw: bytes) -> None:
         def bad(msg: str):
@@ -2093,6 +2400,10 @@ class RespServer:
                     self._validate_overload_config(key, pairs[i + 1])
                 elif key in self._RESIDENCY_KEYS:
                     self._validate_residency_config(key, pairs[i + 1])
+                elif key in self._TELEMETRY_KEYS:
+                    self._validate_telemetry_config(key, pairs[i + 1])
+                elif key in self._LOADMAP_KEYS:
+                    self._validate_loadmap_config(key, pairs[i + 1])
                 elif key == "appendonly":
                     v = pairs[i + 1].decode().lower()
                     if v not in ("yes", "no"):
@@ -2117,7 +2428,9 @@ class RespServer:
                             f"{'|'.join(FSYNC_POLICIES)} for CONFIG SET "
                             f"'appendfsync'"
                         )
-                elif key.startswith("nearcache-"):
+                elif key.startswith("slowlog-") or (
+                    key.startswith("nearcache-")
+                ):
                     try:
                         iv = int(pairs[i + 1])
                     except ValueError:
@@ -2182,11 +2495,20 @@ class RespServer:
                 elif key == "appendfsync":
                     self._client._engine.journal_set_policy(val.lower())
                 self._config_table[key] = val
+                self._audit_config_set(key, val)
                 # Live-apply the validated tunables.
-                if key in self._OVERLOAD_KEYS:
+                if key == "slowlog-log-slower-than":
+                    self.obs.slowlog.set_threshold_us(int(val))
+                elif key == "slowlog-max-len":
+                    self.obs.slowlog.set_max_len(int(val))
+                elif key in self._OVERLOAD_KEYS:
                     self._apply_overload_config(key, val)
                 elif key in self._RESIDENCY_KEYS:
                     self._apply_residency_config(key, val)
+                elif key in self._TELEMETRY_KEYS:
+                    self._apply_telemetry_config(key, val)
+                elif key in self._LOADMAP_KEYS:
+                    self._apply_loadmap_config(key, val)
                 elif key.startswith("nearcache"):
                     self._apply_nearcache_config(key, val)
             return _encode_simple("OK")
@@ -2195,6 +2517,12 @@ class RespServer:
             self.obs.reset_command_stats()
             return _encode_simple("OK")
         raise RespError(f"Unknown CONFIG subcommand {sub}")
+
+    def _audit_config_set(self, key: str, val: str) -> None:
+        """The CONFIG SET audit trail: every applied pair lands in the
+        flight recorder, so a behavior change is attributable to the
+        knob that caused it."""
+        self.obs.events.emit("config.set", key=key, value=val)
 
 
     def _persist_engine(self):
@@ -2257,18 +2585,30 @@ class RespServer:
         attached, it blocks until <numreplicas> of them ``REPLCONF
         ACK``ed an offset covering every record appended so far, and
         replies with the count that did (0 with no journal: the honest
-        standalone answer)."""
+        standalone answer).  Redis's arity: exactly <numreplicas>
+        <timeout> — a missing timeout would otherwise block forever
+        once replicas are attached.  A replica-ack fence that times out
+        below the asked count emits ``repl.wait.timeout``."""
         from redisson_tpu_torch.durability import JournalError
 
-        timeout_s = None
-        if len(args) >= 2:
-            ms = int(args[1])
-            timeout_s = ms / 1000.0 if ms > 0 else None
+        if len(args) != 2:
+            raise RespError("wrong number of arguments for 'wait' command")
+        ms = int(args[1])
+        timeout_s = ms / 1000.0 if ms > 0 else None
+        t0 = time.perf_counter()
         try:
             if not self._client._engine.journal_fence(timeout=timeout_s):
                 raise RespError("BUSY RTPU journal fsync fence timed out")
         except JournalError as e:
             raise RespError(f"journal is broken: {e}") from e
+        tctx = _trace.current()
+        if tctx is not None and not isinstance(tctx, tuple):
+            # Traced WAIT: the fsync fence is its own child span, so a
+            # trace shows how much of the command was durability wait.
+            dur = time.perf_counter() - t0
+            tctx.tracer.record_span(
+                tctx, "journal_fsync_fence", time.time() - dur, dur,
+            )
         hub = self._repl_hub()
         if hub is None:
             return _encode_int(0)
@@ -2276,13 +2616,18 @@ class RespServer:
         # fsync fence — records appended while we waited are the next
         # WAIT's problem, exactly Redis's WAIT contract.
         fence_seq = hub.journal.last_seq()
-        numreplicas = int(args[0]) if args else 0
+        numreplicas = int(args[0])
         if numreplicas <= 0:
             return _encode_int(hub.count_acked(fence_seq))
-        return _encode_int(hub.wait_acked(
+        acked = hub.wait_acked(
             fence_seq, numreplicas,
             timeout_s if timeout_s is not None else float("inf"),
-        ))
+        )
+        if acked < numreplicas:
+            self.obs.events.emit("repl.wait.timeout", severity="warn",
+                                 offset=fence_seq, asked=numreplicas,
+                                 acked=acked)
+        return _encode_int(acked)
 
     def _repl_hub(self):
         """The primary-side ReplicationHub over the CURRENT journal —
@@ -3330,12 +3675,12 @@ class RespServer:
 
     # Default INFO excludes commandstats/latencystats, like redis-server
     # (they can be wide); 'INFO all'/'everything' or the explicit section
-    # name includes them.  The JAX package's replication, cluster,
-    # rebalance, telemetry, events, doctor and loadstats sections wait
-    # with their modules.
+    # name includes them.  The JAX package's cluster, rebalance and
+    # doctor sections wait with their modules.
     _INFO_DEFAULT = (
         "server", "clients", "memory", "stats", "persistence",
-        "replication", "nearcache", "frontdoor", "overload", "keyspace",
+        "replication", "nearcache", "frontdoor", "overload", "telemetry",
+        "events", "loadstats", "keyspace",
     )
 
     def _device_lines(self) -> list:
@@ -3427,6 +3772,7 @@ class RespServer:
                     "# Stats",
                     f"total_connections_received:{self._conns_accepted}",
                     f"total_commands_processed:{total_cmds}",
+                    f"slowlog_len:{0 if obs is None else len(obs.slowlog)}",
                 ]
                 # Self-healing dispatch: the degraded flag —
                 # sketches serving from the host golden mirror while a
@@ -3658,10 +4004,309 @@ class RespServer:
                     f"overload_output_buffer_soft_seconds:"
                     f"{self.output_buffer_soft_seconds:g}",
                 ]
+            elif s == "telemetry" and obs is not None:
+                # The distributed tracer's live knob and ring state and
+                # the latency monitor's arm state — what an operator
+                # checks before asking "why is TRACE GET empty".
+                ts = obs.trace.stats()
+                ls = obs.latency.stats()
+                lines += [
+                    "# Telemetry",
+                    f"trace_sample_rate:{ts['sample_rate']:g}",
+                    f"trace_spans:{ts['spans']}",
+                    f"trace_traces:{ts['traces']}",
+                    f"trace_max_spans:{ts['max_spans']}",
+                    f"trace_sampled_total:{ts['sampled']}",
+                    f"trace_evicted_total:{ts['evicted']}",
+                    f"latency_monitor_threshold:{ls['threshold_ms']}",
+                    f"latency_events:{ls['events']}",
+                    f"latency_samples:{ls['samples']}",
+                    f"monitors:{len(self._monitors)}",
+                ]
+            elif s == "events":
+                # Flight recorder: ring occupancy, lifetime seq and
+                # evictions — the "is the black box taping" check before
+                # an operator trusts EVENTS GET.
+                st = self.obs.events.stats()
+                lines += [
+                    "# Events",
+                    "events_enabled:1",
+                    f"events_len:{st['events']}",
+                    f"events_seq:{st['seq']}",
+                    f"events_evicted:{st['evicted']}",
+                    f"events_max:{st['max_events']}",
+                ]
+            elif s == "loadstats":
+                # Load attribution: the loadmap's totals, hottest slots
+                # and keys, and the per-tenant device-time shares.
+                lm = self.loadmap
+                st = lm.stats()
+                lines += ["# Loadstats"] + [
+                    f"{k}:{v:g}" if isinstance(v, float) else f"{k}:{v}"
+                    for k, v in st.items()
+                    # Emitted below as literals, so the served-config
+                    # coherence pass (RT004) sees the knob names.
+                    if k not in ("loadmap_enabled",
+                                 "loadmap_key_sample_rate")
+                ]
+                lines.append("loadmap_top_slots:" + ",".join(
+                    f"{s_}={v}" for s_, v in lm.top_slots(8)
+                ))
+                lines.append("loadmap_hot_keys:" + ",".join(
+                    f"{k}={c:g}" for k, c in lm.hot_keys(8)
+                ))
+                shares = lm.tenant_shares()
+                lines.append("loadmap_tenant_shares:" + ",".join(
+                    f"{t}={d['share']:g}" for t, d in shares.items()
+                ))
+                lines.append(
+                    "loadmap_keys_exact:"
+                    f"{1 if self._loadmap_keys_exact else 0}"
+                )
+                lines.append(f"loadmap_enabled:{1 if lm.enabled else 0}")
+                lines.append(f"loadmap_key_sample_rate:{lm.sample_rate:g}")
             elif s == "keyspace":
                 n = self._client.get_keys().count()
                 lines += ["# Keyspace", f"db0:keys={n},expires=0,avg_ttl=0"]
         return _encode_bulk("\r\n".join(lines) + "\r\n")
+
+    # SLOWLOG (→ redis-server slowlog.c command surface): entries are
+    # recorded by _safe_dispatch against the shared obs bundle.
+
+    def _cmd_SLOWLOG(self, args):
+        if not args:
+            raise RespError(
+                "wrong number of arguments for 'slowlog' command"
+            )
+        sub = args[0].decode().upper()
+        sl = self.obs.slowlog
+        if sub == "GET":
+            count = int(args[1]) if len(args) > 1 else 10
+            entries = sl.entries(count)
+            out = b"*" + str(len(entries)).encode() + b"\r\n"
+            for e in entries:
+                fields = [
+                    _encode_int(e.id),
+                    _encode_int(e.unix_ts),
+                    _encode_int(e.duration_us),
+                    _encode_array(list(e.args)),
+                    _encode_bulk(e.client_addr),
+                    _encode_bulk(e.client_name),
+                ]
+                if e.trace_id:
+                    # A sampled slow command carries its trace id as a
+                    # 7th element (the classic 6-element shape is
+                    # unchanged when tracing is off).
+                    fields.append(_encode_bulk(e.trace_id))
+                out += (
+                    b"*" + str(len(fields)).encode() + b"\r\n"
+                    + b"".join(fields)
+                )
+            return out
+        if sub == "RESET":
+            sl.reset()
+            return _encode_simple("OK")
+        if sub == "LEN":
+            return _encode_int(len(sl))
+        if sub == "HELP":
+            return _encode_array([
+                b"SLOWLOG GET [<count>|-1]",
+                b"SLOWLOG LEN",
+                b"SLOWLOG RESET",
+                b"SLOWLOG HELP",
+            ])
+        raise RespError(
+            f"Unknown SLOWLOG subcommand or wrong number of arguments "
+            f"for '{sub.lower()}'"
+        )
+
+    # -- telemetry plane: TRACE / LATENCY / EVENTS / HOTKEYS / MONITOR -------
+
+    def _cmdctx_RTPU_TRACE(self, args, ctx: _ConnCtx):
+        """Trace-context wire prelude: ``RTPU.TRACE <trace_id>
+        <parent_span_id>`` parks the remote parent on the connection;
+        the NEXT command joins that trace (head sampling already happened
+        at the first hop) and consumes it — one-shot."""
+        if len(args) < 2:
+            raise RespError(
+                "wrong number of arguments for 'rtpu.trace' command"
+            )
+        tid = args[0].decode("latin-1", "replace")
+        sid = args[1].decode("latin-1", "replace")
+        if not (8 <= len(tid) <= 64 and 4 <= len(sid) <= 32):
+            raise RespError("RTPU.TRACE trace/span id out of range")
+        ctx.trace_next = (tid, sid)
+        return _encode_simple("OK")
+
+    def _cmd_TRACE(self, args):
+        """TRACE GET [trace_id] | SAMPLE <rate> | RESET | LEN | HELP — the
+        distributed-trace ring's RESP surface.  GET replies one JSON
+        document per trace (spans grouped by trace id)."""
+        if not args:
+            raise RespError(
+                "wrong number of arguments for 'trace' command"
+            )
+        sub = args[0].decode().upper()
+        tr = self.obs.trace
+        if sub == "GET":
+            tid = args[1].decode() if len(args) > 1 else None
+            return _encode_array(
+                [d.encode() for d in tr.traces_json(tid)]
+            )
+        if sub == "SAMPLE":
+            if len(args) < 2:
+                raise RespError(
+                    "wrong number of arguments for 'trace|sample'"
+                )
+            try:
+                tr.set_sample_rate(float(args[1]))
+            except ValueError as e:
+                raise RespError(str(e)) from e
+            if hasattr(self, "_config_table"):
+                self._config_table["trace-sample-rate"] = (
+                    f"{tr.sample_rate:g}"
+                )
+            return _encode_simple("OK")
+        if sub == "RESET":
+            tr.reset()
+            return _encode_simple("OK")
+        if sub == "LEN":
+            return _encode_int(tr.stats()["spans"])
+        if sub == "HELP":
+            return _encode_array([
+                b"TRACE GET [<trace-id>]",
+                b"TRACE SAMPLE <rate 0..1>",
+                b"TRACE RESET",
+                b"TRACE LEN",
+                b"TRACE HELP",
+            ])
+        raise RespError(f"Unknown TRACE subcommand {sub}")
+
+    def _cmd_LATENCY(self, args):
+        """LATENCY LATEST | HISTORY <event> | RESET [event ...] | DOCTOR |
+        HELP — redis-server's latency monitor surface, fed by the span
+        phases and the named events (slow-launch, fsync-stall,
+        breaker-open, reconcile, command, full-resync)."""
+        if not args:
+            raise RespError(
+                "wrong number of arguments for 'latency' command"
+            )
+        sub = args[0].decode().upper()
+        lat = self.obs.latency
+        if sub == "LATEST":
+            rows = []
+            for name, ts, ms, mx in lat.latest():
+                rows.append(
+                    b"*4\r\n" + _encode_bulk(name) + _encode_int(ts)
+                    + _encode_int(ms) + _encode_int(mx)
+                )
+            return (
+                b"*" + str(len(rows)).encode() + b"\r\n" + b"".join(rows)
+            )
+        if sub == "HISTORY":
+            if len(args) < 2:
+                raise RespError(
+                    "wrong number of arguments for 'latency|history'"
+                )
+            pairs = lat.history(args[1].decode())
+            rows = [
+                b"*2\r\n" + _encode_int(ts) + _encode_int(ms)
+                for ts, ms in pairs
+            ]
+            return (
+                b"*" + str(len(rows)).encode() + b"\r\n" + b"".join(rows)
+            )
+        if sub == "RESET":
+            return _encode_int(
+                lat.reset(*[a.decode() for a in args[1:]])
+            )
+        if sub == "DOCTOR":
+            return _encode_bulk(lat.doctor())
+        if sub == "HELP":
+            return _encode_array([
+                b"LATENCY LATEST",
+                b"LATENCY HISTORY <event>",
+                b"LATENCY RESET [<event> ...]",
+                b"LATENCY DOCTOR",
+                b"LATENCY HELP",
+            ])
+        raise RespError(f"Unknown LATENCY subcommand {sub}")
+
+    def _cmd_EVENTS(self, args):
+        """EVENTS GET [count] [kind] | LEN | RESET | HELP — the flight
+        recorder's RESP surface.  GET replies ONE JSON document (node id,
+        ring stats, events newest-last).  ``kind`` filters by exact kind,
+        or a whole control plane with a trailing dot (``EVENTS GET 0
+        health.``)."""
+        if not args:
+            raise RespError(
+                "wrong number of arguments for 'events' command"
+            )
+        sub = args[0].decode().upper()
+        ring = self.obs.events
+        if sub == "GET":
+            count = 0
+            kind = ""
+            if len(args) > 1:
+                try:
+                    count = int(args[1])
+                except ValueError:
+                    raise RespError(
+                        "value is not an integer or out of range"
+                    )
+                if count < 0:
+                    raise RespError(
+                        "value is not an integer or out of range"
+                    )
+            if len(args) > 2:
+                kind = args[2].decode()
+            import json
+
+            doc = dict(ring.stats())
+            doc["node"] = ring.node
+            doc["events"] = ring.snapshot(count=count, kind=kind)
+            return _encode_bulk(json.dumps(doc).encode())
+        if sub == "LEN":
+            return _encode_int(len(ring))
+        if sub == "RESET":
+            return _encode_int(ring.reset())
+        if sub == "HELP":
+            return _encode_array([
+                b"EVENTS GET [<count>] [<kind> | <plane.>]",
+                b"EVENTS LEN",
+                b"EVENTS RESET",
+                b"EVENTS HELP",
+            ])
+        raise RespError(f"Unknown EVENTS subcommand {sub}")
+
+    def _cmd_HOTKEYS(self, args):
+        """HOTKEYS [count]: the hottest keys by the loadmap's sketches — a
+        decayed count-min sketch feeding a space-saving top-k over the
+        sampled ingress key stream.  Flat [key, count, ...] reply,
+        hottest first; counts are estimates of the SAMPLED stream,
+        reported raw as relative weights."""
+        count = 16
+        if args:
+            try:
+                count = int(args[0])
+            except ValueError:
+                raise RespError("value is not an integer or out of range")
+            if count < 0:
+                raise RespError("value is not an integer or out of range")
+        flat = []
+        for key, est in self.loadmap.hot_keys(count):
+            flat.append(key.encode())
+            flat.append(int(round(est)))
+        return _encode_array(flat)
+
+    def _cmdctx_MONITOR(self, args, ctx: _ConnCtx):
+        """MONITOR: stream every dispatched command to this connection
+        (redis parity).  Rides the reactor's blocking-handoff path (the
+        _DETACH set) like SUBSCRIBE; the feed is the pub/sub push
+        mechanism.  RESET (or disconnect) leaves monitor mode."""
+        ctx.monitor = True
+        self._monitors.add(ctx)
+        return _encode_simple("OK")
 
     def _cmdctx_CLIENT(self, args, ctx: _ConnCtx):
         sub = args[0].decode().upper() if args else ""

@@ -252,9 +252,8 @@ class ResidencyManager:
     # -- observability helpers ---------------------------------------------
 
     def _note(self, kind: str, name: str, t0: float) -> None:
-        """Counter + latency sample for one transition.  (The JAX package
-        also emits a flight-recorder event and a LATENCY monitor sample;
-        the port has neither yet.)"""
+        """Counter, flight-recorder event and LATENCY sample for one
+        transition (the per-kind latency deque feeds ``stats``)."""
         self._latency_ms[kind].append((self._clock() - t0) * 1e3)
         obs = self.obs
         if obs is None:
@@ -267,12 +266,48 @@ class ResidencyManager:
         }.get(kind)
         if fam is not None:
             fam.inc()
+        events = getattr(obs, "events", None)
+        if events is not None:
+            # Tier transitions only (promote / demote / spill); disk loads
+            # are read-path volume, not a control-plane decision.  One
+            # literal per branch: every emitted kind is a registered
+            # literal.
+            ms = round((self._clock() - t0) * 1e3, 3)
+            if kind == "promote":
+                events.emit("residency.promote", object=name, ms=ms)
+            elif kind == "demote":
+                events.emit("residency.demote", object=name, ms=ms)
+            elif kind == "spill":
+                events.emit("residency.spill", object=name, ms=ms)
+        lat = getattr(obs, "latency", None)
+        if lat is not None and lat.threshold_ms > 0:
+            lat.record(
+                f"residency-{kind}", (self._clock() - t0) * 1e3
+            )
 
     def _span(self, kind: str, name: str):
-        """Per-transition span: a no-op until the port has the tracing
-        plane (``obs/trace``, ROADMAP queue 1 item 6), which the JAX
-        package's ``_span`` opens here."""
-        return contextlib.nullcontext()
+        """Per-transition span in the tracing plane: a
+        ``residency:<kind>`` scope while tracing is on, a nullcontext on
+        the off path."""
+        from redisson_tpu_torch.obs import trace as _trace
+
+        obs = self.obs
+        if obs is None or not _trace.ENABLED:
+            return contextlib.nullcontext()
+        # rtpulint: disable=RT011 the scope is handed off: _Annotated delegates __enter__/__exit__ to it verbatim, so the span always reaches end/abandon through the with-statement below
+        scope = obs.trace.span_scope(f"residency:{kind}")
+
+        class _Annotated:
+            def __enter__(_s):
+                sp = scope.__enter__()
+                if sp is not None:
+                    sp.annotate("object", name)
+                return sp
+
+            def __exit__(_s, *exc):
+                return scope.__exit__(*exc)
+
+        return _Annotated()
 
     # -- transitions -------------------------------------------------------
 

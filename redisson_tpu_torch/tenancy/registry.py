@@ -330,6 +330,16 @@ class TenantRegistry:
         # a pool past the device-rows budget — the card holds the
         # working set, not the keyspace.
         self.alloc_gate = None
+        # Load attribution: wired by the serve layer to the loadmap's
+        # exact per-slot key counters.  Called as ``on_keyspace(name,
+        # +1/-1)`` wherever the set of live tenant names changes, UNDER
+        # ``self._lock`` — must be leaf-safe.
+        self.on_keyspace = None
+
+    def _note_keyspace(self, name: str, delta: int) -> None:
+        hook = self.on_keyspace
+        if hook is not None:
+            hook(name, delta)
 
     def lookup(self, name: str) -> Optional[TenantEntry]:
         with self._lock:
@@ -340,7 +350,10 @@ class TenantRegistry:
         the row and then frees it, so only one concurrent deleter wins the
         pop and the row is never reallocated while still dirty."""
         with self._lock:
-            return self._tenants.pop(name, None)
+            entry = self._tenants.pop(name, None)
+            if entry is not None:
+                self._note_keyspace(name, -1)
+            return entry
 
     def detach_if(self, name: str, entry: TenantEntry) -> Optional[TenantEntry]:
         """detach() guarded on entry identity: a no-op if ``name`` was
@@ -349,7 +362,9 @@ class TenantRegistry:
         with self._lock:
             if self._tenants.get(name) is not entry:
                 return None
-            return self._tenants.pop(name)
+            popped = self._tenants.pop(name)
+            self._note_keyspace(name, -1)
+            return popped
 
     def rename_detach_dest(self, old: str, new: str):
         """Atomic rename -> (renamed, displaced destination or None).  The
@@ -362,6 +377,9 @@ class TenantRegistry:
             dest = self._tenants.pop(new, None)
             entry.name = new
             self._tenants[new] = entry
+            self._note_keyspace(old, -1)
+            if dest is None:  # an overwrite transfers the displaced +1
+                self._note_keyspace(new, +1)
             return True, dest
 
     def names(self, kind: Optional[str] = None) -> list[str]:
@@ -375,6 +393,20 @@ class TenantRegistry:
     def entries(self) -> list[TenantEntry]:
         with self._lock:
             return list(self._tenants.values())
+
+    def stats(self) -> dict:
+        """Occupancy snapshot for the observability gauges: tenant counts
+        by kind and per-pool row capacity/usage.  One lock hold, no
+        device access — safe to call from a scrape handler."""
+        with self._lock:
+            tenants: dict[str, int] = {}
+            for e in self._tenants.values():
+                tenants[e.kind] = tenants.get(e.kind, 0) + 1
+            pools = {
+                key: {"capacity": p.capacity, "used_rows": p.used_rows()}
+                for key, p in self._pools.items()
+            }
+        return {"tenants_by_kind": tenants, "pools": pools}
 
     def pool_for(self, kind: str, class_key: tuple) -> SizeClassPool:
         with self._lock:
@@ -409,5 +441,6 @@ class TenantRegistry:
             else:
                 entry = TenantEntry(name, kind, pool, pool.alloc_row(), dict(params))
             self._tenants[name] = entry
+            self._note_keyspace(name, +1)
             return entry, True
 

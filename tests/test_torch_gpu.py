@@ -733,3 +733,51 @@ def test_k1_on_a_recovered_row_equals_golden_seq(cuda, tmp_path):
         assert np.array_equal(got, want_table.reshape(-1))
     finally:
         _abandon(c)
+
+
+@pytest.fixture
+def p15_small(cuda, monkeypatch):
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "P15_DEVICE", "cuda")
+    monkeypatch.setattr(cs, "P15", dict(
+        cs.P15, keys=1 << 16, chunk=1 << 14, capacity=65_536, contains=1 << 16,
+        cms_events=1 << 16, rounds=1, madd=256, madd_cmds=160, c6_batches=2))
+    monkeypatch.setenv("RTPU_REQUIRE_NATIVE_RESP", "1")
+    return cs
+
+
+def test_spans_cover_the_card(p15_small):
+    """15a at a small size: the spans' device phases and the tenant's
+    attributed device time are at least the kernel and memcpy time the
+    profiler saw; K1's dispatch records equal its launches, and each K1
+    kernel of the trace sits inside its rtpu: region."""
+    out = p15_small.p15a_spans(np.random.default_rng(15), "test")
+    assert out["add_pass_span_device_us"] >= out["add_pass_card_us"] > 0
+    assert out["add_pass_tenant_device_us"] >= out["add_pass_card_us"]
+    assert out["k1_dispatch_records"] == out["k1_launches"] >= out["k1_kernels"] > 0
+
+
+def test_k1_dispatch_records_equal_launches(cuda):
+    """Every K1 launch is one ``rtpu_dispatches{cms_update_estimate_seq}``
+    record carrying its ops."""
+    client = _client(device="cuda")
+    try:
+        cms = client.get_count_min_sketch("k1-rec")
+        cms.try_init(5, 1 << 16)
+        fam = client.obs.registry.family("rtpu_dispatches_total")
+        ops = client.obs.registry.family("rtpu_dispatch_ops_total")
+        key = ("cms_update_estimate_seq",)
+        before = cms_seq.LAUNCHES
+        n = 3 * client._engine._SEQ_CHUNK + 5
+        cms.add_all_seq((np.random.default_rng(1).zipf(1.2, n) % 1000).astype(np.uint64))
+        assert dict(fam.items())[key].value == cms_seq.LAUNCHES - before == 4
+        assert dict(ops.items())[key].value == n
+    finally:
+        client.shutdown()
+
+
+def test_telemetry_verbs_on_the_card(p15_small):
+    """15c at a small size on a card server."""
+    out = p15_small.p15c_wire(np.random.default_rng(15), "test", 0)
+    assert out["fused_runs_attached"] == 0 and out["replies_equal_replay"]

@@ -449,8 +449,21 @@ GRID = [
 # JAX server answers a command it lacks.
 WAITING = [
     [b"EVAL", b"return 1", b"0"], [b"FUNCTION", b"LIST"],
-    [b"CLUSTER", b"INFO"], [b"SLOWLOG", b"GET"], [b"MONITOR"],
+    [b"CLUSTER", b"INFO"],
 ]
+
+# Telemetry verbs (once in WAITING): one session each on a fresh
+# connection, byte-equal on both servers.  The slowlog case disarms the
+# ring, empties it, reads it, and restores the default threshold, so the
+# shared servers' earlier commands never show.
+TELEMETRY = {
+    "slowlog-get": [
+        [b"CONFIG", b"SET", b"slowlog-log-slower-than", b"-1"],
+        [b"SLOWLOG", b"RESET"], [b"SLOWLOG", b"GET"], [b"SLOWLOG", b"LEN"],
+        [b"CONFIG", b"SET", b"slowlog-log-slower-than", b"10000"],
+    ],
+    "monitor": [[b"MONITOR"]],
+}
 
 
 def _session(server, cmds):
@@ -603,6 +616,25 @@ def test_waiting_families_answer_as_unknown_commands(servers):
     # both servers alike.
     txn = [[b"MULTI"], [b"NOSUCHCMD", b"x"], [b"EXEC"]]
     assert _session(ts, txn) == _session(js, txn)
+
+
+@pytest.mark.parametrize("case", sorted(TELEMETRY))
+def test_telemetry_verbs_byte_equal_on_both_servers(servers, case):
+    js, ts = servers
+    cmds = TELEMETRY[case]
+    got_t = _session(ts, cmds)
+    assert got_t == _session(js, cmds)
+    assert not any(f.startswith(b"-") for f in got_t), got_t
+
+
+def test_wait_takes_redis_arity(servers):
+    """WAIT is <numreplicas> <timeout>: with one argument (which would
+    block forever once replicas are attached) or none, the port answers
+    Redis's arity error; the two-argument form is unchanged."""
+    _, ts = servers
+    got = _session(ts, [[b"WAIT", b"1"], [b"WAIT"], [b"WAIT", b"0", b"0"]])
+    err = b"-ERR wrong number of arguments for 'wait' command\r\n"
+    assert got == [err, err, b":0\r\n"]
 
 
 def test_inline_command_fixture(servers):

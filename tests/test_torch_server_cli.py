@@ -179,7 +179,9 @@ def test_server_modules_import_neither_jax_nor_the_reference():
     and services half (locks, services, cron, LocalCachedMap, JCache, the
     integrations, the reactive facade, nodes, metrics and the scrape
     endpoint), the ingest bridge, the durability tier (the journal,
-    recovery, the replication hub and link, the crash child), the entry
+    recovery, the replication hub and link, the crash child), the
+    observability tier (spans, slowlog, latency, trace, events, loadmap —
+    driven over the wire: SLOWLOG, TRACE, HOTKEYS, EVENTS), the entry
     point and the scripts load with jax and redisson_tpu blocked and
     serve on the CPU — a journaled client recovers its tail; no module of
     the port, nor chip_smoke.py, profile_port.py or compare_rates.py, has
@@ -201,6 +203,7 @@ def test_server_modules_import_neither_jax_nor_the_reference():
         "from redisson_tpu_torch import integrations, reactive\n"
         "from redisson_tpu_torch.serve import nodes, metrics\n"
         "from redisson_tpu_torch.obs import promhttp\n"
+        "from redisson_tpu_torch.obs import spans, slowlog, latency, trace, events, loadmap\n"
         "from redisson_tpu_torch.durability import journal, recovery, replication, replica\n"
         "from redisson_tpu_torch.chaos import crashchild\n"
         "import tempfile\n"
@@ -229,6 +232,10 @@ def test_server_modules_import_neither_jax_nor_the_reference():
         "assert c.get_nodes_group().ping_all() and c.get_metrics()['ops_total'] > 0\n"
         "import asyncio\n"
         "assert asyncio.run(c.reactive().get_bucket('rx').get()) is None\n"
+        "r = exchange(s, [[b'CONFIG', b'SET', b'slowlog-log-slower-than', b'0'],"
+        " [b'TRACE', b'SAMPLE', b'1'], [b'PING'], [b'SLOWLOG', b'LEN'], [b'TRACE', b'LEN'],"
+        " [b'TRACE', b'SAMPLE', b'0'], [b'HOTKEYS'], [b'EVENTS', b'LEN']])\n"
+        "assert r[3] >= 2 and r[4] >= 1 and r[6] == [] and r[7] >= 1, r\n"
         "s.close(); srv.close(); c.shutdown()\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
