@@ -203,6 +203,37 @@ the main path through the public client at full size:
            events and telemetry field names; HOTKEYS over config 6's stream
            names every key above N/128.  K1 launches in phase 15 must be
            more than 0
+  phase 16 scripting and the per-core front door: (16a) on a card server
+           with scripts enabled (reactor on, native codec required), a
+           seeded script session byte-equal to a CPU server's; config 1
+           through scripts — BF.RESERVE cfg1 0.01 1000000, a SCRIPT LOADed
+           body calling redis.call('BF.MADD', KEYS[0], *ARGV), 256 EVALSHA
+           of 1024 keys from 4 connections (2**18 keys: scripts run one at
+           a time under the grid lock), every flag within 11a's golden
+           bounds and the row equal to the golden bitmap; FCALL_RO of a
+           no-writes reader over 131,072 outside keys equal to golden and
+           FUNCTION LIST equal to the CPU server's; at script_timeout_ms
+           200, BUSY on another connection and SCRIPT KILL of a pure loop,
+           of a redis.call loop and of a BF.MADD loop after at least 8
+           MADDs (its row the golden bitmap of the MADDs that landed), the
+           slot free after each; EVALSHA keys/s, script p50/p99 and SCRIPT
+           KILL -> reply ms.  (16b) MulticoreNode(4, device="cuda"): every
+           worker's INFO over its peer socket names the card, INFO
+           frontdoor reports 4 processes with the native tick, each
+           worker's device memory grows with its own filter; config 13's
+           traffic (8 client processes x 4 closed-loop connections, 128-key
+           hot sets pinned to the landing worker, zipf(1.2), 10% SET)
+           against the node and a single-process door in turns (median
+           cmds/s and p99 per arm, the speedup, host cores, handoffs);
+           config 1 over the node (a filter per worker, 2**18 keys each as
+           BF.MADD of 1024 keys from 4 connections, about 3/4 through a
+           handoff leg: flags within the golden bounds, every loaded key
+           present, 131,072 outside keys per filter equal to golden,
+           handoffs equal to the sibling-owned commands) beside a pinned
+           arm; config 6's replies byte-equal between the node and the
+           single door; SIGTERM (a snapshot per worker), a reboot that
+           reads every key back, every worker exiting 0 and none left.
+           K1 launches in phase 16 must be 0
 
 Every failed check raises, so the script exits non-zero.  Without a CUDA
 device it exits with code 2 before printing any result.  The line before
@@ -2254,11 +2285,67 @@ def c11_keys(lo: int, hi: int) -> list:
     return [b"%d" % i for i in range(lo, hi)]
 
 
+def madd_model(h1, h2, m: int, k: int, per: int, conns: int):
+    """The golden model of a BF.MADD load where connection c sends commands
+    c, c + conns, ... of ``per`` keys each (command j holds keys
+    [j * per, (j + 1) * per) of the hashed ``h1, h2``): the golden filter
+    of every key, per key whether its bits are all set by OTHER keys, and
+    per connection its keys and the flags a sequential golden filter of
+    that connection alone gives them.  Loads of the same keys in the same
+    order into several filters share one model."""
+    from redisson_tpu_torch.ops import golden
+
+    n = len(h1)
+    g = golden.GoldenBloomFilter(m, k)
+    idx = g._indexes(h1, h2)
+    hits = np.bincount(idx.reshape(-1).astype(np.int64), minlength=m)
+    own = np.zeros((n, k), np.int64)  # a key's own hits on each of its bits
+    for j in range(k):
+        same = idx == idx[:, j:j + 1]
+        own[:, j] = same.sum(axis=1)
+    covered_by_others = np.all(hits[idx.astype(np.int64)] - own > 0, axis=1)
+    streams = []
+    for c in range(conns):
+        keys = np.concatenate([np.arange(j * per, (j + 1) * per)
+                               for j in range(c, n // per, conns)])
+        seq = golden.GoldenBloomFilter(m, k)
+        streams.append((keys, seq.add_hashed(h1[keys], h2[keys])))
+    g.bits[idx.reshape(-1)] = True
+    return g, covered_by_others, streams
+
+
+def madd_check(model, replies, tag: str) -> int:
+    """Holds each connection's BF.MADD flags (``replies[c]``, its reply
+    frames) to ``madd_model``'s bounds and returns the keys added.  The
+    flags of one connection depend on the others' adds only through the
+    interleaving, so a reply is right when it lies between the two orders
+    the golden model bounds it by: 1 only if the key's bits were not all
+    set by the earlier keys of its own connection, and 0 only if every one
+    of its bits is set by some OTHER key of the whole load."""
+    _g, covered_by_others, streams = model
+    n_added = 0
+    for (keys, upper), frames in zip(streams, replies):
+        flags = np.concatenate([int_array(f) for f in frames])
+        check(flags.shape == keys.shape and np.isin(flags, (0, 1)).all(),
+              f"{tag}: BF.MADD replies malformed")
+        check(np.all(flags <= upper), f"{tag}: BF.MADD reported a key new whose "
+              "bits its own connection had already set")
+        check(np.all(flags >= ~covered_by_others[keys]), f"{tag}: BF.MADD reported "
+              "a key present whose bits no other key sets")
+        n_added += int(flags.sum())
+    return n_added
+
+
+def golden_words(g, row_words: int) -> np.ndarray:
+    """A golden filter's bitmap as the uint32 words of a pool row."""
+    gbits = np.zeros(row_words * 32, bool)
+    gbits[:g.bits.shape[0]] = g.bits
+    return np.packbits(gbits, bitorder="little").view(np.uint32)
+
+
 def phase_wire_bloom(rng, card: str) -> None:
     """11a: config 1 over the wire at full size."""
     import socket
-
-    from redisson_tpu_torch.ops import golden
 
     n, per, conns = P11["keys"], P11["madd"], P11["conns"]
     client = p11_client()
@@ -2306,42 +2393,12 @@ def phase_wire_bloom(rng, card: str) -> None:
             t.join()
         add_s = time.perf_counter() - t0
         check(not errors, f"wire load failed: {errors[:1]}")
-        # Golden model: the flags of one connection's commands depend on
-        # the other connections' adds only through the interleaving.  A
-        # reply is right when it lies between the two orders the golden
-        # model bounds it by: 1 only if the key's bits were not all set by
-        # the earlier keys of its own connection (a sequential golden
-        # filter per connection), and 0 only if every one of its bits is
-        # set by some OTHER key of the whole load.
         h1, h2 = wire_hashes(client, c11_keys(0, n), m)
-        g = golden.GoldenBloomFilter(m, k)
-        idx = g._indexes(h1, h2)
-        hits = np.bincount(idx.reshape(-1).astype(np.int64), minlength=m)
-        own = np.zeros((n, k), np.int64)  # a key's own hits on each of its bits
-        for j in range(k):
-            same = idx == idx[:, j:j + 1]
-            own[:, j] = same.sum(axis=1)
-        covered_by_others = np.all(hits[idx.astype(np.int64)] - own > 0, axis=1)
-        n_added = 0
-        for c in range(conns):
-            seq = golden.GoldenBloomFilter(m, k)
-            keys = np.concatenate([np.arange(j * per, (j + 1) * per)
-                                   for j in range(c, n_cmds, conns)])
-            upper = seq.add_hashed(h1[keys], h2[keys])
-            flags = np.concatenate([int_array(f) for f in replies[c]])
-            check(flags.shape == keys.shape and np.isin(flags, (0, 1)).all(),
-                  "BF.MADD replies malformed")
-            check(np.all(flags <= upper), "BF.MADD reported a key new whose bits "
-                  "its own connection had already set")
-            check(np.all(flags >= ~covered_by_others[keys]), "BF.MADD reported a "
-                  "key present whose bits no other key sets")
-            n_added += int(flags.sum())
+        model = madd_model(h1, h2, m, k, per, conns)
+        g, n_added = model[0], madd_check(model, replies, "11a")
         check(0.97 * n <= n_added <= n, f"added {n_added} of {n}")
-        g.bits[idx.reshape(-1)] = True
         words = tenant_row(client, "cfg1")
-        gbits = np.zeros(words.shape[0] * 32, bool)
-        gbits[:m] = g.bits
-        check(np.array_equal(words, np.packbits(gbits, bitorder="little").view(np.uint32)),
+        check(np.array_equal(words, golden_words(g, words.shape[0])),
               "11a: filter row differs from the golden bitmap")
         # Read: keys outside the loaded set, BF.MEXISTS over 4 connections.
         outside = rng.integers(3 * n, 8 * n, P11["read"])
@@ -4939,6 +4996,767 @@ def phase_telemetry(rng, seed: int, card: str) -> None:
     p15c_wire(rng, card, seed)
 
 
+# -- phase 16: scripting and the per-core front door -------------------------
+
+P16 = {"keys": 1 << 18, "madd": 1024, "conns": 4, "window": 16, "read": 131_072,
+       "fpp": 0.01, "capacity": 1_000_000, "lat_cmds": 64, "timeout_ms": 200,
+       "kill_iters": 8, "workers": 4, "c13_procs": 8, "c13_conns": 4, "c13_hot": 128,
+       "c13_pass_s": 1.5, "c13_passes": 3, "c13_warm_s": 1.0, "c6_batches": 4,
+       "node_keys": 1 << 18, "node_read": 131_072}
+P16_DEVICE = "cuda"
+
+# The reader library of 16a: FCALL_RO look 1 <filter> <items...>.
+P16_LIB = (b"#!python name=cfg1lib\n"
+           b"def look(keys, args):\n"
+           b"    return redis.call('BF.MEXISTS', keys[0], *args)\n"
+           b"register_function('look', look, flags=('no-writes',))\n")
+P16_MADD = b"redis.call('BF.MADD', KEYS[0], *ARGV)"
+
+
+def p16_session() -> list:
+    """A seeded script session: EVAL in both forms and every reply type,
+    EVALSHA and NOSCRIPT, SCRIPT LOAD|EXISTS|FLUSH, FUNCTION LOAD|REPLACE|
+    LIST|DELETE|FLUSH, FCALL and FCALL_RO, and redis.call / redis.pcall of
+    the Bloom, CMS and string commands."""
+    import hashlib
+
+    rng = np.random.default_rng(16)
+    keys = [b"%d" % v for v in rng.integers(0, 1 << 40, 64)]
+    items = [b"i%d" % v for v in rng.integers(0, 50, 12)]
+    body = b"int(ARGV[0]) + 1"
+    sha = hashlib.sha1(body).hexdigest().encode()
+    lib = (b"#!python name=slib\ndef add(keys, args):\n"
+           b"    return redis.call('BF.MADD', keys[0], *args)\n"
+           b"def look(keys, args):\n    return redis.call('BF.MEXISTS', keys[0], *args)\n"
+           b"register_function('add', add)\n"
+           b"register_function('look', look, flags=('no-writes',))\n")
+    return [
+        [b"BF.RESERVE", b"sbf", b"0.01", b"5000"], [b"CMS.INITBYDIM", b"scms", b"2048", b"4"],
+        [b"EVAL", b"None", b"0"], [b"EVAL", b"True", b"0"], [b"EVAL", b"-42", b"0"],
+        [b"EVAL", b"2.5", b"0"], [b"EVAL", b"'text'", b"0"],
+        [b"EVAL", b"[1, b'x', [None, False], (2, 'y')]", b"0"],
+        [b"EVAL", b"{'a': 1, 'b': [2.25]}", b"0"], [b"EVAL", b"redis.pcall('NOPE')", b"0"],
+        [b"EVAL", b"x = int(ARGV[0])\nresult = [x, x * 2]", b"0", b"21"],
+        [b"EVAL", b"1 / 0", b"0"],
+        [b"EVAL", body, b"0", b"1"], [b"EVALSHA", sha, b"0", b"5"],
+        [b"EVALSHA", b"f" * 40, b"0"], [b"SCRIPT", b"LOAD", b"len(KEYS)"],
+        [b"SCRIPT", b"EXISTS", sha, b"0" * 40], [b"SCRIPT", b"FLUSH"],
+        [b"SCRIPT", b"EXISTS", sha],
+        [b"FUNCTION", b"LOAD", lib], [b"FUNCTION", b"LOAD", lib],
+        [b"FUNCTION", b"LOAD", b"REPLACE", lib],
+        [b"FUNCTION", b"LOAD", b"#!lua name=x\nreturn 1"],
+        [b"FUNCTION", b"LIST", b"LIBRARYNAME", b"s*"],
+        [b"FCALL", b"add", b"1", b"sbf"] + keys[48:],
+        [b"FCALL_RO", b"look", b"1", b"sbf"] + keys[40:],
+        [b"FCALL_RO", b"add", b"1", b"sbf", b"x"],
+        [b"FUNCTION", b"DELETE", b"slib"], [b"FCALL", b"add", b"1", b"sbf", b"x"],
+        [b"FUNCTION", b"FLUSH"], [b"FUNCTION", b"LIST"],
+        [b"EVAL", P16_MADD, b"1", b"sbf"] + keys[:32],
+        [b"EVAL", b"redis.pcall('BF.MEXISTS', KEYS[0], *ARGV)", b"1", b"sbf"] + keys[16:48],
+        [b"EVAL", b"redis.call('SET', KEYS[0], ARGV[0])\nresult = redis.call('GET', KEYS[0])",
+         b"1", b"skey", b"sval"],
+        [b"EVAL", b"redis.call('CMS.INCRBY', KEYS[0], *ARGV)", b"1", b"scms"]
+        + [x for it in items for x in (it, b"3")],
+        [b"EVAL", b"redis.pcall('CMS.QUERY', KEYS[0], *ARGV)", b"1", b"scms"] + items,
+        [b"BF.MEXISTS", b"sbf"] + keys, [b"CMS.QUERY", b"scms"] + items,
+    ]
+
+
+def p16_server(client, **kw):
+    from redisson_tpu_torch.serve.resp import RespServer
+
+    return RespServer(client, max_connections=4096, enable_python_scripts=True, **kw)
+
+
+def p16_running(server, cmd):
+    """Send ``cmd`` on a fresh connection; (socket, thread, reply box)."""
+    box = []
+    sock = socket.create_connection((server.host, server.port))
+    sock.sendall(wire([cmd]))
+
+    def wait():
+        box.append(read_frames(sock, 1, timeout=120.0)[0])
+        box.append(time.perf_counter())
+
+    t = threading.Thread(target=wait)
+    t.start()
+    return sock, t, box
+
+
+def p16_kill(server, ctl, cmd, tag: str, before_kill=None) -> float:
+    """Run ``cmd`` until another connection answers BUSY (and
+    ``before_kill()`` holds), SCRIPT KILL it, check the killed reply and
+    a free slot; the ms from the KILL's send to the killed reply."""
+    sock, t, box = p16_running(server, cmd)
+    got = []
+
+    def busy():
+        ctl.sendall(wire([[b"PING"]]))
+        got.append(read_frames(ctl, 1)[0])
+        return got[-1].startswith(b"-BUSY")
+
+    until(busy, f"{tag}: BUSY on another connection", 60)
+    if before_kill is not None:
+        until(before_kill, f"{tag}: the script's progress", 120)
+    t0 = time.perf_counter()
+    ctl.sendall(wire([[b"SCRIPT", b"KILL"]]))
+    check(read_frames(ctl, 1) == [b"+OK\r\n"], f"{tag}: SCRIPT KILL refused")
+    t.join(60)
+    check(not t.is_alive(), f"{tag}: the killed script never replied")
+    sock.close()
+    check(box[0] == b"-ERR Script killed by user with SCRIPT KILL...\r\n",
+          f"{tag}: the killed script replied {box[0][:80]!r}")
+    check(server._script_run is None and server._script_kill is None,
+          f"{tag}: the watchdog slot is still held")
+    ctl.sendall(wire([[b"EVAL", b"6 * 7", b"0"]]))
+    check(read_frames(ctl, 1) == [b":42\r\n"], f"{tag}: the next EVAL did not run")
+    return (box[1] - t0) * 1e3
+
+
+def p16a_scripting(rng, card: str) -> dict:
+    """16a: config 1 through scripts on a card server, the seeded script
+    session against a CPU server, and the watchdog."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.ops import golden
+
+    os.environ["RTPU_REQUIRE_NATIVE_RESP"] = "1"
+    n, per, conns, win = P16["keys"], P16["madd"], P16["conns"], P16["window"]
+    out = {"phase": "16a", "card": card}
+    client = p11_client()
+    server = p16_server(client)
+    cpu = rt.create(rt.Config().use_gpu_sketch(device="cpu"))
+    cpu_server = p16_server(cpu)
+    try:
+        check(server.reactor is not None and server.reactor.native_tick,
+              "16a: the reactor or its native tick is off")
+        session = p16_session()
+        got, want = roundtrip(server, session), roundtrip(cpu_server, session)
+        for c, a, b in zip(session, got, want):
+            check(a == b, f"16a: {c[:2]} replied {a[:60]!r} on the card, {b[:60]!r} on the CPU")
+        check(sum(f.startswith(b"-") for f in got) < len(got) // 3,
+              "16a: the session is mostly errors")
+        check(np.array_equal(tenant_row(client, "sbf"), tenant_row(cpu, "sbf"))
+              and np.array_equal(tenant_row(client, "scms"), tenant_row(cpu, "scms")),
+              "16a: the session's rows differ from the CPU server's")
+        # Config 1 through scripts: 256 EVALSHA of 1024 keys, 4 connections.
+        r = roundtrip(server, [[b"BF.RESERVE", b"cfg1", b"%g" % P16["fpp"],
+                                b"%d" % P16["capacity"]],
+                               [b"SCRIPT", b"LOAD", P16_MADD]])
+        check(r[0] == b"+OK\r\n" and r[1].startswith(b"$40\r\n"), f"16a: setup replied {r}")
+        sha = r[1].split(b"\r\n")[1]
+        bf = client.get_bloom_filter("cfg1")
+        m, k = bf.get_size(), bf.get_hash_iterations()
+        roundtrip(server, [[b"BF.RESERVE", b"warm", b"%g" % P16["fpp"], b"%d" % P16["capacity"]]]
+                  + [[b"EVALSHA", sha, b"1", b"warm"] + c11_keys(i * per, (i + 1) * per)
+                     for i in range(8)])
+        n_cmds = n // per
+        streams = [[[b"EVALSHA", sha, b"1", b"cfg1"] + c11_keys(j * per, (j + 1) * per)
+                    for j in range(c, n_cmds, conns)] for c in range(conns)]
+        replies = [None] * conns
+        errors = []
+
+        def load(c):
+            try:
+                sock = socket.create_connection((server.host, server.port))
+                got = []
+                for i in range(0, len(streams[c]), win):
+                    part = streams[c][i:i + win]
+                    sock.sendall(wire(part))
+                    got += read_frames(sock, len(part))
+                sock.close()
+                replies[c] = got
+            except Exception as e:  # surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=load, args=(c,)) for c in range(conns)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        load_s = time.perf_counter() - t0
+        check(not errors, f"16a: the EVALSHA load failed: {errors[:1]}")
+        h1, h2 = wire_hashes(client, c11_keys(0, n), m)
+        model = madd_model(h1, h2, m, k, per, conns)
+        g, n_added = model[0], madd_check(model, replies, "16a")
+        check(0.97 * n <= n_added <= n, f"16a: added {n_added} of {n}")
+        words = tenant_row(client, "cfg1")
+        check(np.array_equal(words, golden_words(g, words.shape[0])),
+              "16a: the row differs from the golden bitmap")
+        # Script latency: unpipelined EVALSHA of fresh keys on one connection.
+        lat = []
+        sock = socket.create_connection((server.host, server.port))
+        for i in range(P16["lat_cmds"]):
+            lo = n + i * per
+            t1 = time.perf_counter()
+            sock.sendall(wire([[b"EVALSHA", sha, b"1", b"warm"] + c11_keys(lo, lo + per)]))
+            read_frames(sock, 1)
+            lat.append(time.perf_counter() - t1)
+        sock.close()
+        lat = np.sort(np.array(lat)) * 1e3
+        # The reader: FCALL_RO over outside keys equals the golden flags.
+        outside = rng.integers(3 * n, 8 * n, P16["read"])
+        items = [b"%d" % v for v in outside]
+        cmds = [[b"FCALL_RO", b"look", b"1", b"cfg1"] + items[i:i + per]
+                for i in range(0, len(items), per)]
+        r = roundtrip(server, [[b"FUNCTION", b"LOAD", P16_LIB], [b"FUNCTION", b"LIST"]])
+        (cpu_list,) = roundtrip(cpu_server, [[b"FUNCTION", b"FLUSH"],
+                                             [b"FUNCTION", b"LOAD", P16_LIB],
+                                             [b"FUNCTION", b"LIST"]])[2:]
+        check(r[0] == b"$7\r\ncfg1lib\r\n" and r[1] == cpu_list,
+              f"16a: FUNCTION LIST {r[1][:80]!r} differs from the CPU server's")
+        t1 = time.perf_counter()
+        flags = np.concatenate([int_array(f) for f in roundtrip(server, cmds)])
+        read_s = time.perf_counter() - t1
+        o1, o2 = wire_hashes(client, items, m)
+        check(np.array_equal(flags.astype(bool), g.contains_hashed(o1, o2)),
+              "16a: FCALL_RO flags differ from the golden model")
+        check_healthy(client, "16a")
+        out.update(evalsha_cmds=n_cmds, evalsha_keys=n, connections=conns,
+                   evalsha_keys_per_s=n / load_s, added=n_added, row_equals_golden=True,
+                   script_p50_ms=float(lat[len(lat) // 2]),
+                   script_p99_ms=float(lat[int(len(lat) * 0.99)]),
+                   fcall_ro_keys_per_s=len(items) / read_s, session_cmds=len(session),
+                   session_equal_cpu=True)
+    finally:
+        server.close()
+        cpu_server.close()
+        cpu.shutdown()
+
+    # The watchdog at script_timeout_ms 200 on a second server of the client.
+    client.config.script_timeout_ms = P16["timeout_ms"]
+    server = p16_server(client)
+    madds = []
+    orig = server._cmd_BF_MADD
+
+    def counted(args):
+        frame = orig(args)
+        madds.append(len(args) - 1)
+        return frame
+
+    server._cmd_BF_MADD = counted
+    try:
+        ctl = socket.create_connection((server.host, server.port))
+        ctl.sendall(wire([[b"SCRIPT", b"KILL"], [b"BF.RESERVE", b"kbf", b"%g" % P16["fpp"],
+                                                  b"%d" % P16["capacity"]]]))
+        r = read_frames(ctl, 2)
+        check(r[0].startswith(b"-NOTBUSY") and r[1] == b"+OK\r\n", f"16a: {r}")
+        kill_ms = {
+            "pure_loop": p16_kill(server, ctl, [b"EVAL", b"while True: pass", b"0"],
+                                  "16a pure loop"),
+            "redis_call_loop": p16_kill(
+                server, ctl, [b"EVAL", b"while True:\n    redis.call('BF.EXISTS', KEYS[0], 'x')",
+                              b"1", b"kbf"], "16a redis.call loop"),
+        }
+        body = (b"i = 0\nwhile True:\n    redis.call('BF.MADD', KEYS[0], "
+                b"*[b'%d' % (i * " + b"%d" % per + b" + j) for j in range(" + b"%d" % per
+                + b")])\n    i += 1\n    redis.call('SET', KEYS[1], str(i))\n")
+        kill_ms["madd_loop"] = p16_kill(server, ctl, [b"EVAL", body, b"2", b"kbf", b"kdone"],
+                                        "16a BF.MADD loop",
+                                        lambda: len(madds) >= P16["kill_iters"])
+        ctl.sendall(wire([[b"GET", b"kdone"]]))
+        done = int(read_frames(ctl, 1)[0].split(b"\r\n")[1])
+        check(done >= P16["kill_iters"] and len(madds) in (done, done + 1)
+              and all(x == per for x in madds),
+              f"16a: {len(madds)} MADDs ran, the script counted {done}")
+        kbf = client.get_bloom_filter("kbf")
+        words = tenant_row(client, "kbf")
+        fits = []
+        for d in (done, done + 1):
+            h1, h2 = wire_hashes(client, c11_keys(0, d * per), kbf.get_size())
+            g = golden.GoldenBloomFilter(kbf.get_size(), kbf.get_hash_iterations())
+            g.bits[g._indexes(h1, h2).reshape(-1)] = True
+            fits.append(np.array_equal(words, golden_words(g, words.shape[0])))
+        check(fits[len(madds) - done],
+              "16a: the killed BF.MADD loop's row is not the golden bitmap of its MADDs")
+        ctl.close()
+        check_healthy(client, "16a")
+        out.update(kill_to_reply_ms=kill_ms, killed_madd_iterations=done,
+                   madds_landed=len(madds), killed_row_equals_golden=True)
+    finally:
+        server.close()
+        client.shutdown()
+    log(out)
+    return out
+
+
+def p16_info(sock) -> dict:
+    """INFO's fields on ``sock`` as a dict."""
+    sock.sendall(wire([[b"INFO", b"everything"]]))
+    txt = read_frames(sock, 1)[0].decode()
+    return dict(ln.split(":", 1) for ln in txt.split("\r\n")
+                if ln and not ln.startswith("#") and ":" in ln)
+
+
+def p16_peer(node, w: int):
+    """A connection to worker ``w`` alone, over its unix peer socket."""
+    from redisson_tpu_torch.serve.multicore import peer_sock_path
+
+    s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    s.connect(peer_sock_path(node.rundir, w))
+    return s
+
+
+def p16_handoffs(node) -> int:
+    """The node's handoffs so far, summed over its workers."""
+    total = 0
+    for w in range(node.nworkers):
+        s = p16_peer(node, w)
+        info = p16_info(s)
+        s.close()
+        total += sum(int(info[f"frontdoor_handoffs_{k}"]) for k in ("forward", "split", "fanout"))
+    return total
+
+
+def p16_landed(sock) -> int:
+    return int(p16_info(sock)["frontdoor_worker_index"])
+
+
+def p16_env() -> dict:
+    return {"RTPU_REQUIRE_NATIVE_RESP": "1",
+            "PYTHONPATH": str(Path(__file__).resolve().parent)}
+
+
+def p16_node(sdir: str):
+    from redisson_tpu_torch.serve.multicore import MulticoreNode
+
+    return MulticoreNode(P16["workers"], device=P16_DEVICE, env_extra=p16_env(),
+                         extra_args=["--snapshot-dir", sdir, "--max-connections", "4096"])
+
+
+def p16_single(port: int):
+    env = dict(os.environ, **p16_env())
+    return subprocess.Popen(
+        [sys.executable, "-m", "redisson_tpu_torch", "--port", str(port),
+         "--device", P16_DEVICE, "--max-connections", "4096"],
+        cwd=str(Path(__file__).resolve().parent), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def c13_client_proc(conns: int, seed: int, inq, outq):
+    """Config 13's closed-loop clients in a child process, for as many
+    passes as the parent asks ((host, port, seconds); None ends): each of
+    ``conns`` connections reads the worker it landed on from INFO
+    frontdoor, pins a 128-key hot set to it by hash tag, seeds it, then
+    sends unpipelined zipf(1.2) GET (90%) / SET (10%) until the clock
+    runs out.  Every reply is checked."""
+    from redisson_tpu_torch.serve.multicore import worker_tag
+
+    npass = 0
+    while True:
+        req = inq.get()
+        if req is None:
+            return
+        host, port, seconds = req
+        npass += 1
+        counts = [0] * conns
+        lats = [[] for _ in range(conns)]
+        errors = []
+
+        def worker(t):
+            rng = np.random.default_rng((seed * 100 + t) * 1000 + npass)
+            sock = socket.create_connection((host, port))
+            sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            try:
+                info = p16_info(sock)
+                tag = worker_tag(int(info["frontdoor_worker_index"]),
+                                 int(info["frontdoor_processes"]))
+                keys = [b"{%s}c13-%d-%d-%d" % (tag.encode(), seed, t, i)
+                        for i in range(P16["c13_hot"])]
+                vals = [b"v%d" % i for i in range(len(keys))]
+                sock.sendall(wire([[b"SET", k, v] for k, v in zip(keys, vals)]))
+                read_frames(sock, len(keys))
+                stop = time.perf_counter() + seconds
+                while time.perf_counter() < stop:
+                    hot = int((rng.zipf(1.2) - 1) % len(keys))
+                    is_set = rng.random() < 0.1
+                    cmd = [b"SET", keys[hot], vals[hot]] if is_set else [b"GET", keys[hot]]
+                    t0 = time.perf_counter()
+                    sock.sendall(wire([cmd]))
+                    rep = read_frames(sock, 1, timeout=60.0)[0]
+                    lats[t].append(time.perf_counter() - t0)
+                    want = b"+OK\r\n" if is_set else b"$%d\r\n%s\r\n" % (len(vals[hot]), vals[hot])
+                    if rep != want:
+                        errors.append(f"{cmd[0]!r} replied {rep[:60]!r}")
+                        return
+                    counts[t] += 1
+            except Exception as e:  # reported to the parent
+                errors.append(repr(e))
+            finally:
+                sock.close()
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=worker, args=(t,)) for t in range(conns)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        outq.put((sum(counts), time.perf_counter() - t0,
+                  [x for la in lats for x in la], errors))
+
+
+def c13_measure(pool, port: int, seconds: float) -> tuple:
+    """One pass of every client process against ``port``: (cmds/s, p99 ms)."""
+    inqs, outq = pool
+    for q in inqs:
+        q.put(("127.0.0.1", port, seconds))
+    res = [outq.get(timeout=seconds + 120) for _ in inqs]
+    errs = [e for r in res for e in r[3]]
+    check(not errs, f"16b: config 13 client errors: {errs[:3]}")
+    lat = np.sort(np.concatenate([np.asarray(r[2]) for r in res]))
+    dt = float(np.median([r[1] for r in res]))
+    return sum(r[0] for r in res) / dt, float(lat[int(len(lat) * 0.99)] * 1e3)
+
+
+def p16_config13(node, single_port: int) -> dict:
+    """Config 13's traffic against the K=4 node and the single door, in
+    turns: one warm pass each, then the passes of P16 per arm."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    inqs = [ctx.Queue() for _ in range(P16["c13_procs"])]
+    outq = ctx.Queue()
+    procs = [ctx.Process(target=c13_client_proc, args=(P16["c13_conns"], i, inqs[i], outq))
+             for i in range(P16["c13_procs"])]
+    for p in procs:
+        p.start()
+    arms = {"multicore": node.port, "single": single_port}
+    try:
+        for port in arms.values():
+            c13_measure((inqs, outq), port, P16["c13_warm_s"])
+        h0 = p16_handoffs(node)
+        passes = {a: [] for a in arms}
+        for _ in range(P16["c13_passes"]):
+            for a, port in arms.items():
+                passes[a].append(c13_measure((inqs, outq), port, P16["c13_pass_s"]))
+        handoffs = p16_handoffs(node) - h0
+    finally:
+        for q in inqs:
+            q.put(None)
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    med = {a: float(np.median([x[0] for x in v])) for a, v in passes.items()}
+    return {"c13_clients": P16["c13_procs"] * P16["c13_conns"],
+            "c13_multicore_cmds_per_s": med["multicore"], "c13_single_cmds_per_s": med["single"],
+            "c13_multicore_p99_ms": float(np.median([x[1] for x in passes["multicore"]])),
+            "c13_single_p99_ms": float(np.median([x[1] for x in passes["single"]])),
+            "c13_speedup": med["multicore"] / med["single"],
+            "c13_passes": {a: [x[0] for x in v] for a, v in passes.items()},
+            "c13_multicore_handoffs": handoffs,
+            "host_cores": len(os.sched_getaffinity(0))}
+
+
+def p16_load(socks, streams) -> tuple:
+    """Connection c sends ``streams[c]`` in pipelined windows; (replies
+    per connection, seconds)."""
+    replies = [None] * len(socks)
+    errors = []
+
+    def load(c):
+        try:
+            got = []
+            for i in range(0, len(streams[c]), P16["window"]):
+                part = streams[c][i:i + P16["window"]]
+                socks[c].sendall(wire(part))
+                got += read_frames(socks[c], len(part))
+            replies[c] = got
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=load, args=(c,)) for c in range(len(socks))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    dt = time.perf_counter() - t0
+    check(not errors, f"16b: a BF.MADD load failed: {errors[:1]}")
+    return replies, dt
+
+
+def p16_config1(node, rng) -> dict:
+    """Config 1 over the node: a filter per worker pinned by hash tag,
+    2**18 keys each as BF.MADD of 1024 keys from 4 connections landed
+    where the kernel puts them; then a pinned arm where each connection
+    writes only its landing worker's filter."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.serve.multicore import worker_tag
+
+    K, n, per, conns = P16["workers"], P16["node_keys"], P16["madd"], P16["conns"]
+    names = [b"{%s}cfg1" % worker_tag(w, K).encode() for w in range(K)]
+    # m, k and the hashing of a worker's filter, from a CPU client.
+    ref = rt.create(rt.Config().use_gpu_sketch(device="cpu"))
+    try:
+        rbf = ref.get_bloom_filter("m-k")
+        rbf.try_init(P16["capacity"], P16["fpp"])
+        m, k = rbf.get_size(), rbf.get_hash_iterations()
+        h1, h2 = wire_hashes(ref, c11_keys(0, n), m)
+        outside = [b"%d" % v for v in rng.integers(3 * n, 8 * n, P16["node_read"])]
+        o1, o2 = wire_hashes(ref, outside, m)
+    finally:
+        ref.shutdown()
+    used = []
+    for w in range(K):
+        s = p16_peer(node, w)
+        before = int(p16_info(s)["used_memory"])
+        s.sendall(wire([[b"BF.RESERVE", names[w], b"%g" % P16["fpp"],
+                         b"%d" % P16["capacity"]]]))
+        check(read_frames(s, 1) == [b"+OK\r\n"], f"16b: BF.RESERVE on worker {w}")
+        after = int(p16_info(s)["used_memory"])
+        s.close()
+        check(after > before, f"16b: worker {w}'s device memory did not grow ({before} -> {after})")
+        used.append(after)
+    n_cmds = n // per
+    # Connection c sends, for j = c, c + conns, ...: command j of every filter.
+    socks = [socket.create_connection((node.host, node.port)) for _ in range(conns)]
+    landed = [p16_landed(s) for s in socks]
+    streams = [[[b"BF.MADD", names[w]] + c11_keys(j * per, (j + 1) * per)
+                for j in range(c, n_cmds, conns) for w in range(K)] for c in range(conns)]
+    foreign = sum(1 for c in range(conns) for cmd in streams[c]
+                  if names.index(cmd[1]) != landed[c])
+    h0 = p16_handoffs(node)
+    replies, load_s = p16_load(socks, streams)
+    handoffs = p16_handoffs(node) - h0
+    check(handoffs == foreign, f"16b: {handoffs} handoffs for {foreign} sibling-owned commands")
+    # Every filter got the same keys in the same per-connection order.
+    model = madd_model(h1, h2, m, k, per, conns)
+    for w in range(K):
+        rep_w = [[f for f, cmd in zip(replies[c], streams[c]) if cmd[1] == names[w]]
+                 for c in range(conns)]
+        n_added = madd_check(model, rep_w, f"16b worker {w}")
+        check(0.97 * n <= n_added <= n, f"16b: worker {w} added {n_added} of {n}")
+    t0 = time.perf_counter()
+    reads = p16_reads(node, names, n, per, outside)
+    reads_s = time.perf_counter() - t0
+    want_outside = model[0].contains_hashed(o1, o2)
+    for w in range(K):
+        check(reads["loaded"][w].all(), f"16b: worker {w}'s filter lost a loaded key")
+        check(np.array_equal(reads["outside"][w], want_outside),
+              f"16b: worker {w}'s outside keys differ from the golden model")
+    for s in socks:
+        s.close()
+    # The pinned arm: one connection landed on each worker writes only there.
+    pinned = [None] * K
+    tries = 0
+    while any(s is None for s in pinned):
+        tries += 1
+        check(tries < 400, "16b: no connection landed on some worker")
+        s = socket.create_connection((node.host, node.port))
+        w = p16_landed(s)
+        if pinned[w] is None:
+            pinned[w] = s
+        else:
+            s.close()
+    pnames = [b"{%s}pin" % worker_tag(w, K).encode() for w in range(K)]
+    for w in range(K):
+        pinned[w].sendall(wire([[b"BF.RESERVE", pnames[w], b"%g" % P16["fpp"],
+                                 b"%d" % P16["capacity"]]]))
+        check(read_frames(pinned[w], 1) == [b"+OK\r\n"], "16b: pinned BF.RESERVE")
+    pstreams = [[[b"BF.MADD", pnames[w]] + c11_keys(j * per, (j + 1) * per)
+                 for j in range(n_cmds)] for w in range(K)]
+    h0 = p16_handoffs(node)
+    replies, pinned_s = p16_load(pinned, pstreams)
+    check(p16_handoffs(node) == h0, "16b: the pinned arm took a handoff")
+    model = madd_model(h1, h2, m, k, per, 1)
+    for w in range(K):
+        n_added = madd_check(model, [replies[w]], f"16b pinned {w}")
+        check(0.97 * n <= n_added <= n, f"16b: pinned worker {w} added {n_added} of {n}")
+    for s in pinned:
+        s.close()
+    return {"node_filters": K, "node_keys_per_filter": n,
+            "node_wire_keys_per_s": K * n / load_s, "node_handoffs": handoffs,
+            "node_sibling_cmds": foreign, "node_cmds": K * n_cmds,
+            "pinned_wire_keys_per_s": K * n / pinned_s, "worker_used_memory": used,
+            "peer_read_keys_per_s": K * (n + len(outside)) / reads_s,
+            "_names": names, "_outside": outside, "_reads": reads}
+
+
+def p16_reads(node, names, n: int, per: int, outside: list) -> dict:
+    """BF.MEXISTS of every loaded key and of the outside keys, per filter,
+    on its owner's peer socket (a worker reads its own filter in
+    pipelined windows that fuse; the TCP port's handoffs are 16b's load)."""
+    res = {"loaded": [None] * len(names), "outside": [None] * len(names)}
+    errors = []
+
+    def read(w):
+        try:
+            s = p16_peer(node, w)
+            for kind, items in (("loaded", c11_keys(0, n)), ("outside", outside)):
+                cmds = [[b"BF.MEXISTS", names[w]] + items[i:i + per]
+                        for i in range(0, len(items) // per * per, per)]
+                flags = []
+                for i in range(0, len(cmds), P16["window"]):
+                    part = cmds[i:i + P16["window"]]
+                    s.sendall(wire(part))
+                    flags += [int_array(f) for f in read_frames(s, len(part))]
+                res[kind][w] = np.concatenate(flags)
+            s.close()
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=read, args=(w,)) for w in range(len(names))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, f"16b: reads failed: {errors[:1]}")
+    res["outside"] = [f.astype(bool) for f in res["outside"]]
+    return res
+
+
+def p16_config6(port: int, seed: int) -> list:
+    """Config 6's pipelined stream against ``port``: the seed, a warm pass
+    (every write lands once), then the measured pass's replies per
+    connection."""
+    import types
+
+    P, depth, nb = P11["c6_conns"], P11["c6_depth"], P16["c6_batches"]
+    batches = config6_batches(seed, P * nb, depth)
+    per_conn = [batches[c * nb:(c + 1) * nb] for c in range(P)]
+    at = types.SimpleNamespace(host="127.0.0.1", port=port)
+    seed_replies = roundtrip(at, config6_seed_cmds())
+    check(all(not f.startswith(b"-") for f in seed_replies), "16b: config 6 seed refused")
+    config6_pass(at, per_conn)
+    replies, _dt = config6_pass(at, per_conn)
+    return replies
+
+
+def p16_orphans(rundir: str) -> list:
+    """Live processes started as workers of the node at ``rundir``."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+        except OSError:
+            continue
+        if b"--frontdoor-index" in argv and rundir.encode() in argv:
+            out.append(int(pid))
+    return out
+
+
+def p16b_frontdoor(rng, card: str, seed: int) -> dict:
+    """16b: 4 front-door workers on the one card behind one port."""
+    import signal
+
+    K = P16["workers"]
+    out = {"phase": "16b", "card": card, "workers": K}
+    base = Path(__file__).resolve().parent / "build" / f"phase16-{os.getpid()}"
+    shutil.rmtree(base, ignore_errors=True)
+    sdir = str(base / "snap")
+    single_port = free_port()
+    single = p16_single(single_port)
+    node = None
+    try:
+        t0 = time.perf_counter()
+        node = p16_node(sdir)
+        out["node_start_s"] = time.perf_counter() - t0
+        for w in range(K):
+            s = p16_peer(node, w)
+            info = p16_info(s)
+            s.close()
+            check(info["rtpu_device"] == P16_DEVICE.split(":")[0]
+                  and int(info["frontdoor_processes"]) == K
+                  and int(info["frontdoor_worker_index"]) == w,
+                  f"16b: worker {w} reports {info.get('rtpu_device')}, "
+                  f"{info.get('frontdoor_processes')} processes")
+            if P16_DEVICE.startswith("cuda"):
+                check(info["rtpu_device_name"] == torch.cuda.get_device_name(0),
+                      f"16b: worker {w} names {info.get('rtpu_device_name')}")
+        s = socket.create_connection((node.host, node.port))
+        info = p16_info(s)
+        s.close()
+        check(int(info["frontdoor_processes"]) == K and info["frontdoor_native_tick"] == "1",
+              f"16b: INFO frontdoor reports {info.get('frontdoor_processes')} processes, "
+              f"native tick {info.get('frontdoor_native_tick')}")
+        smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60) if P16_DEVICE.startswith("cuda") else None
+        out["compute_apps"] = smi.stdout.strip().splitlines() if smi is not None else []
+        out["worker_pids"] = [p.pid for p in node.procs]
+        c11d_connect(single_port, single).close()
+        secs = out["seconds"] = {}
+        t0 = time.perf_counter()
+        out.update(p16_config13(node, single_port))
+        secs["config13"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c1 = p16_config1(node, rng)
+        secs["config1"] = time.perf_counter() - t0
+        names, outside, before = c1.pop("_names"), c1.pop("_outside"), c1.pop("_reads")
+        out.update(c1)
+        t0 = time.perf_counter()
+        node_c6 = p16_config6(node.port, seed)
+        single_c6 = p16_config6(single_port, seed)
+        secs["config6"] = time.perf_counter() - t0
+        for c in range(len(node_c6)):
+            check(node_c6[c] == single_c6[c],
+                  f"16b: config 6 connection {c}'s replies differ between the node and the door")
+        s = socket.create_connection((node.host, node.port))
+        s.sendall(wire([[b"GET", b"fd-s%d" % i] for i in range(4)]))
+        strings = read_frames(s, 4)
+        s.close()
+        # Restart: SIGTERM writes one snapshot per worker; the reboot reads
+        # every key back.
+        rundir = node.rundir
+        t0 = time.perf_counter()
+        check(node.shutdown(timeout_s=10.0), "16b: a worker needed SIGKILL")
+        secs["shutdown_snapshot"] = time.perf_counter() - t0
+        check(all(p.returncode == 0 for p in node.procs),
+              f"16b: worker exit codes {[p.returncode for p in node.procs]}")
+        check(not p16_orphans(rundir), "16b: a worker outlived the node")
+        for w in range(K):
+            check(any((base / "snap" / f"worker{w}").iterdir()),
+                  f"16b: worker {w} wrote no snapshot")
+        t0 = time.perf_counter()
+        node = p16_node(sdir)
+        out["restart_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        after = p16_reads(node, names, P16["node_keys"], P16["madd"], outside)
+        secs["reads_after_restart"] = time.perf_counter() - t0
+        for w in range(K):
+            check(after["loaded"][w].all()
+                  and np.array_equal(after["outside"][w], before["outside"][w]),
+                  f"16b: worker {w}'s filter changed across the restart")
+        s = socket.create_connection((node.host, node.port))
+        s.sendall(wire([[b"GET", b"fd-s%d" % i] for i in range(4)]))
+        check(read_frames(s, 4) == strings, "16b: config 6's strings changed across the restart")
+        s.close()
+        rundir = node.rundir
+        check(node.shutdown(timeout_s=10.0), "16b: a worker needed SIGKILL after the restart")
+        check(all(p.returncode == 0 for p in node.procs),
+              f"16b: worker exit codes {[p.returncode for p in node.procs]}")
+        node = None
+        check(not p16_orphans(rundir), "16b: a worker outlived the node")
+        out.update(config6_equal=True, restart_equal=True, orphans=0)
+    finally:
+        if node is not None:
+            node.shutdown(timeout_s=10.0)
+        if single.poll() is None:
+            single.send_signal(signal.SIGTERM)
+            try:
+                single.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                single.kill()
+        shutil.rmtree(base, ignore_errors=True)
+    check(single.returncode == 0, f"16b: the single door exited {single.returncode}")
+    log(out)
+    return out
+
+
+def phase_scripting_frontdoor(rng, seed: int, card: str) -> None:
+    """Phase 16: scripting and the per-core front door on the card."""
+    t0 = time.perf_counter()
+    p16a_scripting(rng, card)
+    t1 = time.perf_counter()
+    p16b_frontdoor(rng, card, seed)
+    log({"phase": 16, "seconds": time.perf_counter() - t0, "16a_seconds": t1 - t0,
+         "card": card})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5034,6 +5852,10 @@ def main(argv=None) -> int:
     check(cms_seq.LAUNCHES > 0, "phase 15 never launched K1")
     kernel["launches"] += cms_seq.LAUNCHES
     by_phase["15"] = cms_seq.LAUNCHES
+    cms_seq.LAUNCHES = 0  # phase 16's path: scripts and the front door take no K1
+    phase_scripting_frontdoor(rng, args.seed, card)
+    by_phase["16"] = cms_seq.LAUNCHES
+    check(by_phase["16"] == 0, "phase 16 launched K1")
     log({"kernels": [kernel]})
     print(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})

@@ -10,9 +10,16 @@ to ``--snapshot-dir`` (sketch pools and ``grid_store.bin``), which the
 next boot on the same directory restores.  ``--journal-dir`` adds the
 op journal (the acked tail between snapshots survives a kill -9, and it
 feeds the replication stream); ``--replica-of HOST:PORT`` boots a read
-replica by full resync from that primary.  The port of
-``redisson_tpu/__main__.py``; its per-core front door, cluster,
-metrics-endpoint and federation flags wait for their modules.
+replica by full resync from that primary.
+
+``--frontdoor-processes K`` serves with K worker processes sharing the
+port via SO_REUSEPORT (serve/multicore.py): this process becomes a pure
+supervisor that spawns them (each its own CUDA context; all on
+``cuda:0`` when the node has fewer cards than workers), forwards
+SIGTERM/SIGINT and reaps them; with ``--metrics-port N`` it serves their
+metrics merged on N.  ``--federate`` runs only that merged endpoint over
+listed members.  The port of ``redisson_tpu/__main__.py``; its cluster
+flags wait for the cluster modules.
 """
 
 from __future__ import annotations
@@ -22,6 +29,114 @@ import os
 import signal
 import sys
 import threading
+
+
+def _serve_multicore(args, nworkers: int) -> int:
+    """Per-core front-door parent: a pure supervisor — no engine, no RESP
+    door of its own.  Spawns K worker processes sharing (host, port) via
+    SO_REUSEPORT, optionally fronts their per-worker metrics endpoints
+    with ONE federated exposition (worker labels ride the federation
+    plane's node label), forwards SIGTERM/SIGINT, and reaps every child
+    before exiting."""
+    from redisson_tpu_torch.serve.multicore import MulticoreNode
+
+    extra = [
+        "--max-connections", str(args.max_connections),
+        "--idle-timeout-s", str(args.idle_timeout_s),
+    ]
+    if args.config:
+        extra += ["--config", args.config]
+    if args.snapshot_dir:
+        extra += ["--snapshot-dir", args.snapshot_dir]
+    if args.snapshot_interval_s:
+        extra += ["--snapshot-interval-s", str(args.snapshot_interval_s)]
+    if args.requirepass:
+        extra += ["--requirepass", args.requirepass]
+    if args.enable_python_scripts:
+        extra += ["--enable-python-scripts"]
+    if args.no_resp_vectorize:
+        extra += ["--no-resp-vectorize"]
+    if args.no_resp_reactor:
+        extra += ["--no-resp-reactor"]
+    if args.journal_dir:
+        extra += ["--journal-dir", args.journal_dir]
+    if args.replica_of:
+        extra += ["--replica-of", args.replica_of]
+    if args.resp_reactor_threads is not None:
+        extra += ["--resp-reactor-threads", str(args.resp_reactor_threads)]
+    if args.trace_sample_rate is not None:
+        extra += ["--trace-sample-rate", str(args.trace_sample_rate)]
+    if args.latency_monitor_threshold is not None:
+        extra += [
+            "--latency-monitor-threshold",
+            str(args.latency_monitor_threshold),
+        ]
+
+    # Handlers first: a SIGTERM while the workers start must still reap
+    # them (the node shuts down as soon as startup returns).
+    stop = threading.Event()
+
+    def on_signal(signum, frame):
+        stop.set()
+
+    signal.signal(signal.SIGINT, on_signal)
+    signal.signal(signal.SIGTERM, on_signal)
+    node = MulticoreNode(
+        nworkers, host=args.host, port=args.port, device=args.device,
+        metrics_port=args.metrics_port, extra_args=extra,
+    )
+    fed = None
+    if args.metrics_port is not None:
+        from redisson_tpu_torch.obs.federate import start_federation_endpoint
+
+        fed = start_federation_endpoint(
+            [f"{args.host}:{mp}" for mp in node.metrics_ports],
+            host=args.host, port=args.metrics_port,
+        )
+        print(
+            f"federated worker metrics on "
+            f"http://{fed.host}:{fed.port}/metrics",
+            flush=True,
+        )
+    print(
+        f"redisson-tpu-torch serving RESP on {node.host}:{node.port} "
+        f"[{nworkers} SO_REUSEPORT front-door workers, device={args.device}]",
+        flush=True,
+    )
+    stop.wait()
+    print("shutting down front-door workers", flush=True)
+    if fed is not None:
+        fed.close()
+    clean = node.shutdown()
+    return 0 if clean else 1
+
+
+def _serve_federation(args, p) -> int:
+    """Standalone federation mode: just the merged metrics endpoint — no
+    engine, no torch import, no RESP door."""
+    if args.metrics_port is None:
+        p.error("--federate requires --metrics-port")
+    from redisson_tpu_torch.obs.federate import start_federation_endpoint
+
+    targets = [t.strip() for t in args.federate.split(",") if t.strip()]
+    srv = start_federation_endpoint(
+        targets, host=args.host, port=args.metrics_port
+    )
+    stop = threading.Event()
+
+    def on_signal(signum, frame):
+        stop.set()
+
+    signal.signal(signal.SIGINT, on_signal)
+    signal.signal(signal.SIGTERM, on_signal)
+    print(
+        f"federated metrics on http://{srv.host}:{srv.port}/metrics "
+        f"({len(targets)} member node(s))",
+        flush=True,
+    )
+    stop.wait()
+    srv.close()
+    return 0
 
 
 def main(argv=None) -> int:
@@ -91,7 +206,43 @@ def main(argv=None) -> int:
         help="arm the LATENCY monitor at this many milliseconds "
         "(0 = off, the redis default; live via CONFIG SET)",
     )
+    p.add_argument(
+        "--enable-python-scripts", action="store_true",
+        help="allow RESP EVAL/EVALSHA/SCRIPT/FUNCTION/FCALL (script "
+        "bodies are Python — RCE for anyone who can reach the socket; "
+        "refused unless --requirepass is set or the bind is loopback)",
+    )
+    p.add_argument(
+        "--metrics-port", type=int, default=None,
+        help="serve the Prometheus text exposition on this port at "
+        "/metrics; omitted = no endpoint",
+    )
+    p.add_argument(
+        "--federate", default=None, metavar="HOST:PORT,...",
+        help="federation-only mode: no engine, no RESP door — scrape the "
+        "listed member /metrics endpoints per request and serve ONE "
+        "merged exposition (node label per member) on --metrics-port",
+    )
+    p.add_argument(
+        "--frontdoor-processes", type=int, default=None,
+        help="per-core front door: serve with this many processes sharing "
+        "the port via SO_REUSEPORT, each owning 1/K of the slot range "
+        "behind an in-node handoff map (all on one card when the node has "
+        "fewer cards than K); platforms without SO_REUSEPORT fall back "
+        "to 1 with a logged INFO line",
+    )
+    # Internal worker-mode flags: the supervisor parent stamps these
+    # into each spawned worker (serve/multicore.py MulticoreNode).
+    p.add_argument("--frontdoor-workers", type=int, default=1,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--frontdoor-index", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--frontdoor-dir", default=None,
+                   help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+
+    if args.federate:
+        return _serve_federation(args, p)
 
     import redisson_tpu_torch
     from redisson_tpu_torch import Config
@@ -137,6 +288,8 @@ def main(argv=None) -> int:
         cfg.latency_monitor_threshold_ms = args.latency_monitor_threshold
     if args.requirepass:
         cfg.requirepass = args.requirepass
+    if args.enable_python_scripts:
+        cfg.enable_python_scripts = True
     if args.no_resp_vectorize:
         cfg.resp_vectorize = False
     if args.no_resp_reactor:
@@ -145,6 +298,53 @@ def main(argv=None) -> int:
         if args.resp_reactor_threads < 1:
             p.error("--resp-reactor-threads must be >= 1")
         cfg.resp_reactor_threads = args.resp_reactor_threads
+
+    # Per-core front door.  Parent shape: K > 1 and no worker index —
+    # this process becomes a pure supervisor that spawns K worker
+    # children sharing the port via SO_REUSEPORT (no engine of its own).
+    # Worker shape: the internal flags stamp this process as worker i of
+    # K.  No-SO_REUSEPORT platforms degrade to K=1 here
+    # (effective_processes logs the INFO frontdoor line).
+    fd_req = (
+        args.frontdoor_processes
+        if args.frontdoor_processes is not None
+        else cfg.frontdoor_processes
+    )
+    if args.frontdoor_index is None and (fd_req or 1) > 1:
+        from redisson_tpu_torch.serve import multicore
+
+        fd_k = multicore.effective_processes(fd_req)
+        if fd_k > 1:
+            return _serve_multicore(args, fd_k)
+    if args.frontdoor_index is not None:
+        from redisson_tpu_torch.serve.multicore import worker_device
+
+        cfg.frontdoor_workers = max(2, int(args.frontdoor_workers))
+        cfg.frontdoor_index = args.frontdoor_index
+        cfg.frontdoor_dir = args.frontdoor_dir
+        # Durability dirs split per worker — K journals/snapshot sets,
+        # one per slot-range owner, never one contended set.
+        sub = f"worker{args.frontdoor_index}"
+        if cfg.snapshot_dir:
+            cfg.snapshot_dir = os.path.join(cfg.snapshot_dir, sub)
+            os.makedirs(cfg.snapshot_dir, exist_ok=True)
+        if cfg.journal_dir:
+            cfg.journal_dir = os.path.join(cfg.journal_dir, sub)
+            os.makedirs(cfg.journal_dir, exist_ok=True)
+        # Device pinning: each worker takes the first card of its
+        # contiguous 1/K of the node's cards when there are that many;
+        # otherwise every worker shares the default card.  A failure to
+        # enumerate is an error, never a quiet fallback.
+        if args.device.startswith("cuda"):
+            import torch
+
+            dev = worker_device(
+                args.device, cfg.frontdoor_index, cfg.frontdoor_workers,
+                torch.cuda.device_count(),
+            )
+            if dev != args.device:
+                torch.cuda.set_device(torch.device(dev))
+            cfg.gpu_sketch.device = dev
 
     if cfg.replica_of:
         # Replica boot: pull the primary's snapshot and wipe local
@@ -178,6 +378,15 @@ def main(argv=None) -> int:
         max_connections=args.max_connections,
         idle_timeout_s=args.idle_timeout_s,
     )
+    metrics_srv = None
+    if args.metrics_port is not None:
+        metrics_srv = client.start_metrics_endpoint(
+            host=args.host, port=args.metrics_port
+        )
+        print(
+            f"metrics on http://{metrics_srv.host}:{metrics_srv.port}/metrics",
+            flush=True,
+        )
     stop = threading.Event()
 
     def on_signal(signum, frame):
@@ -185,9 +394,13 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGINT, on_signal)
     signal.signal(signal.SIGTERM, on_signal)
+    mode = ""
+    if server.multicore is not None:
+        mode = (f" [front-door worker {server.multicore.index} of "
+                f"{server.multicore.nworkers}]")
     print(
         f"redisson-tpu-torch serving RESP on {server.host}:{server.port} "
-        f"(device={client._engine.executor.device})",
+        f"(device={client._engine.executor.device}){mode}",
         flush=True,
     )
     stop.wait()

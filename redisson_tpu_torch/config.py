@@ -146,9 +146,18 @@ class Config:
         # defaults.  requirepass: every connection must AUTH (or HELLO
         # ... AUTH) first; None = open, the redis-server default.
         self.requirepass: Optional[str] = None
-        # RESP scripting (Python bodies, the JAX package's switch): not
-        # ported yet — EVAL answers as an unknown command — but a server
-        # refuses it on a non-loopback bind without requirepass, as there.
+        # RESP script execution watchdog (the busy-reply-threshold
+        # analog): a script running longer than this makes the server
+        # answer other connections with BUSY (SCRIPT KILL remains
+        # available) instead of silently queueing them behind the grid
+        # lock.  0 disables the BUSY surface (scripts may block forever).
+        self.script_timeout_ms = 5000
+        # RESP scripting (EVAL/EVALSHA/SCRIPT/FUNCTION/FCALL): script
+        # bodies are arbitrary PYTHON, i.e. remote code execution for
+        # anyone who can reach the socket — OFF by default, and the
+        # RespServer refuses to enable it unless requirepass is set or
+        # the bind is loopback.  (The in-process Python ScriptService is
+        # unaffected: in-process callers can run code anyway.)
         self.enable_python_scripts = False
         # Fuse runs of adjacent pipelined commands on one (object,
         # family) into single engine calls, demuxing per-command replies
@@ -209,6 +218,21 @@ class Config:
         self.replica_of: Optional[str] = None
         self.repl_backlog_bytes = 4 << 20
         self.repl_max_staleness_ops = 0
+        # Per-core front door.  ``frontdoor_processes``: K server
+        # processes share this node's listen port via SO_REUSEPORT, each
+        # owning a contiguous 1/K of the slot range behind an in-node
+        # slot->process map (serve/multicore.py).  1 (default) = the
+        # single-process door; >1 on a platform without SO_REUSEPORT
+        # degrades to 1 with an INFO log line, never a bind-time crash.
+        # The ``frontdoor_workers`` / ``frontdoor_index`` /
+        # ``frontdoor_dir`` triple is INTERNAL — the supervisor parent
+        # stamps it into each worker child (--frontdoor-workers/
+        # --frontdoor-index/--frontdoor-dir); setting it by hand makes one
+        # bare worker of a K-party door.
+        self.frontdoor_processes = 1
+        self.frontdoor_workers = 1
+        self.frontdoor_index: Optional[int] = None
+        self.frontdoor_dir: Optional[str] = None
 
     def set_codec(self, codec) -> "Config":
         self.codec = codec
@@ -225,8 +249,8 @@ class Config:
         return self
 
     def set_enable_python_scripts(self, enabled: bool) -> "Config":
-        """The JAX package's scripting switch (see the attribute): a
-        server refuses it on a non-loopback bind without requirepass."""
+        """Allow RESP scripting (see the attribute): a server refuses it
+        on a non-loopback bind without requirepass."""
         self.enable_python_scripts = enabled
         return self
 
@@ -248,6 +272,7 @@ class Config:
         "retry_interval_ms",
         "requirepass",
         "enable_python_scripts",
+        "script_timeout_ms",
         "resp_vectorize",
         "resp_response_cache_size",
         "resp_reactor",
@@ -264,6 +289,10 @@ class Config:
         "replica_of",
         "repl_backlog_bytes",
         "repl_max_staleness_ops",
+        "frontdoor_processes",
+        "frontdoor_workers",
+        "frontdoor_index",
+        "frontdoor_dir",
     )
 
     def to_dict(self) -> dict:

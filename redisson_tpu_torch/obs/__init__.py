@@ -194,6 +194,35 @@ class Observability:
             "rtpu_cross_conn_fused_ops",
             "engine ops fused into a launch together with ops from OTHER "
             "connections, by family", ("family",))
+        # Per-core front door: K SO_REUSEPORT server processes per
+        # node, an in-node slot->process map, and loopback handoff legs
+        # over unix-domain sockets.  Per-worker series federate through
+        # obs/federate.py — each worker process serves its own /metrics,
+        # the parent's federation endpoint labels them.
+        self.frontdoor_processes = r.gauge(
+            "rtpu_frontdoor_processes",
+            "front-door worker processes sharing this node's listen "
+            "port (1 = single-process door, incl. the no-SO_REUSEPORT "
+            "fallback)")
+        self.frontdoor_worker_index = r.gauge(
+            "rtpu_frontdoor_worker_index",
+            "this worker's index in the node's in-node slot->process "
+            "map (0 in single-process mode)")
+        self.frontdoor_handoffs = r.counter(
+            "rtpu_frontdoor_handoffs",
+            "commands routed across the in-node worker boundary, by "
+            "kind (forward = whole command to one sibling, split = "
+            "per-key multi-key split, fanout = broadcast-and-merge)",
+            ("kind",))
+        self.frontdoor_handoff_errors = r.counter(
+            "rtpu_frontdoor_handoff_errors",
+            "in-node handoff legs that failed (peer gone / corrupt "
+            "stream / injected fault) and surfaced -HANDOFFBROKEN",
+            ("kind",))
+        self.frontdoor_peer_accepts = r.counter(
+            "rtpu_frontdoor_peer_accepts",
+            "handoff legs accepted from sibling workers on the in-node "
+            "unix-domain listener")
         # Load attribution: device-time split per (tenant, op) — label
         # cardinality is bounded twice (the loadmap folds cold tenants
         # into "other" before the bump, max_children backstops it), and

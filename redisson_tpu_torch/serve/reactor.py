@@ -230,10 +230,17 @@ class _ReactorCtx(_ConnCtx):
 class _RConn:
     """Per-connection reactor state."""
 
-    def __init__(self, sock: socket.socket, server, reactor: "_Reactor"):
+    def __init__(
+        self,
+        sock: socket.socket,
+        server,
+        reactor: "_Reactor",
+        peer: bool = False,
+    ):
         self.sock = sock
         self.fd = sock.fileno()
         self.reactor = reactor
+        self.peer = peer  # in-node handoff leg from a sibling worker
         # Native tick path: the per-connection leftover buffer for
         # rtpu_resp_tick (drain+frame+classify in one native call).  The
         # slow-path framer is built lazily, only when this connection
@@ -259,6 +266,11 @@ class _RConn:
         self.registered = False
         self.cur_mask = 0  # interest set currently in the selector
         self.ctx = _ReactorCtx(sock, server, self)
+        if peer:
+            # Sibling-worker legs are pre-trusted (same process tree,
+            # unix socket under the node's private rundir) and carry
+            # already-authed client traffic.
+            self.ctx.is_peer = True
 
     def at_frame_boundary(self) -> bool:
         if self.tickbuf is not None and self.tickbuf.have:
@@ -332,8 +344,8 @@ class _Reactor(threading.Thread):
 
     # -- cross-thread surface ------------------------------------------------
 
-    def add_conn(self, sock: socket.socket) -> None:
-        self._new.append(sock)
+    def add_conn(self, sock: socket.socket, peer: bool = False) -> None:
+        self._new.append((sock, peer))
         self.wake()
 
     def wake(self) -> None:
@@ -439,14 +451,14 @@ class _Reactor(threading.Thread):
 
     def _admit_new(self) -> None:
         while self._new:
-            sock = self._new.popleft()
+            sock, peer = self._new.popleft()
             try:
                 sock.setblocking(False)
-                rconn = _RConn(sock, self.server, self)
+                rconn = _RConn(sock, self.server, self, peer=peer)
             except OSError:
                 self._teardown_slot(sock)
                 continue
-            if self.server._requirepass:
+            if self.server._requirepass and not peer:
                 rconn.ctx.authed = False
             try:
                 self.sel.register(sock, selectors.EVENT_READ, rconn)
@@ -570,8 +582,20 @@ class _Reactor(threading.Thread):
                 # rides a worker.  EXEC's replay re-enters _dispatch per
                 # member, so the multicore hook still applies to each.
                 return name == b"EXEC"
-            return name in _DETACH
-        return False
+            if name in _DETACH:
+                return True
+        elif ctx.in_multi:
+            return False  # fusable-family member queueing under MULTI
+        # Per-core front door: a keyed command owned by a sibling worker
+        # rides a worker thread too — its in-node handoff leg blocks on
+        # the peer's reply, which must never park the event loop.  Peer
+        # legs themselves always execute locally.
+        mc = getattr(self.server, "multicore", None)
+        return (
+            mc is not None
+            and not ctx.is_peer
+            and mc.needs_handoff(cmd)
+        )
 
     @staticmethod
     def _family_key(fam: int, cmd):
@@ -837,13 +861,14 @@ class _Reactor(threading.Thread):
                 and now - rconn.last_activity > idle_s
             ):
                 if (
-                    (rconn.ctx.subs or rconn.ctx.monitor)
+                    (rconn.ctx.subs or rconn.ctx.monitor or rconn.peer)
                     and rconn.at_frame_boundary()
                     and not rconn.pending
                 ):
                     # Subscribers and monitors may idle legitimately — but
                     # only at a frame boundary (same exemption as
-                    # _serve_conn).
+                    # _serve_conn).  Sibling-worker handoff legs are
+                    # pooled and long-lived by design.
                     rconn.last_activity = now
                 else:
                     self._close_conn(rconn)
@@ -943,10 +968,10 @@ class ReactorPool:
         for r in self._reactors:
             r.start()
 
-    def assign(self, sock: socket.socket) -> None:
+    def assign(self, sock: socket.socket, peer: bool = False) -> None:
         r = self._reactors[self._rr % self.nthreads]
         self._rr += 1
-        r.add_conn(sock)
+        r.add_conn(sock, peer=peer)
 
     @property
     def native_tick(self) -> bool:

@@ -37,10 +37,19 @@ reply bytes, for the command families this package carries:
                     (the telemetry plane: slow-op ring, distributed
                     traces and their wire prelude, the latency monitor,
                     the flight recorder, hot keys, the command stream)
+  EVAL EVALSHA SCRIPT FUNCTION FCALL FCALL_RO
+                    (Python script bodies under the grid lock, gated by
+                    enable_python_scripts; the script_timeout_ms watchdog
+                    answers BUSY and SCRIPT KILL stops a runaway)
 
-Any other command (scripting and cluster verbs) answers
-exactly as the JAX package answers a command it lacks: ``-ERR unknown
-command 'NAME'``.
+Any other command (the cluster verbs) answers exactly as the JAX
+package answers a command it lacks: ``-ERR unknown command 'NAME'``.
+
+In worker mode (``frontdoor_workers`` > 1 with a ``frontdoor_index``)
+the server is one of K processes sharing its port via SO_REUSEPORT:
+serve/multicore.py's in-node slot->process map hands a command whose
+keys a sibling owns over a unix-domain leg, so the K processes answer
+as one server.
 
 Values travel as raw bytes (RESP bulk strings) through a ByteArray-style
 codec boundary: what a foreign client SETs is exactly what it GETs.  The
@@ -77,6 +86,12 @@ class ProtocolError(Exception):
     Redis 'Protocol error' behavior)."""
 
 
+class ScriptKilledError(BaseException):
+    """Raised asynchronously INTO a running script's thread by SCRIPT
+    KILL.  BaseException, so a script's blanket ``except Exception``
+    cannot swallow the kill."""
+
+
 def _encode_simple(s: str) -> bytes:
     return b"+" + s.encode() + b"\r\n"
 
@@ -100,6 +115,12 @@ _ERROR_CODES = (
     # a replica (verbatim Redis code); STALEREAD = the bounded-staleness
     # gate refused a replica read whose lag exceeds the configured bound.
     "NOJOURNAL", "NOBACKLOG", "READONLY", "STALEREAD",
+)
+
+# Commands whose bodies execute arbitrary Python server-side; gated
+# behind enable_python_scripts (see RespServer.__init__ / _dispatch).
+_SCRIPT_CMDS = frozenset(
+    ("EVAL", "EVALSHA", "SCRIPT", "FCALL", "FCALL_RO", "FUNCTION")
 )
 
 # Commands EXEMPT from ingress shedding (the overload control plane):
@@ -309,6 +330,43 @@ def _encode_array(items) -> bytes:
     return out
 
 
+def _decode_reply(frame: bytes):
+    """Parse ONE RESP reply frame into a Python value (the redis.call
+    bridge decoding half: scripts see values, not wire bytes).  Error
+    replies raise RespError."""
+    if not frame:
+        return None  # handler wrote its reply itself (push paths)
+    val, _ = _decode_reply_at(frame, 0)
+    return val
+
+
+def _decode_reply_at(buf: bytes, i: int):
+    j = buf.index(b"\r\n", i)
+    t, body = buf[i : i + 1], buf[i + 1 : j]
+    i = j + 2
+    if t == b"+":
+        return body.decode(), i
+    if t == b"-":
+        raise RespError(body.decode())
+    if t == b":":
+        return int(body), i
+    if t == b"$":
+        n = int(body)
+        if n < 0:
+            return None, i
+        return buf[i : i + n], i + n + 2
+    if t in (b"*", b">"):
+        n = int(body)
+        if n < 0:
+            return None, i
+        out = []
+        for _ in range(n):
+            v, i = _decode_reply_at(buf, i)
+            out.append(v)
+        return out, i
+    raise RespError(f"unparseable reply type {t!r}")
+
+
 
 class _Reader:
     def __init__(self, sock: socket.socket):
@@ -458,6 +516,15 @@ class _ConnCtx:
         # MONITOR mode: every dispatched command streams to this
         # connection as a +<ts> [db addr] "CMD" ... push.
         self.monitor = False
+        # Cluster ASKING grant: one-shot, consumed by the next keyed
+        # command.  Nothing sets it until the cluster door is ported;
+        # the front door's forward leg carries it along when set.
+        self.asking = False
+        # Per-core front door: True on in-node handoff legs from sibling
+        # workers — peer legs always execute locally (the no-proxy-loops
+        # invariant), skip auth (the unix socket lives in a mode-0700
+        # rundir) and are exempt from the idle sweep.
+        self.is_peer = False
         # Replication: set by REPLCONF IDENT — this connection belongs to
         # a replica with that id; its ACKs land in the hub's per-replica
         # table under this name.
@@ -573,7 +640,8 @@ class RespServer:
 
     def __init__(self, client, host: str = "127.0.0.1", port: int = 0,
                  max_connections: int = 256, idle_timeout_s: float = 300.0,
-                 requirepass: Optional[str] = None):
+                 requirepass: Optional[str] = None,
+                 enable_python_scripts: Optional[bool] = None):
         """Serves whatever device ``client`` was built on (its engine's
         pools and kernels); the front door itself is host code."""
         self._client = client
@@ -585,18 +653,24 @@ class RespServer:
             if requirepass is not None
             else getattr(client.config, "requirepass", None)
         )
-        # Scripting's bind rule (the JAX package's): script bodies are
-        # arbitrary Python, so enabling them on a non-loopback bind without
-        # requirepass is refused.  The port carries no scripting yet
-        # (EVAL answers as an unknown command); the refusal keeps a
-        # config that the JAX package would refuse from starting here.
-        if client.config.enable_python_scripts and not (
+        # Scripting (EVAL/EVALSHA/SCRIPT/FUNCTION/FCALL): script bodies
+        # are arbitrary PYTHON — remote code execution for anyone who can
+        # reach the socket.  OFF unless explicitly enabled (argument,
+        # else the config key), and enabling REFUSES unless the server
+        # authenticates (requirepass) or binds loopback-only.
+        want_scripts = (
+            enable_python_scripts
+            if enable_python_scripts is not None
+            else client.config.enable_python_scripts
+        )
+        if want_scripts and not (
             self._requirepass or self._is_loopback(host)
         ):
             raise ValueError(
                 "enable_python_scripts on a non-loopback bind requires "
                 "requirepass: RESP scripts are arbitrary Python (RCE)"
             )
+        self._scripts_enabled = bool(want_scripts)
         # DEBUG INJECT / DEBUG RESIDENCY (fault injection, tier forcing)
         # share scripting's gate: allowed on a loopback bind or behind
         # requirepass — a fault injector on an open unauthenticated
@@ -604,6 +678,19 @@ class RespServer:
         self._inject_allowed = bool(
             self._requirepass or self._is_loopback(host)
         )
+        # Script watchdog (the busy-reply-threshold analog): while a
+        # script has been running longer than script_timeout_ms, other
+        # connections get BUSY instead of queueing behind the grid lock;
+        # SCRIPT KILL stops the runaway.  ``_script_calls`` counts the
+        # slot owner's redis.call dispatches in flight: the kill reaper
+        # posts its async exception only while it is 0, so a kill never
+        # lands inside an engine submission (a launch lands whole or
+        # not at all; the call's next dispatch boundary takes the kill).
+        self._script_timeout_ms = int(client.config.script_timeout_ms)
+        self._script_lock = threading.Lock()
+        self._script_run = None  # (thread, started_monotonic) while running
+        self._script_kill = None  # run record a SCRIPT KILL is targeting
+        self._script_calls = 0
         self.max_connections = max_connections
         self.idle_timeout_s = idle_timeout_s
         # Overload control plane.  Deadline default stamped on every
@@ -653,8 +740,29 @@ class RespServer:
         self._scan_states: dict[int, str] = {}
         self._scan_next = 0
         self._scan_lock = threading.Lock()
+        # Per-core front door: in worker mode this process is one of K
+        # siblings sharing the SAME (host, port) via SO_REUSEPORT — the
+        # kernel load-balances accepts across the workers' listen
+        # sockets.  __main__ probes availability before spawning
+        # workers, so a failed setsockopt here means direct
+        # misconfiguration: fail loudly, not at first accept.
+        fd_i = client.config.frontdoor_index
+        fd_k = int(client.config.frontdoor_workers or 1)
+        self._fd_workers = fd_k if (fd_k > 1 and fd_i is not None) else 1
+        self._fd_index = int(fd_i) if fd_i is not None else 0
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        if self._fd_workers > 1:
+            try:
+                self._sock.setsockopt(
+                    socket.SOL_SOCKET, socket.SO_REUSEPORT, 1
+                )
+            except (AttributeError, OSError) as e:
+                self._sock.close()
+                raise ValueError(
+                    "frontdoor worker mode requires SO_REUSEPORT "
+                    f"(probe with serve.multicore.reuseport_available): {e}"
+                )
         self._sock.bind((host, port))
         self._sock.listen(512)
         self.host, self.port = self._sock.getsockname()
@@ -700,6 +808,28 @@ class RespServer:
                     self._sock.close()
                     raise
                 self.reactor = None
+        # Per-core front door: the in-node slot->process map.  Keyed
+        # commands owned by a sibling worker take a loopback handoff over
+        # persistent unix-domain legs — invisible to the client.  Built
+        # AFTER the reactor (peer legs are admitted into it) and BEFORE
+        # the accept thread (a client command must never race a
+        # half-built router).
+        self.multicore = None
+        if self._fd_workers > 1:
+            from redisson_tpu_torch.serve.multicore import MulticoreRouter
+
+            try:
+                self.multicore = MulticoreRouter(
+                    self, self._fd_workers, self._fd_index,
+                    client.config.frontdoor_dir, obs=self.obs,
+                )
+            except Exception:
+                self._sock.close()
+                if self.reactor is not None:
+                    self.reactor.close()
+                raise
+        self.obs.frontdoor_processes.set((), float(self._fd_workers))
+        self.obs.frontdoor_worker_index.set((), float(self._fd_index))
         # Replication plane: the primary-side hub (journal tap → backlog
         # ring → RTPU.REPLFETCH) exists whenever a journal does — a node
         # is a streaming-capable primary by default.  ``replica_link`` is
@@ -778,12 +908,35 @@ class RespServer:
                     name="rtpu-resp-conn", daemon=True,
                 ).start()
 
+    def _admit_peer(self, conn: socket.socket) -> None:
+        """Admit an in-node handoff leg from a sibling front-door
+        worker.  Peer legs bypass max_connections — refusing one would
+        wedge the sibling's forwarded client command, turning a
+        conn-limit shed into a cross-worker stall — but join the normal
+        connection set so the shutdown drain covers them."""
+        with self._conn_lock:
+            if self._closed:
+                conn.close()
+                return
+            self._nconn += 1
+            self._conns_accepted += 1
+            self._conns.add(conn)
+        self.obs.frontdoor_peer_accepts.inc(())
+        if self.reactor is not None:
+            self.reactor.assign(conn, peer=True)
+        else:
+            threading.Thread(
+                target=self._serve_conn, args=(conn, True),
+                name="rtpu-resp-peer", daemon=True,
+            ).start()
 
-    def _serve_conn(self, conn: socket.socket) -> None:
+    def _serve_conn(self, conn: socket.socket, peer: bool = False) -> None:
         try:
             reader = _Reader(conn)
             ctx = _ConnCtx(conn, server=self)
-            if self._requirepass:
+            if peer:
+                ctx.is_peer = True
+            elif self._requirepass:
                 ctx.authed = False
         except Exception:
             # Constructor failure must not leak the connection slot.
@@ -804,7 +957,7 @@ class RespServer:
                     # but only at a frame boundary; a timeout mid-frame
                     # (or with bytes buffered) would desync the protocol
                     # on resume.
-                    if (ctx.subs or ctx.monitor) and \
+                    if (ctx.subs or ctx.monitor or peer) and \
                             reader.at_frame_boundary():
                         continue
                     return  # reclaim the slot
@@ -904,6 +1057,8 @@ class RespServer:
         # observe the shutdowns above and tear each connection down.
         if self.reactor is not None:
             self.reactor.close()
+        if self.multicore is not None:
+            self.multicore.close()  # peer listener + pooled handoff legs
 
     # -- command dispatch ---------------------------------------------------
 
@@ -950,6 +1105,16 @@ class RespServer:
                 # lifecycle (ingress → launch phases).
                 with _trace.scope(tspan.ctx()):
                     reply = self._dispatch_deadlined(cmd, ctx, name)
+        except ScriptKilledError:
+            # SCRIPT KILL's async exception can land AFTER the script
+            # body left its guarded block (next bytecode boundary):
+            # absorb it here so a completed script's connection survives
+            # with an error reply instead of the thread dying
+            # (ScriptKilledError is a BaseException on purpose — scripts
+            # can't swallow it — so the generic handler below misses it).
+            self._script_unregister()  # the clear itself may have died
+            err = True
+            reply = _encode_error("Script killed by user with SCRIPT KILL...")
         except Exception as e:
             # RespError / TypeError-WRONGTYPE / generic all map through
             # the ONE shared helper the fused-run demux also uses.
@@ -1257,6 +1422,11 @@ class RespServer:
         rc_cap = self.response_cache_size
         rc_state = [self._write_epoch]
         obs = self.obs
+        # Per-core front door: a command a sibling worker owns (or that
+        # fans out to every worker) must reach _dispatch's handoff hook,
+        # so it neither fuses nor probes the response cache, and it
+        # bounds every run (``bound[k]``: the first such position >= k).
+        bound = self._handoff_bounds(batch, ctxs)
         while i < n:
             if size >= (1 << 20):
                 break
@@ -1272,10 +1442,12 @@ class RespServer:
             # consume) happen there.
             plain = (
                 self.vectorize and self._ctx_fusable(ctx)
+                and not self._script_busy()
                 and self.replica_link is None
                 and not self._monitors
                 # rtpulint: disable=RT012 fusion FENCE, not a dispatch: the prelude-carrying command falls through to _safe_dispatch below, which burns every license via consume_one_shot_licenses
                 and getattr(ctx, "trace_next", None) is None
+                and (bound is None or bound[i] > i)
             )
             if plain and rc_cap > 0 and name in _CACHEABLE:
                 hit = self._rc_probe(rc, rc_state, name, cmd)
@@ -1285,7 +1457,7 @@ class RespServer:
                     i += 1
                     continue
             run = (
-                self._scan_run(batch, i, ctxs)
+                self._scan_run(batch, i, ctxs, bound)
                 if plain and not overloaded else None
             )
             if run is not None:
@@ -1312,13 +1484,14 @@ class RespServer:
                             self.vectorize
                             and self._ctx_fusable(ctxs[jj])
                             and self._op_deadline_s(ctxs[jj]) is None
+                            and not self._script_busy()
                         ):
                             # (A deadline-carrying connection's run must
                             # execute under its deadline_scope — the
                             # _exec_run path — never as a bare span
                             # member.)
                             break
-                        nxt = self._scan_run(batch, jj, ctxs)
+                        nxt = self._scan_run(batch, jj, ctxs, bound)
                         if nxt is None or not self._run_readonly(nxt):
                             break
                         nxt_conns = {id(c) for c in ctxs[jj:nxt[1]]}
@@ -1431,14 +1604,33 @@ class RespServer:
 
     # -- run scanning ------------------------------------------------------
 
-    def _scan_run(self, batch, i, ctxs):
+    def _handoff_bounds(self, batch, ctxs) -> Optional[list]:
+        """None outside worker mode; else ``bound`` with ``bound[k]`` the
+        first position >= k whose command needs a sibling worker (len
+        when none does).  Peer legs always execute locally."""
+        mc = self.multicore
+        if mc is None:
+            return None
+        n = len(batch)
+        bound = [n] * (n + 1)
+        for k in range(n - 1, -1, -1):
+            foreign = not ctxs[k].is_peer and mc.needs_handoff(batch[k])
+            bound[k] = k if foreign else bound[k + 1]
+        return bound
+
+    def _scan_run(self, batch, i, ctxs, bound=None):
         """A fused-run descriptor starting at ``batch[i]``, or None.
         Runs are maximal spans of adjacent commands of one family (same
         target object for bf/bitset/cms), possibly spanning CONNECTION
         boundaries in a merged window; any non-member — including a
         malformed member whose sequential dispatch would error, or a
-        member whose connection is mid-MULTI / unauthenticated — ends
-        the run and dispatches sequentially (a run barrier)."""
+        member whose connection is mid-MULTI / unauthenticated, or (in
+        worker mode) one a sibling worker owns — ends the run and
+        dispatches sequentially (a run barrier)."""
+        if bound is not None and bound[i] < len(batch):
+            batch = batch[:bound[i]]
+            if bound[i] - i < 2:
+                return None
         first = batch[i][0].upper()
         if first in _BF_RUN:
             return self._collect_bf_run(batch, i, ctxs)
@@ -1891,12 +2083,25 @@ class RespServer:
                   name: Optional[str] = None) -> bytes:
         if name is None:  # _safe_dispatch passes the decoded name along
             name = cmd[0].decode().upper()
+        kill = self._script_kill
+        if kill is not None and kill[0] is threading.current_thread():
+            # Cooperative SCRIPT KILL boundary: async-exception delivery
+            # (PyThreadState_SetAsyncExc) is LOSSY — an exception that
+            # materializes inside a weakref/__del__ callback is reported
+            # as "unraisable" and swallowed, never reaching the script.
+            # A killed script that issues redis.call dies HERE instead,
+            # synchronously and reliably (pure-Python loops are covered
+            # by the re-posting reaper of SCRIPT KILL).
+            with self._script_lock:
+                if self._script_kill is kill:
+                    self._script_kill = None
+                    raise ScriptKilledError()
         if not ctx.authed and name not in ("AUTH", "HELLO", "QUIT", "RESET"):
             # Pre-auth surface is AUTH/HELLO/QUIT/RESET, like Redis
             # (pooled clients RESET connections before authenticating).
             raise RespError("NOAUTH Authentication required.")
         link = self.replica_link
-        if link is not None:
+        if link is not None and not ctx.is_peer:
             # Replica role: reads only.  Writes arrive solely over the
             # replication link — a client write accepted here would fork
             # this replica's history from its primary's.
@@ -1919,6 +2124,25 @@ class RespServer:
                     f"its primary (bound {bound}); retry or read the "
                     "primary"
                 )
+        if name in _SCRIPT_CMDS and not self._scripts_enabled:
+            # Script bodies are Python: gated off by default (see
+            # __init__).  Checked at dispatch so MULTI-queued scripts hit
+            # the same wall.
+            raise RespError(
+                "scripting is disabled (script bodies are Python; enable "
+                "with enable_python_scripts=True — requires requirepass "
+                "or a loopback bind)"
+            )
+        if name not in (
+            "SCRIPT", "SHUTDOWN", "AUTH", "HELLO", "QUIT", "RESET",
+        ) and self._script_busy():
+            # A script has exceeded script_timeout_ms on another
+            # connection: Redis's busy-script contract — refuse rather
+            # than queue invisibly behind the grid lock.
+            raise RespError(
+                "BUSY Redis is busy running a script. You can only call "
+                "SCRIPT KILL or SHUTDOWN NOSAVE."
+            )
         shed = self._shed_at_ingress(name, cmd, ctx)
         if shed is not None:
             # Overload control plane (plus the tenant peek): refuse
@@ -1962,6 +2186,16 @@ class RespServer:
             if ctx.queued is not None:
                 ctx.queued.append(cmd)
             return _encode_simple("QUEUED")
+        mc = self.multicore
+        if mc is not None:
+            # Per-core front door: keyed commands owned by a sibling
+            # worker take the in-node handoff leg; fan-out commands merge
+            # across the workers.  The in-node map itself never emits
+            # -MOVED (a later cluster door runs after this hook, so a
+            # handed-off command is judged by the slot owner's door).
+            frame = mc.route(name, cmd, ctx)
+            if frame is not None:
+                return frame
         return self._invoke_handler(name, cmd, ctx)
 
     def _invoke_handler(self, name: str, cmd: list, ctx: "_ConnCtx") -> bytes:
@@ -2879,6 +3113,124 @@ class RespServer:
             raise RespError("FAILOVER requires a replica role")
         self.promote_to_primary(epoch=0)
         return _encode_simple("OK")
+
+    # -- script watchdog helpers -----------------------------------------
+
+    def _script_busy(self) -> bool:
+        """True while a script on ANOTHER connection has been running
+        longer than script_timeout_ms (its own redis.call dispatches
+        must keep flowing)."""
+        run = self._script_run
+        if run is None:
+            return False
+        thread, started = run
+        if threading.current_thread() is thread:
+            return False
+        t = self._script_timeout_ms
+        return t > 0 and (time.monotonic() - started) * 1000.0 >= t
+
+    def _script_register(self) -> bool:
+        """Claim the watchdog slot for the current thread; False when a
+        script on this thread already owns it (nested redis.call)."""
+        with self._script_lock:
+            if self._script_run is None:
+                self._script_run = (
+                    threading.current_thread(), time.monotonic()
+                )
+                # Any kill flag here is stale (its target run is gone —
+                # e.g. the killed thread died without unwinding through
+                # _script_unregister): it must not fell the new script.
+                self._script_kill = None
+                self._script_calls = 0
+                return True
+            return False
+
+    def _script_unregister(self) -> None:
+        """Release the slot if the CURRENT thread owns it.  Also the
+        defensive path for a SCRIPT KILL whose async exception landed
+        inside the normal clearing code — without it the stale record
+        would report BUSY forever and target an innocent later command."""
+        with self._script_lock:
+            run = self._script_run
+            if run is not None and run[0] is threading.current_thread():
+                self._script_run = None
+                if self._script_kill is run:
+                    self._script_kill = None
+
+    def _script_claim(self) -> bool:
+        """Claim the watchdog slot BEFORE acquiring the grid lock; True
+        when this frame now owns it, False for a nested call whose outer
+        frame on this thread already does.  When ANOTHER connection's
+        script owns the slot, wait for it rather than run unregistered:
+        the caller would serialize on the grid lock anyway, and an
+        unregistered runaway would be invisible to BUSY, report NOTBUSY
+        to SCRIPT KILL — and leave SCRIPT KILL aimed at the slot owner,
+        an innocent thread still queued on the grid lock.  Claim order
+        (slot, then grid lock) is the same in every script path, so the
+        wait cannot deadlock."""
+        while True:
+            if self._script_register():
+                return True
+            run = self._script_run
+            if run is None:
+                continue  # slot freed between register and read: retry
+            if run[0] is threading.current_thread():
+                return False  # nested call: the outer frame owns the slot
+            if not run[0].is_alive():  # owner died mid-script: reclaim
+                with self._script_lock:
+                    if self._script_run is run:
+                        self._script_run = None
+                continue
+            time.sleep(0.001)
+
+    def _script_reaper(self, run) -> None:
+        """Drive one SCRIPT KILL home.  Re-posts the async exception on
+        a short period until the target run exits (slot cleared / thread
+        dead) or the cooperative dispatch-boundary check consumed the
+        kill flag first.  No post while one of the script's redis.call
+        dispatches is in flight (``_script_calls``): that call finishes
+        whole and its script dies at the next boundary, so the async
+        path only fires for scripts spinning in their own code."""
+        import ctypes
+
+        while True:
+            time.sleep(0.02)
+            with self._script_lock:
+                if (
+                    self._script_kill is not run
+                    or self._script_run is not run
+                    or not run[0].is_alive()
+                ):
+                    return
+                if self._script_calls:
+                    continue
+                n = ctypes.pythonapi.PyThreadState_SetAsyncExc(
+                    ctypes.c_ulong(run[0].ident),
+                    ctypes.py_object(ScriptKilledError),
+                )
+                if n > 1:  # pragma: no cover — CPython contract: undo
+                    ctypes.pythonapi.PyThreadState_SetAsyncExc(
+                        ctypes.c_ulong(run[0].ident), None
+                    )
+                    return
+
+    def _script_call(self, sctx, parts):
+        """redis.call from a script or function body: dispatch through
+        this server's command table and decode the reply.  A command
+        that is not itself a script runs shielded from SCRIPT KILL's
+        async exception (see _script_reaper), so a kill never lands
+        inside an engine submission; a nested script stays killable."""
+        cmd = [p if isinstance(p, bytes) else str(p).encode() for p in parts]
+        if cmd and cmd[0].decode("latin-1", "replace").upper() in _SCRIPT_CMDS:
+            return _decode_reply(self._dispatch(cmd, sctx))
+        with self._script_lock:
+            self._script_calls += 1
+        try:
+            frame = self._dispatch(cmd, sctx)
+        finally:
+            with self._script_lock:
+                self._script_calls -= 1
+        return _decode_reply(frame)
 
     def _cmd_DEBUG(self, args):
         sub = args[0].decode().upper()
@@ -3950,10 +4302,17 @@ class RespServer:
                     f"frontdoor_cross_conn_fused_ops:"
                     f"{_tot(obs.cross_conn_fused_ops)}",
                 ]
+                # Per-core front door: worker identity (clients probe
+                # this to pin worker-local traffic) + the in-node handoff
+                # counters.
                 lines += [
+                    f"frontdoor_processes:{self._fd_workers}",
+                    f"frontdoor_worker_index:{self._fd_index}",
                     "frontdoor_native_tick:"
                     f"{1 if rx is not None and rx.native_tick else 0}",
                 ]
+                if self.multicore is not None:
+                    lines += self.multicore.info_lines()
             elif s == "overload" and obs is not None:
                 # Overload control plane: deadlines, admission
                 # control, tenant quotas, slow-client limits — the
@@ -5968,3 +6327,351 @@ class RespServer:
         except ValueError as e:
             raise RespError(str(e)) from e
         return _encode_int(n)
+
+    # scripting (→ RScript/RFunction over grid/services.py).  Script
+    # bodies are PYTHON source — there is deliberately no Lua VM
+    # (ScriptService's design note): scripts see KEYS (str list), ARGV
+    # (bytes list) and ``redis.call(...)``, which dispatches through this
+    # server's own command table and decodes the reply.  A script runs
+    # under the grid lock — the Lua-script atomicity contract.
+
+    class _ScriptCtx:
+        """Connection-independent ctx for redis.call dispatch: scripts
+        cannot touch connection state (no MULTI, no pub/sub pushes —
+        the Lua rules), and blocking commands run non-blocking."""
+
+        in_multi = False
+        in_exec = True
+        proto = 2
+        client_name = None
+        # Scripts run server-side: the CONNECTION that invoked EVAL was
+        # already auth-gated, so the bridge context is always authed.
+        authed = True
+        # Not a sibling's handoff leg and holding no ASKING grant: on a
+        # replica or in a front-door worker a redis.call is judged like
+        # any client command (the front door refuses it a sibling's key
+        # — see MulticoreRouter.route).
+        is_peer = False
+        asking = False
+        in_script = True
+
+        def __init__(self):
+            self.subs = {}
+
+    def _run_script(self, source: str, keys: list, argv: list):
+        server = self
+        sctx = self._ScriptCtx()
+
+        class _Bridge:
+            @staticmethod
+            def call(*parts):
+                return server._script_call(sctx, parts)
+
+            # redis.pcall: errors come back as values, not raises
+            @staticmethod
+            def pcall(*parts):
+                try:
+                    return _Bridge.call(*parts)
+                except Exception as e:
+                    return e
+
+        ns = {"KEYS": list(keys), "ARGV": list(argv), "redis": _Bridge}
+        # Compile BEFORE taking the grid lock: a slow or malformed
+        # compile must not stall every other connection behind the
+        # Lua-atomicity lock.
+        try:
+            code = compile(source, "<eval>", "eval")
+            is_expr = True
+        except SyntaxError:
+            code = compile(source, "<eval>", "exec")
+            is_expr = False
+        # Claim the watchdog slot BEFORE the grid lock (see _script_claim
+        # — registering after the lock let an EVAL that won the lock race
+        # against a slot-holding FCALL run unregistered, with SCRIPT KILL
+        # aimed at the FCALL thread still queued on the lock).  The
+        # OUTERMOST script on this thread owns the record (a script
+        # EVALing another via redis.call re-enters here).
+        started_here = self._script_claim()
+        try:
+            with self._client._grid.lock:  # Lua atomicity contract
+                try:
+                    if is_expr:
+                        out = eval(code, ns)
+                    else:
+                        exec(code, ns)
+                        out = ns.get("result")
+                    self._client._grid.cond.notify_all()
+                finally:
+                    if started_here:
+                        self._script_unregister()
+        except ScriptKilledError:
+            # Only the OUTERMOST frame converts the kill to a (catchable)
+            # RespError: converting in a nested frame would let the outer
+            # script's blanket `except Exception` swallow the kill and
+            # keep looping — the BaseException must ride through script
+            # code until the frame that owns the watchdog slot.
+            if not started_here:
+                raise
+            # The kill may have landed INSIDE the finally above, aborting
+            # the clear — release the slot defensively or every later
+            # connection sees BUSY forever.
+            self._script_unregister()
+            # _encode_error prepends the ERR code for unknown tokens.
+            raise RespError(
+                "Script killed by user with SCRIPT KILL..."
+            ) from None
+        return out
+
+    @staticmethod
+    def _script_reply(v) -> bytes:
+        """Python script result → RESP (the Lua conversion table shape:
+        int → integer, str/bytes → bulk, list → array, None → nil,
+        True → 1, False → nil; floats travel as bulk strings — a
+        documented deviation from Lua's truncation)."""
+        if v is None or v is False:
+            return _encode_bulk(None)
+        if v is True:
+            return _encode_int(1)
+        if isinstance(v, int):
+            return _encode_int(v)
+        if isinstance(v, float):
+            return _encode_bulk(_fmt_score(v).encode())
+        if isinstance(v, (bytes, str)):
+            return _encode_bulk(v if isinstance(v, bytes) else v.encode())
+        if isinstance(v, (list, tuple)):
+            return b"*" + str(len(v)).encode() + b"\r\n" + b"".join(
+                RespServer._script_reply(x) for x in v
+            )
+        if isinstance(v, dict):
+            flat = []
+            for k2, v2 in v.items():
+                flat.extend([k2, v2])
+            return RespServer._script_reply(flat)
+        if isinstance(v, Exception):
+            return _encode_error(str(v))
+        return _encode_bulk(str(v).encode())
+
+    @staticmethod
+    def _check_numkeys(numkeys: int, available: int) -> None:
+        if numkeys < 0:
+            raise RespError("Number of keys can't be negative")
+        if numkeys > available:
+            # a silent truncation would shift every ARGV by the deficit
+            raise RespError(
+                "Number of keys can't be greater than number of args"
+            )
+
+    def _eval_common(self, source: str, args):
+        numkeys = int(args[0])
+        self._check_numkeys(numkeys, len(args) - 1)
+        keys = [self._s(a) for a in args[1 : 1 + numkeys]]
+        argv = list(args[1 + numkeys :])
+        return self._script_reply(self._run_script(source, keys, argv))
+
+    def _register_script(self, body: bytes) -> str:
+        """Cache a script body under sha1(body) — shared by EVAL (Redis
+        registers on first EVAL) and SCRIPT LOAD.  The script also
+        becomes invokable via script_service.eval(sha, ...)."""
+        import hashlib
+
+        source = body.decode()
+        sha = hashlib.sha1(body).hexdigest()
+        svc = self._client.get_script()
+        if not hasattr(svc, "_sources"):
+            svc._sources = {}
+        if sha not in svc._sources:
+            svc._sources[sha] = source
+            svc.register(
+                sha,
+                lambda client, keys, a, _src=source: self._run_script(
+                    _src, keys, a
+                ),
+            )
+        return sha
+
+    def _cmd_EVAL(self, args):
+        # Register sha1(body) BEFORE executing, like redis-server: EVAL
+        # followed by EVALSHA of the same body must hit.
+        self._register_script(args[0])
+        return self._eval_common(args[0].decode(), args[1:])
+
+    def _cmd_EVALSHA(self, args):
+        sha = args[0].decode().lower()
+        svc = self._client.get_script()
+        src = getattr(svc, "_sources", {}).get(sha)
+        if src is None:
+            raise RespError(
+                "NOSCRIPT No matching script. Please use EVAL."
+            )
+        return self._eval_common(src, args[1:])
+
+    def _cmd_SCRIPT(self, args):
+        sub = args[0].decode().upper()
+        svc = self._client.get_script()
+        if not hasattr(svc, "_sources"):
+            svc._sources = {}
+        if sub == "LOAD":
+            return _encode_bulk(self._register_script(args[1]).encode())
+        if sub == "EXISTS":
+            return _encode_array([
+                int(a.decode().lower() in svc._sources) for a in args[1:]
+            ])
+        if sub == "FLUSH":
+            # Unregister from the ScriptService too — a flushed sha must
+            # not stay invokable through the Python API.
+            with svc._lock:
+                for sha in list(svc._sources):
+                    svc._fns.pop(sha, None)
+            svc._sources.clear()
+            return _encode_simple("OK")
+        if sub == "KILL":
+            # Stop a runaway script.  Delivery is two-pronged because a
+            # single PyThreadState_SetAsyncExc is LOSSY (an exception
+            # materializing inside a weakref/__del__ callback is
+            # swallowed as "unraisable"): (1) a kill flag the script
+            # thread checks synchronously at every redis.call dispatch
+            # boundary, and (2) a reaper that re-posts the async
+            # ScriptKilledError until the script actually exits —
+            # covering tight pure-Python loops that never call redis.
+            # Unlike Redis we cannot tell read-only scripts from
+            # writers, so KILL is always permitted.
+            with self._script_lock:
+                run = self._script_run
+                if run is None or not run[0].is_alive():
+                    raise RespError(
+                        "NOTBUSY No scripts in execution right now."
+                    )
+                self._script_kill = run
+            threading.Thread(
+                target=self._script_reaper, args=(run,),
+                name="rtpu-script-kill", daemon=True,
+            ).start()
+            return _encode_simple("OK")
+        raise RespError(f"Unknown SCRIPT subcommand {sub}")
+
+    def _cmd_FUNCTION(self, args):
+        sub = args[0].decode().upper()
+        svc = self._client.get_function()
+        if sub == "LOAD":
+            i = 1
+            replace = False
+            if args[i].decode().upper() == "REPLACE":
+                replace = True
+                i += 1
+            source = args[i].decode()
+            first, _, body = source.partition("\n")
+            if not first.startswith("#!python"):
+                raise RespError(
+                    "Missing library metadata: the engine runs PYTHON "
+                    "libraries — start with '#!python name=<library>' "
+                    "(there is deliberately no Lua VM)"
+                )
+            lib = None
+            for tok in first.split():
+                if tok.startswith("name="):
+                    lib = tok[5:]
+            if not lib:
+                raise RespError("Missing library name")
+            collected: dict = {}
+            ro_names: list = []
+
+            def register_function(name, fn, flags=()):
+                collected[name] = (
+                    lambda client, keys, a, _fn=fn: _fn(keys, a)
+                )
+                if "no-writes" in flags:
+                    ro_names.append(name)
+
+            server = self
+
+            class _Bridge:
+                @staticmethod
+                def call(*parts):
+                    return server._script_call(server._ScriptCtx(), parts)
+
+            ns = {"register_function": register_function, "redis": _Bridge}
+            exec(compile(body, f"<function:{lib}>", "exec"), ns)
+            if not collected:
+                raise RespError(
+                    "No functions registered: call "
+                    "register_function(name, fn) in the library body"
+                )
+            try:
+                svc.load(
+                    lib, collected, replace=replace, no_writes=tuple(ro_names)
+                )
+            except ValueError as e:
+                raise RespError(str(e)) from e
+            return _encode_bulk(lib.encode())
+        if sub == "DELETE":
+            try:
+                svc.delete(args[1].decode())
+            except KeyError as e:
+                raise RespError(str(e)) from e
+            return _encode_simple("OK")
+        if sub == "FLUSH":
+            svc.flush()
+            return _encode_simple("OK")
+        if sub == "LIST":
+            pat = None
+            if len(args) >= 3 and args[1].decode().upper() == "LIBRARYNAME":
+                pat = args[2].decode()
+            libs = svc.list(pat)
+            out = b"*" + str(len(libs)).encode() + b"\r\n"
+            for lib in libs:
+                out += (
+                    b"*6\r\n"
+                    + _encode_bulk(b"library_name")
+                    + _encode_bulk(lib["library_name"].encode())
+                    + _encode_bulk(b"engine")
+                    + _encode_bulk(b"PYTHON")
+                    + _encode_bulk(b"functions")
+                    + _encode_array(
+                        [f["name"].encode() for f in lib["functions"]]
+                    )
+                )
+            return out
+        raise RespError(f"Unknown FUNCTION subcommand {sub}")
+
+    def _fcall(self, args, readonly: bool):
+        svc = self._client.get_function()
+        name = args[0].decode()
+        numkeys = int(args[1])
+        self._check_numkeys(numkeys, len(args) - 2)
+        keys = [self._s(a) for a in args[2 : 2 + numkeys]]
+        argv = list(args[2 + numkeys :])
+        # Function bodies are the same RCE-gated Python family as EVAL
+        # and run under the grid lock (FunctionService takes it
+        # internally) — claim the script watchdog slot so a runaway
+        # function surfaces BUSY and is SCRIPT KILLable too.
+        started_here = self._script_claim()
+        try:
+            out = (
+                svc.call_ro(name, keys, argv)
+                if readonly
+                else svc.call(name, keys, argv)
+            )
+        except ScriptKilledError:
+            # Nested frame (function called from a script): re-raise the
+            # BaseException so the outer script cannot catch it — only
+            # the outermost frame converts (see _run_script).  The gated
+            # finally below releases the slot either way.
+            if not started_here:
+                raise
+            raise RespError(
+                "Script killed by user with SCRIPT KILL..."
+            ) from None
+        except KeyError as e:
+            raise RespError(f"Function not found ({e})") from e
+        except ValueError as e:
+            raise RespError(str(e)) from e
+        finally:
+            if started_here:
+                self._script_unregister()
+        return self._script_reply(out)
+
+    def _cmd_FCALL(self, args):
+        return self._fcall(args, False)
+
+    def _cmd_FCALL_RO(self, args):
+        return self._fcall(args, True)

@@ -781,3 +781,76 @@ def test_telemetry_verbs_on_the_card(p15_small):
     """15c at a small size on a card server."""
     out = p15_small.p15c_wire(np.random.default_rng(15), "test", 0)
     assert out["fused_runs_attached"] == 0 and out["replies_equal_replay"]
+
+
+# -- scripting and the per-core front door on the card (phase 16) -------------
+
+
+def test_eval_bf_madd_on_the_card_equals_golden(cuda):
+    """An EVAL whose body calls BF.MADD on a card server: the row equals
+    the golden bitmap of its keys."""
+    import socket
+
+    import chip_smoke as cs
+    from redisson_tpu_torch.ops import golden
+    from redisson_tpu_torch.serve.resp import RespServer
+
+    client = cs.p11_client()  # the default codec, as a wire client's bytes
+    server = RespServer(client, enable_python_scripts=True)
+    try:
+        keys = cs.c11_keys(0, 4096)
+        s = socket.create_connection((server.host, server.port))
+        s.sendall(cs.wire([[b"BF.RESERVE", b"ebf", b"0.01", b"100000"],
+                           [b"EVAL", cs.P16_MADD, b"1", b"ebf"] + keys]))
+        r = cs.read_frames(s, 2)
+        s.close()
+        assert r[0] == b"+OK\r\n" and cs.int_array(r[1]).shape == (4096,)
+        bf = client.get_bloom_filter("ebf")
+        m, k = bf.get_size(), bf.get_hash_iterations()
+        h1, h2 = cs.wire_hashes(client, keys, m)
+        g = golden.GoldenBloomFilter(m, k)
+        g.bits[g._indexes(h1, h2).reshape(-1)] = True
+        row = cs.tenant_row(client, "ebf")
+        assert np.array_equal(row, cs.golden_words(g, row.shape[0]))
+    finally:
+        server.close()
+        client.shutdown()
+
+
+def test_k2_node_workers_name_the_card(cuda):
+    """MulticoreNode(2, device="cuda"): each worker's INFO server, read
+    over its own peer socket, names the card."""
+    import chip_smoke as cs
+    from redisson_tpu_torch.serve.multicore import MulticoreNode
+
+    node = MulticoreNode(2, device="cuda", env_extra=cs.p16_env())
+    try:
+        for w in range(2):
+            s = cs.p16_peer(node, w)
+            info = cs.p16_info(s)
+            s.close()
+            assert info["rtpu_device"] == "cuda"
+            assert info["rtpu_device_name"] == torch.cuda.get_device_name(0)
+            assert info["frontdoor_worker_index"] == str(w)
+    finally:
+        assert node.shutdown()
+
+
+@pytest.fixture
+def p16_small(cuda, monkeypatch):
+    import chip_smoke as cs
+
+    monkeypatch.setenv("RTPU_REQUIRE_NATIVE_RESP", "1")
+    monkeypatch.setattr(cs, "P11_DEVICE", "cuda")
+    monkeypatch.setattr(cs, "P16_DEVICE", "cuda")
+    monkeypatch.setattr(cs, "P16", dict(cs.P16, keys=1 << 15, madd=512, read=8192,
+                                        capacity=60_000, lat_cmds=8))
+    return cs
+
+
+def test_scripting_on_the_card(p16_small):
+    """16a at a small size: the session equal to a CPU server's, config 1
+    through EVALSHA equal to golden, FCALL_RO equal to golden, and the
+    three SCRIPT KILLs with the slot free after each."""
+    out = p16_small.p16a_scripting(np.random.default_rng(16), "test")
+    assert out["row_equals_golden"] and out["killed_row_equals_golden"]

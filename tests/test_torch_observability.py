@@ -99,12 +99,9 @@ port_module(_ref, globals(), skip=SKIPPED)
 
 
 # Families of the JAX package's bundle that wait with their modules: the
-# per-core front door (item 2), the cluster, failover elections, the
-# rebalancer and the doctor (item 3), and the sharded executor (item 5).
+# cluster, failover elections, the rebalancer and the doctor (item 3),
+# and the sharded executor (item 5).
 WAITING_FAMILIES = {
-    "rtpu_frontdoor_processes", "rtpu_frontdoor_worker_index",
-    "rtpu_frontdoor_handoffs_total", "rtpu_frontdoor_handoff_errors_total",
-    "rtpu_frontdoor_peer_accepts_total",
     "rtpu_cluster_redirects_total", "rtpu_cluster_slot_migrations_total",
     "rtpu_cluster_scatter_fanout_total", "rtpu_failover_elections_total",
     "rtpu_rebalancer_decisions_total", "rtpu_rebalancer_keys_moved_total",

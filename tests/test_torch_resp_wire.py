@@ -446,9 +446,9 @@ GRID = [
 ]
 
 # Families the port does not carry yet: each must answer exactly as the
-# JAX server answers a command it lacks.
+# JAX server answers a command it lacks.  (Scripting, once here, answers
+# in tests/test_torch_scripting.py.)
 WAITING = [
-    [b"EVAL", b"return 1", b"0"], [b"FUNCTION", b"LIST"],
     [b"CLUSTER", b"INFO"],
 ]
 
@@ -928,8 +928,8 @@ class TestDegradedServe:
 
 def test_scripting_switch_refused_on_an_open_bind():
     """As in the JAX package: enable_python_scripts on a non-loopback
-    bind without requirepass refuses to start; on loopback it starts
-    (scripting itself answers as an unknown command)."""
+    bind without requirepass refuses to start; on loopback it starts and
+    runs scripts (a body that does not compile answers an error)."""
     c = _port_client()
     try:
         c.config.set_enable_python_scripts(True)
@@ -939,6 +939,7 @@ def test_scripting_switch_refused_on_an_open_bind():
         try:
             s = socket.create_connection((srv.host, srv.port))
             assert exchange(s, [[b"EVAL", b"return 1", b"0"]])[0].code == "ERR"
+            assert exchange(s, [[b"EVAL", b"1 + 1", b"0"]]) == [2]
             s.close()
         finally:
             srv.close()
@@ -1031,7 +1032,8 @@ class TestStreamGeoReviewFixes(_ref_sg.TestReviewFixes):
 
 
 class TestHighSweepFixes(_ref_sg.TestHighSweepFixes):
-    # Scripting waits for its slice (EVAL answers as an unknown command).
+    # The scripting cases run in test_torch_scripting.py, whose server
+    # has scripts enabled.
     test_eval_numkeys_validation = None
     test_script_flush_unregisters_python_side = None
 

@@ -181,9 +181,11 @@ def test_server_modules_import_neither_jax_nor_the_reference():
     endpoint), the ingest bridge, the durability tier (the journal,
     recovery, the replication hub and link, the crash child), the
     observability tier (spans, slowlog, latency, trace, events, loadmap —
-    driven over the wire: SLOWLOG, TRACE, HOTKEYS, EVENTS), the entry
-    point and the scripts load with jax and redisson_tpu blocked and
-    serve on the CPU — a journaled client recovers its tail; no module of
+    driven over the wire: SLOWLOG, TRACE, HOTKEYS, EVENTS), scripting
+    (an EVAL through redis.call), the per-core front door and metrics
+    federation, the entry point and the scripts load with jax and
+    redisson_tpu blocked and serve on the CPU — a journaled client
+    recovers its tail; no module of
     the port, nor chip_smoke.py, profile_port.py or compare_rates.py, has
     an import of either."""
     code = (
@@ -206,6 +208,8 @@ def test_server_modules_import_neither_jax_nor_the_reference():
         "from redisson_tpu_torch.obs import spans, slowlog, latency, trace, events, loadmap\n"
         "from redisson_tpu_torch.durability import journal, recovery, replication, replica\n"
         "from redisson_tpu_torch.chaos import crashchild\n"
+        "from redisson_tpu_torch.serve import multicore\n"
+        "from redisson_tpu_torch.obs import federate\n"
         "import tempfile\n"
         "d = tempfile.mkdtemp()\n"
         "def jc():\n"
@@ -236,6 +240,11 @@ def test_server_modules_import_neither_jax_nor_the_reference():
         " [b'TRACE', b'SAMPLE', b'1'], [b'PING'], [b'SLOWLOG', b'LEN'], [b'TRACE', b'LEN'],"
         " [b'TRACE', b'SAMPLE', b'0'], [b'HOTKEYS'], [b'EVENTS', b'LEN']])\n"
         "assert r[3] >= 2 and r[4] >= 1 and r[6] == [] and r[7] >= 1, r\n"
+        "s.close(); srv.close()\n"
+        "srv = RespServer(c, enable_python_scripts=True)\n"
+        "s = socket.create_connection((srv.host, srv.port))\n"
+        "r = exchange(s, [[b'EVAL', b\"redis.call('BF.MADD', KEYS[0], *ARGV)\", b'1', b'f', b'x', b'y']])\n"
+        "assert r == [[0, 1]], r\n"
         "s.close(); srv.close(); c.shutdown()\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
