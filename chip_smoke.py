@@ -234,6 +234,39 @@ the main path through the public client at full size:
            single door; SIGTERM (a snapshot per worker), a reboot that
            reads every key back, every worker exiting 0 and none left.
            K1 launches in phase 16 must be 0
+  phase 17 the slot-sharded cluster on the card (directories under build/):
+           (17a) ClusterSupervisor(n_nodes=3, device="cuda"): every node's
+           INFO names the card and its own device memory grows when its
+           filter is made; config 1 across the fleet — BF.RESERVE 0.01
+           1000000 of {n0}cfg1, {n1}cfg1, {n2}cfg1 (one per node), 2**18
+           keys each as BF.MADD of 1024 keys through
+           connect_cluster().execute_many from 4 threads (three pipelined
+           legs per batch), every flag within 11a's golden bounds, every
+           loaded key present, 131,072 outside keys per filter equal to
+           golden, rtpu_cluster_scatter_fanout = the legs; fleet keys/s.
+           (17b) config 9's traffic (9 client processes x 4 routing
+           threads, execute_many batches of 192 over 512 keys, zipf(1.2),
+           10% SET) against a 1-node and the 3-node fleet in turns: median
+           cmds/s and p99 per arm, the speedup, host cores.  (17c) on the
+           3-node fleet a writer acks SET {mig}w<i> and BF.ADD {mig}bf
+           while migrate_slot moves the slot (with an HLL, a 2**24-bit
+           BitSet and a CMS(5, 65536), quiet): every acked SET reads back,
+           the moved filter's row equals the golden bitmap of the acked
+           keys, the quiet DUMPs are byte-equal, the source counts 0 keys
+           in the slot and the target holds the rows on its card; then two
+           in-process card nodes move a CMS and the target runs
+           add_all_seq of 2**19 zipf events on the moved row (16 K1
+           launches), estimates and table equal golden_seq.  (17e)
+           SIGTERM: every node exits 0 within 10 s, none left.  (17d)
+           three primaries with a replica each (journals under
+           appendfsync always): WAIT-fenced SET and BF.MADD in every shard,
+           SIGKILL of primary 0, its replica master within 15 s, every
+           fenced write back through the client and the filter's row equal
+           to golden, the survivors' CLUSTER SHARDS equal with every slot
+           owned once, rtpu_failover_elections_total >= 1, new writes to
+           the taken-over slots; kill -> master and kill -> first write
+           seconds; 17e for that fleet.  K1 launches in phase 17 (17c)
+           must be more than 0
 
 Every failed check raises, so the script exits non-zero.  Without a CUDA
 device it exits with code 2 before printing any result.  The line before
@@ -2325,7 +2358,9 @@ def madd_check(model, replies, tag: str) -> int:
     _g, covered_by_others, streams = model
     n_added = 0
     for (keys, upper), frames in zip(streams, replies):
-        flags = np.concatenate([int_array(f) for f in frames])
+        # Raw reply frames, or replies a routing client already decoded.
+        flags = np.concatenate([int_array(f) if isinstance(f, bytes)
+                                else np.asarray(f, np.int64) for f in frames])
         check(flags.shape == keys.shape and np.isin(flags, (0, 1)).all(),
               f"{tag}: BF.MADD replies malformed")
         check(np.all(flags <= upper), f"{tag}: BF.MADD reported a key new whose "
@@ -5757,6 +5792,662 @@ def phase_scripting_frontdoor(rng, seed: int, card: str) -> None:
          "card": card})
 
 
+# -- phase 17: the slot-sharded cluster ----------------------------------------
+
+P17 = {"nodes": 3, "keys": 1 << 18, "madd": 1024, "threads": 4, "window": 16,
+       "read": 131_072, "capacity": 1_000_000, "fpp": 0.01,
+       "c9_procs": 9, "c9_conns": 4, "c9_batch": 192, "c9_keys": 512,
+       "c9_warm_s": 1.0, "c9_pass_s": 1.5, "c9_passes": 3,
+       "mig_bits": 1 << 24, "mig_hll": 1 << 16, "mig_events": 1 << 16,
+       "mig_write_s": 1.0, "cms_d": 5, "cms_w": 1 << 16, "k1_events": 1 << 19,
+       "fo_keys": 512, "fo_madd": 8, "fo_timeout_ms": 1000, "fo_promote_s": 15.0}
+P17_DEVICE = "cuda"
+
+
+def p17_supervisor(n: int, **kw):
+    from redisson_tpu_torch.cluster.supervisor import ClusterSupervisor
+
+    return ClusterSupervisor(n_nodes=n, device=P17_DEVICE, env_extra=p16_env(),
+                             startup_timeout_s=240.0, **kw)
+
+
+def p17_req(addr, cmds, timeout: float = 120.0) -> list:
+    from redisson_tpu_torch.serve.wireutil import exchange
+
+    s = socket.create_connection(tuple(addr), timeout=timeout)
+    try:
+        return exchange(s, cmds)
+    finally:
+        s.close()
+
+
+def p17_info(addr) -> dict:
+    s = socket.create_connection(tuple(addr), timeout=120)
+    try:
+        return p16_info(s)
+    finally:
+        s.close()
+
+
+def p17_check_card(addrs, tag: str) -> None:
+    """Every node's INFO names the card (or the CPU when rehearsed)."""
+    for i, addr in enumerate(addrs):
+        info = p17_info(addr)
+        check(info["rtpu_device"] == P17_DEVICE.split(":")[0],
+              f"{tag}: node {i} reports {info.get('rtpu_device')}")
+        if P17_DEVICE.startswith("cuda"):
+            check(info["rtpu_device_name"] == torch.cuda.get_device_name(0),
+                  f"{tag}: node {i} names {info.get('rtpu_device_name')}")
+
+
+def p17_memory(addr) -> int:
+    """A node's own device allocations (its CUDA context's; the pool bytes
+    when rehearsed on the CPU)."""
+    info = p17_info(addr)
+    return int(info.get("rtpu_device_memory_allocated", info["used_memory"]))
+
+
+def p17_tags(sup) -> list:
+    """One hash tag per node, each landing in that node's slot range."""
+    from redisson_tpu_torch.cluster.slots import key_slot
+
+    owner = {}
+    for start, end, nid, _h, _p in sup.slots_table():
+        owner[(start, end)] = sup.node_ids.index(nid)
+    tags = []
+    for i in range(len(sup.addrs)):
+        j = 0
+        while True:
+            t = "n%d" % i if j == 0 else "n%d-%d" % (i, j)
+            slot = key_slot("{%s}" % t)
+            if any(a <= slot <= b and o == i for (a, b), o in owner.items()):
+                tags.append(t)
+                break
+            j += 1
+    return tags
+
+
+def dump_row(blob: bytes) -> np.ndarray:
+    """The row words of a sketch DUMP payload (RTPU | u32 | json | npy)."""
+    import io
+    import struct
+
+    check(blob[:4] == b"RTPU", "not a sketch DUMP")
+    (hlen,) = struct.unpack("<I", blob[4:8])
+    return np.load(io.BytesIO(blob[8 + hlen:]), allow_pickle=False).view(np.uint32)
+
+
+def p17_bloom_model(n: int, outside: list):
+    """m, k and the wire hashes of config 1's filter for keys 0..n-1 and the
+    outside keys, from a CPU client (the nodes' default codec)."""
+    import redisson_tpu_torch as rt
+
+    ref = rt.create(rt.Config().use_gpu_sketch(device="cpu"))
+    try:
+        rbf = ref.get_bloom_filter("m-k")
+        rbf.try_init(P17["capacity"], P17["fpp"])
+        m, k = rbf.get_size(), rbf.get_hash_iterations()
+        h1, h2 = wire_hashes(ref, c11_keys(0, n), m) if n else (None, None)
+        o1, o2 = wire_hashes(ref, outside, m) if outside else (None, None)
+    finally:
+        ref.shutdown()
+    return m, k, h1, h2, o1, o2
+
+
+def p17a_config1(sup, rng) -> dict:
+    """17a: config 1 across the fleet — a filter per node, 2**18 keys each
+    as BF.MADD of 1024 keys through connect_cluster().execute_many from 4
+    threads (thread c sends commands c, c + 4, ... of every filter, 16 per
+    filter per batch: three pipelined legs)."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.obs import Observability
+
+    n, per, T = P17["keys"], P17["madd"], P17["threads"]
+    names = [b"{%s}cfg1" % t.encode() for t in p17_tags(sup)]
+    outside = [b"%d" % v for v in rng.integers(3 * n, 8 * n, P17["read"])]
+    m, k, h1, h2, o1, o2 = p17_bloom_model(n, outside)
+    before = [p17_memory(a) for a in sup.addrs]
+    cc = rt.connect_cluster(sup.addrs, timeout_s=120.0)
+    try:
+        rep = cc.execute_many([[b"BF.RESERVE", nm, b"%g" % P17["fpp"],
+                                b"%d" % P17["capacity"]] for nm in names])
+        check(rep == [b"OK"] * len(names), f"17a: BF.RESERVE replied {rep}")
+    finally:
+        cc.close()
+    after = [p17_memory(a) for a in sup.addrs]
+    for i, (b, a) in enumerate(zip(before, after)):
+        check(a > b, f"17a: node {i}'s device memory did not grow ({b} -> {a})")
+    n_cmds = n // per
+    obs = Observability()
+    replies = [[[] for _ in names] for _ in range(T)]
+    errors = []
+
+    def load(c):
+        cl = rt.connect_cluster(sup.addrs, timeout_s=300.0, obs=obs)
+        try:
+            js = list(range(c, n_cmds, T))
+            for i in range(0, len(js), P17["window"]):
+                part = js[i:i + P17["window"]]
+                cmds = [[b"BF.MADD", nm] + c11_keys(j * per, (j + 1) * per)
+                        for nm in names for j in part]
+                got = cl.execute_many(cmds)
+                for f in range(len(names)):
+                    replies[c][f] += got[f * len(part):(f + 1) * len(part)]
+        except Exception as e:  # surfaced below
+            errors.append(repr(e))
+        finally:
+            cl.close()
+
+    threads = [threading.Thread(target=load, args=(c,)) for c in range(T)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    load_s = time.perf_counter() - t0
+    check(not errors, f"17a: a BF.MADD load failed: {errors[:1]}")
+    legs = sum(int(c.value) for lv, c in obs.cluster_scatter_fanout.items() if lv == ("legs",))
+    batches = sum(int(c.value) for lv, c in obs.cluster_scatter_fanout.items()
+                  if lv == ("batches",))
+    want_batches = T * -(-(n_cmds // T) // P17["window"])
+    check(batches == want_batches and legs == len(names) * batches,
+          f"17a: rtpu_cluster_scatter_fanout counted {batches} batches / {legs} legs, "
+          f"want {want_batches} / {len(names) * want_batches}")
+    model = madd_model(h1, h2, m, k, per, T)
+    for f in range(len(names)):
+        n_added = madd_check(model, [replies[c][f] for c in range(T)], f"17a filter {f}")
+        check(0.97 * n <= n_added <= n, f"17a: filter {f} added {n_added} of {n}")
+    want_outside = model[0].contains_hashed(o1, o2)
+    cc = rt.connect_cluster(sup.addrs, timeout_s=300.0)
+    try:
+        t0 = time.perf_counter()
+        for f, nm in enumerate(names):
+            loaded = cc.execute_many([[b"BF.MEXISTS", nm] + c11_keys(i, i + per)
+                                      for i in range(0, n, per)])
+            check(all(all(x == 1 for x in r) for r in loaded),
+                  f"17a: filter {f} lost a loaded key")
+            out = cc.execute_many([[b"BF.MEXISTS", nm] + outside[i:i + per]
+                                   for i in range(0, len(outside), per)])
+            flags = np.concatenate([np.asarray(r, np.int64) for r in out]).astype(bool)
+            check(np.array_equal(flags, want_outside),
+                  f"17a: filter {f}'s outside keys differ from the golden model")
+        reads_s = time.perf_counter() - t0
+    finally:
+        cc.close()
+    return {"fleet_nodes": len(names), "fleet_keys_per_filter": n,
+            "fleet_wire_keys_per_s": len(names) * n / load_s, "fleet_load_s": load_s,
+            "fleet_read_keys_per_s": len(names) * (n + len(outside)) / reads_s,
+            "scatter_batches": batches, "scatter_legs": legs,
+            "node_memory_before": before, "node_memory_after": after,
+            "fpp": float(want_outside.mean())}
+
+
+def c9_client_proc(conns: int, seed: int, inq, outq):
+    """Config 9's closed-loop slot-routing clients in a child process, for
+    as many passes as the parent asks ((seeds, seconds); None ends): each
+    of ``conns`` threads ships execute_many batches of P17["c9_batch"]
+    zipf(1.2) GET (90%) / SET (10%) over P17["c9_keys"] keys.  Every reply
+    is checked."""
+    from redisson_tpu_torch.cluster.client import ClusterClient
+
+    npass = 0
+    nk, batch = P17["c9_keys"], P17["c9_batch"]
+    while True:
+        req = inq.get()
+        if req is None:
+            return
+        seeds, seconds = req
+        npass += 1
+        counts = [0] * conns
+        lats = [[] for _ in range(conns)]
+        errors = []
+
+        def worker(t):
+            rng = np.random.default_rng((seed * 100 + t) * 1000 + npass)
+            cc = ClusterClient([tuple(a) for a in seeds], timeout_s=60.0)
+            try:
+                stop = time.perf_counter() + seconds
+                while time.perf_counter() < stop:
+                    hot = ((rng.zipf(1.2, batch) - 1) % nk).astype(np.int64)
+                    sets = rng.random(batch) < 0.1
+                    cmds = [(b"SET", b"ck%d" % h, b"v%d" % h) if s else (b"GET", b"ck%d" % h)
+                            for h, s in zip(hot, sets)]
+                    t0 = time.perf_counter()
+                    got = cc.execute_many(cmds)
+                    lats[t].append(time.perf_counter() - t0)
+                    for (h, s), r in zip(zip(hot, sets), got):
+                        if r != (b"OK" if s else b"v%d" % h):
+                            errors.append(f"ck{h} replied {r!r}")
+                            return
+                    counts[t] += batch
+            except Exception as e:  # reported to the parent
+                errors.append(repr(e))
+            finally:
+                cc.close()
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=worker, args=(t,)) for t in range(conns)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        outq.put((sum(counts), time.perf_counter() - t0,
+                  [x for la in lats for x in la], errors))
+
+
+def c9_measure(pool, seeds, seconds: float) -> tuple:
+    """One pass of every client process against ``seeds``: (cmds/s, p99
+    batch ms)."""
+    inqs, outq = pool
+    for q in inqs:
+        q.put((seeds, seconds))
+    res = [outq.get(timeout=seconds + 120) for _ in inqs]
+    errs = [e for r in res for e in r[3]]
+    check(not errs, f"17b: config 9 client errors: {errs[:3]}")
+    lat = np.sort(np.concatenate([np.asarray(r[2]) for r in res]))
+    dt = float(np.median([r[1] for r in res]))
+    return sum(r[0] for r in res) / dt, float(lat[int(len(lat) * 0.99)] * 1e3)
+
+
+def p17b_config9(sups) -> dict:
+    """17b: config 9's traffic against a 1-node and a 3-node fleet, both
+    live, in turns: one warm pass each, then P17["c9_passes"] per arm."""
+    import multiprocessing as mp
+
+    import redisson_tpu_torch as rt
+
+    for sup in sups.values():
+        cc = rt.connect_cluster(sup.addrs, timeout_s=120.0)
+        try:
+            acks = cc.execute_many([(b"SET", b"ck%d" % i, b"v%d" % i)
+                                    for i in range(P17["c9_keys"])])
+            check(acks == [b"OK"] * P17["c9_keys"], "17b: config 9 seed refused")
+        finally:
+            cc.close()
+    ctx = mp.get_context("spawn")
+    inqs = [ctx.Queue() for _ in range(P17["c9_procs"])]
+    outq = ctx.Queue()
+    procs = [ctx.Process(target=c9_client_proc, args=(P17["c9_conns"], i, inqs[i], outq))
+             for i in range(P17["c9_procs"])]
+    for p in procs:
+        p.start()
+    arms = {n: [list(a) for a in sup.addrs] for n, sup in sups.items()}
+    try:
+        for seeds in arms.values():
+            c9_measure((inqs, outq), seeds, P17["c9_warm_s"])
+        passes = {n: [] for n in arms}
+        for _ in range(P17["c9_passes"]):
+            for n in (3, 1):
+                passes[n].append(c9_measure((inqs, outq), arms[n], P17["c9_pass_s"]))
+    finally:
+        for q in inqs:
+            q.put(None)
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    med = {n: float(np.median([x[0] for x in v])) for n, v in passes.items()}
+    return {"c9_clients": P17["c9_procs"] * P17["c9_conns"], "c9_batch": P17["c9_batch"],
+            "c9_1node_cmds_per_s": med[1], "c9_3node_cmds_per_s": med[3],
+            "c9_1node_p99_ms": float(np.median([x[1] for x in passes[1]])),
+            "c9_3node_p99_ms": float(np.median([x[1] for x in passes[3]])),
+            "c9_speedup": med[3] / med[1],
+            "c9_passes": {n: [x[0] for x in v] for n, v in passes.items()},
+            "host_cores": len(os.sched_getaffinity(0))}
+
+
+def p17c_migration(sup, rng) -> dict:
+    """17c: a writer acks SET {mig}w<i> and BF.ADD {mig}bf <key> while
+    migrate_slot moves {mig}'s slot; the slot's HLL, 2**24-bit BitSet and
+    CMS stay quiet."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.cluster.slots import key_slot
+    from redisson_tpu_torch.ops import golden
+
+    tag = b"{mig}"
+    slot = key_slot(tag)
+    src_addr = sup.slot_owner_addr(slot)
+    src = sup.addrs.index(src_addr)
+    dst = (src + 1) % len(sup.addrs)
+    quiet = [tag + b"hll", tag + b"bits", tag + b"cms"]
+    hll = [b"h%d" % v for v in rng.integers(0, 1 << 40, P17["mig_hll"])]
+    bits = rng.integers(0, P17["mig_bits"], 512)
+    # CMS.INCRBY adds item by item (a blocking call each): the zipf
+    # stream goes in as (item, count) pairs over 256 distinct items.
+    items, counts = np.unique(rng.zipf(1.2, P17["mig_events"]) % 256, return_counts=True)
+    events = [x for v, c in zip(items, counts) for x in (b"e%d" % v, b"%d" % c)]
+    seed = [[b"BF.RESERVE", tag + b"bf", b"%g" % P17["fpp"], b"%d" % P17["capacity"]],
+            [b"SETBIT", tag + b"bits", b"%d" % (P17["mig_bits"] - 1), b"1"],
+            [b"CMS.INITBYDIM", tag + b"cms", b"%d" % P17["cms_w"], b"%d" % P17["cms_d"]]]
+    seed += [[b"PFADD", tag + b"hll"] + hll[i:i + 4096] for i in range(0, len(hll), 4096)]
+    seed += [[b"SETBIT", tag + b"bits", b"%d" % b, b"1"] for b in bits]
+    seed += [[b"CMS.INCRBY", tag + b"cms"] + events]
+    rep = p17_req(src_addr, seed)
+    check(not [r for r in rep if isinstance(r, Exception)], "17c: seeding the slot failed")
+    before = p17_req(src_addr, [[b"DUMP", q] for q in quiet])
+    acked_set, acked_bf, failures = {}, [], []
+    stop = threading.Event()
+
+    def writer():
+        w = rt.connect_cluster(sup.addrs, timeout_s=120.0)
+        i = 0
+        try:
+            while not stop.is_set():
+                k = tag + b"w%d" % i
+                if w.execute(b"SET", k, b"v%d" % i) == b"OK":
+                    acked_set[k] = b"v%d" % i
+                item = b"a%d" % i
+                if w.execute(b"BF.ADD", tag + b"bf", item) in (0, 1):
+                    acked_bf.append(item)
+                i += 1
+        except Exception as e:  # surfaced below: a writer must never die
+            failures.append(repr(e))
+        finally:
+            w.close()
+
+    th = threading.Thread(target=writer)
+    th.start()
+    time.sleep(P17["mig_write_s"])
+    n_before = len(acked_set)
+    t0 = time.perf_counter()
+    moved = sup.migrate_slot(slot, dst)
+    mig_s = time.perf_counter() - t0
+    n_during = len(acked_set) - n_before
+    time.sleep(P17["mig_write_s"])
+    stop.set()
+    th.join()
+    check(not failures, f"17c: the writer died: {failures[:1]}")
+    check(moved >= 4 and n_before > 0, f"17c: moved {moved} keys, {n_before} writes before")
+    dst_addr = sup.addrs[dst]
+    cc = rt.connect_cluster(sup.addrs, timeout_s=120.0)
+    try:
+        check(cc.slot_addr(slot) == tuple(dst_addr), "17c: the slot did not move")
+        got = cc.execute_many([(b"GET", k) for k in acked_set])
+        lost = [k for k, g in zip(acked_set, got) if g != acked_set[k]]
+        check(not lost, f"17c: {len(lost)} acked SETs lost, e.g. {lost[:3]}")
+    finally:
+        cc.close()
+    after = p17_req(dst_addr, [[b"DUMP", q] for q in quiet] + [[b"DUMP", tag + b"bf"]])
+    check(after[:3] == before, "17c: a quiet object's DUMP changed across the move")
+    m, k, _h1, _h2, _o1, _o2 = p17_bloom_model(0, [])
+    ref = rt.create(rt.Config().use_gpu_sketch(device="cpu"))
+    try:
+        h1, h2 = wire_hashes(ref, acked_bf, m)
+    finally:
+        ref.shutdown()
+    g = golden.GoldenBloomFilter(m, k)
+    g.bits[g._indexes(h1, h2).reshape(-1)] = True
+    row = dump_row(after[3])
+    check(np.array_equal(row, golden_words(g, row.shape[0])),
+          "17c: the moved filter's row differs from the golden bitmap of the acked keys")
+    (count,) = p17_req(src_addr, [[b"CLUSTER", b"COUNTKEYSINSLOT", b"%d" % slot]])
+    check(count == 0, f"17c: the source kept {count} keys in the slot")
+    enc = p17_req(dst_addr, [[b"OBJECT", b"ENCODING", tag + x] for x in
+                             (b"bf", b"hll", b"bits", b"cms")])
+    check(enc == [b"device"] * 4, f"17c: the moved rows are not on the card: {enc}")
+    info = p17_info(dst_addr)
+    check(info["rtpu_device"] == P17_DEVICE.split(":")[0], "17c: the target is not on the card")
+    return {"mig_keys_moved": moved, "mig_seconds": mig_s, "mig_acked_sets": len(acked_set),
+            "mig_acked_bf_adds": len(acked_bf), "mig_writes_during_move": n_during,
+            "mig_target_used_memory": int(info["used_memory"]),
+            "mig_quiet_dumps_equal": True, "mig_row_equals_golden": True}
+
+
+def p17c_k1_on_moved_cms(rng) -> dict:
+    """17c: in this process, two nodes on the card; a CMS(5, 65536) seeded
+    over the wire on A moves to B, then B's client runs add_all_seq of
+    2**19 zipf events on the moved row through K1."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+    from redisson_tpu_torch.cluster.slots import NSLOTS, key_slot
+    from redisson_tpu_torch.cluster.supervisor import migrate_slot
+    from redisson_tpu_torch.ops import cms_seq
+    from redisson_tpu_torch.serve.resp import RespServer
+    from redisson_tpu_torch.utils import hashing
+
+    d, w, n = P17["cms_d"], P17["cms_w"], P17["k1_events"]
+    name = "{k1mv}cms"
+    slot = key_slot(name)
+    ports = [free_port(), free_port()]
+    topo = {"nodes": [
+        {"id": "A", "host": "127.0.0.1", "port": ports[0],
+         "slots": [[slot, slot]]},
+        {"id": "B", "host": "127.0.0.1", "port": ports[1],
+         "slots": [[s0, s1] for s0, s1 in ((0, slot - 1), (slot + 1, NSLOTS - 1)) if s0 <= s1]},
+    ]}
+    nodes = []
+    try:
+        for nid, port in zip("AB", ports):
+            cfg = rt.Config().set_codec(LongCodec()).use_gpu_sketch(device=P17_DEVICE)
+            cfg.cluster_enabled = True
+            cfg.cluster_topology = topo
+            cfg.cluster_node_id = nid
+            cl = rt.create(cfg)
+            nodes.append((cl, RespServer(cl, port=port)))
+        a, b = [("127.0.0.1", p) for p in ports]
+        # Integer items (the nodes' LongCodec reads wire items as ints),
+        # as (item, count) pairs: CMS.INCRBY adds item by item.
+        items, counts = np.unique(rng.zipf(1.2, 1 << 14) % 256, return_counts=True)
+        rep = p17_req(a, [[b"CMS.INITBYDIM", name.encode(), b"%d" % w, b"%d" % d],
+                          [b"CMS.INCRBY", name.encode()]
+                          + [x for v, c in zip(items, counts) for x in (b"%d" % v, b"%d" % c)]])
+        check(not [r for r in rep if isinstance(r, Exception)],
+              f"17c K1: seeding failed: {[r for r in rep if isinstance(r, Exception)][:2]}")
+        (blob,) = p17_req(a, [[b"DUMP", name.encode()]])
+        check(migrate_slot(slot, a, b, notify=[a, b]) == 1, "17c K1: the CMS did not move")
+        client = nodes[1][0]
+        check(tenant_row(client, name)[: d * w].tobytes() == dump_row(blob)[: d * w].tobytes(),
+              "17c K1: the moved row differs from the source's")
+        table = tenant_row(client, name)[: d * w].reshape(d, w).copy()
+        events = zipf_keys(rng, n)
+        h1w, h2w = hashing.km_reduce_mod(
+            *hashing.hash128_np(*hashing.encode_uint64_batch(events)), w)
+        want_table, want_est = cms_seq.golden_seq(table, h1w, h2w, np.ones(n, np.uint32),
+                                                  d=d, w=w)
+        before = cms_seq.LAUNCHES
+        t0 = time.perf_counter()
+        est = client.get_count_min_sketch(name).add_all_seq(events)
+        dt = time.perf_counter() - t0
+        launches = cms_seq.LAUNCHES - before
+        chunk = client._engine._SEQ_CHUNK
+        check(launches == -(-n // chunk), f"17c K1: {launches} K1 launches")
+        check(np.array_equal(np.asarray(est, np.uint32), np.asarray(want_est, np.uint32)),
+              "17c K1: estimates differ from golden_seq")
+        got = tenant_row(client, name)[: d * w]
+        check(np.array_equal(got, want_table.reshape(-1)), "17c K1: table differs from golden_seq")
+    finally:
+        for cl, srv in nodes:
+            srv.close()
+            cl.shutdown()
+    return {"k1_moved_cms_launches": launches, "k1_moved_cms_events_per_s": n / dt,
+            "k1_moved_cms_equals_golden_seq": True}
+
+
+def p17d_failover(rng, base: Path) -> dict:
+    """17d: three primaries with one replica each (an election needs a
+    majority of ALL primaries: with two, the dead one's vote is missing),
+    journals under appendfsync always; WAIT-fenced SET and BF.MADD into
+    every shard, SIGKILL primary 0, then its replica's election, the
+    takeover and the fleet's agreement; 17e's teardown of this fleet."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.cluster.slots import NSLOTS
+    from redisson_tpu_torch.ops import golden
+
+    cfg_path = base / "p17d.json"
+    cfg_path.write_text(json.dumps({"journal_fsync": "always"}))
+    sup = p17_supervisor(3, replicas_per_shard=1, node_timeout_ms=P17["fo_timeout_ms"],
+                         metrics=True, node_args=["--config", str(cfg_path)])
+    out = {}
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        sup.start()
+        out["fo_start_s"] = time.perf_counter() - t0
+        with sup._lock:
+            procs = list(sup._procs)
+        p17_check_card(list(sup.addrs) + list(sup.replica_addrs), "17d")
+        tags = p17_tags(sup)
+        per = P17["madd"]
+        keys = {f"{{{tags[i % 3]}}}fo{i}": "v%d" % i for i in range(P17["fo_keys"])}
+        filters = [b"{%s}fobf" % t.encode() for t in tags]
+        items = c11_keys(0, P17["fo_madd"] * per)
+        cc = rt.connect_cluster(sup.addrs, timeout_s=120.0)
+        try:
+            check(cc.execute_many([(b"SET", k, v) for k, v in keys.items()])
+                  == [b"OK"] * len(keys), "17d: SET refused")
+            check(cc.execute_many([(b"BF.RESERVE", f, b"%g" % P17["fpp"],
+                                    b"%d" % P17["capacity"]) for f in filters])
+                  == [b"OK"] * len(filters), "17d: BF.RESERVE refused")
+            got = cc.execute_many([[b"BF.MADD", f] + items[i:i + per]
+                                   for f in filters for i in range(0, len(items), per)])
+            check(all(isinstance(r, list) for r in got), "17d: BF.MADD refused")
+            for i, addr in enumerate(sup.addrs):
+                (acked,) = p17_req(addr, [(b"WAIT", b"1", b"8000")])
+                check(acked == 1, f"17d: primary {i} never got its replica's ack")
+            ring = sup.replica_addrs[0]
+            t_kill = time.perf_counter()
+            sup.kill_node(0)
+            promoted = None
+            while promoted is None:
+                try:
+                    (info,) = p17_req(ring, [(b"INFO", b"replication")], timeout=5.0)
+                    if b"role:master" in info:
+                        promoted = time.perf_counter() - t_kill
+                except OSError:
+                    pass
+                if promoted is None:
+                    check(time.perf_counter() - t_kill < P17["fo_promote_s"],
+                          f"17d: the replica was not master {P17['fo_promote_s']} s after the kill")
+                    time.sleep(0.05)
+            out["fo_kill_to_master_s"] = promoted
+            post = f"{{{tags[0]}}}post"
+            first_ack = None
+            while first_ack is None:
+                try:
+                    if cc.execute(b"SET", post.encode(), b"new") == b"OK":
+                        first_ack = time.perf_counter() - t_kill
+                except Exception:
+                    check(time.perf_counter() - t_kill < 60, "17d: no new write acked in 60 s")
+                    time.sleep(0.05)
+            out["fo_kill_to_first_write_s"] = first_ack
+            lost = [k for k, v in keys.items() if cc.execute(b"GET", k) != v.encode()]
+            check(not lost, f"17d: WAIT-fenced writes lost across the failover: {lost[:5]}")
+            flags = cc.execute_many([[b"BF.MEXISTS", f] + items[i:i + per]
+                                     for f in filters for i in range(0, len(items), per)])
+            check(all(all(x == 1 for x in r) for r in flags), "17d: a fenced BF.MADD key is gone")
+            for i in range(8):
+                k = f"{{{tags[0]}}}post{i}".encode()
+                check(cc.execute(b"SET", k, b"n") == b"OK" and cc.execute(b"GET", k) == b"n",
+                      "17d: a new write to the taken-over slots failed")
+        finally:
+            cc.close()
+        m, k, h1, h2, _o1, _o2 = p17_bloom_model(len(items), [])
+        g = golden.GoldenBloomFilter(m, k)
+        g.bits[g._indexes(h1, h2).reshape(-1)] = True
+        (blob,) = p17_req(ring, [(b"DUMP", filters[0])])
+        row = dump_row(blob)
+        check(np.array_equal(row, golden_words(g, row.shape[0])),
+              "17d: the promoted node's filter row differs from the golden bitmap")
+        survivors = list(sup.addrs[1:]) + list(sup.replica_addrs)
+        shards = [p17_req(a, [(b"CLUSTER", b"SHARDS")])[0] for a in survivors]
+        check(all(sh == shards[0] for sh in shards), "17d: the survivors' CLUSTER SHARDS differ")
+        owned = np.zeros(NSLOTS, np.int64)
+        for sh in shards[0]:
+            flat = sh[1]
+            for a, b in zip(flat[::2], flat[1::2]):
+                owned[a:b + 1] += 1
+        check(owned.max() == 1 and owned.min() == 1, "17d: a slot owned twice or not at all")
+        import urllib.request
+
+        with urllib.request.urlopen(
+                "http://%s:%d/metrics" % sup.replica_metrics_addrs[0], timeout=30) as r:
+            page = r.read().decode()
+        elections = sum(float(ln.split()[-1]) for ln in page.splitlines()
+                        if ln.startswith("rtpu_failover_elections_total"))
+        check(elections >= 1, f"17d: rtpu_failover_elections_total = {elections}")
+        out["fo_elections"] = elections
+        out.update(p17e_teardown(sup, procs, skip={0}))
+        sup = None
+    finally:
+        if sup is not None:
+            sup.shutdown(timeout_s=10.0)
+    return out
+
+
+def p17_orphans(tmpdir: str) -> list:
+    """Live processes started with --cluster for the fleet at ``tmpdir``."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+        except OSError:
+            continue
+        if b"--cluster" in argv and any(tmpdir.encode() in a for a in argv):
+            out.append(int(pid))
+    return out
+
+
+def p17e_teardown(sup, procs, skip=()) -> dict:
+    """17e: SIGTERM; every node (but the ones in ``skip``, killed before)
+    exits 0 within 10 s and no --cluster process of the fleet is left."""
+    tmpdir = sup._tmpdir
+    t0 = time.perf_counter()
+    clean = sup.shutdown(timeout_s=10.0)
+    dt = time.perf_counter() - t0
+    check(clean, "17e: a node needed SIGKILL")
+    rcs = [p.returncode for i, p in enumerate(procs) if i not in skip]
+    check(all(rc == 0 for rc in rcs), f"17e: node exit codes {rcs}")
+    check(not p17_orphans(tmpdir), "17e: a --cluster process outlived the fleet")
+    return {"teardown_s": dt, "exit_codes": rcs}
+
+
+def phase_cluster(rng, seed: int, card: str) -> None:
+    """Phase 17: the slot-sharded cluster on the card."""
+    t0 = time.perf_counter()
+    out = {"phase": 17, "card": card}
+    base = Path(__file__).resolve().parent / "build" / f"phase17-{os.getpid()}"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    secs = out["seconds"] = {}
+    sups = {}
+    try:
+        t = time.perf_counter()
+        sups[3] = p17_supervisor(P17["nodes"])
+        sups[1] = p17_supervisor(1)
+        for sup in sups.values():
+            sup.start()
+        secs["start"] = time.perf_counter() - t
+        p17_check_card(list(sups[3].addrs) + list(sups[1].addrs), "17a")
+        t = time.perf_counter()
+        out.update(p17a_config1(sups[3], rng))
+        secs["17a"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out.update(p17b_config9(sups))
+        secs["17b"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out.update(p17c_migration(sups[3], rng))
+        out.update(p17c_k1_on_moved_cms(rng))
+        secs["17c"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for n in (3, 1):
+            with sups[n]._lock:
+                procs = list(sups[n]._procs)
+            out[f"teardown_{n}node"] = p17e_teardown(sups.pop(n), procs)
+        secs["17e"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out.update(p17d_failover(rng, base))
+        secs["17d"] = time.perf_counter() - t
+    finally:
+        for sup in sups.values():
+            sup.shutdown(timeout_s=10.0)
+        shutil.rmtree(base, ignore_errors=True)
+    out["phase_seconds"] = time.perf_counter() - t0
+    log(out)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5782,6 +6473,7 @@ def main(argv=None) -> int:
     from redisson_tpu_torch.codecs import LongCodec
     from redisson_tpu_torch.ops import _build, cms_seq
 
+    t_run = time.perf_counter()
     dev = torch.device("cuda")
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     card = nvidia_smi()
@@ -5793,7 +6485,9 @@ def main(argv=None) -> int:
              line.split("ptxas info    : ")[-1] for line in ptxas.splitlines()
              if "registers" in line or "spill" in line or "Compiling" in line]})
     rng = np.random.default_rng(args.seed)
+    marks = [("0", t_run)]
     kernel = phase_k1(rng, dev, args.parent_k1)
+    marks.append(("1", time.perf_counter()))
 
     # LongCodec: integer keys take the vectorized 8-byte encoding, as in
     # the JAX package's benchmark configs.
@@ -5816,46 +6510,64 @@ def main(argv=None) -> int:
         cms_seq.LAUNCHES = 0  # phase 8's path, counted on its own
         phase_lifecycle(client, rng, g, args.seed, card)
         check_healthy(client, 8)
+        marks.append(("2-8", time.perf_counter()))
         check(cms_seq.LAUNCHES > 0, "phase 8 never launched K1")
         kernel["launches"] += cms_seq.LAUNCHES
         by_phase["8"] = cms_seq.LAUNCHES
     finally:
         client.shutdown()
     phase_interleaved(rng)
+    marks.append(("7i", time.perf_counter()))
     cms_seq.LAUNCHES = 0  # phase 9's path, counted on its own
     phase_failover(rng, args.seed, card)
+    marks.append(("9", time.perf_counter()))
     check(cms_seq.LAUNCHES > 0, "phase 9 never launched K1")
     kernel["launches"] += cms_seq.LAUNCHES
     by_phase["9"] = cms_seq.LAUNCHES
     cms_seq.LAUNCHES = 0  # phase 10's path, counted on its own
     phase_tiers(rng, card)
+    marks.append(("10", time.perf_counter()))
     check(cms_seq.LAUNCHES > 0, "phase 10 never launched K1")
     kernel["launches"] += cms_seq.LAUNCHES
     by_phase["10"] = cms_seq.LAUNCHES
     phase_frontdoor(rng, args.seed, card)
+    marks.append(("11", time.perf_counter()))
     cms_seq.LAUNCHES = 0  # phase 12's path: the bridge takes cms_add, not K1
     phase_grid(card)
+    marks.append(("12", time.perf_counter()))
     by_phase["12"] = cms_seq.LAUNCHES
     check(by_phase["12"] == 0, "phase 12's bridge launched K1")
     cms_seq.LAUNCHES = 0  # phase 13's path: K1 through the executor service
     phase_services(rng, card)
+    marks.append(("13", time.perf_counter()))
     check(cms_seq.LAUNCHES > 0, "phase 13 never launched K1")
     kernel["launches"] += cms_seq.LAUNCHES
     by_phase["13"] = cms_seq.LAUNCHES
     cms_seq.LAUNCHES = 0  # phase 14's path: K1 under the journal and on a recovered row
     phase_durability(args.seed, card)
+    marks.append(("14", time.perf_counter()))
     check(cms_seq.LAUNCHES > 0, "phase 14 never launched K1")
     kernel["launches"] += cms_seq.LAUNCHES
     by_phase["14"] = cms_seq.LAUNCHES
     cms_seq.LAUNCHES = 0  # phase 15's path: K1 under the dispatch records
     phase_telemetry(rng, args.seed, card)
+    marks.append(("15", time.perf_counter()))
     check(cms_seq.LAUNCHES > 0, "phase 15 never launched K1")
     kernel["launches"] += cms_seq.LAUNCHES
     by_phase["15"] = cms_seq.LAUNCHES
     cms_seq.LAUNCHES = 0  # phase 16's path: scripts and the front door take no K1
     phase_scripting_frontdoor(rng, args.seed, card)
+    marks.append(("16", time.perf_counter()))
     by_phase["16"] = cms_seq.LAUNCHES
     check(by_phase["16"] == 0, "phase 16 launched K1")
+    cms_seq.LAUNCHES = 0  # phase 17's path: K1 on a CMS row moved between nodes
+    phase_cluster(rng, args.seed, card)
+    marks.append(("17", time.perf_counter()))
+    check(cms_seq.LAUNCHES > 0, "phase 17 never launched K1")
+    kernel["launches"] += cms_seq.LAUNCHES
+    by_phase["17"] = cms_seq.LAUNCHES
+    log({"phase": "all", "seconds": time.perf_counter() - t_run,
+         "by_phase_s": {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}})
     log({"kernels": [kernel]})
     print(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})

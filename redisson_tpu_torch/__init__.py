@@ -6,7 +6,8 @@ the JAX package has Pallas kernels.  It carries RBloomFilter
 add/contains on the coalesced path, RHyperLogLog, RBitSet and
 RCountMinSketch with streaming top-K, the host data grid (buckets,
 counters, maps, sets, lists, sorted sets, queues, streams, geo, time
-series, topics) and the RESP front door.  It never imports ``jax`` or
+series, topics), the RESP front door and the slot-sharded cluster
+(``connect_cluster``, ``cluster.ClusterSupervisor``).  It never imports ``jax`` or
 ``redisson_tpu``; the JAX package is the reference its tests hold it
 against.
 
@@ -23,7 +24,20 @@ from redisson_tpu_torch.config import Config
 
 __version__ = "0.1.0"
 
-__all__ = ["Config", "create", "__version__"]
+__all__ = ["Config", "connect_cluster", "create", "__version__"]
+
+
+def connect_cluster(seeds, **kwargs):
+    """Slot-aware cluster client: route commands across an N-node
+    redisson_tpu_torch (or redisson_tpu) cluster by CRC16 keyslot, with
+    scatter/gather batching and MOVED/ASK/TRYAGAIN redirect handling.
+    ``seeds`` is [(host, port), ...] of any subset of the nodes.
+
+    Imports only the wire-client tier — a pure routing process never
+    pays for the engine modules or torch."""
+    from redisson_tpu_torch.cluster.client import ClusterClient
+
+    return ClusterClient(seeds, **kwargs)
 
 
 def create(config=None):

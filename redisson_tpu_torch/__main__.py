@@ -18,8 +18,20 @@ supervisor that spawns them (each its own CUDA context; all on
 ``cuda:0`` when the node has fewer cards than workers), forwards
 SIGTERM/SIGINT and reaps them; with ``--metrics-port N`` it serves their
 metrics merged on N.  ``--federate`` runs only that merged endpoint over
-listed members.  The port of ``redisson_tpu/__main__.py``; its cluster
-flags wait for the cluster modules.
+listed members.
+
+``--cluster`` serves one node of a slot-sharded cluster (cluster/door.py:
+-MOVED/-ASK redirects, hash tags, live slot migration):
+``--cluster-topology FILE`` (the JSON every node shares; cluster/
+supervisor.py writes one) with ``--cluster-myid``, or ``--cluster-slots
+0-5460`` for a node alone; ``--cluster-announce HOST:PORT`` is the address
+redirects name; ``--cluster-node-timeout-ms`` the failover agent's
+failure-detection window (every cluster node runs the agent: primaries
+vote, a replica of a dead primary runs the election).  With
+``--frontdoor-processes K`` the cluster flags reach every worker, and
+-MOVED comes only from the owning worker's door after the in-node
+handoff.  The port of ``redisson_tpu/__main__.py``; ``--rebalance`` and
+``--doctor`` wait for the rebalancer and the fleet doctor.
 """
 
 from __future__ import annotations
@@ -71,6 +83,17 @@ def _serve_multicore(args, nworkers: int) -> int:
             "--latency-monitor-threshold",
             str(args.latency_monitor_threshold),
         ]
+    if args.cluster:
+        extra += ["--cluster"]
+    for val, flag in (
+        (args.cluster_slots, "--cluster-slots"),
+        (args.cluster_topology, "--cluster-topology"),
+        (args.cluster_myid, "--cluster-myid"),
+        (args.cluster_announce, "--cluster-announce"),
+        (args.cluster_node_timeout_ms, "--cluster-node-timeout-ms"),
+    ):
+        if val is not None:
+            extra += [flag, str(val)]
 
     # Handlers first: a SIGTERM while the workers start must still reap
     # them (the node shuts down as soon as startup returns).
@@ -224,6 +247,37 @@ def main(argv=None) -> int:
         "merged exposition (node label per member) on --metrics-port",
     )
     p.add_argument(
+        "--cluster", action="store_true",
+        help="enable cluster mode: the door speaks the 16384-slot "
+        "redirect protocol (CLUSTER, -MOVED/-ASK, hash tags, live slot "
+        "migration) and the node runs the failover agent",
+    )
+    p.add_argument(
+        "--cluster-slots", default=None,
+        help="slot range(s) this node owns when no topology file is "
+        "given, e.g. '0-5461' or '0-99,200-299' (default: all 16384)",
+    )
+    p.add_argument(
+        "--cluster-topology", default=None,
+        help="JSON topology file ({'nodes': [{'id','host','port',"
+        "'slots'}]}) shared by every node — the supervisor writes one",
+    )
+    p.add_argument(
+        "--cluster-myid", default=None,
+        help="this node's id in the topology (default: announce addr)",
+    )
+    p.add_argument(
+        "--cluster-announce", default=None,
+        help="host:port other nodes/clients are redirected to "
+        "(default: the bind address; set when behind NAT/containers)",
+    )
+    p.add_argument(
+        "--cluster-node-timeout-ms", type=int, default=None,
+        help="failure-detection window of the cluster bus: a peer silent "
+        "this long is marked failed; replicas of a failed primary start "
+        "a failover election (default 1500)",
+    )
+    p.add_argument(
         "--frontdoor-processes", type=int, default=None,
         help="per-core front door: serve with this many processes sharing "
         "the port via SO_REUSEPORT, each owning 1/K of the slot range "
@@ -298,6 +352,20 @@ def main(argv=None) -> int:
         if args.resp_reactor_threads < 1:
             p.error("--resp-reactor-threads must be >= 1")
         cfg.resp_reactor_threads = args.resp_reactor_threads
+    if args.cluster:
+        cfg.cluster_enabled = True
+    for flag, key in (
+        (args.cluster_slots, "cluster_slots"),
+        (args.cluster_topology, "cluster_topology"),
+        (args.cluster_myid, "cluster_node_id"),
+        (args.cluster_announce, "cluster_announce"),
+        (args.cluster_node_timeout_ms, "cluster_node_timeout_ms"),
+    ):
+        if flag is not None:
+            if not cfg.cluster_enabled:
+                p.error("--cluster-* flags require --cluster (or a "
+                        "config file with cluster_enabled: true)")
+            setattr(cfg, key, flag)
 
     # Per-core front door.  Parent shape: K > 1 and no worker index —
     # this process becomes a pure supervisor that spawns K worker
@@ -361,7 +429,8 @@ def main(argv=None) -> int:
 
         replid, snap_seq = bootstrap_full_resync(
             host_m, int(port_m), cfg.snapshot_dir, cfg.journal_dir,
-            f"{args.host}:{args.port}", listening_port=args.port,
+            cfg.cluster_node_id or f"{args.host}:{args.port}",
+            listening_port=args.port,
         )
         # The RESP door hands this to the ReplicaLink so its first PSYNC
         # continues from the restored cut instead of re-shipping the
@@ -378,6 +447,17 @@ def main(argv=None) -> int:
         max_connections=args.max_connections,
         idle_timeout_s=args.idle_timeout_s,
     )
+    if server.cluster is not None:
+        # Automatic failover: every cluster node runs the bus agent —
+        # primaries to vote, replicas to detect their primary's death and
+        # run the election.  server.close() stops it.
+        from redisson_tpu_torch.cluster.failover import FailoverAgent
+
+        FailoverAgent(
+            server,
+            node_timeout_s=float(cfg.cluster_node_timeout_ms or 1500) / 1000.0,
+            ping_interval_s=float(cfg.cluster_ping_interval_ms or 300) / 1000.0,
+        ).start()
     metrics_srv = None
     if args.metrics_port is not None:
         metrics_srv = client.start_metrics_endpoint(
@@ -398,6 +478,10 @@ def main(argv=None) -> int:
     if server.multicore is not None:
         mode = (f" [front-door worker {server.multicore.index} of "
                 f"{server.multicore.nworkers}]")
+    if server.cluster is not None:
+        door = server.cluster
+        mode += (f" [cluster node {door.myid}, "
+                 f"{door.slotmap.owned_count(door.myid)}/16384 slots]")
     print(
         f"redisson-tpu-torch serving RESP on {server.host}:{server.port} "
         f"(device={client._engine.executor.device}){mode}",

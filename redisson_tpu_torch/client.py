@@ -95,6 +95,23 @@ from redisson_tpu_torch.objects.base import CamelCompatMixin
 from redisson_tpu_torch.objects.engines import TorchSketchEngine
 
 
+
+def connect_cluster(seeds, **kwargs):
+    """Connect a slot-aware routing client to a cluster: ``seeds`` is
+    [(host, port), ...] of ANY subset of the nodes — the slot table
+    bootstraps via ``CLUSTER SLOTS`` and refreshes itself on ``-MOVED``.
+    Single commands route by their keys' CRC16 slot; ``execute_many``
+    scatter/gathers a batch across nodes as pipelined per-node legs.
+
+        cc = connect_cluster([("127.0.0.1", 7000)])
+        cc.execute("SET", "{user:1}.name", "ada")
+        replies = cc.execute_many([("GET", k) for k in keys])
+    """
+    from redisson_tpu_torch.cluster.client import ClusterClient
+
+    return ClusterClient(seeds, **kwargs)
+
+
 class RedissonTorchClient(CamelCompatMixin):
     def __init__(self, config: Config):
         if not config.gpu_sketch.enabled:

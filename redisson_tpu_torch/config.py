@@ -233,6 +233,29 @@ class Config:
         self.frontdoor_workers = 1
         self.frontdoor_index: Optional[int] = None
         self.frontdoor_dir: Optional[str] = None
+        # Cluster mode, the JAX package's knobs and defaults: the
+        # 16384-slot CRC16 topology.  When enabled the RESP door routes
+        # every keyed command by its keys' slot — wrong-slot keys get
+        # -MOVED/-ASK redirects, hash tags {...} co-locate multi-key
+        # ops, and live slot migration rides CLUSTER SETSLOT + MIGRATE.
+        # ``cluster_topology`` is a dict (or a JSON file path) of
+        # {"nodes": [{"id", "host", "port", "slots": [[a, b], ...]}]};
+        # without one this node is a single-node cluster owning
+        # ``cluster_slots`` (e.g. "0-16383", default all).
+        # ``cluster_node_id`` names this node's topology entry;
+        # ``cluster_announce`` ("host:port") is the address other nodes
+        # and clients are redirected to (default: the bind address).
+        # ``cluster_node_timeout_ms`` / ``cluster_ping_interval_ms``: the
+        # failover agent's failure-detection clock — a peer silent for
+        # node-timeout is marked failed, and a failed primary's replicas
+        # run the epoch election.
+        self.cluster_enabled = False
+        self.cluster_node_id: Optional[str] = None
+        self.cluster_topology = None
+        self.cluster_slots: Optional[str] = None
+        self.cluster_announce: Optional[str] = None
+        self.cluster_node_timeout_ms = 1500
+        self.cluster_ping_interval_ms = 300
 
     def set_codec(self, codec) -> "Config":
         self.codec = codec
@@ -293,6 +316,13 @@ class Config:
         "frontdoor_workers",
         "frontdoor_index",
         "frontdoor_dir",
+        "cluster_enabled",
+        "cluster_node_id",
+        "cluster_topology",
+        "cluster_slots",
+        "cluster_announce",
+        "cluster_node_timeout_ms",
+        "cluster_ping_interval_ms",
     )
 
     def to_dict(self) -> dict:

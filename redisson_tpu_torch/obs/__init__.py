@@ -223,6 +223,24 @@ class Observability:
             "rtpu_frontdoor_peer_accepts",
             "handoff legs accepted from sibling workers on the in-node "
             "unix-domain listener")
+        # Cluster mode: redirect volume by kind (the door counts
+        # moved/ask/tryagain/crossslot/asking_served as it emits or
+        # honors them; the slot-aware client counts client_moved/
+        # client_ask as it follows them), slot-ownership handoffs this
+        # process finalized, and the scatter/gather client's fan-out
+        # (legs / batches = average nodes touched per multi-slot batch).
+        self.cluster_redirects = r.counter(
+            "rtpu_cluster_redirects",
+            "cluster redirects emitted by the door or followed by the "
+            "slot-aware client, by kind", ("kind",))
+        self.cluster_slot_migrations = r.counter(
+            "rtpu_cluster_slot_migrations",
+            "slot ownership handoffs finalized on this node (SETSLOT "
+            "NODE closing an IMPORTING/MIGRATING state)")
+        self.cluster_scatter_fanout = r.counter(
+            "rtpu_cluster_scatter_fanout",
+            "scatter/gather batches and the per-node pipeline legs they "
+            "fanned out to, by unit", ("unit",))
         # Load attribution: device-time split per (tenant, op) — label
         # cardinality is bounded twice (the loadmap folds cold tenants
         # into "other" before the bump, max_children backstops it), and
@@ -301,9 +319,13 @@ class Observability:
             "rtpu_repl_stream_records",
             "journal records applied from the replication stream "
             "(replica side)")
+        self.failover_elections = r.counter(
+            "rtpu_failover_elections",
+            "failover elections this node started as a candidate")
         self.failover_takeovers = r.counter(
             "rtpu_failover_takeovers",
-            "promotions of this node to primary (manual FAILOVER)")
+            "slot takeovers this node performed after winning an "
+            "election (or via manual FAILOVER promotion)")
         self.repl_offset_source = None  # wired by the RESP door
         self.repl_lag_source = None
         r.gauge_callback(

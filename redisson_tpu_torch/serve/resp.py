@@ -41,9 +41,13 @@ reply bytes, for the command families this package carries:
                     (Python script bodies under the grid lock, gated by
                     enable_python_scripts; the script_timeout_ms watchdog
                     answers BUSY and SCRIPT KILL stops a runaway)
+  CLUSTER ASKING MIGRATE RTPU.CLUSTERPING RTPU.FAILOVER.AUTH RTPU.TAKEOVER
+                    (cluster mode, ``cluster_enabled``: the slot door of
+                    cluster/door.py — MOVED/ASK/CROSSSLOT/TRYAGAIN, live
+                    slot migration, and the failover bus)
 
-Any other command (the cluster verbs) answers exactly as the JAX
-package answers a command it lacks: ``-ERR unknown command 'NAME'``.
+Any other command answers exactly as the JAX package answers a command
+it lacks: ``-ERR unknown command 'NAME'``.
 
 In worker mode (``frontdoor_workers`` > 1 with a ``frontdoor_index``)
 the server is one of K processes sharing its port via SO_REUSEPORT:
@@ -70,6 +74,7 @@ import numpy as np
 from redisson_tpu_torch import chaos
 from redisson_tpu_torch import overload as _overload
 from redisson_tpu_torch.cluster.slots import command_keys as _command_keys
+from redisson_tpu_torch.cluster.slots import key_slot as _key_slot
 from redisson_tpu_torch.obs import trace as _trace
 from redisson_tpu_torch.executor.failures import (
     DeadlineExceededError,
@@ -243,20 +248,22 @@ _RUN_MAX_OPS = 1 << 14
 
 
 # One-shot connection licenses: per-connection flags a prelude command
-# grants for exactly the next command.  The port carries one, the
-# RTPU.TRACE wire prelude (stitch one command into a remote trace).  The
-# preludes are transparent to each other (a migration pump sends
-# RTPU.TRACE + ASKING + RESTORE: the licensed hop is the RESTORE), so
-# ASKING — which the port answers as the JAX package's cluster-less
-# server does — never burns the trace prelude.
+# grants for exactly the next command — cluster ASKING (serve one
+# command from an IMPORTING slot) and the RTPU.TRACE wire prelude
+# (stitch one command into a remote trace).  The preludes are
+# transparent to each other (the migration pump sends RTPU.TRACE +
+# ASKING + RESTORE: the licensed hop is the RESTORE, whichever order the
+# preludes arrived in).
 _LICENSE_TRANSPARENT = frozenset(("ASKING", "RTPU.TRACE"))
 
 
 def consume_one_shot_licenses(ctx, name: str) -> None:
-    """Burn every one-shot license after a dispatched command.  Traced
-    commands consume the prelude inside ``_trace_begin``; keyless,
-    errored and untraceable commands must still burn it here, or it
-    leaks to a later unrelated command."""
+    """Burn every one-shot license after a dispatched command.  Keyed
+    commands consume ASKING inside the cluster door's ``route()`` and
+    traced commands consume the prelude inside ``_trace_begin``; keyless
+    (a PING between ASKING and the redirected command), errored and
+    untraceable commands must still burn them here, or a license leaks
+    to a later unrelated command."""
     if name in _LICENSE_TRANSPARENT:
         return
     if getattr(ctx, "asking", False):
@@ -516,9 +523,11 @@ class _ConnCtx:
         # MONITOR mode: every dispatched command streams to this
         # connection as a +<ts> [db addr] "CMD" ... push.
         self.monitor = False
-        # Cluster ASKING grant: one-shot, consumed by the next keyed
-        # command.  Nothing sets it until the cluster door is ported;
-        # the front door's forward leg carries it along when set.
+        # Cluster ASKING grant: one-shot — set by the ASKING command,
+        # consumed by the next command (the door's routing decision for
+        # a keyed one); lets an ASK-redirected command be served from an
+        # IMPORTING slot this node does not own yet.  The front door's
+        # forward leg carries it along to the owning worker.
         self.asking = False
         # Per-core front door: True on in-node handoff legs from sibling
         # workers — peer legs always execute locally (the no-proxy-loops
@@ -767,22 +776,60 @@ class RespServer:
         self._sock.listen(512)
         self.host, self.port = self._sock.getsockname()
         self._closed = False
+        # Cluster mode: the slot-sharded topology door.  When enabled,
+        # every keyed command routes through ClusterDoor.route before its
+        # handler — wrong-slot keys get -MOVED/-ASK redirects, cross-slot
+        # multi-key ops -CROSSSLOT, and keys in a MIGRATING slot
+        # serialize with the per-key migration pump (no acked write lost
+        # under a live reshard).
+        self.cluster = None
+        if client.config.cluster_enabled:
+            from redisson_tpu_torch.cluster.door import ClusterDoor
+
+            try:
+                self.cluster = ClusterDoor.from_config(
+                    self, client.config, obs=self.obs
+                )
+            except Exception:
+                self._sock.close()
+                raise
         # Connection-limit refusals: counted so reactor capacity tuning
         # is observable (INFO clients rejected_connections +
         # rtpu_resp_ingress_shed{conn_limit}).
         self._conns_refused = 0
         # Load attribution: the obs bundle's loadmap gains its serving
-        # side here — the ingress key-sample rate, the exact keyspace
-        # hooks on both backends (the grid store and the sketch
-        # registry), and a one-scan seed of the per-slot key counters
-        # (standalone: everything lands in slot 0).  With both backends
-        # reporting every keyspace change, the counters are exact.
+        # side here — the cluster flag (per-slot attribution means
+        # something only behind the door; standalone lands in slot 0),
+        # the ingress key-sample rate, the exact keyspace hooks on both
+        # backends (the grid store and the sketch registry), and a
+        # one-scan seed of the per-slot key counters.  With both
+        # backends reporting every keyspace change, the counters are
+        # exact.  In cluster mode the same hooks feed the slot->key
+        # index (cluster/slotindex.py) through one fan-out closure, so
+        # counts and names can never disagree about which writes were
+        # seen.
         lm = self.loadmap = self.obs.loadmap
+        lm.cluster = self.cluster is not None
         lm.sample_rate = float(client.config.loadmap_key_sample_rate)
-        client._grid.on_keyspace = lm.note_key
-        client._engine.registry.on_keyspace = lm.note_key
-        lm.seed_keys(client.get_keys().get_keys())
+        idx = None
+        if self.cluster is not None:
+            from redisson_tpu_torch.cluster.slotindex import SlotKeyIndex
+
+            idx = SlotKeyIndex()
+
+            def _keyspace_note(name, delta, _lm=lm, _idx=idx):
+                _lm.note_key(name, delta)
+                _idx.note(name, delta)
+        else:
+            _keyspace_note = lm.note_key
+        client._grid.on_keyspace = _keyspace_note
+        client._engine.registry.on_keyspace = _keyspace_note
+        names = client.get_keys().get_keys()
+        lm.seed_keys(names)
         self._loadmap_keys_exact = True
+        if idx is not None:
+            idx.seed(names)
+            self.cluster.slot_index = idx
         # Reactor front door: a small fixed pool of selector event-loop
         # threads replaces thread-per-connection serving — each tick
         # drains recv buffers across ALL ready connections and feeds one
@@ -838,6 +885,12 @@ class RespServer:
         # (role:slave, the -READONLY gate, bounded-staleness refusals).
         self.repl_hub = None
         self.replica_link = None
+        # The cluster-bus failover agent (cluster/failover.py) when armed.
+        self.failover = None
+        # Flight recorder: stamp the ring with this node's cluster
+        # identity so fleet_events() merges by node id.
+        if self.cluster is not None:
+            self.obs.events.node = self.cluster.myid
         self._repl_hub()  # eager when the journal is already attached
         self.obs.repl_offset_source = self._repl_offset
         self.obs.repl_lag_source = self._repl_lag
@@ -1048,6 +1101,10 @@ class RespServer:
                 if remaining <= 0:
                     break
                 self._conn_idle.wait(timeout=remaining)
+        # The failover agent before the replication plane: it dials
+        # peers and promotes through the link.
+        if self.failover is not None:
+            self.failover.stop()
         link, self.replica_link = self.replica_link, None
         if link is not None:
             link.stop()
@@ -1057,6 +1114,8 @@ class RespServer:
         # observe the shutdowns above and tear each connection down.
         if self.reactor is not None:
             self.reactor.close()
+        if self.cluster is not None:
+            self.cluster.close()  # cached migration sockets
         if self.multicore is not None:
             self.multicore.close()  # peer listener + pooled handoff legs
 
@@ -1078,8 +1137,10 @@ class RespServer:
         t0 = time.perf_counter()
         err = False
         name = cmd[0].decode("latin-1", "replace").upper()
-        # Load attribution: slot 0 is the standalone bucket; the shed
-        # branch clears it (refused, not served).
+        # Load attribution: slot 0 is the standalone / unslotted bucket;
+        # the cluster door's route() overwrites it with the real slot (or
+        # None on redirects — nothing served, nothing attributed), and
+        # the shed branch clears it too.
         ctx.load_slot = 0
         queueing = ctx.in_multi and name not in (
             "EXEC", "DISCARD", "MULTI", "RESET",
@@ -1189,6 +1250,8 @@ class RespServer:
     # -- telemetry hooks ----------------------------------------------------
 
     def _node_label(self) -> str:
+        if self.cluster is not None:
+            return self.cluster.myid
         return f"{self.host}:{self.port}"
 
     def _trace_begin(self, name: str, ctx: "_ConnCtx"):
@@ -1545,6 +1608,14 @@ class RespServer:
             if (
                 plain and rc_cap > 0 and name in _CACHEABLE
                 and not frame.startswith(b"-")
+                # Cluster gate: a frame computed for a migrating/
+                # importing slot (an ASKING-served read, a mid-migration
+                # value) must not serve a later identical command that
+                # would have been redirected.
+                and (
+                    self.cluster is None
+                    or self.cluster.frame_cacheable(name, cmd)
+                )
             ):
                 self._rc_install(rc, rc_state, name, cmd, frame)
             out.append(frame)
@@ -1632,6 +1703,24 @@ class RespServer:
             if bound[i] - i < 2:
                 return None
         first = batch[i][0].upper()
+        if self.cluster is not None and (
+            first in _BF_RUN or first in _BIT_RUN or first in _GET_RUN
+            or first == b"CMS.QUERY"
+        ):
+            # Cluster mode: fusing must never skip a redirect judgment.
+            # bf/bit/cms runs share ONE key, so gating the head covers
+            # the whole run; GET/MGET runs mix keys (and so slots) AND
+            # resolve under the grid lock — routing them there would take
+            # the move guard after the grid lock, against MIGRATE's
+            # move guard -> grid lock, so they dispatch per command (the
+            # slot-aware scatter/gather client is cluster mode's
+            # batching path).
+            if first in _GET_RUN:
+                return None
+            if len(batch[i]) < 2 or not self.cluster.serves_plainly(
+                batch[i][1]
+            ):
+                return None
         if first in _BF_RUN:
             return self._collect_bf_run(batch, i, ctxs)
         if first in _BIT_RUN:
@@ -2022,8 +2111,9 @@ class RespServer:
             return
         key, end = run[2], run[1]
         nops = self._run_nops(run, i, end)
+        slot = _key_slot(key) if self.cluster is not None else 0
         lm.note_command(
-            0, write,
+            slot, write,
             sum(sum(map(len, batch[k])) for k in range(i, end)),
             sum(len(f) for f in frames if f is not None),
             nops=nops,
@@ -2153,8 +2243,15 @@ class RespServer:
             lm = self.loadmap
             if lm.enabled:
                 # Shed accounting: a shed command is demand the node
-                # refused, so it lands on its slot (standalone: 0).
-                lm.note_shed(0)
+                # refused, so it lands on its slot (standalone: 0).  The
+                # route point never ran, so hash the keys here; keyless
+                # shed lands in slot 0.
+                slot = 0
+                if self.cluster is not None:
+                    keys = _command_keys(cmd)
+                    if keys:
+                        slot = _key_slot(keys[0])
+                lm.note_shed(slot)
                 ctx.load_slot = None  # refused, not served: no op bump
             if shed == "tenant":
                 raise RespError(
@@ -2183,6 +2280,17 @@ class RespServer:
             ) is None:
                 ctx.queued = None  # poison: EXEC must abort
                 raise RespError(f"unknown command '{name}'")
+            if self.cluster is not None:
+                # Cluster routing at QUEUE time (Redis semantics): a
+                # wrong-slot member surfaces its redirect NOW and poisons
+                # the transaction (EXECABORT), so EXEC can never
+                # half-apply a transaction whose tail belonged to another
+                # node.  (EXEC re-routes each member too — a reshard
+                # between queue and EXEC.)
+                frame, _ = self.cluster.route(name, cmd, ctx)
+                if frame is not None:
+                    ctx.queued = None  # poison: EXEC must abort
+                    return frame
             if ctx.queued is not None:
                 ctx.queued.append(cmd)
             return _encode_simple("QUEUED")
@@ -2190,12 +2298,29 @@ class RespServer:
         if mc is not None:
             # Per-core front door: keyed commands owned by a sibling
             # worker take the in-node handoff leg; fan-out commands merge
-            # across the workers.  The in-node map itself never emits
-            # -MOVED (a later cluster door runs after this hook, so a
-            # handed-off command is judged by the slot owner's door).
+            # across the workers.  Runs BEFORE the cluster door, so a
+            # handed-off command is judged by the slot owner's door — the
+            # in-node map itself never emits -MOVED.
             frame = mc.route(name, cmd, ctx)
             if frame is not None:
                 return frame
+        if self.cluster is not None:
+            # Cluster routing: redirect frames short-circuit the handler;
+            # commands on a MIGRATING slot run under the move guard WITH
+            # a presence re-check — a command that routed "serve locally"
+            # while the migration pump was mid-key must not proceed after
+            # the key shipped (it would resurrect the key on the source
+            # and strand the acked write when the slot finalizes).  The
+            # guard is taken before the handler's grid/registry locks.
+            frame, guarded = self.cluster.route(name, cmd, ctx)
+            if frame is not None:
+                return frame
+            if guarded:
+                with self.cluster.move_lock:
+                    frame = self.cluster.route_recheck(name, cmd)
+                    if frame is not None:
+                        return frame
+                    return self._invoke_handler(name, cmd, ctx)
         return self._invoke_handler(name, cmd, ctx)
 
     def _invoke_handler(self, name: str, cmd: list, ctx: "_ConnCtx") -> bytes:
@@ -2910,9 +3035,12 @@ class RespServer:
         from redisson_tpu_torch.durability.replica import ReplicaLink
 
         if ident is None:
-            import uuid
+            if self.cluster is not None:
+                ident = self.cluster.myid
+            else:
+                import uuid
 
-            ident = uuid.uuid4().hex[:16]
+                ident = uuid.uuid4().hex[:16]
         link = ReplicaLink(
             self._client, host, int(port), ident,
             listening_port=self.port, obs=self.obs,
@@ -2928,8 +3056,8 @@ class RespServer:
         replicating (the apply path never re-journals), so the snapshot
         is what makes this node's own crash recovery self-contained —
         and start a fresh replication lineage for replicas that re-home
-        here.  ``epoch`` is the cluster failover epoch (0 without an
-        agent)."""
+        here.  ``epoch`` is the cluster failover epoch of the election or
+        manual FAILOVER that promoted it (0 without an agent)."""
         link, self.replica_link = self.replica_link, None
         if link is not None:
             link.stop()
@@ -3107,12 +3235,88 @@ class RespServer:
 
     def _cmd_FAILOVER(self, args):
         """Manual FAILOVER (operator surface): on a replica, promote it
-        to primary immediately (FAILOVER TAKEOVER semantics; epoch 0,
-        there being no cluster failover agent)."""
+        to primary immediately (FAILOVER TAKEOVER semantics), one epoch
+        past the cluster's when a failover agent runs, else epoch 0."""
         if self.replica_link is None:
             raise RespError("FAILOVER requires a replica role")
-        self.promote_to_primary(epoch=0)
+        self.promote_to_primary(
+            epoch=self.failover.state.current_epoch + 1
+            if self.failover is not None else 0
+        )
         return _encode_simple("OK")
+
+    def _cmd_RTPU_CLUSTERPING(self, args):
+        """Cluster bus liveness probe: RTPU.CLUSTERPING <sender-id>
+        <sender-epoch> → [PONG, myid, epoch, offset, role].  Answered by
+        every node (armed or not) — liveness is the point."""
+        sender = self._s(args[0]) if args else ""
+        epoch = int(args[1]) if len(args) > 1 else 0
+        fo = self.failover
+        my_epoch = epoch
+        if fo is not None:
+            # A ping from a peer proves the PEER is alive too.
+            my_epoch = fo.state.note_ping(sender, epoch, time.monotonic())
+        myid = self.cluster.myid if self.cluster is not None else ""
+        role = "slave" if self.replica_link is not None else "master"
+        return _encode_array([
+            b"PONG", myid.encode(), int(my_epoch),
+            int(self._repl_offset()), role.encode(),
+        ])
+
+    def _cmd_RTPU_FAILOVER_AUTH(self, args):
+        """Election vote request: RTPU.FAILOVER.AUTH <candidate-id>
+        <epoch> <failed-primary-id> → :1 granted / :0 denied.  Only a
+        PRIMARY holding a failover agent may grant, at most once per
+        epoch (the no-dual-primary invariant's load-bearing rule)."""
+        if len(args) < 3:
+            raise RespError(
+                "RTPU.FAILOVER.AUTH <candidate-id> <epoch> <failed-id>"
+            )
+        fo = self.failover
+        if fo is None or self.replica_link is not None:
+            return _encode_int(0)
+        granted = fo.state.grant_vote(
+            self._s(args[0]), int(args[1]), self._s(args[2])
+        )
+        if granted:
+            self.obs.events.emit("failover.vote",
+                                 candidate=self._s(args[0]),
+                                 epoch=int(args[1]),
+                                 failed_primary=self._s(args[2]))
+        return _encode_int(1 if granted else 0)
+
+    def _cmd_RTPU_TAKEOVER(self, args):
+        """Takeover broadcast: RTPU.TAKEOVER <new-primary-id>
+        <old-primary-id> <epoch> [ranges] — reassign the claimed slots to
+        the new primary, per-slot epoch-gated (a STALE takeover from a
+        lost election must never un-assign a newer one).  ``ranges`` is
+        the winner's explicit claim ("0-100,200-300"); without it the
+        receiver falls back to whatever ITS map still shows the old
+        primary owning."""
+        if len(args) < 3:
+            raise RespError(
+                "RTPU.TAKEOVER <new-id> <old-id> <epoch> [ranges]"
+            )
+        new_id, old_id = self._s(args[0]), self._s(args[1])
+        epoch = int(args[2])
+        if self.cluster is None:
+            raise RespError("This instance has cluster support disabled")
+        slots = None
+        if len(args) > 3 and args[3]:
+            slots = []
+            for part in self._s(args[3]).split(","):
+                a, _, b = part.partition("-")
+                slots.append([int(a), int(b or a)])
+        moved = self.cluster.slotmap.apply_takeover(
+            old_id, new_id, epoch, slots=slots
+        )
+        fo = self.failover
+        if fo is not None:
+            fo.state.note_takeover(new_id, old_id, epoch)
+        self.obs.events.emit("failover.takeover.applied", epoch=epoch,
+                             new_primary=new_id, old_primary=old_id,
+                             slots_moved=moved)
+        return _encode_int(moved)
 
     # -- script watchdog helpers -----------------------------------------
 
@@ -3321,6 +3525,42 @@ class RespServer:
             except ValueError as e:
                 raise RespError(str(e)) from e
             return _encode_simple("OK")
+        if sub == "COUNTKEYSINSLOT":
+            # The scan-based cross-check of the O(1) per-slot key
+            # counters behind CLUSTER COUNTKEYSINSLOT: re-hashes every
+            # live key name, so a test (or a suspicious operator) can diff
+            # the counter against ground truth.  Explicitly the scan, not
+            # the slot index: this command IS the ground truth both fast
+            # paths are diffed against.
+            if len(args) < 2:
+                raise RespError("DEBUG COUNTKEYSINSLOT <slot>")
+            try:
+                slot = int(args[1])
+            except ValueError:
+                raise RespError("value is not an integer or out of range")
+            if self.cluster is not None:
+                return _encode_int(
+                    len(self.cluster.keys_in_slot_scan(slot))
+                )
+            n = self._client.get_keys().count()
+            return _encode_int(n if slot == 0 else 0)
+        if sub == "GETKEYSINSLOT":
+            # Ground-truth twin of the above for key NAMES — the
+            # full-keyspace re-hash scan; index vs scan set-equality is
+            # the slot index's differential test.
+            if len(args) < 2:
+                raise RespError("DEBUG GETKEYSINSLOT <slot> [count]")
+            try:
+                slot = int(args[1])
+                count = int(args[2]) if len(args) > 2 else None
+            except ValueError:
+                raise RespError("value is not an integer or out of range")
+            if self.cluster is None:
+                raise RespError("DEBUG GETKEYSINSLOT requires cluster mode")
+            return _encode_array([
+                k.encode()
+                for k in self.cluster.keys_in_slot_scan(slot, count)
+            ])
         raise RespError(f"unsupported DEBUG subcommand {sub}")
 
     def _cmd_OBJECT(self, args):
@@ -4031,8 +4271,8 @@ class RespServer:
     # doctor sections wait with their modules.
     _INFO_DEFAULT = (
         "server", "clients", "memory", "stats", "persistence",
-        "replication", "nearcache", "frontdoor", "overload", "telemetry",
-        "events", "loadstats", "keyspace",
+        "replication", "nearcache", "frontdoor", "overload", "cluster",
+        "telemetry", "events", "loadstats", "keyspace",
     )
 
     def _device_lines(self) -> list:
@@ -4045,6 +4285,13 @@ class RespServer:
             idx = dev.index if dev.index is not None else 0
             lines.append(
                 f"rtpu_device_name:{torch.cuda.get_device_name(idx)}"
+            )
+            # This process's CUDA context's allocations: with N nodes or
+            # front-door workers on one card, each reports its own here
+            # (nvidia-smi cannot attribute per process in a container).
+            lines.append(
+                f"rtpu_device_memory_allocated:"
+                f"{torch.cuda.memory_allocated(idx)}"
             )
         return lines
 
@@ -4069,7 +4316,10 @@ class RespServer:
             if s == "server":
                 lines += [
                     "# Server", "redis_version:7.9.9",
-                    "redis_mode:standalone",
+                    "redis_mode:%s" % (
+                        "cluster" if self.cluster is not None
+                        else "standalone"
+                    ),
                     "run_id:redisson-tpu",
                     f"uptime_in_seconds:{int(time.monotonic() - self._started)}",
                 ] + self._device_lines()
@@ -4363,6 +4613,14 @@ class RespServer:
                     f"overload_output_buffer_soft_seconds:"
                     f"{self.output_buffer_soft_seconds:g}",
                 ]
+            elif s == "cluster":
+                # Cluster mode: slot ownership, migration states and the
+                # redirect counters.
+                lines.append("# Cluster")
+                if self.cluster is None:
+                    lines.append("cluster_enabled:0")
+                else:
+                    lines += self.cluster.info_lines()
             elif s == "telemetry" and obs is not None:
                 # The distributed tracer's live knob and ring state and
                 # the latency monitor's arm state — what an operator
@@ -4709,6 +4967,195 @@ class RespServer:
 
     def _cmd_COMMAND(self, args):
         return _encode_array([])  # stock-client handshake stub
+
+    # -- cluster protocol (cluster/door.py) ----------------------------------
+
+    def _cmdctx_ASKING(self, args, ctx: _ConnCtx):
+        """One-shot import-side handshake: the NEXT keyed command may be
+        served from an IMPORTING slot this node does not own yet."""
+        if self.cluster is None:
+            raise RespError("This instance has cluster support disabled")
+        ctx.asking = True
+        return _encode_simple("OK")
+
+    def _cmd_MIGRATE(self, args):
+        """Atomic per-key handoff to another node (the migration pump's
+        unit of work): dump -> remote ASKING+RESTORE -> local delete, one
+        critical section against writes to the moving key.  A failed
+        transfer leaves the key on the source and answers an error —
+        never a half-move."""
+        if self.cluster is None:
+            raise RespError("MIGRATE requires cluster mode")
+        if len(args) < 5:
+            raise RespError("wrong number of arguments for 'migrate' command")
+        host, port, key = self._s(args[0]), int(args[1]), args[2]
+        timeout_ms = int(args[4])  # args[3] = destination-db (single db)
+        try:
+            return _encode_simple(
+                self.cluster.migrate_key(host, port, key, timeout_ms)
+            )
+        except OSError as e:
+            raise RespError(f"IOERR MIGRATE to {host}:{port} failed: {e}")
+
+    def _cmd_CLUSTER(self, args):
+        if not args:
+            raise RespError(
+                "wrong number of arguments for 'cluster' command"
+            )
+        sub = args[0].decode("latin-1", "replace").upper()
+        if sub == "KEYSLOT":
+            if len(args) != 2:
+                raise RespError("CLUSTER KEYSLOT needs exactly one key")
+            return _encode_int(_key_slot(args[1]))
+        door = self.cluster
+        if door is None:
+            if sub == "INFO":
+                return _encode_bulk("cluster_enabled:0\r\n")
+            raise RespError("This instance has cluster support disabled")
+        if sub == "MYID":
+            return _encode_bulk(door.myid)
+        if sub == "INFO":
+            return _encode_bulk("\r\n".join(door.info_lines()) + "\r\n")
+        if sub == "SLOTS":
+            table = door.slotmap.slots_table()
+            frames = [b"*%d\r\n" % len(table)]
+            for start, end, nid, host, port in table:
+                frames.append(b"*3\r\n")
+                frames.append(_encode_int(start))
+                frames.append(_encode_int(end))
+                frames.append(b"*3\r\n")
+                frames.append(_encode_bulk(host))
+                frames.append(_encode_int(port))
+                frames.append(_encode_bulk(nid))
+            return b"".join(frames)
+        if sub == "SHARDS":
+            nodes = door.slotmap.node_ids()
+            frames = [b"*%d\r\n" % len(nodes)]
+            for nid in nodes:
+                host, port = door.slotmap.addr(nid)
+                flat = [v for r in door.slotmap.ranges(nid) for v in r]
+                frames.append(b"*4\r\n")
+                frames.append(_encode_bulk("slots"))
+                frames.append(_encode_array(flat))
+                frames.append(_encode_bulk("nodes"))
+                frames.append(b"*1\r\n" + _encode_array([
+                    b"id", nid.encode(), b"endpoint", host.encode(),
+                    b"port", port,
+                    b"role", door.slotmap.role(nid).encode(),
+                ]))
+            return b"".join(frames)
+        if sub == "NODES":
+            lines = []
+            for nid in door.slotmap.node_ids():
+                host, port = door.slotmap.addr(nid)
+                slots = " ".join(
+                    ("%d-%d" % (a, b)) if a != b else str(a)
+                    for a, b in door.slotmap.ranges(nid)
+                )
+                me = ",myself" if nid == door.myid else ""
+                role = door.slotmap.role(nid)
+                flag = "master" if role == "master" else "slave"
+                primary = door.slotmap.replica_of(nid) or "-"
+                lines.append(
+                    f"{nid} {host}:{port}@{port} {flag}{me} {primary} "
+                    f"0 0 0 connected {slots}".rstrip()
+                )
+            return _encode_bulk("\n".join(lines) + "\n")
+        if sub == "SETSLOT":
+            if len(args) < 3:
+                raise RespError("CLUSTER SETSLOT needs a slot and an action")
+            slot = int(args[1])
+            action = args[2].decode("latin-1", "replace").upper()
+            try:
+                if action == "IMPORTING":
+                    door.slotmap.set_importing(slot, self._s(args[3]))
+                elif action == "MIGRATING":
+                    door.slotmap.set_migrating(slot, self._s(args[3]))
+                elif action == "STABLE":
+                    door.slotmap.set_stable(slot)
+                elif action == "NODE":
+                    closed = door.slotmap.set_owner(slot, self._s(args[3]))
+                    if closed["was_importing"] or closed["was_migrating"]:
+                        # A finalize that closed a live migration state:
+                        # the slot handoff this node took part in.
+                        self.obs.cluster_slot_migrations.inc()
+                else:
+                    raise RespError(
+                        f"Invalid CLUSTER SETSLOT action {action}"
+                    )
+            except KeyError as e:
+                raise RespError(f"Unknown node {e.args[0]}")
+            return _encode_simple("OK")
+        if sub == "MIGRATABLE":
+            # Migration pre-flight (cluster/supervisor.py): keys in the slot
+            # that MIGRATE would refuse; empty = safe to reshard.
+            return _encode_array([
+                k.encode() for k in door.undumpable_in_slot(int(args[1]))
+            ])
+        if sub == "COUNTKEYSINSLOT":
+            # O(1) from the load map's per-slot key counters (the keyspace
+            # hooks are wired on both backends); DEBUG COUNTKEYSINSLOT
+            # keeps the O(keys) scan as a cross-check.
+            return _encode_int(self.loadmap.keys_in_slot(int(args[1])))
+        if sub == "LOADMAP":
+            # Node-local load snapshot as one JSON bulk: per-slot load
+            # vectors (non-zero slots only), hot keys, tenant shares;
+            # ClusterClient.fleet_loadmap() merges them across nodes.
+            import json
+
+            snap = self.loadmap.snapshot()
+            snap["node"] = door.myid
+            return _encode_bulk(json.dumps(snap).encode())
+        if sub == "GETKEYSINSLOT":
+            count = int(args[2]) if len(args) > 2 else 10
+            return _encode_array([
+                k.encode() for k in door.keys_in_slot(int(args[1]), count)
+            ])
+        if sub == "MEET":
+            # Elastic join: teach this node a new member's id/address so
+            # slots can be SETSLOT'd onto it.  `MEET <id> <host> <port>`
+            # — ids are explicit in this cluster (no gossip handshake).
+            if len(args) < 4:
+                raise RespError("CLUSTER MEET needs an id, host and port")
+            door.slotmap.add_node(
+                self._s(args[1]), self._s(args[2]), int(args[3])
+            )
+            return _encode_simple("OK")
+        if sub == "REBALANCE":
+            # The autonomous rebalancer is not carried yet: every node
+            # answers as a JAX node started without --rebalance does —
+            # STATUS reports enabled=false, the verbs refuse.
+            import json
+
+            verb = self._s(args[1]).upper() if len(args) > 1 else "STATUS"
+            if verb == "STATUS":
+                return _encode_bulk(json.dumps(
+                    {"enabled": False, "node": door.myid}
+                ).encode())
+            raise RespError(
+                "rebalancer is not armed on this node "
+                "(start with --rebalance)"
+            )
+        if sub == "MIGRATIONS":
+            # This node's in-flight slot states (slot -> peer id): the
+            # stuck-migration probe surface, a JSON bulk like LOADMAP.
+            import json
+
+            with door.slotmap._lock:
+                payload = {
+                    "node": door.myid,
+                    "importing": {
+                        str(s): n for s, n in door.slotmap.importing.items()
+                    },
+                    "migrating": {
+                        str(s): n for s, n in door.slotmap.migrating.items()
+                    },
+                }
+            return _encode_bulk(json.dumps(payload).encode())
+        raise RespError(
+            f"Unknown CLUSTER subcommand or wrong number of arguments "
+            f"for '{sub.lower()}'"
+        )
 
 
     # TOPK.* (RedisBloom Top-K shape) over the CMS heavy-hitter engine:

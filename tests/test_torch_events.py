@@ -7,15 +7,15 @@ against the JAX package's.
   breaker emits and the staleness gate (``TestControlPlaneEmits``), and
   the RESP surface (``TestEventsRespSurface``: EVENTS GET|LEN|RESET|HELP,
   INFO events, the WAIT fence timeout, the metric families).  The
-  reference drives the last two on a two-node cluster fixture; here
-  ``cluster2`` is two standalone port servers under the same names (A
-  with a journal, so WAIT is a real fence), since the cluster door is
-  ROADMAP queue 1 item 3.  Waiting for item 3, not collected:
-
-  - ``TestEventsRespSurface::test_ring_is_node_stamped``: the cluster
-    door stamps its node id on the ring;
-  - ``TestFleetEvents`` and ``TestFanoutDegradation``: the cluster
-    client's fleet views.
+  reference drives the last two on a two-node cluster fixture.  They run
+  here twice: on ``cluster2``, two standalone port servers under the same
+  names (A with a journal, so WAIT is a real fence), and on the
+  reference's own two-node cluster rebound to the port
+  (``port_namespace`` of ``test_torch_cluster.py``), where the door
+  stamps its node id on the ring (``test_ring_is_node_stamped``, which
+  the standalone pair only fakes, runs there alone).  The cluster
+  client's fleet views, ``TestFleetEvents`` and
+  ``TestFanoutDegradation``, run on that cluster too.
 * Pure modules under an injected clock: seeded emit streams through the
   JAX and the port ``EventRing`` and ``merge_timelines`` give equal
   snapshots.
@@ -41,6 +41,7 @@ import redisson_tpu_torch as rt  # noqa: E402
 import test_events as _ref  # noqa: E402
 from redisson_tpu_torch.serve.resp import RespServer  # noqa: E402
 from redisson_tpu_torch.serve.wireutil import exchange  # noqa: E402
+from test_torch_cluster import port_namespace  # noqa: E402
 from test_torch_grid_coordination import _one_torch_thread, port_case  # noqa: E402,F401
 from test_torch_observability import _Clock  # noqa: E402
 
@@ -79,6 +80,31 @@ class TestControlPlaneEmits(_ported(_ref.TestControlPlaneEmits)):
 
 class TestEventsRespSurface(_ported(
         _ref.TestEventsRespSurface, skip=("test_ring_is_node_stamped",))):
+    pass
+
+
+# The reference module rebound whole: its two-node cluster fixture runs on
+# the port's door, and the classes below take it in place of the
+# standalone pair.
+_CLUSTER = port_namespace(_ref)
+_cluster2_on_the_door = _CLUSTER["cluster2"]._get_wrapped_function()
+
+
+class _OnCluster:
+    @pytest.fixture()
+    def cluster2(self):
+        yield from _cluster2_on_the_door()
+
+
+class TestEventsRespSurfaceOnCluster(_OnCluster, _CLUSTER["TestEventsRespSurface"]):
+    pass
+
+
+class TestFleetEvents(_OnCluster, _CLUSTER["TestFleetEvents"]):
+    pass
+
+
+class TestFanoutDegradation(_OnCluster, _CLUSTER["TestFanoutDegradation"]):
     pass
 
 

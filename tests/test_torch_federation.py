@@ -1,12 +1,12 @@
 """Metrics federation on the port.
 
-The four tests of ``tests/test_federation.py`` that need no cluster run
-again on the port's ``obs/federate.py`` (``port_module``); its
+The tests of ``tests/test_federation.py`` run again on the port's
+``obs/federate.py`` (``port_module``): the four that need no cluster, and
+the three-node supervisor test (``slow``; its nodes run with ``--device
+cpu``, ``cpu_builtins`` of ``test_torch_cluster.py``).  Its
 ``test_federate_cli_mode`` runs on the port's entry point (unmarked:
-federation mode boots no engine).  Skipped: the three-node supervisor
-test, which waits for the cluster modules (ROADMAP queue 1 item 3).  New
-here: the per-core front door's parent serves its workers' metrics
-merged on ``--metrics-port``.
+federation mode boots no engine).  New here: the per-core front door's
+parent serves its workers' metrics merged on ``--metrics-port``.
 """
 
 import os
@@ -24,15 +24,18 @@ torch = pytest.importorskip("torch")
 import test_federation as _ref  # noqa: E402
 from redisson_tpu_torch.obs.promhttp import MetricsHTTPServer  # noqa: E402
 from test_torch_grid_coordination import _one_torch_thread  # noqa: E402,F401
+from test_torch_cluster import cpu_builtins, port_namespace  # noqa: E402
 from test_torch_observability import port_module  # noqa: E402
 
 SKIPPED = {
     "test_three_node_federated_metrics_and_fleet_merges":
-        "the cluster supervisor waits for ROADMAP queue 1 item 3",
+        "rebound below with the CPU supervisor",
     "test_federate_cli_mode": "replaced below by the port's entry point",
 }
 
 port_module(_ref, globals(), skip=SKIPPED)
+test_three_node_federated_metrics_and_fleet_merges = port_namespace(
+    _ref, cpu_builtins)["test_three_node_federated_metrics_and_fleet_merges"]
 
 
 def _free_port() -> int:

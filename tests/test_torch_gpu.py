@@ -854,3 +854,78 @@ def test_scripting_on_the_card(p16_small):
     three SCRIPT KILLs with the slot free after each."""
     out = p16_small.p16a_scripting(np.random.default_rng(16), "test")
     assert out["row_equals_golden"] and out["killed_row_equals_golden"]
+
+
+# -- the slot-sharded cluster on the card (phase 17) ---------------------------
+
+
+def test_migration_moves_every_sketch_kind_onto_the_target_card(cuda):
+    """Two in-process cluster nodes on the card: a slot holding a Bloom
+    filter, an HLL, a BitSet, a CMS and a top-K moves A -> B; on B every
+    row is on the card, its DUMP equals the source's, and the filter's row
+    equals the golden bitmap of its keys."""
+    import redisson_tpu_torch as rt
+    import chip_smoke as cs
+    from redisson_tpu_torch.cluster.slots import NSLOTS, key_slot
+    from redisson_tpu_torch.cluster.supervisor import migrate_slot
+    from redisson_tpu_torch.ops import golden
+    from redisson_tpu_torch.serve.resp import RespServer
+
+    tag = b"{gpumv}"
+    slot = key_slot(tag)
+    ports = [cs.free_port(), cs.free_port()]
+    topo = {"nodes": [
+        {"id": "A", "host": "127.0.0.1", "port": ports[0], "slots": [[slot, slot]]},
+        {"id": "B", "host": "127.0.0.1", "port": ports[1],
+         "slots": [r for r in ([0, slot - 1], [slot + 1, NSLOTS - 1]) if r[0] <= r[1]]},
+    ]}
+    nodes = []
+    try:
+        for nid, port in zip("AB", ports):
+            cfg = rt.Config().use_gpu_sketch(device="cuda")
+            cfg.cluster_enabled = True
+            cfg.cluster_topology = topo
+            cfg.cluster_node_id = nid
+            cl = rt.create(cfg)
+            nodes.append((cl, RespServer(cl, port=port)))
+        a, b = [("127.0.0.1", p) for p in ports]
+        items = cs.c11_keys(0, 4096)
+        names = [tag + x for x in (b"bf", b"hll", b"bits", b"cms", b"topk")]
+        seed = [[b"BF.RESERVE", names[0], b"0.01", b"100000"], [b"BF.MADD", names[0]] + items,
+                [b"PFADD", names[1]] + items, [b"SETBIT", names[2], b"1048575", b"1"],
+                [b"SETBIT", names[2], b"77", b"1"], [b"CMS.INITBYDIM", names[3], b"4096", b"5"],
+                [b"CMS.INCRBY", names[3], b"x", b"5", b"y", b"2"],
+                [b"TOPK.RESERVE", names[4], b"3"], [b"TOPK.ADD", names[4], b"a", b"b", b"a"]]
+        rep = cs.p17_req(a, seed)
+        assert not [r for r in rep if isinstance(r, Exception)], rep
+        dumps = cs.p17_req(a, [[b"DUMP", n] for n in names])
+        assert migrate_slot(slot, a, b, notify=[a, b]) == len(names)
+        assert cs.p17_req(b, [[b"DUMP", n] for n in names]) == dumps
+        assert cs.p17_req(b, [[b"OBJECT", b"ENCODING", n] for n in names]) == [b"device"] * 5
+        client = nodes[1][0]
+        for n in names:
+            e = client._engine.registry.lookup(n.decode())
+            assert e.pool.state.device.type == "cuda"
+        bf = client.get_bloom_filter(names[0].decode())
+        m, k = bf.get_size(), bf.get_hash_iterations()
+        h1, h2 = cs.wire_hashes(client, items, m)
+        g = golden.GoldenBloomFilter(m, k)
+        g.bits[g._indexes(h1, h2).reshape(-1)] = True
+        row = cs.tenant_row(client, names[0].decode())
+        assert np.array_equal(row, cs.golden_words(g, row.shape[0]))
+    finally:
+        for cl, srv in nodes:
+            srv.close()
+            cl.shutdown()
+
+
+def test_k1_on_a_migrated_cms_equals_golden_seq(cuda, monkeypatch):
+    """17c's in-process half at a small size: a CMS moved between two card
+    nodes takes add_all_seq through K1 on the target, estimates and table
+    equal golden_seq from the migrated table."""
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "P17_DEVICE", "cuda")
+    monkeypatch.setattr(cs, "P17", dict(cs.P17, k1_events=1 << 16))
+    out = cs.p17c_k1_on_moved_cms(np.random.default_rng(17))
+    assert out["k1_moved_cms_launches"] == 2 and out["k1_moved_cms_equals_golden_seq"]

@@ -5,16 +5,12 @@ package's.
   ``test_torch_observability.py``): the decayed CMS, the space-saving
   top-k, the slot accounting and snapshot, the exact key counters, the
   tenant fold, the launch split, the bounded export, the RESP surface
-  (HOTKEYS, INFO loadstats, the CONFIG keys, shed accounting) and the
-  accounting-overhead guard (``slow``, harness and bound unchanged).  Not
-  collected (``SKIPPED``), waiting for the cluster (ROADMAP queue 1
-  item 3):
-
-  - ``test_resp_exact_key_counters_on_engine_path``: its scan side is
-    ``DEBUG COUNTKEYSINSLOT``; the port's case below holds the same
-    counters without it;
-  - ``test_three_node_fleet_loadmap_latency_and_federation``: three
-    cluster node processes and the federation endpoint.
+  (HOTKEYS, INFO loadstats, the CONFIG keys, shed accounting), the
+  exact key counters against ``DEBUG COUNTKEYSINSLOT``'s scan, the
+  accounting-overhead guard (``slow``, harness and bound unchanged) and
+  the three-node fleet load map with federation (``slow``; its
+  supervisor's nodes run with ``--device cpu``, ``cpu_builtins`` of
+  ``test_torch_cluster.py``).
 * Pure modules under an injected clock: seeded key streams through the
   JAX and the port ``LoadMap``, ``DecayedCMS`` and ``SpaceSavingTopK``
   give equal snapshots (the same float arithmetic: ``==``).
@@ -33,17 +29,14 @@ import redisson_tpu_torch as rt  # noqa: E402
 import test_loadmap as _ref  # noqa: E402
 from redisson_tpu_torch.serve.resp import RespServer  # noqa: E402
 from test_resp_server import RespClient  # noqa: E402
+from test_torch_cluster import cpu_builtins, port_namespace  # noqa: E402
 from test_torch_observability import port_module  # noqa: E402
 from test_torch_grid_coordination import _one_torch_thread  # noqa: E402,F401
 
-SKIPPED = {
-    "test_resp_exact_key_counters_on_engine_path":
-        "queue 1 item 3: DEBUG COUNTKEYSINSLOT",
-    "test_three_node_fleet_loadmap_latency_and_federation":
-        "queue 1 item 3: cluster node processes and federation",
-}
-
-port_module(_ref, globals(), skip=SKIPPED)
+port_module(_ref, globals(),
+            skip={"test_three_node_fleet_loadmap_latency_and_federation"})
+test_three_node_fleet_loadmap_latency_and_federation = port_namespace(
+    _ref, cpu_builtins)["test_three_node_fleet_loadmap_latency_and_federation"]
 
 
 # -- pure modules under an injected clock ---------------------------------------

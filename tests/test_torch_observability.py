@@ -19,7 +19,8 @@ and INFO sections over the wire.
 
   ``test_metric_catalog_matches_doc`` is replaced by the port's own case
   of that name: the doc table's rows minus the families of modules not
-  yet ported (items 2, 3 and 5), exactly.
+  yet ported (the rebalancer and doctor of item 3b, the shard family of
+  item 5), exactly.
 * Pure modules under an injected clock: ``SlowLog`` and its argument
   truncation, fed the same seeded inputs in both packages, give equal
   snapshots.
@@ -99,11 +100,8 @@ port_module(_ref, globals(), skip=SKIPPED)
 
 
 # Families of the JAX package's bundle that wait with their modules: the
-# cluster, failover elections, the rebalancer and the doctor (item 3),
-# and the sharded executor (item 5).
+# rebalancer and the doctor (item 3b), and the sharded executor (item 5).
 WAITING_FAMILIES = {
-    "rtpu_cluster_redirects_total", "rtpu_cluster_slot_migrations_total",
-    "rtpu_cluster_scatter_fanout_total", "rtpu_failover_elections_total",
     "rtpu_rebalancer_decisions_total", "rtpu_rebalancer_keys_moved_total",
     "rtpu_rebalancer_migration_seconds", "rtpu_rebalancer_imbalance_ratio",
     "rtpu_doctor_sweeps_total", "rtpu_doctor_findings_total",

@@ -445,11 +445,12 @@ GRID = [
     ([b"EXEC"], ("prefix", b"-EXECABORT")),
 ]
 
-# Families the port does not carry yet: each must answer exactly as the
-# JAX server answers a command it lacks.  (Scripting, once here, answers
-# in tests/test_torch_scripting.py.)
+# Every command family of the JAX server's RESP surface is carried now
+# (scripting answers in tests/test_torch_scripting.py, the cluster verbs
+# in tests/test_torch_cluster.py); a command the port lacks must still
+# answer exactly as the JAX server answers a command it lacks.
 WAITING = [
-    [b"CLUSTER", b"INFO"],
+    [b"RTPU.NOSUCHVERB", b"x"],
 ]
 
 # Telemetry verbs (once in WAITING): one session each on a fresh
@@ -606,6 +607,10 @@ def test_waiting_families_answer_as_unknown_commands(servers):
     """A command the port lacks gets the byte-identical reply the JAX
     server gives a command IT lacks: the same encoder, the same text."""
     js, ts = servers
+    # CLUSTER, once here, answers on a standalone server as the JAX one.
+    info = [[b"CLUSTER", b"INFO"], [b"CLUSTER", b"MYID"], [b"ASKING"]]
+    assert _session(ts, info) == _session(js, info)
+    assert _session(ts, info)[0] == b"$19\r\ncluster_enabled:0\r\n\r\n"
     got = _session(ts, WAITING)
     for cmd, frame in zip(WAITING, got):
         name = cmd[0].decode().upper()

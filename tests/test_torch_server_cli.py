@@ -183,9 +183,11 @@ def test_server_modules_import_neither_jax_nor_the_reference():
     observability tier (spans, slowlog, latency, trace, events, loadmap —
     driven over the wire: SLOWLOG, TRACE, HOTKEYS, EVENTS), scripting
     (an EVAL through redis.call), the per-core front door and metrics
-    federation, the entry point and the scripts load with jax and
-    redisson_tpu blocked and serve on the CPU — a journaled client
-    recovers its tail; no module of
+    federation, the cluster (slot map, slot index, door, routing client,
+    supervisor and failover — a cluster-mode node with its failover agent
+    routed through connect_cluster), the entry point and the scripts load
+    with jax and redisson_tpu blocked and serve on the CPU — a journaled
+    client recovers its tail; no module of
     the port, nor chip_smoke.py, profile_port.py or compare_rates.py, has
     an import of either."""
     code = (
@@ -210,6 +212,8 @@ def test_server_modules_import_neither_jax_nor_the_reference():
         "from redisson_tpu_torch.chaos import crashchild\n"
         "from redisson_tpu_torch.serve import multicore\n"
         "from redisson_tpu_torch.obs import federate\n"
+        "from redisson_tpu_torch.cluster import (slotmap, slotindex, door, client,"
+        " supervisor, failover)\n"
         "import tempfile\n"
         "d = tempfile.mkdtemp()\n"
         "def jc():\n"
@@ -246,6 +250,14 @@ def test_server_modules_import_neither_jax_nor_the_reference():
         "r = exchange(s, [[b'EVAL', b\"redis.call('BF.MADD', KEYS[0], *ARGV)\", b'1', b'f', b'x', b'y']])\n"
         "assert r == [[0, 1]], r\n"
         "s.close(); srv.close(); c.shutdown()\n"
+        "cfg = rt.Config().use_gpu_sketch(device='cpu'); cfg.cluster_enabled = True\n"
+        "cfg.cluster_slots = '0-16383'; c = rt.create(cfg); srv = RespServer(c)\n"
+        "failover.FailoverAgent(srv, node_timeout_s=1.0).start()\n"
+        "cc = rt.connect_cluster([(srv.host, srv.port)])\n"
+        "assert cc.execute_many([('SET', 'k%d' % i, 'v') for i in range(8)]) == [b'OK'] * 8\n"
+        "assert cc.execute('CLUSTER', 'COUNTKEYSINSLOT', '0') == 0\n"
+        "assert b'cluster_my_slots:16384' in cc.execute('CLUSTER', 'INFO')\n"
+        "cc.close(); srv.close(); c.shutdown()\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,

@@ -6,14 +6,10 @@ package's.
   the engine stitching (direct-API traces, fused launches' parent links,
   dedup of coalesced submits), the RESP surface (TRACE, CONFIG,
   the one-shot RTPU.TRACE prelude and its passage over ASKING, SLOWLOG's
-  trace ids, LATENCY, the fsync-stall event under chaos, MONITOR).  Not
-  collected (``SKIPPED``), both waiting for the cluster (ROADMAP queue 1
-  item 3):
-
-  - ``test_execute_many_crossslot_does_not_strand_root_span``: the
-    slot-aware cluster client;
-  - ``test_three_node_scatter_gather_yields_one_trace``: three cluster
-    node processes (also ``slow``).
+  trace ids, LATENCY, the fsync-stall event under chaos, MONITOR), the
+  cluster client's CROSSSLOT guard, and the three-node scatter/gather
+  trace (``slow``; its supervisor's nodes run with ``--device cpu``,
+  ``cpu_builtins`` of ``test_torch_cluster.py``).
 * Pure modules under an injected clock and seeded ids: a ``Tracer`` at
   sample rate 1.0 and a ``LatencyMonitor`` fed the same seeded inputs in
   both packages give equal snapshots.
@@ -33,17 +29,13 @@ torch = pytest.importorskip("torch")
 import redisson_tpu_torch as rt  # noqa: E402
 import test_trace as _ref  # noqa: E402
 from redisson_tpu_torch.obs import trace as port_trace  # noqa: E402
+from test_torch_cluster import cpu_builtins, port_namespace  # noqa: E402
 from test_torch_observability import _Clock, port_module  # noqa: E402
 from test_torch_grid_coordination import _one_torch_thread  # noqa: E402,F401
 
-SKIPPED = {
-    "test_execute_many_crossslot_does_not_strand_root_span":
-        "queue 1 item 3: the slot-aware cluster client",
-    "test_three_node_scatter_gather_yields_one_trace":
-        "queue 1 item 3: cluster node processes",
-}
-
-port_module(_ref, globals(), skip=SKIPPED)
+port_module(_ref, globals(), skip={"test_three_node_scatter_gather_yields_one_trace"})
+test_three_node_scatter_gather_yields_one_trace = port_namespace(
+    _ref, cpu_builtins)["test_three_node_scatter_gather_yields_one_trace"]
 
 
 # -- pure modules under an injected clock -----------------------------------------
