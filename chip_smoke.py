@@ -61,8 +61,8 @@ the main path through the public client at full size:
            and every breaker closed
   phase 10 the host tiers on fresh clients: (10a) 102,400 Bloom tenants
            of 10,000 keys / 1% over a 1024-row device budget (all but
-           1016 born on the host; a 256 MiB host cap spills the cold tail
-           to blobs under build/), a 40,960-op zipf(1.1) stream of
+           1016 born on the host; a 128 MiB host cap spills the cold tail
+           to blobs under build/), a 20,480-op zipf(1.1) stream of
            128-key ops, every per-op result equal to an all-resident
            client's and 256 sampled tenants byte-equal across the tiers;
            four CMS(5, 65536), two HLLs and two 2**24-bit BitSets forced
@@ -267,6 +267,34 @@ the main path through the public client at full size:
            the taken-over slots; kill -> master and kill -> first write
            seconds; 17e for that fleet.  K1 launches in phase 17 (17c)
            must be more than 0
+  phase 18 the autonomous rebalancer and the fleet doctor on the card:
+           three in-process card nodes (LongCodec) splitting the slots in
+           thirds, each with a RebalanceAgent (threshold 1.3, 8 moves per
+           wave, 50 ms pace, 15 s cooldown, 3 warm-up ticks) and a
+           FleetDoctor (0.5 s stuck-slot bound, the WAIT-fenced canary),
+           neither thread-started.  (18a) 12 hot hash tags in distinct
+           slots of node A and 2 cold ones on each other node, each with a
+           config-sized filter (1,000,000 / 1%) and a CMS(5, 65536);
+           per tick window through connect_cluster from 4 threads, 64
+           BF.MADD of 1024 fresh keys per hot filter and 8 per cold one, 8
+           CMS.INCRBY of 256 zipf(1.2) draws over 8 items (as (item,
+           count) pairs) per hot CMS and 1 per cold one; after each window CLUSTER REBALANCE NOW and CLUSTER DOCTOR
+           NOW on every node (every doctor sweep 0 findings), up to 10
+           windows until a wave moves slots.  The imbalance ratio reads
+           above 1.3 before the wave and lower after it, every slot that
+           changed owner moved once and off node A, every acked key
+           answers BF.MEXISTS 1 through the routing client, each moved
+           filter's row on its new owner's card equals the golden bitmap
+           of its acked keys, the hot objects' DUMPs are byte-equal across
+           the wave, the source counts 0 keys in a moved slot and the rows
+           sit on the card.  (18b) add_all_seq of 2**19 zipf events on a
+           CMS the wave moved, at its new owner: 16 K1 launches,
+           estimates and table equal golden_seq from the moved row.
+           (18c) CLUSTER SETSLOT <s> MIGRATING B on node A: the doctor's
+           next sweep past 0.5 s raises stuck-migration (a doctor.finding
+           event, rtpu_doctor_findings{kind="stuck-migration"} 1), SETSLOT
+           STABLE clears it (doctor.clear); the canary's round trip per
+           primary.  K1 launches in phase 18 (18b) must be more than 0
 
 Every failed check raises, so the script exits non-zero.  Without a CUDA
 device it exits with code 2 before printing any result.  The line before
@@ -283,6 +311,7 @@ K1 in turns: parent, K1, K1, parent.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -1816,16 +1845,20 @@ def phase_failover(rng, seed: int, card: str) -> None:
 # Phase 10a: bench.py config 11's shape at a population a multi-tenant
 # deployment holds — 100x the device-row budget in Bloom tenants of
 # 10,000 keys / 1% FPP, a zipf(1.1) tenant stream of 128-key ops with an
-# add every third op, the cold tail past a 256 MiB host cap spilling to
+# add every third op, the cold tail past a 128 MiB host cap spilling to
 # disk, and config 11's 30 s heat half-life.  The hot set is the stream's
 # actual head; the tenant ids are a seeded permutation of the zipf ranks,
 # so the hot set is mostly born cold and has to be promoted by heat.
-# The stream is cut from 65,536 ops to 40,960 for the script's time
-# limit (the tiered stream ran at 171-174 ops/s on the card); at this
-# length the ~17,500 tenants it touches still overflow the host cap, so
-# the cold tail spills.  The population and the budget are not cut.
-P10 = {"pop": 102_400, "budget": 1024, "ops": 40_960, "keys": 128, "hot": 256,
-       "hot_keys": 1 << 14, "hot_passes": 4, "host_bytes": 256 << 20,
+# The stream is cut from 65,536 ops to 20,480 for the script's time
+# limit (the tiered stream ran at 162-229 ops/s on the card, and the
+# rebalancer's phase after the cluster's needs the room).  A touched
+# tenant's host copy is 16 KB: the 40,960-op stream touched ~17,300
+# tenants, past the 16,384 a 256 MiB cap holds, and the cap is halved
+# with the stream (the 20,480-op stream touches ~9,700, past the 8,192
+# of 128 MiB), so the cold tail still spills to disk.  The population
+# and the device budget are not cut.
+P10 = {"pop": 102_400, "budget": 1024, "ops": 20_480, "keys": 128, "hot": 256,
+       "hot_keys": 1 << 14, "hot_passes": 4, "host_bytes": 128 << 20,
        "cms": (4, 5, 1 << 16), "cms_events": 1 << 18, "seq_events": 1 << 15,
        "hlls": 2, "hll_keys": 1 << 20, "bitsets": 2, "bitset_bits": 1 << 24,
        "sample": 256, "nc_keys": 100_000, "nc_reads": 4096}
@@ -2817,7 +2850,12 @@ def c11d_connect(port: int, proc, timeout: float = 180.0):
     t0 = time.perf_counter()
     while True:
         try:
-            return socket.create_connection(("127.0.0.1", port), timeout=120)
+            sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+            if sock.getsockname() != sock.getpeername():
+                return sock
+            # A TCP self-connect to the port the server has yet to bind:
+            # drop it at once, or the server's bind fails.
+            sock.close()
         except OSError:
             if proc.poll() is not None:
                 fail(f"server exited: {proc.communicate()[0][-2000:]}")
@@ -2831,6 +2869,27 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def held_ports(n: int):
+    """``n`` free ports kept bound (SO_REUSEADDR, not listening) until the
+    block ends, so that no outgoing connection takes one as its source
+    port before its server binds it (the servers bind with SO_REUSEADDR,
+    which such a holder admits)."""
+    import socket
+
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            socks.append(s)
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind(("127.0.0.1", 0))
+        yield [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
 
 
 C11D_WRITES = [
@@ -5829,13 +5888,14 @@ def p17_info(addr) -> dict:
         s.close()
 
 
-def p17_check_card(addrs, tag: str) -> None:
+def p17_check_card(addrs, tag: str, device=None) -> None:
     """Every node's INFO names the card (or the CPU when rehearsed)."""
+    device = device or P17_DEVICE
     for i, addr in enumerate(addrs):
         info = p17_info(addr)
-        check(info["rtpu_device"] == P17_DEVICE.split(":")[0],
+        check(info["rtpu_device"] == device.split(":")[0],
               f"{tag}: node {i} reports {info.get('rtpu_device')}")
-        if P17_DEVICE.startswith("cuda"):
+        if device.startswith("cuda"):
             check(info["rtpu_device_name"] == torch.cuda.get_device_name(0),
                   f"{tag}: node {i} names {info.get('rtpu_device_name')}")
 
@@ -6208,22 +6268,23 @@ def p17c_k1_on_moved_cms(rng) -> dict:
     d, w, n = P17["cms_d"], P17["cms_w"], P17["k1_events"]
     name = "{k1mv}cms"
     slot = key_slot(name)
-    ports = [free_port(), free_port()]
-    topo = {"nodes": [
-        {"id": "A", "host": "127.0.0.1", "port": ports[0],
-         "slots": [[slot, slot]]},
-        {"id": "B", "host": "127.0.0.1", "port": ports[1],
-         "slots": [[s0, s1] for s0, s1 in ((0, slot - 1), (slot + 1, NSLOTS - 1)) if s0 <= s1]},
-    ]}
     nodes = []
     try:
-        for nid, port in zip("AB", ports):
-            cfg = rt.Config().set_codec(LongCodec()).use_gpu_sketch(device=P17_DEVICE)
-            cfg.cluster_enabled = True
-            cfg.cluster_topology = topo
-            cfg.cluster_node_id = nid
-            cl = rt.create(cfg)
-            nodes.append((cl, RespServer(cl, port=port)))
+        with held_ports(2) as ports:
+            topo = {"nodes": [
+                {"id": "A", "host": "127.0.0.1", "port": ports[0],
+                 "slots": [[slot, slot]]},
+                {"id": "B", "host": "127.0.0.1", "port": ports[1],
+                 "slots": [[s0, s1] for s0, s1 in ((0, slot - 1), (slot + 1, NSLOTS - 1))
+                           if s0 <= s1]},
+            ]}
+            for nid, port in zip("AB", ports):
+                cfg = rt.Config().set_codec(LongCodec()).use_gpu_sketch(device=P17_DEVICE)
+                cfg.cluster_enabled = True
+                cfg.cluster_topology = topo
+                cfg.cluster_node_id = nid
+                cl = rt.create(cfg)
+                nodes.append((cl, RespServer(cl, port=port)))
         a, b = [("127.0.0.1", p) for p in ports]
         # Integer items (the nodes' LongCodec reads wire items as ints),
         # as (item, count) pairs: CMS.INCRBY adds item by item.
@@ -6448,6 +6509,437 @@ def phase_cluster(rng, seed: int, card: str) -> None:
     log(out)
 
 
+P18 = {"nodes": 3, "hot": 12, "cold": 2, "capacity": 1_000_000, "fpp": 0.01,
+       "cms_d": 5, "cms_w": 1 << 16, "madd": 1024, "hot_madd": 64, "cold_madd": 8,
+       "hot_incr": 8, "cold_incr": 1, "incr_draws": 256, "incr_items": 8,
+       "threads": 4, "window": 16, "max_windows": 10, "threshold": 1.3,
+       "max_moves": 8, "pace_s": 0.05, "cooldown_s": 15.0, "stuck_slot_s": 0.5,
+       "k1_events": 1 << 19}
+P18_DEVICE = "cuda"
+
+
+def p18_fleet():
+    """P18["nodes"] in-process card nodes splitting the slots evenly, each
+    with a RespServer, a rebalance agent and a fleet doctor (neither
+    thread-started: CLUSTER REBALANCE NOW and CLUSTER DOCTOR NOW tick
+    them)."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.cluster.rebalancer import RebalanceAgent
+    from redisson_tpu_torch.cluster.slots import NSLOTS
+    from redisson_tpu_torch.codecs import LongCodec
+    from redisson_tpu_torch.obs.doctor import FleetDoctor
+    from redisson_tpu_torch.serve.resp import RespServer
+
+    n = P18["nodes"]
+    cuts = [i * NSLOTS // n for i in range(n + 1)]
+    ids = [chr(ord("A") + i) for i in range(n)]
+    nodes = []
+    try:
+        with held_ports(n) as ports:
+            topo = {"nodes": [{"id": ids[i], "host": "127.0.0.1", "port": ports[i],
+                               "slots": [[cuts[i], cuts[i + 1] - 1]]} for i in range(n)]}
+            for nid, port in zip(ids, ports):
+                cfg = rt.Config().set_codec(LongCodec()).use_gpu_sketch(device=P18_DEVICE)
+                cfg.cluster_enabled = True
+                cfg.cluster_topology = topo
+                cfg.cluster_node_id = nid
+                cl = rt.create(cfg)
+                srv = RespServer(cl, port=port)
+                nodes.append((cl, srv))
+                RebalanceAgent(srv, interval_s=3600.0, threshold=P18["threshold"],
+                               max_moves=P18["max_moves"], pace_s=P18["pace_s"],
+                               cooldown_s=P18["cooldown_s"])
+                FleetDoctor(srv, interval_s=3600.0, stuck_slot_s=P18["stuck_slot_s"],
+                            canary=True)
+    except BaseException:
+        p18_close(nodes)
+        raise
+    # One process, three nodes: each server's telemetry is its own.
+    for part in ("obs", "loadmap", "rebalancer", "doctor"):
+        check(len({id(getattr(srv, part)) for _cl, srv in nodes}) == n,
+              f"18: the nodes share one {part}")
+    check(len({id(srv.obs.events) for _cl, srv in nodes}) == n,
+          "18: the nodes share one event ring")
+    return nodes, ids, [("127.0.0.1", p) for p in ports], cuts
+
+
+def p18_close(nodes) -> None:
+    for cl, srv in nodes:
+        srv.close()
+        cl.shutdown()
+
+
+def p18_tags(cuts, node: int, n: int, taken: set) -> list:
+    """``n`` hash tags in distinct slots of node ``node``'s range."""
+    from redisson_tpu_torch.cluster.slots import key_slot
+
+    tags, j = [], 0
+    while len(tags) < n:
+        t = b"{r%d-%d}" % (node, j)
+        j += 1
+        s = key_slot(t)
+        if cuts[node] <= s < cuts[node + 1] and s not in taken:
+            taken.add(s)
+            tags.append(t)
+    return tags
+
+
+def p18_load(addrs, batches, tag: str) -> list:
+    """One thread per list of execute_many batches, each with its own
+    routing client, all at once; every reply, per thread."""
+    import redisson_tpu_torch as rt
+
+    replies = [[] for _ in batches]
+    errors = []
+
+    def load(c):
+        cl = rt.connect_cluster(addrs, timeout_s=300.0)
+        try:
+            for batch in batches[c]:
+                replies[c].append(cl.execute_many(batch))
+        except Exception as e:  # surfaced below
+            errors.append(repr(e))
+        finally:
+            cl.close()
+
+    threads = [threading.Thread(target=load, args=(c,)) for c in range(len(batches))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    check(not errors, f"{tag}: a load thread failed: {errors[:1]}")
+    return replies
+
+
+def p18_window(addrs, tags, hot: set, window: int, rng, acked: dict) -> tuple:
+    """One tick window of traffic through connect_cluster from
+    P18["threads"] threads: per hot tag P18["hot_madd"] BF.MADD of
+    P18["madd"] fresh keys, then P18["hot_incr"] CMS.INCRBY; per cold tag
+    P18["cold_madd"] and P18["cold_incr"].  Thread c sends commands c,
+    c + T, ... of every object, P18["window"] per object per batch (a
+    filter's run fuses on its node).  A CMS.INCRBY carries
+    P18["incr_draws"] zipf(1.2) draws over P18["incr_items"] items as
+    (item, count) pairs (it adds item by item, a blocking call each).
+    Acked BF.MADD key ranges go into ``acked``; returns the seconds of
+    the BF.MADD half and of the CMS.INCRBY half."""
+    per, T, W = P18["madd"], P18["threads"], P18["window"]
+    madd = [[] for _ in range(T)]
+    meta = [[] for _ in range(T)]
+    incr = [[] for _ in range(T)]
+    for c in range(T):
+        runs = []
+        for ti, t in enumerate(tags):
+            n_madd = P18["hot_madd"] if t in hot else P18["cold_madd"]
+            los = [(ti << 32) | ((window * P18["hot_madd"] + j) * per)
+                   for j in range(c, n_madd, T)]
+            runs.append([([b"BF.MADD", t + b"bf"] + c11_keys(lo, lo + per), (t, lo))
+                         for lo in los])
+            for _ in range(c, P18["hot_incr"] if t in hot else P18["cold_incr"], T):
+                items, counts = np.unique(
+                    rng.zipf(1.2, P18["incr_draws"]) % P18["incr_items"], return_counts=True)
+                incr[c].append([b"CMS.INCRBY", t + b"cms"]
+                               + [x for v, n in zip(items, counts)
+                                  for x in (b"%d" % v, b"%d" % n)])
+        for i in range(0, max(len(r) for r in runs), W):
+            part = [cm for r in runs for cm in r[i:i + W]]
+            madd[c].append([cm for cm, _m in part])
+            meta[c].append([m for _cm, m in part])
+    incr = [[cmds] if cmds else [] for cmds in incr]
+    t0 = time.perf_counter()
+    replies = p18_load(addrs, madd, f"18a window {window}")
+    madd_s = time.perf_counter() - t0
+    for c in range(T):
+        for got, ms in zip(replies[c], meta[c]):
+            for r, m in zip(got, ms):
+                check(isinstance(r, list) and len(r) == per,
+                      f"18a: BF.MADD replied {r!r}"[:200])
+                acked.setdefault(m[0], []).append(m[1])
+    t0 = time.perf_counter()
+    replies = p18_load(addrs, incr, f"18a window {window}")
+    incr_s = time.perf_counter() - t0
+    check(all(isinstance(r, list) for rc in replies for b in rc for r in b),
+          "18a: a CMS.INCRBY failed")
+    return madd_s, incr_s
+
+
+def p18_now(addrs, what: bytes) -> list:
+    return [p17_req(a, [[b"CLUSTER", what, b"NOW"]])[0] for a in addrs]
+
+
+def p18_owner_map(nodes, ids) -> dict:
+    """Every node's view of every slot's owner must agree; returns it."""
+    views = [srv.cluster.slotmap for _cl, srv in nodes]
+    owners = {}
+    for nid in ids:
+        for a, b in views[0].ranges(nid):
+            for s in range(a, b + 1):
+                owners[s] = nid
+    for v in views[1:]:
+        for nid in ids:
+            check([tuple(r) for r in v.ranges(nid)] == [tuple(r) for r in views[0].ranges(nid)],
+                  "18a: the nodes' slot maps disagree")
+    return owners
+
+
+def p18_rebalancer_metrics(obs) -> dict:
+    dec = {lv[0]: int(c.value) for lv, c in obs.rebalancer_decisions.items()}
+    keys = sum(int(c.value) for _lv, c in obs.rebalancer_keys_moved.items())
+    mig = [(c.sum, c.count) for _lv, c in obs.rebalancer_migration_seconds.items()]
+    s, n = (mig[0] if mig else (0.0, 0))
+    return {"decisions": dec, "keys_moved": keys, "migration_seconds_sum": s,
+            "migration_seconds_count": n,
+            "imbalance_ratio": float(obs.rebalancer_imbalance_source())}
+
+
+def p18a_wave(nodes, ids, addrs, cuts, rng) -> tuple:
+    """18a: heat from the card's launches drives a wave off node A."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.cluster.slots import key_slot
+    from redisson_tpu_torch.ops import golden
+
+    taken: set = set()
+    hot = p18_tags(cuts, 0, P18["hot"], taken)
+    cold = [t for i in range(1, len(ids)) for t in p18_tags(cuts, i, P18["cold"], taken)]
+    tags = hot + cold
+    cc = rt.connect_cluster(addrs, timeout_s=300.0)
+    try:
+        rep = cc.execute_many(
+            [[b"BF.RESERVE", t + b"bf", b"%g" % P18["fpp"], b"%d" % P18["capacity"]]
+             for t in tags]
+            + [[b"CMS.INITBYDIM", t + b"cms", b"%d" % P18["cms_w"], b"%d" % P18["cms_d"]]
+               for t in tags])
+        check(rep == [b"OK"] * (2 * len(tags)), f"18a: creating the objects replied {rep[:4]}")
+    finally:
+        cc.close()
+    owners0 = p18_owner_map(nodes, ids)
+    acked: dict = {}
+    window_s, tick_s, doctor_now, moved = [], [], [], 0
+    dumps_before = None
+    names = [t + x for t in hot for x in (b"bf", b"cms")]
+    agent_a = nodes[0][1].rebalancer
+    for window in range(P18["max_windows"]):
+        window_s.append(p18_window(addrs, tags, set(hot), window, rng, acked))
+        t_tick = time.perf_counter()
+        if agent_a.planner.ticks + 1 >= agent_a.planner.warmup_ticks:
+            # This tick may plan a wave: the hot objects' DUMPs before it.
+            dumps_before = p17_req(addrs[0], [[b"DUMP", nm] for nm in names])
+        t0 = time.perf_counter()
+        moved = sum(p18_now(addrs, b"REBALANCE"))
+        wave_s = time.perf_counter() - t0
+        doctor_now += p18_now(addrs, b"DOCTOR")
+        tick_s.append(time.perf_counter() - t_tick)
+        if moved:
+            break
+    check(moved > 0, f"18a: no wave in {P18['max_windows']} windows")
+    windows = len(window_s)
+    ratio_before = agent_a.planner.last_ratio
+    check(ratio_before > P18["threshold"],
+          f"18a: the ratio before the wave read {ratio_before}")
+    # One more tick on every node without traffic: the planners' ratio
+    # over the new owners (every slot's heat decays alike).
+    moved_after = sum(p18_now(addrs, b"REBALANCE"))
+    doctor_now += p18_now(addrs, b"DOCTOR")
+    ratio_after = agent_a.planner.last_ratio
+    check(ratio_after < ratio_before,
+          f"18a: the ratio did not fall ({ratio_before} -> {ratio_after})")
+    check(all(x == 0 for x in doctor_now),
+          f"18a: the doctor raised findings on a clean fleet: {doctor_now}")
+    owners1 = p18_owner_map(nodes, ids)
+    changed = {s for s in owners0 if owners0[s] != owners1[s]}
+    statuses = [srv.rebalancer.status() for _cl, srv in nodes]
+    slots_moved = sum(st["slots_moved"] for st in statuses)
+    check(slots_moved == len(changed),
+          f"18a: {slots_moved} moves for {len(changed)} slots that changed owner "
+          "(a slot moved twice)")
+    check(all(st["failures"] == 0 for st in statuses), f"18a: failed moves: {statuses}")
+    moved_hot = [t for t in hot if key_slot(t) in changed]
+    check(moved_hot, "18a: no hot slot moved")
+    check(all(owners0[s] == ids[0] for s in changed), "18a: a slot moved off a cold node")
+    # Every acked key through the routing client, from P18["threads"]
+    # threads (P18["window"] commands of one filter per batch).
+    per, T, W = P18["madd"], P18["threads"], P18["window"]
+    batches = [[] for _ in range(T)]
+    for t, los in acked.items():
+        for c in range(T):
+            mine = los[c::T]
+            batches[c] += [[[b"BF.MEXISTS", t + b"bf"] + c11_keys(lo, lo + per)
+                            for lo in mine[i:i + W]] for i in range(0, len(mine), W)]
+    t0 = time.perf_counter()
+    replies = p18_load(addrs, batches, "18a read-back")
+    reads_s = time.perf_counter() - t0
+    n_keys = 0
+    for got in (r for rc in replies for batch in rc for r in batch):
+        check(isinstance(got, list) and all(x == 1 for x in got),
+              "18a: an acked key reads 0 after the wave")
+        n_keys += len(got)
+    check(n_keys == per * sum(len(v) for v in acked.values()), "18a: keys went unread")
+    t_golden = time.perf_counter()
+    # The moved rows: on the target's card, equal to the golden filter of
+    # the acked keys; quiet objects' DUMPs byte-equal; the source empty.
+    ref = rt.create(rt.Config().set_codec(nodes[0][0].config.codec).use_gpu_sketch(device="cpu"))
+    try:
+        rbf = ref.get_bloom_filter("m-k")
+        rbf.try_init(P18["capacity"], P18["fpp"])
+        m, k = rbf.get_size(), rbf.get_hash_iterations()
+        for t in moved_hot:
+            dst = ids.index(owners1[key_slot(t)])
+            cl = nodes[dst][0]
+            items = [x for lo in acked[t] for x in c11_keys(lo, lo + per)]
+            h1, h2 = wire_hashes(ref, items, m)
+            g = golden.GoldenBloomFilter(m, k)
+            g.bits[g._indexes(h1, h2).reshape(-1)] = True
+            row = tenant_row(cl, (t + b"bf").decode())
+            check(np.array_equal(row, golden_words(g, row.shape[0])),
+                  f"18a: the moved filter {t!r}'s row differs from the golden bitmap")
+            e = cl._engine.registry.lookup((t + b"bf").decode())
+            check(e.pool.state.device.type == P18_DEVICE.split(":")[0],
+                  f"18a: the moved filter {t!r} is not on the card")
+    finally:
+        ref.shutdown()
+    golden_s = time.perf_counter() - t_golden
+    after = []
+    for nm in names:
+        dst = ids.index(owners1[key_slot(nm)])
+        after += p17_req(addrs[dst], [[b"DUMP", nm]])
+    check(dumps_before is not None and after == dumps_before,
+          "18a: a hot object's DUMP changed across the wave")
+    for t in moved_hot:
+        s = b"%d" % key_slot(t)
+        got = p17_req(addrs[0], [[b"CLUSTER", b"COUNTKEYSINSLOT", s],
+                                 [b"DEBUG", b"COUNTKEYSINSLOT", s], [b"EXISTS", t + b"bf"]])
+        check(got[:2] == [0, 0] and getattr(got[2], "code", "") == "MOVED",
+              f"18a: the source still holds {t!r}: {got}")
+        dst = addrs[ids.index(owners1[key_slot(t)])]
+        enc = p17_req(dst, [[b"OBJECT", b"ENCODING", t + x] for x in (b"bf", b"cms")])
+        check(enc == [b"device"] * 2, f"18a: {t!r}'s rows are not on the card: {enc}")
+    metrics = p18_rebalancer_metrics(nodes[0][1].obs)
+    # How much of the hot slots' heat came from the dispatch records'
+    # device time (the planner weighs 100 us as one op).
+    lm = nodes[0][1].loadmap
+    ops = sum(lm.ops[key_slot(t)] for t in hot)
+    dev = sum(lm.device_us[key_slot(t)] for t in hot) / 100.0
+    out = {"ratio_before": ratio_before, "ratio_after": ratio_after,
+           "windows_to_first_wave": windows,
+           "window_madd_incr_s": window_s, "tick_s": tick_s, "wave_s": wave_s,
+           "read_s": reads_s, "golden_s": golden_s,
+           "moves_after_wave": moved_after, "slots_moved": len(changed),
+           "hot_slots_moved": len(moved_hot),
+           "other_slots_moved": sorted(changed - {key_slot(t) for t in hot}),
+           "keys_moved": sum(st["keys_moved"] for st in statuses),
+           "seconds_per_slot": (metrics["migration_seconds_sum"]
+                                / max(1, metrics["migration_seconds_count"])),
+           "acked_keys_read": n_keys, "read_keys_per_s": n_keys / reads_s,
+           "moved_rows_equal_golden": True, "quiet_dumps_equal": True,
+           "rebalancer_metrics_A": metrics,
+           "hot_ops_A": ops, "hot_device_us_A": 100.0 * dev,
+           "hot_heat_device_share": dev / (ops + dev),
+           "doctor_now_replies": len(doctor_now)}
+    return out, owners1, moved_hot, hot
+
+
+def p18b_k1_on_moved_cms(nodes, ids, owners, moved_hot, rng) -> dict:
+    """18b: K1 on a CMS the wave moved, at its new owner's client:
+    add_all_seq of P18["k1_events"] zipf events, estimates and table
+    equal golden_seq seeded from the moved row."""
+    from redisson_tpu_torch.cluster.slots import key_slot
+    from redisson_tpu_torch.ops import cms_seq
+    from redisson_tpu_torch.utils import hashing
+
+    d, w, n = P18["cms_d"], P18["cms_w"], P18["k1_events"]
+    t = moved_hot[0]
+    name = (t + b"cms").decode()
+    client = nodes[ids.index(owners[key_slot(t)])][0]
+    table = tenant_row(client, name)[: d * w].reshape(d, w).copy()
+    check(table.sum() > 0, "18b: the moved CMS is empty")
+    events = zipf_keys(rng, n)
+    h1w, h2w = hashing.km_reduce_mod(*hashing.hash128_np(*hashing.encode_uint64_batch(events)), w)
+    want_table, want_est = cms_seq.golden_seq(table, h1w, h2w, np.ones(n, np.uint32), d=d, w=w)
+    before = cms_seq.LAUNCHES
+    t0 = time.perf_counter()
+    est = client.get_count_min_sketch(name).add_all_seq(events)
+    dt = time.perf_counter() - t0
+    launches = cms_seq.LAUNCHES - before
+    chunk = client._engine._SEQ_CHUNK
+    check(launches == -(-n // chunk), f"18b: {launches} K1 launches on the moved CMS")
+    check(np.array_equal(np.asarray(est, np.uint32), np.asarray(want_est, np.uint32)),
+          "18b: estimates differ from golden_seq")
+    got = tenant_row(client, name)[: d * w]
+    check(np.array_equal(got, want_table.reshape(-1)), "18b: table differs from golden_seq")
+    return {"k1_moved_cms": name, "k1_moved_cms_owner": owners[key_slot(t)],
+            "k1_moved_cms_launches": launches, "k1_moved_cms_events_per_s": n / dt,
+            "k1_moved_cms_equals_golden_seq": True}
+
+
+def p18c_doctor(nodes, ids, addrs, owners, hot) -> dict:
+    """18c: a stuck migration is raised and cleared; the canary's round
+    trip per primary."""
+    from redisson_tpu_torch.cluster.slots import key_slot
+    from redisson_tpu_torch.obs.doctor import canary_key
+
+    a, doc = addrs[0], nodes[0][1].doctor
+    canary_slots = {key_slot(canary_key(nid, doc.slotmap).encode()) for nid in ids}
+    stay = [t for t in hot if owners[key_slot(t)] == ids[0]
+            and key_slot(t) not in canary_slots]
+    check(stay, "18c: no slot left on node A")
+    s = b"%d" % key_slot(stay[0])
+    ev0 = nodes[0][1].obs.events.stats()["seq"]
+    check(p17_req(a, [[b"CLUSTER", b"SETSLOT", s, b"MIGRATING", ids[1].encode()]]) == [b"OK"],
+          "18c: SETSLOT MIGRATING refused")
+    first = p17_req(a, [[b"CLUSTER", b"DOCTOR", b"NOW"]])[0]
+    time.sleep(P18["stuck_slot_s"] + 0.1)
+    raised = p17_req(a, [[b"CLUSTER", b"DOCTOR", b"NOW"]])[0]
+    st = doc.status()
+    kinds = [f["kind"] for f in st["active_findings"]]
+    check(first == 0 and raised == 1 and kinds == ["stuck-migration"],
+          f"18c: stuck migration: NOW replied {first}, then {raised}: {kinds}")
+    fam = nodes[0][1].obs.doctor_findings.get(("stuck-migration",))
+    check(fam == 1, f"18c: rtpu_doctor_findings{{kind=stuck-migration}} = {fam}")
+    check(p17_req(a, [[b"CLUSTER", b"SETSLOT", s, b"STABLE"]]) == [b"OK"],
+          "18c: SETSLOT STABLE refused")
+    cleared = p17_req(a, [[b"CLUSTER", b"DOCTOR", b"NOW"]])[0]
+    check(cleared == 0 and not doc.active, f"18c: the finding did not clear ({cleared})")
+    evs = [e for e in nodes[0][1].obs.events.snapshot(count=64) if e["seq"] > ev0]
+    got = [(e["kind"], e["fields"].get("kind")) for e in evs if e["kind"].startswith("doctor.")]
+    check(("doctor.finding", "stuck-migration") in got and ("doctor.clear", "stuck-migration") in got,
+          f"18c: the doctor's events were {got}")
+    rtt = {}
+    for nid in ids:
+        t0 = time.perf_counter()
+        err = doc._canary_probe(nid)
+        rtt[nid] = (time.perf_counter() - t0) * 1e3
+        check(err is None, f"18c: the canary failed on {nid}: {err}")
+    return {"stuck_slot": int(s), "stuck_raised": True, "stuck_cleared": True,
+            "canary_rtt_ms": rtt, "doctor_sweeps_A": st["sweeps"]}
+
+
+def phase_rebalance(rng, card: str) -> None:
+    """Phase 18: the autonomous rebalancer and the fleet doctor on the card."""
+    t0 = time.perf_counter()
+    out = {"phase": 18, "card": card}
+    secs = out["seconds"] = {}
+    t = time.perf_counter()
+    nodes, ids, addrs, cuts = p18_fleet()
+    try:
+        p17_check_card(addrs, "18", P18_DEVICE)
+        secs["start"] = time.perf_counter() - t
+        t = time.perf_counter()
+        a, owners, moved_hot, hot = p18a_wave(nodes, ids, addrs, cuts, rng)
+        out.update(a)
+        secs["18a"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out.update(p18b_k1_on_moved_cms(nodes, ids, owners, moved_hot, rng))
+        secs["18b"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out.update(p18c_doctor(nodes, ids, addrs, owners, hot))
+        secs["18c"] = time.perf_counter() - t
+        for cl, _srv in nodes:
+            check_healthy(cl, 18)
+    finally:
+        p18_close(nodes)
+    out["phase_seconds"] = time.perf_counter() - t0
+    log(out)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6566,6 +7058,12 @@ def main(argv=None) -> int:
     check(cms_seq.LAUNCHES > 0, "phase 17 never launched K1")
     kernel["launches"] += cms_seq.LAUNCHES
     by_phase["17"] = cms_seq.LAUNCHES
+    cms_seq.LAUNCHES = 0  # phase 18's path: K1 on a CMS row the rebalancer moved
+    phase_rebalance(rng, card)
+    marks.append(("18", time.perf_counter()))
+    check(cms_seq.LAUNCHES > 0, "phase 18 never launched K1")
+    kernel["launches"] += cms_seq.LAUNCHES
+    by_phase["18"] = cms_seq.LAUNCHES
     log({"phase": "all", "seconds": time.perf_counter() - t_run,
          "by_phase_s": {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}})
     log({"kernels": [kernel]})

@@ -30,8 +30,11 @@ failure-detection window (every cluster node runs the agent: primaries
 vote, a replica of a dead primary runs the election).  With
 ``--frontdoor-processes K`` the cluster flags reach every worker, and
 -MOVED comes only from the owning worker's door after the in-node
-handoff.  The port of ``redisson_tpu/__main__.py``; ``--rebalance`` and
-``--doctor`` wait for the rebalancer and the fleet doctor.
+handoff.  ``--rebalance`` arms the autonomous rebalancer (cluster/
+rebalancer.py: heat from every primary's CLUSTER LOADMAP, waves of slot
+moves on the coordinator) and ``--doctor`` the fleet doctor (obs/
+doctor.py: the continuous invariant sweep and the WAIT-fenced canary);
+both require ``--cluster``.  The port of ``redisson_tpu/__main__.py``.
 """
 
 from __future__ import annotations
@@ -85,6 +88,10 @@ def _serve_multicore(args, nworkers: int) -> int:
         ]
     if args.cluster:
         extra += ["--cluster"]
+    if args.rebalance:
+        extra += ["--rebalance"]
+    if args.doctor:
+        extra += ["--doctor"]
     for val, flag in (
         (args.cluster_slots, "--cluster-slots"),
         (args.cluster_topology, "--cluster-topology"),
@@ -278,6 +285,21 @@ def main(argv=None) -> int:
         "a failover election (default 1500)",
     )
     p.add_argument(
+        "--rebalance", action="store_true",
+        help="arm the autonomous rebalancer (docs/clustering.md "
+        "'Autonomous rebalancing'): the node scrapes the fleet's CLUSTER "
+        "LOADMAPs into a smoothed per-slot heat model and, when "
+        "coordinator, migrates slots to level the load; requires --cluster",
+    )
+    p.add_argument(
+        "--doctor", action="store_true",
+        help="arm the fleet doctor (docs/observability.md 'Fleet "
+        "doctor'): a continuous invariant sweep — slot ownership, "
+        "replication monotonicity, stuck migrations — plus a black-box "
+        "WAIT-fenced canary; the coordinator (lowest-id alive primary) "
+        "audits, findings surface via CLUSTER DOCTOR; requires --cluster",
+    )
+    p.add_argument(
         "--frontdoor-processes", type=int, default=None,
         help="per-core front door: serve with this many processes sharing "
         "the port via SO_REUSEPORT, each owning 1/K of the slot range "
@@ -354,6 +376,16 @@ def main(argv=None) -> int:
         cfg.resp_reactor_threads = args.resp_reactor_threads
     if args.cluster:
         cfg.cluster_enabled = True
+    if args.rebalance:
+        if not cfg.cluster_enabled:
+            p.error("--rebalance requires --cluster (or a config file "
+                    "with cluster_enabled: true)")
+        cfg.rebalance_enabled = True
+    if args.doctor:
+        if not cfg.cluster_enabled:
+            p.error("--doctor requires --cluster (or a config file "
+                    "with cluster_enabled: true)")
+        cfg.doctor_enabled = True
     for flag, key in (
         (args.cluster_slots, "cluster_slots"),
         (args.cluster_topology, "cluster_topology"),
@@ -458,6 +490,31 @@ def main(argv=None) -> int:
             node_timeout_s=float(cfg.cluster_node_timeout_ms or 1500) / 1000.0,
             ping_interval_s=float(cfg.cluster_ping_interval_ms or 300) / 1000.0,
         ).start()
+        if cfg.rebalance_enabled:
+            # Autonomous rebalancer: observe everywhere, execute on the
+            # coordinator.  server.close() stops it.
+            from redisson_tpu_torch.cluster.rebalancer import RebalanceAgent
+
+            RebalanceAgent(
+                server,
+                interval_s=float(cfg.rebalance_interval_ms or 1000) / 1000.0,
+                threshold=float(cfg.rebalance_threshold or 1.3),
+                max_moves=int(cfg.rebalance_max_moves or 8),
+                pace_s=float(cfg.rebalance_pace_ms or 0) / 1000.0,
+                cooldown_s=float(cfg.rebalance_cooldown_ms or 0) / 1000.0,
+            ).start()
+        if cfg.doctor_enabled:
+            # Fleet doctor: probe everywhere, audit on the coordinator.
+            # server.close() stops it.
+            from redisson_tpu_torch.obs.doctor import FleetDoctor
+
+            FleetDoctor(
+                server,
+                interval_s=float(cfg.doctor_interval_ms or 1000) / 1000.0,
+                stuck_slot_s=float(cfg.doctor_stuck_slot_ms or 30000) / 1000.0,
+                lag_bound_ops=int(cfg.doctor_lag_bound_ops or 10000),
+                canary=bool(cfg.doctor_canary),
+            ).start()
     metrics_srv = None
     if args.metrics_port is not None:
         metrics_srv = client.start_metrics_endpoint(

@@ -12,12 +12,11 @@ card (each its own CUDA context) or on many.
   scatter/gather and the ``fleet_*`` views (``connect_cluster``);
 - ``supervisor`` — spawn/migrate/kill/tear down N node processes
   (``migrate_slot``, ``migrate_slots_bulk``);
-- ``failover`` — failure detection, epoch elections and takeover.
-
-Not ported yet: the autonomous rebalancer (``rebalancer``) and the fleet
-doctor (``obs/doctor``), with ``--rebalance``/``--doctor`` and CLUSTER
-DOCTOR.  Until they come, every node answers CLUSTER REBALANCE as an
-unarmed JAX node does.
+- ``failover`` — failure detection, epoch elections and takeover;
+- ``rebalancer`` — the autonomous rebalancer: per-slot heat from every
+  primary's CLUSTER LOADMAP, waves of ``migrate_slot`` moves on the
+  coordinator (``--rebalance``, CLUSTER REBALANCE).  Its sibling, the
+  fleet doctor, is ``obs/doctor`` (``--doctor``, CLUSTER DOCTOR).
 
 Heavy halves import lazily: a client process that only routes must not
 pay for the serving tier.

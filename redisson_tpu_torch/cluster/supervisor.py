@@ -25,6 +25,7 @@ package wraps them in its lock-order witness).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
@@ -37,6 +38,18 @@ import time
 
 from redisson_tpu_torch.cluster.slots import NSLOTS
 from redisson_tpu_torch.serve.wireutil import ReplyError, exchange
+
+
+def _log_tail(path: str, nbytes: int = 2000) -> str:
+    """The last ``nbytes`` of a child's log, for a startup error that
+    names its own cause."""
+    try:
+        with open(path, "rb") as f:
+            f.seek(0, os.SEEK_END)
+            f.seek(max(0, f.tell() - nbytes))
+            return f.read().decode("utf-8", "replace")
+    except OSError as e:
+        return f"(unreadable: {e})"
 
 
 def _request(addr, cmds, timeout_s=10.0):
@@ -286,17 +299,25 @@ class ClusterSupervisor:
     # -- lifecycle ---------------------------------------------------------
 
     @staticmethod
-    def _free_ports(host: str, n: int) -> list:
-        """Reserve n ephemeral ports (bind/close — the usual best-effort
-        race window, narrowed by binding all before closing any)."""
+    @contextlib.contextmanager
+    def _held_ports(host: str, n: int):
+        """Yield n ephemeral ports, each kept bound (SO_REUSEADDR, never
+        listening) until the block ends.  A port bound this way is never
+        taken as the source port of an outgoing connect(); a port that
+        was bound and closed is.  Without the hold, the fleet's own
+        traffic (bus pings to a replica that does not listen yet, the
+        readiness polls) can land on a child's port, even as a TCP
+        self-connect, and the child's bind fails with EADDRINUSE.  The
+        children bind with SO_REUSEADDR, which a bound, non-listening
+        holder admits."""
         socks = []
         try:
             for _ in range(n):
                 s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+                socks.append(s)
                 s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
                 s.bind((host, 0))
-                socks.append(s)
-            return [s.getsockname()[1] for s in socks]
+            yield [s.getsockname()[1] for s in socks]
         finally:
             for s in socks:
                 s.close()
@@ -327,7 +348,11 @@ class ClusterSupervisor:
             return self
         nreplicas = self.n_nodes * self.replicas_per_shard
         nports = (self.n_nodes + nreplicas) * (2 if self.metrics else 1)
-        ports = self._free_ports(self.host, nports)
+        with self._held_ports(self.host, nports) as ports:
+            return self._start_on(ports)
+
+    def _start_on(self, ports: list) -> "ClusterSupervisor":
+        nreplicas = self.n_nodes * self.replicas_per_shard
         self.addrs = [(self.host, p) for p in ports[: self.n_nodes]]
         base = self.n_nodes
         if self.metrics:
@@ -461,10 +486,11 @@ class ClusterSupervisor:
                     why = (f" (no CUDA device for --device {self.device})"
                            if rc == 2 and self.device.startswith("cuda")
                            else "")
+                    log = os.path.join(self._tmpdir, f"{kind}{i}.log")
                     raise RuntimeError(
                         f"cluster {kind} {i} {self._node_name(kind, i)} "
-                        f"({addr}) exited rc={rc} during startup{why}; see "
-                        f"{self._tmpdir}/{kind}{i}.log"
+                        f"({addr}) exited rc={rc} during startup{why}; "
+                        f"{log} ends:\n{_log_tail(log)}"
                     )
                 try:
                     replies = _request(
@@ -609,44 +635,44 @@ class ClusterSupervisor:
             if not self._started:
                 raise RuntimeError("add_node needs a started cluster")
         nports = 2 if self.metrics else 1
-        ports = self._free_ports(self.host, nports)
-        addr = (self.host, ports[0])
-        nid = "node-%d-%d" % (len(self.node_ids), ports[0])
-        topo_path = os.path.join(self._tmpdir, f"topology-{nid}.json")
-        with open(topo_path, "w") as f:
-            json.dump(self._live_topology(extra=(nid, addr)), f)
-        env = dict(os.environ)
-        env.update(self.env_extra)
-        log = open(os.path.join(self._tmpdir, f"{nid}0.log"), "wb")
-        argv = [sys.executable, "-m", "redisson_tpu_torch",
-                "--host", addr[0], "--port", str(addr[1]),
-                "--device", self.device,
-                "--cluster",
-                "--cluster-topology", topo_path,
-                "--cluster-myid", nid]
-        if self.replicas_per_shard:
-            argv += self._durability_args(nid)
-        if self.metrics:
-            argv += ["--metrics-port", str(ports[1])]
-        if self.frontdoor_processes > 1:
-            argv += ["--frontdoor-processes",
-                     str(self.frontdoor_processes)]
-        proc = subprocess.Popen(
-            argv + self.node_args + list(node_args),
-            stdout=log, stderr=subprocess.STDOUT, env=env,
-        )
-        log.close()
-        # Roster BEFORE readiness: even a boot that dies half-way is
-        # the supervisor's to reap (shutdown() must leave no orphans).
-        with self._lock:
-            self._procs.append(proc)
-            self._primary_proc_idx.append(len(self._procs) - 1)
-        index = len(self.addrs)
-        self.addrs.append(addr)
-        self.node_ids.append(nid)
-        if self.metrics:
-            self.metrics_addrs.append((self.host, ports[1]))
-        self._await_ready([proc], [addr], nid)
+        with self._held_ports(self.host, nports) as ports:
+            addr = (self.host, ports[0])
+            nid = "node-%d-%d" % (len(self.node_ids), ports[0])
+            topo_path = os.path.join(self._tmpdir, f"topology-{nid}.json")
+            with open(topo_path, "w") as f:
+                json.dump(self._live_topology(extra=(nid, addr)), f)
+            env = dict(os.environ)
+            env.update(self.env_extra)
+            log = open(os.path.join(self._tmpdir, f"{nid}0.log"), "wb")
+            argv = [sys.executable, "-m", "redisson_tpu_torch",
+                    "--host", addr[0], "--port", str(addr[1]),
+                    "--device", self.device,
+                    "--cluster",
+                    "--cluster-topology", topo_path,
+                    "--cluster-myid", nid]
+            if self.replicas_per_shard:
+                argv += self._durability_args(nid)
+            if self.metrics:
+                argv += ["--metrics-port", str(ports[1])]
+            if self.frontdoor_processes > 1:
+                argv += ["--frontdoor-processes",
+                         str(self.frontdoor_processes)]
+            proc = subprocess.Popen(
+                argv + self.node_args + list(node_args),
+                stdout=log, stderr=subprocess.STDOUT, env=env,
+            )
+            log.close()
+            # Roster BEFORE readiness: even a boot that dies half-way is
+            # the supervisor's to reap (shutdown() must leave no orphans).
+            with self._lock:
+                self._procs.append(proc)
+                self._primary_proc_idx.append(len(self._procs) - 1)
+            index = len(self.addrs)
+            self.addrs.append(addr)
+            self.node_ids.append(nid)
+            if self.metrics:
+                self.metrics_addrs.append((self.host, ports[1]))
+            self._await_ready([proc], [addr], nid)
         # Existing members learn the new id/address — without this
         # their slot maps cannot SETSLOT toward the newcomer.
         meet = [[b"CLUSTER", b"MEET", nid.encode(),

@@ -256,6 +256,39 @@ class Config:
         self.cluster_announce: Optional[str] = None
         self.cluster_node_timeout_ms = 1500
         self.cluster_ping_interval_ms = 300
+        # Autonomous rebalancer.  ``rebalance_enabled`` arms the
+        # per-node control loop (cluster/rebalancer.py): every armed
+        # node scrapes the fleet's CLUSTER LOADMAPs into a smoothed
+        # per-slot heat EWMA; the coordinator (lowest-id alive primary)
+        # additionally executes migration waves.  The damping knobs —
+        # all live-settable via CONFIG SET rebalance-* — implement the
+        # Memcache-at-Facebook churn lesson: ``rebalance_threshold`` is
+        # the imbalance ratio (max node load / mean) that triggers a
+        # wave, ``rebalance_max_moves`` caps migrations per wave,
+        # ``rebalance_pace_ms`` breathes between consecutive pumps (the
+        # p99 bound during a wave), and ``rebalance_cooldown_ms`` keeps
+        # a just-moved slot untouchable so the loop can never ping-pong
+        # one slot between two nodes.
+        self.rebalance_enabled = False
+        self.rebalance_interval_ms = 1000
+        self.rebalance_threshold = 1.3
+        self.rebalance_max_moves = 8
+        self.rebalance_pace_ms = 50
+        self.rebalance_cooldown_ms = 15000
+        # Fleet doctor.  ``doctor_enabled`` arms the continuous
+        # invariant sweep (obs/doctor.py): every armed node probes the
+        # fleet, the coordinator (lowest-id alive primary) audits — slot
+        # ownership, offset/epoch monotonicity, replica lag, stuck
+        # migrations — and runs the black-box WAIT-fenced canary.
+        # ``doctor_stuck_slot_ms`` is how long a slot may sit
+        # MIGRATING/IMPORTING before that reads as an abandoned
+        # reshard; ``doctor_lag_bound_ops`` the replica-lag finding
+        # threshold.
+        self.doctor_enabled = False
+        self.doctor_interval_ms = 1000
+        self.doctor_stuck_slot_ms = 30000
+        self.doctor_lag_bound_ops = 10000
+        self.doctor_canary = True
 
     def set_codec(self, codec) -> "Config":
         self.codec = codec
@@ -323,6 +356,17 @@ class Config:
         "cluster_announce",
         "cluster_node_timeout_ms",
         "cluster_ping_interval_ms",
+        "rebalance_enabled",
+        "rebalance_interval_ms",
+        "rebalance_threshold",
+        "rebalance_max_moves",
+        "rebalance_pace_ms",
+        "rebalance_cooldown_ms",
+        "doctor_enabled",
+        "doctor_interval_ms",
+        "doctor_stuck_slot_ms",
+        "doctor_lag_bound_ops",
+        "doctor_canary",
     )
 
     def to_dict(self) -> dict:

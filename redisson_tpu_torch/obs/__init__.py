@@ -326,6 +326,39 @@ class Observability:
             "rtpu_failover_takeovers",
             "slot takeovers this node performed after winning an "
             "election (or via manual FAILOVER promotion)")
+        # Autonomous rebalancer (cluster/rebalancer.py).  `decisions`
+        # kinds: planned (moves a wave scheduled), moved, failed, and
+        # the last-moment vetoes skip_busy / skip_stale / skip_failover.
+        self.rebalancer_decisions = r.counter(
+            "rtpu_rebalancer_decisions",
+            "rebalancer planning/execution decisions by kind",
+            ("kind",))
+        self.rebalancer_keys_moved = r.counter(
+            "rtpu_rebalancer_keys_moved",
+            "keys migrated by rebalancer-driven slot moves")
+        self.rebalancer_migration_seconds = r.histogram(
+            "rtpu_rebalancer_migration_seconds",
+            "wall seconds per rebalancer-driven slot migration")
+        self.rebalancer_imbalance_source = None  # wired by the agent
+        r.gauge_callback(
+            "rtpu_rebalancer_imbalance_ratio",
+            "fleet imbalance (max node load / mean) from the planner's "
+            "smoothed heat model; 1.0 = perfectly level",
+            lambda: float(self.rebalancer_imbalance_source())
+            if self.rebalancer_imbalance_source is not None else 1.0)
+        # The continuous protocol auditor (obs/doctor.py).
+        self.doctor_sweeps = r.counter(
+            "rtpu_doctor_sweeps",
+            "invariant-doctor sweeps completed on this node (only the "
+            "elected coordinator sweeps)")
+        self.doctor_findings = r.counter(
+            "rtpu_doctor_findings",
+            "invariant findings raised by the doctor, by kind",
+            ("kind",))
+        self.doctor_canary_rtt_us = r.histogram(
+            "rtpu_doctor_canary_rtt_us",
+            "black-box canary round trip (WAIT-fenced write-then-read "
+            "through the real client path)")
         self.repl_offset_source = None  # wired by the RESP door
         self.repl_lag_source = None
         r.gauge_callback(

@@ -887,6 +887,11 @@ class RespServer:
         self.replica_link = None
         # The cluster-bus failover agent (cluster/failover.py) when armed.
         self.failover = None
+        # Autonomous rebalancer agent (cluster/rebalancer.py) when
+        # armed via --rebalance / config rebalance_enabled; fleet
+        # doctor (obs/doctor.py) when armed via --doctor.
+        self.rebalancer = None
+        self.doctor = None
         # Flight recorder: stamp the ring with this node's cluster
         # identity so fleet_events() merges by node id.
         if self.cluster is not None:
@@ -1102,7 +1107,13 @@ class RespServer:
                     break
                 self._conn_idle.wait(timeout=remaining)
         # The failover agent before the replication plane: it dials
-        # peers and promotes through the link.
+        # peers and promotes through the link.  The doctor and the
+        # rebalancer before it — mid-wave the rebalancer drives
+        # migrations THROUGH the failover-tracked peers.
+        if self.doctor is not None:
+            self.doctor.stop()
+        if self.rebalancer is not None:
+            self.rebalancer.stop()
         if self.failover is not None:
             self.failover.stop()
         link, self.replica_link = self.replica_link, None
@@ -2499,6 +2510,20 @@ class RespServer:
             "loadmap-key-sample-rate": f"{self.loadmap.sample_rate:g}",
             "loadmap-enabled": "yes" if self.loadmap.enabled else "no",
         })
+        rb = self.rebalancer
+        if rb is not None:
+            # Autonomous rebalancer: damping knobs live-apply to the
+            # agent/planner; rows register only when the agent is armed
+            # (acking them unarmed would fake the capability).
+            table.update({
+                "rebalance-threshold": f"{rb.planner.threshold:g}",
+                "rebalance-interval-ms": str(int(rb.interval_s * 1000)),
+                "rebalance-max-moves": str(rb.planner.max_moves),
+                "rebalance-pace-ms": str(int(rb.pace_s * 1000)),
+                "rebalance-cooldown-ms": str(
+                    int(rb.planner.cooldown_s * 1000)
+                ),
+            })
         rm = self._residency()
         if rm is not None:
             # Tiered residency: budgets and the promotion
@@ -2665,6 +2690,56 @@ class RespServer:
         elif key == "loadmap-enabled":
             lm.enabled = val.lower() in ("yes", "1", "true", "on")
 
+    _REBALANCE_KEYS = frozenset((
+        "rebalance-threshold", "rebalance-interval-ms",
+        "rebalance-max-moves", "rebalance-pace-ms",
+        "rebalance-cooldown-ms",
+    ))
+
+    def _validate_rebalance_config(self, key: str, raw: bytes) -> None:
+        if key == "rebalance-threshold":
+            try:
+                fv = float(raw)
+            except ValueError:
+                raise RespError(
+                    f"Invalid argument '{raw.decode()}' for CONFIG SET "
+                    f"'{key}'"
+                )
+            if fv < 1.0:
+                raise RespError(
+                    f"argument must be >= 1.0 for CONFIG SET '{key}'"
+                )
+            return
+        try:
+            iv = int(raw)
+        except ValueError:
+            raise RespError(
+                f"Invalid argument '{raw.decode()}' for CONFIG SET "
+                f"'{key}'"
+            )
+        floor = 1 if key in (
+            "rebalance-interval-ms", "rebalance-max-moves"
+        ) else 0
+        if iv < floor:
+            raise RespError(
+                f"argument must be >= {floor} for CONFIG SET '{key}'"
+            )
+
+    def _apply_rebalance_config(self, key: str, val: str) -> None:
+        rb = self.rebalancer
+        if rb is None:
+            return
+        if key == "rebalance-threshold":
+            rb.planner.threshold = float(val)
+        elif key == "rebalance-interval-ms":
+            rb.interval_s = int(val) / 1000.0
+        elif key == "rebalance-max-moves":
+            rb.planner.max_moves = int(val)
+        elif key == "rebalance-pace-ms":
+            rb.pace_s = int(val) / 1000.0
+        elif key == "rebalance-cooldown-ms":
+            rb.planner.cooldown_s = int(val) / 1000.0
+
     def _validate_overload_config(self, key: str, raw: bytes) -> None:
         def bad(msg: str):
             raise RespError(
@@ -2763,6 +2838,8 @@ class RespServer:
                     self._validate_telemetry_config(key, pairs[i + 1])
                 elif key in self._LOADMAP_KEYS:
                     self._validate_loadmap_config(key, pairs[i + 1])
+                elif key in self._REBALANCE_KEYS:
+                    self._validate_rebalance_config(key, pairs[i + 1])
                 elif key == "appendonly":
                     v = pairs[i + 1].decode().lower()
                     if v not in ("yes", "no"):
@@ -2868,6 +2945,8 @@ class RespServer:
                     self._apply_telemetry_config(key, val)
                 elif key in self._LOADMAP_KEYS:
                     self._apply_loadmap_config(key, val)
+                elif key in self._REBALANCE_KEYS:
+                    self._apply_rebalance_config(key, val)
                 elif key.startswith("nearcache"):
                     self._apply_nearcache_config(key, val)
             return _encode_simple("OK")
@@ -4267,12 +4346,12 @@ class RespServer:
 
     # Default INFO excludes commandstats/latencystats, like redis-server
     # (they can be wide); 'INFO all'/'everything' or the explicit section
-    # name includes them.  The JAX package's cluster, rebalance and
-    # doctor sections wait with their modules.
+    # name includes them.
     _INFO_DEFAULT = (
         "server", "clients", "memory", "stats", "persistence",
         "replication", "nearcache", "frontdoor", "overload", "cluster",
-        "telemetry", "events", "loadstats", "keyspace",
+        "rebalance", "telemetry", "events", "doctor", "loadstats",
+        "keyspace",
     )
 
     def _device_lines(self) -> list:
@@ -4640,6 +4719,55 @@ class RespServer:
                     f"latency_samples:{ls['samples']}",
                     f"monitors:{len(self._monitors)}",
                 ]
+            elif s == "rebalance":
+                # Autonomous rebalancer: knobs as literals so the
+                # served-config coherence pass (RT004) ties the CONFIG
+                # SET rows to an operator-visible INFO surface, plus the
+                # agent's live wave counters.
+                rb = self.rebalancer
+                lines.append("# Rebalance")
+                if rb is None:
+                    lines.append("rebalance_enabled:0")
+                else:
+                    st = rb.status()
+                    lines += [
+                        "rebalance_enabled:1",
+                        f"rebalance_paused:{1 if st['paused'] else 0}",
+                        "rebalance_is_coordinator:"
+                        f"{1 if st['is_coordinator'] else 0}",
+                        f"rebalance_threshold:{st['threshold']:g}",
+                        f"rebalance_interval_ms:{st['interval_ms']}",
+                        f"rebalance_max_moves:{st['max_moves']}",
+                        f"rebalance_pace_ms:{st['pace_ms']}",
+                        f"rebalance_cooldown_ms:{st['cooldown_ms']}",
+                        "rebalance_imbalance_ratio:"
+                        f"{st['imbalance_ratio']:g}",
+                        f"rebalance_waves:{st['waves']}",
+                        f"rebalance_slots_moved:{st['slots_moved']}",
+                        f"rebalance_keys_moved:{st['keys_moved']}",
+                        f"rebalance_failures:{st['failures']}",
+                    ]
+            elif s == "doctor":
+                # Invariant doctor: armed state + live sweep and finding
+                # counts (the CLUSTER DOCTOR headline rows).
+                doc = self.doctor
+                lines.append("# Doctor")
+                if doc is None:
+                    lines.append("doctor_enabled:0")
+                else:
+                    st = doc.status()
+                    lines += [
+                        "doctor_enabled:1",
+                        f"doctor_paused:{1 if st['paused'] else 0}",
+                        "doctor_is_coordinator:"
+                        f"{1 if st['is_coordinator'] else 0}",
+                        f"doctor_interval_ms:{st['interval_ms']}",
+                        f"doctor_sweeps:{st['sweeps']}",
+                        f"doctor_active_findings:"
+                        f"{len(st['active_findings'])}",
+                        f"doctor_findings_total:{st['findings_total']}",
+                        f"doctor_canary_failures:{st['canary_failures']}",
+                    ]
             elif s == "events":
                 # Flight recorder: ring occupancy, lifetime seq and
                 # evictions — the "is the black box taping" check before
@@ -5122,19 +5250,47 @@ class RespServer:
             )
             return _encode_simple("OK")
         if sub == "REBALANCE":
-            # The autonomous rebalancer is not carried yet: every node
-            # answers as a JAX node started without --rebalance does —
-            # STATUS reports enabled=false, the verbs refuse.
+            # Autonomous rebalancer surface.  STATUS works even unarmed
+            # (reports enabled=false) so operators can probe; the verbs
+            # require the agent.
             import json
 
             verb = self._s(args[1]).upper() if len(args) > 1 else "STATUS"
+            rb = self.rebalancer
             if verb == "STATUS":
-                return _encode_bulk(json.dumps(
-                    {"enabled": False, "node": door.myid}
-                ).encode())
+                payload = {"enabled": False} if rb is None else rb.status()
+                payload["node"] = door.myid
+                return _encode_bulk(json.dumps(payload).encode())
+            if rb is None:
+                raise RespError(
+                    "rebalancer is not armed on this node "
+                    "(start with --rebalance)"
+                )
+            if verb == "PAUSE":
+                rb.pause()
+                return _encode_simple("OK")
+            if verb == "RESUME":
+                rb.resume()
+                return _encode_simple("OK")
+            if verb == "NOW":
+                # Synchronous forced tick in this connection's thread:
+                # the reply carries how many migrations the wave ran,
+                # so scripts can drive rebalancing step by step.
+                return _encode_int(rb.tick(force=True))
+            if verb == "DRAIN":
+                if len(args) < 3:
+                    raise RespError("CLUSTER REBALANCE DRAIN needs a node id")
+                rb.planner.drain(self._s(args[2]))
+                return _encode_simple("OK")
+            if verb == "UNDRAIN":
+                if len(args) < 3:
+                    raise RespError(
+                        "CLUSTER REBALANCE UNDRAIN needs a node id"
+                    )
+                rb.planner.undrain(self._s(args[2]))
+                return _encode_simple("OK")
             raise RespError(
-                "rebalancer is not armed on this node "
-                "(start with --rebalance)"
+                f"Unknown CLUSTER REBALANCE verb '{verb.lower()}'"
             )
         if sub == "MIGRATIONS":
             # This node's in-flight slot states (slot -> peer id): the
@@ -5152,6 +5308,46 @@ class RespServer:
                     },
                 }
             return _encode_bulk(json.dumps(payload).encode())
+        if sub == "DOCTOR":
+            # Fleet doctor surface: bare CLUSTER DOCTOR is the
+            # human-readable report (the LATENCY DOCTOR analog); STATUS
+            # works even unarmed (enabled=false) so operators can probe;
+            # PAUSE/RESUME/NOW require the agent — the CLUSTER REBALANCE
+            # contract.
+            import json
+
+            verb = self._s(args[1]).upper() if len(args) > 1 else "REPORT"
+            doc = self.doctor
+            if verb == "STATUS":
+                payload = {"enabled": False} if doc is None else doc.status()
+                payload["node"] = door.myid
+                return _encode_bulk(json.dumps(payload).encode())
+            if doc is None:
+                if verb == "REPORT":
+                    return _encode_bulk(
+                        b"Fleet doctor is not armed on this node "
+                        b"(start with --doctor)."
+                    )
+                raise RespError(
+                    "fleet doctor is not armed on this node "
+                    "(start with --doctor)"
+                )
+            if verb == "REPORT":
+                return _encode_bulk(doc.report().encode())
+            if verb == "PAUSE":
+                doc.pause()
+                return _encode_simple("OK")
+            if verb == "RESUME":
+                doc.resume()
+                return _encode_simple("OK")
+            if verb == "NOW":
+                # Synchronous forced sweep in this connection's thread;
+                # the reply is the active-finding count, so a chaos
+                # harness can assert convergence step by step.
+                return _encode_int(doc.tick(force=True))
+            raise RespError(
+                f"Unknown CLUSTER DOCTOR verb '{verb.lower()}'"
+            )
         raise RespError(
             f"Unknown CLUSTER subcommand or wrong number of arguments "
             f"for '{sub.lower()}'"

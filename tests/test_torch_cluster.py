@@ -61,20 +61,33 @@ def _fixture(fdef, fn):
                           autouse=m.autouse, ids=m.ids, name=fdef.name)
 
 
-def port_namespace(ref, builtins_=None, skip=()) -> dict:
+def port_namespace(ref, builtins_=None, skip=(), extra=None,
+                   export=()) -> dict:
     """The reference module ``ref`` rebound to the port as one namespace:
     every function, fixture and class the module defines is rebuilt over
     ONE shared globals dict whose JAX-package values are the port's, so
     helpers calling helpers stay on the port.  Classes become subclasses
-    whose methods (and fixtures) are rebound; marks are kept.  Returns
-    the tests, ``Test*`` classes and fixtures to bind into a test module
-    (``skip`` names are left out)."""
+    whose methods (and fixtures) are rebound; marks are kept.  ``extra``
+    replaces globals (a helper the module imports from another reference
+    module, already rebound).  Returns the tests, ``Test*`` classes and
+    fixtures to bind into a test module, plus the rebound helpers named
+    in ``export`` (``skip`` names are left out)."""
     g = {k: _port_value(v) for k, v in vars(ref).items()}
+    g.update(extra or {})
     g["__builtins__"] = builtins_ or _BUILTINS
 
     def func(f):
+        closure = f.__closure__
+        inner = getattr(f, "__wrapped__", None)
+        if inspect.isfunction(inner) and "fn" in f.__code__.co_freevars:
+            # A decorator's wrapper (``schedule_test``) closes over the
+            # reference body as ``fn``: rebind that body too, or the
+            # wrapper would run the JAX package's code.
+            i = f.__code__.co_freevars.index("fn")
+            closure = (closure[:i] + (types.CellType(func(inner)),)
+                       + closure[i + 1:])
         new = types.FunctionType(f.__code__, g, f.__name__, f.__defaults__,
-                                 f.__closure__)
+                                 closure)
         new.__kwdefaults__ = f.__kwdefaults__
         new.__doc__ = f.__doc__
         new.__qualname__ = f.__qualname__
@@ -92,6 +105,8 @@ def port_namespace(ref, builtins_=None, skip=()) -> dict:
 
     out = {}
     for name, obj in vars(ref).items():
+        if name in (extra or {}):
+            continue
         if isinstance(obj, FixtureFunctionDefinition):
             g[name] = out[name] = member(obj)
         elif inspect.isfunction(obj) and obj.__module__ == ref.__name__:
@@ -99,6 +114,34 @@ def port_namespace(ref, builtins_=None, skip=()) -> dict:
             if name.startswith("test_"):
                 out[name] = g[name]
         elif inspect.isclass(obj) and obj.__module__ == ref.__name__:
+            bases = tuple(_port_value(b) for b in obj.__bases__)
+            if bases != obj.__bases__:
+                # Derived from a JAX-package class (a mutation of the
+                # shipped code): rebuilt whole over the port's base.
+                ns = {k: v for k, v in vars(obj).items()
+                      if k not in ("__dict__", "__weakref__")}
+                ns["__module__"] = __name__
+                for k, v in vars(obj).items():
+                    new = member(v)
+                    if new is not None:
+                        ns[k] = new
+                cls = g[name] = type(name, bases, ns)
+                for k, v in ns.items():
+                    # Zero-argument super() reads the ``__class__`` cell:
+                    # point it at the rebuilt class.
+                    if (inspect.isfunction(v)
+                            and "__class__" in v.__code__.co_freevars):
+                        i = v.__code__.co_freevars.index("__class__")
+                        cells = (v.__closure__[:i] + (types.CellType(cls),)
+                                 + v.__closure__[i + 1:])
+                        fixed = types.FunctionType(
+                            v.__code__, g, v.__name__, v.__defaults__, cells)
+                        fixed.__kwdefaults__ = v.__kwdefaults__
+                        fixed.__qualname__ = v.__qualname__
+                        setattr(cls, k, fixed)
+                if name.startswith("Test"):
+                    out[name] = g[name]
+                continue
             ns = {"__module__": __name__}
             for k, v in vars(obj).items():
                 new = member(v)
@@ -107,6 +150,8 @@ def port_namespace(ref, builtins_=None, skip=()) -> dict:
             g[name] = type(name, (obj,), ns)
             if name.startswith("Test"):
                 out[name] = g[name]
+    for name in export:
+        out[name] = g[name]
     for name in skip:
         out.pop(name, None)
     return out

@@ -929,3 +929,26 @@ def test_k1_on_a_migrated_cms_equals_golden_seq(cuda, monkeypatch):
     monkeypatch.setattr(cs, "P17", dict(cs.P17, k1_events=1 << 16))
     out = cs.p17c_k1_on_moved_cms(np.random.default_rng(17))
     assert out["k1_moved_cms_launches"] == 2 and out["k1_moved_cms_equals_golden_seq"]
+
+
+def test_k1_on_a_rebalancer_moved_cms_equals_golden_seq(cuda, monkeypatch):
+    """Phase 18's path at a small size: two in-process card nodes, hot
+    hash tags on node A, a wave driven by CLUSTER REBALANCE NOW moves hot
+    slots (their Bloom and CMS rows) onto node B's card; add_all_seq on a
+    moved CMS goes through K1 at its new owner, estimates and table equal
+    golden_seq from the moved row."""
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "P18_DEVICE", "cuda")
+    monkeypatch.setattr(cs, "P18", dict(
+        cs.P18, nodes=2, hot=4, cold=1, capacity=60_000, madd=256, hot_madd=8,
+        cold_madd=1, hot_incr=2, cold_incr=1, incr_draws=64, k1_events=1 << 16))
+    rng = np.random.default_rng(18)
+    nodes, ids, addrs, cuts = cs.p18_fleet()
+    try:
+        out, owners, moved_hot, _hot = cs.p18a_wave(nodes, ids, addrs, cuts, rng)
+        assert out["hot_slots_moved"] >= 1 and out["ratio_after"] < out["ratio_before"]
+        k1 = cs.p18b_k1_on_moved_cms(nodes, ids, owners, moved_hot, rng)
+    finally:
+        cs.p18_close(nodes)
+    assert k1["k1_moved_cms_launches"] == 2 and k1["k1_moved_cms_equals_golden_seq"]

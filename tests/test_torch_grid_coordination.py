@@ -137,7 +137,16 @@ def _port_module_or_none(name: str):
 def _port_import(name, globals=None, locals=None, fromlist=(), level=0):
     if level == 0 and _is_ref(name):
         if fromlist:
-            return _port_module(name)
+            mod = _port_module(name)
+            for item in fromlist:
+                # ``from redisson_tpu.serve import reactor``: a submodule
+                # not imported yet is not an attribute of its package.
+                if item != "*" and not hasattr(mod, item):
+                    try:
+                        importlib.import_module(f"{_port_name(name)}.{item}")
+                    except ImportError:
+                        pass
+            return mod
         _port_module(name)  # ``import redisson_tpu.x.y`` binds the top
         return _PORT_PKG
     return builtins.__import__(name, globals, locals, fromlist, level)

@@ -19,8 +19,7 @@ and INFO sections over the wire.
 
   ``test_metric_catalog_matches_doc`` is replaced by the port's own case
   of that name: the doc table's rows minus the families of modules not
-  yet ported (the rebalancer and doctor of item 3b, the shard family of
-  item 5), exactly.
+  yet ported (the shard family of item 5), exactly.
 * Pure modules under an injected clock: ``SlowLog`` and its argument
   truncation, fed the same seeded inputs in both packages, give equal
   snapshots.
@@ -100,12 +99,8 @@ port_module(_ref, globals(), skip=SKIPPED)
 
 
 # Families of the JAX package's bundle that wait with their modules: the
-# rebalancer and the doctor (item 3b), and the sharded executor (item 5).
+# sharded executor (item 5).
 WAITING_FAMILIES = {
-    "rtpu_rebalancer_decisions_total", "rtpu_rebalancer_keys_moved_total",
-    "rtpu_rebalancer_migration_seconds", "rtpu_rebalancer_imbalance_ratio",
-    "rtpu_doctor_sweeps_total", "rtpu_doctor_findings_total",
-    "rtpu_doctor_canary_rtt_us",
     "rtpu_shard_ops_total",
 }
 

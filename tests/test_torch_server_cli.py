@@ -174,28 +174,18 @@ def test_refuses_to_start_without_a_card():
     assert "no CUDA device" in out.stderr
 
 
-def test_server_modules_import_neither_jax_nor_the_reference():
-    """The front door, the reactor, the grid families, the coordination
-    and services half (locks, services, cron, LocalCachedMap, JCache, the
-    integrations, the reactive facade, nodes, metrics and the scrape
-    endpoint), the ingest bridge, the durability tier (the journal,
-    recovery, the replication hub and link, the crash child), the
-    observability tier (spans, slowlog, latency, trace, events, loadmap —
-    driven over the wire: SLOWLOG, TRACE, HOTKEYS, EVENTS), scripting
-    (an EVAL through redis.call), the per-core front door and metrics
-    federation, the cluster (slot map, slot index, door, routing client,
-    supervisor and failover — a cluster-mode node with its failover agent
-    routed through connect_cluster), the entry point and the scripts load
-    with jax and redisson_tpu blocked and serve on the CPU — a journaled
-    client recovers its tail; no module of
-    the port, nor chip_smoke.py, profile_port.py or compare_rates.py, has
-    an import of either."""
-    code = (
-        "import sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['redisson_tpu'] = None\n"
+# Each tier of the import test runs in a subprocess of its own, with jax
+# and the JAX package blocked, so a failure names its tier.
+_BLOCK = (
+    "import sys\n"
+    "sys.modules['jax'] = None\n"
+    "sys.modules['redisson_tpu'] = None\n"
+    "import redisson_tpu_torch as rt\n"
+)
+
+_TIERS = {
+    "imports": (
         "import chip_smoke, profile_port, compare_rates\n"
-        "import redisson_tpu_torch as rt\n"
         "from redisson_tpu_torch import __main__ as m\n"
         "from redisson_tpu_torch.serve import reactor, native_codec\n"
         "from redisson_tpu_torch.serve.resp import RespServer\n"
@@ -211,9 +201,12 @@ def test_server_modules_import_neither_jax_nor_the_reference():
         "from redisson_tpu_torch.durability import journal, recovery, replication, replica\n"
         "from redisson_tpu_torch.chaos import crashchild\n"
         "from redisson_tpu_torch.serve import multicore\n"
-        "from redisson_tpu_torch.obs import federate\n"
+        "from redisson_tpu_torch.obs import federate, doctor\n"
         "from redisson_tpu_torch.cluster import (slotmap, slotindex, door, client,"
-        " supervisor, failover)\n"
+        " supervisor, failover, rebalancer)\n"
+        "from redisson_tpu_torch.analysis import witness, explorer, netsim\n"
+    ),
+    "journal": (
         "import tempfile\n"
         "d = tempfile.mkdtemp()\n"
         "def jc():\n"
@@ -223,9 +216,18 @@ def test_server_modules_import_neither_jax_nor_the_reference():
         "c1 = jc(); h = c1.get_hyper_log_log('h'); h.add_all(['a', 'b', 'c'])\n"
         "c1._engine.journal.close(); c1._engine.journal = None; c1.shutdown()\n"
         "c2 = jc(); assert c2.get_hyper_log_log('h').count() == 3; c2.shutdown()\n"
-        "import socket\n"
+    ),
+    # Every keyed command is sampled into the loadmap (rate 1), so
+    # HOTKEYS has a fixed answer: ``a`` (SET, INCR, GET) the hottest.
+    "server": (
+        "import socket, asyncio\n"
         "import numpy as np\n"
-        "c = rt.create(rt.Config().use_gpu_sketch(device='cpu'))\n"
+        "from redisson_tpu_torch.serve.resp import RespServer\n"
+        "from redisson_tpu_torch.serve.wireutil import exchange\n"
+        "from redisson_tpu_torch.serve import TopicCmsBridge\n"
+        "cfg = rt.Config().use_gpu_sketch(device='cpu')\n"
+        "cfg.loadmap_key_sample_rate = 1.0\n"
+        "c = rt.create(cfg)\n"
         "srv = RespServer(c)\n"
         "s = socket.create_connection((srv.host, srv.port))\n"
         "r = exchange(s, [[b'SET', b'a', b'1'], [b'INCR', b'a'], [b'BF.RESERVE', b'f', b'0.01', b'10'],"
@@ -234,35 +236,98 @@ def test_server_modules_import_neither_jax_nor_the_reference():
         "assert r == [b'OK', 2, b'OK', 1, b'2', 1, b'1-1', 1, 0], r\n"
         "cms = c.get_count_min_sketch('cms'); cms.try_init(4, 1024)\n"
         "b = TopicCmsBridge(c, 't', 'cms'); c.get_topic('t').publish(np.arange(9, dtype=np.uint64))\n"
-        "b.close(); assert b.events_ingested == 9 and cms.total_count() == 9\n"        "lk = c.get_lock('lk'); lk.lock(); lk.unlock()\n"
+        "b.close(); assert b.events_ingested == 9 and cms.total_count() == 9\n"
+        "lk = c.get_lock('lk'); lk.lock(); lk.unlock()\n"
         "ex = c.get_executor_service('ex'); ex.register_workers(1)\n"
         "assert ex.submit(cms.total_count).result(30) == 9; ex.shutdown()\n"
         "assert c.get_nodes_group().ping_all() and c.get_metrics()['ops_total'] > 0\n"
-        "import asyncio\n"
         "assert asyncio.run(c.reactive().get_bucket('rx').get()) is None\n"
         "r = exchange(s, [[b'CONFIG', b'SET', b'slowlog-log-slower-than', b'0'],"
         " [b'TRACE', b'SAMPLE', b'1'], [b'PING'], [b'SLOWLOG', b'LEN'], [b'TRACE', b'LEN'],"
         " [b'TRACE', b'SAMPLE', b'0'], [b'HOTKEYS'], [b'EVENTS', b'LEN']])\n"
-        "assert r[3] >= 2 and r[4] >= 1 and r[6] == [] and r[7] >= 1, r\n"
-        "s.close(); srv.close()\n"
+        "assert r[3] >= 2 and r[4] >= 1 and r[7] >= 1, r\n"
+        "assert r[6][0] == b'a' and {b'f', b'l', b'g'} <= set(r[6][::2]), r\n"
+        "s.close(); srv.close(); c.shutdown()\n"
+    ),
+    "scripting": (
+        "import socket\n"
+        "from redisson_tpu_torch.serve.resp import RespServer\n"
+        "from redisson_tpu_torch.serve.wireutil import exchange\n"
+        "c = rt.create(rt.Config().use_gpu_sketch(device='cpu'))\n"
         "srv = RespServer(c, enable_python_scripts=True)\n"
         "s = socket.create_connection((srv.host, srv.port))\n"
-        "r = exchange(s, [[b'EVAL', b\"redis.call('BF.MADD', KEYS[0], *ARGV)\", b'1', b'f', b'x', b'y']])\n"
-        "assert r == [[0, 1]], r\n"
+        "r = exchange(s, [[b'BF.RESERVE', b'f', b'0.01', b'10'], [b'BF.ADD', b'f', b'x'],"
+        " [b'EVAL', b\"redis.call('BF.MADD', KEYS[0], *ARGV)\", b'1', b'f', b'x', b'y']])\n"
+        "assert r == [b'OK', 1, [0, 1]], r\n"
         "s.close(); srv.close(); c.shutdown()\n"
+    ),
+    # A cluster-mode node with its failover agent, an armed rebalancer
+    # and an armed fleet doctor (neither thread-started: NOW drives
+    # them), routed through connect_cluster.
+    "cluster": (
+        "import json\n"
+        "from redisson_tpu_torch.serve.resp import RespServer\n"
+        "from redisson_tpu_torch.cluster import failover, rebalancer\n"
+        "from redisson_tpu_torch.obs import doctor\n"
         "cfg = rt.Config().use_gpu_sketch(device='cpu'); cfg.cluster_enabled = True\n"
         "cfg.cluster_slots = '0-16383'; c = rt.create(cfg); srv = RespServer(c)\n"
         "failover.FailoverAgent(srv, node_timeout_s=1.0).start()\n"
+        "rebalancer.RebalanceAgent(srv); doctor.FleetDoctor(srv)\n"
         "cc = rt.connect_cluster([(srv.host, srv.port)])\n"
         "assert cc.execute_many([('SET', 'k%d' % i, 'v') for i in range(8)]) == [b'OK'] * 8\n"
         "assert cc.execute('CLUSTER', 'COUNTKEYSINSLOT', '0') == 0\n"
         "assert b'cluster_my_slots:16384' in cc.execute('CLUSTER', 'INFO')\n"
+        "st = json.loads(cc.execute('CLUSTER', 'REBALANCE', 'STATUS'))\n"
+        "assert st['enabled'] and st['is_coordinator'], st\n"
+        "assert cc.execute('CLUSTER', 'REBALANCE', 'NOW') == 0\n"
+        "assert cc.execute('CLUSTER', 'DOCTOR', 'NOW') == 0\n"
+        "assert b'No active findings' in cc.execute('CLUSTER', 'DOCTOR')\n"
         "cc.close(); srv.close(); c.shutdown()\n"
-    )
+    ),
+}
+
+
+def test_server_modules_import_neither_jax_nor_the_reference():
+    """The front door, the reactor, the grid families, the coordination
+    and services half (locks, services, cron, LocalCachedMap, JCache, the
+    integrations, the reactive facade, nodes, metrics and the scrape
+    endpoint), the ingest bridge, the durability tier (the journal,
+    recovery, the replication hub and link, the crash child), the
+    observability tier (spans, slowlog, latency, trace, events, loadmap —
+    driven over the wire: SLOWLOG, TRACE, HOTKEYS, EVENTS), scripting
+    (an EVAL through redis.call), the per-core front door and metrics
+    federation, the cluster (slot map, slot index, door, routing client,
+    supervisor, failover, the rebalancer and the fleet doctor — a
+    cluster-mode node with its failover agent, an armed rebalancer and
+    an armed doctor routed through connect_cluster), the analysis tools
+    (the lock-order witness, the schedule explorer and netsim), the entry
+    point and the scripts load with jax and redisson_tpu blocked and
+    serve on the CPU — a journaled client recovers its tail; no module of
+    the port, nor chip_smoke.py, profile_port.py or compare_rates.py, has
+    an import of either.  Each tier runs in a subprocess of its own (all
+    started together), and a failure names its tier."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
+    procs = {
+        tier: subprocess.Popen(
+            [sys.executable, "-c", _BLOCK + code], cwd=str(REPO), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for tier, code in _TIERS.items()
+    }
+    failed = {}
+    for tier, proc in procs.items():
+        try:
+            _out, err = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _out, err = proc.communicate()
+            failed[tier] = "timed out after 120 s\n" + err
+            continue
+        if proc.returncode != 0:
+            failed[tier] = err
+    assert not failed, "\n".join(
+        f"--- tier {tier} ---\n{err}" for tier, err in failed.items()
+    )
     pat = re.compile(r"^\s*(import|from)\s+(jax|redisson_tpu)(\.|\s|$)", re.M)
     files = list((REPO / "redisson_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "profile_port.py", REPO / "compare_rates.py"]
