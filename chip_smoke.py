@@ -295,6 +295,30 @@ the main path through the public client at full size:
            event, rtpu_doctor_findings{kind="stuck-migration"} 1), SETSLOT
            STABLE clears it (doctor.clear); the canary's round trip per
            primary.  K1 launches in phase 18 (18b) must be more than 0
+  phase 19 the port's locks under the armed lock-order witness.  (19a) a
+           child (``--p19-child``) with RTPU_LOCK_WITNESS=1 and
+           RTPU_LOCK_WITNESS_EXPORT: config 1 (2**20 keys as add_all calls
+           of 8192 from 4 threads through the coalescer, every flag within
+           11a's bounds, the row and contains from 4 threads equal golden);
+           K1 on a CMS(5, 65536), 2**19 zipf(1.2) events in 16 launches,
+           estimates and table equal golden_seq; PFADD and BitSet sets
+           equal golden; a reactor RespServer under appendfsync always
+           with a thread-per-connection replica: 4 connections pipeline
+           BF.MADD of 1024 keys and a CMS.INCRBY, WAIT 1 1000 answers 1 on
+           each, rows equal across the pair and golden, the replica reads
+           every key back; phase 18's three-node fleet cut to one slot
+           holding a config-1 filter and a CMS, migrated A -> B (DUMPs
+           byte-equal, every key back), one rebalancer tick and one doctor
+           sweep (0 findings).  The witness must be active, report no
+           cycle or blocking call, and have acquired every name of
+           P19_NAMES; no op degraded.  (19b) ``python -m
+           redisson_tpu_torch.analysis redisson_tpu_torch/ --runtime-edges``
+           with the child's export exits 0; the catalog, static and
+           runtime edges and the runtime edges the static pass lacks.
+           (19c) config 1's armed add keys/s beside the same shape
+           unarmed and phase 2's rate (not gated); with the witness off,
+           sampled named sites hold the raw threading lock.  K1 launches
+           in phase 19 (19a) must be more than 0
 
 Every failed check raises, so the script exits non-zero.  Without a CUDA
 device it exits with code 2 before printing any result.  The line before
@@ -6940,6 +6964,406 @@ def phase_rebalance(rng, card: str) -> None:
     log(out)
 
 
+# -- phase 19: the port's locks under the armed lock-order witness ------------
+
+P19 = {"keys": 1 << 20, "capacity": 1_000_000, "fpp": 0.01, "per": 8192, "threads": 4,
+       "outside": 1 << 18, "d": 5, "w": 1 << 16, "k1_events": 1 << 19,
+       "hll_keys": 1 << 16, "bs_bits": 1 << 20, "bs_idx": 1 << 16,
+       "wire_keys": 1 << 16, "madd": 1024, "conns": 4, "incr_draws": 256,
+       "incr_items": 64, "fleet_keys": 1 << 14, "child_timeout": 600}
+P19_DEVICE = "cuda"
+# A run that never took one of these went around the witness: the phase
+# fails rather than pass on an unarmed or bypassed path.
+P19_NAMES = ("coalescer.queue", "coalescer.inflight", "engine.mirror", "tenancy.registry",
+             "journal.queue", "repl.hub", "repl.link", "resp.conn.send", "cluster.move",
+             "cluster.slotmap", "rebalance.tick", "doctor.tick")
+# Named sites whose lock the parent, with the witness off, must hold raw:
+# (what, how to reach it from a client and its server, the raw type).
+P19_RAW = (
+    ("engine.mirror", lambda cl, srv: cl._engine._mirror_lock, "RLock"),
+    ("tenancy.registry", lambda cl, srv: cl._engine.registry._lock, "RLock"),
+    ("coalescer.queue", lambda cl, srv: cl._engine.coalescer._lock, "Lock"),
+    ("health.state", lambda cl, srv: cl._engine.health._lock, "Lock"),
+    ("grid.store", lambda cl, srv: cl._grid.lock, "RLock"),
+    ("resp.conns", lambda cl, srv: srv._conn_lock, "Lock"),
+    ("resp.write_epoch", lambda cl, srv: srv._epoch_lock, "Lock"),
+)
+
+
+def p19_client(base=None, **kw):
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+
+    cfg = rt.Config().set_codec(LongCodec()).use_gpu_sketch(device=P19_DEVICE)
+    if base is not None:  # a primary: journaled under always, snapshots for FULLRESYNC
+        cfg.journal_dir = os.path.join(base, "journal")
+        cfg.journal_fsync = "always"
+        cfg.snapshot_dir = os.path.join(base, "snap")
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return rt.create(cfg)
+
+
+def p19_threads(n: int, fn) -> None:
+    """``fn(t)`` on ``n`` threads at once; a failure in any is raised."""
+    errors = []
+
+    def run(t):
+        try:
+            fn(t)
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+
+
+def p19_cfg1_add(client, name: str) -> tuple:
+    """Config 1's 2**20 keys into a fresh filter as add_all calls of
+    P19["per"] keys, thread t sending calls t, t + T, ...: (the filter,
+    the keys, each thread's per-key flags, the wall seconds)."""
+    n, per, T = P19["keys"], P19["per"], P19["threads"]
+    bf = client.get_bloom_filter(name)
+    check(bf.try_init(P19["capacity"], P19["fpp"]), "19: try_init refused")
+    keys = np.arange(n, dtype=np.uint64)
+    flags = [[] for _ in range(T)]
+
+    def add(t):
+        for j in range(t, n // per, T):
+            flags[t].append(np.asarray(bf.add_all_async(keys[j * per:(j + 1) * per]).result()))
+
+    if P19_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p19_threads(T, add)
+    return bf, keys, flags, time.perf_counter() - t0
+
+
+def p19a_engine(client, rng) -> dict:
+    """Config 1 from 4 threads through the coalescer (flags within 11a's
+    bounds, the row equal to golden, contains equal to golden); K1 on a
+    CMS(5, 65536); PFADD and BitSet sets on a small keyspace."""
+    from redisson_tpu_torch.ops import cms_seq
+    from redisson_tpu_torch.utils import hashing
+
+    n, per, T = P19["keys"], P19["per"], P19["threads"]
+    p19_cfg1_add(client, "p19-warm")  # first launches outside the timed pass, as 19c
+    bf, keys, flags, add_s = p19_cfg1_add(client, "p19-cfg1")
+    m, k = bf.get_size(), bf.get_hash_iterations()
+    h1, h2 = hashing.km_reduce_mod(*hashing.hash128_np(*hashing.encode_uint64_batch(keys)), m)
+    model = madd_model(h1, h2, m, k, per, T)
+    g, n_added = model[0], madd_check(model, flags, "19a")
+    check(0.97 * n <= n_added <= n, f"19a: added {n_added} of {n}")
+    words = tenant_row(client, "p19-cfg1")
+    check(np.array_equal(words, golden_words(g, words.shape[0])),
+          "19a: the filter row differs from the golden bitmap")
+    probe = np.concatenate([keys[:: max(1, n // P19["outside"])],
+                            rng.integers(3 * n, 8 * n, P19["outside"]).astype(np.uint64)])
+    parts = np.array_split(probe, T)
+    got = [None] * T
+
+    def contains(t):
+        got[t] = np.asarray(bf.contains_each(parts[t]))
+
+    p19_threads(T, contains)
+    for part, hit in zip(parts, got):
+        check(np.array_equal(hit, golden_contains(g, part)), "19a: contains differs from golden")
+    # K1: 2**19 zipf events, 16 launches of 32768.
+    d, w, n_ev = P19["d"], P19["w"], P19["k1_events"]
+    cms = client.get_count_min_sketch("p19-cms")
+    check(cms.try_init(d, w), "19a: CMS try_init refused")
+    events = zipf_keys(rng, n_ev)
+    h1w, h2w = hashing.km_reduce_mod(*hashing.hash128_np(*hashing.encode_uint64_batch(events)), w)
+    want_table, want_est = cms_seq.golden_seq(np.zeros((d, w), np.uint32), h1w, h2w,
+                                              np.ones(n_ev, np.uint32), d=d, w=w)
+    before = cms_seq.LAUNCHES
+    est = cms.add_all_seq(events)
+    launches = cms_seq.LAUNCHES - before
+    if P19_DEVICE == "cuda":
+        check(launches == -(-n_ev // client._engine._SEQ_CHUNK), f"19a: {launches} K1 launches")
+    check(np.array_equal(np.asarray(est, np.uint32), np.asarray(want_est, np.uint32)),
+          "19a: K1 estimates differ from golden_seq")
+    check(np.array_equal(tenant_row(client, "p19-cms")[: d * w], want_table.reshape(-1)),
+          "19a: K1 table differs from golden_seq")
+    # PFADD and BitSet sets.
+    hkeys = rng.integers(0, 1 << 62, P19["hll_keys"], dtype=np.uint64)
+    hll = client.get_hyper_log_log("p19-hll")
+    for i in range(0, len(hkeys), len(hkeys) // 4):
+        hll.add_all(hkeys[i:i + len(hkeys) // 4])
+    check(np.array_equal(tenant_row(client, "p19-hll"), p14_golden_hll(hkeys)),
+          "19a: HLL registers differ from golden")
+    idx = rng.integers(0, P19["bs_bits"], P19["bs_idx"], dtype=np.uint64).astype(np.uint32)
+    bs = client.get_bit_set("p19-bs")
+    bs.set(P19["bs_bits"] - 1, False)  # size the row
+    for part in np.array_split(idx, 4):
+        bs.set_many(part, True)
+    check(np.array_equal(tenant_row(client, "p19-bs"), p14_golden_bits(idx, P19["bs_bits"])),
+          "19a: BitSet row differs from golden")
+    check_healthy(client, "19a")
+    return {"cfg1_added": n_added, "cfg1_add_keys_per_s_armed": n / add_s,
+            "cfg1_row_equals_golden": True, "k1_launches_engine": launches,
+            "k1_equals_golden_seq": True, "hll_equals_golden": True,
+            "bitset_equals_golden": True}
+
+
+def p19a_wire(base: str, rng) -> dict:
+    """A RespServer over the reactor under appendfsync always with a
+    replica: 4 connections pipeline BF.MADD of 1024 keys and CMS.INCRBY,
+    then WAIT 1 1000 on each must answer 1; rows equal on both sides."""
+    from redisson_tpu_torch.serve.resp import RespServer
+    from redisson_tpu_torch.serve.wireutil import ReplyError, exchange
+
+    pc = p19_client(os.path.join(base, "primary"))
+    ps = RespServer(pc)
+    rc = rs = None
+    try:
+        check(ps.reactor is not None, "19a: the server runs without its reactor")
+        seed = p17_req((ps.host, ps.port), [
+            [b"BF.RESERVE", b"p19w", b"%g" % P19["fpp"], b"%d" % P19["capacity"]],
+            [b"CMS.INITBYDIM", b"p19w-cms", b"%d" % P19["w"], b"%d" % P19["d"]]])
+        check(seed == [b"OK", b"OK"], f"19a: seeding refused: {seed}")
+        # The replica serves thread-per-connection: its read-back below
+        # writes through the connection's send lock (resp.conn.send),
+        # which the reactor's connections never take.
+        rc = p19_client(resp_reactor=False)
+        rs = RespServer(rc)
+        check(rs.reactor is None, "19a: the replica runs a reactor")
+        link = rs.start_replication_from(ps.host, ps.port)
+        until(lambda: link.applied >= pc._engine.journal.last_seq() and link.link_up,
+              "19a: replica bootstrap", timeout=120)
+        n, per, C = P19["wire_keys"], P19["madd"], P19["conns"]
+        items = [b"%d" % v for v in rng.integers(0, 1 << 62, n, dtype=np.uint64)]
+        streams = []
+        for c in range(C):
+            mine = items[c::C]
+            cmds = [[b"BF.MADD", b"p19w"] + mine[i:i + per] for i in range(0, len(mine), per)]
+            # CMS.INCRBY adds item by item: zipf draws as (item, count) pairs.
+            ev, cnt = np.unique(rng.zipf(1.2, P19["incr_draws"]) % P19["incr_items"],
+                                return_counts=True)
+            cmds.append([b"CMS.INCRBY", b"p19w-cms"]
+                        + [x for v, q in zip(ev, cnt) for x in (b"%d" % v, b"%d" % q)])
+            streams.append(cmds)
+        waits = []
+
+        def conn(c):
+            s = socket.create_connection((ps.host, ps.port), timeout=120)
+            try:
+                cmds = streams[c]
+                replies = exchange(s, cmds)
+                check(not any(isinstance(r, ReplyError) for r in replies), "19a: a wire write failed")
+                check(all(isinstance(r, list) and len(r) == len(cm) - 2
+                          for r, cm in zip(replies[:-1], cmds[:-1])), "19a: BF.MADD replies malformed")
+                (acks,) = exchange(s, [[b"WAIT", b"1", b"1000"]])
+                waits.append(acks)
+            finally:
+                s.close()
+
+        t0 = time.perf_counter()
+        p19_threads(C, conn)
+        wire_s = time.perf_counter() - t0
+        check(waits == [1] * C, f"19a: WAIT 1 1000 answered {waits}")
+        until(lambda: link.applied >= pc._engine.journal.last_seq(), "19a: replica catch-up",
+              timeout=120)
+        for name in ("p19w", "p19w-cms"):
+            check(np.array_equal(tenant_row(rc, name), tenant_row(pc, name)),
+                  f"19a: the replica's {name} row differs from the primary's")
+        back = p17_req((rs.host, rs.port), [[b"BF.MEXISTS", b"p19w"] + items[i:i + per]
+                                            for i in range(0, n, per)])
+        check(all(r == [1] * len(items[i * per:(i + 1) * per]) for i, r in enumerate(back)),
+              "19a: a WAIT-acked key reads 0 on the replica")
+        from redisson_tpu_torch.ops import golden
+
+        bf = pc.get_bloom_filter("p19w")
+        m, k = bf.get_size(), bf.get_hash_iterations()
+        h1, h2 = wire_hashes(pc, items, m)
+        g = golden.GoldenBloomFilter(m, k)
+        g.bits[g._indexes(h1, h2).reshape(-1)] = True
+        words = tenant_row(pc, "p19w")
+        check(np.array_equal(words, golden_words(g, words.shape[0])),
+              "19a: the wire filter's row differs from the golden bitmap")
+        check(pc._engine.journal.stats()["fsyncs"] > 0, "19a: the journal never fsynced")
+        check_healthy(pc, "19a primary")
+        check_healthy(rc, "19a replica")
+        return {"wire_keys": n, "wire_keys_per_s_armed": n / wire_s, "wait_acks": waits,
+                "replica_rows_equal": True, "replica_reads_back": True,
+                "wire_row_equals_golden": True}
+    finally:
+        if rs is not None:
+            rs.close()
+        ps.close()
+        for cl in (rc, pc):
+            if cl is not None:
+                cl.shutdown()
+
+
+def p19a_fleet() -> dict:
+    """Phase 18's in-process three-node fleet cut to one slot holding a
+    config-1 filter and a CMS: migrate it from A to B, then one
+    rebalancer tick and one doctor sweep on A."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.cluster.slots import key_slot
+    from redisson_tpu_torch.cluster.supervisor import migrate_slot
+
+    global P18_DEVICE
+    P18_DEVICE = P19_DEVICE
+    nodes, ids, addrs, cuts = p18_fleet()
+    try:
+        (tag,) = p18_tags(cuts, 0, 1, set())
+        slot = key_slot(tag)
+        n, per = P19["fleet_keys"], P19["madd"]
+        cmds = [[b"BF.RESERVE", tag + b"bf", b"%g" % P19["fpp"], b"%d" % P19["capacity"]],
+                [b"CMS.INITBYDIM", tag + b"cms", b"%d" % P19["w"], b"%d" % P19["d"]]]
+        cmds += [[b"BF.MADD", tag + b"bf"] + c11_keys(i, i + per) for i in range(0, n, per)]
+        cmds.append([b"CMS.INCRBY", tag + b"cms"] + [b"%d" % (i % 16) if j % 2 == 0 else b"1"
+                                                     for i in range(64) for j in range(2)])
+        cc = rt.connect_cluster(addrs, timeout_s=120.0)
+        try:
+            rep = cc.execute_many(cmds)
+            check(not [r for r in rep if isinstance(r, Exception)], "19a: seeding the slot failed")
+            before = cc.execute_many([[b"DUMP", tag + b"bf"], [b"DUMP", tag + b"cms"]])
+            t0 = time.perf_counter()
+            moved = migrate_slot(slot, addrs[0], addrs[1], notify=[addrs[2]])
+            mig_s = time.perf_counter() - t0
+            check(moved == 2, f"19a: the migration moved {moved} keys")
+            after = p17_req(addrs[1], [[b"DUMP", tag + b"bf"], [b"DUMP", tag + b"cms"]])
+            check(after == before, "19a: a moved object's DUMP changed across the move")
+            hits = cc.execute_many([[b"BF.MEXISTS", tag + b"bf"] + c11_keys(i, i + per)
+                                    for i in range(0, n, per)])
+            check(all(h == [1] * per for h in hits), "19a: an acked key is missing after the move")
+            check(cc.slot_addr(slot) == tuple(addrs[1]), "19a: the slot did not move to B")
+        finally:
+            cc.close()
+        (count,) = p17_req(addrs[0], [[b"CLUSTER", b"COUNTKEYSINSLOT", b"%d" % slot]])
+        check(count == 0, f"19a: the source kept {count} keys in the slot")
+        (waves,) = p17_req(addrs[0], [[b"CLUSTER", b"REBALANCE", b"NOW"]])
+        (findings,) = p17_req(addrs[0], [[b"CLUSTER", b"DOCTOR", b"NOW"]])
+        check(findings == 0, f"19a: the doctor's sweep found {findings}")
+        for cl, _srv in nodes:
+            check_healthy(cl, "19a fleet")
+        return {"fleet_keys_moved": moved, "fleet_migration_s": mig_s,
+                "fleet_rebalance_moved": waves, "fleet_doctor_findings": findings,
+                "fleet_dumps_equal": True}
+    finally:
+        p18_close(nodes)
+
+
+def p19_child(base: str, seed: int) -> int:
+    """Phase 19a, in a child started with RTPU_LOCK_WITNESS=1 and
+    RTPU_LOCK_WITNESS_EXPORT set: the serving paths on the card under the
+    armed witness; fails on any violation and on any of P19_NAMES never
+    acquired.  Prints one JSON line."""
+    from redisson_tpu_torch.analysis import witness
+    from redisson_tpu_torch.ops import cms_seq
+
+    check(witness.enabled(), "19a: the child runs without RTPU_LOCK_WITNESS")
+    rng = np.random.default_rng(seed + 19)
+    out = {"phase": "19a"}
+    cms_seq.LAUNCHES = 0
+    client = p19_client()
+    try:
+        check(witness.active(), "19a: no lock was wrapped by the witness")
+        out.update(p19a_engine(client, rng))
+    finally:
+        client.shutdown()
+    out.update(p19a_wire(base, rng))
+    out.update(p19a_fleet())
+    out["k1_launches"] = cms_seq.LAUNCHES
+    vs = witness.violations()
+    for v in vs:
+        print(v.format(), file=sys.stderr, flush=True)
+    check(not vs, f"19a: the witness reports {len(vs)} violation(s): "
+          + "; ".join(f"[{v.kind}] {v.message}" for v in vs)[:2000])
+    names = witness.acquired_names()
+    missing = [x for x in P19_NAMES if x not in names]
+    check(not missing, f"19a: never acquired under the witness: {missing}")
+    out.update(witness_active=True, violations=0, acquired=sorted(names),
+               runtime_edges=len(witness.export_edges()))
+    log(out)
+    return 0
+
+
+def phase_witness(seed: int, card: str) -> dict:
+    """Phase 19: 19a in a child under the armed witness; 19b the port's
+    analyser over the tree with the child's runtime edges; 19c the cost
+    beside phase 2's unarmed rate and the raw lock types with the witness
+    off.  Returns the child's line."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.analysis import lockgraph, witness
+    from redisson_tpu_torch.serve.resp import RespServer
+
+    t0 = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+    base = tempfile.mkdtemp(prefix="p19-")
+    edges = os.path.join(base, "edges.json")
+    env = dict(os.environ, PYTHONPATH=str(repo), RTPU_LOCK_WITNESS="1",
+               RTPU_LOCK_WITNESS_EXPORT=edges)
+    cfg = json.dumps({"P19": P19, "device": P19_DEVICE})
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--p19-child", base,
+                             "--seed", str(seed), "--p19-config", cfg],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=str(repo))
+    try:
+        # 19b's static half while the child runs.
+        graph = lockgraph.build_graph([str(repo / "redisson_tpu_torch")])
+        try:
+            out, err = proc.communicate(timeout=P19["child_timeout"])
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+            fail(f"19a: the child ran past {P19['child_timeout']} s:\n{err[-4000:]}")
+        lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+        child = next((x for x in lines if x.get("phase") == "19a"), None)
+        check(proc.returncode == 0 and child is not None,
+              f"19a: the child exited {proc.returncode}:\n{err[-6000:]}")
+        log(child)
+        # 19b: the analyser with the card's runtime edges.
+        check(os.path.exists(edges), "19b: the child exported no witness edges")
+        runtime = lockgraph.load_runtime_edges(edges)
+        check(runtime, "19b: the witness export holds no edge")
+        cli = subprocess.run([sys.executable, "-m", "redisson_tpu_torch.analysis",
+                              "redisson_tpu_torch/", "--runtime-edges", edges, "--jobs", "8"],
+                             cwd=str(repo), capture_output=True, text=True, timeout=600)
+        said = (cli.stdout + cli.stderr).strip()
+        check(cli.returncode == 0 and "rtpulint: 0 violation(s)" in cli.stderr,
+              f"19b: the analyser with the card's edges exited {cli.returncode}:\n{said[-4000:]}")
+        blind = sorted(set(runtime) - set(graph.edges))
+        log({"phase": "19b", "catalog": len(graph.catalog), "static_edges": len(graph.edges),
+             "runtime_edges": len(runtime), "blind_spots": len(blind),
+             "blind_spot_edges": [f"{a} -> {b}" for a, b in blind],
+             "analyser": said.splitlines()[-1]})
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        shutil.rmtree(base, ignore_errors=True)
+    # 19c: the cost beside phase 2's unarmed rate, and the raw locks.
+    check(not witness.enabled(), "19c: the witness is armed in the parent")
+    client = p19_client()
+    server = RespServer(client)
+    try:
+        kinds = {"Lock": type(threading.Lock()), "RLock": type(threading.RLock())}
+        for what, get, kind in P19_RAW:
+            check(type(get(client, server)) is kinds[kind],
+                  f"19c: {what} is {type(get(client, server))!r} with the witness off")
+        # The armed run's add shape again, unarmed, on a warmed client.
+        p19_cfg1_add(client, "p19-warm")
+        _bf, _keys, _flags, add_s = p19_cfg1_add(client, "p19-cfg1")
+    finally:
+        server.close()
+        client.shutdown()
+    armed, unarmed = child["cfg1_add_keys_per_s_armed"], P19["keys"] / add_s
+    log({"phase": "19c", "cfg1_add_keys_per_s_armed": armed,
+         "cfg1_add_keys_per_s_unarmed": unarmed, "armed_over_unarmed": armed / unarmed,
+         "cfg1_add_keys_per_s_unarmed_phase_2": RATES.get("add_ops_per_s"),
+         "raw_locks_with_witness_off": [w for w, _g, _k in P19_RAW],
+         "phase_seconds": time.perf_counter() - t0, "card": card})
+    return child
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6948,7 +7372,15 @@ def main(argv=None) -> int:
     ap.add_argument("--p10c-child", choices=("warm", "cold"), help=argparse.SUPPRESS)
     ap.add_argument("--p14-child", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--p14-config", help=argparse.SUPPRESS)
+    ap.add_argument("--p19-child", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--p19-config", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.p19_child:
+        global P19_DEVICE
+        cfg = json.loads(args.p19_config)
+        P19.update(cfg["P19"])
+        P19_DEVICE = cfg["device"]
+        return p19_child(args.p19_child, args.seed)
     if args.p14_child:
         global P14_DEVICE
         cfg = json.loads(args.p14_config)
@@ -7064,6 +7496,13 @@ def main(argv=None) -> int:
     check(cms_seq.LAUNCHES > 0, "phase 18 never launched K1")
     kernel["launches"] += cms_seq.LAUNCHES
     by_phase["18"] = cms_seq.LAUNCHES
+    # Phase 19's path runs in a child under the armed witness: its K1
+    # launches are the child's count, reported on its line.
+    p19 = phase_witness(args.seed, card)
+    marks.append(("19", time.perf_counter()))
+    check(p19["k1_launches"] > 0, "phase 19 never launched K1")
+    kernel["launches"] += p19["k1_launches"]
+    by_phase["19"] = p19["k1_launches"]
     log({"phase": "all", "seconds": time.perf_counter() - t_run,
          "by_phase_s": {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}})
     log({"kernels": [kernel]})

@@ -4,8 +4,8 @@ The static rules (rtpulint RT001) catch LEXICAL blocking-under-lock;
 they cannot see lock-ORDER hazards that only exist across call chains
 and threads.  This module is the witness(4)-style runtime complement:
 
-- A module names a lock by creating it through :func:`named` (the
-  rebalancer's and the fleet doctor's tick locks), which returns the
+- A module names a lock by creating it through :func:`named` (the JAX
+  package's lock names, at the counterpart sites), which returns the
   lock untouched when the witness is off (``RTPU_LOCK_WITNESS`` unset —
   zero overhead, the production default) and a recording proxy when it
   is on.
@@ -25,7 +25,12 @@ and threads.  This module is the witness(4)-style runtime complement:
 Test wiring: a test file that runs under this witness drains
 :func:`take_violations` after every test in an autouse fixture of its
 own and fails the test with the offending stack pairs — run any such
-suite under ``RTPU_LOCK_WITNESS=1``.
+suite under ``RTPU_LOCK_WITNESS=1``.  With ``RTPU_LOCK_WITNESS_EXPORT``
+(or ``RTPU_TORCH_LOCK_WITNESS_EXPORT``, which wins: the JAX package's
+witness reads the first name too, so a process that runs both writes
+each graph to a file of its own) set to a path, the observed graph is
+written there at exit for ``python -m redisson_tpu_torch.analysis
+--runtime-edges``.
 
 The witness deliberately does NOT wrap the executor dispatch lock:
 that lock's entire purpose is serializing device work, so blocking
@@ -78,6 +83,7 @@ class _State:
         self.violations: list[WitnessViolation] = []
         self.seen_cycles: set = set()
         self.seen_blocking: set = set()
+        self.acquired: set = set()  # every name acquired at least once
         self.tls = threading.local()
 
     def held(self) -> list:
@@ -104,7 +110,9 @@ def force(on: bool) -> None:
     _forced = on
 
 
-_EXPORT_ENV = "RTPU_LOCK_WITNESS_EXPORT"
+# The port's own name first: a test process arms the JAX package's
+# witness too, and that one writes its graph to RTPU_LOCK_WITNESS_EXPORT.
+_EXPORT_ENVS = ("RTPU_TORCH_LOCK_WITNESS_EXPORT", "RTPU_LOCK_WITNESS_EXPORT")
 
 
 def _ensure_state() -> "_State":
@@ -117,7 +125,8 @@ def _ensure_state() -> "_State":
             # observed acquisition graph is dumped at process exit so
             # the static lock-graph gate (analysis/lockgraph.py) can
             # fold runtime-only edges into its cycle check.
-            path = os.environ.get(_EXPORT_ENV)
+            path = next((os.environ[e] for e in _EXPORT_ENVS
+                         if os.environ.get(e)), None)
             if path:
                 import atexit
 
@@ -143,7 +152,7 @@ class _WitnessLock:
     """Recording proxy.  Works as a context manager, under
     ``threading.Condition`` (which binds acquire/release and falls
     back to them for wait), and over RLocks (reentrant acquires are
-    recorded and self-edges skipped)."""
+    recorded and add no edge; self-edges are skipped)."""
 
     __slots__ = ("_lock", "_name")
 
@@ -154,9 +163,13 @@ class _WitnessLock:
     # -- lock protocol -----------------------------------------------------
 
     def acquire(self, blocking: bool = True, timeout: float = -1):
+        # Neither a try-lock nor the re-entry of an RLock this thread
+        # already holds can wait, so neither adds an order edge (lockdep's
+        # rule): the re-entry's order was taken at its first acquisition.
+        ordered = blocking and not _owned(self._lock)
         ok = self._lock.acquire(blocking, timeout)
         if ok:
-            _note_acquire(self._name)
+            _note_acquire(self._name, ordered)
         return ok
 
     def release(self) -> None:
@@ -193,13 +206,22 @@ class _WitnessLock:
         return f"<WitnessLock {self._name!r} {self._lock!r}>"
 
 
-def _note_acquire(name: str) -> None:
+def _owned(lock) -> bool:
+    """True when ``lock`` is an RLock the calling thread holds."""
+    f = getattr(lock, "_is_owned", None)
+    return f is not None and f()
+
+
+def _note_acquire(name: str, ordered: bool = True) -> None:
     st = _state
     if st is None:
         return
     held = st.held()
-    prior = [p for p in held if p != name]
+    prior = [p for p in held if p != name] if ordered else []
     held.append(name)
+    if name not in st.acquired:
+        with st.guard:  # readers copy the set under the guard
+            st.acquired.add(name)
     if not prior:
         return
     site = None
@@ -363,6 +385,17 @@ def export_edges() -> list:
         )
 
 
+def acquired_names() -> frozenset:
+    """Every witness-named lock acquired at least once since the last
+    :func:`reset` — proof that a run went through the named locks at all
+    (a lock acquired alone adds no edge to the graph)."""
+    st = _state
+    if st is None:
+        return frozenset()
+    with st.guard:
+        return frozenset(st.acquired)
+
+
 def export_to(path: str) -> None:
     """Dump the acquisition graph as the JSON shape
     ``lockgraph.load_runtime_edges`` reads."""
@@ -417,10 +450,12 @@ def reset() -> None:
         st.violations.clear()
         st.seen_cycles.clear()
         st.seen_blocking.clear()
+        st.acquired.clear()
 
 
 __all__ = [
     "WitnessViolation",
+    "acquired_names",
     "active",
     "allow_blocking",
     "assert_clean",

@@ -39,6 +39,8 @@ import itertools
 import threading
 from collections import OrderedDict
 
+from redisson_tpu_torch.analysis import witness as _witness
+
 
 MISS = object()  # sentinel: ``None`` is a legal cached value
 
@@ -47,7 +49,7 @@ class _Shard:
     __slots__ = ("lock", "entries", "tenants", "bytes")
 
     def __init__(self):
-        self.lock = threading.Lock()
+        self.lock = _witness.named(threading.Lock(), "nearcache.lru.shard")
         # (tenant, key) -> (value, nbytes, stamp); OrderedDict insertion
         # order IS the recency order (move_to_end on hit); ``stamp`` is
         # the store-wide recency clock value of the entry's last touch —
@@ -78,7 +80,7 @@ class ShardedLRUStore:
         )
         # Tenant accounting + optional per-tenant overrides, under one
         # small lock (touched once per put/evict, not per get).
-        self._tlock = threading.Lock()
+        self._tlock = _witness.named(threading.Lock(), "nearcache.lru.tenants")
         self._tenant_bytes: dict = {}
         self._tenant_entries: dict = {}
         self._tenant_limits: dict = {}  # tenant -> (max_bytes, max_entries)

@@ -46,6 +46,7 @@ import threading
 
 import numpy as np
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch.cache.lru import MISS, ShardedLRUStore
 
 # Per-entry host overhead estimate: dict slot + key tuple + tag ints.
@@ -170,7 +171,7 @@ class SketchNearCache:
         # it — per-name bumps alone cannot retire names they have never
         # seen.
         self._floor = (0, 0)
-        self._elock = threading.Lock()
+        self._elock = _witness.named(threading.Lock(), "nearcache.epochs")
         # _epochs is pruned back toward the floor when it outgrows this
         # (see _prune_locked): per-name entries must survive DELETION
         # (successor coherence) but not forever — name-churn workloads

@@ -36,6 +36,7 @@ import socket
 import threading
 import time
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch.cluster.slots import command_keys, key_slot
 from redisson_tpu_torch.obs import trace as _trace
 from redisson_tpu_torch.serve.wireutil import ReplyError, exchange
@@ -66,7 +67,7 @@ class _NodeConn:
 
     def __init__(self, addr, timeout_s: float, password=None):
         self.addr = addr
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "cluster.client.conn")
         sock = socket.create_connection(addr, timeout=timeout_s)
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self._sock = sock
@@ -123,7 +124,9 @@ class ClusterClient:
         # refresh-and-retry instead of surfacing the first OSError.
         self._deadnode_attempts = deadnode_attempts
         self._deadnode_backoff_s = deadnode_backoff_s
-        self._table_lock = threading.Lock()
+        self._table_lock = _witness.named(
+            threading.Lock(), "cluster.client.table"
+        )
         self._slots: list = [None] * 16384  # slot -> (host, port)
         self._conns: dict = {}  # (host, port) -> _NodeConn
         self._pool = None  # lazy scatter-leg executor (see _executor)

@@ -37,6 +37,7 @@ import threading
 
 import time
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch.cluster.slotmap import SlotMap
 from redisson_tpu_torch.obs import trace as _trace
 from redisson_tpu_torch.cluster.slots import NSLOTS, command_keys, key_slot
@@ -73,7 +74,7 @@ class ClusterDoor:
         # on a migrating slot runs under the guard, and its redis.call of
         # the same key routes through the door again on the same thread
         # (a plain lock deadlocks there — the JAX package's does).
-        self.move_lock = threading.RLock()
+        self.move_lock = _witness.named(threading.RLock(), "cluster.move")
         self.migrate_timeout_s = 10.0
         # Persistent migration sockets, one per target node, touched
         # ONLY under move_lock: a TCP connect per migrated key would

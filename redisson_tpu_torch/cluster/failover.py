@@ -49,6 +49,7 @@ import threading
 import time
 from typing import Optional
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch.serve.wireutil import ReplyError, exchange
 
 
@@ -63,7 +64,7 @@ class FailoverState:
         self.myid = myid
         self.slotmap = slotmap
         self.node_timeout = float(node_timeout)
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "failover.state")
         self.current_epoch = 0
         # Highest epoch this node VOTED in — one vote per epoch, ever.
         self.last_vote_epoch = 0

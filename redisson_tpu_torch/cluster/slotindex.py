@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import threading
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch.cluster.slots import key_slot
 
 
@@ -40,7 +41,7 @@ class SlotKeyIndex:
     mutation — same discipline as ``obs.loadmap``."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "cluster.slotindex")
         self._by_slot: dict = {}  # slot -> set of key names (str)
 
     def note(self, name, delta: int) -> None:

@@ -18,6 +18,7 @@ from __future__ import annotations
 import threading
 from typing import Optional
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch.cluster.slots import NSLOTS
 
 
@@ -47,7 +48,7 @@ class SlotMap:
     """
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "cluster.slotmap")
         self._owner: list = [None] * NSLOTS
         self._nodes: dict = {}  # id -> (host, port)
         self.importing: dict = {}  # slot -> source node id

@@ -36,6 +36,7 @@ import tempfile
 import threading
 import time
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch.cluster.slots import NSLOTS
 from redisson_tpu_torch.serve.wireutil import ReplyError, exchange
 
@@ -270,7 +271,7 @@ class ClusterSupervisor:
         self.node_args = list(node_args)
         self.env_extra = dict(env_extra or {})
         self.startup_timeout_s = startup_timeout_s
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "cluster.supervisor")
         self._procs: list = []  # subprocess.Popen, index-aligned w/ addrs
         self.addrs: list = []  # (host, port) per node
         self.node_ids: list = []

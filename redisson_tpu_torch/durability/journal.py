@@ -71,6 +71,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch import chaos as _chaos
 
 _MAGIC = b"RTPJ"
@@ -252,7 +253,7 @@ class OpJournal:
         self.max_segment_bytes = max(1 << 9, int(max_segment_bytes))
         self.obs = obs
         os.makedirs(directory, exist_ok=True)
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "journal.queue")
         self._cv = threading.Condition(self._lock)  # writer wake
         self._durable_cv = threading.Condition(self._lock)
         self._pending: list[bytes] = []  # encoded payloads awaiting write

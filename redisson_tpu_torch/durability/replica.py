@@ -58,6 +58,7 @@ import time
 import zlib
 from typing import Optional
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch.durability.journal import decode_record
 from redisson_tpu_torch.serve.wireutil import ReplyError, exchange
 
@@ -173,7 +174,7 @@ class ReplicaLink(threading.Thread):
         # bootstrap restored (0 for an empty primary).  GIL-atomic int/
         # bool reads serve INFO and the staleness gate lock-free; the
         # lock orders the promote() handshake against the apply loop.
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "repl.link")
         # A replid from the boot bootstrap lets the first PSYNC ride a
         # CONTINUE off the just-restored snapshot cut instead of
         # re-shipping the whole snapshot it came from.

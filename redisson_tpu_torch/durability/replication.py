@@ -46,6 +46,7 @@ import zlib
 from collections import deque
 from typing import Optional
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch.durability.journal import encode_record
 
 
@@ -125,7 +126,7 @@ class ReplicationHub:
         # primary's journal lost its unfsynced tail, so offsets from
         # the previous life must not partial-resync against this one.
         self.repl_id = uuid.uuid4().hex[:40]
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "repl.hub")
         self._cv = threading.Condition(self._lock)
         self.backlog = ReplBacklog(backlog_bytes)
         self.backlog.reset(journal.last_seq())

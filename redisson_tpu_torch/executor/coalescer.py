@@ -60,6 +60,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch import chaos as _chaos
 from redisson_tpu_torch.obs import trace as _trace
 from redisson_tpu_torch.executor.failures import (
@@ -235,7 +236,9 @@ class BatchCoalescer:
         self._adaptive = adaptive_inflight
         self._inflight_limit = self._max_inflight_cfg
         self._uncollected = 0
-        self._inflight_cv = threading.Condition(threading.Lock())
+        self._inflight_cv = threading.Condition(
+            _witness.named(threading.Lock(), "coalescer.inflight")
+        )
         self._good_streak = 0
         # Retirement thresholds (s) of the AIMD window and the phase
         # signals (the JAX package's values).
@@ -248,7 +251,7 @@ class BatchCoalescer:
         self._open: dict = {}
         self._pool_tail: dict = {}
         self._hurry = False  # a caller is blocking: drain the queue now
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "coalescer.queue")
         self._wake = threading.Condition(self._lock)
         # Producers blocked on the queue bound wait here in FIFO ticket
         # order, so a bulk submit is not starved by a stream of small ones.

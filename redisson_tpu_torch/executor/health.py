@@ -30,6 +30,8 @@ import threading
 import time
 from typing import Callable, Optional
 
+from redisson_tpu_torch.analysis import witness as _witness
+
 
 CLOSED = "closed"
 OPEN = "open"
@@ -78,7 +80,7 @@ class BreakerBoard:
         self.failure_threshold = max(1, int(failure_threshold))
         self.open_s = float(open_s)
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "health.breakers")
         self._breakers: dict[tuple, CircuitBreaker] = {}
         self.on_open: Optional[Callable] = None
         self.on_close: Optional[Callable] = None
@@ -232,7 +234,7 @@ class DispatchHealth:
             if monitor_interval_s is not None
             else max(0.005, open_s / 4.0)
         )
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "health.state")
         self._probes: dict[str, Callable] = {}  # kind -> probe dispatch
         self._degraded: set[str] = set()
         self.any_degraded = False  # lock-free fast-path flag

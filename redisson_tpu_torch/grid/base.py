@@ -246,10 +246,12 @@ def _may_block(name: str) -> bool:
 
 import threading as _threading
 
+from redisson_tpu_torch.analysis import witness as _witness
+
 _shared_pool = None
 # Module-scope lock: creating it lazily raced — two first callers could
 # each install a different lock and build two executors.
-_shared_pool_lock = _threading.Lock()
+_shared_pool_lock = _witness.named(_threading.Lock(), "grid.shared_pool")
 
 
 def _get_shared_pool():

@@ -34,6 +34,7 @@ from __future__ import annotations
 import threading
 from typing import Any, Callable, Iterable, Optional
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch.grid.maps import Map, MapCache
 
 _MISSING = object()
@@ -60,7 +61,7 @@ class CacheStatistics:
     """→ javax.cache.management.CacheStatisticsMXBean."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "grid.jcache.stats")
         self.reset()
 
     def reset(self) -> None:

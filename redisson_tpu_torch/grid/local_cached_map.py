@@ -33,6 +33,7 @@ from __future__ import annotations
 import threading
 from typing import Any, Optional
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch.cache import MISS, ShardedLRUStore
 from redisson_tpu_torch.grid.maps import Map, _MISSING
 
@@ -40,7 +41,7 @@ INVALIDATE = "invalidate"
 UPDATE = "update"
 NONE = "none"
 
-_HUB_LOCK = threading.Lock()
+_HUB_LOCK = _witness.named(threading.Lock(), "grid.localmap.hub")
 
 
 def _approx_nbytes(kb: bytes, value: Any) -> int:
@@ -64,7 +65,7 @@ class _MapCacheHub:
         # Few shards: each map's traffic is a handful of user threads
         # plus the TopicBus pool; tenant quotas do the real bounding.
         self.store = ShardedLRUStore(max_bytes=64 << 20, nshards=4)
-        self.lock = threading.Lock()
+        self.lock = _witness.named(threading.Lock(), "grid.localmap.gens")
         self.gens: dict = {}
         # Generation FLOOR (the SketchNearCache._prune_locked idiom):
         # ``gens`` is folded back toward the floor once it outgrows the

@@ -29,6 +29,7 @@ import time
 import uuid
 from typing import Any, Callable, Optional
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch.objects.base import CamelCompatMixin
 
 _MISSING = object()
@@ -85,7 +86,7 @@ class ExecutorService(CamelCompatMixin):
         self._name = name
         self._client = client
         self._tasks: "list[tuple]" = []
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "grid.services.executor")
         self._cond = threading.Condition(self._lock)
         self._workers: list[threading.Thread] = []
         self._futures: dict[str, TaskFuture] = {}
@@ -290,7 +291,7 @@ class RemoteService(CamelCompatMixin):
         self._name = name
         self._client = client
         self._impls: dict[str, tuple] = {}  # iface -> (impl, executor)
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "grid.services.remote")
 
     def register(self, iface: str, impl: Any, workers: int = 1) -> None:
         """→ RRemoteService#register(Class, T, workers).  Re-registering
@@ -813,7 +814,7 @@ class ScriptService(CamelCompatMixin):
     def __init__(self, client):
         self._client = client
         self._fns: dict[str, Callable] = {}
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "grid.services.script")
 
     def register(self, name: str, fn: Callable) -> None:
         """→ SCRIPT LOAD (returns nothing; the name is the sha analog)."""
@@ -850,7 +851,7 @@ class FunctionService(CamelCompatMixin):
         # library -> {function name -> (fn, no_writes)}
         self._libs: dict[str, dict] = {}
         self._by_name: dict[str, tuple] = {}  # flat FCALL lookup
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "grid.services.function")
 
     def load(self, library: str, functions: dict, *, replace: bool = False,
              no_writes: tuple = ()) -> None:

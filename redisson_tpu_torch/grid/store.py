@@ -25,6 +25,8 @@ import threading
 import time
 from typing import Any, Callable, Optional
 
+from redisson_tpu_torch.analysis import witness as _witness
+
 
 def _fsync_dir(path: str) -> None:
     """fsync a directory so a rename inside it is durable."""
@@ -53,7 +55,7 @@ class GridStore:
     SWEEP_INTERVAL_S = 0.25
 
     def __init__(self):
-        self.lock = threading.RLock()
+        self.lock = _witness.named(threading.RLock(), "grid.store")
         self.cond = threading.Condition(self.lock)
         self._data: dict[str, GridEntry] = {}
         self._sweeper: Optional[threading.Thread] = None

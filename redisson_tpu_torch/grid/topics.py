@@ -15,6 +15,7 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Optional
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch.objects.base import CamelCompatMixin
 
 
@@ -22,7 +23,7 @@ class TopicBus:
     """Per-client pub/sub hub (the PublishSubscribeService analog)."""
 
     def __init__(self, n_threads: int = 2):
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "grid.topics.bus")
         self._listeners: dict[str, dict[int, Callable]] = {}
         self._pattern_listeners: dict[str, dict[int, Callable]] = {}
         self._next_id = 1
@@ -146,7 +147,10 @@ class TopicBus:
         work still pending."""
         import time as _time
 
-        def pending() -> bool:
+        # Not ``pending``: the lock graph resolves a bare call by name,
+        # and Stream.pending (which takes the grid store's lock) would
+        # stand in for this check.
+        def undelivered() -> bool:
             if channel is None:
                 return bool(self._chan_queues or self._chan_active)
             return (
@@ -155,7 +159,7 @@ class TopicBus:
 
         deadline = None if timeout is None else _time.monotonic() + timeout
         with self._idle_cv:
-            while pending():
+            while undelivered():
                 if deadline is None:
                     self._idle_cv.wait(timeout=1.0)
                 else:

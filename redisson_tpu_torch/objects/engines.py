@@ -54,6 +54,7 @@ from typing import Optional
 
 import numpy as np
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch import chaos as _chaos, overload as _ovl
 from redisson_tpu_torch.cache import ShardedLRUStore, SketchNearCache
 from redisson_tpu_torch.executor import prewarm
@@ -188,7 +189,7 @@ class TopKStore:
     not LOSE heavy keys."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "engine.topk")
         self._tables: dict[str, dict] = {}
 
     def configure(self, name: str, k: int) -> None:
@@ -395,7 +396,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
             obs=self.obs,
         )
         self._mirrors: dict = {}  # name -> degraded-mode mirror
-        self._mirror_lock = threading.RLock()
+        self._mirror_lock = _witness.named(threading.RLock(), "engine.mirror")
         # Bumped (under the lock) whenever reconcile writes mirrors back:
         # a seed row read before the bump may predate the write-back and
         # is discarded (see _degraded).

@@ -46,6 +46,7 @@ import threading
 import time
 from array import array
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch.cluster.slots import NSLOTS, key_slot
 
 # Reserved fold bucket for the bounded tenant table — a real tenant
@@ -193,7 +194,7 @@ class LoadMap:
         # LEAF lock by design: the keyspace hooks call note_key() under
         # grid-store / tenancy-registry locks, so nothing may be
         # acquired while this is held.
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "obs.loadmap")
         # Per-slot planes.  'Q' = uint64 counters, 'd' = float
         # microseconds; bumped lock-free (see module doc).
         self.ops = array("Q", bytes(8 * NSLOTS))

@@ -46,7 +46,7 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
-def _publish(tmp: Path, final: Path) -> None:
+def _publish_file(tmp: Path, final: Path) -> None:
     """tmp -> final, durably: the tmp file's bytes are fsynced before the
     rename and the directory after it, so a crash never leaves a name
     whose bytes are torn (concurrent builders never see half a file)."""
@@ -94,11 +94,11 @@ def build(names) -> float:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
-        _publish(tmp, out)
+        _publish_file(tmp, out)
         # The report follows the library, by the same tmp -> rename path.
         log_tmp = out.with_suffix(f".log.{os.getpid()}.tmp")
         log_tmp.write_text(log)
-        _publish(log_tmp, out.with_suffix(".log"))
+        _publish_file(log_tmp, out.with_suffix(".log"))
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0

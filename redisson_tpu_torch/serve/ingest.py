@@ -18,6 +18,8 @@ from typing import Optional
 
 import numpy as np
 
+from redisson_tpu_torch.analysis import witness as _witness
+
 
 
 class TopicCmsBridge:
@@ -48,7 +50,7 @@ class TopicCmsBridge:
         self._batch_size = batch_size
         self._interval = flush_interval_s
         self._weight_fn = weight_fn
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "serve.ingest")
         self._idle = threading.Condition(self._lock)
         self._active = 0  # take-to-dispatch windows in progress
         self._buf: list = []

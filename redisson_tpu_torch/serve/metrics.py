@@ -14,6 +14,8 @@ import os
 import threading
 import time
 
+from redisson_tpu_torch.analysis import witness as _witness
+
 
 class _Reservoir:
     """Bounded latency reservoir for percentile estimates."""
@@ -53,7 +55,7 @@ class _Reservoir:
 
 class Metrics:
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "serve.metrics")
         self.started = time.monotonic()
         self.ops_total = 0
         self.batches_total = 0
@@ -154,7 +156,7 @@ class Profiler:
 
         self.device = torch.device(device)
         self._active = False
-        self._plock = threading.Lock()
+        self._plock = _witness.named(threading.Lock(), "serve.profiler")
         self._prof = None
         self._log_dir = None
         self.last_trace = None  # path of the newest exported trace

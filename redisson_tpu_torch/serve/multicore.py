@@ -58,6 +58,7 @@ import threading
 import time
 from typing import Optional
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch import chaos
 from redisson_tpu_torch.cluster.slots import NSLOTS, command_keys, key_slot
 from redisson_tpu_torch.serve import wireutil
@@ -179,7 +180,7 @@ class _PeerPool:
         self.path = path
         self.connect_timeout_s = connect_timeout_s
         self._free: list = []
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "serve.multicore.pool")
         self.closed = False
 
     def get(self) -> socket.socket:

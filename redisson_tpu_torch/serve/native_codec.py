@@ -21,6 +21,8 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+from redisson_tpu_torch.analysis import witness as _witness
+
 _SRC = Path(__file__).resolve().parent.parent / "native" / "resp_codec.c"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 _CFLAGS = ("-O2", "-shared", "-fPIC")
@@ -43,7 +45,7 @@ PARSE_FALLBACK = 2
 # reactor's recv budget — one connection cannot monopolize a tick).
 TICK_READ_BUDGET = 1 << 20
 
-_lock = threading.Lock()
+_lock = _witness.named(threading.Lock(), "serve.native_codec")
 _parser: Optional["NativeRespParser"] = None
 _load_failed = False
 
@@ -59,7 +61,7 @@ def _required() -> bool:
     )
 
 
-def _publish(tmp: Path, final: Path) -> None:
+def _publish_file(tmp: Path, final: Path) -> None:
     """tmp -> final, durably: fsync the bytes before the rename and the
     directory after it, so a crash never publishes a torn library (a
     dlopen of one can crash the process instead of degrading)."""
@@ -94,7 +96,7 @@ def _build() -> bool:
         except (OSError, subprocess.TimeoutExpired):
             continue
         if r.returncode == 0:
-            _publish(tmp, so)
+            _publish_file(tmp, so)
             return True
     return False
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 import time
 from typing import Any
 
+from redisson_tpu_torch.analysis import witness as _witness
+
 
 class Node:
     def __init__(self, device, shard: int):
@@ -133,7 +135,9 @@ class FailureMonitor:
         # (wedged ping) may overlap the next start()'s thread briefly —
         # the lock keeps _down/listener emission race-free until the old
         # thread sees its own stop event and exits.
-        self._sweep_lock = threading.Lock()
+        self._sweep_lock = _witness.named(
+            threading.Lock(), "serve.nodes.sweep"
+        )
 
     def add_listener(self, cb) -> None:
         """``cb(event)`` is invoked from the monitor thread."""

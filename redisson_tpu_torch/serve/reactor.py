@@ -46,6 +46,7 @@ import time
 import traceback
 from collections import deque
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch.serve.resp import (
     ProtocolError,
     _ConnCtx,
@@ -252,7 +253,7 @@ class _RConn:
         self.pending: deque = deque()  # (family, argv) not-yet-dispatched
         # Guards outbuf + progress stamps: enqueue() runs cross-thread
         # (pub/sub pushes, detached workers), flush on the reactor.
-        self.wlock = threading.Lock()
+        self.wlock = _witness.named(threading.Lock(), "resp.reactor.outbuf")
         self.outbuf = bytearray()
         self.backlog_t0 = 0.0  # when outbuf last went empty -> non-empty
         self.last_progress = 0.0

@@ -71,6 +71,7 @@ from typing import Optional
 
 import numpy as np
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch import chaos
 from redisson_tpu_torch import overload as _overload
 from redisson_tpu_torch.cluster.slots import command_keys as _command_keys
@@ -496,7 +497,7 @@ class _ConnCtx:
     def __init__(self, sock: socket.socket, server: "RespServer" = None):
         self.sock = sock
         self.server = server  # live output-buffer limits (CONFIG SET)
-        self.lock = threading.Lock()
+        self.lock = _witness.named(threading.Lock(), "resp.conn.send")
         try:  # for SLOWLOG entries; the peer may already be gone
             peer = sock.getpeername()
             if isinstance(peer, tuple):
@@ -696,7 +697,7 @@ class RespServer:
         # lands inside an engine submission (a launch lands whole or
         # not at all; the call's next dispatch boundary takes the kill).
         self._script_timeout_ms = int(client.config.script_timeout_ms)
-        self._script_lock = threading.Lock()
+        self._script_lock = _witness.named(threading.Lock(), "resp.script")
         self._script_run = None  # (thread, started_monotonic) while running
         self._script_kill = None  # run record a SCRIPT KILL is targeting
         self._script_calls = 0
@@ -729,7 +730,7 @@ class RespServer:
         # unmoved since install.  Guarded — a lost increment would let a
         # stale cached reply outlive the write that obsoleted it.
         self._write_epoch = 0
-        self._epoch_lock = threading.Lock()
+        self._epoch_lock = _witness.named(threading.Lock(), "resp.write_epoch")
         # Per-command stats record into the CLIENT's bundle (the
         # engine's registry, so one exposition carries both).
         self.obs = client.obs
@@ -742,13 +743,13 @@ class RespServer:
         self._monitors: set = set()
         self._conns_accepted = 0
         self._nconn = 0
-        self._conn_lock = threading.Lock()
+        self._conn_lock = _witness.named(threading.Lock(), "resp.conns")
         self._conn_idle = threading.Condition(self._conn_lock)
         self._conns: set = set()  # live sockets, for shutdown drain
         # SCAN resume state: cursor id -> last key returned (see _cmd_SCAN).
         self._scan_states: dict[int, str] = {}
         self._scan_next = 0
-        self._scan_lock = threading.Lock()
+        self._scan_lock = _witness.named(threading.Lock(), "resp.scan")
         # Per-core front door: in worker mode this process is one of K
         # siblings sharing the SAME (host, port) via SO_REUSEPORT — the
         # kernel load-balances accepts across the workers' listen
@@ -2327,7 +2328,25 @@ class RespServer:
             if frame is not None:
                 return frame
             if guarded:
-                with self.cluster.move_lock:
+                guard = self.cluster.move_lock
+                if getattr(ctx, "in_script", False) and not guard._is_owned():
+                    # A script's redis.call runs under the grid lock (Lua
+                    # atomicity) and the guard orders BEFORE it: a MIGRATE
+                    # holds the guard while it reads the grid, so waiting
+                    # here closes grid.store -> cluster.move -> grid.store.
+                    # An undeclared key (its EVAL took no guard) may only
+                    # try the guard; a busy one answers TRYAGAIN.
+                    if not guard.acquire(blocking=False):
+                        return _encode_error(
+                            "TRYAGAIN the slot is migrating: retry the script")
+                    try:
+                        frame = self.cluster.route_recheck(name, cmd)
+                        if frame is not None:
+                            return frame
+                        return self._invoke_handler(name, cmd, ctx)
+                    finally:
+                        guard.release()
+                with guard:
                     frame = self.cluster.route_recheck(name, cmd)
                     if frame is not None:
                         return frame

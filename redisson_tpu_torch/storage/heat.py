@@ -26,6 +26,8 @@ import math
 import threading
 import time
 
+from redisson_tpu_torch.analysis import witness as _witness
+
 
 
 class HeatTracker:
@@ -34,7 +36,7 @@ class HeatTracker:
         self.half_life_s = float(half_life_s)
         self.max_entries = int(max_entries)
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "storage.heat")
         # name -> (heat_at_stamp, stamp).  Decay is lazy: applied on
         # touch and on read, so an idle tracker costs nothing.
         self._heat: dict[str, tuple] = {}

@@ -78,6 +78,7 @@ from typing import Optional
 
 import numpy as np
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch import chaos as _chaos
 from redisson_tpu_torch.executor.failures import RedissonTpuError
 
@@ -168,7 +169,7 @@ class ResidencyManager:
             ),
             clock=clock,
         )
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "storage.residency")
         self._host_nbytes: dict[str, int] = {}   # HOST mirrors, by name
         self._disk: dict[str, dict] = {}         # name -> {file, crc, nbytes}
         self._snapshot_refs: set[str] = set()    # blob files the latest snapshot names

@@ -29,6 +29,7 @@ from typing import Any, Optional
 
 import numpy as np
 
+from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch.executor.failures import TenantThrottledError
 from redisson_tpu_torch.ops.golden import HLL_M
 
@@ -164,7 +165,7 @@ class TenantGovernor:
     def __init__(self, *, rate_limit: float = 0.0, burst: float = 0.0,
                  max_inflight: int = 0, obs=None,
                  clock=time.monotonic):
-        self._lock = threading.Lock()
+        self._lock = _witness.named(threading.Lock(), "tenancy.governor")
         self._clock = clock
         self._buckets: dict[str, _TokenBucket] = {}
         self._inflight: dict[str, int] = {}
@@ -321,7 +322,7 @@ class TenantRegistry:
         self._factory = factory
         self._initial_capacity = initial_capacity
         self._dispatch_lock = dispatch_lock
-        self._lock = threading.RLock()
+        self._lock = _witness.named(threading.RLock(), "tenancy.registry")
         self._tenants: dict[str, TenantEntry] = {}
         self._pools: dict[tuple, SizeClassPool] = {}
         # Residency alloc gate: when set and True at create time,

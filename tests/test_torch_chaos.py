@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 from redisson_tpu import chaos as jchaos  # noqa: E402
 from redisson_tpu.executor import health as jhealth  # noqa: E402
 from redisson_tpu_torch import chaos  # noqa: E402
+from redisson_tpu_torch.analysis import witness as port_witness  # noqa: E402
 from redisson_tpu_torch.chaos import ChaosSchedule, FaultInjected  # noqa: E402
 from redisson_tpu_torch.executor import health  # noqa: E402
 from redisson_tpu_torch.executor.health import (  # noqa: E402
@@ -25,6 +26,23 @@ from redisson_tpu_torch.executor.health import (  # noqa: E402
     OPEN,
     kind_of_op,
 )
+
+
+@pytest.fixture(autouse=True)
+def _port_witness_guard():
+    """``tests/conftest.py`` drains only the JAX package's witness: under
+    ``RTPU_LOCK_WITNESS=1`` a test that leaves a violation in the port's
+    fails with its stack pairs (nothing to do with the witness off)."""
+    yield
+    if port_witness.active():
+        vs = port_witness.take_violations()
+        if vs:
+            pytest.fail(
+                "port lock-order witness found %d violation(s):\n\n%s"
+                % (len(vs), "\n\n".join(v.format() for v in vs)),
+                pytrace=False,
+            )
+
 
 PACKAGES = {"torch": (chaos, health), "jax": (jchaos, jhealth)}
 

@@ -41,6 +41,7 @@ import redisson_tpu  # noqa: E402
 import redisson_tpu_torch as rt  # noqa: E402
 import test_cluster as _ref  # noqa: E402
 from _pytest.fixtures import FixtureFunctionDefinition  # noqa: E402
+from redisson_tpu_torch.analysis import witness as port_witness  # noqa: E402
 from redisson_tpu_torch.cluster import supervisor as port_supervisor  # noqa: E402
 from redisson_tpu_torch.cluster.slots import NSLOTS, key_slot  # noqa: E402
 from redisson_tpu_torch.serve.wireutil import exchange  # noqa: E402
@@ -50,6 +51,22 @@ from test_torch_grid_coordination import (  # noqa: E402,F401
     _port_import,
     _port_value,
 )
+
+
+@pytest.fixture(autouse=True)
+def _port_witness_guard():
+    """``tests/conftest.py`` drains only the JAX package's witness: under
+    ``RTPU_LOCK_WITNESS=1`` a test that leaves a violation in the port's
+    fails with its stack pairs (nothing to do with the witness off)."""
+    yield
+    if port_witness.active():
+        vs = port_witness.take_violations()
+        if vs:
+            pytest.fail(
+                "port lock-order witness found %d violation(s):\n\n%s"
+                % (len(vs), "\n\n".join(v.format() for v in vs)),
+                pytrace=False,
+            )
 
 
 # -- running a reference module's tests, fixtures and helpers on the port -----
@@ -565,6 +582,62 @@ def test_eval_on_a_migrating_slot_does_not_deadlock():
             ["EVAL", "redis.call('SET', KEYS[0], ARGV[0])", "1", "{ev}k", "2"],
             ["EVAL", "redis.call('GET', KEYS[0])", "1", "{ev}k"],
         ], timeout=10.0) == [b"OK", b"OK", b"OK", b"2"]
+    finally:
+        server.close()
+        client.shutdown()
+
+
+def test_script_undeclared_key_on_a_migrating_slot_does_not_deadlock():
+    """The old order: a script holds the grid lock (Lua atomicity) and its
+    redis.call of an undeclared key in a MIGRATING slot waited for the
+    move guard, while a MIGRATE holding the guard waits for the grid lock
+    to read the key (grid.store -> cluster.move -> grid.store, the cycle
+    the armed witness reports).  Here the guard is held by another thread,
+    as the migration pump holds it: the script now only tries the guard
+    and answers TRYAGAIN, and the grid lock is free again at once; once
+    the guard is free the same script runs."""
+    import threading
+
+    from redisson_tpu_torch.serve.resp import RespServer
+    from redisson_tpu_torch.serve.wireutil import ReplyError
+
+    pa, pb = _free_port(), _free_port()
+    topo = {"nodes": [
+        {"id": "A", "host": "127.0.0.1", "port": pa, "slots": [[0, NSLOTS - 1]]},
+        {"id": "B", "host": "127.0.0.1", "port": pb, "slots": []},
+    ]}
+    cfg = rt.Config().use_gpu_sketch(device="cpu", min_bucket=64)
+    cfg.cluster_enabled = True
+    cfg.cluster_topology = topo
+    cfg.cluster_node_id = "A"
+    client = rt.create(cfg)
+    server = RespServer(client, port=pa, enable_python_scripts=True)
+    script = ["EVAL", "redis.call('GET', '{un}k')", "0"]
+    try:
+        slot = key_slot("{un}k")
+        assert _req(("127.0.0.1", pa), [
+            ["SET", "{un}k", "1"],
+            ["CLUSTER", "SETSLOT", str(slot), "MIGRATING", "B"],
+        ]) == [b"OK", b"OK"]
+        held, done = threading.Event(), threading.Event()
+
+        def pump():  # the migration pump's hold of the guard
+            with server.cluster.move_lock:
+                held.set()
+                done.wait(30)
+
+        th = threading.Thread(target=pump)
+        th.start()
+        try:
+            assert held.wait(10)
+            (r,) = _req(("127.0.0.1", pa), [script], timeout=10.0)
+            assert isinstance(r, ReplyError) and "TRYAGAIN" in str(r), r
+            assert client._grid.lock.acquire(timeout=5), "the script kept the grid lock"
+            client._grid.lock.release()
+        finally:
+            done.set()
+            th.join()
+        assert _req(("127.0.0.1", pa), [script], timeout=10.0) == [b"1"]
     finally:
         server.close()
         client.shutdown()

@@ -29,9 +29,27 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import redisson_tpu_torch as rt  # noqa: E402
+from redisson_tpu_torch.analysis import witness as port_witness  # noqa: E402
 from redisson_tpu_torch.chaos import crashchild  # noqa: E402
 from redisson_tpu_torch.codecs import LongCodec  # noqa: E402
 from redisson_tpu_torch.storage.residency import DISK  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _port_witness_guard():
+    """``tests/conftest.py`` drains only the JAX package's witness: under
+    ``RTPU_LOCK_WITNESS=1`` a test that leaves a violation in the port's
+    fails with its stack pairs (nothing to do with the witness off)."""
+    yield
+    if port_witness.active():
+        vs = port_witness.take_violations()
+        if vs:
+            pytest.fail(
+                "port lock-order witness found %d violation(s):\n\n%s"
+                % (len(vs), "\n\n".join(v.format() for v in vs)),
+                pytrace=False,
+            )
+
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # everysec: the writer fsyncs at most ~1 s apart; slack for a loaded box

@@ -27,12 +27,30 @@ import redisson_tpu_torch as rt  # noqa: E402
 import test_failover as _ref  # noqa: E402
 from redisson_tpu.cluster.failover import FailoverState as JaxState  # noqa: E402
 from redisson_tpu.cluster.slotmap import SlotMap as JaxSlotMap  # noqa: E402
+from redisson_tpu_torch.analysis import witness as port_witness  # noqa: E402
 from redisson_tpu_torch.cluster.failover import FailoverState  # noqa: E402
 from redisson_tpu_torch.cluster.slotmap import SlotMap  # noqa: E402
 from redisson_tpu_torch.cluster.slots import NSLOTS  # noqa: E402
 from redisson_tpu_torch.serve.wireutil import exchange  # noqa: E402
 from test_torch_cluster import cpu_builtins, port_namespace  # noqa: E402
 from test_torch_grid_coordination import _one_torch_thread  # noqa: E402,F401
+
+
+@pytest.fixture(autouse=True)
+def _port_witness_guard():
+    """``tests/conftest.py`` drains only the JAX package's witness: under
+    ``RTPU_LOCK_WITNESS=1`` a test that leaves a violation in the port's
+    fails with its stack pairs (nothing to do with the witness off)."""
+    yield
+    if port_witness.active():
+        vs = port_witness.take_violations()
+        if vs:
+            pytest.fail(
+                "port lock-order witness found %d violation(s):\n\n%s"
+                % (len(vs), "\n\n".join(v.format() for v in vs)),
+                pytrace=False,
+            )
+
 
 globals().update(port_namespace(_ref, cpu_builtins))
 

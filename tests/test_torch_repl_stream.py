@@ -29,10 +29,27 @@ import test_repl_stream as _ref  # noqa: E402
 from redisson_tpu.codecs import LongCodec as JaxLongCodec  # noqa: E402
 from redisson_tpu.serve.resp import RespServer as JaxServer  # noqa: E402
 from redisson_tpu_torch import chaos  # noqa: E402
+from redisson_tpu_torch.analysis import witness as port_witness  # noqa: E402
 from redisson_tpu_torch.codecs import LongCodec  # noqa: E402
 from redisson_tpu_torch.serve.resp import RespServer as PortServer  # noqa: E402
 from redisson_tpu_torch.serve.wireutil import exchange  # noqa: E402
 from test_torch_grid_coordination import port_case  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _port_witness_guard():
+    """``tests/conftest.py`` drains only the JAX package's witness: under
+    ``RTPU_LOCK_WITNESS=1`` a test that leaves a violation in the port's
+    fails with its stack pairs (nothing to do with the witness off)."""
+    yield
+    if port_witness.active():
+        vs = port_witness.take_violations()
+        if vs:
+            pytest.fail(
+                "port lock-order witness found %d violation(s):\n\n%s"
+                % (len(vs), "\n\n".join(v.format() for v in vs)),
+                pytrace=False,
+            )
 
 
 @pytest.fixture(autouse=True, scope="module")

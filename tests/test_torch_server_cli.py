@@ -205,6 +205,19 @@ _TIERS = {
         "from redisson_tpu_torch.cluster import (slotmap, slotindex, door, client,"
         " supervisor, failover, rebalancer)\n"
         "from redisson_tpu_torch.analysis import witness, explorer, netsim\n"
+        "from redisson_tpu_torch.analysis import rtpulint, lockgraph\n"
+        "from redisson_tpu_torch.analysis import __main__ as analysis_cli\n"
+    ),
+    "analysis": (
+        # Naming a lock loads the witness alone, never the analyser.
+        "from redisson_tpu_torch.serve.resp import RespServer\n"
+        "from redisson_tpu_torch.cluster import door, rebalancer\n"
+        "loaded = [m for m in ('rtpulint', 'lockgraph', 'explorer')\n"
+        "          if 'redisson_tpu_torch.analysis.' + m in sys.modules]\n"
+        "assert not loaded, loaded\n"
+        "from redisson_tpu_torch.analysis import __main__ as cli\n"
+        "assert cli.main(['--rule', 'RT010', '--rule', 'RT001',"
+        " 'redisson_tpu_torch/cluster']) == 0\n"
     ),
     "journal": (
         "import tempfile\n"
@@ -300,7 +313,9 @@ def test_server_modules_import_neither_jax_nor_the_reference():
     supervisor, failover, the rebalancer and the fleet doctor — a
     cluster-mode node with its failover agent, an armed rebalancer and
     an armed doctor routed through connect_cluster), the analysis tools
-    (the lock-order witness, the schedule explorer and netsim), the entry
+    (the lock-order witness, the schedule explorer, netsim, the analyser,
+    the lock graph and their CLI, which gates the cluster tier; a serving
+    module that names its locks loads none of the analysers), the entry
     point and the scripts load with jax and redisson_tpu blocked and
     serve on the CPU — a journaled client recovers its tail; no module of
     the port, nor chip_smoke.py, profile_port.py or compare_rates.py, has

@@ -51,6 +51,66 @@ def _import(name, globals=None, locals=None, fromlist=(), level=0):
 
 globals().update(port_namespace(_ref, dict(vars(builtins), __import__=_import)))
 
+_ref_engine_paths = test_engine_paths_run_clean_under_witness  # noqa: F821
+
+
+def test_engine_paths_run_clean_under_witness(forced_witness, tmp_path):
+    """The reference body on the port's client, then a snapshot of a
+    loaded filter (its capture holds the mirror, registry and dispatch
+    locks in that order); the port's serving path really went through its
+    named locks: the coalescer's queue, the engine's mirror lock and the
+    tenant registry were acquired, with no violation."""
+    import numpy as np
+
+    import redisson_tpu_torch as rt
+
+    _ref_engine_paths(forced_witness)
+    client = rt.create(rt.Config().use_gpu_sketch(device="cpu", min_bucket=64))
+    try:
+        bf = client.get_bloom_filter("witness-snap")
+        bf.try_init(10_000, 0.01)
+        bf.add_all(np.arange(64, dtype=np.uint64))
+        client.snapshot(str(tmp_path))
+    finally:
+        client.shutdown()
+    assert port_witness.take_violations() == []
+    names = port_witness.acquired_names()
+    assert {"coalescer.queue", "engine.mirror", "tenancy.registry"} <= names, sorted(names)
+
+
+def test_named_sites_hold_the_raw_lock_with_the_witness_off():
+    """``named`` is the identity while ``RTPU_LOCK_WITNESS`` is unset: the
+    port's named sites hold the plain ``threading`` lock of the
+    reference's kind (the door's move guard stays re-entrant)."""
+    if port_witness.enabled():
+        pytest.skip("witness armed via RTPU_LOCK_WITNESS")
+    import threading
+
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.cluster.door import ClusterDoor
+    from redisson_tpu_torch.serve.resp import RespServer
+
+    lock, rlock = type(threading.Lock()), type(threading.RLock())
+    for raw in (threading.Lock(), threading.RLock()):
+        assert port_witness.named(raw, "x") is raw
+    client = rt.create(rt.Config().use_gpu_sketch(device="cpu", min_bucket=64))
+    server = RespServer(client, port=0)
+    try:
+        eng = client._engine
+        assert type(eng._mirror_lock) is rlock
+        assert type(eng.registry._lock) is rlock
+        assert type(eng.coalescer._lock) is lock
+        assert type(eng.coalescer._inflight_cv._lock) is lock
+        assert type(eng.health._lock) is lock
+        assert type(eng.topk._lock) is lock
+        assert type(client._grid.lock) is rlock
+        assert type(server._conn_lock) is lock and type(server._scan_lock) is lock
+    finally:
+        server.close()
+        client.shutdown()
+    assert "self.move_lock = _witness.named(threading.RLock()" in (
+        open(ClusterDoor.__init__.__code__.co_filename).read())
+
 
 @pytest.fixture(autouse=True)
 def _port_witness_guard():
@@ -146,3 +206,30 @@ def test_rebalancer_and_doctor_run_clean_under_the_port_witness(forced_witness):
             client.shutdown()
     vs = port_witness.take_violations()
     assert vs == [], "\n\n".join(v.format() for v in vs)
+
+
+def test_reentry_and_try_lock_add_no_order_edge(forced_witness):
+    """A re-entrant acquisition of an RLock this thread holds, and a
+    try-lock, cannot wait: they add no edge (the door's move guard is
+    re-entered by a script's redis.call under the grid lock).  A first
+    blocking acquisition under another lock still does."""
+    import threading
+
+    outer = port_witness.named(threading.RLock(), "re.outer")
+    inner = port_witness.named(threading.Lock(), "re.inner")
+    other = port_witness.named(threading.Lock(), "re.other")
+    with outer:
+        with inner:
+            with outer:  # re-entry: no inner -> outer edge
+                pass
+            assert other.acquire(blocking=False)  # try-lock: no inner -> other
+            other.release()
+    edges = set(port_witness.export_edges())
+    assert ("re.outer", "re.inner") in edges
+    assert ("re.inner", "re.outer") not in edges
+    assert ("re.inner", "re.other") not in edges
+    assert port_witness.take_violations() == []
+    with inner:
+        with other:  # a first blocking acquisition: an edge
+            pass
+    assert ("re.inner", "re.other") in set(port_witness.export_edges())
