@@ -320,6 +320,38 @@ the main path through the public client at full size:
            sampled named sites hold the raw threading lock.  K1 launches
            in phase 19 (19a) must be more than 0
 
+  phase 20 the sharded executor and the mesh: one client at
+           use_gpu_sketch(num_shards=8), eight logical shards of every pool
+           on the card; its nodes group lists 8 nodes naming the card.
+           (20a) config 4: phase 3's plan (1000 tenants x Bloom(10,000,
+           1%), 4 threads, add / contains / mixed of 256 keys) through the
+           per-op path: every result and tenant row equal golden, every
+           shard took ops and rtpu_shard_ops sums to the ops sent; ops/s
+           beside phase 3's one-shard rate.  (20b) config 1 (2**20 keys at
+           1M / 1%) then set_replicated(): the 8 replica rows, one per
+           shard, equal the golden bitmap; contains of every loaded key
+           rotating over the replicas, 131,072 outside keys equal golden
+           and the FPP within 3 sigma of 1.255%.  (20c) config 3
+           m-sharded: two 2**30-bit BitSets split by words over the
+           shards, 8 x 2**21 alternating set/get, a set_range and a
+           clear_range across shard boundaries, cardinality, length and
+           bitpos(0/1), then OR, XOR, AND and NOT between the two rows:
+           every result, row and scalar equal golden.  (20d) config 2:
+           PFADD of 2**21 keys into each of 4 HLLs on 4 shards, PFMERGE
+           across them: registers = golden, merged = the max, count() =
+           the Ertl estimate.  (20e) config 5 on 8 CMS(5, 65536) tenants,
+           one per shard: 2**20 zipf(1.2) events (**cut**) through
+           add_all_seq in 32,768-event calls, which takes the whole-batch
+           path while sharded: estimates and tables equal golden,
+           CMS.MERGE across shards = the uint32 sum, and no K1 launch in
+           20a-20e.  (20f) change_topology(4) while a writer adds: every
+           acked key present, the writer's row = golden, every other row
+           as before the swap; a 4-shard snapshot restored into a fresh
+           1-shard client with every row equal; change_topology(1), then
+           add_all_seq of 2**16 events on the carried CMS launches K1,
+           estimates and table = golden_seq from the carried table.
+           K1 launches in phase 20 (20f) must be more than 0
+
 Every failed check raises, so the script exits non-zero.  Without a CUDA
 device it exits with code 2 before printing any result.  The line before
 the last is nvidia-smi's name and power limit; the last line is
@@ -658,7 +690,11 @@ def phase_bloom(client, rng, card: str):
 # -- phase 3: multi-tenant coalesced runs -------------------------------------
 
 
-def phase_tenants(client, rng, phase=3) -> float:
+def phase_tenants(client, rng, phase=3, runs=True) -> float:
+    """Config 4's mixed traffic.  ``runs``: the executor has the
+    run-length path, and a spy shows flushes carrying several runs; a
+    sharded engine takes the per-op path instead, and every tenant row is
+    held against its golden bitmap too."""
     from redisson_tpu_torch.ops import golden
 
     n_tenants, n_threads, per_op = 1000, 4, 256
@@ -679,7 +715,8 @@ def phase_tenants(client, rng, phase=3) -> float:
         runs_per_flush.append(len(run_rows))
         return orig(pool, k, blocks, lengths, run_rows, *rest)
 
-    ex.bloom_mixed_keys_runs = spy
+    if runs:
+        ex.bloom_mixed_keys_runs = spy
     results: dict = {}
 
     def worker(t):
@@ -707,8 +744,9 @@ def phase_tenants(client, rng, phase=3) -> float:
         th.join(timeout=600)
     check(not any(th.is_alive() for th in threads), "tenant workers hung")
     wall_s = time.perf_counter() - t0
-    del ex.bloom_mixed_keys_runs
-    check(max(runs_per_flush) > 1, "no flush carried more than one run")
+    if runs:
+        del ex.bloom_mixed_keys_runs
+        check(max(runs_per_flush) > 1, "no flush carried more than one run")
 
     from redisson_tpu_torch.utils import hashing
 
@@ -730,11 +768,21 @@ def phase_tenants(client, rng, phase=3) -> float:
                     for i, f in enumerate(flags)
                 ])
             check(np.array_equal(got, want), f"tenant {name} {kind} differs from golden")
+        if not runs:
+            row = tenant_row(client, name)
+            gbits = np.zeros(row.shape[0] * 32, bool)
+            gbits[: g.size] = g.bits
+            check(np.array_equal(row, np.packbits(gbits, bitorder="little").view(np.uint32)),
+                  f"tenant {name}'s row differs from the golden bitmap")
     ops_per_s = n_tenants * 5 * per_op / wall_s
-    log({"phase": phase, "tenants": n_tenants, "threads": n_threads,
-         "ops": n_tenants * 5 * per_op, "ops_per_s": ops_per_s,
-         "flushes": len(runs_per_flush), "max_runs_per_flush": max(runs_per_flush),
-         "results_equal_golden": True})
+    out = {"phase": phase, "tenants": n_tenants, "threads": n_threads,
+           "ops": n_tenants * 5 * per_op, "ops_per_s": ops_per_s,
+           "results_equal_golden": True}
+    if runs:
+        out.update(flushes=len(runs_per_flush), max_runs_per_flush=max(runs_per_flush))
+    else:
+        out["rows_equal_golden"] = True
+    log(out)
     return ops_per_s
 
 
@@ -1869,20 +1917,20 @@ def phase_failover(rng, seed: int, card: str) -> None:
 # Phase 10a: bench.py config 11's shape at a population a multi-tenant
 # deployment holds — 100x the device-row budget in Bloom tenants of
 # 10,000 keys / 1% FPP, a zipf(1.1) tenant stream of 128-key ops with an
-# add every third op, the cold tail past a 128 MiB host cap spilling to
+# add every third op, the cold tail past a 64 MiB host cap spilling to
 # disk, and config 11's 30 s heat half-life.  The hot set is the stream's
 # actual head; the tenant ids are a seeded permutation of the zipf ranks,
 # so the hot set is mostly born cold and has to be promoted by heat.
-# The stream is cut from 65,536 ops to 20,480 for the script's time
-# limit (the tiered stream ran at 162-229 ops/s on the card, and the
-# rebalancer's phase after the cluster's needs the room).  A touched
-# tenant's host copy is 16 KB: the 40,960-op stream touched ~17,300
-# tenants, past the 16,384 a 256 MiB cap holds, and the cap is halved
-# with the stream (the 20,480-op stream touches ~9,700, past the 8,192
-# of 128 MiB), so the cold tail still spills to disk.  The population
-# and the device budget are not cut.
-P10 = {"pop": 102_400, "budget": 1024, "ops": 20_480, "keys": 128, "hot": 256,
-       "hot_keys": 1 << 14, "hot_passes": 4, "host_bytes": 128 << 20,
+# The stream is cut from 65,536 ops to 10,240 for the script's time
+# limit (the tiered stream ran at 162-306 ops/s on the card, and the
+# later phases need the room).  A touched tenant's host copy is 16 KB:
+# the 40,960-op stream touched ~17,300 tenants, past the 16,384 a
+# 256 MiB cap holds, and the cap is halved with each halving of the
+# stream (the 10,240-op stream touches ~5,300, past the 4,096 of
+# 64 MiB), so the cold tail still spills to disk.  The population and
+# the device budget are not cut.
+P10 = {"pop": 102_400, "budget": 1024, "ops": 10_240, "keys": 128, "hot": 256,
+       "hot_keys": 1 << 14, "hot_passes": 4, "host_bytes": 64 << 20,
        "cms": (4, 5, 1 << 16), "cms_events": 1 << 18, "seq_events": 1 << 15,
        "hlls": 2, "hll_keys": 1 << 20, "bitsets": 2, "bitset_bits": 1 << 24,
        "sample": 256, "nc_keys": 100_000, "nc_reads": 4096}
@@ -7364,6 +7412,407 @@ def phase_witness(seed: int, card: str) -> dict:
     return child
 
 
+# -- phase 20: the sharded executor and the mesh ------------------------------------
+
+P20 = {"shards": 8, "nbits": 1 << 30, "bs_ops": 1 << 21, "bs_iters": 8,
+       "bloom_keys": 1 << 20, "bloom_chunk": 1 << 18, "outside": 1 << 17,
+       "hll_keys": 1 << 21, "hlls": 4, "cms": (5, 1 << 16), "cms_events": 1 << 20,
+       "cms_chunk": 1 << 15, "writer_chunk": 4096, "mbit_threshold_words": 1 << 22}
+P20_DEVICE = "cuda"
+
+
+def p20_shard_ops(client) -> np.ndarray:
+    """rtpu_shard_ops per shard, as counted so far."""
+    out = np.zeros(P20["shards"], np.int64)
+    for labels, c in client._engine.obs.registry.family("rtpu_shard_ops_total").items():
+        out[int(labels[0])] += int(c.value)
+    return out
+
+
+def p20_rows(client) -> dict:
+    """Every tenant's row, read through the executor (layout-free)."""
+    eng = client._engine
+    eng._drain()
+    return {e.name: eng.executor.read_row(e.pool, e.row) for e in eng.registry.entries()}
+
+
+def p20_bloom_words(g, row_words: int) -> np.ndarray:
+    gbits = np.zeros(row_words * 32, bool)
+    gbits[: g.size] = g.bits
+    return np.packbits(gbits, bitorder="little").view(np.uint32)
+
+
+def p20a_tenants(client, rng) -> dict:
+    """20a: config 4 at 8 shards — phase 3's plan through the per-op
+    path; every result and row equal golden, every shard took ops and the
+    shard counters sum to the ops sent."""
+    before = p20_shard_ops(client)
+    rate = phase_tenants(client, rng, phase="20a", runs=False)
+    per_shard = p20_shard_ops(client) - before
+    sent = 1000 * 5 * 256
+    check(int(per_shard.sum()) == sent, f"20a: shard ops {per_shard.tolist()} vs {sent} sent")
+    check(bool((per_shard > 0).all()), f"20a: a shard took no ops: {per_shard.tolist()}")
+    out = {"phase": "20a", "ops_per_s": rate, "phase3_ops_per_s": RATES.get("tenants_ops_per_s"),
+           "shard_ops": per_shard.tolist()}
+    log(out)
+    return out
+
+
+def p20b_replicated(client, rng) -> dict:
+    """20b: config 1 (1M keys at 1%), then set_replicated(): every replica
+    row equals the golden bitmap, every loaded key is present and the FPP
+    sits within 3 sigma of the expected 1.255%."""
+    n, chunk = P20["bloom_keys"], P20["bloom_chunk"]
+    bf = client.get_bloom_filter("p20-cfg1")
+    check(bf.try_init(1_000_000, 0.01), "20b: try_init refused")
+    t0 = time.perf_counter()
+    adds = [bf.add_all_async(np.arange(i, i + chunk, dtype=np.uint64)) for i in range(0, n, chunk)]
+    added = sum(int(np.sum(a.result())) for a in adds)
+    add_s = time.perf_counter() - t0
+    check(0.97 * n <= added <= n, f"20b: added {added} of {n}")
+    t0 = time.perf_counter()
+    check(bf.set_replicated() and bf.is_replicated(), "20b: set_replicated refused")
+    rep_s = time.perf_counter() - t0
+    g = golden_bloom(bf, np.arange(n, dtype=np.uint64))
+    eng = client._engine
+    e = eng.registry.lookup("p20-cfg1")
+    S = P20["shards"]
+    check(sorted(r % S for r in e.replica_rows) == list(range(S)), "20b: a shard lacks a replica")
+    want = p20_bloom_words(g, e.pool.row_units)
+    for r in e.replica_rows:
+        check(np.array_equal(eng.executor.read_row(e.pool, r), want),
+              f"20b: replica row {r} differs from the golden bitmap")
+    t0 = time.perf_counter()
+    present = bf.contains_each(np.arange(n, dtype=np.uint64))
+    contains_s = time.perf_counter() - t0
+    check(bool(present.all()), f"20b: {int((~present).sum())} loaded keys missing")
+    outside = rng.integers(3 * n, 8 * n, P20["outside"]).astype(np.uint64)
+    fp = bf.contains_each(outside)
+    check(np.array_equal(fp, golden_contains(g, outside)), "20b: outside keys differ from golden")
+    m, k = bf.get_size(), bf.get_hash_iterations()
+    p = (1.0 - np.exp(-k * n / m)) ** k
+    sigma = np.sqrt(p * (1.0 - p) / len(outside))
+    fpp = float(fp.mean())
+    check(abs(fpp - p) <= 3 * sigma, f"20b: FPP {fpp} vs {p} +- {3 * sigma}")
+    out = {"phase": "20b", "add_ops_per_s": n / add_s, "contains_ops_per_s": n / contains_s,
+           "replicate_s": rep_s, "replica_rows": list(e.replica_rows), "fpp": fpp,
+           "fpp_expected": p, "replicas_equal_golden": True}
+    log(out)
+    return out
+
+
+def p20_range(bitmap: np.ndarray, lo: int, hi: int, value: bool) -> None:
+    """Set or clear bits [lo, hi) of a packed uint32 bitmap."""
+    fw, lw = lo >> 5, (hi - 1) >> 5
+    head = np.uint32((0xFFFFFFFF << (lo & 31)) & 0xFFFFFFFF)
+    tail = np.uint32(0xFFFFFFFF >> (31 - ((hi - 1) & 31)))
+    masks = [(fw, head & tail)] if fw == lw else [(fw, head), (lw, tail)]
+    if lw > fw + 1:
+        bitmap[fw + 1 : lw] = 0xFFFFFFFF if value else 0
+    for wd, mk in masks:
+        bitmap[wd] = (bitmap[wd] | mk) if value else (bitmap[wd] & ~mk)
+
+
+def p20_bits_stats(bitmap: np.ndarray) -> tuple:
+    nz = np.flatnonzero(bitmap)
+    card = int(_POPCOUNT8[bitmap.view(np.uint8)].sum(dtype=np.int64))
+    length = int(nz[-1]) * 32 + int(bitmap[nz[-1]]).bit_length() if len(nz) else 0
+    first1 = int(nz[0]) * 32 + (int(bitmap[nz[0]]) & -int(bitmap[nz[0]])).bit_length() - 1 \
+        if len(nz) else -1
+    free = np.flatnonzero(bitmap != 0xFFFFFFFF)
+    if len(free):
+        wv = int(bitmap[free[0]]) ^ 0xFFFFFFFF
+        first0 = int(free[0]) * 32 + (wv & -wv).bit_length() - 1
+    else:
+        first0 = len(bitmap) * 32
+    return card, length, first1, first0
+
+
+def p20c_mbit(client, rng) -> dict:
+    """20c: config 3 m-sharded — two 2**30-bit BitSets split over the
+    shards by words: 8 x 2**21 set/get ops, a set_range across shard
+    boundaries, the scalars and AND/OR/XOR/NOT between the two rows."""
+    nbits, B, iters = P20["nbits"], P20["bs_ops"], P20["bs_iters"]
+    eng = client._engine
+    maps = {}
+    for name in ("p20-x", "p20-y"):
+        bs = client.get_bit_set(name)
+        bitmap = np.zeros(nbits // 32, np.uint32)
+        check(not bs.set(nbits - 1), f"20c: set(2**30 - 1) found the bit set in {name}")
+        golden_set(bitmap, np.array([nbits - 1]))
+        maps[name] = bitmap
+        check(eng.executor._is_mbit(eng.registry.lookup(name).pool), f"20c: {name} not m-sharded")
+    x, y = client.get_bit_set("p20-x"), client.get_bit_set("p20-y")
+    idxs = [rng.integers(0, nbits, B).astype(np.uint32) for _ in range(iters)]
+    if P20_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with client.defer_fetch():
+        futs = [x.set_many_async(idx) if i % 2 == 0 else x.get_many_async(idx)
+                for i, idx in enumerate(idxs)]
+    res = client.collect(futs)
+    dt = time.perf_counter() - t0
+    for i, (idx, got) in enumerate(zip(idxs, res)):
+        want = golden_set(maps["p20-x"], idx) if i % 2 == 0 else golden_get(maps["p20-x"], idx)
+        check(np.array_equal(got, want), f"20c: batch {i} differs from the golden bitmap")
+    yi = rng.integers(0, nbits, B).astype(np.uint32)
+    check(np.array_equal(y.set_many(yi), golden_set(maps["p20-y"], yi)), "20c: y's sets differ")
+    win = nbits // P20["shards"]
+    lo, hi = 2 * win - 1000, 5 * win + 77  # spans shards 1..5
+    x.set_range(lo, hi)
+    p20_range(maps["p20-x"], lo, hi, True)
+    x.clear_range(lo + 4096, 3 * win + 5)
+    p20_range(maps["p20-x"], lo + 4096, 3 * win + 5, False)
+
+    def same(name, what):
+        check(np.array_equal(tenant_row(client, name), maps[name]),
+              f"20c: {name}'s row differs from the golden bitmap after {what}")
+        card, length, first1, first0 = p20_bits_stats(maps[name])
+        bs = client.get_bit_set(name)
+        got = (bs.cardinality(), bs.length(), bs.first_set_bit(), bs.first_clear_bit())
+        check(got == (card, length, first1, first0), f"20c: {name} scalars {got} after {what}")
+
+    same("p20-x", "set/get and the ranges")
+    same("p20-y", "set_many")
+    for op in ("or", "xor", "and"):
+        getattr(x, op + "_op")("p20-y")
+        gx, gy = maps["p20-x"], maps["p20-y"]
+        maps["p20-x"] = gx | gy if op == "or" else gx ^ gy if op == "xor" else gx & gy
+        same("p20-x", op.upper())
+    y.not_op()
+    maps["p20-y"] = ~maps["p20-y"]
+    same("p20-y", "NOT")
+    out = {"phase": "20c", "ops": iters * B, "ops_per_s": iters * B / dt,
+           "rows_equal_golden": True, "scalars_equal_golden": True}
+    log(out)
+    return out
+
+
+def p20d_hll(client) -> dict:
+    """20d: config 2 — PFADD of 2**21 keys into each of 4 HLLs spread
+    over the shards, then PFMERGE across shards."""
+    from redisson_tpu_torch.ops import golden
+
+    n, k = P20["hll_keys"], P20["hlls"]
+    names = [f"p20-h{i}" for i in range(k)]
+    eng = client._engine
+    t0 = time.perf_counter()
+    with client.defer_fetch():
+        futs = [client.get_hyper_log_log(nm).add_all_async(
+            np.arange(i * n, (i + 1) * n, dtype=np.uint64)) for i, nm in enumerate(names)]
+    changed = client.collect(futs)
+    dt = time.perf_counter() - t0
+    check(all(changed), "20d: a PFADD of new keys changed nothing")
+    rows = [eng.registry.lookup(nm).row for nm in names]
+    check(len({r % P20["shards"] for r in rows}) == k, f"20d: rows {rows} share a shard")
+    regs = []
+    for i, nm in enumerate(names):
+        g = golden.GoldenHyperLogLog()
+        g.add_hashed(*hll_lanes(np.arange(i * n, (i + 1) * n, dtype=np.uint64)))
+        check(np.array_equal(tenant_row(client, nm), g.regs), f"20d: {nm}'s registers differ")
+        check(client.get_hyper_log_log(nm).count() == g.count(), f"20d: {nm}'s count()")
+        regs.append(g.regs)
+    client.get_hyper_log_log(names[0]).merge_with(*names[1:])
+    merged = np.maximum.reduce(regs)
+    check(np.array_equal(tenant_row(client, names[0]), merged), "20d: merged registers != max")
+    want = int(round(golden.ertl_estimate(np.bincount(merged, minlength=golden.HLL_Q + 2))))
+    got = client.get_hyper_log_log(names[0]).count()
+    check(got == want, f"20d: merged count() {got} vs Ertl {want}")
+    check(abs(got - k * n) / (k * n) < 0.05, f"20d: merged count {got} vs {k * n}")
+    out = {"phase": "20d", "pfadd_ops_per_s": k * n / dt, "merged_count": got,
+           "registers_equal_golden": True}
+    log(out)
+    return out
+
+
+def p20e_cms(client, rng) -> dict:
+    """20e: config 5 at 8 shards — CMS(5, 65536) on 8 tenants, one per
+    shard, zipf(1.2) events through add_all_seq, which takes the
+    whole-batch path (no K1 while sharded); then CMS.MERGE across shards."""
+    from redisson_tpu_torch.ops import golden
+    from redisson_tpu_torch.utils import hashing
+
+    d, w = P20["cms"]
+    S, chunk = P20["shards"], P20["cms_chunk"]
+    names = [f"p20-cms{i}" for i in range(S)]
+    eng = client._engine
+    for nm in names:
+        check(client.get_count_min_sketch(nm).try_init(d, w), "20e: try_init refused")
+    check(sorted(eng.registry.lookup(nm).row % S for nm in names) == list(range(S)),
+          "20e: the CMS tenants do not cover every shard")
+    events = zipf_keys(rng, P20["cms_events"])
+    gold = {nm: golden.GoldenCountMinSketch(d, w) for nm in names}
+    dt = 0.0
+    for j, i in enumerate(range(0, len(events), chunk)):
+        nm = names[j % S]
+        ev = events[i : i + chunk]
+        t0 = time.perf_counter()
+        est = client.get_count_min_sketch(nm).add_all_seq(ev)
+        dt += time.perf_counter() - t0
+        h1w, h2w = hashing.km_reduce_mod(*hashing.hash128_np(*hashing.encode_uint64_batch(ev)), w)
+        g = gold[nm]
+        g.add_hashed(h1w, h2w)
+        want = g.counts[np.arange(d)[None, :], g._cells(h1w, h2w)].min(axis=1)
+        check(np.array_equal(est, want), f"20e: {nm} whole-batch estimates differ")
+    for nm in names:
+        check(np.array_equal(tenant_row(client, nm)[: d * w].reshape(d, w), gold[nm].counts),
+              f"20e: {nm}'s table differs from golden")
+    client.get_count_min_sketch(names[0]).merge(*names[1:])
+    total = np.zeros((d, w), np.uint64)
+    for nm in names:
+        total += gold[nm].counts
+    want = (total & 0xFFFFFFFF).astype(np.uint32)
+    check(np.array_equal(tenant_row(client, names[0])[: d * w].reshape(d, w), want),
+          "20e: CMS.MERGE differs from the uint32 sum")
+    gold[names[0]].counts = want
+    out = {"phase": "20e", "events": len(events), "events_per_s": len(events) / dt,
+           "tables_equal_golden": True, "merge_equals_sum": True}
+    log(out)
+    return out, gold[names[0]]
+
+
+def p20f_reshard(client, rng, cms_golden) -> dict:
+    """20f: change_topology(4) under a writer (no acked write lost, every
+    other row equal to its pre-swap golden), a 4-shard snapshot restored
+    into a fresh 1-shard client, change_topology(1), then K1 on the
+    carried CMS equal to golden_seq from its carried table."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+    from redisson_tpu_torch.ops import cms_seq
+    from redisson_tpu_torch.utils import hashing
+
+    eng = client._engine
+    golden_rows = p20_rows(client)
+    moved = sum(p.state.numel() * p.state.element_size() for p in eng.registry.pools())
+    bf = client.get_bloom_filter("p20-writer")
+    check(bf.try_init(1_000_000, 0.01), "20f: try_init refused")
+    acked, errors, stop = [], [], threading.Event()
+
+    def writer():
+        i, c = 0, P20["writer_chunk"]
+        try:
+            while not stop.is_set():
+                bf.add_all(np.arange(i, i + c, dtype=np.uint64))
+                acked.append((i, i + c))
+                i += c
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    th = threading.Thread(target=writer)
+    th.start()
+    until(lambda: len(acked) >= 4 or errors, "20f: writes before the swap")
+    t0 = time.perf_counter()
+    check(client.change_topology(4), "20f: change_topology(4) refused")
+    swap4_s = time.perf_counter() - t0
+    n_at_swap = len(acked)
+    until(lambda: len(acked) >= n_at_swap + 4 or errors, "20f: writes after the swap")
+    stop.set()
+    th.join(timeout=120)
+    check(not th.is_alive() and not errors, f"20f: the writer failed: {errors}")
+    check(eng.executor.S == 4, "20f: not on 4 shards")
+    keys = np.concatenate([np.arange(a, b, dtype=np.uint64) for a, b in acked])
+    check(bool(bf.contains_each(keys).all()), "20f: an acked write was lost in the swap")
+    e = eng.registry.lookup("p20-writer")
+    check(np.array_equal(eng.executor.read_row(e.pool, e.row),
+                         p20_bloom_words(golden_bloom(bf, keys), e.pool.row_units)),
+          "20f: the writer's row differs from the golden bitmap of the acked keys")
+    after = p20_rows(client)
+    for nm, row in golden_rows.items():
+        check(np.array_equal(after[nm], row), f"20f: {nm}'s row changed in the swap")
+    snap = Path("build") / f"phase20-snapshot-{os.getpid()}"
+    shutil.rmtree(snap, ignore_errors=True)
+    t0 = time.perf_counter()
+    client._engine.snapshot(str(snap))
+    snap_s = time.perf_counter() - t0
+    fresh = rt.create(rt.Config().set_codec(LongCodec()).use_gpu_sketch(device=P20_DEVICE))
+    try:
+        t0 = time.perf_counter()
+        check(fresh._engine.restore_snapshot(str(snap)), "20f: no snapshot to restore")
+        restore_s = time.perf_counter() - t0
+        check(getattr(fresh._engine.executor, "S", 1) == 1, "20f: the fresh client is sharded")
+        restored = p20_rows(fresh)
+        after = p20_rows(client)
+        check(set(restored) == set(after), "20f: the restored keyspace differs")
+        for nm, row in after.items():
+            check(np.array_equal(restored[nm], row), f"20f: {nm} differs after the restore")
+    finally:
+        fresh.shutdown()
+        shutil.rmtree(snap, ignore_errors=True)
+    t0 = time.perf_counter()
+    check(client.change_topology(1), "20f: change_topology(1) refused")
+    swap1_s = time.perf_counter() - t0
+    check(getattr(eng.executor, "S", 1) == 1 and eng.executor.supports_seq_cms,
+          "20f: not back on the single-device executor")
+    d, w = P20["cms"]
+    cms = client.get_count_min_sketch("p20-cms0")
+    table = tenant_row(client, "p20-cms0")[: d * w].reshape(d, w)
+    check(np.array_equal(table, cms_golden.counts), "20f: the carried CMS table changed")
+    ev = zipf_keys(rng, 1 << 16)
+    before = cms_seq.LAUNCHES
+    est = cms.add_all_seq(ev)
+    launches = cms_seq.LAUNCHES - before
+    check(launches == -(-len(ev) // client._engine._SEQ_CHUNK), f"20f: {launches} K1 launches")
+    h1w, h2w = hashing.km_reduce_mod(*hashing.hash128_np(*hashing.encode_uint64_batch(ev)), w)
+    t_want, e_want = cms_seq.golden_seq(table.copy(), h1w, h2w, np.ones(len(ev), np.uint32),
+                                        d=d, w=w)
+    check(np.array_equal(est, e_want), "20f: K1 estimates differ from golden_seq")
+    check(np.array_equal(tenant_row(client, "p20-cms0")[: d * w].reshape(d, w), t_want),
+          "20f: K1's table differs from golden_seq")
+    out = {"phase": "20f", "change_topology_s": {"8->4": swap4_s, "4->1": swap1_s},
+           "pool_bytes_moved": int(moved), "acked_writes": int(len(keys)),
+           "snapshot_s": snap_s, "restore_1_shard_s": restore_s, "k1_launches": launches,
+           "rows_kept": True, "k1_equals_golden_seq": True}
+    log(out)
+    return out
+
+
+def phase_sharded(rng, card: str) -> dict:
+    """Phase 20: one client at num_shards=8 on the card through 20a-20f."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+    from redisson_tpu_torch.ops import cms_seq
+
+    client = rt.create(rt.Config().set_codec(LongCodec()).use_gpu_sketch(
+        device=P20_DEVICE, num_shards=P20["shards"],
+        mbit_threshold_words=P20["mbit_threshold_words"]))
+    try:
+        eng = client._engine
+        check(type(eng.executor).__name__ == "ShardedTorchCommandExecutor"
+              and eng.executor.S == P20["shards"], "phase 20: not the sharded executor")
+        check(str(eng.executor.device).startswith(P20_DEVICE), "phase 20: not on the card")
+        nodes = client.get_nodes_group().get_nodes()
+        want_addr = "gpu:0" if P20_DEVICE == "cuda" else "cpu:0"
+        check([n.shard for n in nodes] == list(range(P20["shards"]))
+              and {n.address for n in nodes} == {want_addr},
+              f"phase 20: nodes {[(n.shard, n.address) for n in nodes]}")
+        launches0 = cms_seq.LAUNCHES
+        rates = {"20a": p20a_tenants(client, rng)}
+        rates["20b"] = p20b_replicated(client, rng)
+        rates["20c"] = p20c_mbit(client, rng)
+        rates["20d"] = p20d_hll(client)
+        rates["20e"], cms_golden = p20e_cms(client, rng)
+        check(cms_seq.LAUNCHES == launches0, "phase 20: K1 launched while sharded")
+        check_healthy(client, 20)
+        rates["20f"] = p20f_reshard(client, rng, cms_golden)
+        check_healthy(client, 20)
+    finally:
+        client.shutdown()
+    out = {"phase": 20, "nodes": len(nodes), "node_address": want_addr,
+           "ops_per_s": {"20a": rates["20a"]["ops_per_s"],
+                         "20a_phase3_one_shard": rates["20a"]["phase3_ops_per_s"],
+                         "20b_add": rates["20b"]["add_ops_per_s"],
+                         "20b_contains": rates["20b"]["contains_ops_per_s"],
+                         "20c": rates["20c"]["ops_per_s"],
+                         "20d_pfadd": rates["20d"]["pfadd_ops_per_s"],
+                         "20e_events": rates["20e"]["events_per_s"]},
+           "change_topology_s": rates["20f"]["change_topology_s"],
+           "pool_bytes_moved": rates["20f"]["pool_bytes_moved"],
+           "k1_launches_sharded": 0, "k1_launches_after_reshard": rates["20f"]["k1_launches"],
+           "card": card}
+    log(out)
+    return rates
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7420,7 +7869,7 @@ def main(argv=None) -> int:
         cms_seq.LAUNCHES = 0  # count the main path's launches only
         g = phase_bloom(client, rng, card)
         check_healthy(client, 2)
-        phase_tenants(client, rng)
+        RATES["tenants_ops_per_s"] = phase_tenants(client, rng)
         check_healthy(client, 3)
         phase_cms(client, rng, card)
         check_healthy(client, 4)
@@ -7503,6 +7952,12 @@ def main(argv=None) -> int:
     check(p19["k1_launches"] > 0, "phase 19 never launched K1")
     kernel["launches"] += p19["k1_launches"]
     by_phase["19"] = p19["k1_launches"]
+    cms_seq.LAUNCHES = 0  # phase 20's path: none while sharded, K1 after change_topology(1)
+    phase_sharded(rng, card)
+    marks.append(("20", time.perf_counter()))
+    check(cms_seq.LAUNCHES > 0, "phase 20 never launched K1 after the reshard")
+    kernel["launches"] += cms_seq.LAUNCHES
+    by_phase["20"] = cms_seq.LAUNCHES
     log({"phase": "all", "seconds": time.perf_counter() - t_run,
          "by_phase_s": {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}})
     log({"kernels": [kernel]})

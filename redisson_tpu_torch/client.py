@@ -537,6 +537,12 @@ class RedissonTorchClient(CamelCompatMixin):
             self._metrics_http_req = (host, port)
             return srv
 
+    def change_topology(self, num_shards: int) -> bool:
+        """Online reshard of the sketch engine: remap every device row onto
+        a new shard count on the LIVE engine — no restart, no keyspace
+        wipe, no lost write (SketchDurabilityMixin.change_topology)."""
+        return self._engine.change_topology(num_shards)
+
     def get_profiler(self):
         """→ a ``torch.profiler`` trace of the engine's device (host and,
         on a card, CUDA activity).  One shared instance per client: start()
@@ -545,7 +551,8 @@ class RedissonTorchClient(CamelCompatMixin):
 
         with self._services_lock:
             if self._profiler is None:
-                self._profiler = Profiler(self._engine.executor.device)
+                self._profiler = Profiler(self._engine.executor.device,
+                                          devices=self._engine.mesh_devices())
             return self._profiler
 
     def get_keys(self) -> Keys:

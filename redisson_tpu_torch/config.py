@@ -112,6 +112,15 @@ class GpuSketchConfig:
         self.residency_heat_half_life_s = 10.0
         self.residency_interval_ms = 200
         self.residency_dir: Optional[str] = None
+        # Sharding: 1 -> the single-device executor; S > 1 -> the sharded
+        # executor (executor/sharded_executor.py): tenant row r lives on
+        # logical shard r % S of a ``[S, local_len]`` pool on ``device``.
+        # Every shard shares the one device (parallel/mesh.py).
+        self.num_shards = 1
+        # Bitset rows at or above this many uint32 words split their words
+        # into contiguous blocks, one per shard (m-sharding), instead of
+        # living on one shard.  Only meaningful with num_shards > 1.
+        self.mbit_threshold_words = 1 << 22
 
     def to_dict(self) -> dict:
         return dict(self.__dict__)

@@ -6,6 +6,7 @@ types never imports the device layer."""
 from redisson_tpu_torch.executor.failures import (
     DeadlineExceededError,
     DispatchTimeoutError,
+    ExecutorRetiredError,
     KernelExecutionError,
     NonRetryableDispatchError,
     RedissonTpuError,
@@ -16,9 +17,11 @@ from redisson_tpu_torch.executor.failures import (
 __all__ = [
     "LazyResult",
     "TorchCommandExecutor",
+    "ShardedTorchCommandExecutor",
     "RedissonTpuError",
     "DispatchTimeoutError",
     "DeadlineExceededError",
+    "ExecutorRetiredError",
     "KernelExecutionError",
     "NonRetryableDispatchError",
     "RetryExhaustedError",
@@ -31,4 +34,8 @@ def __getattr__(name):
         from redisson_tpu_torch.executor import torch_executor
 
         return getattr(torch_executor, name)
+    if name == "ShardedTorchCommandExecutor":
+        from redisson_tpu_torch.executor import sharded_executor
+
+        return sharded_executor.ShardedTorchCommandExecutor
     raise AttributeError(name)

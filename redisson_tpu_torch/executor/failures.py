@@ -77,6 +77,13 @@ class RetryExhaustedError(RedissonTpuError):
         self.__cause__ = cause
 
 
+class ExecutorRetiredError(RedissonTpuError):
+    """The executor was replaced by a live topology change while this
+    dispatch waited for it (the MOVED-redirect analog).  Raised before
+    any pool write, so it is retryable: the coalescer's retry loop reads
+    ``engine.executor`` again and lands on the new topology."""
+
+
 class KernelExecutionError(RedissonTpuError):
     """A device batch failed at completion; carries the failed op range.
 

@@ -65,7 +65,7 @@ class _WarmPool:
         self.capacity = cap
         self.row_units = pool.row_units
         self.state = executor.make_pool_state(
-            cap, pool.row_units, pool.spec.dtype
+            cap, pool.row_units, pool.spec.dtype, kind=pool.spec.kind
         )
 
 
@@ -243,10 +243,9 @@ class BucketPrewarmer:
                 self._enqueue_locked(pool, warm_fn)
 
     def rebind_executor(self, executor) -> None:
-        """Adopt a successor executor: drop every scratch state and re-run
-        all registered ladders against it.  (The JAX package calls this
-        on a live topology change; the port has one card, so nothing
-        calls it yet.)"""
+        """A live change_topology retired the executor this warmer was
+        built around: adopt the successor, drop every scratch state (the
+        layout changed) and re-run all registered ladders against it."""
         if self._closed:
             return
         with self._lock:

@@ -38,6 +38,7 @@ import torch
 from redisson_tpu_torch import chaos as _chaos, overload as _ovl
 from redisson_tpu_torch.executor.failures import (
     DeadlineExceededError,
+    ExecutorRetiredError,
     NonRetryableDispatchError,
 )
 from redisson_tpu_torch.ops import (
@@ -235,6 +236,12 @@ def _locked(fn):
       ``_DEADLINE_EXEMPT``);
     - chaos point ``dispatch.<method>`` fires under the lock, before the
       body runs;
+    - a call that reaches an executor a live ``change_topology`` retired
+      (callers read ``engine.executor`` before they take the lock) is
+      forwarded to the successor (the same lock object, reentrant); a
+      ``*_runs`` call whose successor has no runs path raises the
+      retryable ExecutorRetiredError instead, and the coalescer's retry
+      loop re-binds and re-checks ``supports_runs_metadata``;
     - a failure after the body's first in-place write of a pool it was
       given surfaces as NonRetryableDispatchError.  PyTorch bumps a
       tensor's version counter on every in-place op, views included, and
@@ -298,6 +305,15 @@ def _locked(fn):
                 _chaos.fire(fault_point)
             if deadline is not None and time.monotonic() >= deadline:
                 _shed_expired(self, args, "waiting for the lock of")
+            if self._retired:
+                succ = self._successor
+                if succ is not None and not (
+                    name.endswith("_runs") and not succ.supports_runs_metadata
+                ):
+                    return getattr(succ, name)(*args, **kwargs)
+                raise ExecutorRetiredError(
+                    f"{type(self).__name__} was retired by a topology change"
+                )
             pools = [a for a in args if isinstance(getattr(a, "state", None), torch.Tensor)]
             versions = [p.state._version for p in pools]
             try:
@@ -335,6 +351,9 @@ class TorchCommandExecutor:
     # Sequential CMS (ops/cms_seq.py) runs on every device this executor
     # supports: CUDA launches the K1 kernel, the CPU its plain version.
     supports_seq_cms = True
+    # The coalesced Bloom and BitSet paths may ship run-length metadata
+    # (``*_runs``) instead of per-op rows.
+    supports_runs_metadata = True
 
     def __init__(self, config):
         self._cfg = config.gpu_sketch
@@ -353,10 +372,13 @@ class TorchCommandExecutor:
         # front (direct dispatch): each outermost dispatch records once.
         self.metrics = None
         self._dispatch_recording = False
+        # Set by a live change_topology once a successor took over.
+        self._retired = False
+        self._successor = None
 
     # -- pool-state factory ------------------------------------------------
 
-    def round_capacity(self, capacity: int, row_units: int = 0) -> int:
+    def round_capacity(self, capacity: int, row_units: int = 0, kind: str = "") -> int:
         # Giant rows: cap the initial footprint at 2**27 words and let
         # doubling growth take over (the JAX package's rule, so both hold
         # pools of the same shape).
@@ -392,12 +414,14 @@ class TorchCommandExecutor:
         staged.numpy()[...] = host
         return staged.to(self.device)
 
-    def make_pool_state(self, capacity: int, row_units: int, dtype=np.uint32):
+    def make_pool_state(self, capacity: int, row_units: int, dtype=np.uint32,
+                        kind: str = ""):
         """Flat [capacity*row_units + 1]; trailing scratch element."""
         return torch.zeros(capacity * row_units + 1, dtype=self._torch_dtype(dtype),
                            device=self.device)
 
-    def grow_pool_state(self, state, old_cap: int, new_cap: int, row_units: int):
+    def grow_pool_state(self, state, old_cap: int, new_cap: int, row_units: int,
+                        dtype=np.uint32, kind: str = ""):
         extra = torch.zeros((new_cap - old_cap) * row_units + 1,
                             dtype=state.dtype, device=self.device)
         # state[:-1] drops the old scratch element; extra brings the new one.

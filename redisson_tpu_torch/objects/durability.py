@@ -34,9 +34,10 @@ commit gate; a snapshot records the journal's cut under the gate (its
 ``journal_seq``) and retires the covered segments once its files are
 durable, and a restore hands that cut to the tail replay.
 
-Left out here, with the queue item that brings them: the topology change
-and the reshard branch of ``restore_snapshot`` (multi-GPU).  A snapshot
-taken on a mesh is refused rather than misread.
+Topology: snapshots stamp the shard count and the m-shard threshold; a
+restore onto another topology remaps row by row (``_extract_rows``), and
+``change_topology`` reshards the live engine (the sharded executor,
+executor/sharded_executor.py).
 
 Mixed into TorchSketchEngine (objects/engines.py).
 """
@@ -56,6 +57,8 @@ from typing import Optional
 import numpy as np
 
 from redisson_tpu_torch import chaos as _chaos
+from redisson_tpu_torch.analysis import witness as _witness
+from redisson_tpu_torch.parallel import mesh as _mesh
 from redisson_tpu_torch.tenancy.registry import TenantEntry, spec_for
 
 _log = logging.getLogger(__name__)
@@ -64,10 +67,6 @@ _DUMP_VERSION = 2
 _DUMP_MAGIC = b"RTPU"
 _SNAP_META = "sketch_meta.json"
 _SNAP_POOLS = "sketch_pools.npz"
-# The JAX package stamps its m-shard threshold (``mbit_threshold_words``,
-# default 1 << 22) into every snapshot; one card has no m-sharding, so
-# the port writes the default as a stamp for the JAX reader.
-_MBIT_THRESHOLD_STAMP = 1 << 22
 
 
 def _crc_stream(f, chunk: int = 1 << 22) -> int:
@@ -130,16 +129,33 @@ class SketchDurabilityMixin:
     (self._mirrors, self._mirror_lock, self._host_row), the commit gate
     (self._journal_gate), self.nearcache and self.residency."""
 
-    def _reap_row(self, pool, row: int) -> None:
-        """Zero-then-free a detached row, atomic against reallocation
-        under the dispatch lock (a row is reusable only once clean).  A
-        HOST/DISK-resident entry (row < 0) owns none."""
-        if row < 0:
-            return
-        with self.executor._dispatch_lock:
-            # rtpulint: disable=RT001 zero-then-free must be atomic vs reallocation under the dispatch lock (the discipline residency.reclaim cites): releasing between would hand out a dirty row
-            self.executor.zero_row(pool, row)
-            pool.free_row(row)
+    @staticmethod
+    def _entry_rows(entry) -> list:
+        """Every device row an entry owns: the primary and, for a
+        read-replicated Bloom filter, its replicas.  A HOST/DISK-resident
+        entry (row < 0) owns none."""
+        if entry.row is None or entry.row < 0:
+            return []
+        return list(entry.replica_rows) if entry.replica_rows else [entry.row]
+
+    def _reap_rows(self, pool, rows, epoch: int) -> None:
+        """Zero-then-free detached rows, atomic against reallocation under
+        the dispatch lock (a row is reusable only once clean), and guarded
+        by the pool's topology epoch, as the JAX package's is: a live
+        change_topology between the caller's detach and this call would
+        already have freed the rows in its free-list rebuild.  Today's
+        callers (delete, expiry, rename) hold ``_journal_gate`` from the
+        detach through this call and the swap takes that gate first, so
+        the guard is a backstop for a caller that reaps outside the gate.
+        The row holder that does run outside it, the residency quarantine,
+        carries the same epoch check (``ResidencyManager.reclaim``)."""
+        with pool._dispatch_lock:
+            if pool.topology_epoch != epoch:
+                return
+            for row in rows:
+                # rtpulint: disable=RT001 zero-then-free must be atomic vs reallocation under the dispatch lock (the discipline residency.reclaim cites): releasing between would hand out a dirty row
+                self.executor.zero_row(pool, row)
+                pool.free_row(row)
 
     # -- TTL / expiry (RedissonExpirable analog) ---------------------------
 
@@ -153,10 +169,11 @@ class SketchDurabilityMixin:
         if entry is None or entry.expire_at is None or time.time() < entry.expire_at:
             return False
         with self._journal_gate:
+            epoch = entry.pool.topology_epoch
             if self.registry.detach_if(entry.name, entry) is None:
                 return True
             self._drain()
-            self._reap_row(entry.pool, entry.row)
+            self._reap_rows(entry.pool, self._entry_rows(entry), epoch)
             # The heavy-hitter table, cached reads (a structural epoch
             # advance), residency state (heat, host bytes, the disk blob)
             # and a mirror die with the object: a successor under this
@@ -383,13 +400,14 @@ class SketchDurabilityMixin:
                 # host — patch its row into the captured array so a
                 # snapshot taken mid-degradation keeps mirror-acked writes.
                 pool_idx = {id(p): i for i, p in enumerate(pools)}
+                S, thresh = self._topology()
                 for e in self.registry.entries():
                     mirror = self._mirrors.get(e.name)
                     if mirror is None or e.row < 0:
                         continue
-                    u = e.pool.row_units
-                    arr = arrays[f"pool_{pool_idx[id(e.pool)]}"]
-                    arr[e.row * u : (e.row + 1) * u] = mirror.encode(u)
+                    i = pool_idx[id(e.pool)]
+                    self._overlay_row(arrays[f"pool_{i}"], pool_meta[i], S, thresh,
+                                      e.row, mirror.encode(e.pool.row_units))
             # Residency tiers: a HOST-resident tenant's truth is its
             # mirror — captured as a standalone array; a DISK-resident
             # tenant's truth is its blob — captured by exact file name and
@@ -435,8 +453,10 @@ class SketchDurabilityMixin:
                 # Without the candidate tables a restore keeps every CMS
                 # counter but forgets which keys were heavy.
                 "topk": self.topk.export_state(),
-                "num_shards": 1,
-                "mbit_threshold_words": _MBIT_THRESHOLD_STAMP,
+                # The topology stamp: a restore onto another shard count
+                # (or m-shard threshold) remaps row by row.
+                "num_shards": self._topology()[0],
+                "mbit_threshold_words": self._topology()[1],
             }
         return meta, arrays
 
@@ -464,11 +484,51 @@ class SketchDurabilityMixin:
         os.replace(tmp_meta, os.path.join(directory, _SNAP_META))
         _fsync_dir(directory)
 
+    def _topology(self):
+        """(shard count, m-shard threshold) of the current executor."""
+        return getattr(self.executor, "S", 1), self.config.gpu_sketch.mbit_threshold_words
+
+    @staticmethod
+    def _pool_units(pm: dict) -> int:
+        """Row width of a snapshot pool, from its kind and size class."""
+        return spec_for(pm["kind"], tuple(pm["class_key"])).row_units
+
+    @classmethod
+    def _layout_shape(cls, pm: dict, S: int, thresh: int) -> tuple:
+        """Array shape of a snapshot pool in a topology's layout."""
+        return _mesh.layout_shape(pm["kind"], cls._pool_units(pm),
+                                  int(pm["capacity"]), S, thresh)
+
+    @classmethod
+    def _extract_rows(cls, arr: np.ndarray, pm: dict, s_old: int, mbit_thresh: int):
+        """Row getter over a pool array of ANOTHER topology: decodes the
+        flat single-device, the ``[S, rows_local*U+1]`` row-sharded or the
+        ``[S, cap*(U/S)+1]`` m-sharded layout on the host."""
+        kind, u = pm["kind"], cls._pool_units(pm)
+        return lambda row: _mesh.read_host_row(arr, kind, u, s_old, mbit_thresh, row)
+
+    @classmethod
+    def _overlay_row(cls, arr: np.ndarray, pm: dict, S: int, mbit_thresh: int,
+                     row: int, data) -> None:
+        """Inverse of ``_extract_rows`` for ONE row: write ``data`` at
+        ``row``'s place in a host pool array of the given topology (the
+        degraded overlay of ``snapshot``)."""
+        _mesh.write_host_row(arr, pm["kind"], cls._pool_units(pm), S,
+                             mbit_thresh, row, data)
+
     def restore_snapshot(self, directory: str) -> bool:
         """Load a snapshot written by ``snapshot`` (by either package);
         True if one was found.  The keyspace must be empty.  Everything
         is validated before the first mutation, so a refused snapshot
-        leaves the engine as it was."""
+        leaves the engine as it was.
+
+        Resharding: a snapshot taken at another shard count (or m-shard
+        threshold) restores all the same — each tenant's row is decoded
+        from the old layout on the host and written through the current
+        executor into a freshly allocated row, in snapshot order (the
+        explicit device-array remap that stands in for cluster
+        resharding).  Read replicas are dropped then: their placement was
+        per old shard; re-replicate on demand."""
         meta_path = os.path.join(directory, _SNAP_META)
         pools_path = os.path.join(directory, _SNAP_POOLS)
         if not (os.path.exists(meta_path) and os.path.exists(pools_path)):
@@ -484,17 +544,26 @@ class SketchDurabilityMixin:
                         "torn snapshot: pool blob CRC does not match its "
                         "metadata (crash between renames?); refusing to restore"
                     )
-        if int(meta.get("num_shards", 1)) != 1:
-            raise ValueError(
-                f"snapshot was taken on {meta['num_shards']} shards; this "
-                f"engine restores single-device snapshots only"
-            )
         topk_decoded = type(self.topk).decode_state(meta.get("topk"))
         # Journal recovery barrier: records with seq <= this are covered
         # by the snapshot; the tail replays on top.
         restored_seq = int(meta.get("journal_seq") or 0)
+        s_new, new_thresh = self._topology()
         with np.load(pools_path) as data, \
                 self.registry._lock, self.executor._dispatch_lock:
+            if "num_shards" in meta:
+                s_old = int(meta["num_shards"])
+            elif meta["pools"]:
+                # A snapshot without the stamp: a sharded state is 2-D.
+                arr0 = data["pool_0"]
+                s_old = arr0.shape[0] if arr0.ndim == 2 else 1
+            else:
+                s_old = s_new
+            old_thresh = int(meta.get("mbit_threshold_words", new_thresh))
+            # Verbatim install needs the same LAYOUT: the shard count and,
+            # on a mesh, the m-shard threshold (which rearranges bitset
+            # words without changing array shapes).
+            same = s_old == s_new and (s_new == 1 or old_thresh == new_thresh)
             if self.registry.entries():
                 live = self.registry.names()
                 raise ValueError(
@@ -504,15 +573,14 @@ class SketchDurabilityMixin:
             arrays, capacity = [], {}
             for i, pm in enumerate(meta["pools"]):
                 arr = data[f"pool_{i}"]
-                spec = spec_for(pm["kind"], tuple(pm["class_key"]))
-                cap = int(pm["capacity"])
-                if arr.shape != (cap * spec.row_units + 1,):
+                shape = self._layout_shape(pm, s_old, old_thresh)
+                if arr.shape != shape:
                     raise ValueError(
                         f"snapshot pool {pm['key']} holds {arr.shape} elements; "
-                        f"{cap} rows need {cap * spec.row_units + 1}"
+                        f"{pm['capacity']} rows on {s_old} shard(s) need {shape}"
                     )
                 arrays.append(arr)
-                capacity[spec.key] = cap
+                capacity[tuple(pm["key"])] = int(pm["capacity"])
             # HOST/DISK tenants own no row (and need no pool of their own
             # in the snapshot: a tenant born cold into a fresh size class
             # has none).
@@ -529,28 +597,36 @@ class SketchDurabilityMixin:
                             f"is missing (residency_dir={blob_dir!r})")
                 if t.get("tier_array") and t["tier_array"] not in data.files:
                     raise ValueError(f"snapshot tenant {t['name']!r} lacks its tier array")
-            placed = [(tuple(t["pool_key"]), int(t["row"]))
-                      for t in meta["tenants"] if not _tiered(t)]
+            placed = [(tuple(t["pool_key"]), int(r))
+                      for t in meta["tenants"] if not _tiered(t)
+                      for r in (t.get("replica_rows") or [t["row"]])]
             if len(set(placed)) != len(placed) or not all(
                 0 <= row < capacity.get(key, 0) for key, row in placed
             ):
                 raise ValueError("snapshot places tenants outside its pools or twice")
+            getters = {}
             for i, pm in enumerate(meta["pools"]):
-                pool = self.registry.pool_for(pm["kind"], tuple(pm["class_key"]))
-                # The snapshot's capacity is installed verbatim: re-rounding
-                # could clamp a grown pool and hand out occupied rows.
-                pool.capacity = int(pm["capacity"])
-                pool._free = list(range(pool.capacity - 1, -1, -1))
-                pool.generation += 1
-                self.executor.state_from_host(pool, arrays[i])
+                if same:
+                    pool = self.registry.pool_for(pm["kind"], tuple(pm["class_key"]))
+                    # The snapshot's capacity is installed verbatim:
+                    # re-rounding could clamp a grown pool and hand out
+                    # occupied rows.
+                    pool.capacity = int(pm["capacity"])
+                    pool._free = list(range(pool.capacity - 1, -1, -1))
+                    pool.generation += 1
+                    self.executor.state_from_host(pool, arrays[i])
+                else:
+                    getters[tuple(pm["key"])] = self._extract_rows(
+                        arrays[i], pm, s_old, old_thresh)
             by_key = {tuple(p.spec.key): p for p in self.registry.pools()}
             pending_mirrors = []  # (entry, row array): HOST tenants
             pending_disk = []  # (name, file, crc, nbytes): DISK tenants
             for t in meta["tenants"]:
                 if _tiered(t):
-                    # HOST/DISK tenant: no device row; its tier installs
-                    # after the registry/dispatch locks are released (the
-                    # mirror lock orders before them engine-wide).
+                    # HOST/DISK tenant: no device row in any topology; its
+                    # tier installs after the registry/dispatch locks are
+                    # released (the mirror lock orders before them
+                    # engine-wide).
                     pool = by_key.get(tuple(t["pool_key"]))
                     if pool is None:
                         pool = self.registry.pool_for(t["kind"], tuple(t["pool_key"])[1:])
@@ -568,14 +644,25 @@ class SketchDurabilityMixin:
                     elif t.get("tier_array"):
                         pending_mirrors.append((entry, np.asarray(data[t["tier_array"]])))
                     # else: born cold — zeros on first touch.
-                else:
+                elif same:
                     pool = by_key[tuple(t["pool_key"])]
-                    row = int(t["row"])
-                    pool._free.remove(row)
-                    self.registry._tenants[t["name"]] = TenantEntry(
-                        t["name"], t["kind"], pool, row, dict(t["params"]),
-                        t.get("expire_at"),
+                    entry = TenantEntry(
+                        t["name"], t["kind"], pool, int(t["row"]), dict(t["params"]),
+                        t.get("expire_at"), t.get("replica_rows"),
                     )
+                    for r in self._entry_rows(entry):
+                        pool._free.remove(r)
+                    self.registry._tenants[t["name"]] = entry
+                else:
+                    # Reshard: old row numbers belong to the old layout —
+                    # allocate a fresh row and write the decoded one
+                    # through the CURRENT executor.
+                    entry, _ = self.registry.try_create(
+                        t["name"], t["kind"], tuple(t["pool_key"])[1:], dict(t["params"]))
+                    entry.expire_at = t.get("expire_at")
+                    getter = getters[tuple(t["pool_key"])]
+                    # rtpulint: disable=RT001 reshard-restore must be atomic vs concurrent lookups and creates: both locks stay held for the whole install, or a half-restored keyspace becomes visible
+                    self.executor.write_row(entry.pool, entry.row, getter(int(t["row"])))
                 if t.get("expire_at") is not None:
                     self._ensure_sweeper()
         for entry, rowdata in pending_mirrors:
@@ -587,6 +674,158 @@ class SketchDurabilityMixin:
         # Whole-keyspace event: every cached read predates the restored
         # state.
         self.nearcache.invalidate_all()
+        return True
+
+    # -- Online reshard (the ClusterConnectionManager slot remap) ----------
+
+    def change_topology(self, num_shards: int) -> bool:
+        """Live reshard: move the running engine onto a new shard count
+        without a restart or a keyspace wipe, losing no acked write under
+        concurrent traffic.
+
+        Protocol, the JAX package's:
+
+        1. the commit gate and the registry lock — new writes, tier
+           transitions, snapshots, lookups and creates wait for the swap
+           (ops already past their lookup keep flowing into the
+           coalescer; they stay valid, see 5);
+        2. drain the coalescer: everything queued dispatches on the OLD
+           executor and layout;
+        3. the dispatch lock: device state is quiescent;
+        4. copy every pool to the host, decode its rows with the
+           topology-aware extractor (the snapshot reshard's), compose the
+           new layout on the host, and install a fresh executor that
+           INHERITS the dispatch lock object (queued dispatch closures
+           read ``self.executor`` late, so segments submitted mid-swap
+           run on the new one);
+        5. release: row numbers are topology-STABLE (only their placement
+           changes), so ops that captured a row before the swap stay
+           correct as they are.
+
+        Read replication is switched off by the swap (placement was per
+        old shard); the replica rows stay QUARANTINED — written with the
+        filter's data in the new layout, never returned to the free list
+        — because a producer may have read ``entry.replica_rows`` before
+        the swap and submit to them after it (writes land in a valid
+        copy, reads see correct bits).  A bounded leak of S_old - 1 rows
+        per replicated object per reshard; a snapshot/restore cycle
+        reclaims them.  Returns False if the topology is unchanged.  On
+        failure the engine rolls back to the old topology (config,
+        executor, every pool): no partial swap survives."""
+        s_new = int(num_shards)
+        s_old = getattr(self.executor, "S", 1)
+        if s_new == s_old:
+            return False
+        if s_new < 1:
+            raise ValueError(f"num_shards must be >= 1, got {s_new}")
+        from redisson_tpu_torch.executor.torch_executor import TorchCommandExecutor
+
+        cfg = self.config.gpu_sketch
+        with self._journal_gate, self.registry._lock:
+            with _witness.allow_blocking(
+                "swap protocol: drain blocks under the registry lock by "
+                "design (change_topology docstring, steps 1-2)"
+            ):
+                # rtpulint: disable=RT001 the documented swap protocol: the registry lock blocks NEW lookups while queued ops drain on the old layout; draining outside it would let a post-drain op capture the old executor mid-swap
+                self._drain()
+            old_exec = self.executor
+            thresh = cfg.mbit_threshold_words
+            with old_exec._dispatch_lock:
+                cfg.num_shards = s_new
+                try:
+                    if s_new > 1:
+                        from redisson_tpu_torch.executor.sharded_executor import (
+                            ShardedTorchCommandExecutor,
+                        )
+
+                        new_exec = ShardedTorchCommandExecutor(self.config)
+                    else:
+                        new_exec = TorchCommandExecutor(self.config)
+                except Exception:
+                    cfg.num_shards = s_old
+                    raise
+                # ONE dispatch lock for the engine's lifetime: queued
+                # closures and pool.alloc_row hold this object.
+                new_exec._dispatch_lock = old_exec._dispatch_lock
+                # The successor records into the same registry and
+                # aggregate (a reshard must not zero the op counters).
+                new_exec.obs = old_exec.obs
+                new_exec.metrics = old_exec.metrics
+                entries = self.registry.entries()
+                # Phase 1, pure: compose every pool's new-layout array and
+                # free list on the host; nothing mutates until all pools
+                # are composed.
+                plans = []  # (pool, cap_new, new_arr, new_free)
+                for pool in self.registry.pools():
+                    spec = pool.spec
+                    pm = {"kind": spec.kind, "class_key": list(spec.class_key),
+                          "capacity": pool.capacity}
+                    getter = self._extract_rows(
+                        old_exec.state_to_host(pool), pm, s_old, thresh)
+                    u = spec.row_units
+                    mbit_new = _mesh.mbit_layout(spec.kind, u, s_new, thresh)
+                    # Row numbers are kept: capacity only rounds UP (to an
+                    # S-multiple for the row-sharded layout).
+                    if s_new == 1 or mbit_new:
+                        cap_new = pool.capacity
+                    else:
+                        cap_new = -(-pool.capacity // s_new) * s_new
+                    # Every row an in-flight op may target survives with
+                    # its data: primaries AND read replicas.
+                    keep = [r for e in entries if e.pool is pool
+                            for r in self._entry_rows(e)]
+                    pm_new = dict(pm, capacity=cap_new)
+                    new_arr = np.zeros(self._layout_shape(pm_new, s_new, thresh),
+                                       np.dtype(spec.dtype))
+                    for r in keep:
+                        self._overlay_row(new_arr, pm_new, s_new, thresh, r, getter(r))
+                    used = set(keep)
+                    new_free = [r for r in range(cap_new - 1, -1, -1) if r not in used]
+                    plans.append((pool, cap_new, new_arr, new_free))
+                # Phase 2, journaled: any failure restores every pool, the
+                # config and the executor binding.
+                undo = []
+                try:
+                    for pool, cap_new, new_arr, new_free in plans:
+                        undo.append((pool, pool.state, pool.capacity, pool._free,
+                                     pool.generation, pool.topology_epoch,
+                                     pool._factory))
+                        pool.capacity = cap_new
+                        pool._free = new_free
+                        pool.generation += 1
+                        # Reaps that detached BEFORE this swap must not
+                        # zero or free again: the rebuild above reclaimed
+                        # their rows (_reap_rows checks this epoch under
+                        # the dispatch lock held here).
+                        pool.topology_epoch += 1
+                        pool._factory = new_exec
+                        new_exec.state_from_host(pool, new_arr)
+                except Exception:
+                    for pool, st, cap, free, gen, ep, fac in undo:
+                        pool.state, pool.capacity, pool._free = st, cap, free
+                        pool.generation, pool.topology_epoch = gen, ep
+                        pool._factory = fac
+                    cfg.num_shards = s_old
+                    raise
+                # Point of no return: all device state installed.
+                for e in entries:
+                    e.replica_rows = None  # quarantined, not freed
+                self.registry._factory = new_exec
+                self.executor = new_exec
+                if self.prewarmer is not None:
+                    # Adopt the successor and re-run every ladder against
+                    # the new layout (a stale binding would warm nothing
+                    # while prewarm_wait reported a warm cache).
+                    self.prewarmer.rebind_executor(new_exec)
+                # Retire the old executor LAST: a caller that read
+                # engine.executor before the swap and waits on the
+                # dispatch lock is forwarded to the successor (_locked).
+                old_exec._successor = new_exec
+                # Defensive whole-keyspace invalidation: values are
+                # layout-independent, but a mid-swap read may have raced
+                # the install.
+                self.nearcache.invalidate_all()
+                old_exec._retired = True
         return True
 
     def _start_snapshotter(self, directory: str, interval_s: float) -> None:

@@ -345,7 +345,14 @@ class TorchSketchEngine(SketchDurabilityMixin):
     def __init__(self, config):
         self.config = config
         cfg = config.gpu_sketch
-        self.executor = TorchCommandExecutor(config)
+        if cfg.num_shards > 1:
+            from redisson_tpu_torch.executor.sharded_executor import (
+                ShardedTorchCommandExecutor,
+            )
+
+            self.executor = ShardedTorchCommandExecutor(config)
+        else:
+            self.executor = TorchCommandExecutor(config)
         self.registry = TenantRegistry(
             self.executor,
             initial_capacity=INITIAL_TENANTS_PER_CLASS,
@@ -598,7 +605,8 @@ class TorchSketchEngine(SketchDurabilityMixin):
             from redisson_tpu_torch.serve.metrics import Profiler
 
             out = {}
-            mem = Profiler(self.executor.device).device_memory()
+            mem = Profiler(self.executor.device,
+                           devices=self.mesh_devices()).device_memory()
             for dev, stats in mem.items():
                 for stat, v in (stats or {}).items():
                     if v is not None:
@@ -617,6 +625,12 @@ class TorchSketchEngine(SketchDurabilityMixin):
             "rtpu_device_memory_bytes", "per-device memory stats",
             _devmem, labelnames=("device", "stat"),
         )
+
+    def mesh_devices(self) -> list:
+        """The device of every shard, in shard order (one entry on the
+        single-device executor)."""
+        ctx = getattr(self.executor, "ctx", None)
+        return list(ctx.devices) if ctx is not None else [self.executor.device]
 
     def _stop_health(self) -> None:
         _chaos.unset_observer(self._chaos_observer)
@@ -685,10 +699,11 @@ class TorchSketchEngine(SketchDurabilityMixin):
         seen-set gate keeps the scans below off the per-submit path."""
         Lt = _trim_lanes(blocks)[0].shape[1]
         const = lengths.ndim == 0 or bool(np.all(lengths == lengths[0]))
-        self.prewarmer.register(
-            pool, ("bloom_mixkr", k, L, Lt, const),
-            prewarm.warm_bloom_mixed_keys_runs(k, L, Lt, const),
-        )
+        if self.executor.supports_runs_metadata:
+            self.prewarmer.register(
+                pool, ("bloom_mixkr", k, L, Lt, const),
+                prewarm.warm_bloom_mixed_keys_runs(k, L, Lt, const),
+            )
         self.prewarmer.register(
             pool, ("bloom_mixk", k, L, Lt),
             prewarm.warm_bloom_mixed_keys(k, L, Lt),
@@ -1106,7 +1121,11 @@ class TorchSketchEngine(SketchDurabilityMixin):
             seq = self._journal_rec("obj.del", name)
             was_expired = entry.expire_at is not None and time.time() >= entry.expire_at
             self._drain()
-            self._reap_row(entry.pool, entry.row)
+            # change_topology takes the gate held here, so no swap runs
+            # between the detach and the reap: the epoch read now is the
+            # detach's.
+            self._reap_rows(entry.pool, self._entry_rows(entry),
+                            entry.pool.topology_epoch)
             self.topk.drop(name)
             # Structural epoch advance + entry drop: a successor object
             # under this name continues the epoch sequence, so an
@@ -1135,7 +1154,8 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 return False
             seq = self._journal_rec("obj.rename", old, new=new)
             if dest is not None:
-                self._reap_row(dest.pool, dest.row)
+                self._reap_rows(dest.pool, self._entry_rows(dest),
+                                dest.pool.topology_epoch)
             self.topk.rename(old, new)
             # Both names change identity: drop entries + structural bumps.
             self.nearcache.drop_object(old)
@@ -1216,15 +1236,95 @@ class TorchSketchEngine(SketchDurabilityMixin):
             entry.params["size"], entry.params["hash_iterations"],
         )
 
+    # -- bloom read replication (the ReadMode.SLAVE analog): a hot
+    # filter's row copies to every shard; reads rotate across the copies,
+    # writes broadcast to all -------------------------------------------
+
     def bloom_replicate(self, name: str) -> bool:
-        """Read replication spreads a filter's row over mesh shards; one
-        card has nothing to spread over, so this is False (the JAX
-        engine's answer at one shard)."""
-        return False
+        """Replicate a Bloom filter's row to every shard.  False on the
+        single-device executor: there is nothing to spread reads over.
+
+        Ordering against concurrent writers (Bloom bits only turn on, so
+        an OR-merge is safe): the replica rows are published FIRST (new
+        writers broadcast from then on), THEN queued primary-only writes
+        drain, THEN the primary is OR-merged into each replica — a
+        broadcast bit is never erased and a drained primary bit reaches
+        every copy.  The drain and merge run twice, for writers that read
+        the pre-publish state but had not submitted at the first drain;
+        later ones are closed by ``_replication_fence``."""
+        S = getattr(self.executor, "S", 1)
+        if S <= 1:
+            return False
+        entry = self._lookup_kind(name, PoolKind.BLOOM)
+        if entry is None:
+            raise RuntimeError(f"bloom filter {name!r} is not initialized")
+        if entry.row < 0 and not self.residency.promote(name):
+            # Replication spreads DEVICE rows over shards.
+            raise RuntimeError(
+                f"bloom filter {name!r} could not promote to the device "
+                f"tier for replication"
+            )
+        # The object's reads change placement: retire every cached entry.
+        self.nearcache.note_structural(name)
+        with self.registry._lock:
+            if entry.replica_rows:
+                return True
+            replicas = [None] * S
+            replicas[entry.row % S] = entry.row
+            for s in range(S):
+                if replicas[s] is None:
+                    replicas[s] = entry.pool.alloc_row_with_residue(s, S)
+            entry.replica_rows = replicas  # published: writers broadcast now
+        for _ in range(2):
+            self._drain()
+            for r in replicas:
+                if r != entry.row:
+                    # replica |= primary, on the device (rows are uint32
+                    # bitmaps, so the BitSet OR applies as it is).
+                    self.executor.bitset_bitop(entry.pool, r, [r, entry.row], "or")
+        return True
 
     def bloom_is_replicated(self, name: str) -> bool:
         entry = self._lookup_kind(name, PoolKind.BLOOM)
         return bool(entry is not None and entry.replica_rows)
+
+    def _bloom_expand_ops(self, entry, B: int, is_add):
+        """(rows[B'], expand_idx[B'], primary_pos[B]) for a replicated
+        entry: each add fans out to every replica (consecutive slots,
+        replica 0..S-1; the copies' results are identical, so any one
+        stands in), each read goes to one replica in rotation.
+        ``expand_idx`` maps an expanded op to its source op."""
+        replicas = np.asarray(entry.replica_rows, np.int32)
+        S = len(replicas)
+        base = getattr(self, "_rr_counter", 0)
+        self._rr_counter = base + B  # a benign race: balance, not correctness
+        is_add = np.asarray(is_add, bool)
+        counts = np.where(is_add, S, 1)
+        primary_pos = np.zeros(B, np.int64)
+        np.cumsum(counts[:-1], out=primary_pos[1:])
+        expand_idx = np.repeat(np.arange(B, dtype=np.int64), counts)
+        ranks = np.arange(len(expand_idx), dtype=np.int64) - primary_pos[expand_idx]
+        rows = np.where(
+            is_add[expand_idx],
+            replicas[ranks % S],
+            replicas[(base + expand_idx) % S],
+        ).astype(np.int32)
+        return rows, expand_idx, primary_pos
+
+    def _replication_fence(self, entry, saw_replicas, redispatch) -> None:
+        """Close the writer-vs-replicate race: a writer that read
+        ``replica_rows`` as unset and submitted before the publish is
+        reached by bloom_replicate's drain and merge; one whose submit
+        lands after the merge re-checks here and, seeing the publish,
+        re-dispatches the same ops as a broadcast.  Bloom bits only turn
+        on, so the re-write is idempotent and the first result stands."""
+        if not saw_replicas and entry.replica_rows:
+            # The primary write already applied: this broadcast COMPLETES
+            # an acked write, so it must not shed on the caller's deadline
+            # (the replicas would diverge and rotating reads flap).  The
+            # explicit None frame shadows any ambient deadline.
+            with _ovl.deadline_scope(None):
+                redispatch()
 
     def _runs_dispatch(self, pool, k):
         """Flush-time dispatch for the run-length mixed path: folds the
@@ -1262,10 +1362,14 @@ class TorchSketchEngine(SketchDurabilityMixin):
                     else np.asarray(ln, np.uint32)
                     for nops, (_, _, _, ln) in metas
                 ])
-            if C > 1024:
-                # A degenerate many-tiny-chunk segment expands its runs on
-                # the host and takes the per-op path, as in the JAX engine
-                # (which caps its compiled run-table size at 1024).
+            if not self.executor.supports_runs_metadata or C > 1024:
+                # Expand the runs on the host and take the per-op path, as
+                # the JAX engine does, when the executor has no runs path
+                # (a live change_topology may swap in the sharded
+                # executor under a queued segment; rows are topology-
+                # stable, so the queued ops stay valid as they are) or
+                # for a degenerate many-tiny-chunk segment (the JAX engine
+                # caps its compiled run-table size at 1024).
                 counts = np.diff(starts)
                 if np.ndim(lengths) == 0:
                     lengths = np.full(int(starts[-1]), lengths, np.uint32)
@@ -1283,9 +1387,11 @@ class TorchSketchEngine(SketchDurabilityMixin):
         """Device-hash path: raw codec lanes ride the mixed kernel, so
         producer threads never hash.  ``is_add`` is a scalar for uniform
         batches or a per-op bool array for an ordered add/contains mix;
-        uniform coalesced batches ride the run-length path.  The lane
-        count is part of the segment key, so concatenated chunks agree on
-        shape."""
+        uniform coalesced batches ride the run-length path where the
+        executor has one.  A replicated entry expands its ops (writes to
+        every copy, reads rotating) and gathers the results back per
+        source op.  The lane count is part of the segment key, so
+        concatenated chunks agree on shape."""
         m, k = entry.params["size"], entry.params["hash_iterations"]
         pool = entry.pool
         B, L = blocks.shape
@@ -1311,13 +1417,20 @@ class TorchSketchEngine(SketchDurabilityMixin):
             if coarse not in self._prewarm_seen:
                 self._prewarm_seen.add(coarse)
                 self._prewarm_keyed(pool, k, L, blocks, lengths)
-        if self.coalescer is not None and uniform:
+        saw_replicas = bool(entry.replica_rows)
+        any_add = bool(np.any(is_add))
+        if (
+            self.coalescer is not None
+            and uniform
+            and not saw_replicas
+            and self.executor.supports_runs_metadata
+        ):
             if lengths.ndim == 0:
                 len_meta = int(lengths)
             else:
                 const = B > 0 and bool(np.all(lengths == lengths[0]))
                 len_meta = int(lengths[0]) if const else lengths
-            return self._submit(
+            fut = self._submit(
                 ("bloom_mixkr", id(pool), k, L),
                 self._runs_dispatch(pool, k),
                 (blocks,),
@@ -1326,30 +1439,58 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 meta=(self._tier_row(entry, row0), m, bool(is_add), len_meta),
                 tenant=entry.name,
             )
+            if any_add:
+                self._replication_fence(
+                    entry, saw_replicas,
+                    lambda: self._bloom_submit_mixed_keys(entry, blocks, lengths, True),
+                )
+            return fut
         lengths = np.broadcast_to(lengths, (B,))
         flags = np.full(B, bool(is_add)) if uniform else np.asarray(is_add, bool)
-        rows = np.full(B, self._tier_row(entry, row0), np.int32)
-        m_arr = np.full(B, m, np.uint32)
+        orig = (blocks, lengths, flags)
+        if saw_replicas:
+            rows, eidx, ppos = self._bloom_expand_ops(entry, B, flags)
+            blocks, lengths, flags = blocks[eidx], lengths[eidx], flags[eidx]
+            gather = lambda v: v[ppos]  # noqa: E731
+        else:
+            rows = np.full(B, self._tier_row(entry, row0), np.int32)
+            gather = None
+        m_arr = np.full(len(rows), m, np.uint32)
         if self.coalescer is not None:
-            return self._submit(
+            fut = self._submit(
                 ("bloom_mixk", id(pool), k, L),
                 lambda cols: self.executor.bloom_mixed_keys(
                     pool, cols[0], cols[1], k, cols[2], cols[3], cols[4]
                 ),
                 (rows, m_arr, blocks, lengths, flags),
-                B,
+                len(rows),
                 pool_key=id(pool),
                 tenant=entry.name,
             )
-        return self.executor.bloom_mixed_keys(
-            pool, rows, m_arr, k, blocks, lengths, flags
-        )
+        else:
+            fut = self.executor.bloom_mixed_keys(
+                pool, rows, m_arr, k, blocks, lengths, flags
+            )
+        if any_add:
+            # The fence re-applies WRITES only: a mixed batch re-broadcasts
+            # its add subset.
+            ob, ol, of = orig
+            self._replication_fence(
+                entry, saw_replicas,
+                lambda: self._bloom_submit_mixed_keys(entry, ob[of], ol[of], True),
+            )
+        return fut if gather is None else MappedFuture(fut, gather)
 
     def bloom_add_encoded(self, name, blocks, lengths):
         with self._nc_mutate(name), self._journal_gate:
             entry = self._require(name, PoolKind.BLOOM)
-            # The mixed-keys path owns the degraded-mirror failover.
-            if self.config.gpu_sketch.exact_add_semantics or self._degraded(entry):
+            # The mixed-keys path owns the degraded-mirror failover and
+            # the replicated broadcast.
+            if (
+                self.config.gpu_sketch.exact_add_semantics
+                or entry.replica_rows
+                or self._degraded(entry)
+            ):
                 res = self._bloom_submit_mixed_keys(entry, blocks, lengths, True)
             else:
                 m, k = entry.params["size"], entry.params["hash_iterations"]
@@ -1357,6 +1498,10 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 res = self.executor.bloom_add_keys_st(
                     entry.pool, entry.row, m, k, blocks,
                     np.broadcast_to(np.asarray(lengths, np.uint32), (blocks.shape[0],)),
+                )
+                self._replication_fence(
+                    entry, False,
+                    lambda: self._bloom_submit_mixed_keys(entry, blocks, lengths, True),
                 )
             # Journaled as the raw codec lanes already on the host (replay
             # hashes them there, bit-identical to the card's hash).
@@ -1389,7 +1534,11 @@ class TorchSketchEngine(SketchDurabilityMixin):
 
     def _bloom_contains_encoded_dispatch(self, entry, blocks, lengths):
         row0 = entry.row  # BEFORE the residency check (see _tier_row)
-        if self.coalescer is not None or self._degraded(entry):
+        if (
+            self.coalescer is not None
+            or entry.replica_rows
+            or self._degraded(entry)
+        ):
             return self._bloom_submit_mixed_keys(entry, blocks, lengths, False)
         m, k = entry.params["size"], entry.params["hash_iterations"]
         return self.executor.bloom_contains_keys_st(
@@ -1610,8 +1759,10 @@ class TorchSketchEngine(SketchDurabilityMixin):
             coarse = (id(entry.pool), "bitset")
             if coarse not in self._prewarm_seen:
                 self._prewarm_seen.add(coarse)
-                self.prewarmer.register(
-                    entry.pool, ("bs_mixed_runs",), prewarm.warm_bitset_mixed_runs())
+                if self.executor.supports_runs_metadata:
+                    self.prewarmer.register(
+                        entry.pool, ("bs_mixed_runs",),
+                        prewarm.warm_bitset_mixed_runs())
                 self.prewarmer.register(
                     entry.pool, ("bs_mixed",), prewarm.warm_bitset_mixed())
         return entry
@@ -1645,16 +1796,23 @@ class TorchSketchEngine(SketchDurabilityMixin):
         self._drain()
         while True:
             old_pool, old_row = entry.pool, entry.row
+            epoch_old = old_pool.topology_epoch
             new_pool = self.registry.pool_for(PoolKind.BITSET, (need_words,))
-            with self.executor._dispatch_lock:
-                if entry.pool is not old_pool or entry.row != old_row:
-                    # A concurrent grow moved the entry first.
+            with old_pool._dispatch_lock:
+                if (
+                    old_pool.topology_epoch != epoch_old
+                    or entry.pool is not old_pool
+                    or entry.row != old_row
+                ):
+                    # A topology swap rebuilt the layouts, or a concurrent
+                    # grow moved the entry first: nothing is allocated
+                    # yet, so re-evaluate.
                     if entry.pool.row_units >= need_words:
                         return
                     continue
                 new_row = new_pool.alloc_row()
                 self.executor.copy_row(old_pool, old_row, new_pool, new_row)
-                # rtpulint: disable=RT001 zero-then-free must be atomic vs reallocation (the _reap_row discipline): releasing between would hand out a dirty row
+                # rtpulint: disable=RT001 zero-then-free must be atomic vs reallocation (the _reap_rows discipline): releasing between would hand out a dirty row
                 self.executor.zero_row(old_pool, old_row)
                 old_pool.free_row(old_row)
                 entry.pool, entry.row = new_pool, new_row
@@ -1667,8 +1825,9 @@ class TorchSketchEngine(SketchDurabilityMixin):
     def _bitset_dispatch_group(self, pool, gidx, runs):
         """One resolved-placement group of a mixed-bit segment -> one
         launch: the run-length form up to 1024 runs (the JAX package's
-        run-table size), per-op arrays above that."""
-        if len(runs) <= 1024:
+        run-table size) where the executor has one, per-op arrays
+        otherwise."""
+        if self.executor.supports_runs_metadata and len(runs) <= 1024:
             run_rows = np.array([r for _, r, _ in runs], np.int32)
             run_ops = np.array([o for _, _, o in runs], np.uint32)
             starts = np.zeros(len(runs) + 1, np.int32)

@@ -78,6 +78,9 @@ class Observability:
         self.dispatch_seconds = r.histogram(
             "rtpu_dispatch_enqueue_seconds",
             "host-side dispatch enqueue time, by method", ("method",))
+        # Ops the sharded executor routed to each logical shard.
+        self.shard_ops = r.counter(
+            "rtpu_shard_ops", "ops routed to each mesh shard", ("shard",))
         # Breaker state itself is a render-time gauge (rtpu_breaker_state,
         # registered by the engine).
         self.degraded_ops = r.counter(
@@ -385,6 +388,12 @@ class Observability:
         self.dispatches.inc((method,))
         self.dispatch_ops.inc((method,), nops)
         self.dispatch_seconds.observe((method,), dur_s)
+
+    def record_shard_counts(self, counts) -> None:
+        """Per-shard op counts of one partitioned dispatch."""
+        for s, c in enumerate(counts):
+            if c:
+                self.shard_ops.inc((str(s),), int(c))
 
     def reset_op_stats(self) -> None:
         """Zero the span-derived families and the trace ring (benches

@@ -151,10 +151,12 @@ class Profiler:
     trace silently empty of device work, so ``start`` refuses instead.
     """
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cpu", devices=None):
         import torch
 
         self.device = torch.device(device)
+        # The mesh's devices (one per shard; shards may share one).
+        self.devices = [torch.device(d) for d in devices] if devices else []
         self._active = False
         self._plock = _witness.named(threading.Lock(), "serve.profiler")
         self._prof = None
@@ -235,18 +237,23 @@ class Profiler:
         return torch.profiler.record_function(name)
 
     def device_memory(self) -> dict:
-        """Current memory stats (bytes) for every device of the
-        profiler's type, keyed by ``platform:id`` (the Node.address form).
-        A CUDA device reports the caching allocator's bytes in use and
-        peak (``memory_stats``) and the card's free and total bytes
-        (``mem_get_info``); the CPU reports an empty dict under its key,
-        as a JAX CPU device does."""
+        """Current memory stats (bytes) for every distinct device of the
+        engine's mesh (the profiler's ``devices``; every CUDA device of
+        the machine when none were given), keyed by ``platform:id`` (the
+        Node.address form).  A CUDA device reports the caching
+        allocator's bytes in use and peak (``memory_stats``) and the
+        card's free and total bytes (``mem_get_info``); the CPU reports
+        an empty dict under its key, as a JAX CPU device does."""
         import torch
 
         if self.device.type != "cuda":
             return {"cpu:0": {}}
+        if self.devices:
+            indices = sorted({d.index or 0 for d in self.devices})
+        else:
+            indices = range(torch.cuda.device_count())
         out: dict = {}
-        for i in range(torch.cuda.device_count()):
+        for i in indices:
             stats = torch.cuda.memory_stats(i)
             free, total = torch.cuda.mem_get_info(i)
             out[f"gpu:{i}"] = {

@@ -1,7 +1,10 @@
 """NodesGroup — → org/redisson/api/NodesGroup / RedisNodes (SURVEY.md
-§2.3 admin row): per-node ping/info.  A node here is the engine's torch
-device (one card, or the CPU when the client was built with
-``device="cpu"``); ``ping`` round-trips a tiny computation through it.
+§2.3 admin row): per-node ping/info.  A node here is one shard of the
+engine and names the torch device it lives on (the card, or the CPU when
+the client was built with ``device="cpu"``); a sharded engine lists one
+node per shard, all on its one device.  ``ping`` round-trips a tiny
+computation through the node's device, so the failure monitor pings
+every shard.
 
 The port's copy of ``redisson_tpu/serve/nodes.py``.
 """
@@ -207,10 +210,9 @@ class NodesGroup:
         self._client = client
 
     def _devices(self):
-        # The engine's own device: one node on one card (or the CPU the
-        # caller asked for).  A sharded node list waits for the port's
-        # sharded engine.
-        return [self._client._engine.executor.device]
+        # One node per shard, each naming the device its shard lives on
+        # (every shard of a mesh shares the engine's one device).
+        return self._client._engine.mesh_devices()
 
     def get_nodes(self) -> list[Node]:
         return [Node(d, i) for i, d in enumerate(self._devices())]

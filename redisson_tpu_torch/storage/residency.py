@@ -174,7 +174,7 @@ class ResidencyManager:
         self._disk: dict[str, dict] = {}         # name -> {file, crc, nbytes}
         self._snapshot_refs: set[str] = set()    # blob files the latest snapshot names
         self._gc: set[str] = set()               # retired blob files awaiting GC
-        self._quarantine: list[tuple] = []       # (pool, row)
+        self._quarantine: list[tuple] = []       # (pool, row, topology_epoch)
         self._spill_seq = 0
         # Lifetime transition counters (INFO memory tier breakdown).
         self.promotions = 0
@@ -355,7 +355,9 @@ class ResidencyManager:
                 entry.row = ROW_NONE
                 entry.residency = HOST
             with self._lock:
-                self._quarantine.append((pool, old_row))
+                self._quarantine.append(
+                    (pool, old_row, pool.topology_epoch)
+                )
                 self._host_nbytes[name] = int(row.nbytes)
             self.demotions += 1
         self._note("demote", name, t0)
@@ -672,8 +674,10 @@ class ResidencyManager:
         eng = self._eng
         eng._drain()
         n = 0
-        for pool, row in pending:
+        for pool, row, epoch in pending:
             with pool._dispatch_lock:
+                if pool.topology_epoch != epoch:
+                    continue  # a reshard already rebuilt the free list
                 try:
                     # rtpulint: disable=RT001 zero-then-free must be atomic vs reallocation (the _reap_rows discipline): releasing between would hand out a dirty row
                     eng.executor.zero_row(pool, row)

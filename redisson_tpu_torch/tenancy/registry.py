@@ -82,10 +82,12 @@ class SizeClassPool:
         # The factory (the executor) owns the state layout; this layer only
         # hands out row numbers.
         self._factory = factory
-        self.capacity = factory.round_capacity(capacity, row_units=spec.row_units)
+        self.capacity = factory.round_capacity(
+            capacity, row_units=spec.row_units, kind=spec.kind
+        )
         self._dispatch_lock = dispatch_lock or threading.RLock()
         self.state = factory.make_pool_state(
-            self.capacity, spec.row_units, spec.dtype
+            self.capacity, spec.row_units, spec.dtype, kind=spec.kind
         )
         self._free: list[int] = list(range(self.capacity - 1, -1, -1))
         self.generation = 0  # bumped on every growth and snapshot restore
@@ -93,6 +95,11 @@ class SizeClassPool:
         # growth changes the pool's launch signature, so the warm ladder
         # re-runs against the new layout.
         self.on_grow = None
+        # Bumped (under the dispatch lock) by a live change_topology,
+        # which rebuilds the free list wholesale: a reap that detached an
+        # entry BEFORE the swap must not zero and free its rows again
+        # afterwards (durability._reap_rows checks this epoch).
+        self.topology_epoch = 0
 
     @property
     def row_units(self) -> int:
@@ -108,11 +115,22 @@ class SizeClassPool:
         # The caller zeroes the row on the device before recycling it.
         self._free.append(row)
 
+    def alloc_row_with_residue(self, residue: int, S: int) -> int:
+        """Allocate a row with ``row % S == residue``: read replication
+        needs one copy on each shard."""
+        with self._dispatch_lock:
+            while True:
+                for i in range(len(self._free) - 1, -1, -1):
+                    if self._free[i] % S == residue:
+                        return self._free.pop(i)
+                self._grow()
+
     def _grow(self) -> None:
         old_cap = self.capacity
         new_cap = old_cap * 2
         self.state = self._factory.grow_pool_state(
-            self.state, old_cap, new_cap, self.spec.row_units
+            self.state, old_cap, new_cap, self.spec.row_units,
+            self.spec.dtype, kind=self.spec.kind,
         )
         self.capacity = new_cap
         self.generation += 1
@@ -300,9 +318,9 @@ class TenantGovernor:
 class TenantEntry:
     """One named sketch object's placement + parameters.  ``expire_at``:
     absolute wall-clock deadline (``time.time()``) after which the object
-    no longer exists; None = no TTL.  ``replica_rows`` (read replicas on
-    a mesh) is always None on one card; it is kept so snapshots carry
-    the JAX package's keys.  ``residency`` (storage/residency.py):
+    no longer exists; None = no TTL.  ``replica_rows``: the rows of a
+    read-replicated Bloom filter, one per shard (None unless
+    ``bloom_replicate`` ran on a sharded engine).  ``residency`` (storage/residency.py):
     "device" — ``row`` is live; "host" — row is ROW_NONE (-1) and the
     truth is a golden mirror; "disk" — row is ROW_NONE and the truth is
     a blob."""

@@ -3,10 +3,9 @@ metrics and profiler, the Prometheus endpoint, ``Config`` JSON and the
 JSON bucket — against the JAX package's.
 
 * The JAX package's own tests run again on the port (``TestJsonBucket``,
-  ``TestNodesGroup::test_ping_and_info`` and ``TestProfiler`` of
-  ``test_wave4_objects.py``), rebound by ``port_class`` (see
-  ``test_torch_grid_coordination.py``).  ``test_sharded_mesh_lists_all_
-  shards`` waits for the port's sharded engine.
+  ``TestNodesGroup`` — one node per shard of an 8-shard engine included
+  — and ``TestProfiler`` of ``test_wave4_objects.py``), rebound by
+  ``port_class`` (see ``test_torch_grid_coordination.py``).
 * The port's own cases: ``Metrics`` recorded at the coalescer's retire
   and at direct dispatch, the failure monitor's events, the ping's
   timeout on a wedged device, the profiler's refusal to trace a CUDA
@@ -44,8 +43,7 @@ class TestJsonBucket(port_class(_ref4.TestJsonBucket)):
     pass
 
 
-class TestNodesGroup(port_class(
-        _ref4.TestNodesGroup, skip=("test_sharded_mesh_lists_all_shards",))):
+class TestNodesGroup(port_class(_ref4.TestNodesGroup)):
     pass
 
 

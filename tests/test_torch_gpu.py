@@ -952,3 +952,72 @@ def test_k1_on_a_rebalancer_moved_cms_equals_golden_seq(cuda, monkeypatch):
     finally:
         cs.p18_close(nodes)
     assert k1["k1_moved_cms_launches"] == 2 and k1["k1_moved_cms_equals_golden_seq"]
+
+
+def _sharded_stream(c, rng):
+    """Mixed traffic over every kind at 8 shards, cross-shard merges and
+    BITOP, a giant m-sharded BitSet and a replicated filter; returns the
+    per-op results."""
+    out = []
+    keys = lambda n, hi=1 << 20: rng.integers(0, hi, n).astype(np.uint64)  # noqa: E731
+    for t in range(24):
+        bf = c.get_bloom_filter(f"bf{t}")
+        bf.try_init(5000, 0.01)
+        out.append(list(bf.add_all_async(keys(300, 8000)).result()))
+        out.append(list(bf.contains_each(keys(200, 8000))))
+        hl = c.get_hyper_log_log(f"hl{t}")
+        out.append(hl.add_all(keys(500)))
+        bs = c.get_bit_set(f"bs{t}")
+        out.append(list(bs.set_many(rng.integers(0, 8192, 300).astype(np.uint32))))
+        cm = c.get_count_min_sketch(f"cm{t}")
+        cm.try_init(4, 1 << 10)
+        out.append(list(cm.add_all(keys(200, 300), rng.integers(1, 5, 200))))
+    c.get_hyper_log_log("hl0").merge_with("hl3", "hl9")
+    c.get_count_min_sketch("cm1").merge("cm2", "cm7")
+    c.get_bit_set("bs2").xor_op("bs5")
+    g = c.get_bit_set("giant")
+    g.set((1 << 16) - 1)
+    out.append(list(g.set_many(rng.integers(0, 1 << 16, 4000).astype(np.uint32))))
+    g.set_range(5000, 40_000)
+    out.append((g.cardinality(), g.length(), g.first_clear_bit()))
+    rep = c.get_bloom_filter("bf4")
+    assert rep.set_replicated()
+    out.append(list(rep.contains_each(keys(500, 8000))))
+    return out
+
+
+def test_sharded_engine_on_the_card_equals_the_cpu(cuda):
+    """The sharded executor on the card against the same calls on the
+    CPU port: per-op results and every row equal, through a live
+    reshard 8 -> 4 -> 1 too."""
+    import redisson_tpu_torch as rt
+
+    clients = [
+        rt.create(rt.Config().use_gpu_sketch(device=d, num_shards=8, min_bucket=64,
+                                             mbit_threshold_words=256))
+        for d in ("cuda", "cpu")
+    ]
+    try:
+        outs = [_sharded_stream(c, np.random.default_rng(20)) for c in clients]
+        assert outs[0] == outs[1]
+
+        def rows(c):
+            eng = c._engine
+            return {e.name: eng.executor.read_row(e.pool, e.row).tobytes()
+                    for e in eng.registry.entries()}
+
+        def pools(c):
+            eng = c._engine
+            return {p.spec.key: eng.executor.state_to_host(p) for p in eng.registry.pools()}
+
+        for s in (8, 4, 1):
+            if s != 8:
+                assert all(c.change_topology(s) for c in clients)
+            assert rows(clients[0]) == rows(clients[1])
+            pa, pb = pools(clients[0]), pools(clients[1])
+            assert set(pa) == set(pb)
+            for key in pa:
+                np.testing.assert_array_equal(pa[key], pb[key])
+    finally:
+        for c in clients:
+            c.shutdown()

@@ -5,10 +5,9 @@ Three kinds of check:
 
 * the JAX package's own ``tests/test_journal.py`` classes run again on
   the port (``port_class`` rebinds their globals and in-body imports to
-  the port, on the CPU).  Skipped methods, each with its reason:
-  ``test_replay_onto_resharded_topology`` (a reshard onto two devices:
-  the port runs one card, and ``change_topology`` is a multi-GPU item);
-  ``test_always_future_done_tracks_durability`` (it calls the JAX
+  the port, on the CPU; ``test_replay_onto_resharded_topology``
+  recovers onto a two-shard engine).  Skipped methods, each with its
+  reason: ``test_always_future_done_tracks_durability`` (it calls the JAX
   engine's host-hashed ``bloom_add``, which the port does not carry; the
   port's keyed form is checked below);
 * state carried across the packages: ``encode_record`` gives the same
@@ -94,9 +93,7 @@ TestJournalCore = _port_journal_class(_ref.TestJournalCore)
 TestEngineRecovery = _port_journal_class(
     _ref.TestEngineRecovery, skip=("test_always_future_done_tracks_durability",)
 )
-TestRecoveryEdgeCases = _port_journal_class(
-    _ref.TestRecoveryEdgeCases, skip=("test_replay_onto_resharded_topology",)
-)
+TestRecoveryEdgeCases = _port_journal_class(_ref.TestRecoveryEdgeCases)
 TestSnapshotCrashSafety = _port_journal_class(_ref.TestSnapshotCrashSafety)
 
 

@@ -87,10 +87,9 @@ def port_module(ref, ns: dict, skip=()) -> None:
 
 
 SKIPPED = {
-    "test_sharded_direct_dispatch_records_ops_and_shards":
-        "queue 1 item 5: the sharded executor and rtpu_shard_ops",
     "test_device_memory_reports_all_devices":
-        "queue 1 item 5: one device per rank of the sharded mesh",
+        "replaced below by the port's case of the same name: the reference "
+        "keys every JAX device, the port every distinct device of the mesh",
     "test_metric_catalog_matches_doc":
         "replaced below by the port's catalog case of the same name",
 }
@@ -98,11 +97,32 @@ SKIPPED = {
 port_module(_ref, globals(), skip=SKIPPED)
 
 
-# Families of the JAX package's bundle that wait with their modules: the
-# sharded executor (item 5).
-WAITING_FAMILIES = {
-    "rtpu_shard_ops_total",
-}
+# Families of the JAX package's bundle that wait with their modules: none
+# since the sharded executor brought ``rtpu_shard_ops_total``.
+WAITING_FAMILIES: set = set()
+
+
+def test_device_memory_reports_all_devices():
+    """One key per distinct device of the engine's mesh: eight logical
+    shards on the CPU share one device, so one key."""
+    from redisson_tpu_torch.serve.metrics import Profiler
+
+    cl = rt.create(rt.Config().use_gpu_sketch(device="cpu", num_shards=8,
+                                              min_bucket=64))
+    try:
+        devices = cl._engine.mesh_devices()
+        assert len(devices) == 8
+        mem = Profiler(devices[0], devices=devices).device_memory()
+        assert isinstance(mem, dict)
+        assert set(mem) == {"cpu:0"}
+        assert cl.get_profiler().device_memory() == mem
+        # The CPU reports no stats, so the gauge family is declared with
+        # no sample.
+        fam = cl.obs.registry.render_prometheus().splitlines()
+        assert "# TYPE rtpu_device_memory_bytes gauge" in fam
+        assert not [ln for ln in fam if ln.startswith("rtpu_device_memory_bytes")]
+    finally:
+        cl.shutdown()
 
 
 def _doc_families() -> set:

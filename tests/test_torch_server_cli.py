@@ -207,6 +207,24 @@ _TIERS = {
         "from redisson_tpu_torch.analysis import witness, explorer, netsim\n"
         "from redisson_tpu_torch.analysis import rtpulint, lockgraph\n"
         "from redisson_tpu_torch.analysis import __main__ as analysis_cli\n"
+        "from redisson_tpu_torch.parallel import mesh\n"
+        "from redisson_tpu_torch.executor import sharded_executor\n"
+    ),
+    # The sharded executor and the mesh: an 8-shard client, a replicated
+    # filter, a live reshard to 4 and a snapshot restored onto 1 shard.
+    "sharded": (
+        "import tempfile\n"
+        "import numpy as np\n"
+        "c = rt.create(rt.Config().use_gpu_sketch(device='cpu', num_shards=8))\n"
+        "assert type(c._engine.executor).__name__ == 'ShardedTorchCommandExecutor'\n"
+        "bf = c.get_bloom_filter('f'); bf.try_init(1000, 0.01)\n"
+        "bf.add_all(np.arange(100, dtype=np.uint64)); assert bf.set_replicated()\n"
+        "assert c.change_topology(4) and len(c.get_nodes_group().get_nodes()) == 4\n"
+        "d = tempfile.mkdtemp(); c._engine.snapshot(d); c.shutdown()\n"
+        "c2 = rt.create(rt.Config().use_gpu_sketch(device='cpu'))\n"
+        "assert c2._engine.restore_snapshot(d)\n"
+        "assert c2.get_bloom_filter('f').contains_all(np.arange(100, dtype=np.uint64)) == 100\n"
+        "c2.shutdown()\n"
     ),
     "analysis": (
         # Naming a lock loads the witness alone, never the analyser.
@@ -315,7 +333,9 @@ def test_server_modules_import_neither_jax_nor_the_reference():
     an armed doctor routed through connect_cluster), the analysis tools
     (the lock-order witness, the schedule explorer, netsim, the analyser,
     the lock graph and their CLI, which gates the cluster tier; a serving
-    module that names its locks loads none of the analysers), the entry
+    module that names its locks loads none of the analysers), the sharded
+    executor and the mesh (an 8-shard client resharded live and restored
+    onto one shard), the entry
     point and the scripts load with jax and redisson_tpu blocked and
     serve on the CPU — a journaled client recovers its tail; no module of
     the port, nor chip_smoke.py, profile_port.py or compare_rates.py, has
