@@ -61,8 +61,8 @@ the main path through the public client at full size:
            and every breaker closed
   phase 10 the host tiers on fresh clients: (10a) 102,400 Bloom tenants
            of 10,000 keys / 1% over a 1024-row device budget (all but
-           1016 born on the host; a 128 MiB host cap spills the cold tail
-           to blobs under build/), a 20,480-op zipf(1.1) stream of
+           1016 born on the host; a 32 MiB host cap spills the cold tail
+           to blobs under build/), a 5,120-op zipf(1.1) stream of
            128-key ops, every per-op result equal to an all-resident
            client's and 256 sampled tenants byte-equal across the tiers;
            four CMS(5, 65536), two HLLs and two 2**24-bit BitSets forced
@@ -70,7 +70,7 @@ the main path through the public client at full size:
            unchanged, then K1 on each promoted CMS row equal to
            golden_seq; the hot pass of the 256 hottest tenants tiered
            against all-resident (hot_ratio); transition p50/p99.
-           (10b) config 1's filter with 100,000 keys, 4096 + 4096 zipf(1.3)
+           (10b) config 1's filter with 100,000 keys, 2048 + 2048 zipf(1.3)
            single-key contains with the near cache on and off: equal
            answers, a cached negative retired by an add.  (10c) the first
            batch per bucket with and without pre-warm, each arm in a
@@ -163,7 +163,7 @@ the main path through the public client at full size:
            the rebuilt one, and 2**18 more events through K1 on the
            recovered row equal to golden_seq; recovery seconds, records
            and rows.  (14c) ``python -m redisson_tpu_torch.chaos.crashchild
-           --device cuda`` for 3 seeds x {always, everysec}, plus runs with
+           --device cuda`` for 2 seeds x {always, everysec}, plus runs with
            --snapshot-every 50 and --residency-every 25, killed at seeded
            ack counts, recovered on the card and matched to a golden
            prefix (always: covering every ack; everysec: every ack older
@@ -321,8 +321,9 @@ the main path through the public client at full size:
            in phase 19 (19a) must be more than 0
 
   phase 20 the sharded executor and the mesh: one client at
-           use_gpu_sketch(num_shards=8), eight logical shards of every pool
-           on the card; its nodes group lists 8 nodes naming the card.
+           use_gpu_sketch(num_shards=8, device_indices=[0]), eight logical
+           shards of every pool in one placement on the card; its nodes
+           group lists 8 nodes naming the card.
            (20a) config 4: phase 3's plan (1000 tenants x Bloom(10,000,
            1%), 4 threads, add / contains / mixed of 256 keys) through the
            per-op path: every result and tenant row equal golden, every
@@ -351,6 +352,27 @@ the main path through the public client at full size:
            add_all_seq of 2**16 events on the carried CMS launches K1,
            estimates and table = golden_seq from the carried table.
            K1 launches in phase 20 (20f) must be more than 0
+  phase 21 shards on several placements and in several processes.  (21a)
+           one client at 8 shards on 4 placements (cuda:1, 2, 3, 0 on a
+           machine with four cards; otherwise four placements on the one
+           card, the device enumeration replaced): 20b-20e's streams again,
+           every result and row equal golden and every row byte-equal to
+           phase 20's one-placement client, rtpu_shard_ops per shard equal
+           to its; BITOP between BitSets on different placements; then
+           20f (change_topology(8 -> 4) under a writer, a 1-shard restore,
+           change_topology(1)) and K1 on the carried CMS on the slice's
+           first device, equal to golden_seq.  (21b) two children of this
+           script (``--p21-child``) join one torch.distributed group on
+           127.0.0.1 (gloo on one card, nccl with a card each), 4 of 8
+           global shards each, and run in lockstep config 1 (2**20 keys,
+           count()), config 2 (2**21 keys), config 3 (8 x 2**21 sets on a
+           2**30-bit BitSet, cardinality()), a PFMERGE, a BITOP and a
+           CMS.MERGE between rows of both processes, and a snapshot; a
+           one-process client on 21a's placements runs the same stream
+           meanwhile and is held to golden.  Both children's answers equal
+           each other's and the one-process client's, both snapshots hold
+           its pool arrays byte for byte; a child past its deadline kills
+           both.  K1 launches in phase 21 (21a) must be more than 0
 
 Every failed check raises, so the script exits non-zero.  Without a CUDA
 device it exits with code 2 before printing any result.  The line before
@@ -1917,23 +1939,24 @@ def phase_failover(rng, seed: int, card: str) -> None:
 # Phase 10a: bench.py config 11's shape at a population a multi-tenant
 # deployment holds — 100x the device-row budget in Bloom tenants of
 # 10,000 keys / 1% FPP, a zipf(1.1) tenant stream of 128-key ops with an
-# add every third op, the cold tail past a 64 MiB host cap spilling to
+# add every third op, the cold tail past a 32 MiB host cap spilling to
 # disk, and config 11's 30 s heat half-life.  The hot set is the stream's
 # actual head; the tenant ids are a seeded permutation of the zipf ranks,
 # so the hot set is mostly born cold and has to be promoted by heat.
-# The stream is cut from 65,536 ops to 10,240 for the script's time
-# limit (the tiered stream ran at 162-306 ops/s on the card, and the
-# later phases need the room).  A touched tenant's host copy is 16 KB:
+# The stream is cut from 65,536 ops to 5,120 for the script's time
+# limit (the tiered stream ran at 162-316 ops/s on an NVIDIA H100 80GB
+# HBM3 at 700 W, and the later phases need the room).  A touched tenant's host copy is 16 KB:
 # the 40,960-op stream touched ~17,300 tenants, past the 16,384 a
 # 256 MiB cap holds, and the cap is halved with each halving of the
-# stream (the 10,240-op stream touches ~5,300, past the 4,096 of
-# 64 MiB), so the cold tail still spills to disk.  The population and
+# stream (the 10,240-op stream touched ~5,300, past the 4,096 of
+# 64 MiB; the 5,120-op stream's head is past the 2,048 of 32 MiB), so
+# the cold tail still spills to disk.  The population and
 # the device budget are not cut.
-P10 = {"pop": 102_400, "budget": 1024, "ops": 10_240, "keys": 128, "hot": 256,
-       "hot_keys": 1 << 14, "hot_passes": 4, "host_bytes": 64 << 20,
+P10 = {"pop": 102_400, "budget": 1024, "ops": 5_120, "keys": 128, "hot": 256,
+       "hot_keys": 1 << 14, "hot_passes": 4, "host_bytes": 32 << 20,
        "cms": (4, 5, 1 << 16), "cms_events": 1 << 18, "seq_events": 1 << 15,
        "hlls": 2, "hll_keys": 1 << 20, "bitsets": 2, "bitset_bits": 1 << 24,
-       "sample": 256, "nc_keys": 100_000, "nc_reads": 4096}
+       "sample": 256, "nc_keys": 100_000, "nc_reads": 2048}
 P10_DEVICE = "cuda"
 
 
@@ -2342,7 +2365,7 @@ def phase_tiers(rng, card: str) -> None:
 
 P11 = {"keys": 1 << 20, "madd": 1024, "conns": 4, "window": 16,
        "read": 131_072, "mexists": 1024, "fpp": 0.01, "capacity": 1_000_000,
-       "c6_conns": 4, "c6_depth": 256, "c6_batches": 8, "c6_items": 512,
+       "c6_conns": 4, "c6_depth": 256, "c6_batches": 4, "c6_items": 512,
        "c6_filter": 100_000,
        "c8_idle": 1000, "c8_active": 32, "c8_procs": 8, "c8_pass_s": 3.0,
        "c8_items": 512}
@@ -3937,7 +3960,7 @@ def phase_services(rng, card: str) -> None:
 P14 = {"keys": 1 << 20, "chunk": 1024, "threads": 4, "capacity": 1_048_576,
        "fpp": 0.01, "cms_events": 1 << 20, "d": 5, "w": 1 << 16,
        "hll_keys": 1 << 21, "bs_bits": 1 << 30, "bs_idx": 1 << 21,
-       "big_chunk": 1 << 18, "k1_after": 1 << 18, "soak_seeds": (0, 1, 2),
+       "big_chunk": 1 << 18, "k1_after": 1 << 18, "soak_seeds": (0, 1),
        "soak_ops": 300, "repl_keys": 1 << 20, "repl_conns": 4, "repl_madd": 1024,
        "wait_every": 64, "e_batches": 40, "e_batch": 50, "e_kill_after": 20}
 P14_DEVICE = "cuda"
@@ -5167,7 +5190,7 @@ def phase_telemetry(rng, seed: int, card: str) -> None:
 P16 = {"keys": 1 << 18, "madd": 1024, "conns": 4, "window": 16, "read": 131_072,
        "fpp": 0.01, "capacity": 1_000_000, "lat_cmds": 64, "timeout_ms": 200,
        "kill_iters": 8, "workers": 4, "c13_procs": 8, "c13_conns": 4, "c13_hot": 128,
-       "c13_pass_s": 1.5, "c13_passes": 3, "c13_warm_s": 1.0, "c6_batches": 4,
+       "c13_pass_s": 1.5, "c13_passes": 2, "c13_warm_s": 1.0, "c6_batches": 4,
        "node_keys": 1 << 18, "node_read": 131_072}
 P16_DEVICE = "cuda"
 
@@ -5928,7 +5951,7 @@ def phase_scripting_frontdoor(rng, seed: int, card: str) -> None:
 P17 = {"nodes": 3, "keys": 1 << 18, "madd": 1024, "threads": 4, "window": 16,
        "read": 131_072, "capacity": 1_000_000, "fpp": 0.01,
        "c9_procs": 9, "c9_conns": 4, "c9_batch": 192, "c9_keys": 512,
-       "c9_warm_s": 1.0, "c9_pass_s": 1.5, "c9_passes": 3,
+       "c9_warm_s": 1.0, "c9_pass_s": 1.5, "c9_passes": 2,
        "mig_bits": 1 << 24, "mig_hll": 1 << 16, "mig_events": 1 << 16,
        "mig_write_s": 1.0, "cms_d": 5, "cms_w": 1 << 16, "k1_events": 1 << 19,
        "fo_keys": 512, "fo_madd": 8, "fo_timeout_ms": 1000, "fo_promote_s": 15.0}
@@ -7766,14 +7789,24 @@ def p20f_reshard(client, rng, cms_golden) -> dict:
     return out
 
 
-def phase_sharded(rng, card: str) -> dict:
-    """Phase 20: one client at num_shards=8 on the card through 20a-20f."""
+def p20_rng(seed: int, sub: str):
+    """The stream of sub-phase ``sub`` (20b-20f): phase 21a replays 20b-20e
+    on four placements with the same streams."""
+    return np.random.default_rng([seed, 20, ord(sub)])
+
+
+def phase_sharded(seed: int, card: str) -> dict:
+    """Phase 20: one client at num_shards=8 on ONE placement of the card
+    (device_indices [0]: the single [S, L] stack) through 20a-20f.  Returns
+    the rates and every row of 20b-20e's objects after 20e, which phase
+    21a's four placements must equal byte for byte."""
     import redisson_tpu_torch as rt
     from redisson_tpu_torch.codecs import LongCodec
     from redisson_tpu_torch.ops import cms_seq
 
+    rng = p20_rng(seed, "a")
     client = rt.create(rt.Config().set_codec(LongCodec()).use_gpu_sketch(
-        device=P20_DEVICE, num_shards=P20["shards"],
+        device=P20_DEVICE, num_shards=P20["shards"], device_indices=[0],
         mbit_threshold_words=P20["mbit_threshold_words"]))
     try:
         eng = client._engine
@@ -7785,15 +7818,19 @@ def phase_sharded(rng, card: str) -> dict:
         check([n.shard for n in nodes] == list(range(P20["shards"]))
               and {n.address for n in nodes} == {want_addr},
               f"phase 20: nodes {[(n.shard, n.address) for n in nodes]}")
+        check(not eng.executor.ctx.placed, "phase 20: not one placement")
         launches0 = cms_seq.LAUNCHES
         rates = {"20a": p20a_tenants(client, rng)}
-        rates["20b"] = p20b_replicated(client, rng)
-        rates["20c"] = p20c_mbit(client, rng)
+        ops0 = p20_shard_ops(client)
+        rates["20b"] = p20b_replicated(client, p20_rng(seed, "b"))
+        rates["20c"] = p20c_mbit(client, p20_rng(seed, "c"))
         rates["20d"] = p20d_hll(client)
-        rates["20e"], cms_golden = p20e_cms(client, rng)
+        rates["20e"], cms_golden = p20e_cms(client, p20_rng(seed, "e"))
+        rates["shard_ops_20b_20e"] = p20_shard_ops(client) - ops0
+        rates["rows"] = {nm: r for nm, r in p20_rows(client).items() if nm.startswith("p20-")}
         check(cms_seq.LAUNCHES == launches0, "phase 20: K1 launched while sharded")
         check_healthy(client, 20)
-        rates["20f"] = p20f_reshard(client, rng, cms_golden)
+        rates["20f"] = p20f_reshard(client, p20_rng(seed, "f"), cms_golden)
         check_healthy(client, 20)
     finally:
         client.shutdown()
@@ -7813,6 +7850,436 @@ def phase_sharded(rng, card: str) -> dict:
     return rates
 
 
+# -- phase 21: shards on several placements and in several processes ----------
+
+P21 = {"shards": 8, "placements": 4, "bloom_keys": 1 << 20, "bloom_chunk": 1 << 18,
+       "outside": 1 << 17, "hll_keys": 1 << 21, "nbits": 1 << 30, "bs_ops": 1 << 21,
+       "bs_iters": 8, "bitop_bits": 1 << 20, "bitop_ops": 1 << 16, "x_objects": 6,
+       "x_hll_keys": 1 << 14, "x_bs_bits": 1 << 16, "x_bs_ops": 1 << 12, "x_cms": (4, 1 << 12),
+       "x_cms_events": 1 << 14, "mbit_threshold_words": 1 << 22, "child_timeout_s": 240}
+P21_DEVICE = "cuda"
+
+
+def p21_slice() -> tuple:
+    """21a's device_indices and the enumeration they index: cards 1, 2, 3, 0
+    on a machine with four (K1 after the reshard then runs on cuda:1);
+    otherwise four entries of the one device (the seam the CPU tests use),
+    the second named first all the same."""
+    n = torch.cuda.device_count() if P21_DEVICE == "cuda" else 0
+    if n >= P21["placements"]:
+        return [1, 2, 3, 0], None
+    one = torch.device(P21_DEVICE, 0) if P21_DEVICE == "cuda" else torch.device(P21_DEVICE)
+    return [1, 2, 3, 0], [one] * P21["placements"]
+
+
+class p21_enumeration:
+    """The local enumeration replaced by ``devices`` (None: left alone)
+    for the devices of P21_DEVICE's type, while the block runs."""
+
+    def __init__(self, devices):
+        self.devices = devices
+
+    def __enter__(self):
+        from redisson_tpu_torch.executor import torch_executor
+
+        self.real = torch_executor.local_devices
+        if self.devices is not None:
+            kind = self.devices[0].type
+            torch_executor.local_devices = (
+                lambda d: list(self.devices) if torch.device(d).type == kind else self.real(d))
+        return self
+
+    def __exit__(self, *exc):
+        from redisson_tpu_torch.executor import torch_executor
+
+        torch_executor.local_devices = self.real
+        return False
+
+
+def p21_client(**kw):
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+
+    return rt.create(rt.Config().set_codec(LongCodec()).use_gpu_sketch(
+        device=P21_DEVICE, num_shards=P21["shards"],
+        mbit_threshold_words=P21["mbit_threshold_words"], **kw))
+
+
+def p21a_bitop(client, rng) -> dict:
+    """BITOP between tenant-sharded BitSets on different placements, each
+    row equal to a numpy bitmap after every op."""
+    nbits, B = P21["bitop_bits"], P21["bitop_ops"]
+    ctx = client._engine.executor.ctx
+    names = [f"p21-b{i}" for i in range(4)]
+    maps = {}
+    for nm in names:
+        bs = client.get_bit_set(nm)
+        maps[nm] = np.zeros(nbits // 32, np.uint32)
+        idx = rng.integers(0, nbits, B).astype(np.uint32)
+        check(np.array_equal(bs.set_many(idx), golden_set(maps[nm], idx)), f"21a: {nm} sets")
+    place = {nm: ctx.locate(client._engine.registry.lookup(nm).row % ctx.n_shards)[0]
+             for nm in names}
+    check(place["p21-b0"] != place["p21-b2"] and place["p21-b1"] != place["p21-b3"],
+          f"21a: the BITOP operands share a placement: {place}")
+    for dst, op, src in (("p21-b0", "and", "p21-b2"), ("p21-b1", "or", "p21-b3"),
+                         ("p21-b3", "xor", "p21-b0")):
+        getattr(client.get_bit_set(dst), op + "_op")(src)
+        a, b = maps[dst], maps[src]
+        maps[dst] = a & b if op == "and" else a | b if op == "or" else a ^ b
+        check(np.array_equal(tenant_row(client, dst), maps[dst]), f"21a: {dst} after {op.upper()}")
+        card = int(_POPCOUNT8[maps[dst].view(np.uint8)].sum(dtype=np.int64))
+        check(client.get_bit_set(dst).cardinality() == card, f"21a: {dst} cardinality")
+    return {"bitop_placements": place, "bitop_rows_equal_golden": True}
+
+
+def p21a_placements(seed: int, ref: dict, card: str) -> dict:
+    """21a: one process, 8 shards on 4 placements: phase 20's 20b-20e
+    streams replayed (every result and row checked against golden inside
+    them), every row byte-equal to phase 20's one-placement client, the
+    shard counters equal to its, BITOP across placements, then 20f's
+    change_topology(8 -> 4) under a writer, the 1-shard restore and
+    change_topology(1), and K1 on the carried CMS on the slice's first
+    device."""
+    idx, enum = p21_slice()
+    t0 = time.perf_counter()
+    with p21_enumeration(enum):
+        # Every placement's device warmed first (its context, the path's
+        # kernels) on a throwaway client, so the rates compare with phase
+        # 20's warm card.
+        warm = p21_client(device_indices=idx)
+        try:
+            p21_warm(warm)
+        finally:
+            warm.shutdown()
+        client = p21_client(device_indices=idx)
+        try:
+            eng = client._engine
+            ctx = eng.executor.ctx
+            check(ctx.placed and len(ctx.devices) == P21["placements"] and ctx.per == 2,
+                  f"21a: {len(ctx.devices)} placements")
+            placements_on = [str(d) for d in ctx.devices]
+            ops0 = p20_shard_ops(client)
+            rates = {"20b": p20b_replicated(client, p20_rng(seed, "b")),
+                     "20c": p20c_mbit(client, p20_rng(seed, "c")),
+                     "20d": p20d_hll(client)}
+            rates["20e"], cms_golden = p20e_cms(client, p20_rng(seed, "e"))
+            shard_ops = p20_shard_ops(client) - ops0
+            check(np.array_equal(shard_ops, ref["shard_ops_20b_20e"]),
+                  f"21a: shard ops {shard_ops.tolist()} vs one placement's "
+                  f"{ref['shard_ops_20b_20e'].tolist()}")
+            check(bool((shard_ops > 0).all()), "21a: a shard took no ops")
+            rows = p20_rows(client)
+            check(set(rows) == set(ref["rows"]), "21a: the keyspace differs from phase 20's "
+                                                 "20b-20e objects")
+            for nm, row in ref["rows"].items():
+                check(np.array_equal(rows[nm], row), f"21a: {nm} differs from phase 20's row")
+            del rows
+            bitop = p21a_bitop(client, np.random.default_rng([seed, 21]))
+            check_healthy(client, 21)
+            reshard = p20f_reshard(client, p20_rng(seed, "f"), cms_golden)
+            k1_device = str(eng.registry.lookup("p20-cms0").pool.state.device)
+            check(k1_device == str(ctx.devices[0]), f"21a: the carried CMS is on {k1_device}")
+            check_healthy(client, 21)
+        finally:
+            client.shutdown()
+    out = {"phase": "21a", "placements_on": placements_on, "device_indices": idx,
+           "ops_per_s": {"20b_add": rates["20b"]["add_ops_per_s"],
+                         "20b_contains": rates["20b"]["contains_ops_per_s"],
+                         "20c": rates["20c"]["ops_per_s"],
+                         "20d_pfadd": rates["20d"]["pfadd_ops_per_s"],
+                         "20e_events": rates["20e"]["events_per_s"]},
+           "ops_per_s_one_placement": {
+               "20b_add": ref["20b"]["add_ops_per_s"],
+               "20b_contains": ref["20b"]["contains_ops_per_s"],
+               "20c": ref["20c"]["ops_per_s"], "20d_pfadd": ref["20d"]["pfadd_ops_per_s"],
+               "20e_events": ref["20e"]["events_per_s"]},
+           "shard_ops": shard_ops.tolist(), "rows_equal_one_placement": True,
+           "change_topology_s": reshard["change_topology_s"],
+           "k1_launches": reshard["k1_launches"], "k1_device": k1_device, **bitop,
+           "seconds": time.perf_counter() - t0, "card": card}
+    log(out)
+    return out
+
+
+def p21_inputs(seed: int) -> dict:
+    """21b's stream inputs, made alike in every process from the seed."""
+    rng = np.random.default_rng([seed, 21, 2])
+    n, d_w = P21["x_objects"], P21["x_cms"]
+    return {
+        "outside": rng.integers(3 * P21["bloom_keys"], 8 * P21["bloom_keys"],
+                                P21["outside"]).astype(np.uint64),
+        "bs": [rng.integers(0, P21["nbits"], P21["bs_ops"]).astype(np.uint32)
+               for _ in range(P21["bs_iters"])],
+        "x_hll": [rng.integers(0, 1 << 40, P21["x_hll_keys"]).astype(np.uint64)
+                  for _ in range(n)],
+        "x_bs": [rng.integers(0, P21["x_bs_bits"], P21["x_bs_ops"]).astype(np.uint32)
+                 for _ in range(n)],
+        "x_cm": [zipf_keys(rng, P21["x_cms_events"], 4096) for _ in range(n)],
+        "x_cm_d_w": d_w,
+    }
+
+
+def _digest(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:24]
+
+
+def p21_warm(client) -> None:
+    """One small call of every kind the phase times, on objects of its
+    own: every shard body runs, so every placement's device has its
+    context and kernels (and a group its communicator) before a clock
+    starts."""
+    keys = np.arange(1024, dtype=np.uint64)
+    bf = client.get_bloom_filter("p21-wbf")
+    bf.try_init(10_000, 0.01)
+    bf.add_all(keys)
+    bf.contains_each(keys)
+    client.get_hyper_log_log("p21-whl").add_all(keys)
+    client.get_bit_set("p21-wbs").set_many(np.arange(0, 1024, 3, dtype=np.uint32))
+    cm = client.get_count_min_sketch("p21-wcm")
+    cm.try_init(*P21["x_cms"])
+    cm.add_all(keys)
+
+
+def p21_stream(client, seed: int, snap: str) -> tuple:
+    """21b's stream (config sizes): config 1 (2**20 keys at 1%, count()),
+    config 2 (PFADD of 2**21 keys), config 3 (8 x 2**21 set ops on a
+    2**30-bit m-sharded BitSet, cardinality()), then objects on every
+    shard with a PFMERGE, a BITOP and a CMS.MERGE whose rows sit in both
+    processes, and a snapshot; a warm-up of every kind first.  Returns
+    (results, keys/s)."""
+    inp = p21_inputs(seed)
+    n, chunk = P21["bloom_keys"], P21["bloom_chunk"]
+    res, rate = {}, {}
+    p21_warm(client)
+    bf = client.get_bloom_filter("p21-cfg1")
+    check(bf.try_init(1_000_000, 0.01), "21b: try_init refused")
+    t0 = time.perf_counter()
+    added = [bf.add_all(np.arange(i, i + chunk, dtype=np.uint64)) for i in range(0, n, chunk)]
+    rate["bloom_add"] = n / (time.perf_counter() - t0)
+    res["bloom_added"] = int(sum(added))
+    t0 = time.perf_counter()
+    present = bf.contains_each(np.arange(n, dtype=np.uint64))
+    rate["bloom_contains"] = n / (time.perf_counter() - t0)
+    res["bloom_present"] = int(present.sum())
+    res["bloom_outside"] = _digest(bf.contains_each(inp["outside"]))
+    res["bloom_count"] = int(bf.count())
+    h = client.get_hyper_log_log("p21-cfg2")
+    t0 = time.perf_counter()
+    res["hll_changed"] = bool(h.add_all(np.arange(P21["hll_keys"], dtype=np.uint64)))
+    rate["hll_add"] = P21["hll_keys"] / (time.perf_counter() - t0)
+    res["hll_count"] = int(h.count())
+    bs = client.get_bit_set("p21-cfg3")
+    res["bs_top"] = bool(bs.set(P21["nbits"] - 1))
+    t0 = time.perf_counter()
+    res["bs_prev"] = [_digest(bs.set_many(idx)) for idx in inp["bs"]]
+    rate["bitset_set"] = P21["bs_iters"] * P21["bs_ops"] / (time.perf_counter() - t0)
+    res["bs_card"] = int(bs.cardinality())
+    d, w = inp["x_cm_d_w"]
+    for i in range(P21["x_objects"]):
+        client.get_hyper_log_log(f"p21-xh{i}").add_all(inp["x_hll"][i])
+        client.get_bit_set(f"p21-xb{i}").set_many(inp["x_bs"][i])
+        cm = client.get_count_min_sketch(f"p21-xc{i}")
+        check(cm.try_init(d, w), "21b: try_init refused")
+        cm.add_all(inp["x_cm"][i])
+    client.get_hyper_log_log("p21-xh0").merge_with("p21-xh4", "p21-xh5")
+    res["pfmerge_count"] = int(client.get_hyper_log_log("p21-xh0").count())
+    client.get_bit_set("p21-xb5").and_op("p21-xb1")
+    client.get_bit_set("p21-xb2").or_op("p21-xb4")
+    res["bitop_card"] = [int(client.get_bit_set(f"p21-xb{i}").cardinality()) for i in (5, 2)]
+    client.get_count_min_sketch("p21-xc1").merge("p21-xc4", "p21-xc5")
+    res["cms_merged"] = _digest(client.get_count_min_sketch("p21-xc1").estimate_all(
+        np.arange(4096, dtype=np.uint64)))
+    client.snapshot(snap)
+    return res, rate
+
+
+def p21_golden(seed: int, client) -> None:
+    """21b's one-process answers against the golden models."""
+    from redisson_tpu_torch.executor.torch_executor import bloom_count_from_bitcount
+    from redisson_tpu_torch.ops import golden
+    from redisson_tpu_torch.utils import hashing
+
+    inp = p21_inputs(seed)
+    n = P21["bloom_keys"]
+    bf = client.get_bloom_filter("p21-cfg1")
+    g = golden_bloom(bf, np.arange(n, dtype=np.uint64))
+    e = client._engine.registry.lookup("p21-cfg1")
+    check(np.array_equal(tenant_row(client, "p21-cfg1"), p20_bloom_words(g, e.pool.row_units)),
+          "21b: the Bloom row differs from the golden bitmap")
+    m, k = bf.get_size(), bf.get_hash_iterations()
+    check(bf.count() == bloom_count_from_bitcount(int(g.bits.sum()), m, k), "21b: count()")
+    fp = bf.contains_each(inp["outside"])
+    check(np.array_equal(fp, golden_contains(g, inp["outside"])), "21b: outside keys vs golden")
+    p = (1.0 - np.exp(-k * n / m)) ** k
+    check(abs(float(fp.mean()) - p) <= 3 * np.sqrt(p * (1 - p) / len(fp)), "21b: FPP")
+    gh = golden.GoldenHyperLogLog()
+    gh.add_hashed(*hll_lanes(np.arange(P21["hll_keys"], dtype=np.uint64)))
+    check(np.array_equal(tenant_row(client, "p21-cfg2"), gh.regs), "21b: HLL registers")
+    check(client.get_hyper_log_log("p21-cfg2").count() == gh.count(), "21b: HLL count()")
+    bitmap = np.zeros(P21["nbits"] // 32, np.uint32)
+    golden_set(bitmap, np.array([P21["nbits"] - 1]))
+    for idx in inp["bs"]:
+        golden_set(bitmap, idx)
+    check(np.array_equal(tenant_row(client, "p21-cfg3"), bitmap), "21b: BitSet row")
+    regs = []
+    for i in (0, 4, 5):
+        gx = golden.GoldenHyperLogLog()
+        gx.add_hashed(*hll_lanes(inp["x_hll"][i]))
+        regs.append(gx.regs)
+    check(np.array_equal(tenant_row(client, "p21-xh0"), np.maximum.reduce(regs)),
+          "21b: PFMERGE registers")
+    xb = {}
+    for i in range(P21["x_objects"]):
+        xb[i] = np.zeros(P21["x_bs_bits"] // 32, np.uint32)
+        golden_set(xb[i], inp["x_bs"][i])
+    check(np.array_equal(tenant_row(client, "p21-xb5")[: len(xb[5])], xb[5] & xb[1]),
+          "21b: AND across processes")
+    check(np.array_equal(tenant_row(client, "p21-xb2")[: len(xb[2])], xb[2] | xb[4]),
+          "21b: OR across processes")
+    d, w = inp["x_cm_d_w"]
+    total = np.zeros((d, w), np.uint64)
+    for i in (1, 4, 5):
+        gc = golden.GoldenCountMinSketch(d, w)
+        h1w, h2w = hashing.km_reduce_mod(
+            *hashing.hash128_np(*hashing.encode_uint64_batch(inp["x_cm"][i])), w)
+        gc.add_hashed(h1w, h2w)
+        total += gc.counts
+    check(np.array_equal(tenant_row(client, "p21-xc1")[: d * w].reshape(d, w),
+                         (total & 0xFFFFFFFF).astype(np.uint32)), "21b: CMS.MERGE")
+
+
+def p21_child(base: str, cfg: dict) -> int:
+    """One process of 21b: joins the group, runs the stream in lockstep
+    with its peer, prints its line."""
+    global P21_DEVICE
+    P21.update(cfg["P21"])
+    P21_DEVICE = cfg["device"]
+    import torch.distributed as dist
+
+    pid = cfg["pid"]
+    client = p21_client(coalesce=False, coordinator_address=f"127.0.0.1:{cfg['port']}",
+                        num_processes=2, process_id=pid)
+    try:
+        ready_s = time.time() - cfg["t_spawn"]
+        ctx = client._engine.executor.ctx
+        check(dist.get_world_size() == 2 and dist.get_rank() == pid, "21b: not in the group")
+        check((ctx.lo, ctx.hi) == (4 * pid, 4 * pid + 4), f"21b: shards {ctx.lo}..{ctx.hi}")
+        t0 = time.perf_counter()
+        res, rate = p21_stream(client, cfg["seed"], os.path.join(base, f"p{pid}"))
+        stream_s = time.perf_counter() - t0
+        line = {"phase": "21b-child", "pid": pid, "backend": ctx.group.backend,
+                "devices": [str(d) for d in ctx.devices], "shards": [ctx.lo, ctx.hi],
+                "start_s": ready_s, "stream_s": stream_s, "keys_per_s": rate,
+                "results": res, "nearcache_locked_off": client._engine.nearcache.locked_off}
+    finally:
+        client.shutdown()
+    line["group_destroyed"] = not dist.is_initialized()
+    log(line)
+    return 0
+
+
+def p21_snapshot(directory: str) -> tuple:
+    with open(os.path.join(directory, "sketch_meta.json")) as f:
+        meta = json.load(f)
+    meta.pop("pools_crc")
+    with np.load(os.path.join(directory, "sketch_pools.npz")) as z:
+        return meta, {k: z[k] for k in z.files}
+
+
+def p21b_processes(seed: int, card: str) -> dict:
+    """21b: two children of this script join one group over 127.0.0.1 (gloo
+    on one card, nccl with a card each), 4 of 8 global shards each, and
+    run 21b's stream in lockstep; a one-process client on 21a's placements
+    runs it meanwhile.  Both children's answers equal each other, the
+    one-process client's and golden; both snapshots hold the one-process
+    snapshot's pool arrays byte for byte."""
+    t0 = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+    os.makedirs(repo / "build", exist_ok=True)
+    base = tempfile.mkdtemp(prefix="p21-", dir=str(repo / "build"))
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(repo), GLOO_SOCKET_IFNAME="lo",
+               NCCL_SOCKET_IFNAME="lo")
+    procs = []
+    try:
+        for pid in (0, 1):
+            cfg = json.dumps({"P21": P21, "device": P21_DEVICE, "pid": pid, "port": port,
+                              "seed": seed, "t_spawn": time.time()})
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--p21-child", base,
+                 "--p21-config", cfg], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env=env, cwd=str(repo)))
+        # The one-process reference on 21a's placements, while they run.
+        idx, enum = p21_slice()
+        with p21_enumeration(enum):
+            ref = p21_client(coalesce=False, device_indices=idx)
+            try:
+                want, one_rate = p21_stream(ref, seed, os.path.join(base, "one"))
+                p21_golden(seed, ref)
+            finally:
+                ref.shutdown()
+        outs, deadline = [], time.monotonic() + P21["child_timeout_s"]
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                fail(f"21b: a child ran past {P21['child_timeout_s']} s")
+    finally:
+        for p in procs:  # a hung or failed child takes its peer down
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    lines = []
+    for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+        got = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+        child = next((x for x in got if x.get("phase") == "21b-child"), None)
+        check(p.returncode == 0 and child is not None,
+              f"21b: child {pid} exited {p.returncode}:\n{err[-6000:]}")
+        lines.append(child)
+    c0, c1 = lines
+    check(c0["results"] == c1["results"], "21b: the two processes' answers differ")
+    check(c0["results"] == want, f"21b: the processes' answers differ from one process's: "
+                                 f"{c0['results']} vs {want}")
+    check(c0["backend"] == c1["backend"] == ("nccl" if torch.cuda.device_count() >= 2
+                                             and P21_DEVICE == "cuda" else "gloo"),
+          f"21b: backend {c0['backend']}")
+    check(all(c["nearcache_locked_off"] and c["group_destroyed"] for c in lines),
+          "21b: a lockstep guard did not hold")
+    one_meta, one_pools = p21_snapshot(os.path.join(base, "one"))
+    for pid in (0, 1):
+        meta, pools = p21_snapshot(os.path.join(base, f"p{pid}"))
+        check(meta == one_meta, f"21b: process {pid}'s snapshot metadata differs")
+        check(pools.keys() == one_pools.keys(), f"21b: process {pid}'s snapshot pools differ")
+        for k in pools:
+            check(pools[k].dtype == one_pools[k].dtype and pools[k].tobytes()
+                  == one_pools[k].tobytes(), f"21b: process {pid}'s {k} differs")
+    shutil.rmtree(base, ignore_errors=True)
+    out = {"phase": "21b", "backend": c0["backend"],
+           "devices": {str(c["pid"]): c["devices"] for c in lines},
+           "start_s": {str(c["pid"]): c["start_s"] for c in lines},
+           "stream_s": {str(c["pid"]): c["stream_s"] for c in lines},
+           "keys_per_s": {str(c["pid"]): c["keys_per_s"] for c in lines},
+           "keys_per_s_one_process": one_rate, "answers_equal": True,
+           "snapshots_equal": True, "seconds": time.perf_counter() - t0, "card": card}
+    log(out)
+    return out
+
+
+def phase_multidevice(seed: int, ref: dict, card: str) -> dict:
+    """Phase 21: 21a (4 placements, one process) and 21b (two processes)."""
+    t0 = time.perf_counter()
+    a = p21a_placements(seed, ref, card)
+    b = p21b_processes(seed, card)
+    out = {"phase": 21, "seconds": time.perf_counter() - t0, "k1_launches": a["k1_launches"],
+           "placements_on": a["placements_on"], "backend": b["backend"], "card": card}
+    log(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7823,7 +8290,11 @@ def main(argv=None) -> int:
     ap.add_argument("--p14-config", help=argparse.SUPPRESS)
     ap.add_argument("--p19-child", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--p19-config", help=argparse.SUPPRESS)
+    ap.add_argument("--p21-child", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--p21-config", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.p21_child:
+        return p21_child(args.p21_child, json.loads(args.p21_config))
     if args.p19_child:
         global P19_DEVICE
         cfg = json.loads(args.p19_config)
@@ -7953,11 +8424,18 @@ def main(argv=None) -> int:
     kernel["launches"] += p19["k1_launches"]
     by_phase["19"] = p19["k1_launches"]
     cms_seq.LAUNCHES = 0  # phase 20's path: none while sharded, K1 after change_topology(1)
-    phase_sharded(rng, card)
+    p20 = phase_sharded(args.seed, card)
     marks.append(("20", time.perf_counter()))
     check(cms_seq.LAUNCHES > 0, "phase 20 never launched K1 after the reshard")
     kernel["launches"] += cms_seq.LAUNCHES
     by_phase["20"] = cms_seq.LAUNCHES
+    cms_seq.LAUNCHES = 0  # phase 21's path: none on 4 placements, K1 after change_topology(1)
+    phase_multidevice(args.seed, p20, card)
+    del p20
+    marks.append(("21", time.perf_counter()))
+    check(cms_seq.LAUNCHES > 0, "phase 21 never launched K1 after the reshard")
+    kernel["launches"] += cms_seq.LAUNCHES
+    by_phase["21"] = cms_seq.LAUNCHES
     log({"phase": "all", "seconds": time.perf_counter() - t_run,
          "by_phase_s": {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}})
     log({"kernels": [kernel]})

@@ -417,7 +417,7 @@ def main(argv=None) -> int:
         if fd_k > 1:
             return _serve_multicore(args, fd_k)
     if args.frontdoor_index is not None:
-        from redisson_tpu_torch.serve.multicore import worker_device
+        from redisson_tpu_torch.serve.multicore import worker_device_indices
 
         cfg.frontdoor_workers = max(2, int(args.frontdoor_workers))
         cfg.frontdoor_index = args.frontdoor_index
@@ -431,20 +431,21 @@ def main(argv=None) -> int:
         if cfg.journal_dir:
             cfg.journal_dir = os.path.join(cfg.journal_dir, sub)
             os.makedirs(cfg.journal_dir, exist_ok=True)
-        # Device pinning: each worker takes the first card of its
-        # contiguous 1/K of the node's cards when there are that many;
-        # otherwise every worker shares the default card.  A failure to
-        # enumerate is an error, never a quiet fallback.
-        if args.device.startswith("cuda"):
+        # Device pinning: each worker takes its contiguous 1/K of the
+        # node's cards as its device_indices when there are that many
+        # (unless the config names a slice); otherwise every worker shares
+        # the default card.  A failure to enumerate is an error, never a
+        # quiet fallback.
+        if args.device.startswith("cuda") and cfg.gpu_sketch.device_indices is None:
             import torch
 
-            dev = worker_device(
+            idx = worker_device_indices(
                 args.device, cfg.frontdoor_index, cfg.frontdoor_workers,
                 torch.cuda.device_count(),
             )
-            if dev != args.device:
-                torch.cuda.set_device(torch.device(dev))
-            cfg.gpu_sketch.device = dev
+            if idx is not None:
+                cfg.gpu_sketch.device_indices = idx
+                torch.cuda.set_device(idx[0])
 
     if cfg.replica_of:
         # Replica boot: pull the primary's snapshot and wipe local

@@ -12,6 +12,16 @@ from __future__ import annotations
 from typing import Optional
 
 
+def device_slice(index: int, nparts: int, ndevices: int) -> Optional[list]:
+    """Card indices of part ``index`` of ``nparts`` contiguous slices of
+    ``ndevices`` cards (a front-door worker's, or a process's, share);
+    None when there are fewer cards than parts — every part then shares
+    the default card."""
+    if ndevices < nparts:
+        return None
+    return list(range(index * ndevices // nparts, (index + 1) * ndevices // nparts))
+
+
 class GpuSketchConfig:
     """Tunables for the GPU sketch backend."""
 
@@ -114,13 +124,30 @@ class GpuSketchConfig:
         self.residency_dir: Optional[str] = None
         # Sharding: 1 -> the single-device executor; S > 1 -> the sharded
         # executor (executor/sharded_executor.py): tenant row r lives on
-        # logical shard r % S of a ``[S, local_len]`` pool on ``device``.
-        # Every shard shares the one device (parallel/mesh.py).
+        # logical shard r % S of a ``[S, local_len]`` pool, whose shards
+        # sit in contiguous blocks on the devices of the executor's slice
+        # (parallel/mesh.py): one block per device, up to S of them.
         self.num_shards = 1
         # Bitset rows at or above this many uint32 words split their words
         # into contiguous blocks, one per shard (m-sharding), instead of
         # living on one shard.  Only meaningful with num_shards > 1.
         self.mbit_threshold_words = 1 << 22
+        # Explicit device pinning: the executor uses EXACTLY these local
+        # card indices, in order (ordered, duplicate-free, non-empty);
+        # the first is the single-device executor's card.  None -> the
+        # device named by ``device`` (``"cuda"``: every local card, or
+        # this process's 1/num_processes of them).  Each front-door
+        # worker gets its own slice (serve/multicore.py).
+        self.device_indices: Optional[list] = None
+        # Several processes: with coordinator_address ("host:port") set,
+        # the engine joins a torch.distributed group of num_processes
+        # before it looks at a device; num_shards then counts GLOBAL
+        # shards, process p holding the contiguous p-th 1/num_processes
+        # of them.  Every process must issue the same calls in the same
+        # order (coalesce=False).
+        self.coordinator_address: Optional[str] = None
+        self.num_processes = 1
+        self.process_id = 0
 
     def to_dict(self) -> dict:
         return dict(self.__dict__)

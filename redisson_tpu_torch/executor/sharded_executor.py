@@ -8,12 +8,13 @@ and the coalescer see the method surface of ``TorchCommandExecutor``.
 
 Dispatch model, the JAX package's partition-by-owner: the host splits
 every op batch by owner shard into ``[S, Bp]`` blocks (``_Partition``,
-numpy), ships them in one H2D copy, and the mesh body of
-``parallel/mesh.py`` runs each shard's ops on that shard's row of the
-stack.  Per-op results come back ``[S, Bp]`` (bit-packed ``[S, Bp/32]``)
+numpy), ships each placement its own shards' ``[S/D, Bp]`` block in one
+H2D copy, and the mesh body of ``parallel/mesh.py`` runs each shard's
+ops on that shard's row of its placement's block.  Per-op results come
+back ``[S, Bp]`` (bit-packed ``[S, Bp/32]``), one block per placement,
 and are restored to arrival order on the host.  Whole-row ops run on the
 row's owner; cross-shard BITOP, PFMERGE and CMS.MERGE gather their
-sources from their owners.
+sources from their owners to the destination's device.
 
 Layouts, byte for byte the JAX package's (so snapshots, dumps and pool
 arrays cross between the packages):
@@ -30,7 +31,17 @@ The layout rule itself lives in ``parallel/mesh.py`` (``mbit_layout``,
 ``local_units``, ``row_slices``), shared with the snapshot and reshard
 code that reads and writes these arrays on the host.
 
-Every shard shares the executor's one torch device (``MeshContext``).
+Placement (``MeshContext``): the shards sit in contiguous blocks on
+the executor's device slice (``torch_executor.executor_devices``), one
+block per device, up to S of them; one device keeps the single
+``[S, local_len]`` stack.  With ``num_processes`` > 1 the engine has
+joined a torch.distributed group: this process holds its contiguous
+1/P of the global shards, every process computes the same partition and
+runs only its own shards' blocks, and results, row reads and snapshots
+travel from their owners by collectives, so every process returns the
+whole answer.  Every process must issue the same calls in the same
+order.
+
 The sequential CMS kernel K1 works on a single table and the runs-
 metadata paths describe ops in arrival order, which partitioning
 reorders, so both capability flags are off: the engine routes
@@ -51,8 +62,10 @@ from redisson_tpu_torch.executor.torch_executor import (
     _build,
     _locked,
     _note_first_launch,
+    _serialized,
     _trim_lanes,
     bloom_count_from_bitcount,
+    process_group,
 )
 from redisson_tpu_torch.ops import bitops, bitset as bitset_ops, cms_seq, golden
 from redisson_tpu_torch.ops import hll as hll_ops
@@ -138,7 +151,8 @@ class ShardedTorchCommandExecutor(TorchCommandExecutor):
     def __init__(self, config):
         super().__init__(config)
         n = int(config.gpu_sketch.num_shards)
-        self.ctx = pm.MeshContext(devices=[self.device] * n, n_shards=n)
+        self.ctx = pm.MeshContext(devices=self.devices, n_shards=n,
+                                  group=process_group(self._cfg, self.device))
         self.S = self.ctx.n_shards
 
     # -- pool-state factory --------------------------------------------------
@@ -167,9 +181,42 @@ class ShardedTorchCommandExecutor(TorchCommandExecutor):
                         dtype=np.uint32, kind: str = ""):
         extra = (self._local_units(new_cap, row_units, kind)
                  - self._local_units(old_cap, row_units, kind) + 1)
-        zeros = torch.zeros((self.S, extra), dtype=state.dtype, device=self.device)
-        # state[:, :-1] drops every shard's old scratch element.
-        return torch.cat([state[:, :-1], zeros], dim=1)
+
+        def grow(block):
+            zeros = torch.zeros((block.shape[0], extra), dtype=block.dtype,
+                                device=block.device)
+            # block[:, :-1] drops every shard's old scratch element.
+            return torch.cat([block[:, :-1], zeros], dim=1)
+
+        if isinstance(state, pm.PlacedState):
+            return pm.PlacedState(self.ctx, [grow(b) for b in state.blocks])
+        return grow(state)
+
+    @_serialized
+    def state_to_host(self, pool) -> np.ndarray:
+        """The ``[S, local_len]`` pool, byte-identical to the JAX
+        executor's: the placements' blocks in order; across processes one
+        shard block at a time from its owner (every process must call it
+        at the same point, as any dispatch)."""
+        st = pool.state
+        if not isinstance(st, pm.PlacedState):
+            return self._host_view(st)
+        if self.ctx.group is None:
+            return np.concatenate([self._host_view(b) for b in st.blocks])
+        return np.stack([self._host_view(self.ctx.from_owner(s, lambda s=s: st[s]))
+                         for s in range(self.S)])
+
+    @_serialized
+    def state_from_host(self, pool, arr: np.ndarray) -> None:
+        """Install a host ``[S, local_len]`` pool: each placement takes
+        its own shards' rows."""
+        if not self.ctx.placed:
+            pool.state = self._to_device(pool, arr)
+            return
+        pool.state = pm.PlacedState(self.ctx, [
+            self._to_device(pool, arr[sh.start : sh.stop], dev)
+            for _, dev, sh in self.ctx.placements()
+        ])
 
     # -- placement helpers -----------------------------------------------------
 
@@ -198,43 +245,66 @@ class ShardedTorchCommandExecutor(TorchCommandExecutor):
         return p, (idx - shard * (WL * 32)).astype(np.uint32)
 
     def _scatter_put(self, p: _Partition, cols):
-        """Scatter each ``(column, fill)`` into the [S, Bp(, L)] layout of
-        ONE staging block (pinned on CUDA), shipped with one H2D copy.
-        Returns the columns' device views (int32 bit-views; boolean
-        columns as 0/1 words) and the bool[S, Bp] valid mask, which
-        rides the block as the per-shard op counts."""
+        """Scatter each ``(column, fill)`` into the [S, Bp(, L)] layout:
+        each placement of this process gets ONE staging block (pinned on
+        CUDA) of its own shards' rows, shipped to its device with one H2D
+        copy.  Returns the columns' device views (int32 bit-views;
+        boolean columns as 0/1 words) and the bool[S, Bp] valid mask,
+        which rides each block as its shards' op counts — tensors on a
+        single stack, ``Blocks`` of one view per placement otherwise."""
         cols = [(_words(c), fill) for c, fill in cols]
-        shapes = [(p.S, p.Bp) + c.shape[1:] for c, _ in cols]
-        sizes = [int(np.prod(s)) for s in shapes]
-        buf, host = self._staging(p.S + sum(sizes))
-        buf[: p.S] = p.counts
-        off = p.S
-        for (col, fill), shape, n in zip(cols, shapes, sizes):
-            if _chaos.ENABLED:  # sharded scatter-staging fault point
+        if _chaos.ENABLED:  # sharded scatter-staging fault point
+            for col, _ in cols:
                 _chaos.fire("h2d.scatter", data=col)
-            view = buf[off : off + n].reshape(shape)
-            view[...] = np.uint32(fill)
-            view[p.sh_sorted, p.slot] = col[p.order]
-            off += n
-        packed = self._ship(host)
-        out, off = [], p.S
-        for shape, n in zip(shapes, sizes):
-            out.append(packed[off : off + n].view(shape))
-            off += n
-        slots = torch.arange(p.Bp, device=self.device)
-        valid = slots[None, :] < packed[: p.S].to(torch.int64)[:, None]
-        return out, valid
+        views, valids = [], []
+        for _, dev, shards in self.ctx.placements():
+            a, b = shards.start, shards.stop
+            # Ops sorted by shard: this placement's are one contiguous run.
+            i0, i1 = np.searchsorted(p.sh_sorted, (a, b))
+            sh, slot, order = p.sh_sorted[i0:i1] - a, p.slot[i0:i1], p.order[i0:i1]
+            shapes = [(b - a, p.Bp) + c.shape[1:] for c, _ in cols]
+            sizes = [int(np.prod(s)) for s in shapes]
+            buf, host = self._staging(b - a + sum(sizes))
+            buf[: b - a] = p.counts[a:b]
+            off = b - a
+            for (col, fill), shape, n in zip(cols, shapes, sizes):
+                view = buf[off : off + n].reshape(shape)
+                view[...] = np.uint32(fill)
+                view[sh, slot] = col[order]
+                off += n
+            packed = self._ship(host, dev)
+            out, off = [], b - a
+            for shape, n in zip(shapes, sizes):
+                out.append(packed[off : off + n].view(shape))
+                off += n
+            slots = torch.arange(p.Bp, device=dev)
+            valids.append(slots[None, :] < packed[: b - a].to(torch.int64)[:, None])
+            views.append(out)
+        if not self.ctx.placed:
+            return views[0], valids[0]
+        return [pm.Blocks(c) for c in zip(*views)], pm.Blocks(valids)
 
     # -- rows --------------------------------------------------------------------
 
     def _read_row_dev(self, pool, row: int) -> torch.Tensor:
-        """A device copy of one row in the flat order of its words."""
+        """A device copy of one row in the flat order of its words (on
+        its owner's device; an m-sharded row on the first device)."""
         if self._is_mbit(pool):
             WL = self._mbit_wl(pool)
             rows = pm.msharded_row_map(
                 self.ctx, lambda local, r: bitops.row_slice(local, r, WL))(pool.state, row)
+            if isinstance(rows, pm.Blocks):
+                rows = torch.cat([b.to(self.device) for b in rows])
             return rows.reshape(-1)  # [S, WL] -> [U]
         return pm.sharded_row_read(self.ctx, row_units=pool.row_units)(pool.state, row)
+
+    def _row_device(self, pool, row: int):
+        """Where a row payload should land: its owner's device (the
+        first for an m-sharded row, or another process's)."""
+        s = row % self.S
+        if self._is_mbit(pool) or not self.ctx.is_local(s):
+            return self.device
+        return self.ctx.shard_device(s)
 
     def _write_row_dev(self, pool, row: int, data: torch.Tensor) -> None:
         if self._is_mbit(pool):
@@ -250,13 +320,15 @@ class ShardedTorchCommandExecutor(TorchCommandExecutor):
 
     @_locked
     def write_row(self, pool, row: int, data: np.ndarray) -> None:
-        self._write_row_dev(pool, row, self._to_device(pool, data))
+        self._write_row_dev(pool, row,
+                            self._to_device(pool, data, self._row_device(pool, row)))
 
     @_locked
     def zero_row(self, pool, row: int) -> None:
         for ix in pm.row_slices(pool.spec.kind, pool.row_units, self.S,
                                 self._cfg.mbit_threshold_words, row):
-            pool.state[ix].zero_()
+            if self.ctx.is_local(ix[0]):
+                pool.state[ix].zero_()
 
     @_locked
     def copy_row(self, src_pool, src_row: int, dst_pool, dst_row: int) -> None:
@@ -264,7 +336,7 @@ class ShardedTorchCommandExecutor(TorchCommandExecutor):
         device, whatever the two layouts (a bitset's size-class
         migration may move a tenant row into an m-sharded pool)."""
         src = self._read_row_dev(src_pool, src_row)
-        dst = torch.zeros(dst_pool.row_units, dtype=src.dtype, device=self.device)
+        dst = torch.zeros(dst_pool.row_units, dtype=src.dtype, device=src.device)
         dst[: src.shape[0]] = src
         self._write_row_dev(dst_pool, dst_row, dst)
 
@@ -286,7 +358,8 @@ class ShardedTorchCommandExecutor(TorchCommandExecutor):
         p = self._part(rows)
         (lr, bl, ln, m, add), valid = self._scatter_put(p, (
             (p.lrows, 0), (blocks_t, 0), (lengths, 0), (m_arr, 1), (is_add, 0)))
-        _, packed = fn(pool.state, lr, bl, ln, m, add != 0, valid)
+        add = pm.Blocks(a != 0 for a in add) if isinstance(add, pm.Blocks) else add != 0
+        _, packed = fn(pool.state, lr, bl, ln, m, add, valid)
         return LazyResult(packed, transform=p.unpack_bools)
 
     @_locked
@@ -583,8 +656,8 @@ class ShardedTorchCommandExecutor(TorchCommandExecutor):
         back (the engine does not route here while sharded:
         ``supports_seq_cms`` is False)."""
         B = h1w.shape[0]
-        a, b, wt = self._op_cols(B, h1w, h2w, weights)
         view = bitops.row_slice(pool.state[row % self.S], row // self.S, pool.row_units)
+        a, b, wt = self._op_cols(B, h1w, h2w, weights, device=view.device)
         table = view[: d * w].clone()
         if self.device.type == "cuda" and not _build.loaded("cms_seq"):
             _note_first_launch(("k1.build", str(self.device)))

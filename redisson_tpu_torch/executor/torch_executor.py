@@ -10,8 +10,13 @@ Counterpart of ``redisson_tpu/executor/tpu_executor.py``:
   into ONE host block per flush, copied to the device in one H2D
   (pinned memory on CUDA);
 - kernels update pool state in place under the dispatch lock;
-- results come back as ``LazyResult``: a device tensor plus a transform,
-  copied to the host on ``.result()``;
+- results come back as ``LazyResult``: a device tensor (or one block per
+  placement of a mesh) plus a transform, copied to the host on
+  ``.result()``;
+- the executor's devices are a slice of the local cards
+  (``executor_devices``: ``device_indices``, or this process's share of
+  the cards); the first is the single-device executor's device, and the
+  sharded executor places its shards on all of them;
 - the dispatch wrapper ``_locked`` is the chaos point
   ``dispatch.<method>``, sheds ops whose ambient deadline lapsed before
   they reach the device, and turns a failure after the method's first
@@ -36,11 +41,13 @@ import numpy as np
 import torch
 
 from redisson_tpu_torch import chaos as _chaos, overload as _ovl
+from redisson_tpu_torch.config import device_slice
 from redisson_tpu_torch.executor.failures import (
     DeadlineExceededError,
     ExecutorRetiredError,
     NonRetryableDispatchError,
 )
+from redisson_tpu_torch.parallel.mesh import Blocks, PlacedState as _PlacedState
 from redisson_tpu_torch.ops import (
     _build,
     bitops,
@@ -61,9 +68,9 @@ _SCAN_CHUNK = 1 << 20
 
 
 class LazyResult:
-    """Async result handle (RFuture analog): holds a device tensor;
-    copies it to the host, slices off padding and applies ``transform``
-    only on ``.result()``."""
+    """Async result handle (RFuture analog): holds a device tensor (or
+    ``Blocks``); copies it to the host, slices off padding and applies
+    ``transform`` only on ``.result()``."""
 
     def __init__(self, value, n: Optional[int] = None, transform=None):
         self._value = value
@@ -76,12 +83,12 @@ class LazyResult:
         # HintedFuture; a tensor fetch is synchronous.
         if self._done is None:
             v = self._value
-            if isinstance(v, torch.Tensor):
+            if isinstance(v, (torch.Tensor, Blocks)):
                 # Only a real device fetch can fault here: host results
                 # (mirror answers, ImmediateResult) have no transfer.
                 if _chaos.ENABLED:
                     _chaos.fire("fetch")
-                v = v.cpu().numpy()
+                v = v.to_host() if isinstance(v, Blocks) else v.cpu().numpy()
             self.resolve_from(v)
         return self._done
 
@@ -112,6 +119,99 @@ def bloom_count_from_bitcount(x, m: int, k: int) -> int:
     if x >= m:
         return m
     return int(round(-m / k * math.log(1 - x / m)))
+
+
+def local_devices(device) -> list:
+    """The local enumeration a device slice indexes: every card
+    (``torch.cuda.device_count()``) for a CUDA device, else the one
+    device.  Tests and the card's smoke replace this function to lay
+    several placements on one device."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def resolve_device_slice(indices, devices=None) -> list:
+    """The devices ``indices`` names, in the caller's order, out of the
+    local enumeration (``devices`` overrides it, for fake lists): the
+    whole enumeration for None; an entry out of range, a repeat or an
+    empty slice raises."""
+    if devices is None:
+        devices = local_devices("cuda")
+    if indices is None:
+        return list(devices)
+    out, seen = [], set()
+    for i in indices:
+        i = int(i)
+        if not 0 <= i < len(devices):
+            raise ValueError(
+                f"device_indices entry {i} out of range: {len(devices)} local devices")
+        if i in seen:
+            raise ValueError(f"device_indices entry {i} repeated")
+        seen.add(i)
+        out.append(devices[i])
+    if not out:
+        raise ValueError("device_indices must not be empty")
+    return out
+
+
+def executor_devices(cfg) -> list:
+    """An executor's device slice (``cfg`` a GpuSketchConfig): the
+    ``device_indices`` slice of the local cards; else, for a device
+    without an index, the whole enumeration — or, with several
+    processes, this process's contiguous share of the cards (all share
+    the default card when there are fewer cards than processes); else
+    the device itself."""
+    dev = torch.device(cfg.device)
+    idx = cfg.device_indices
+    if idx is None and dev.index is None and dev.type == "cuda" and cfg.num_processes > 1:
+        idx = device_slice(cfg.process_id, cfg.num_processes, torch.cuda.device_count())
+        if idx is None:
+            return [dev]
+    if idx is not None:
+        return resolve_device_slice(idx, local_devices(dev))
+    if dev.index is None:
+        return local_devices(dev)
+    return [dev]
+
+
+def process_backend(device, num_processes: int) -> str:
+    """The torch.distributed backend for ``num_processes`` processes on
+    ``device``, from the topology alone: nccl when every process has a
+    card of its own; gloo when they share a card or run on the CPU
+    (nccl refuses two ranks on one card)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() >= int(num_processes):
+        return "nccl"
+    return "gloo"
+
+
+def process_group(cfg, device):
+    """The mesh's ProcessGroup for ``cfg`` (a GpuSketchConfig): None for
+    one process; else the group the engine joined, which must match the
+    config's size and rank."""
+    if int(cfg.num_processes) <= 1:
+        return None
+    import torch.distributed as dist
+
+    from redisson_tpu_torch.parallel.mesh import ProcessGroup
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"num_processes={cfg.num_processes} but no torch.distributed group "
+            f"is initialized: set coordinator_address so the engine joins one"
+        )
+    if (dist.get_world_size(), dist.get_rank()) != (int(cfg.num_processes), int(cfg.process_id)):
+        raise RuntimeError(
+            f"the torch.distributed group is rank {dist.get_rank()} of "
+            f"{dist.get_world_size()}, the config says process_id "
+            f"{cfg.process_id} of {cfg.num_processes}"
+        )
+    if dist.get_backend() == "nccl":
+        # nccl's communicator binds to the current card.
+        torch.cuda.set_device(torch.device(device))
+    return ProcessGroup.current(device)
 
 
 def _pow2ceil(n: int) -> int:
@@ -314,7 +414,10 @@ def _locked(fn):
                 raise ExecutorRetiredError(
                     f"{type(self).__name__} was retired by a topology change"
                 )
-            pools = [a for a in args if isinstance(getattr(a, "state", None), torch.Tensor)]
+            # Pool states: device tensors, or a mesh's per-placement blocks
+            # (parallel/mesh.py PlacedState), both with a version counter.
+            pools = [a for a in args
+                     if isinstance(getattr(a, "state", None), (torch.Tensor, _PlacedState))]
             versions = [p.state._version for p in pools]
             try:
                 return _recorded(self, args, kwargs)
@@ -357,14 +460,17 @@ class TorchCommandExecutor:
 
     def __init__(self, config):
         self._cfg = config.gpu_sketch
-        self.device = torch.device(self._cfg.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        dev = torch.device(self._cfg.device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "use_gpu_sketch(device='cuda') but torch sees no CUDA device; "
                 "pass device='cpu' to run on the CPU"
             )
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device}")
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {dev}")
+        # The device slice; the single-device executor holds its first.
+        self.devices = executor_devices(self._cfg)
+        self.device = self.devices[0]
         self._dispatch_lock = threading.RLock()
         # The engine's Observability bundle (direct-dispatch shed counts).
         self.obs = None
@@ -398,12 +504,13 @@ class TorchCommandExecutor:
         a = t.cpu().numpy()
         return (a if a.dtype == np.uint8 else _as_u32(a)).copy()
 
-    def _to_device(self, pool, data: np.ndarray) -> torch.Tensor:
+    def _to_device(self, pool, data: np.ndarray, device=None) -> torch.Tensor:
+        device = self.device if device is None else device
         if self._torch_dtype(pool.spec.dtype) == torch.uint8:
             host = np.ascontiguousarray(data, dtype=np.uint8)
         else:
             host = np.ascontiguousarray(data, dtype=np.uint32).view(np.int32)
-        if self.device.type != "cuda":
+        if device.type != "cuda":
             return torch.from_numpy(host.copy())
         # One host copy into pinned memory, then one DMA: a 128 MiB row
         # (journal recovery's writeback, a promotion) crosses in one copy.
@@ -412,7 +519,7 @@ class TorchCommandExecutor:
             pin_memory=True,
         )
         staged.numpy()[...] = host
-        return staged.to(self.device)
+        return staged.to(device)
 
     def make_pool_state(self, capacity: int, row_units: int, dtype=np.uint32,
                         kind: str = ""):
@@ -476,10 +583,10 @@ class TorchCommandExecutor:
                            pin_memory=self.device.type == "cuda")
         return _as_u32(host.numpy()), host
 
-    def _ship(self, host: torch.Tensor) -> torch.Tensor:
+    def _ship(self, host: torch.Tensor, device=None) -> torch.Tensor:
         if _chaos.ENABLED:  # staged-H2D fault point, before the copy
             _chaos.fire("h2d.staging", data=host.numpy())
-        return host.to(self.device, non_blocking=True)
+        return host.to(self.device if device is None else device, non_blocking=True)
 
     def collect_group(self, lazies) -> None:
         """Result mailbox: results of one (dtype, shape) are concatenated
@@ -653,15 +760,16 @@ class TorchCommandExecutor:
 
     # -- cms -----------------------------------------------------------------
 
-    def _op_cols(self, Bp: int, *cols):
-        """Pack int32/uint32 op columns (zero-padded to Bp) into one H2D.
-        Padded CMS ops carry row 0 and weight 0, the scatter-add identity;
-        the other callers mask padded ops with ``_valid``."""
+    def _op_cols(self, Bp: int, *cols, device=None):
+        """Pack int32/uint32 op columns (zero-padded to Bp) into one H2D
+        (to ``device``, the executor's by default).  Padded CMS ops carry
+        row 0 and weight 0, the scatter-add identity; the other callers
+        mask padded ops with ``_valid``."""
         buf, host = self._staging(len(cols) * Bp)
         o = 0
         for c in cols:
             o = _fill_words(buf, o, Bp, np.asarray(c).astype(np.uint32, copy=False), np.uint32)
-        packed = self._ship(host)
+        packed = self._ship(host, device)
         return [packed[i * Bp : (i + 1) * Bp] for i in range(len(cols))]
 
     @_locked

@@ -69,6 +69,7 @@ from redisson_tpu_torch.executor.torch_executor import (
     LazyResult,
     TorchCommandExecutor,
     _trim_lanes,
+    process_backend,
 )
 from redisson_tpu_torch.objects.base import MappedFuture
 from redisson_tpu_torch.objects.degraded import (
@@ -335,6 +336,40 @@ class TopKStore:
 _log = logging.getLogger(__name__)
 
 
+def _join_processes(cfg) -> bool:
+    """Join the torch.distributed group ``cfg`` (a GpuSketchConfig) names,
+    before any device is looked at: ``tcp://<coordinator_address>``,
+    ``num_processes`` ranks, this one ``process_id``, on the backend the
+    topology picks (``process_backend``).  A group already initialized
+    in this process (a second engine) stands and must match; returns
+    True only when this call created the group, so ``shutdown`` destroys
+    only its own.  A failed init raises."""
+    import torch.distributed as dist
+
+    P, rank = int(cfg.num_processes), int(cfg.process_id)
+    if cfg.coalesce:
+        raise ValueError(
+            "several processes run in lockstep: every process must issue the "
+            "same dispatches in the same order, which the timing-driven "
+            "coalescer cannot promise; use use_gpu_sketch(coalesce=False)"
+        )
+    if not 0 <= rank < P:
+        raise ValueError(f"process_id {rank} out of range for {P} processes")
+    if dist.is_initialized():
+        if (dist.get_world_size(), dist.get_rank()) != (P, rank):
+            raise RuntimeError(
+                f"a torch.distributed group (rank {dist.get_rank()} of "
+                f"{dist.get_world_size()}) already stands in this process; "
+                f"the config asks for process {rank} of {P}"
+            )
+        return False
+    backend = process_backend(cfg.device, P)
+    dist.init_process_group(backend, init_method=f"tcp://{cfg.coordinator_address}",
+                            world_size=P, rank=rank)
+    _log.info("joined %d processes as rank %d over %s", P, rank, backend)
+    return True
+
+
 class TorchSketchEngine(SketchDurabilityMixin):
     # Per-launch op cap of the sequential CMS path: the JAX engine chunks
     # at this size and carries state across chunks, so sequential
@@ -345,6 +380,14 @@ class TorchSketchEngine(SketchDurabilityMixin):
     def __init__(self, config):
         self.config = config
         cfg = config.gpu_sketch
+        # Several processes: join their group before any device is looked
+        # at; num_shards then counts global shards.  Lockstep needs
+        # coalesce=False (so no coalescer and no grouped collect), the
+        # near cache off and no snapshot timer.
+        self._owns_process_group = False
+        if cfg.coordinator_address:
+            self._owns_process_group = _join_processes(cfg)
+        self.n_processes = int(cfg.num_processes) if cfg.coordinator_address else 1
         if cfg.num_shards > 1:
             from redisson_tpu_torch.executor.sharded_executor import (
                 ShardedTorchCommandExecutor,
@@ -382,9 +425,13 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 on_evict=lambda tenant, nbytes: self.obs.nearcache_evictions.inc(),
             ),
             obs=self.obs,
-            enabled=cfg.nearcache,
+            enabled=cfg.nearcache and self.n_processes == 1,
             max_batch=cfg.nearcache_max_batch,
         )
+        if self.n_processes > 1:
+            # Lockstep: a hit skips a dispatch another process makes, so
+            # the cache stays off, live re-enables included.
+            self.nearcache.locked_off = True
         # Per-(shard, opcode) circuit breakers: when one opens, the
         # kind's objects fail over to host golden mirrors and reconcile
         # back when it closes.
@@ -505,7 +552,15 @@ class TorchSketchEngine(SketchDurabilityMixin):
         if cfg.residency_device_rows > 0 or cfg.residency_max_host_bytes > 0:
             self.residency.start()
         if config.snapshot_dir and config.snapshot_interval_s > 0:
-            self._start_snapshotter(config.snapshot_dir, config.snapshot_interval_s)
+            if self.n_processes > 1:
+                # A timer fires at its own moment in each process, and a
+                # snapshot gathers shards by collectives: lockstep breaks.
+                warnings.warn(
+                    "periodic snapshots are disabled with several processes: "
+                    "call snapshot() explicitly at the same point in every process"
+                )
+            else:
+                self._start_snapshotter(config.snapshot_dir, config.snapshot_interval_s)
 
     def _register_health_gauges(self) -> None:
         """Render-time gauges: breaker state, objects serving degraded,
@@ -626,11 +681,18 @@ class TorchSketchEngine(SketchDurabilityMixin):
             _devmem, labelnames=("device", "stat"),
         )
 
-    def mesh_devices(self) -> list:
-        """The device of every shard, in shard order (one entry on the
-        single-device executor)."""
+    def mesh_shards(self) -> list:
+        """(global shard, device) of every shard this process holds, in
+        shard order; shard 0 on its device for the single-device
+        executor."""
         ctx = getattr(self.executor, "ctx", None)
-        return list(ctx.devices) if ctx is not None else [self.executor.device]
+        return ctx.local_shards() if ctx is not None else [(0, self.executor.device)]
+
+    def mesh_devices(self) -> list:
+        """The device of every shard this process holds, in shard order:
+        each shard's placement's device (shards of one placement repeat
+        it; one entry on the single-device executor)."""
+        return [d for _, d in self.mesh_shards()]
 
     def _stop_health(self) -> None:
         _chaos.unset_observer(self._chaos_observer)
@@ -658,6 +720,11 @@ class TorchSketchEngine(SketchDurabilityMixin):
             j.close()
         self._stop_prewarmer()
         self._stop_coalescer()
+        if self._owns_process_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+            self._owns_process_group = False
 
     def _stop_prewarmer(self) -> None:
         if self.prewarmer is not None:

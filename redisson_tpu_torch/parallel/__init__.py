@@ -8,9 +8,11 @@ distribution axes map here as there:
 - a giant single key (a 2**30-bit RBitSet) shards along its words
   (**m-sharding**);
 - read replication and cross-key BITOP/PFMERGE/CMS.MERGE become
-  reductions over the ``[S, local_len]`` stack.
+  reductions over the ``[S, local_len]`` layout.
 
-The S shards of a mesh share one torch device (``MeshContext``).
+The S shards of a mesh sit in contiguous blocks on the placements of
+each process (``MeshContext``): one device per placement, a device
+repeated for several, and processes joined by torch.distributed.
 """
 
 from redisson_tpu_torch.parallel.mesh import (

@@ -6,8 +6,9 @@ trick applied recursively INSIDE one node: K cooperating server
 **processes** share one listen port via ``SO_REUSEPORT`` (the kernel
 load-balances accepts), and the node's slot range is partitioned
 contiguously across them behind an in-node slot→process map.  On a CUDA
-node each worker holds its own context; with fewer cards than workers
-they all share ``cuda:0`` (``worker_device``).
+node each worker holds its own context over its contiguous 1/K of the
+cards, given as its ``device_indices`` (``worker_device_indices``); with
+fewer cards than workers they all share ``cuda:0``.
 
 Routing rules:
 
@@ -61,6 +62,7 @@ from typing import Optional
 from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch import chaos
 from redisson_tpu_torch.cluster.slots import NSLOTS, command_keys, key_slot
+from redisson_tpu_torch.config import device_slice
 from redisson_tpu_torch.serve import wireutil
 
 log = logging.getLogger("redisson_tpu_torch.frontdoor")
@@ -123,11 +125,19 @@ def device_slice_for_worker(index: int, nworkers: int,
     the slot partition).  None when the node has fewer devices than
     workers — then every worker shares the default enumeration (the
     CPU-backend test shape)."""
-    if ndevices < nworkers:
+    return device_slice(index, nworkers, ndevices)
+
+
+def worker_device_indices(device: str, index: int, nworkers: int,
+                          ndevices: int) -> Optional[list]:
+    """The ``device_indices`` worker ``index`` of ``nworkers`` serves
+    from: its whole slice on a CUDA node with at least one card per
+    worker (the sharded executor places its shards over all of it, the
+    single-device one holds the first); None — the configured device,
+    shared — on the CPU, for an explicit card or with fewer cards."""
+    if not device.startswith("cuda") or ":" in device:
         return None
-    lo = index * ndevices // nworkers
-    hi = (index + 1) * ndevices // nworkers
-    return list(range(lo, hi))
+    return device_slice_for_worker(index, nworkers, ndevices)
 
 
 def worker_device(device: str, index: int, nworkers: int,

@@ -2,9 +2,10 @@
 §2.3 admin row): per-node ping/info.  A node here is one shard of the
 engine and names the torch device it lives on (the card, or the CPU when
 the client was built with ``device="cpu"``); a sharded engine lists one
-node per shard, all on its one device.  ``ping`` round-trips a tiny
-computation through the node's device, so the failure monitor pings
-every shard.
+node per shard this process holds, each on its placement's device, with
+its global shard number and this process's rank.  ``ping`` round-trips
+a tiny computation through the node's device; the failure monitor pings
+each distinct device once per sweep and reports every shard on it.
 
 The port's copy of ``redisson_tpu/serve/nodes.py``.
 """
@@ -18,9 +19,10 @@ from redisson_tpu_torch.analysis import witness as _witness
 
 
 class Node:
-    def __init__(self, device, shard: int):
+    def __init__(self, device, shard: int, process_index: int = 0):
         self._device = device
         self.shard = shard
+        self.process_index = process_index
 
     @property
     def platform(self) -> str:
@@ -76,7 +78,7 @@ class Node:
             "id": self.id,
             "platform": self.platform,
             "device_kind": "cpu",
-            "process_index": 0,
+            "process_index": self.process_index,
             "shard": self.shard,
         }
         if d.type == "cuda":
@@ -157,8 +159,11 @@ class FailureMonitor:
 
     def _check_once_locked(self) -> list:
         events = []
+        alive: dict = {}  # address -> ping result: one probe per device
         for node in self._ng.get_nodes():
-            ok = node.ping(self.ping_timeout_s)
+            if node.address not in alive:
+                alive[node.address] = node.ping(self.ping_timeout_s)
+            ok = alive[node.address]
             if not ok and node.shard not in self._down:
                 self._down.add(node.shard)
                 events.append(NodeDownEvent(node.shard, node.address))
@@ -209,13 +214,12 @@ class NodesGroup:
     def __init__(self, client):
         self._client = client
 
-    def _devices(self):
-        # One node per shard, each naming the device its shard lives on
-        # (every shard of a mesh shares the engine's one device).
-        return self._client._engine.mesh_devices()
-
     def get_nodes(self) -> list[Node]:
-        return [Node(d, i) for i, d in enumerate(self._devices())]
+        # One node per shard this process holds, each naming the device
+        # its shard's placement lives on.
+        eng = self._client._engine
+        rank = getattr(getattr(eng.executor, "ctx", None), "rank", 0)
+        return [Node(d, s, rank) for s, d in eng.mesh_shards()]
 
     def ping_all(self) -> bool:
         nodes = self.get_nodes()

@@ -4391,6 +4391,16 @@ class RespServer:
                 f"rtpu_device_memory_allocated:"
                 f"{torch.cuda.memory_allocated(idx)}"
             )
+        # The mesh: its placements' devices (repeats are separate
+        # placements on one device) and the processes it spans.
+        ctx = getattr(self._client._engine.executor, "ctx", None)
+        if ctx is not None:
+            lines.append("rtpu_placements:" + ",".join(str(d) for d in ctx.devices))
+        group = None if ctx is None else ctx.group
+        lines.append(f"rtpu_processes:{1 if group is None else group.size}")
+        if group is not None:
+            lines.append(f"rtpu_process_index:{group.rank}")
+            lines.append(f"rtpu_process_backend:{group.backend}")
         return lines
 
     def _pool_bytes(self) -> int:

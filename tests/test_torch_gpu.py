@@ -1021,3 +1021,86 @@ def test_sharded_engine_on_the_card_equals_the_cpu(cuda):
     finally:
         for c in clients:
             c.shutdown()
+
+
+# -- shards on several placements and cards (phase 21) -------------------------
+
+
+def _card_slice(monkeypatch, placements: str) -> list:
+    """device_indices for the case: four placements on card 0 (the
+    enumeration replaced by four entries of it, the CPU's left alone), or
+    two distinct cards, the second first so that the single-device
+    executor after a reshard holds cuda:1."""
+    from redisson_tpu_torch.executor import torch_executor
+
+    if placements == "2_cards":
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two CUDA devices (shards on distinct cards, D = 2)")
+        return [1, 0]
+    real = torch_executor.local_devices
+    monkeypatch.setattr(
+        torch_executor, "local_devices",
+        lambda d: [torch.device("cuda", 0)] * 4 if torch.device(d).type == "cuda" else real(d))
+    return [0, 1, 2, 3]
+
+
+@pytest.mark.parametrize("placements", ["4_on_one_card", "2_cards"])
+def test_placed_engine_on_the_card_equals_the_cpu(cuda, monkeypatch, placements):
+    """8 shards on 4 placements of one card, or on 2 cards, against the
+    CPU port at 8 shards: per-op results, rows and pools equal through
+    8 -> 4 -> 1, then K1 on the carried CMS on the slice's first card
+    equal to golden_seq."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+    from redisson_tpu_torch.parallel import mesh as pm
+    from redisson_tpu_torch.utils import hashing
+
+    idx = _card_slice(monkeypatch, placements)
+    kw = dict(num_shards=8, min_bucket=64, mbit_threshold_words=256)
+    # LongCodec: integer keys hash as their 8 bytes, as golden_seq's lanes.
+    clients = [rt.create(rt.Config().set_codec(LongCodec()).use_gpu_sketch(
+                   device="cuda", device_indices=idx, **kw)),
+               rt.create(rt.Config().set_codec(LongCodec()).use_gpu_sketch(device="cpu", **kw))]
+    try:
+        ctx = clients[0]._engine.executor.ctx
+        assert ctx.placed and len(ctx.devices) == len(idx)
+        assert ctx.devices[0] == torch.device("cuda", idx[0])
+        outs = [_sharded_stream(c, np.random.default_rng(21)) for c in clients]
+        assert outs[0] == outs[1]
+        assert all(isinstance(p.state, pm.PlacedState)
+                   for p in clients[0]._engine.registry.pools())
+
+        def rows(c):
+            eng = c._engine
+            return {e.name: eng.executor.read_row(e.pool, e.row).tobytes()
+                    for e in eng.registry.entries()}
+
+        for s in (8, 4, 1):
+            if s != 8:
+                assert all(c.change_topology(s) for c in clients)
+            assert rows(clients[0]) == rows(clients[1])
+            pa = {p.spec.key: clients[0]._engine.executor.state_to_host(p)
+                  for p in clients[0]._engine.registry.pools()}
+            pb = {p.spec.key: clients[1]._engine.executor.state_to_host(p)
+                  for p in clients[1]._engine.registry.pools()}
+            assert set(pa) == set(pb)
+            for key in pa:
+                np.testing.assert_array_equal(pa[key], pb[key])
+        e = clients[0]._engine.registry.lookup("cm1")
+        assert e.pool.state.device == torch.device("cuda", idx[0])
+        d, w = 4, 1 << 10
+        table = clients[0]._engine.executor.read_row(e.pool, e.row)[: d * w].copy()
+        ev = (np.random.default_rng(5).zipf(1.2, 5000) % 300).astype(np.uint64)
+        before = cms_seq.LAUNCHES
+        est = clients[0].get_count_min_sketch("cm1").add_all_seq(ev)
+        assert cms_seq.LAUNCHES == before + 1
+        h1w, h2w = hashing.km_reduce_mod(
+            *hashing.hash128_np(*hashing.encode_uint64_batch(ev)), w)
+        t_want, e_want = cms_seq.golden_seq(table.reshape(d, w).copy(), h1w, h2w,
+                                            np.ones(len(ev), np.uint32), d=d, w=w)
+        np.testing.assert_array_equal(est, e_want)
+        got = clients[0]._engine.executor.read_row(e.pool, e.row)[: d * w].reshape(d, w)
+        np.testing.assert_array_equal(got, t_want)
+    finally:
+        for c in clients:
+            c.shutdown()

@@ -102,27 +102,42 @@ port_module(_ref, globals(), skip=SKIPPED)
 WAITING_FAMILIES: set = set()
 
 
-def test_device_memory_reports_all_devices():
+def test_device_memory_reports_all_devices(monkeypatch):
     """One key per distinct device of the engine's mesh: eight logical
-    shards on the CPU share one device, so one key."""
+    shards on the CPU share one device, so one key — on one placement,
+    and on four placements of the CPU (the enumeration replaced)."""
+    from redisson_tpu_torch.executor import torch_executor
     from redisson_tpu_torch.serve.metrics import Profiler
 
     cl = rt.create(rt.Config().use_gpu_sketch(device="cpu", num_shards=8,
                                               min_bucket=64))
     try:
-        devices = cl._engine.mesh_devices()
-        assert len(devices) == 8
-        mem = Profiler(devices[0], devices=devices).device_memory()
-        assert isinstance(mem, dict)
-        assert set(mem) == {"cpu:0"}
-        assert cl.get_profiler().device_memory() == mem
-        # The CPU reports no stats, so the gauge family is declared with
-        # no sample.
-        fam = cl.obs.registry.render_prometheus().splitlines()
-        assert "# TYPE rtpu_device_memory_bytes gauge" in fam
-        assert not [ln for ln in fam if ln.startswith("rtpu_device_memory_bytes")]
+        _device_memory_case(cl, Profiler)
     finally:
         cl.shutdown()
+    monkeypatch.setattr(torch_executor, "local_devices",
+                        lambda d: [torch.device("cpu")] * 4)
+    cl = rt.create(rt.Config().use_gpu_sketch(device="cpu", num_shards=8,
+                                              min_bucket=64, device_indices=[0, 1, 2, 3]))
+    try:
+        assert len(cl._engine.executor.ctx.devices) == 4
+        _device_memory_case(cl, Profiler)
+    finally:
+        cl.shutdown()
+
+
+def _device_memory_case(cl, Profiler):
+    devices = cl._engine.mesh_devices()
+    assert len(devices) == 8
+    mem = Profiler(devices[0], devices=devices).device_memory()
+    assert isinstance(mem, dict)
+    assert set(mem) == {"cpu:0"}
+    assert cl.get_profiler().device_memory() == mem
+    # The CPU reports no stats, so the gauge family is declared with
+    # no sample.
+    fam = cl.obs.registry.render_prometheus().splitlines()
+    assert "# TYPE rtpu_device_memory_bytes gauge" in fam
+    assert not [ln for ln in fam if ln.startswith("rtpu_device_memory_bytes")]
 
 
 def _doc_families() -> set:

@@ -226,6 +226,34 @@ _TIERS = {
         "assert c2.get_bloom_filter('f').contains_all(np.arange(100, dtype=np.uint64)) == 100\n"
         "c2.shutdown()\n"
     ),
+    # Shards on several placements and processes: 8 shards on four CPU
+    # placements resharded to one, then the two-process worker pair over
+    # gloo, each child with jax and the JAX package blocked too.
+    "multidevice": (
+        "import json, os, socket, subprocess, tempfile\n"
+        "import numpy as np, torch\n"
+        "from redisson_tpu_torch.executor import torch_executor\n"
+        "torch_executor.local_devices = lambda d: [torch.device('cpu')] * 4\n"
+        "c = rt.create(rt.Config().use_gpu_sketch(device='cpu', num_shards=8,"
+        " device_indices=[0, 1, 2, 3]))\n"
+        "assert len(c._engine.executor.ctx.devices) == 4\n"
+        "bf = c.get_bloom_filter('f'); bf.try_init(1000, 0.01)\n"
+        "bf.add_all(np.arange(100, dtype=np.uint64))\n"
+        "assert c.change_topology(1)\n"
+        "assert bf.contains_all(np.arange(100, dtype=np.uint64)) == 100\n"
+        "c.shutdown()\n"
+        "s = socket.socket(); s.bind(('127.0.0.1', 0)); port = s.getsockname()[1]; s.close()\n"
+        "d = tempfile.mkdtemp()\n"
+        "block = \"import sys; sys.modules['jax'] = None; sys.modules['redisson_tpu'] = None\\n\"\n"
+        "run = ('import runpy, sys; sys.argv = [\"w\", sys.argv[1], sys.argv[2], sys.argv[3]];'\n"
+        "       ' runpy.run_path(\"tests/torch_multihost_worker.py\", run_name=\"__main__\")')\n"
+        "ps = [subprocess.Popen([sys.executable, '-c', block + run, str(i), str(port), d],"
+        " stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for i in (0, 1)]\n"
+        "outs = [p.communicate(timeout=100)[0] for p in ps]\n"
+        "assert all(p.returncode == 0 for p in ps), outs\n"
+        "r = [json.loads(l[6:]) for o in outs for l in o.splitlines() if l.startswith('MH-OK ')]\n"
+        "assert len(r) == 2 and r[0]['results'] == r[1]['results'], outs\n"
+    ),
     "analysis": (
         # Naming a lock loads the witness alone, never the analyser.
         "from redisson_tpu_torch.serve.resp import RespServer\n"
@@ -335,7 +363,9 @@ def test_server_modules_import_neither_jax_nor_the_reference():
     the lock graph and their CLI, which gates the cluster tier; a serving
     module that names its locks loads none of the analysers), the sharded
     executor and the mesh (an 8-shard client resharded live and restored
-    onto one shard), the entry
+    onto one shard), shards on several placements and processes (an
+    8-shard client on four CPU placements resharded to one, and the
+    two-process worker pair over gloo, both children blocked too), the entry
     point and the scripts load with jax and redisson_tpu blocked and
     serve on the CPU — a journaled client recovers its tail; no module of
     the port, nor chip_smoke.py, profile_port.py or compare_rates.py, has

@@ -316,10 +316,32 @@ def test_capability_flags_route_around_k1_and_runs():
 
 
 def test_mesh_context_refuses_distinct_devices():
-    with pytest.raises(ValueError, match="item 5"):
-        MeshContext(devices=["cpu", "meta"], n_shards=2)
-    ctx = MeshContext(devices="cpu", n_shards=8)
-    assert ctx.n_shards == 8 and len(set(map(str, ctx.devices))) == 1
+    """Distinct devices the shards do not split over evenly are refused,
+    with both counts named; a split they do take is accepted."""
+    with pytest.raises(ValueError, match=r"8 shards do not split evenly over 3 placements"):
+        MeshContext(devices=["cpu", "meta", "cpu"], n_shards=8)
+    ctx = MeshContext(devices=["cpu", "meta"], n_shards=2)
+    assert [str(d) for d in ctx.devices] == ["cpu", "meta"] and ctx.per == 1
+
+
+def test_mesh_context_places_shards_in_contiguous_blocks():
+    """One device gives the single [S, L] stack; a repeated device
+    gives separate placements on it (contiguous blocks of S/D shards);
+    more devices than shards use the first S; S not a multiple of D
+    raises naming both."""
+    one = MeshContext(devices="cpu", n_shards=8)
+    st = one.make_state(5, torch.int32)
+    assert not one.placed and isinstance(st, torch.Tensor) and tuple(st.shape) == (8, 5)
+    four = MeshContext(devices=["cpu"] * 4, n_shards=8)
+    assert four.placed and four.per == 2 and len(four.devices) == 4
+    assert [list(sh) for _, _, sh in four.placements()] == [[0, 1], [2, 3], [4, 5], [6, 7]]
+    st = four.make_state(5, torch.int32)
+    assert tuple(st.shape) == (8, 5) and [tuple(b.shape) for b in st.blocks] == [(2, 5)] * 4
+    st[5][3] = 7  # shard 5 is row 1 of placement 2
+    assert int(st.blocks[2][1, 3]) == 7 and st.numel() == 40
+    assert MeshContext(devices=["cpu"] * 8, n_shards=2).per == 1
+    with pytest.raises(ValueError, match=r"6 shards .* 4 placements"):
+        MeshContext(devices=["cpu"] * 4, n_shards=6)
 
 
 def test_copy_row_into_an_m_sharded_pool_matches_the_reference():
