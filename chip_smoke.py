@@ -70,7 +70,7 @@ the main path through the public client at full size:
            unchanged, then K1 on each promoted CMS row equal to
            golden_seq; the hot pass of the 256 hottest tenants tiered
            against all-resident (hot_ratio); transition p50/p99.
-           (10b) config 1's filter with 100,000 keys, 2048 + 2048 zipf(1.3)
+           (10b) config 1's filter with 100,000 keys, 1024 + 1024 zipf(1.3)
            single-key contains with the near cache on and off: equal
            answers, a cached negative retired by an add.  (10c) the first
            batch per bucket with and without pre-warm, each arm in a
@@ -129,9 +129,9 @@ the main path through the public client at full size:
            phase 11a's bounds; keys/s beside phase 2's.  (13b) an executor
            service with 4 workers runs 4 tasks, each add_all_seq of 524,288
            zipf(1.2) events into its own CMS(5, 65536): K1 launches, every
-           estimate and table equal to golden_seq.  (13c) 8 threads x 500
+           estimate and table equal to golden_seq.  (13c) 8 threads x 250
            rounds of lock, BitSet cardinality() on the card, set that bit,
-           unlock: the set bits are exactly 0..3999; a 2-permit semaphore
+           unlock: the set bits are exactly 0..1999; a 2-permit semaphore
            around 8 threads' HLL add_all never sees a third holder and the
            registers equal the golden model; a transaction over a map and
            a bucket commits and a conflicting one raises
@@ -147,7 +147,7 @@ the main path through the public client at full size:
            are counted (13b) and must be more than 0
   phase 14 the op journal, crash recovery and replication on fresh card
            clients (directories under build/, df -T printed once): (14a)
-           config 1's 2**20 keys as 1024 add_all calls of 1024 keys from 4
+           config 1's 2**19 keys as 512 add_all calls of 1024 keys from 4
            threads in four arms on one client — journal off, appendfsync
            no, everysec, always, each on a fresh filter whose row must
            equal the golden bitmap; keys/s, records, journal bytes per key,
@@ -163,7 +163,7 @@ the main path through the public client at full size:
            the rebuilt one, and 2**18 more events through K1 on the
            recovered row equal to golden_seq; recovery seconds, records
            and rows.  (14c) ``python -m redisson_tpu_torch.chaos.crashchild
-           --device cuda`` for 2 seeds x {always, everysec}, plus runs with
+           --device cuda`` for 1 seed x {always, everysec}, plus runs with
            --snapshot-every 50 and --residency-every 25, killed at seeded
            ack counts, recovered on the card and matched to a golden
            prefix (always: covering every ack; everysec: every ack older
@@ -207,14 +207,14 @@ the main path through the public client at full size:
            with scripts enabled (reactor on, native codec required), a
            seeded script session byte-equal to a CPU server's; config 1
            through scripts — BF.RESERVE cfg1 0.01 1000000, a SCRIPT LOADed
-           body calling redis.call('BF.MADD', KEYS[0], *ARGV), 256 EVALSHA
-           of 1024 keys from 4 connections (2**18 keys: scripts run one at
+           body calling redis.call('BF.MADD', KEYS[0], *ARGV), 64 EVALSHA
+           of 1024 keys from 4 connections (2**16 keys: scripts run one at
            a time under the grid lock), every flag within 11a's golden
            bounds and the row equal to the golden bitmap; FCALL_RO of a
            no-writes reader over 131,072 outside keys equal to golden and
            FUNCTION LIST equal to the CPU server's; at script_timeout_ms
            200, BUSY on another connection and SCRIPT KILL of a pure loop,
-           of a redis.call loop and of a BF.MADD loop after at least 8
+           of a redis.call loop and of a BF.MADD loop after at least 4
            MADDs (its row the golden bitmap of the MADDs that landed), the
            slot free after each; EVALSHA keys/s, script p50/p99 and SCRIPT
            KILL -> reply ms.  (16b) MulticoreNode(4, device="cuda"): every
@@ -225,7 +225,7 @@ the main path through the public client at full size:
            hot sets pinned to the landing worker, zipf(1.2), 10% SET)
            against the node and a single-process door in turns (median
            cmds/s and p99 per arm, the speedup, host cores, handoffs);
-           config 1 over the node (a filter per worker, 2**18 keys each as
+           config 1 over the node (a filter per worker, 2**16 keys each as
            BF.MADD of 1024 keys from 4 connections, about 3/4 through a
            handoff leg: flags within the golden bounds, every loaded key
            present, 131,072 outside keys per filter equal to golden,
@@ -238,7 +238,7 @@ the main path through the public client at full size:
            (17a) ClusterSupervisor(n_nodes=3, device="cuda"): every node's
            INFO names the card and its own device memory grows when its
            filter is made; config 1 across the fleet — BF.RESERVE 0.01
-           1000000 of {n0}cfg1, {n1}cfg1, {n2}cfg1 (one per node), 2**18
+           1000000 of {n0}cfg1, {n1}cfg1, {n2}cfg1 (one per node), 2**17
            keys each as BF.MADD of 1024 keys through
            connect_cluster().execute_many from 4 threads (three pipelined
            legs per batch), every flag within 11a's golden bounds, every
@@ -373,6 +373,32 @@ the main path through the public client at full size:
            each other's and the one-process client's, both snapshots hold
            its pool arrays byte for byte; a child past its deadline kills
            both.  K1 launches in phase 21 (21a) must be more than 0
+
+  phase 22 the pre-hashed Bloom path and the host sketch engine.  (22a)
+           config 1 (1,000,000 insertions at 1%: m = 9,585,059, k = 7)
+           through the engine's bloom_add / bloom_contains with H1, H2
+           the host murmur halves of LongCodec keys 0 .. 2**20 - 1, in
+           calls of 2**18, in two arms on fresh clients: exact (coalesced,
+           the host-hashed bloom_mixed) and fast (exact_add_semantics
+           False, coalesce False: bloom_add_fast_st / bloom_contains_st).
+           Every add flag equals golden (sequential flags for the exact
+           arm, flags against the state before each call for the fast
+           one), every contains of 2**20 keys from [0, 2**21) equals
+           golden, the row equals phase 2's encoded-path row byte for
+           byte, the FPP over 131,072 outside keys sits within 3 sigma of
+           1.255%, no op degraded; add and contains keys/s of both arms
+           beside phase 2's.  (22b) the same calls on phase 20's 8-shard
+           client at 2**18 keys, both arms: flags sequential, rows equal
+           golden.  (22c) the host engine (use_host_sketch) on this
+           machine's host in bench.py's measure_host_baseline shape:
+           try_init(1_000_000, 0.01), add_all of 2**18 keys, 8 x
+           contains_each of 65,536 keys drawn with default_rng(0) from
+           [0, 2**19) (drawn before the timed loop); every flag equals the
+           card client's on the same sequence; one small HLL, BitSet and
+           CMS (add_all_seq: K1 on the card) answer alike on both engines;
+           a DUMP of each object from each engine RESTOREs into the other
+           and answers alike; host-engine contains keys/s beside the
+           card's.  K1 launches in phase 22 (22c) must be more than 0
 
 Every failed check raises, so the script exits non-zero.  Without a CUDA
 device it exits with code 2 before printing any result.  The line before
@@ -1956,7 +1982,7 @@ P10 = {"pop": 102_400, "budget": 1024, "ops": 5_120, "keys": 128, "hot": 256,
        "hot_keys": 1 << 14, "hot_passes": 4, "host_bytes": 32 << 20,
        "cms": (4, 5, 1 << 16), "cms_events": 1 << 18, "seq_events": 1 << 15,
        "hlls": 2, "hll_keys": 1 << 20, "bitsets": 2, "bitset_bits": 1 << 24,
-       "sample": 256, "nc_keys": 100_000, "nc_reads": 2048}
+       "sample": 256, "nc_keys": 100_000, "nc_reads": 1024}
 P10_DEVICE = "cuda"
 
 
@@ -2352,22 +2378,34 @@ def phase_nearcache_tenants(card: str) -> None:
     log({"phase": "10d", "ops_per_s": rates, "card": card})
 
 
+def timed_parts(phase, parts) -> None:
+    """Run ``(name, fn)`` parts in order; log each one's seconds."""
+    secs = {}
+    for name, fn in parts:
+        t0 = time.perf_counter()
+        fn()
+        secs[name] = time.perf_counter() - t0
+    log({"phase": phase, "parts_s": secs})
+
+
 def phase_tiers(rng, card: str) -> None:
     log({"phase": 10, "sizes": P10, "card": card})
-    phase_tiered(rng, card)
-    phase_nearcache(rng, card)
-    phase_nearcache_tenants(card)
-    phase_prewarm(card)
-    phase_bitset_past_2_31(card)
+    timed_parts("10-parts", [
+        ("10a", lambda: phase_tiered(rng, card)),
+        ("10b-10d", lambda: phase_nearcache(rng, card)),
+        ("10-tenants", lambda: phase_nearcache_tenants(card)),
+        ("10c", lambda: phase_prewarm(card)),
+        ("10-bitset", lambda: phase_bitset_past_2_31(card)),
+    ])
 
 
 # -- phase 11: the RESP front door ---------------------------------------------
 
 P11 = {"keys": 1 << 20, "madd": 1024, "conns": 4, "window": 16,
        "read": 131_072, "mexists": 1024, "fpp": 0.01, "capacity": 1_000_000,
-       "c6_conns": 4, "c6_depth": 256, "c6_batches": 4, "c6_items": 512,
+       "c6_conns": 4, "c6_depth": 256, "c6_batches": 2, "c6_items": 512,
        "c6_filter": 100_000,
-       "c8_idle": 1000, "c8_active": 32, "c8_procs": 8, "c8_pass_s": 3.0,
+       "c8_idle": 1000, "c8_active": 32, "c8_procs": 8, "c8_pass_s": 1.5,
        "c8_items": 512}
 P11_DEVICE = "cuda"
 
@@ -3062,10 +3100,12 @@ def phase_frontdoor(rng, seed: int, card: str) -> None:
 
     check(native_codec.get_parser() is not None and native_codec.get_ticker() is not None,
           "the native RESP codec did not build")
-    phase_wire_bloom(rng, card)
-    phase_config6(card, seed)
-    phase_config8(card, seed)
-    phase_entry_point(card)
+    timed_parts("11-parts", [
+        ("11a", lambda: phase_wire_bloom(rng, card)),
+        ("11b", lambda: phase_config6(card, seed)),
+        ("11c", lambda: phase_config8(card, seed)),
+        ("11d", lambda: phase_entry_point(card)),
+    ])
 
 
 # -- phase 12: the data grid, the RTopic -> CMS pipe, pub/sub, blocking pops ---
@@ -3540,7 +3580,7 @@ def phase_grid(card: str) -> None:
 
 P13 = {"keys": 1 << 20, "add_chunk": 1 << 18, "contains": 1 << 20, "fpp": 0.01,
        "capacity": 1_048_576, "cms_tasks": 4, "cms_events": 524_288, "d": 5,
-       "w": 1 << 16, "lock_threads": 8, "lock_rounds": 500, "sem_threads": 8,
+       "w": 1 << 16, "lock_threads": 8, "lock_rounds": 250, "sem_threads": 8,
        "sem_keys": 1 << 16, "lcm_entries": 100_000, "pings": 100,
        "monitor_s": 1.0, "prof_keys": 262_144}
 P13_DEVICE = "cuda"
@@ -3957,10 +3997,10 @@ def phase_services(rng, card: str) -> None:
 
 # -- phase 14: the op journal, crash recovery and replication ----------------
 
-P14 = {"keys": 1 << 20, "chunk": 1024, "threads": 4, "capacity": 1_048_576,
+P14 = {"keys": 1 << 19, "chunk": 1024, "threads": 4, "capacity": 1_048_576,
        "fpp": 0.01, "cms_events": 1 << 20, "d": 5, "w": 1 << 16,
        "hll_keys": 1 << 21, "bs_bits": 1 << 30, "bs_idx": 1 << 21,
-       "big_chunk": 1 << 18, "k1_after": 1 << 18, "soak_seeds": (0, 1),
+       "big_chunk": 1 << 18, "k1_after": 1 << 18, "soak_seeds": (0,),
        "soak_ops": 300, "repl_keys": 1 << 20, "repl_conns": 4, "repl_madd": 1024,
        "wait_every": 64, "e_batches": 40, "e_batch": 50, "e_kill_after": 20}
 P14_DEVICE = "cuda"
@@ -5187,11 +5227,11 @@ def phase_telemetry(rng, seed: int, card: str) -> None:
 
 # -- phase 16: scripting and the per-core front door -------------------------
 
-P16 = {"keys": 1 << 18, "madd": 1024, "conns": 4, "window": 16, "read": 131_072,
-       "fpp": 0.01, "capacity": 1_000_000, "lat_cmds": 64, "timeout_ms": 200,
-       "kill_iters": 8, "workers": 4, "c13_procs": 8, "c13_conns": 4, "c13_hot": 128,
-       "c13_pass_s": 1.5, "c13_passes": 2, "c13_warm_s": 1.0, "c6_batches": 4,
-       "node_keys": 1 << 18, "node_read": 131_072}
+P16 = {"keys": 1 << 16, "madd": 1024, "conns": 4, "window": 16, "read": 131_072,
+       "fpp": 0.01, "capacity": 1_000_000, "lat_cmds": 32, "timeout_ms": 200,
+       "kill_iters": 4, "workers": 4, "c13_procs": 8, "c13_conns": 4, "c13_hot": 128,
+       "c13_pass_s": 1.5, "c13_passes": 1, "c13_warm_s": 1.0, "c6_batches": 1,
+       "node_keys": 1 << 16, "node_read": 131_072}
 P16_DEVICE = "cuda"
 
 # The reader library of 16a: FCALL_RO look 1 <filter> <items...>.
@@ -5948,10 +5988,10 @@ def phase_scripting_frontdoor(rng, seed: int, card: str) -> None:
 
 # -- phase 17: the slot-sharded cluster ----------------------------------------
 
-P17 = {"nodes": 3, "keys": 1 << 18, "madd": 1024, "threads": 4, "window": 16,
+P17 = {"nodes": 3, "keys": 1 << 17, "madd": 1024, "threads": 4, "window": 16,
        "read": 131_072, "capacity": 1_000_000, "fpp": 0.01,
        "c9_procs": 9, "c9_conns": 4, "c9_batch": 192, "c9_keys": 512,
-       "c9_warm_s": 1.0, "c9_pass_s": 1.5, "c9_passes": 2,
+       "c9_warm_s": 1.0, "c9_pass_s": 1.5, "c9_passes": 1,
        "mig_bits": 1 << 24, "mig_hll": 1 << 16, "mig_events": 1 << 16,
        "mig_write_s": 1.0, "cms_d": 5, "cms_w": 1 << 16, "k1_events": 1 << 19,
        "fo_keys": 512, "fo_madd": 8, "fo_timeout_ms": 1000, "fo_promote_s": 15.0}
@@ -8280,6 +8320,255 @@ def phase_multidevice(seed: int, ref: dict, card: str) -> dict:
     return out
 
 
+# -- phase 22: the pre-hashed Bloom path and the host sketch engine ------------
+
+P22 = {"keys": 1 << 20, "chunk": 1 << 18, "queries": 1 << 20, "outside": 1 << 17,
+       "sharded_keys": 1 << 18, "shards": 8, "host_keys": 1 << 18, "host_B": 1 << 16,
+       "host_iters": 8, "host_range": 1 << 19, "small_keys": 1 << 14,
+       "small_bits": 4096, "cms": (4, 4096)}
+P22_DEVICE = "cuda"
+
+
+def p22_sync() -> None:
+    if P22_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def p22_client(**kw):
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+
+    return rt.create(rt.Config().set_codec(LongCodec()).use_gpu_sketch(
+        device=P22_DEVICE, **kw))
+
+
+def p22_hashed(keys: np.ndarray):
+    """(H1, H2): the host murmur halves of LongCodec keys."""
+    from redisson_tpu_torch.utils import hashing
+
+    return hashing.hash128_np(*hashing.encode_uint64_batch(keys))
+
+
+def p22_golden(H1, H2, m: int, k: int, chunk: int):
+    """Bit indexes [n, k] of the keys, the sequential flags from an empty
+    filter and the flags against the state before each chunk of
+    ``chunk`` calls (``bloom_add_fast_st``'s)."""
+    from redisson_tpu_torch.ops import golden
+    from redisson_tpu_torch.utils import hashing
+
+    idx = golden.GoldenBloomFilter(m, k)._indexes(*hashing.km_reduce_mod(H1, H2, m))
+    idx = idx.astype(np.int64)
+    n = idx.shape[0]
+    first = np.full(m, n, np.int64)  # the first key to set each bit
+    np.minimum.at(first, idx.reshape(-1), np.repeat(np.arange(n, dtype=np.int64), k))
+    fk = first[idx]
+    seq = np.any(fk == np.arange(n)[:, None], axis=1)
+    pre = np.any(fk >= ((np.arange(n) // chunk) * chunk)[:, None], axis=1)
+    return idx, seq, pre
+
+
+def p22_words(idx: np.ndarray, row_words: int) -> np.ndarray:
+    bits = np.zeros(row_words * 32, bool)
+    bits[idx.reshape(-1)] = True
+    return np.packbits(bits, bitorder="little").view(np.uint32)
+
+
+def p22_arm(client, name: str, H1, H2, Q1, Q2, chunk: int) -> dict:
+    """Config 1 through the engine's hashed bloom_add / bloom_contains in
+    calls of ``chunk`` keys (all issued, then resolved); a warm-up filter
+    of the same size class takes the first launches."""
+    eng = client._engine
+    for nm in (name + "-warm", name):
+        check(client.get_bloom_filter(nm).try_init(1_000_000, 0.01), "try_init refused")
+    eng.bloom_add(name + "-warm", H1[:chunk], H2[:chunk]).result()
+    eng.bloom_contains(name + "-warm", Q1[:chunk], Q2[:chunk]).result()
+    p22_sync()
+    t0 = time.perf_counter()
+    futs = [eng.bloom_add(name, H1[i:i + chunk], H2[i:i + chunk])
+            for i in range(0, len(H1), chunk)]
+    flags = np.concatenate([np.asarray(f.result(), bool) for f in futs])
+    add_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    futs = [eng.bloom_contains(name, Q1[i:i + chunk], Q2[i:i + chunk])
+            for i in range(0, len(Q1), chunk)]
+    hits = np.concatenate([np.asarray(f.result(), bool) for f in futs])
+    contains_s = time.perf_counter() - t0
+    return {"flags": flags, "hits": hits, "add_ops_per_s": len(H1) / add_s,
+            "contains_ops_per_s": len(Q1) / contains_s}
+
+
+def p22a_card(rng, g, p2_row: np.ndarray, H1, H2) -> dict:
+    """22a: config 1 through the hashed calls, the coalesced exact arm and
+    the direct fast arm; flags, rows, contains and FPP against golden."""
+    from redisson_tpu_torch.utils import hashing
+
+    n, chunk = P22["keys"], P22["chunk"]
+    m, k = g.size, g.hash_iterations
+    idx, seq, pre = p22_golden(H1, H2, m, k, chunk)
+    q = rng.integers(0, 2 * n, P22["queries"]).astype(np.uint64)
+    outside = rng.integers(3 * n, 8 * n, P22["outside"]).astype(np.uint64)
+    Q1, Q2 = p22_hashed(np.concatenate([q, outside]))
+    want_hits = g.contains_hashed(*hashing.km_reduce_mod(Q1, Q2, m))
+    p_theory = (1.0 - np.exp(-k * n / m)) ** k
+    sigma = np.sqrt(p_theory * (1.0 - p_theory) / len(outside))
+    out = {}
+    for arm, kw, want in (("exact", {}, seq),
+                          ("fast", {"exact_add_semantics": False, "coalesce": False}, pre)):
+        client = p22_client(**kw)
+        try:
+            r = p22_arm(client, "c22", H1, H2, Q1, Q2, chunk)
+            check(np.array_equal(r["flags"], want), f"22a {arm}: add flags differ from golden")
+            check(np.array_equal(r["hits"], want_hits), f"22a {arm}: contains differ from golden")
+            row = tenant_row(client, "c22")
+            check(np.array_equal(row.view(np.uint32), p2_row.view(np.uint32)),
+                  f"22a {arm}: the row differs from phase 2's encoded-path row")
+            fpp = float(r["hits"][len(q):].mean())
+            check(abs(fpp - p_theory) <= 3 * sigma,
+                  f"22a {arm}: FPP {fpp} vs {p_theory} +- {3 * sigma}")
+            check_healthy(client, 22)
+            out[arm] = {"add_ops_per_s": r["add_ops_per_s"],
+                        "contains_ops_per_s": r["contains_ops_per_s"], "fpp": fpp,
+                        "in_batch_repeat_flags": int(np.sum(r["flags"] & ~seq))}
+        finally:
+            client.shutdown()
+    out["fpp_expected"], out["fpp_3sigma"] = p_theory, 3 * sigma
+    out["golden_idx"] = idx
+    return out
+
+
+def p22b_sharded(H1, H2, idx: np.ndarray, m: int, k: int) -> dict:
+    """22b: the same calls on phase 20's 8-shard client (one placement):
+    both arms route to the exact mixed op on the owner shard."""
+    n = P22["sharded_keys"]
+    _, seq, _ = p22_golden(H1[:n], H2[:n], m, k, n)
+    out = {}
+    for arm, kw in (("exact", {}), ("fast", {"exact_add_semantics": False, "coalesce": False})):
+        client = p22_client(num_shards=P22["shards"], device_indices=[0], **kw)
+        try:
+            eng = client._engine
+            check(eng.executor.S == P22["shards"], "22b: not the sharded executor")
+            check(client.get_bloom_filter("c22s").try_init(1_000_000, 0.01), "try_init refused")
+            flags = np.concatenate([
+                np.asarray(f.result(), bool) for f in
+                [eng.bloom_add("c22s", H1[i:i + n // 4], H2[i:i + n // 4])
+                 for i in range(0, n, n // 4)]])
+            check(np.array_equal(flags, seq), f"22b {arm}: add flags differ from golden")
+            hits = np.asarray(eng.bloom_contains("c22s", H1[:n], H2[:n]).result(), bool)
+            check(hits.all(), f"22b {arm}: a loaded key reads absent")
+            row = tenant_row(client, "c22s")
+            check(np.array_equal(row.view(np.uint32), p22_words(idx[:n], row.shape[0])),
+                  f"22b {arm}: the row differs from golden")
+            check_healthy(client, 22)
+            out[arm] = True
+        finally:
+            client.shutdown()
+    return out
+
+
+def p22_small(client, rng_seed: int) -> dict:
+    """One small HLL, BitSet and CMS (add_all_seq: K1 on the card) driven
+    the same way on either engine; their answers."""
+    rng = np.random.default_rng(rng_seed)
+    h = client.get_hyper_log_log("s22-hll")
+    h.add_all(np.arange(P22["small_keys"], dtype=np.uint64))
+    bs = client.get_bit_set("s22-bs")
+    idx = rng.integers(0, P22["small_bits"], 1000)
+    prev = np.asarray(bs.set_many(idx))
+    cms = client.get_count_min_sketch("s22-cms")
+    d, w = P22["cms"]
+    check(cms.try_init(d, w), "CMS try_init refused")
+    est = np.asarray(cms.add_all_seq(zipf_keys(rng, P22["small_keys"], 1000)))
+    return {"hll": h.count(), "bs_prev": prev.tolist(), "bs_card": bs.cardinality(),
+            "bs_len": bs.length(), "bs_bytes": bs.to_byte_array(), "cms_seq": est.tolist(),
+            "cms_hot": int(cms.estimate(np.uint64(1)))}
+
+
+def p22_answers(client, suffix: str, probe: np.ndarray) -> tuple:
+    """What each restored object answers."""
+    bf = client.get_bloom_filter("host-bf" + suffix)
+    bs = client.get_bit_set("s22-bs" + suffix)
+    cms = client.get_count_min_sketch("s22-cms" + suffix)
+    return (np.asarray(bf.contains_each(probe)).tolist(),
+            client.get_hyper_log_log("s22-hll" + suffix).count(),
+            bs.cardinality(), bs.length(), bs.to_byte_array(),
+            np.asarray(cms.estimate_all(probe[:256] % 1000)).tolist())
+
+
+def p22c_host() -> dict:
+    """22c: the host engine on this machine's host in bench.py's
+    measure_host_baseline shape, beside the card engine on the same
+    sequence; small objects of the other kinds; DUMPs across engines."""
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+
+    host = rt.create(rt.Config().set_codec(LongCodec()).use_host_sketch())
+    card = p22_client()
+    try:
+        check(type(host._engine).__name__ == "HostSketchEngine", "22c: not the host engine")
+        draws = np.random.default_rng(0)
+        probes = [draws.integers(0, P22["host_range"], P22["host_B"]).astype(np.uint64)
+                  for _ in range(P22["host_iters"])]
+        res, rate = {}, {}
+        for tag, c in (("host", host), ("card", card)):
+            bf = c.get_bloom_filter("host-bf")
+            check(bf.try_init(1_000_000, 0.01), "try_init refused")
+            added = np.asarray(bf.add_all_async(
+                np.arange(P22["host_keys"], dtype=np.uint64)).result(), bool)
+            if tag == "card":
+                bf.contains_each(probes[0])  # the card's first launches
+                p22_sync()
+            t0 = time.perf_counter()
+            hits = [np.asarray(bf.contains_each(p), bool) for p in probes]
+            rate[tag] = P22["host_iters"] * P22["host_B"] / (time.perf_counter() - t0)
+            res[tag] = (added, hits, p22_small(c, 22))
+        (ha, hh, hs), (ca, ch, cs) = res["host"], res["card"]
+        check(np.array_equal(ha, ca), "22c: add flags differ between the engines")
+        check(all(np.array_equal(a, b) for a, b in zip(hh, ch)),
+              "22c: contains differ between the engines")
+        check(hs == cs, f"22c: HLL/BitSet/CMS answers differ: {hs} vs {cs}")
+        names = ("host-bf", "s22-hll", "s22-bs", "s22-cms")
+        for nm in names:  # each engine's dump into the other
+            card._engine.restore(nm + "-from-host", host._engine.dump(nm))
+            host._engine.restore(nm + "-from-card", card._engine.dump(nm))
+        probe = probes[1]
+        base = p22_answers(host, "", probe)
+        check(p22_answers(card, "", probe) == base, "22c: the engines answer apart")
+        check(p22_answers(card, "-from-host", probe) == base,
+              "22c: the host dump restored on the card answers apart")
+        check(p22_answers(host, "-from-card", probe) == base,
+              "22c: the card dump restored on the host answers apart")
+        check_healthy(card, 22)
+    finally:
+        card.shutdown()
+        host.shutdown()
+    return {"host_contains_ops_per_s": rate["host"],
+            "card_contains_ops_per_s": rate["card"]}
+
+
+def phase_hashed_host(g, p2_row: np.ndarray, seed: int, card: str) -> None:
+    """Phase 22: 22a, 22b and 22c in order (see the module docstring)."""
+    rng = np.random.default_rng([seed, 22])
+    t0 = time.perf_counter()
+    H1, H2 = p22_hashed(np.arange(P22["keys"], dtype=np.uint64))
+    a = p22a_card(rng, g, p2_row, H1, H2)
+    b = p22b_sharded(H1, H2, a.pop("golden_idx"), g.size, g.hash_iterations)
+    c = p22c_host()
+    log({"phase": 22,
+         "22a_keys_per_s": {arm: {"add": a[arm]["add_ops_per_s"],
+                                  "contains": a[arm]["contains_ops_per_s"]}
+                            for arm in ("exact", "fast")},
+         "22a_fpp": {arm: a[arm]["fpp"] for arm in ("exact", "fast")},
+         "22a_fpp_expected": a["fpp_expected"], "22a_fpp_3sigma": a["fpp_3sigma"],
+         "22a_fast_flags_beyond_sequential": a["fast"]["in_batch_repeat_flags"],
+         "phase2_keys_per_s": {"add": RATES.get("add_ops_per_s"),
+                               "contains": RATES.get("contains_ops_per_s")},
+         "22b_rows_equal_golden": b,
+         "22c_host_contains_keys_per_s": c["host_contains_ops_per_s"],
+         "22c_card_contains_keys_per_s": c["card_contains_ops_per_s"],
+         "22c_host_rate_of": "this machine's host CPU, one thread",
+         "seconds": time.perf_counter() - t0, "card": card})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8340,6 +8629,7 @@ def main(argv=None) -> int:
         cms_seq.LAUNCHES = 0  # count the main path's launches only
         g = phase_bloom(client, rng, card)
         check_healthy(client, 2)
+        p2_row = tenant_row(client, "cfg1")  # phase 22's hashed path must equal it
         RATES["tenants_ops_per_s"] = phase_tenants(client, rng)
         check_healthy(client, 3)
         phase_cms(client, rng, card)
@@ -8436,6 +8726,13 @@ def main(argv=None) -> int:
     check(cms_seq.LAUNCHES > 0, "phase 21 never launched K1 after the reshard")
     kernel["launches"] += cms_seq.LAUNCHES
     by_phase["21"] = cms_seq.LAUNCHES
+    cms_seq.LAUNCHES = 0  # phase 22's path: K1 on 22c's small CMS on the card
+    phase_hashed_host(g, p2_row, args.seed, card)
+    del g, p2_row
+    marks.append(("22", time.perf_counter()))
+    check(cms_seq.LAUNCHES > 0, "phase 22 never launched K1")
+    kernel["launches"] += cms_seq.LAUNCHES
+    by_phase["22"] = cms_seq.LAUNCHES
     log({"phase": "all", "seconds": time.perf_counter() - t_run,
          "by_phase_s": {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}})
     log({"kernels": [kernel]})

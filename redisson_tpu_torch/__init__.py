@@ -9,7 +9,8 @@ counters, maps, sets, lists, sorted sets, queues, streams, geo, time
 series, topics), the RESP front door and the slot-sharded cluster
 (``connect_cluster``, ``cluster.ClusterSupervisor``).  It never imports ``jax`` or
 ``redisson_tpu``; the JAX package is the reference its tests hold it
-against.
+against.  ``Config().use_host_sketch()`` runs the sketches on the host
+engine instead (golden NumPy models, no device).
 
     import redisson_tpu_torch
     client = redisson_tpu_torch.create(

@@ -169,6 +169,13 @@ def _serve_federation(args, p) -> int:
     return 0
 
 
+def _device_of(client) -> str:
+    """Where the client's sketches live: the card engine's device, or
+    ``host`` for the host engine."""
+    ex = getattr(client._engine, "executor", None)
+    return "host" if ex is None else str(ex.device)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m redisson_tpu_torch",
@@ -324,7 +331,15 @@ def main(argv=None) -> int:
     from redisson_tpu_torch import Config
     from redisson_tpu_torch.serve.resp import RespServer
 
-    if args.device.startswith("cuda"):
+    if args.config:
+        if not os.path.exists(args.config):
+            p.error(f"--config file not found: {args.config}")
+        cfg = Config.from_yaml(args.config)
+    else:
+        cfg = Config().use_gpu_sketch()
+    # A config file may choose the host engine (host_sketch: true), which
+    # needs no card; the card engine refuses to start without one.
+    if cfg.gpu_sketch.enabled and args.device.startswith("cuda"):
         import torch
 
         if not torch.cuda.is_available():
@@ -334,12 +349,6 @@ def main(argv=None) -> int:
                 file=sys.stderr,
             )
             return 2
-    if args.config:
-        if not os.path.exists(args.config):
-            p.error(f"--config file not found: {args.config}")
-        cfg = Config.from_yaml(args.config)
-    else:
-        cfg = Config().use_gpu_sketch()
     cfg.gpu_sketch.device = args.device
     if args.snapshot_dir:
         cfg.snapshot_dir = args.snapshot_dir
@@ -542,7 +551,7 @@ def main(argv=None) -> int:
                  f"{door.slotmap.owned_count(door.myid)}/16384 slots]")
     print(
         f"redisson-tpu-torch serving RESP on {server.host}:{server.port} "
-        f"(device={client._engine.executor.device}){mode}",
+        f"(device={_device_of(client)}){mode}",
         flush=True,
     )
     stop.wait()

@@ -19,9 +19,11 @@ metrics, the Prometheus endpoint, the profiler); plus ``create_batch``,
 from __future__ import annotations
 
 import contextlib
+import logging
 import os
 import threading
 import uuid
+import warnings
 from typing import Optional
 
 from redisson_tpu_torch import overload
@@ -92,7 +94,7 @@ from redisson_tpu_torch.grid import (
 from redisson_tpu_torch.grid.buckets import JsonBucket
 from redisson_tpu_torch.objects import BitSet, BloomFilter, CountMinSketch, HyperLogLog
 from redisson_tpu_torch.objects.base import CamelCompatMixin
-from redisson_tpu_torch.objects.engines import TorchSketchEngine
+from redisson_tpu_torch.objects.engines import HostSketchEngine, TorchSketchEngine
 
 
 
@@ -114,17 +116,24 @@ def connect_cluster(seeds, **kwargs):
 
 class RedissonTorchClient(CamelCompatMixin):
     def __init__(self, config: Config):
-        if not config.gpu_sketch.enabled:
+        gpu, host = config.gpu_sketch.enabled, config.host_sketch
+        if gpu and host:
             raise ValueError(
-                "redisson_tpu_torch runs sketches on the torch backend only: "
-                "call Config().use_gpu_sketch()"
+                "use_gpu_sketch() and use_host_sketch() were both called: "
+                "choose one sketch backend"
+            )
+        if not (gpu or host):
+            raise ValueError(
+                "choose a sketch backend: Config().use_gpu_sketch() (the "
+                "card) or Config().use_host_sketch() (golden NumPy models "
+                "on the host)"
             )
         self.config = config
         # Per-client identity for lock ownership (→ the reference's
         # connection-manager UUID in the UUID:threadId lock value); id()
         # of a collected client can be recycled, so it must not be used.
         self.id = uuid.uuid4().hex
-        self._engine = TorchSketchEngine(config)
+        self._engine = TorchSketchEngine(config) if gpu else HostSketchEngine(config)
         # The RESP front door records into the engine's registry, so one
         # exposition carries both.
         self.obs = self._engine.obs
@@ -136,14 +145,24 @@ class RedissonTorchClient(CamelCompatMixin):
         self._engine.foreign_exists = self._grid.probe
         self._grid.foreign_exists = self._engine.probe
         # Store-level identity changes of grid names retire their cached
-        # near-cache entries ("grid:"-prefixed tenants).
-        nc = self._engine.nearcache
-        self._grid.on_invalidate = lambda name: nc.drop_object("grid:" + name)
-        self._grid.on_invalidate_all = nc.invalidate_all
+        # near-cache entries ("grid:"-prefixed tenants); the host engine
+        # has no near cache.
+        nc = getattr(self._engine, "nearcache", None)
+        if nc is not None:
+            self._grid.on_invalidate = lambda name: nc.drop_object("grid:" + name)
+            self._grid.on_invalidate_all = nc.invalidate_all
         # Restore-on-create for the host keyspace too (the sketch side
         # restored inside the engine): one snapshot directory carries the
         # whole logical keyspace, the periodic snapshotter's included.
         if config.snapshot_dir:
+            if host:
+                warnings.warn(
+                    "snapshot_dir is configured but the host sketch engine "
+                    "has no snapshotter: only the grid keyspace persists "
+                    "across restarts (sketch objects are lost, and "
+                    "snapshot_interval_s is inactive); use use_gpu_sketch() "
+                    "for full-keyspace persistence"
+                )
             try:
                 self._grid.restore_from(
                     os.path.join(config.snapshot_dir, "grid_store.bin")
@@ -154,25 +173,31 @@ class RedissonTorchClient(CamelCompatMixin):
                 # files being debugged): tear it down before failing.
                 self._engine.shutdown()
                 raise
-            self._engine.snapshot_extra = lambda d: self._grid.snapshot_to(
-                os.path.join(d, "grid_store.bin")
-            )
+            if gpu:
+                # Through the engine's snapshotter (periodic and at
+                # shutdown).  The host engine never snapshots, so
+                # shutdown writes the grid itself.
+                self._engine.snapshot_extra = lambda d: self._grid.snapshot_to(
+                    os.path.join(d, "grid_store.bin")
+                )
         # Grid keyspace journaling: grid mutations enter the engine's op
         # journal (the total order the replication stream ships) as
-        # full-state records.
+        # full-state records.  The host engine has no journal, so the
+        # grid stays unjournaled there.
         eng = self._engine
-        self._grid.on_journal = eng._journal_rec
-        self._grid.on_journal_ack = lambda seq: eng._ack(None, seq)
-        self._grid.journal_live = lambda: eng.journal is not None
-        # Records the engine-init replay deferred (the grid store did not
-        # exist yet) apply now, AFTER the grid snapshot restore: they are
-        # the post-cut tail, in seq order, and full-state records make
-        # re-application safe.
-        pending = getattr(eng, "_pending_grid_replay", None)
-        if pending:
-            for rec in pending:
-                self._grid.apply_journal_record(rec)
-            eng._pending_grid_replay = []
+        if gpu:
+            self._grid.on_journal = eng._journal_rec
+            self._grid.on_journal_ack = lambda seq: eng._ack(None, seq)
+            self._grid.journal_live = lambda: eng.journal is not None
+            # Records the engine-init replay deferred (the grid store did
+            # not exist yet) apply now, AFTER the grid snapshot restore:
+            # they are the post-cut tail, in seq order, and full-state
+            # records make re-application safe.
+            pending = getattr(eng, "_pending_grid_replay", None)
+            if pending:
+                for rec in pending:
+                    self._grid.apply_journal_record(rec)
+                eng._pending_grid_replay = []
         # Pub/sub delivery pool (the PublishSubscribeService analog):
         # topic listeners run here, the RTopic -> CMS ingest bridge too.
         self._topic_bus = TopicBus(n_threads=config.threads)
@@ -481,7 +506,8 @@ class RedissonTorchClient(CamelCompatMixin):
         - ``traces``: the bounded span ring grouped by trace id ({} while
           sampling is off).
         """
-        out = self._engine.metrics.snapshot()
+        m = getattr(self._engine, "metrics", None)  # none on the host engine
+        out = {} if m is None else m.snapshot()
         obs = self.obs
         out["ops"] = obs.op_stats()
         out["commands"] = obs.command_stats()
@@ -503,10 +529,9 @@ class RedissonTorchClient(CamelCompatMixin):
     def render_prometheus(self) -> str:
         """Full Prometheus text exposition: the aggregate metrics (typed
         counter/gauge) plus every labeled family in the obs registry."""
-        return (
-            self._engine.metrics.render_prometheus()
-            + self.obs.registry.render_prometheus()
-        )
+        m = getattr(self._engine, "metrics", None)  # none on the host engine
+        head = "" if m is None else m.render_prometheus()
+        return head + self.obs.registry.render_prometheus()
 
     def start_metrics_endpoint(self, host: str = "127.0.0.1", port: int = 0):
         """Start (or return the already-running) Prometheus scrape
@@ -541,6 +566,8 @@ class RedissonTorchClient(CamelCompatMixin):
         """Online reshard of the sketch engine: remap every device row onto
         a new shard count on the LIVE engine — no restart, no keyspace
         wipe, no lost write (SketchDurabilityMixin.change_topology)."""
+        if not hasattr(self._engine, "change_topology"):
+            raise RuntimeError("change_topology requires the card sketch engine")
         return self._engine.change_topology(num_shards)
 
     def get_profiler(self):
@@ -551,9 +578,17 @@ class RedissonTorchClient(CamelCompatMixin):
 
         with self._services_lock:
             if self._profiler is None:
-                self._profiler = Profiler(self._engine.executor.device,
-                                          devices=self._engine.mesh_devices())
+                ex = getattr(self._engine, "executor", None)
+                # The host engine has no device: a trace of the host.
+                self._profiler = Profiler(
+                    "cpu" if ex is None else ex.device,
+                    devices=None if ex is None else self._engine.mesh_devices(),
+                )
             return self._profiler
+
+    def get_sketch_names(self, kind=None) -> list:
+        """Names of the live sketch objects, of one kind if given."""
+        return self._engine.names(kind)
 
     def get_keys(self) -> Keys:
         """→ RedissonClient#getKeys: RKeys over both backends."""
@@ -567,7 +602,9 @@ class RedissonTorchClient(CamelCompatMixin):
         """Resolve a group of issued async results with one reply flush:
         device results of one shape come home in one D2H."""
         futures = list(futures)
-        self._engine.collect_results(futures)
+        collect = getattr(self._engine, "collect_results", None)
+        if collect is not None:  # host-engine results are already home
+            collect(futures)
         return [f.result() for f in futures]
 
     def defer_fetch(self):
@@ -597,7 +634,8 @@ class RedissonTorchClient(CamelCompatMixin):
         """Block until the bucket pre-warmer has driven every scheduled
         ladder (True on drained; trivially True when pre-warm is off).
         A warm launch that failed raises here."""
-        return self._engine.prewarm_wait(timeout)
+        wait = getattr(self._engine, "prewarm_wait", None)
+        return True if wait is None else wait(timeout)
 
     def snapshot(self, directory: Optional[str] = None) -> None:
         """Snapshot the whole logical keyspace — sketch pools and the host
@@ -606,10 +644,12 @@ class RedissonTorchClient(CamelCompatMixin):
         if not directory:
             raise ValueError("no snapshot directory configured")
         os.makedirs(directory, exist_ok=True)
-        self._engine.snapshot(directory)
-        if self._engine.snapshot_extra is None:
-            # No configured directory, so the engine has no hook: the
-            # host keyspace goes beside the pools here.
+        eng_snap = getattr(self._engine, "snapshot", None)  # none on the host engine
+        if eng_snap is not None:
+            eng_snap(directory)
+        if getattr(self._engine, "snapshot_extra", None) is None:
+            # No engine hook (no configured directory, or the host
+            # engine): the host keyspace goes beside the pools here.
             self._grid.snapshot_to(os.path.join(directory, "grid_store.bin"))
 
     def shutdown(self) -> None:
@@ -620,6 +660,19 @@ class RedissonTorchClient(CamelCompatMixin):
         if self._metrics_http is not None:
             self._metrics_http.close()
             self._metrics_http = None
+        if self.config.snapshot_dir and getattr(
+            self._engine, "snapshot_extra", None
+        ) is None:
+            # The host engine only: the card engine's own shutdown
+            # snapshot writes the grid through snapshot_extra.
+            try:  # best-effort persistence, like the engine's own
+                self._grid.snapshot_to(
+                    os.path.join(self.config.snapshot_dir, "grid_store.bin")
+                )
+            except Exception:  # persistence must not block shutdown
+                logging.getLogger(__name__).exception(
+                    "grid snapshot-on-shutdown failed"
+                )
         self._engine.shutdown()
         self._grid.shutdown()
         self._topic_bus.shutdown()

@@ -1,6 +1,9 @@
 """Config for the PyTorch/CUDA port — the ``use_tpu_sketch()`` switch of
 ``redisson_tpu/config.py`` becomes ``use_gpu_sketch()``, with the same
 names and defaults for the knobs this package reads, plus ``device``.
+The JAX package runs sketches on its host engine when that switch is not
+called; the port spells that choice ``use_host_sketch()``, and a client
+refuses a config that makes neither choice, or both.
 
 ``device`` defaults to ``"cuda"``; construction raises when no CUDA
 device is present (nothing falls back to the CPU).  Tests pass
@@ -82,6 +85,8 @@ class GpuSketchConfig:
         # The completer fetches several pending launches' results with one
         # device-side concatenation and one D2H.
         self.mailbox_collect = True
+        # Tenancy: initial rows per size-class pool (pools then double).
+        self.initial_tenants_per_class = 8
         # Exact intra-batch sequential semantics for bloom add.  False
         # selects the single-tenant bulk add whose newly-added flags are
         # taken against the state before the call (ops/fastpath.py).
@@ -168,6 +173,9 @@ class Config:
         self.codec = DEFAULT_CODEC
         self.threads = 4  # topic delivery pool (reference: `threads`)
         self.gpu_sketch = GpuSketchConfig()
+        # The sketch backend is chosen, never defaulted: use_gpu_sketch()
+        # (the card) or use_host_sketch() (golden models on the host).
+        self.host_sketch = False
         # Snapshots (the JAX package's names and defaults): with a
         # directory set, the engine restores from it on create and writes
         # a final snapshot on shutdown; an interval > 0 adds periodic ones.
@@ -353,6 +361,15 @@ class Config:
         self.gpu_sketch.update(kwargs)
         return self
 
+    def use_host_sketch(self) -> "Config":
+        """Run sketch objects on the host engine: the golden NumPy models
+        (``objects/engines.py`` ``HostSketchEngine``), the JAX package's
+        engine when ``use_tpu_sketch()`` is not called.  The plain
+        reference the card engine is measured against; it touches no
+        device."""
+        self.host_sketch = True
+        return self
+
     # -- serialization (the JAX package's Config.to_dict/from_dict/
     # from_yaml/from_json/to_json for the keys this package reads) -----------
 
@@ -409,13 +426,17 @@ class Config:
         d = {k: getattr(self, k) for k in self._SIMPLE_KEYS}
         d["codec"] = type(self.codec).__name__
         d["gpu_sketch"] = self.gpu_sketch.to_dict()
+        if self.host_sketch:
+            d["host_sketch"] = True
         return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "Config":
         """A config from a mapping: top-level keys, ``codec`` by class
         name, and a ``gpu_sketch`` (or the JAX package's ``tpu_sketch``)
-        mapping of backend knobs; the backend is enabled."""
+        mapping of backend knobs.  ``host_sketch: true`` (what
+        ``to_dict`` writes for ``use_host_sketch()``) chooses the host
+        engine; otherwise the torch backend is enabled."""
         from redisson_tpu_torch import codecs
 
         cfg = cls()
@@ -427,11 +448,17 @@ class Config:
                 raise ValueError(f"unknown codec: {codec_name}")
             cfg.codec = codec_cls()
         backend = d.pop("gpu_sketch", None) or d.pop("tpu_sketch", None) or {}
+        host = bool(d.pop("host_sketch", False))
         for k, v in d.items():
             if k not in cls._SIMPLE_KEYS:
                 raise ValueError(f"unknown config key: {k}")
             setattr(cfg, k, v)
+        if host and backend.get("enabled"):
+            raise ValueError("host_sketch and an enabled gpu_sketch: choose one backend")
         backend = {k: v for k, v in backend.items() if k != "enabled"}
+        if host:
+            cfg.gpu_sketch.update(backend)
+            return cfg.use_host_sketch()
         return cfg.use_gpu_sketch(**backend)
 
     @classmethod

@@ -89,9 +89,19 @@ def _rows(wpool, B: int) -> np.ndarray:
 #
 # Each returns fn(executor, warm_pool, bucket) that drives ONE real
 # dispatch method with a bucket-sized batch whose shapes and dtypes match
-# serving traffic.  (The JAX package's ``warm_bloom_mixed`` warms its
-# host-hashed bloom kernel; the port hashes every Bloom key on the card,
-# so its Bloom ladders are the keyed ones.)
+# serving traffic.
+
+
+def warm_bloom_mixed(k: int) -> Callable:
+    """The host-hashed mixed ladder (the engine's ``bloom_add`` /
+    ``bloom_contains`` of pre-hashed keys): contains-only batches."""
+    def fn(ex, wpool, B):
+        h = np.zeros(B, np.uint32)
+        _fetch(_raw(ex, "bloom_mixed")(
+            ex, wpool, _rows(wpool, B), np.ones(B, np.uint32), k, h, h,
+            np.zeros(B, bool),
+        ))
+    return fn
 
 
 def warm_bloom_mixed_keys(k: int, L: int, Lt: int) -> Callable:

@@ -342,6 +342,50 @@ class ShardedTorchCommandExecutor(TorchCommandExecutor):
 
     # -- bloom -------------------------------------------------------------------
 
+    def _bloom_mixed_part(self, pool, rows, m_arr, k: int, h1m, h2m, is_add) -> LazyResult:
+        """Partitioned host-hashed path: every single-bit Bloom op (adds
+        are ``is_add`` ops, contains not) ships to its owner shard and runs
+        the exact mixed op there."""
+        fn = pm.psharded_bloom_mixed(self.ctx, k=k, words_per_row=pool.row_units)
+        p = self._part(rows)
+        (lr, a, b, m, add), valid = self._scatter_put(p, (
+            (p.lrows, 0), (h1m, 0), (h2m, 0), (m_arr, 1), (is_add, 0)))
+        add = pm.Blocks(x != 0 for x in add) if isinstance(add, pm.Blocks) else add != 0
+        _, packed = fn(pool.state, lr, a, b, m, add, valid)
+        return LazyResult(packed, transform=p.unpack_bools)
+
+    @_locked
+    def bloom_add(self, pool, rows, m_arr, k: int, h1m, h2m) -> LazyResult:
+        return self._bloom_mixed_part(pool, rows, m_arr, k, h1m, h2m,
+                                      np.ones(len(h1m), bool))
+
+    @_locked
+    def bloom_contains(self, pool, rows, m_arr, k: int, h1m, h2m) -> LazyResult:
+        return self._bloom_mixed_part(pool, rows, m_arr, k, h1m, h2m,
+                                      np.zeros(len(h1m), bool))
+
+    @_locked
+    def bloom_mixed(self, pool, rows, m_arr, k: int, h1m, h2m, is_add) -> LazyResult:
+        return self._bloom_mixed_part(pool, rows, m_arr, k, h1m, h2m, is_add)
+
+    def _bloom_st(self, pool, row, m, k, h1m, h2m, add: bool):
+        B = len(h1m)
+        return self._bloom_mixed_part(
+            pool, np.full(B, row, np.int32), np.full(B, m, np.uint32), k,
+            h1m, h2m, np.full(B, add, bool),
+        )
+
+    @_locked
+    def bloom_add_fast_st(self, pool, row: int, m: int, k: int, h1m, h2m) -> LazyResult:
+        """No single-tenant bit-delta path on a mesh (the row lives on one
+        shard anyway): the exact mixed op, whose flags are exact
+        sequential — a refinement of the fast add's pre-batch flags."""
+        return self._bloom_st(pool, row, m, k, h1m, h2m, True)
+
+    @_locked
+    def bloom_contains_st(self, pool, row: int, m: int, k: int, h1m, h2m) -> LazyResult:
+        return self._bloom_st(pool, row, m, k, h1m, h2m, False)
+
     def _bloom_mixed_keys_impl(self, pool, rows, m_arr, k: int, blocks, lengths,
                                is_add) -> LazyResult:
         """Partitioned device-hash path: key lanes ship to the owning shard

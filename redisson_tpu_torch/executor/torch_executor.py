@@ -59,6 +59,7 @@ from redisson_tpu_torch.ops import (
     golden,
     hll as hll_ops,
 )
+from redisson_tpu_torch.utils import hashing
 
 # Ops per pass of the single-tenant keyed paths.  The non-exact add takes
 # its newly-added flags against the state before each pass, so the pass
@@ -613,6 +614,90 @@ class TorchCommandExecutor:
             bitops.pack_bool_u32(res),
             transform=lambda v: bitops.unpack_bool_u32(v, B),
         )
+
+    def _hashed_block(self, Bp: int, *cols):
+        """Ship per-op 4-byte columns (``(array, fill)``, padded to ``Bp``)
+        in one staging block; returns their device views as int64 lanes
+        holding the uint32 values."""
+        buf, host = self._staging(len(cols) * Bp)
+        o = 0
+        for arr, fill in cols:
+            o = _fill_words(buf, o, Bp, np.asarray(arr, np.uint32), np.uint32, fill)
+        packed = hashing.u32(self._ship(host))
+        return [packed[i * Bp : (i + 1) * Bp] for i in range(len(cols))]
+
+    def _bloom_hashed(self, pool, rows, m_arr, k: int, h1m, h2m, is_add) -> LazyResult:
+        """Combined add+contains of host-reduced hashes (``h1m, h2m`` < m)
+        with per-op rows, m and flags: the exact sequential mixed op.  The
+        batch ships as ONE staging block per flush: rows, m (padded with
+        1: the mod needs it nonzero), h1m, h2m and the bit-packed flags."""
+        B = len(h1m)
+        Bp = self._bucket(B)
+        Wb = Bp >> 5
+        buf, host = self._staging(4 * Bp + Wb)
+        o = _fill_words(buf, 0, Bp, np.asarray(rows, np.int32), np.int32)
+        o = _fill_words(buf, o, Bp, np.asarray(m_arr, np.uint32), np.uint32, 1)
+        o = _fill_words(buf, o, Bp, np.asarray(h1m, np.uint32), np.uint32)
+        o = _fill_words(buf, o, Bp, np.asarray(h2m, np.uint32), np.uint32)
+        _fill_bits(buf, o, Bp, is_add)
+        packed = self._ship(host)
+        cols = hashing.u32(packed[Bp : 4 * Bp])
+        res = bloom_ops.bloom_mixed(
+            pool.state, packed[:Bp], cols[Bp:2 * Bp], cols[2 * Bp:],
+            bitops.unpack_bool_u32_dev(packed[4 * Bp:], Bp),
+            m=cols[:Bp], k=k, words_per_row=pool.row_units,
+            valid=self._valid(Bp, B),
+        )
+        return self._result_bits(res, B)
+
+    @_locked
+    def bloom_mixed(self, pool, rows, m_arr, k: int, h1m, h2m, is_add) -> LazyResult:
+        """Host-hashed add+contains mix (the JAX package's coalesced
+        hashed path): mixed multi-tenant traffic stays in one segment per
+        (pool, k) with exact arrival-order results."""
+        return self._bloom_hashed(pool, rows, m_arr, k, h1m, h2m, is_add)
+
+    @_locked
+    def bloom_add(self, pool, rows, m_arr, k: int, h1m, h2m) -> LazyResult:
+        """Host-hashed add with exact sequential newly-added flags."""
+        return self._bloom_hashed(pool, rows, m_arr, k, h1m, h2m,
+                                  np.ones(len(h1m), bool))
+
+    @_locked
+    def bloom_contains(self, pool, rows, m_arr, k: int, h1m, h2m) -> LazyResult:
+        """Host-hashed contains with per-op rows and m (read-only)."""
+        B = len(h1m)
+        Bp = self._bucket(B)
+        rows_p, m_p, h1_p, h2_p = self._hashed_block(
+            Bp, (np.asarray(rows, np.int32).view(np.uint32), 0), (m_arr, 1),
+            (h1m, 0), (h2m, 0))
+        res = bloom_ops.bloom_contains(pool.state, rows_p, h1_p, h2_p, m=m_p,
+                                       k=k, words_per_row=pool.row_units)
+        return self._result_bits(res, B)
+
+    @_locked
+    def bloom_add_fast_st(self, pool, row: int, m: int, k: int, h1m, h2m) -> LazyResult:
+        """Single-tenant fast add (``exact_add_semantics=False``): flags
+        against the state before the batch (ops/fastpath.py); row and m
+        travel as scalars."""
+        B = len(h1m)
+        Bp = self._bucket(B)
+        h1_p, h2_p = self._hashed_block(Bp, (h1m, 0), (h2m, 0))
+        res = fastpath.bloom_add_fast_st(
+            pool.state, int(row), h1_p, h2_p, int(m), self._valid(Bp, B),
+            k=k, words_per_row=pool.row_units,
+        )
+        return self._result_bits(res, B)
+
+    @_locked
+    def bloom_contains_st(self, pool, row: int, m: int, k: int, h1m, h2m) -> LazyResult:
+        """Single-tenant contains; bit-exact, row and m as scalars."""
+        B = len(h1m)
+        Bp = self._bucket(B)
+        h1_p, h2_p = self._hashed_block(Bp, (h1m, 0), (h2m, 0))
+        res = fastpath.bloom_contains_st(pool.state, int(row), h1_p, h2_p,
+                                         int(m), k=k, words_per_row=pool.row_units)
+        return self._result_bits(res, B)
 
     @_locked
     def bloom_mixed_keys(self, pool, rows, m_arr, k: int, blocks, lengths, is_add) -> LazyResult:

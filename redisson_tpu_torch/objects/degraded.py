@@ -315,3 +315,55 @@ def mirror_for_entry(entry, row: np.ndarray):
             row, u, entry.params["depth"], entry.params["width"]
         )
     raise ValueError(f"no degraded mirror for kind {entry.kind!r}")
+
+
+# -- whole-object conversion between a device row and a golden model: a
+# DUMP of one engine restores into the other (the host engine keeps
+# golden models, the card engine device rows) ----------------------------
+
+
+def model_from_row(kind: str, params: dict, row: np.ndarray):
+    """The golden model holding a device row's state."""
+    from redisson_tpu_torch.tenancy import PoolKind
+
+    if kind == PoolKind.BLOOM:
+        model = golden.GoldenBloomFilter(params["size"], params["hash_iterations"])
+        model.bits = _bits_from_words(row, model.size).copy()
+    elif kind == PoolKind.BITSET:
+        model = golden.GoldenBitSet(0)
+        nbits = int(params.get("nbits", 0))
+        model.bits = _bits_from_words(row, np.asarray(row).shape[0] * 32)[:nbits].copy()
+    elif kind == PoolKind.HLL:
+        model = golden.GoldenHyperLogLog()
+        model.regs = np.asarray(row, np.uint8).copy()
+    elif kind == PoolKind.CMS:
+        d, w = int(params["depth"]), int(params["width"])
+        model = golden.GoldenCountMinSketch(d, w)
+        model.counts = _words(row)[: d * w].reshape(d, w).copy()
+    else:
+        raise ValueError(f"unknown sketch kind {kind!r}")
+    return model
+
+
+def row_from_model(kind: str, params: dict, model):
+    """``(class_key, params, row)`` of the device entry holding a golden
+    model's state (the row in its pool's layout)."""
+    from redisson_tpu_torch.tenancy import PoolKind
+    from redisson_tpu_torch.tenancy.registry import class_words_for_bits, spec_for
+
+    if kind == PoolKind.BLOOM:
+        words = class_words_for_bits(model.size)
+        return (words,), dict(params), _words_from_bits(model.bits, words)
+    if kind == PoolKind.BITSET:
+        nbits = int(model.bits.size)
+        words = class_words_for_bits(max(1, nbits))
+        return (words,), {"nbits": nbits}, _words_from_bits(model.bits, words)
+    if kind == PoolKind.HLL:
+        return (), {}, np.asarray(model.regs, np.uint8).copy()
+    if kind == PoolKind.CMS:
+        key = (model.depth, model.width)
+        row = np.zeros(spec_for(kind, key).row_units, np.uint32)
+        flat = model.counts.reshape(-1)
+        row[: flat.shape[0]] = flat
+        return key, dict(params), row
+    raise ValueError(f"unknown sketch kind {kind!r}")

@@ -65,6 +65,7 @@ _log = logging.getLogger(__name__)
 
 _DUMP_VERSION = 2
 _DUMP_MAGIC = b"RTPU"
+HOST_DUMP_MAGIC = b"RTPH"  # the host engine's dumps (objects/engines.py)
 _SNAP_META = "sketch_meta.json"
 _SNAP_POOLS = "sketch_pools.npz"
 
@@ -96,6 +97,47 @@ def _fsync_dir(directory: str) -> None:
 def _tiered(t: dict) -> bool:
     """A snapshot tenant on the host or disk tier (no device row)."""
     return t.get("residency", "device") != "device" or int(t["row"]) < 0
+
+
+def parse_device_dump(data: bytes):
+    """``(header, row)`` of a card engine's dump (``RTPU``): the magic,
+    header and version checked, the row loaded with ``safe_load_npy``."""
+    if len(data) < 8 or data[:4] != _DUMP_MAGIC:
+        raise ValueError("not a sketch dump (bad magic)")
+    (hlen,) = struct.unpack("<I", data[4:8])
+    d = json.loads(data[8 : 8 + hlen].decode("utf-8"))
+    row = safe_load_npy(io.BytesIO(data[8 + hlen :]))
+    if d.get("v") != _DUMP_VERSION:
+        raise ValueError(f"unsupported dump version: {d.get('v')}")
+    return d, row
+
+
+def check_dump_row(d: dict, row: np.ndarray) -> tuple:
+    """The dump's class key, once its row has its pool's shape."""
+    class_key = tuple(d.get("class_key", ()))
+    units = spec_for(d["kind"], class_key).row_units
+    if row.shape != (units,):
+        raise ValueError(f"dump row has shape {row.shape}, pool expects ({units},)")
+    return class_key
+
+
+def device_dump(kind: str, class_key, params: dict, row: np.ndarray, topk) -> bytes:
+    """A card engine's dump: ``RTPU | u32 header_len | json header | npy
+    row``."""
+    header = json.dumps(
+        {
+            "v": _DUMP_VERSION,
+            "kind": kind,
+            "class_key": list(class_key),
+            "params": dict(params),
+            # CMS: the heavy-hitter candidate table travels with the
+            # counters, or a restored top_k() would come back empty.
+            "topk": topk,
+        }
+    ).encode("utf-8")
+    buf = io.BytesIO()
+    np.save(buf, row, allow_pickle=False)
+    return _DUMP_MAGIC + struct.pack("<I", len(header)) + header + buf.getvalue()
 
 
 def safe_load_npy(buf: io.BytesIO) -> np.ndarray:
@@ -269,24 +311,21 @@ class SketchDurabilityMixin:
         # A degraded entry's truth is its mirror: dumping the device row
         # would roll back every mirror-acked write on a later RESTORE.
         row = self._host_row(entry)
-        header = json.dumps(
-            {
-                "v": _DUMP_VERSION,
-                "kind": entry.kind,
-                "class_key": list(entry.pool.spec.class_key),
-                "params": dict(entry.params),
-                # CMS: the heavy-hitter candidate table travels with the
-                # counters, or a restored top_k() would come back empty.
-                "topk": self.topk.export_state(name),
-            }
-        ).encode("utf-8")
-        buf = io.BytesIO()
-        np.save(buf, row, allow_pickle=False)
-        return _DUMP_MAGIC + struct.pack("<I", len(header)) + header + buf.getvalue()
+        return device_dump(entry.kind, entry.pool.spec.class_key, entry.params,
+                           row, self.topk.export_state(name))
 
     def restore(self, name: str, data: bytes, replace: bool = False) -> None:
         """Recreate an object from ``dump`` bytes.  BUSYKEY analog: raises
-        if the name exists and ``replace`` is False."""
+        if the name exists and ``replace`` is False.  A dump of the host
+        engine (``use_host_sketch()``) restores too: its golden model
+        becomes a device row first, and the journal holds the device
+        dump it became."""
+        if data[:4] == HOST_DUMP_MAGIC:
+            from redisson_tpu_torch.objects.degraded import row_from_model
+            from redisson_tpu_torch.objects.engines import HostSketchEngine
+
+            kind, params, model, topk = HostSketchEngine.decode_dump(data, name)
+            data = device_dump(kind, *row_from_model(kind, params, model), topk)
         with self._journal_gate:
             self._restore_impl(name, data, replace)
             # Journaled as the raw dump blob (wholesale state replace):
@@ -299,21 +338,12 @@ class SketchDurabilityMixin:
     def _restore_impl(self, name: str, data: bytes, replace: bool) -> None:
         if _chaos.ENABLED:
             _chaos.fire("snapshot.load", data=data)
-        if len(data) < 8 or data[:4] != _DUMP_MAGIC:
-            raise ValueError("not a sketch dump (bad magic)")
-        (hlen,) = struct.unpack("<I", data[4:8])
-        d = json.loads(data[8 : 8 + hlen].decode("utf-8"))
-        row = safe_load_npy(io.BytesIO(data[8 + hlen :]))
-        if d.get("v") != _DUMP_VERSION:
-            raise ValueError(f"unsupported dump version: {d.get('v')}")
+        d, row = parse_device_dump(data)
         # Validate the untrusted candidate table and the row's geometry
         # BEFORE any mutation: a malformed blob must not leave a
         # half-restored object behind.
         topk_decoded = type(self.topk).decode_state(d.get("topk"), name)
-        class_key = tuple(d.get("class_key", ()))
-        units = spec_for(d["kind"], class_key).row_units
-        if row.shape != (units,):
-            raise ValueError(f"dump row has shape {row.shape}, pool expects ({units},)")
+        class_key = check_dump_row(d, row)
         if self._live_lookup(name) is not None:
             if not replace:
                 raise ValueError(f"BUSYKEY: {name!r} already exists")

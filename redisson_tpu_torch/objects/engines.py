@@ -1,10 +1,18 @@
-"""TorchSketchEngine — the backend behind the port's sketch objects
-(BloomFilter, HyperLogLog, BitSet, CountMinSketch).
+"""Sketch engines — the backends behind the port's sketch objects
+(BloomFilter, HyperLogLog, BitSet, CountMinSketch), one interface, two
+implementations, as in ``redisson_tpu/objects/engines.py``:
 
-Counterpart of ``TpuSketchEngine`` in ``redisson_tpu/objects/engines.py``
-for this package's slice: tenant registry + size-class pools +
-TorchCommandExecutor, with the BatchCoalescer in front when
-``coalesce`` is on.  The routing and the ops each call becomes follow
+- ``TorchSketchEngine`` (``Config.use_gpu_sketch()``), counterpart of
+  ``TpuSketchEngine``: tenant registry + size-class pools +
+  TorchCommandExecutor, with the BatchCoalescer in front when
+  ``coalesce`` is on.
+- ``HostSketchEngine`` (``Config.use_host_sketch()``): the golden NumPy
+  models on the host, the JAX package's engine when ``use_tpu_sketch()``
+  is not called, and the plain reference the card engine is measured
+  against.
+
+Both take identical host-side hash material, so their answers agree bit
+for bit.  The rest of this docstring is the card engine's.  The routing and the ops each call becomes follow
 the JAX engine, so both packages return the same answers and hold the
 same pool bytes.  The object lifecycle (TTL, exists/delete/rename,
 DUMP/RESTORE, snapshots) comes from ``objects/durability.py``.
@@ -46,7 +54,10 @@ journal tail through the golden mirrors into the device rows
 from __future__ import annotations
 
 import heapq
+import io
+import json
 import logging
+import struct
 import threading
 import time
 import warnings
@@ -76,19 +87,22 @@ from redisson_tpu_torch.objects.degraded import (
     _bits_from_words,
     _words_from_bits,
     mirror_for_entry,
+    model_from_row,
 )
-from redisson_tpu_torch.objects.durability import SketchDurabilityMixin
+from redisson_tpu_torch.objects.durability import (
+    _DUMP_MAGIC as DEVICE_DUMP_MAGIC,
+    HOST_DUMP_MAGIC,
+    SketchDurabilityMixin,
+    check_dump_row,
+    parse_device_dump,
+    safe_load_npy,
+)
 from redisson_tpu_torch.obs import Observability
 from redisson_tpu_torch.ops import bitset as bitset_ops, golden
 from redisson_tpu_torch.storage import ResidencyManager
 from redisson_tpu_torch.tenancy import PoolKind, TenantGovernor, TenantRegistry
 from redisson_tpu_torch.tenancy.registry import class_words_for_bits
 from redisson_tpu_torch.utils import hashing
-
-# Initial rows per size-class pool (the JAX package's default; pools then
-# double, so both packages' pools keep one shape).
-INITIAL_TENANTS_PER_CLASS = 8
-
 
 class _EpochGuard:
     """Entry+exit write-epoch bump around a mutating engine call (see
@@ -398,7 +412,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
             self.executor = TorchCommandExecutor(config)
         self.registry = TenantRegistry(
             self.executor,
-            initial_capacity=INITIAL_TENANTS_PER_CLASS,
+            initial_capacity=cfg.initial_tenants_per_class,
             dispatch_lock=self.executor._dispatch_lock,
         )
         self.obs = Observability(
@@ -1267,7 +1281,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
         with self._journal_gate:
             self._live_lookup(name)  # reap an expired holder before tryInit
             self._guard_foreign(name)
-            _, created = self.registry.try_create(
+            entry, created = self.registry.try_create(
                 name, PoolKind.BLOOM, (class_words_for_bits(m),), params
             )
             # Journaled only when the create WON (replay of a lost race
@@ -1276,9 +1290,13 @@ class TorchSketchEngine(SketchDurabilityMixin):
                 "bloom.init", name,
                 ei=int(expected_insertions), fp=float(false_probability),
             ) if created else None
-        # (The JAX engine registers its host-hashed bloom ladder here; the
-        # port hashes Bloom keys on the card, and the keyed ladders
-        # register on the first submit, _bloom_submit_mixed_keys.)
+        if self.prewarmer is not None:
+            # Pool attach: warm the host-hashed mixed ladder in the
+            # background (the keyed ladders register on the first sight
+            # of a codec signature, _bloom_submit_mixed_keys).
+            self.prewarmer.register(
+                entry.pool, ("bloom_mixed", k), prewarm.warm_bloom_mixed(k)
+            )
         return self._ack(created, seq)
 
     def bloom_count(self, name) -> LazyResult:
@@ -1392,6 +1410,122 @@ class TorchSketchEngine(SketchDurabilityMixin):
             # explicit None frame shadows any ambient deadline.
             with _ovl.deadline_scope(None):
                 redispatch()
+
+    # -- host-hashed bloom: callers hash on the host (H1, H2 are the 64-bit
+    # murmur halves of each key, ``hashing.hash128_np``); the engine
+    # reduces them mod the filter's m and ships the reduced pair ----------
+
+    def _bloom_reduce(self, entry, H1, H2):
+        return hashing.km_reduce_mod(H1, H2, entry.params["size"])
+
+    def _bloom_dispatch_hashed(self, entry, h1m, h2m, is_add) -> LazyResult:
+        """One mixed dispatch of reduced hashes, honouring replication:
+        a replicated entry expands its ops (writes to every copy, reads
+        rotating) and gathers results back per source op."""
+        m, k = entry.params["size"], entry.params["hash_iterations"]
+        B = len(h1m)
+        is_add = np.asarray(is_add, bool)
+        row0 = entry.row  # BEFORE the residency check (see _tier_row)
+        res = self._serve_degraded(entry, B, lambda mir: mir.mixed(h1m, h2m, is_add))
+        if res is not None:
+            return res
+        orig = (h1m, h2m, is_add)
+        saw_replicas = bool(entry.replica_rows)
+        if saw_replicas:
+            rows, eidx, ppos = self._bloom_expand_ops(entry, B, is_add)
+            h1m, h2m, is_add = h1m[eidx], h2m[eidx], is_add[eidx]
+            gather = lambda v: v[ppos]  # noqa: E731
+        else:
+            rows = np.full(B, self._tier_row(entry, row0), np.int32)
+            gather = None
+        m_arr = np.full(len(rows), m, np.uint32)
+        pool = entry.pool
+        if self.coalescer is not None:
+            # Adds and contains share ONE segment per (pool, k): the mixed
+            # op keeps exact arrival-order results while mixed traffic
+            # coalesces instead of fragmenting.
+            fut = self._submit(
+                ("bloom_mix", id(pool), k),
+                lambda cols: self.executor.bloom_mixed(
+                    pool, cols[0], cols[1], k, cols[2], cols[3], cols[4]
+                ),
+                (rows, m_arr, h1m, h2m, is_add),
+                len(rows),
+                pool_key=id(pool),
+                tenant=entry.name,
+            )
+        else:
+            fut = self.executor.bloom_mixed(pool, rows, m_arr, k, h1m, h2m, is_add)
+        if bool(np.any(orig[2])):
+            self._replication_fence(
+                entry, saw_replicas,
+                lambda: self._bloom_dispatch_hashed(entry, *orig),
+            )
+        return fut if gather is None else MappedFuture(fut, gather)
+
+    def bloom_add(self, name, H1, H2) -> LazyResult:
+        """Add host-hashed keys (``H1, H2``: uint64[B] murmur halves)."""
+        with self._nc_mutate(name), self._journal_gate:
+            entry = self._require(name, PoolKind.BLOOM)
+            h1m, h2m = self._bloom_reduce(entry, H1, H2)
+            m, k = entry.params["size"], entry.params["hash_iterations"]
+            if (
+                not self.config.gpu_sketch.exact_add_semantics
+                and not entry.replica_rows
+                # Degraded: the hashed path owns the mirror failover.
+                and not self._degraded(entry)
+            ):
+                # The single-tenant bulk add dispatches at once, after the
+                # queued coalesced ops flush: a contains submitted before
+                # this add never observes its writes.
+                self._drain()
+                res = self.executor.bloom_add_fast_st(entry.pool, entry.row, m, k, h1m, h2m)
+                self._replication_fence(
+                    entry, False,
+                    lambda: self._bloom_dispatch_hashed(
+                        entry, h1m, h2m, np.ones(len(H1), bool)),
+                )
+            else:
+                res = self._bloom_dispatch_hashed(entry, h1m, h2m, np.ones(len(H1), bool))
+            # Journaled before the reduction (the raw twins): replay
+            # reduces against the entry's params, as the live path does.
+            return self._commit(
+                res, "bloom.add", name, h1=np.asarray(H1), h2=np.asarray(H2),
+            )
+
+    def bloom_contains(self, name, H1, H2) -> LazyResult:
+        """Membership of host-hashed keys: bool[B]."""
+        # Epoch capture BEFORE entry resolution (see
+        # bloom_contains_encoded).
+        nc = self.nearcache
+        captured = nc.epochs(name)
+        entry = self._require(name, PoolKind.BLOOM)
+        if nc.active(len(H1)):
+            H1a, H2a = np.asarray(H1), np.asarray(H2)
+            return nc.lookup_batch(
+                "bloom", name, nc.hashed_keys(H1a, H2a), np.bool_,
+                lambda idx: self._bloom_contains_dispatch(
+                    entry,
+                    H1a if idx is None else H1a[idx],
+                    H2a if idx is None else H2a[idx],
+                ),
+                monotone=True, captured=captured,
+            )
+        return self._bloom_contains_dispatch(entry, H1, H2)
+
+    def _bloom_contains_dispatch(self, entry, H1, H2) -> LazyResult:
+        h1m, h2m = self._bloom_reduce(entry, H1, H2)
+        m, k = entry.params["size"], entry.params["hash_iterations"]
+        row0 = entry.row  # BEFORE the residency check (see _tier_row)
+        if (
+            self.coalescer is not None
+            or entry.replica_rows
+            or self._degraded(entry)  # the hashed path serves the mirror
+        ):
+            return self._bloom_dispatch_hashed(entry, h1m, h2m, np.zeros(len(H1), bool))
+        return self.executor.bloom_contains_st(
+            entry.pool, self._tier_row(entry, row0), m, k, h1m, h2m
+        )
 
     def _runs_dispatch(self, pool, k):
         """Flush-time dispatch for the run-length mixed path: folds the
@@ -2435,3 +2569,603 @@ class TorchSketchEngine(SketchDurabilityMixin):
         return ImmediateResult(
             np.concatenate([np.asarray(p.result()) for p in parts])
         )
+
+
+class HostSketchEngine:
+    """Golden-model backend (``Config().use_host_sketch()``): the golden
+    NumPy models on the host, the 'Redis server on the host' analog and
+    the plain reference a benchmark of the card engine compares with.
+    Same hash material and formulas as the card engine, so the answers
+    agree bit for bit; the same TTL, DUMP and RESTORE surface.  Nothing
+    routes here on its own: the caller chooses it."""
+
+    def __init__(self, config):
+        self.config = config
+        self._lock = _witness.named(threading.RLock(), "engine.host")
+        self._objects: dict[str, dict] = {}
+        # Same observability surface as the card engine (so a RESP server
+        # or client fronting either backend finds one bundle to record
+        # into); the host engine has no coalescer/executor to instrument.
+        self.obs = Observability(
+            trace_sample_rate=getattr(config, "trace_sample_rate", 0.0),
+            trace_max_spans=getattr(config, "trace_max_spans", 2048),
+            latency_threshold_ms=getattr(
+                config, "latency_monitor_threshold_ms", 0
+            ),
+        )
+        self.topk = TopKStore()
+        # Wired by the client to the grid store's lock-free ``probe`` (one
+        # logical keyspace — same contract as TorchSketchEngine).  Called
+        # while holding self._lock, so it MUST NOT take the grid's lock.
+        self.foreign_exists = None
+
+    def _guard_foreign(self, name: str) -> None:
+        if (
+            self.foreign_exists is not None
+            and name not in self._objects
+            and self.foreign_exists(name)
+        ):
+            raise TypeError(
+                f"object {name!r} is held by the data grid (WRONGTYPE)"
+            )
+
+    def probe(self, name: str) -> bool:
+        """Lock-free existence probe for the grid's guard."""
+        o = self._objects.get(name)
+        if o is None:
+            return False
+        exp = o.get("expire_at")
+        return exp is None or time.time() < exp
+
+    def shutdown(self) -> None:
+        pass
+
+    # -- generic -----------------------------------------------------------
+
+    def _live(self, name):
+        """Lazy expiry (Redis-style): an overdue object vanishes on touch."""
+        o = self._objects.get(name)
+        if o is not None and o.get("expire_at") is not None:
+            if time.time() >= o["expire_at"]:
+                del self._objects[name]
+                self.topk.drop(name)
+                return None
+        return o
+
+    def exists(self, name) -> bool:
+        with self._lock:
+            return self._live(name) is not None
+
+    def delete(self, name) -> bool:
+        with self._lock:
+            live = self._live(name) is not None
+            self._objects.pop(name, None)
+            self.topk.drop(name)
+            return live
+
+    def rename(self, old, new) -> bool:
+        with self._lock:
+            if old == new or self._live(old) is None:
+                return False
+            self._guard_foreign(new)  # one keyspace: RENAME can't shadow grid
+            self._objects[new] = self._objects.pop(old)
+            self.topk.rename(old, new)
+            return True
+
+    def names(self, kind=None):
+        with self._lock:
+            return [
+                n
+                for n in list(self._objects)
+                if self._live(n) is not None
+                and (kind is None or self._objects[n]["kind"] == kind)
+            ]
+
+    def params(self, name):
+        with self._lock:
+            o = self._live(name)
+            return None if o is None else o["params"]
+
+    def _require(self, name, kind):
+        o = self._lookup_kind(name, kind)
+        if o is None:
+            raise RuntimeError(f"{kind} object {name!r} is not initialized")
+        return o
+
+    def _lookup_kind(self, name, kind):
+        with self._lock:
+            o = self._live(name)
+            if o is not None and o["kind"] != kind:
+                raise TypeError(f"object {name!r} holds a {o['kind']}, not a {kind}")
+            return o
+
+    # -- TTL / dump parity with the card engine ----------------------------
+
+    def expire(self, name, ttl_s: float) -> bool:
+        return self.expire_at(name, time.time() + ttl_s)
+
+    def expire_at(self, name, ts: float) -> bool:
+        with self._lock:
+            o = self._live(name)
+            if o is None:
+                return False
+            o["expire_at"] = float(ts)
+            return True
+
+    def clear_expire(self, name) -> bool:
+        with self._lock:
+            o = self._live(name)
+            if o is None or o.get("expire_at") is None:
+                return False
+            o["expire_at"] = None
+            return True
+
+    def remain_ttl_ms(self, name) -> int:
+        with self._lock:
+            o = self._live(name)
+            if o is None:
+                return -2
+            if o.get("expire_at") is None:
+                return -1
+            return max(0, int((o["expire_at"] - time.time()) * 1000))
+
+    # Data-only dump wire format (no pickle: dump blobs may cross trust
+    # boundaries): RTPH | u32 header_len | json header | npy arrays.  The
+    # header records the golden-model class by NAME and its int scalars;
+    # arrays ride as concatenated .npy blobs in header order.  Byte-equal
+    # to the JAX package's host engine.  A card engine's dump (RTPU)
+    # restores here too, and this engine's dumps restore there.
+    _DUMP_MAGIC = HOST_DUMP_MAGIC
+
+    def dump(self, name):
+        with self._lock:
+            o = self._live(name)
+            if o is None:
+                return None
+            m = o["model"]
+            scalars, arrays = {}, []
+            for k_, v_ in vars(m).items():
+                if isinstance(v_, np.ndarray):
+                    arrays.append(k_)
+                elif isinstance(v_, (int, np.integer)):
+                    scalars[k_] = int(v_)
+                else:  # pragma: no cover — golden models hold ints+arrays
+                    raise TypeError(f"non-serializable model field {k_!r}")
+            header = json.dumps(
+                {
+                    "v": 2,
+                    "kind": o["kind"],
+                    "params": dict(o["params"]),
+                    "model_cls": type(m).__name__,
+                    "scalars": scalars,
+                    "arrays": arrays,
+                    "topk": self.topk.export_state(name),
+                }
+            ).encode("utf-8")
+            buf = io.BytesIO()
+            for k_ in arrays:
+                np.save(buf, getattr(m, k_), allow_pickle=False)
+            return (
+                self._DUMP_MAGIC
+                + struct.pack("<I", len(header))
+                + header
+                + buf.getvalue()
+            )
+
+    # Per-class schemas for restore-time validation: dumps cross trust
+    # boundaries, so field names, dtypes, shapes, and bounds are all
+    # checked before a model is built (a forged blob must not create a
+    # corrupt object or a giant allocation).
+    _RESTORE_SCHEMAS = {
+        "GoldenBloomFilter": {
+            "scalars": {"size": (1, 1 << 33), "hash_iterations": (1, 64)},
+            "arrays": {"bits": (np.bool_, lambda s: (s["size"],))},
+        },
+        "GoldenHyperLogLog": {
+            "scalars": {},
+            "arrays": {"regs": (np.uint8, lambda s: (golden.HLL_M,))},
+        },
+        "GoldenCountMinSketch": {
+            "scalars": {"depth": (1, 64), "width": (1, 1 << 27)},
+            "arrays": {
+                "counts": (np.uint32, lambda s: (s["depth"], s["width"]))
+            },
+        },
+        "GoldenBitSet": {
+            "scalars": {},
+            "arrays": {"bits": (np.bool_, None)},  # any 1-D length ≤ cap
+        },
+    }
+
+    @classmethod
+    def decode_dump(cls, data: bytes, name: str):
+        """``(kind, params, model, topk state)`` of a host dump, every
+        field checked against its class schema (the candidate table too)
+        before anything is built."""
+        if len(data) < 8 or data[:4] != cls._DUMP_MAGIC:
+            raise ValueError("not a host-sketch dump (bad magic)")
+        (hlen,) = struct.unpack("<I", data[4:8])
+        if hlen > 1 << 16:
+            raise ValueError("dump header too large")
+        d = json.loads(data[8 : 8 + hlen].decode("utf-8"))
+        if d.get("v") != 2:
+            raise ValueError(f"unsupported dump version: {d.get('v')}")
+        cls_name = d.get("model_cls")
+        schema = cls._RESTORE_SCHEMAS.get(cls_name)
+        if schema is None:
+            raise ValueError(f"unknown model class {cls_name!r}")
+        # kind must agree with the model class — a forged blob pairing
+        # kind='cms' with a bloom model would create an object whose every
+        # later op feeds the wrong model the wrong arguments.
+        expected_kind = {
+            "GoldenBloomFilter": PoolKind.BLOOM,
+            "GoldenHyperLogLog": PoolKind.HLL,
+            "GoldenCountMinSketch": PoolKind.CMS,
+            "GoldenBitSet": PoolKind.BITSET,
+        }[cls_name]
+        if d.get("kind") != expected_kind:
+            raise ValueError(
+                f"dump kind {d.get('kind')!r} does not match {cls_name}"
+            )
+        if not isinstance(d.get("params"), dict):
+            raise ValueError("dump params must be a dict")
+        # Untrusted candidate table: validate BEFORE any mutation.
+        TopKStore.decode_state(d.get("topk"), name)
+        model_cls = getattr(golden, cls_name)
+        scalars = d.get("scalars", {})
+        if set(scalars) != set(schema["scalars"]):
+            raise ValueError(f"dump scalar fields {sorted(scalars)} do not "
+                             f"match {cls_name}")
+        for k_, (lo, hi) in schema["scalars"].items():
+            v_ = int(scalars[k_])
+            if not lo <= v_ <= hi:
+                raise ValueError(f"dump field {k_}={v_} out of range")
+            scalars[k_] = v_
+        if list(d.get("arrays", [])) != list(schema["arrays"]):
+            raise ValueError(f"dump array fields {d.get('arrays')} do not "
+                             f"match {cls_name}")
+        model = object.__new__(model_cls)
+        for k_, v_ in scalars.items():
+            setattr(model, k_, v_)
+        buf = io.BytesIO(data[8 + hlen :])
+        for k_, (want_dtype, want_shape) in schema["arrays"].items():
+            arr = safe_load_npy(buf)
+            if arr.dtype != want_dtype:
+                raise ValueError(f"dump array {k_} has dtype {arr.dtype}")
+            if want_shape is not None and arr.shape != want_shape(scalars):
+                raise ValueError(f"dump array {k_} has shape {arr.shape}")
+            if want_shape is None and (arr.ndim != 1 or arr.size > 1 << 33):
+                raise ValueError(f"dump array {k_} has bad geometry")
+            setattr(model, k_, arr.copy())  # writable (frombuffer is RO)
+        return d["kind"], d["params"], model, d.get("topk")
+
+    def restore(self, name, data: bytes, replace: bool = False) -> None:
+        if data[:4] == DEVICE_DUMP_MAGIC:
+            # A card engine's dump: its row becomes the golden model.
+            d, row = parse_device_dump(data)
+            topk = d.get("topk")
+            TopKStore.decode_state(topk, name)
+            check_dump_row(d, row)
+            kind = d["kind"]
+            model = model_from_row(kind, d["params"], row)
+            params = {} if kind == PoolKind.BITSET else d["params"]
+        else:
+            kind, params, model, topk = self.decode_dump(data, name)
+        topk_decoded = TopKStore.decode_state(topk, name)
+        with self._lock:
+            if self._live(name) is not None:
+                if not replace:
+                    raise ValueError(f"BUSYKEY: {name!r} already exists")
+                del self._objects[name]
+            self._guard_foreign(name)
+            self._objects[name] = {
+                "kind": kind,
+                "model": model,
+                "params": params,
+            }
+        # Unconditional: replaces (or clears) any previous object's table
+        # so a ghost heavy-hitter set never survives a replace.
+        self.topk.import_decoded(topk_decoded, name)
+
+    # -- bloom -------------------------------------------------------------
+
+    def bloom_try_init(self, name, expected_insertions, false_probability) -> bool:
+        m = golden.optimal_num_of_bits(expected_insertions, false_probability)
+        k = golden.optimal_num_of_hash_functions(expected_insertions, m)
+        with self._lock:
+            if self._lookup_kind(name, PoolKind.BLOOM) is not None:
+                return False
+            self._guard_foreign(name)
+            self._objects[name] = {
+                "kind": PoolKind.BLOOM,
+                "model": golden.GoldenBloomFilter(m, k),
+                "params": {
+                    "size": m,
+                    "hash_iterations": k,
+                    "expected_insertions": expected_insertions,
+                    "false_probability": false_probability,
+                },
+            }
+            return True
+
+    def bloom_add(self, name, H1, H2):
+        o = self._require(name, PoolKind.BLOOM)
+        model: golden.GoldenBloomFilter = o["model"]
+        h1m, h2m = hashing.km_reduce_mod(H1, H2, model.size)
+        with self._lock:
+            return ImmediateResult(model.add_hashed(h1m, h2m))
+
+    def bloom_contains(self, name, H1, H2):
+        o = self._require(name, PoolKind.BLOOM)
+        model = o["model"]
+        h1m, h2m = hashing.km_reduce_mod(H1, H2, model.size)
+        with self._lock:
+            return ImmediateResult(model.contains_hashed(h1m, h2m))
+
+    def bloom_count(self, name):
+        o = self._require(name, PoolKind.BLOOM)
+        with self._lock:
+            return ImmediateResult(o["model"].cardinality_estimate())
+
+    def bloom_add_encoded(self, name, blocks, lengths):
+        return self.bloom_add(name, *hashing.hash128_np(blocks, lengths))
+
+    def bloom_contains_encoded(self, name, blocks, lengths):
+        return self.bloom_contains(name, *hashing.hash128_np(blocks, lengths))
+
+    def bloom_mixed_encoded(self, name, blocks, lengths, flags):
+        """Ordered add/contains mix on one filter (front-door fused runs):
+        consecutive same-flag spans apply in order under one lock hold,
+        so results are bit-identical to the sequential command stream."""
+        o = self._require(name, PoolKind.BLOOM)
+        model = o["model"]
+        H1, H2 = hashing.hash128_np(blocks, lengths)
+        h1m, h2m = hashing.km_reduce_mod(H1, H2, model.size)
+        flags = np.asarray(flags, bool)
+        n = len(flags)
+        out = np.empty(n, bool)
+        with self._lock:
+            i = 0
+            while i < n:
+                j = i + 1
+                while j < n and flags[j] == flags[i]:
+                    j += 1
+                if flags[i]:
+                    out[i:j] = model.add_hashed(h1m[i:j], h2m[i:j])
+                else:
+                    out[i:j] = model.contains_hashed(h1m[i:j], h2m[i:j])
+                i = j
+        return ImmediateResult(out)
+
+    def bloom_replicate(self, name) -> bool:
+        return False  # one host copy; nothing to spread reads across
+
+    def bloom_is_replicated(self, name) -> bool:
+        return False
+
+    # -- hll ---------------------------------------------------------------
+
+    def _hll(self, name):
+        with self._lock:
+            o = self._lookup_kind(name, PoolKind.HLL)
+            if o is None:
+                self._guard_foreign(name)
+                o = {
+                    "kind": PoolKind.HLL,
+                    "model": golden.GoldenHyperLogLog(),
+                    "params": {},
+                }
+                self._objects[name] = o
+            return o
+
+    def hll_add(self, name, c0, c1, c2):
+        o = self._hll(name)
+        with self._lock:
+            model = o["model"]
+            before = int(model.regs.sum())
+            model.add_hashed(c0, c1, c2)
+            return ImmediateResult(int(model.regs.sum()) != before)
+
+    def hll_add_encoded(self, name, blocks, lengths):
+        c0, c1, c2, _ = hashing.murmur3_x86_128(blocks, lengths)
+        return self.hll_add(name, c0, c1, c2)
+
+    def hll_count(self, name):
+        o = self._lookup_kind(name, PoolKind.HLL)
+        with self._lock:
+            return ImmediateResult(0 if o is None else o["model"].count())
+
+    def hll_count_with(self, name, other_names) -> int:
+        with self._lock:
+            regs = None
+            for n in (name, *other_names):
+                o = self._lookup_kind(n, PoolKind.HLL)
+                if o is not None:
+                    r = o["model"].regs
+                    regs = r.copy() if regs is None else np.maximum(regs, r)
+            if regs is None:
+                return 0
+            hist = np.bincount(regs, minlength=golden.HLL_Q + 2)
+            return int(round(golden.ertl_estimate(hist)))
+
+    def hll_merge_with(self, name, other_names) -> None:
+        o = self._hll(name)
+        with self._lock:
+            for n in other_names:
+                src = self._lookup_kind(n, PoolKind.HLL)
+                if src is not None:
+                    o["model"].merge(src["model"])
+
+    # -- bitset ------------------------------------------------------------
+
+    def _bitset(self, name):
+        with self._lock:
+            o = self._lookup_kind(name, PoolKind.BITSET)
+            if o is None:
+                self._guard_foreign(name)
+                o = {
+                    "kind": PoolKind.BITSET,
+                    "model": golden.GoldenBitSet(),
+                    "params": {},
+                }
+                self._objects[name] = o
+            return o
+
+    def bitset_capacity_bits(self, name) -> int:
+        with self._lock:
+            o = self._lookup_kind(name, PoolKind.BITSET)
+            return 0 if o is None else o["model"].bits.size
+
+    def bitset_set(self, name, idx, value: bool):
+        o = self._bitset(name)
+        with self._lock:
+            return ImmediateResult(o["model"].set(np.asarray(idx, np.int64), value))
+
+    def bitset_flip(self, name, idx):
+        o = self._bitset(name)
+        with self._lock:
+            model = o["model"]
+            idx = np.asarray(idx, np.int64)
+            model._grow(int(idx.max()) + 1 if idx.size else 1)
+            prev = np.empty(len(idx), bool)
+            for j, ix in enumerate(idx):
+                prev[j] = model.bits[ix]
+                model.bits[ix] = not model.bits[ix]
+            return ImmediateResult(prev)
+
+    def bitset_get(self, name, idx):
+        with self._lock:
+            o = self._lookup_kind(name, PoolKind.BITSET)
+            if o is None:
+                return ImmediateResult(np.zeros(len(idx), bool))
+            return ImmediateResult(o["model"].get(np.asarray(idx, np.int64)))
+
+    def bitset_set_range(self, name, from_bit, to_bit, value: bool):
+        o = self._bitset(name)
+        with self._lock:
+            model = o["model"]
+            model._grow(int(to_bit))
+            model.bits[int(from_bit) : int(to_bit)] = value
+            return ImmediateResult(None)
+
+    def bitset_cardinality(self, name) -> int:
+        with self._lock:
+            o = self._lookup_kind(name, PoolKind.BITSET)
+            return 0 if o is None else o["model"].cardinality()
+
+    def bitset_length(self, name) -> int:
+        with self._lock:
+            o = self._lookup_kind(name, PoolKind.BITSET)
+            return 0 if o is None else o["model"].length()
+
+    def bitset_bitpos(self, name, target_bit: int) -> int:
+        with self._lock:
+            o = self._lookup_kind(name, PoolKind.BITSET)
+            if o is None:
+                return -1 if target_bit else 0
+            bits = o["model"].bits
+            matches = np.nonzero(bits == bool(target_bit))[0]
+            return int(matches[0]) if matches.size else (-1 if target_bit else bits.size)
+
+    def bitset_bitop(self, dest, src_names, op: str) -> None:
+        """Redis BITOP: sources are zero-padded to the max source length
+        (without mutating them), dest is replaced entirely; NOT complements
+        its single source's byte-aligned string (padding bits up to the
+        byte boundary flip to 1, as on a real Redis value) — mirrors
+        TorchSketchEngine."""
+        with self._lock:
+            srcs = [self._bitset(n)["model"] for n in src_names]
+            if op == "not":
+                size = -(-srcs[0].bits.size // 8) * 8
+                res = np.ones(size, dtype=bool)
+                res[: srcs[0].bits.size] = ~srcs[0].bits
+            else:
+                size = max((s.bits.size for s in srcs), default=0)
+
+                def padded(b):
+                    if b.size == size:
+                        return b
+                    p = np.zeros(size, dtype=bool)
+                    p[: b.size] = b
+                    return p
+
+                fn = {"and": np.logical_and, "or": np.logical_or, "xor": np.logical_xor}[op]
+                res = padded(srcs[0].bits).copy()
+                for s in srcs[1:]:
+                    res = fn(res, padded(s.bits))
+            d = self._bitset(dest)["model"]
+            d.bits = np.array(res, dtype=bool)
+
+    def bitset_to_bytes(self, name) -> bytes:
+        with self._lock:
+            o = self._lookup_kind(name, PoolKind.BITSET)
+            if o is None:
+                return b""
+            return np.packbits(o["model"].bits, bitorder="little").tobytes()
+
+    # -- cms ---------------------------------------------------------------
+
+    def cms_try_init(self, name, depth, width) -> bool:
+        with self._lock:
+            if self._lookup_kind(name, PoolKind.CMS) is not None:
+                return False
+            self._guard_foreign(name)
+            self._objects[name] = {
+                "kind": PoolKind.CMS,
+                "model": golden.GoldenCountMinSketch(depth, width),
+                "params": {"depth": depth, "width": width},
+            }
+            return True
+
+    def cms_total(self, name) -> int:
+        o = self._require(name, PoolKind.CMS)
+        with self._lock:
+            return int(np.asarray(o["model"].counts[0], np.uint64).sum())
+
+    def cms_reset(self, name) -> None:
+        o = self._require(name, PoolKind.CMS)
+        with self._lock:
+            o["model"].counts[:] = 0
+
+    def cms_add(self, name, H1, H2, weights):
+        o = self._require(name, PoolKind.CMS)
+        model: golden.GoldenCountMinSketch = o["model"]
+        h1w, h2w = hashing.km_reduce_mod(H1, H2, model.width)
+        with self._lock:
+            model.add_hashed(h1w, h2w, weights)
+            return ImmediateResult(
+                model.estimate_hashed(h1w, h2w).astype(np.uint32)
+            )
+
+    def cms_estimate(self, name, H1, H2):
+        o = self._require(name, PoolKind.CMS)
+        model = o["model"]
+        h1w, h2w = hashing.km_reduce_mod(H1, H2, model.width)
+        with self._lock:
+            return ImmediateResult(model.estimate_hashed(h1w, h2w).astype(np.uint32))
+
+    def cms_add_seq(self, name, H1, H2, weights):
+        """Exact-streaming semantics (parity with the card engine's K1 path):
+        one-op-at-a-time through the golden model."""
+        o = self._require(name, PoolKind.CMS)
+        model = o["model"]
+        h1w, h2w = hashing.km_reduce_mod(H1, H2, model.width)
+        weights = np.asarray(weights, np.uint32)
+        with self._lock:
+            est = np.zeros(len(h1w), np.uint32)
+            for j in range(len(h1w)):
+                model.add_hashed(h1w[j : j + 1], h2w[j : j + 1], weights[j : j + 1])
+                est[j] = model.estimate_hashed(h1w[j : j + 1], h2w[j : j + 1])[0]
+            return ImmediateResult(est)
+
+    def cms_merge(self, name, other_names) -> None:
+        o = self._require(name, PoolKind.CMS)
+        with self._lock:
+            for n in other_names:
+                src = self._require(n, PoolKind.CMS)
+                if (
+                    src["params"]["depth"] != o["params"]["depth"]
+                    or src["params"]["width"] != o["params"]["width"]
+                ):
+                    raise ValueError("cannot merge CMS with different geometry")
+                o["model"].merge(src["model"])

@@ -3,7 +3,8 @@
 engine and names the torch device it lives on (the card, or the CPU when
 the client was built with ``device="cpu"``); a sharded engine lists one
 node per shard this process holds, each on its placement's device, with
-its global shard number and this process's rank.  ``ping`` round-trips
+its global shard number and this process's rank (the host engine: one
+node on the host's CPU).  ``ping`` round-trips
 a tiny computation through the node's device; the failure monitor pings
 each distinct device once per sweep and reports every shard on it.
 
@@ -218,7 +219,12 @@ class NodesGroup:
         # One node per shard this process holds, each naming the device
         # its shard's placement lives on.
         eng = self._client._engine
-        rank = getattr(getattr(eng.executor, "ctx", None), "rank", 0)
+        ex = getattr(eng, "executor", None)
+        if ex is None:  # the host engine: one node, the host's CPU
+            import torch
+
+            return [Node(torch.device("cpu"), 0)]
+        rank = getattr(getattr(ex, "ctx", None), "rank", 0)
         return [Node(d, s, rank) for s, d in eng.mesh_shards()]
 
     def ping_all(self) -> bool:

@@ -809,11 +809,15 @@ class RespServer:
         # index (cluster/slotindex.py) through one fan-out closure, so
         # counts and names can never disagree about which writes were
         # seen.
+        # The host engine (use_host_sketch()) has no registry to hook, so
+        # there the counters see the grid only: not exact, and CLUSTER
+        # COUNTKEYSINSLOT scans, GETKEYSINSLOT too (no slot index).
         lm = self.loadmap = self.obs.loadmap
         lm.cluster = self.cluster is not None
         lm.sample_rate = float(client.config.loadmap_key_sample_rate)
+        reg = getattr(client._engine, "registry", None)
         idx = None
-        if self.cluster is not None:
+        if self.cluster is not None and reg is not None:
             from redisson_tpu_torch.cluster.slotindex import SlotKeyIndex
 
             idx = SlotKeyIndex()
@@ -824,10 +828,11 @@ class RespServer:
         else:
             _keyspace_note = lm.note_key
         client._grid.on_keyspace = _keyspace_note
-        client._engine.registry.on_keyspace = _keyspace_note
+        if reg is not None:
+            reg.on_keyspace = _keyspace_note
         names = client.get_keys().get_keys()
         lm.seed_keys(names)
-        self._loadmap_keys_exact = True
+        self._loadmap_keys_exact = reg is not None
         if idx is not None:
             idx.seed(names)
             self.cluster.slot_index = idx
@@ -2470,6 +2475,13 @@ class RespServer:
         "maxmemory": "0",  # rtpulint: disable=RT004 client-compat stub, no live semantics
         "maxmemory-policy": "noeviction",  # rtpulint: disable=RT004 client-compat stub, no live semantics
         "save": "",  # rtpulint: disable=RT004 client-compat stub, no live semantics
+        # appendonly/appendfsync: LIVE on the card engine (the durability
+        # tier) — _config_table_init overrides from the journal state and
+        # CONFIG SET toggles it; this static row serves the host engine
+        # (no journal to report).
+        # (INFO persistence reports it under the Redis name aof_enabled,
+        # as the JAX server does.)
+        "appendonly": "no",  # rtpulint: disable=RT004 live on the card engine (overridden in _config_table_init); host-engine stub only
         "databases": "1",  # rtpulint: disable=RT004 client-compat stub, no live semantics
         "timeout": "0",  # rtpulint: disable=RT004 client-compat stub, no live semantics
         "proto-max-bulk-len": "536870912",  # rtpulint: disable=RT004 client-compat stub, no live semantics
@@ -2555,11 +2567,12 @@ class RespServer:
                 "residency-promote-heat": f"{rm.promote_heat:g}",
             })
         eng = getattr(self._client, "_engine", None)
-        # Durability: appendonly/appendfsync are LIVE — CONFIG SET
-        # enables/disables journaling and switches the fsync policy on
-        # the running engine.
-        table["appendonly"] = "yes" if eng.journal is not None else "no"  # rtpulint: disable=RT004 INFO persistence reports it under the Redis name aof_enabled, as the JAX server does
-        table["appendfsync"] = str(eng.config.journal_fsync)
+        # Durability: appendonly/appendfsync are LIVE on an engine with
+        # the journal (not the host engine) — CONFIG SET enables/disables
+        # journaling and switches the fsync policy on the running engine.
+        if hasattr(eng, "journal_set_enabled"):
+            table["appendonly"] = "yes" if eng.journal is not None else "no"
+            table["appendfsync"] = str(eng.config.journal_fsync)
         c = getattr(eng, "coalescer", None)
         if c is not None:
             table["fetch-timeout-ms"] = str(
@@ -2866,7 +2879,11 @@ class RespServer:
                             f"Invalid argument '{pairs[i + 1].decode()}' "
                             f"for CONFIG SET 'appendonly'"
                         )
-                    if v == "yes" and not self._client.config.journal_dir:
+                    eng = getattr(self._client, "_engine", None)
+                    if v == "yes" and (
+                        not hasattr(eng, "journal_set_enabled")
+                        or not self._client.config.journal_dir
+                    ):
                         # Refused BEFORE any table write: GET must never
                         # report yes without a live journal behind it.
                         raise RespError(
@@ -2934,21 +2951,21 @@ class RespServer:
             for i in range(0, len(pairs), 2):
                 key = pairs[i].decode().lower()
                 val = pairs[i + 1].decode()
+                eng = self._client._engine
                 if key == "appendonly":
                     # APPLY before the table write: journal attach can
                     # fail at runtime (unwritable dir, disk full) though
                     # validation passed — GET must never report yes
                     # without a live journal behind it.
-                    try:
-                        self._client._engine.journal_set_enabled(
-                            val.lower() == "yes"
-                        )
-                    except (OSError, ValueError) as e:
-                        raise RespError(
-                            f"appendonly failed to apply: {e}"
-                        ) from e
-                elif key == "appendfsync":
-                    self._client._engine.journal_set_policy(val.lower())
+                    if hasattr(eng, "journal_set_enabled"):
+                        try:
+                            eng.journal_set_enabled(val.lower() == "yes")
+                        except (OSError, ValueError) as e:
+                            raise RespError(
+                                f"appendonly failed to apply: {e}"
+                            ) from e
+                elif key == "appendfsync" and hasattr(eng, "journal_set_policy"):
+                    eng.journal_set_policy(val.lower())
                 self._config_table[key] = val
                 self._audit_config_set(key, val)
                 # Live-apply the validated tunables.
@@ -3024,7 +3041,7 @@ class RespServer:
         records the journal cut and retires every covered segment
         (mark_snapshot), which is exactly the AOF-rewrite compaction."""
         eng, sdir = self._persist_engine()
-        if eng.journal is None:
+        if getattr(eng, "journal", None) is None:
             raise RespError("appendonly is off (no journal to rewrite)")
         threading.Thread(
             target=self._bg_snapshot, args=(eng, sdir),
@@ -3053,12 +3070,14 @@ class RespServer:
         ms = int(args[1])
         timeout_s = ms / 1000.0 if ms > 0 else None
         t0 = time.perf_counter()
+        # The host engine has no journal: no fsync fence to wait on.
+        fence = getattr(self._client._engine, "journal_fence", None)
         try:
-            if not self._client._engine.journal_fence(timeout=timeout_s):
+            if fence is not None and not fence(timeout=timeout_s):
                 raise RespError("BUSY RTPU journal fsync fence timed out")
         except JournalError as e:
             raise RespError(f"journal is broken: {e}") from e
-        tctx = _trace.current()
+        tctx = _trace.current() if fence is not None else None
         if tctx is not None and not isinstance(tctx, tuple):
             # Traced WAIT: the fsync fence is its own child span, so a
             # trace shows how much of the command was durability wait.
@@ -3092,7 +3111,7 @@ class RespServer:
         appendonly`` re-attach or a promotion makes a NEW lineage: a
         fresh repl_id, so stale offsets can never partial-resync against
         a different history)."""
-        j = self._client._engine.journal
+        j = getattr(self._client._engine, "journal", None)  # none on the host engine
         hub = self.repl_hub
         if j is None:
             if hub is not None:
@@ -3116,7 +3135,7 @@ class RespServer:
         link = self.replica_link
         if link is not None:
             return int(link.applied)
-        j = self._client._engine.journal
+        j = getattr(self._client._engine, "journal", None)
         return int(j.last_seq()) if j is not None else 0
 
     def _repl_lag(self) -> int:
@@ -4374,10 +4393,14 @@ class RespServer:
     )
 
     def _device_lines(self) -> list:
-        """The card (or CPU) the fronted engine's pools live on."""
+        """The card (or CPU) the fronted engine's pools live on; ``host``
+        for the host engine, which has no device."""
         import torch
 
-        dev = self._client._engine.executor.device
+        ex = getattr(self._client._engine, "executor", None)
+        if ex is None:
+            return ["rtpu_device:host", "rtpu_processes:1"]
+        dev = ex.device
         lines = [f"rtpu_device:{dev.type}"]
         if dev.type == "cuda":
             idx = dev.index if dev.index is not None else 0
@@ -4393,7 +4416,7 @@ class RespServer:
             )
         # The mesh: its placements' devices (repeats are separate
         # placements on one device) and the processes it spans.
-        ctx = getattr(self._client._engine.executor, "ctx", None)
+        ctx = getattr(ex, "ctx", None)
         if ctx is not None:
             lines.append("rtpu_placements:" + ",".join(str(d) for d in ctx.devices))
         group = None if ctx is None else ctx.group
@@ -4404,10 +4427,12 @@ class RespServer:
         return lines
 
     def _pool_bytes(self) -> int:
-        """Device-resident sketch pool bytes (every size-class pool)."""
-        return sum(
+        """Device-resident sketch pool bytes (every size-class pool; 0
+        on the host engine)."""
+        reg = getattr(self._client._engine, "registry", None)
+        return 0 if reg is None else sum(
             int(p.state.numel()) * p.state.element_size()
-            for p in self._client._engine.registry.pools()
+            for p in reg.pools()
         )
 
     def _cmd_INFO(self, args):
@@ -4520,7 +4545,7 @@ class RespServer:
                 # stock tooling expects, plus the journal's seq, lag and
                 # segment lines.
                 eng = getattr(self._client, "_engine", None)
-                j = eng.journal
+                j = getattr(eng, "journal", None)  # none on the host engine
                 lines += [
                     "# Persistence",
                     "loading:0",
@@ -5252,8 +5277,12 @@ class RespServer:
         if sub == "COUNTKEYSINSLOT":
             # O(1) from the load map's per-slot key counters (the keyspace
             # hooks are wired on both backends); DEBUG COUNTKEYSINSLOT
-            # keeps the O(keys) scan as a cross-check.
-            return _encode_int(self.loadmap.keys_in_slot(int(args[1])))
+            # keeps the O(keys) scan as a cross-check.  Without exact
+            # counters (the host engine) the scan answers.
+            slot = int(args[1])
+            if self._loadmap_keys_exact:
+                return _encode_int(self.loadmap.keys_in_slot(slot))
+            return _encode_int(len(door.keys_in_slot(slot)))
         if sub == "LOADMAP":
             # Node-local load snapshot as one JSON bulk: per-slot load
             # vectors (non-zero slots only), hot keys, tenant shares;
@@ -5471,10 +5500,17 @@ class RespServer:
 
     def _kind_of(self, name: str) -> Optional[str]:
         eng = self._client._engine
-        if eng.exists(name):
-            e = eng.registry.lookup(name)
-            if e is not None:
-                return e.kind
+        reg = getattr(eng, "registry", None)
+        if reg is not None:  # the card engine
+            if eng.exists(name):
+                e = reg.lookup(name)
+                if e is not None:
+                    return e.kind
+        else:  # the host engine
+            with eng._lock:
+                o = eng._live(name)
+                if o is not None:
+                    return o["kind"]
         e = self._client._grid.get_entry(name)
         return None if e is None else e.kind
 

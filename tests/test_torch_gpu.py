@@ -1104,3 +1104,38 @@ def test_placed_engine_on_the_card_equals_the_cpu(cuda, monkeypatch, placements)
     finally:
         for c in clients:
             c.shutdown()
+
+
+# -- the pre-hashed Bloom path on the card (chip_smoke.py phase 22a small) -------
+
+
+@pytest.mark.parametrize("arm", ["exact", "fast"])
+def test_hashed_bloom_on_the_card_equals_cpu_and_golden(cuda, arm):
+    """22a's two arms at 2**16 keys: the engine's bloom_add /
+    bloom_contains of host-hashed keys on the card and on the CPU give the
+    same flags (sequential for the exact arm, against the state before
+    each call for the fast one, both equal golden), the same contains and
+    byte-equal rows."""
+    import chip_smoke as cs
+    import redisson_tpu_torch as rt
+    from redisson_tpu_torch.codecs import LongCodec
+
+    kw = {} if arm == "exact" else {"exact_add_semantics": False, "coalesce": False}
+    n, chunk = 1 << 16, 1 << 14
+    H1, H2 = cs.p22_hashed(np.arange(n, dtype=np.uint64))
+    q = np.random.default_rng(3).integers(0, 2 * n, n).astype(np.uint64)
+    Q1, Q2 = cs.p22_hashed(q)
+    out = []
+    for device in ("cuda", "cpu"):
+        c = rt.create(rt.Config().set_codec(LongCodec()).use_gpu_sketch(device=device, **kw))
+        try:
+            r = cs.p22_arm(c, "hb", H1, H2, Q1, Q2, chunk)
+            out.append((r["flags"], r["hits"], cs.tenant_row(c, "hb").view(np.uint32)))
+            m, k = c.get_bloom_filter("hb").get_size(), c.get_bloom_filter("hb").get_hash_iterations()
+        finally:
+            c.shutdown()
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)
+    idx, seq, pre = cs.p22_golden(H1, H2, m, k, chunk)
+    np.testing.assert_array_equal(out[0][0], seq if arm == "exact" else pre)
+    np.testing.assert_array_equal(out[0][2], cs.p22_words(idx, out[0][2].shape[0]))

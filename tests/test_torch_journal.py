@@ -6,10 +6,9 @@ Three kinds of check:
 * the JAX package's own ``tests/test_journal.py`` classes run again on
   the port (``port_class`` rebinds their globals and in-body imports to
   the port, on the CPU; ``test_replay_onto_resharded_topology``
-  recovers onto a two-shard engine).  Skipped methods, each with its
-  reason: ``test_always_future_done_tracks_durability`` (it calls the JAX
-  engine's host-hashed ``bloom_add``, which the port does not carry; the
-  port's keyed form is checked below);
+  recovers onto a two-shard engine).  Every method runs, the
+  host-hashed ``bloom_add`` of ``test_always_future_done_tracks_durability``
+  included;
 * state carried across the packages: ``encode_record`` gives the same
   bytes for the same records, and a snapshot plus a journal tail written
   by either package recovers into the other with every pool byte-equal
@@ -90,9 +89,7 @@ def _port_journal_class(ref, skip=()):
 
 TestRecordCodec = _port_journal_class(_ref.TestRecordCodec)
 TestJournalCore = _port_journal_class(_ref.TestJournalCore)
-TestEngineRecovery = _port_journal_class(
-    _ref.TestEngineRecovery, skip=("test_always_future_done_tracks_durability",)
-)
+TestEngineRecovery = _port_journal_class(_ref.TestEngineRecovery)
 TestRecoveryEdgeCases = _port_journal_class(_ref.TestRecoveryEdgeCases)
 TestSnapshotCrashSafety = _port_journal_class(_ref.TestSnapshotCrashSafety)
 

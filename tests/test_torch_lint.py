@@ -29,20 +29,20 @@ def test_port_lints_clean(analyser, flags):
     out = proc.stdout + proc.stderr
     assert proc.returncode == 0, out
     assert "rtpulint: 0 violation(s)" in out, out
-    assert "lock graph: 48 locks" in out, out
+    assert "lock graph: 49 locks" in out, out
 
 
 def test_port_rt010_gate_over_the_named_locks():
-    """``--rule RT010``: the whole-tree lock graph over the port's 48
-    witness-named locks (the reference's 49 less the host engine's) has
-    no cycle; the CLI's default path is the port's package."""
+    """``--rule RT010``: the whole-tree lock graph over the port's 49
+    witness-named locks (the reference's 49, the host engine's included)
+    has no cycle; the CLI's default path is the port's package."""
     proc = subprocess.run(
         [sys.executable, "-m", "redisson_tpu_torch.analysis", "--rule", "RT010"],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
     )
     out = proc.stdout + proc.stderr
     assert proc.returncode == 0, out
-    assert "rtpulint: 0 violation(s), 0 suppressed; lock graph: 48 locks" in out, out
+    assert "rtpulint: 0 violation(s), 0 suppressed; lock graph: 49 locks" in out, out
 
 
 def test_new_tiers_are_linted():

@@ -9,8 +9,9 @@ redisson_tpu_torch.analysis``.  All 9 reference tests run.
 
 Added for the port:
 
-* the catalog equals the reference's named locks, site for site, less
-  ``engine.host`` (``REF_ONLY_LOCKS``: the port has no host engine);
+* the catalog equals the reference's named locks, site for site, all 49
+  of them (``engine.host`` is the port's ``HostSketchEngine`` lock;
+  ``REF_ONLY_LOCKS`` is empty);
 * the static edges equal the reference's, less ``REF_ONLY_EDGES`` and
   plus ``PORT_ONLY_EDGES``, each with its reason;
 * a lock order that would close a cycle through the port's real edges is
@@ -33,20 +34,14 @@ REF_PKG = os.path.join(REPO, "redisson_tpu")
 
 globals().update(_rebind(port_namespace(_ref, extra={"PKG": PORT_PKG})))
 
-# Named in the reference, with no counterpart in the port.
-REF_ONLY_LOCKS = {
-    "engine.host": "HostSketchEngine's lock (redisson_tpu/objects/engines.py:2948): the "
-                   "port has no host engine — RedissonTorchClient refuses a Config "
-                   "without use_gpu_sketch (client.py)",
-}
+# Named in the reference, with no counterpart in the port: none since the
+# port carries the host engine (its lock is engine.host).
+REF_ONLY_LOCKS: dict = {}
 
-# Edges of the reference's static graph the port's lacks.
+# Edges of the reference's static graph the port's lacks.  The host
+# engine's two (cluster.move -> engine.host, engine.host -> engine.topk)
+# are in both graphs now.
 REF_ONLY_EDGES = {
-    ("cluster.move", "engine.host"):
-        "the door's migrate_key reaches HostSketchEngine.remain_ttl_ms: no host engine "
-        "in the port",
-    ("engine.host", "engine.topk"):
-        "HostSketchEngine.dump -> TopKStore.export_state: no host engine in the port",
     ("grid.topics.bus", "grid.store"):
         "name resolution, infeasible: TopicBus.drain's nested pending() resolved to "
         "Stream.pending (which takes the grid lock); in the port the nested check is "
@@ -58,12 +53,10 @@ REF_ONLY_EDGES = {
         "fourth (K1's _build.load), past AMBIG_CAP, so no load call resolves",
 }
 
-# Edges only the port's static graph has.
+# Edges only the port's static graph has.  (cluster.move -> engine.topk
+# left this list with the host engine: its dump is the port's fourth dump
+# def too, past AMBIG_CAP, so neither pass follows dump from the door.)
 PORT_ONLY_EDGES = {
-    ("cluster.move", "engine.topk"):
-        "the door's migrate_key -> _dump_payload -> the engine's dump -> "
-        "TopKStore.export_state under the move guard; the reference has four dump defs "
-        "(the host engine's too), past AMBIG_CAP, so its pass never follows dump",
     ("engine.mirror", "engine.topk"):
         "the port's _snapshot_capture builds the meta (top-K tables included) inside the "
         "mirror -> registry -> dispatch locks; the reference builds it after releasing "
@@ -79,7 +72,7 @@ def graphs():
 def test_port_catalog_is_the_references_less_the_host_engine(graphs):
     ref, port = graphs
     assert set(port.catalog) == set(ref.catalog) - set(REF_ONLY_LOCKS)
-    assert len(ref.catalog) == 49 and len(port.catalog) == 48
+    assert len(ref.catalog) == 49 and len(port.catalog) == 49
     # Same name, same module: each lock is named at its counterpart site.
     # (A module-level lock is catalogued once per scan that meets it.)
     for name, sites in port.catalog.items():
@@ -120,7 +113,7 @@ def test_cli_dump_of_the_port_tree(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     dumped = json.loads(proc.stdout)
-    assert len(dumped["catalog"]) == 48 and "cluster.move -> engine.topk" in dumped["edges"]
+    assert len(dumped["catalog"]) == 49 and "engine.host -> engine.topk" in dumped["edges"]
 
 
 @pytest.mark.parametrize("flags", [[], ["--dump-lock-graph"], ["--rule", "RT010"]],

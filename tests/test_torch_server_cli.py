@@ -343,6 +343,35 @@ _TIERS = {
         "assert b'No active findings' in cc.execute('CLUSTER', 'DOCTOR')\n"
         "cc.close(); srv.close(); c.shutdown()\n"
     ),
+    # The host engine (use_host_sketch) behind a RESP server, its dumps
+    # restored into the card engine, and the pre-hashed Bloom path of the
+    # card engine in both add modes.
+    "host-engine": (
+        "import numpy as np\n"
+        "from redisson_tpu_torch.serve.resp import RespServer\n"
+        "from redisson_tpu_torch.serve.wireutil import exchange\n"
+        "from redisson_tpu_torch.utils import hashing\n"
+        "import socket\n"
+        "h = rt.create(rt.Config().use_host_sketch()); srv = RespServer(h)\n"
+        "s = socket.create_connection((srv.host, srv.port))\n"
+        "r = exchange(s, [[b'BF.RESERVE', b'hb', b'0.01', b'1000'],"
+        " [b'BF.MADD', b'hb', b'a', b'a'], [b'PFADD', b'hh', b'x']])\n"
+        "assert r[1] == [1, 0] and r[2] == 1, r\n"
+        "s.close(); srv.close()\n"
+        "hb = h.get_bloom_filter('ob'); hb.try_init(1000, 0.01); hb.add('a')\n"
+        "H1, H2 = hashing.hash128_np(*hashing.encode_uint64_batch("
+        "np.arange(64, dtype=np.uint64)))\n"
+        "for exact in (True, False):\n"
+        "    c = rt.create(rt.Config().use_gpu_sketch(device='cpu', coalesce=exact,"
+        " exact_add_semantics=exact))\n"
+        "    c._engine.restore('ob', h._engine.dump('ob'))\n"
+        "    assert c.get_bloom_filter('ob').contains('a')\n"
+        "    c.get_bloom_filter('x').try_init(1000, 0.01)\n"
+        "    assert c._engine.bloom_add('x', H1, H2).result().all()\n"
+        "    assert c._engine.bloom_contains('x', H1, H2).result().all()\n"
+        "    c.shutdown()\n"
+        "h.shutdown()\n"
+    ),
 }
 
 
@@ -361,7 +390,9 @@ def test_server_modules_import_neither_jax_nor_the_reference():
     an armed doctor routed through connect_cluster), the analysis tools
     (the lock-order witness, the schedule explorer, netsim, the analyser,
     the lock graph and their CLI, which gates the cluster tier; a serving
-    module that names its locks loads none of the analysers), the sharded
+    module that names its locks loads none of the analysers), the host
+    engine behind a RESP server with its dumps restored into the card
+    engine and the card engine's pre-hashed Bloom path, the sharded
     executor and the mesh (an 8-shard client resharded live and restored
     onto one shard), shards on several placements and processes (an
     8-shard client on four CPU placements resharded to one, and the
