@@ -183,9 +183,11 @@ the main path through the public client at full size:
            of 2**20 keys; the row and flags equal golden, every span's four
            phases sum to its end-to-end time within 1 us, spans = phase
            histogram samples = coalesced launches, op_stats counts every
-           key, the trace holds a launch span per launch, and the spans'
-           device_dispatch + d2h_fetch and rtpu_tenant_device_us are at
-           least the kernel + memcpy time the capture saw; config 5
+           key, the trace holds a launch span per launch, the spans'
+           event-timed device time over the kernel + memcpy time the
+           capture saw lies in P15_DEVICE_OVER_CARD and each span's is
+           below its enqueue + d2h_fetch, and
+           rtpu_tenant_device_us equals the spans' device time; config 5
            add_all_seq of 2**20 zipf(1.2) events under a second capture:
            rtpu_dispatches{cms_update_estimate_seq} = K1 launches,
            rtpu_dispatch_ops = 2**20, every K1 kernel launched inside an
@@ -4682,7 +4684,18 @@ P15_TELEMETRY = ("trace_sample_rate", "trace_spans", "trace_traces", "trace_max_
                  "trace_sampled_total", "trace_evicted_total", "latency_monitor_threshold",
                  "latency_events", "latency_samples", "monitors")
 P15_EVENTS = ("events_enabled", "events_len", "events_seq", "events_evicted", "events_max")
-PHASES = ("coalesce_wait", "host_stage", "device_dispatch", "d2h_fetch")
+PHASES = ("coalesce_wait", "host_stage", "slot_wait", "enqueue", "d2h_fetch")
+# The band of the add pass's event-timed device time (the spans'
+# device_s) over the kernel, memcpy and memset time its capture saw.  A
+# launch's events bracket its kernels and the gaps between them, which the
+# host's kernel issue leaves: readings 4.88-7.53 at P15's size, 8.36-15.54
+# at the card test's smaller one (NVIDIA H100 80GB HBM3, 700 W); the top is
+# about twice the largest.  Below 1 the events would miss device work.  The
+# band alone cannot tell event time from the host's dispatch and fetch
+# phases, which read 7.6-15.9 there: 15a also holds each span's device
+# time below its enqueue + d2h_fetch, the host interval that contains the
+# launch's work.
+P15_DEVICE_OVER_CARD = (1.0, 32.0)
 
 
 def p15_sync() -> None:
@@ -4834,7 +4847,7 @@ def p15a_spans(rng, card: str) -> dict:
         check(worst <= 1e-6, f"15a: phases miss end_to_end by {worst * 1e6:.3f} us")
         # Spans = phase-histogram samples = coalesced launches.
         hist = obs.registry.family("rtpu_op_phase_seconds")
-        n_hist = sum(c.count for (_op, ph), c in hist.items() if ph == "device_dispatch")
+        n_hist = sum(c.count for (_op, ph), c in hist.items() if ph == "enqueue")
         launches = client.get_metrics()["batches_total"] - batches0
         check(n_hist == len(spans) == launches,
               f"15a: {n_hist} phase samples, {len(spans)} spans, {launches} launches")
@@ -4847,16 +4860,24 @@ def p15a_spans(rng, card: str) -> dict:
         check(all(s["parent_id"] == root.span_id
                   and all(p + "_us" in s["attrs"] for p in PHASES) for s in lspans),
               "15a: a launch span lacks its parent or a phase")
-        # The spans cover the card: span device phases >= kernel + memcpy.
-        span_dev_us = sum((s.phases()["device_dispatch"] + s.phases()["d2h_fetch"]) * 1e6
-                          for s in add_spans)
+        # The spans' event-timed device time against the card's own.
+        check(all(s.device_s is not None for s in add_spans), "15a: a span lacks its device time")
+        over = [s for s in add_spans
+                if s.device_s >= s.phases()["enqueue"] + s.phases()["d2h_fetch"]]
+        check(not over, f"15a: {len(over)} spans' device time is not below their "
+              "enqueue + d2h_fetch")
+        span_dev_us = sum(s.device_s * 1e6 for s in add_spans)
         card_us = device_us(add_events)
+        ratio = span_dev_us / card_us if card_us else None
+        print(f"15a: span device time {span_dev_us:.1f} us, card {card_us:.1f} us, "
+              f"ratio {ratio}", flush=True)
         if P15_DEVICE == "cuda":
             check(card_us > 0, "15a: the add pass's capture holds no device activity")
-        check(span_dev_us >= card_us,
-              f"15a: spans claim {span_dev_us:.1f} us of device phases, the card spent {card_us:.1f}")
-        check(add_dev_tenant_us >= card_us,
-              f"15a: rtpu_tenant_device_us {add_dev_tenant_us:.1f} < card {card_us:.1f} us")
+            lo, hi = P15_DEVICE_OVER_CARD
+            check(lo <= ratio <= hi, f"15a: span device time over card time {ratio:.3f} "
+                  f"outside [{lo}, {hi}]")
+        check(abs(add_dev_tenant_us - span_dev_us) <= 0.1 * len(add_spans) + 0.05,
+              f"15a: rtpu_tenant_device_us {add_dev_tenant_us:.1f} != spans' {span_dev_us:.1f} us")
 
         # Config 5: K1's dispatch records and regions under a second capture.
         d, w = P15["d"], P15["w"]
@@ -4898,7 +4919,7 @@ def p15a_spans(rng, card: str) -> dict:
                "phase_sum_worst_us": worst * 1e6, "ops": ops,
                "add_pass_span_device_us": span_dev_us, "add_pass_card_us": card_us,
                "add_pass_tenant_device_us": add_dev_tenant_us,
-               "span_over_card": span_dev_us / card_us if card_us else None,
+               "span_over_card": ratio,
                "k1_dispatch_records": n_disp, "k1_launches": n_k1,
                "k1_dispatch_ops": n_ops, **regions,
                "phase_stats": obs.phase_stats(), "card": card}

@@ -75,6 +75,12 @@ Move = namedtuple("Move", ("slot", "src", "dst", "heat"))
 # device_us is folded into the ops-equivalent heat score at this rate:
 # 100us of device time weighs like one op, so a slot whose keys run
 # heavy fused kernels outranks an equal-op-count slot of cheap GETs.
+# The load map's device_us is each launch's time on its stream, from
+# timing events that bracket it (obs/spans.py LaunchTimer): its kernels
+# and copies, and the gaps between them in which the card waits for the
+# host to issue the next, but not the host's queueing, staging and fetch.
+# On an H100 that read 1.7-2.3x the profiler's busy time per launch in a
+# 2**20-key bulk contains, and 4.9-15.5x for small launches (PERF.md).
 DEVICE_US_PER_OP = 100.0
 
 

@@ -39,11 +39,22 @@ observes it.
 
 Spans (obs/spans.py): with an ``obs`` bundle, each segment carries one
 lifecycle span, stamped at the end of its queue wait and of its host
-staging (``_stage``), after its dispatch enqueue, and at retire, so the
-four phases partition the launch's end-to-end time.  A sampled
-request's ambient trace context (obs/trace.py) links to the span of
-every launch its ops ride; a merged-away segment's links move to the
-head's span.
+staging (``_stage``), when it holds a launch slot, after its dispatch
+enqueue, and at retire, so the five phases partition the launch's
+end-to-end time.  The span of a segment a public data call creates
+keeps when that call began and when it was admitted (the call is the
+submitting thread's ambient context, obs/spans.py ``current_call``), and
+the flush thread names the span it dispatches (``set_launch``), so the
+executor's launch timer can put each idle gap of the device before the
+launch down to the phase that held it.  A sampled request's ambient
+trace context (obs/trace.py) links to the span of every launch its ops
+ride; a merged-away segment's links move to the head's span.
+
+Profiler ranges: ``rtpu:stage`` around the staging and
+``rtpu:enqueue:<op>`` around the dispatch, opened only while a torch
+profiler records; no range covers a wait (admission, queue, launch
+slot, fetch), which would span, and so label, every device gap it sits
+through.
 """
 
 from __future__ import annotations
@@ -58,11 +69,10 @@ from concurrent.futures import Future
 from typing import Callable, Optional
 
 import numpy as np
-import torch
 
 from redisson_tpu_torch.analysis import witness as _witness
 from redisson_tpu_torch import chaos as _chaos
-from redisson_tpu_torch.obs import trace as _trace
+from redisson_tpu_torch.obs import spans as _spans, trace as _trace
 from redisson_tpu_torch.executor.failures import (
     DeadlineExceededError,
     DispatchTimeoutError,
@@ -290,6 +300,8 @@ class BatchCoalescer:
         if pool_key is None:
             pool_key = key
         fut: Future = Future()
+        call = _spans.current_call()
+        adm0 = adm1 = None
         with self._lock:
             if self._closed:
                 raise RuntimeError("coalescer is shut down")
@@ -318,6 +330,9 @@ class BatchCoalescer:
                 )
 
             if _full():
+                adm0 = time.monotonic()
+                if call is not None:
+                    call.pause()
                 ticket = object()
                 self._admit_q.append(ticket)
                 try:
@@ -339,6 +354,10 @@ class BatchCoalescer:
                 finally:
                     self._admit_q.remove(ticket)
                     self._admit.notify_all()
+                    adm1 = time.monotonic()
+                    if call is not None:
+                        call.admit_s += adm1 - adm0
+                        call.resume()
             if self._closed:
                 raise RuntimeError("coalescer is shut down")
             seg = self._open.get(key)
@@ -350,6 +369,7 @@ class BatchCoalescer:
                 seg = _Segment(key, pool_key, dispatch)
                 if self.obs is not None:
                     seg.span = self.obs.spans.start(_op_label(key))
+                    seg.span.first = (None if call is None else call.t0, adm0, adm1)
                 if meta is not None:
                     seg.metas = []
                 self._open[key] = seg
@@ -460,10 +480,12 @@ class BatchCoalescer:
     def _shed_segment(self, seg: _Segment) -> None:
         """Fail every future of a fully expired segment with
         DeadlineExceededError — strictly pre-dispatch (a parked retry
-        segment was dispatched but FAILED: equally unapplied)."""
+        segment was dispatched but FAILED: equally unapplied).  Its span
+        ends in one ``enqueue`` phase, as a failed dispatch's does, so
+        its queue time stays out of the ``coalesce_wait`` samples."""
         if seg.span is not None:
             seg.span.nops = seg.nops
-            seg.span.stamp("device_dispatch")
+            seg.span.stamp("enqueue")
             seg.span.finish(error=True)
         self._count_shed("deadline", "queue", seg.nops)
         e = DeadlineExceededError(
@@ -643,6 +665,8 @@ class BatchCoalescer:
                     stage_exc = e
                 if stage_exc is None:
                     self._acquire_launch_slot()
+                    if seg.span is not None:
+                        seg.span.stamp("slot_wait")
             self._flush(seg, cols, stage_exc)
 
     def _stage(self, seg: _Segment) -> list:
@@ -651,10 +675,11 @@ class BatchCoalescer:
         launches in flight); the span's host_stage phase is this work."""
         if seg.span is not None:
             seg.span.stamp("coalesce_wait")  # queue time ends here
-        cols = [
-            c[0] if len(c) == 1 else np.concatenate(c)
-            for c in zip(*seg.chunks)
-        ]
+        with _spans.host_range("rtpu:stage"):
+            cols = [
+                c[0] if len(c) == 1 else np.concatenate(c)
+                for c in zip(*seg.chunks)
+            ]
         if seg.span is not None:
             seg.span.stamp("host_stage")
         return cols
@@ -706,7 +731,7 @@ class BatchCoalescer:
     def _fail_futures(self, seg: _Segment, e: BaseException) -> None:
         if seg.span is not None:
             seg.span.nops = seg.nops
-            seg.span.stamp("device_dispatch")
+            seg.span.stamp("enqueue")
             seg.span.finish(error=True)
         for fut, start, n, _, _dl in seg.futures:
             if fut.set_running_or_notify_cancel():
@@ -735,8 +760,10 @@ class BatchCoalescer:
                 from redisson_tpu_torch.executor.health import CircuitOpenError
 
                 raise RetryExhaustedError(seg.attempts + 1, CircuitOpenError(0, op))
+            # The executor's launch timer reads which span it launches.
+            _spans.set_launch(seg.span)
             try:
-                with torch.profiler.record_function("rtpu:dispatch:" + op):
+                with _spans.host_range("rtpu:enqueue:" + op):
                     if seg.metas is not None:
                         lazy = seg.dispatch(cols, seg.metas)
                     else:
@@ -763,12 +790,14 @@ class BatchCoalescer:
                     self._requeue_locked(seg, time.monotonic() + backoff)
                 self._release_launch_slot(None)
                 return
+            finally:
+                _spans.set_launch(None)
             # No record_success here: an enqueue proves nothing (a device
             # whose every result fetch fails would reset the breaker's
             # streak each launch and never open).  The completer records
             # success once the result is home.
             if seg.span is not None:
-                seg.span.stamp("device_dispatch")  # enqueue done, async
+                seg.span.stamp("enqueue")  # enqueue done, async
             with self._lock:
                 self._inflight -= 1
             self._completions.put((seg, lazy, t0))
@@ -808,6 +837,17 @@ class BatchCoalescer:
             first = True
             for seg, lazy, t0 in group:
                 op = _op_label(seg.key)
+                if seg.span is not None:
+                    # Load attribution: the (tenant, nops) composition,
+                    # stashed before the fetch retires the launch, so the
+                    # launch timer bills its device time per tenant; only
+                    # while a loadmap is armed.
+                    lm = self.obs.launches.loadmap
+                    if lm is not None and lm.enabled:
+                        seg.span.tenants = [
+                            (t, n) for _, _, n, t, _ in seg.futures
+                            if t is not None
+                        ] or None
                 try:
                     res = lazy.result()
                 except Exception as e:
@@ -839,15 +879,6 @@ class BatchCoalescer:
                 self._ops_per_launch_ewma += 0.2 * (seg.nops - self._ops_per_launch_ewma)
                 if seg.span is not None:
                     seg.span.nops = seg.nops
-                    # Load attribution: the (tenant, nops) composition,
-                    # so the recorder splits the launch's device time per
-                    # tenant; only while a loadmap is armed.
-                    lm = self.obs.spans.loadmap
-                    if lm is not None and lm.enabled:
-                        seg.span.tenants = [
-                            (t, n) for _, _, n, t, _ in seg.futures
-                            if t is not None
-                        ] or None
                     seg.span.stamp("d2h_fetch")
                     seg.span.finish()
                 if self.obs is not None:

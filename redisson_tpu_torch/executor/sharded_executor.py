@@ -154,6 +154,9 @@ class ShardedTorchCommandExecutor(TorchCommandExecutor):
         self.ctx = pm.MeshContext(devices=self.devices, n_shards=n,
                                   group=process_group(self._cfg, self.device))
         self.S = self.ctx.n_shards
+        # A launch runs on every placement's device: one pair of timing
+        # events per distinct device.
+        self.launch_devices = tuple(dict.fromkeys(self.ctx.devices))
 
     # -- pool-state factory --------------------------------------------------
 

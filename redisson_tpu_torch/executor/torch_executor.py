@@ -22,7 +22,13 @@ Counterpart of ``redisson_tpu/executor/tpu_executor.py``:
   they reach the device, and turns a failure after the method's first
   in-place pool write into ``NonRetryableDispatchError``, so no retry
   applies an op twice.  The ``fetch`` and ``h2d.staging`` chaos points
-  sit at the D2H result copy and the staged H2D copy.
+  sit at the D2H result copy and the staged H2D copy;
+- the outermost wrapped call records a pair of timing events around the
+  launch on the stream of each of ``launch_devices`` (obs/spans.py
+  ``LaunchTimer``; the start moves to the launch's staged H2D copy,
+  ``_ship``, where it makes one), and the launch retires when its
+  ``LazyResult`` is fetched: its device time and the idle gap before it
+  are read then.
 
 PyTorch runs eagerly, so there is no compile cache; bucketing is kept
 because padded ops are part of the semantics the JAX package defines
@@ -47,6 +53,7 @@ from redisson_tpu_torch.executor.failures import (
     ExecutorRetiredError,
     NonRetryableDispatchError,
 )
+from redisson_tpu_torch.obs import spans as _spans
 from redisson_tpu_torch.parallel.mesh import Blocks, PlacedState as _PlacedState
 from redisson_tpu_torch.ops import (
     _build,
@@ -71,7 +78,10 @@ _SCAN_CHUNK = 1 << 20
 class LazyResult:
     """Async result handle (RFuture analog): holds a device tensor (or
     ``Blocks``); copies it to the host, slices off padding and applies
-    ``transform`` only on ``.result()``."""
+    ``transform`` only on ``.result()``.  The launch that produced it
+    (``_timing``, set by the dispatch wrapper) retires once it is home."""
+
+    _timing = None
 
     def __init__(self, value, n: Optional[int] = None, transform=None):
         self._value = value
@@ -82,6 +92,7 @@ class LazyResult:
     def result(self, timeout=None):
         # ``timeout`` accepted for signature parity with the coalescer's
         # HintedFuture; a tensor fetch is synchronous.
+        fetched = self._done is not None  # resolved by collect_group's copy
         if self._done is None:
             v = self._value
             if isinstance(v, (torch.Tensor, Blocks)):
@@ -90,7 +101,12 @@ class LazyResult:
                 if _chaos.ENABLED:
                     _chaos.fire("fetch")
                 v = v.to_host() if isinstance(v, Blocks) else v.cpu().numpy()
+                fetched = True
             self.resolve_from(v)
+        launch = self._timing
+        if launch is not None:
+            self._timing = None
+            launch.timer.retire(launch, fetched)
         return self._done
 
     def resolve_from(self, host):
@@ -379,13 +395,32 @@ def _locked(fn):
             return counted(self, *args, **kwargs)
         self._dispatch_recording = True
         t0 = time.monotonic()
+        launch = None
+        if obs is not None:
+            # Timing events around the launch on its streams; a coalesced
+            # launch carries its segment's span (the flush thread names it).
+            span = _spans.current_launch()
+            launch = obs.launches.begin(self.launch_devices,
+                                        name if span is None else span.op, span)
+        out = None
+        _spans.set_timing(launch)
         try:
-            # Named region in a torch.profiler capture: the card's kernels
-            # launched inside correlate with the dispatch records by name.
-            with torch.profiler.record_function(annotation):
+            # Named region in a torch.profiler capture (opened only while
+            # one records): the card's kernels launched inside correlate
+            # with the dispatch records by name.
+            with _spans.host_range(annotation):
                 out = counted(self, *args, **kwargs)
         finally:
+            _spans.set_timing(None)
             self._dispatch_recording = False
+            if launch is not None:
+                obs.launches.end(launch)
+                if isinstance(out, LazyResult):
+                    out._timing = launch
+                else:
+                    # No result to fetch (or already on the host): it
+                    # retires once its events are seen complete.
+                    obs.launches.retire(launch)
         dur = time.monotonic() - t0
         nops = _nops_of(name, args)
         if metrics is not None:
@@ -472,6 +507,8 @@ class TorchCommandExecutor:
         # The device slice; the single-device executor holds its first.
         self.devices = executor_devices(self._cfg)
         self.device = self.devices[0]
+        # The devices one launch runs on (its timing events' streams).
+        self.launch_devices = (self.device,)
         self._dispatch_lock = threading.RLock()
         # The engine's Observability bundle (direct-dispatch shed counts).
         self.obs = None
@@ -587,7 +624,11 @@ class TorchCommandExecutor:
     def _ship(self, host: torch.Tensor, device=None) -> torch.Tensor:
         if _chaos.ENABLED:  # staged-H2D fault point, before the copy
             _chaos.fire("h2d.staging", data=host.numpy())
-        return host.to(self.device if device is None else device, non_blocking=True)
+        device = self.device if device is None else device
+        timing = _spans.current_timing()
+        if timing is not None:  # the launch's device work starts with this copy
+            self.obs.launches.staged(timing, device)
+        return host.to(device, non_blocking=True)
 
     def collect_group(self, lazies) -> None:
         """Result mailbox: results of one (dtype, shape) are concatenated

@@ -5,15 +5,22 @@ org/redisson/RedissonObject.java and RedissonExpirable.java):
 name-addressed objects bound to a client engine with the RObject
 lifecycle (exists, delete, rename, TTL, DUMP/RESTORE); camelCase names
 (``tryInit``) alias the snake_case API.
+
+``data_call`` marks the public data calls of the objects' async paths:
+each is one call of the bundle's ``CallRecorder`` (obs/spans.py), with
+its encode phase ended by ``_encode`` (or ``_indexes``), its admission
+wait stamped by the coalescer, and the rest its submit phase.
 """
 
 from __future__ import annotations
 
+import functools
 import re
 
 import numpy as np
 
 from redisson_tpu_torch.codecs import encode_batch
+from redisson_tpu_torch.obs import spans as _spans
 from redisson_tpu_torch.utils import hashing
 
 _CAMEL_RE = re.compile(r"(?<!^)(?=[A-Z])")
@@ -37,6 +44,25 @@ class CamelCompatMixin:
         raise AttributeError(
             f"{type(self).__name__!r} object has no attribute {item!r}"
         )
+
+
+def data_call(fn):
+    """Open a per-call phase record around a public data call (nested
+    calls are the outer call's)."""
+    op = fn.__qualname__
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        calls = self._calls
+        call = None if calls is None else calls.begin(op)
+        if call is None:
+            return fn(self, *args, **kwargs)
+        try:
+            return fn(self, *args, **kwargs)
+        finally:
+            calls.end(call)
+
+    return wrapper
 
 
 class MappedFuture:
@@ -88,6 +114,7 @@ class RObject(CamelCompatMixin):
         self._client = client
         self._engine = client._engine
         self._codec = client.config.codec
+        self._calls = getattr(getattr(self._engine, "obs", None), "calls", None)
 
     def get_name(self) -> str:
         return self._name
@@ -143,7 +170,21 @@ class RObject(CamelCompatMixin):
     def _encode(self, objs) -> tuple[np.ndarray, np.ndarray]:
         if np.isscalar(objs) or isinstance(objs, (str, bytes)):
             objs = [objs]
-        return encode_batch(self._codec, objs)
+        with _spans.host_range("rtpu:encode"):
+            out = encode_batch(self._codec, objs)
+        call = _spans.current_call()
+        if call is not None:
+            call.encoded()
+        return out
+
+    @staticmethod
+    def _indexes(indexes) -> np.ndarray:
+        """Index arrays take the encode phase's place of a keyed call."""
+        out = np.asarray(indexes)
+        call = _spans.current_call()
+        if call is not None:
+            call.encoded()
+        return out
 
     def _hash128(self, objs):
         blocks, lengths = self._encode(objs)

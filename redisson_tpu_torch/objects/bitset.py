@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from redisson_tpu_torch.objects.base import RObject
+from redisson_tpu_torch.objects.base import RObject, data_call
 from redisson_tpu_torch.tenancy import PoolKind
 
 
@@ -28,7 +28,7 @@ class BitSet(RObject):
         return bool(self._engine.bitset_get(self._name, [index]).result()[0])
 
     def get_many(self, indexes) -> np.ndarray:
-        return self._engine.bitset_get(self._name, np.asarray(indexes)).result()
+        return self.get_many_async(indexes).result()
 
     def set(self, index, value: bool = True) -> bool:
         """→ RBitSet#set(index, value): the previous bit (an array of
@@ -41,15 +41,17 @@ class BitSet(RObject):
 
     def set_many(self, indexes, value: bool = True) -> np.ndarray:
         """Vectorized SETBIT: the previous bit per index."""
-        return self._engine.bitset_set(self._name, np.asarray(indexes), value).result()
+        return self.set_many_async(indexes, value).result()
 
     # RFuture-idiom async variants (→ RBitSetAsync#setAsync/getAsync).
 
+    @data_call
     def get_many_async(self, indexes):
-        return self._engine.bitset_get(self._name, np.asarray(indexes))
+        return self._engine.bitset_get(self._name, self._indexes(indexes))
 
+    @data_call
     def set_many_async(self, indexes, value: bool = True):
-        return self._engine.bitset_set(self._name, np.asarray(indexes), value)
+        return self._engine.bitset_set(self._name, self._indexes(indexes), value)
 
     def clear_bit(self, index: int) -> bool:
         """→ RBitSet#clear(index)."""

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from redisson_tpu_torch.objects.base import MappedFuture, RObject
+from redisson_tpu_torch.objects.base import MappedFuture, RObject, data_call
 from redisson_tpu_torch.tenancy import PoolKind
 
 
@@ -76,6 +76,7 @@ class BloomFilter(RObject):
         """→ RBloomFilter#add(Collection): number of newly-added elements."""
         return int(np.sum(self.add_all_async(objs).result()))
 
+    @data_call
     def add_all_async(self, objs):
         return self._engine.bloom_add_encoded(self._name, *self._encode(objs))
 
@@ -94,11 +95,13 @@ class BloomFilter(RObject):
         """Vectorized membership: bool per input."""
         return self.contains_all_async(objs).result()
 
+    @data_call
     def contains_all_async(self, objs):
         return self._engine.bloom_contains_encoded(self._name, *self._encode(objs))
 
     contains_async = contains_all_async
 
+    @data_call
     def mixed_async(self, objs, flags):
         """Ordered add/contains mix in ONE engine call: ``flags[i]`` True
         adds ``objs[i]`` (result: newly added), False tests membership.

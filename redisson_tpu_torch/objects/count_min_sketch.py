@@ -17,7 +17,7 @@ import math
 
 import numpy as np
 
-from redisson_tpu_torch.objects.base import MappedFuture, RObject
+from redisson_tpu_torch.objects.base import MappedFuture, RObject, data_call
 from redisson_tpu_torch.tenancy import PoolKind
 
 
@@ -38,6 +38,7 @@ class CountMinSketch(RObject):
     def estimate_deferred(self, obj):
         return MappedFuture(self.estimate_all_async([obj]), lambda v: int(v[0]))
 
+    @data_call
     def estimate_all_async(self, objs):
         H1, H2 = self._hash128(objs)
         return self._engine.cms_estimate(self._name, H1, H2)
@@ -91,6 +92,7 @@ class CountMinSketch(RObject):
     def add_all(self, objs, counts=None) -> np.ndarray:
         return self.add_all_async(objs, counts).result()
 
+    @data_call
     def add_all_async(self, objs, counts=None):
         # Materialize FIRST: a generator would be exhausted by the hash
         # pass, leaving _make_offer an empty key list (counters updated,

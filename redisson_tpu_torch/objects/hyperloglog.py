@@ -6,7 +6,7 @@ math runs on the device (ops/hll.py).
 
 from __future__ import annotations
 
-from redisson_tpu_torch.objects.base import MappedFuture, RObject
+from redisson_tpu_torch.objects.base import MappedFuture, RObject, data_call
 from redisson_tpu_torch.tenancy import PoolKind
 
 
@@ -35,6 +35,7 @@ class HyperLogLog(RObject):
         """→ RHyperLogLog#addAll(Collection)."""
         return bool(self.add_all_async(objs).result())
 
+    @data_call
     def add_all_async(self, objs):
         return self._engine.hll_add_encoded(self._name, *self._encode(objs))
 

@@ -5,15 +5,22 @@ per engine/client ties together:
 
 - ``registry`` — labeled counters, gauges and log2 histograms
   (obs/registry.py) rendered as typed Prometheus text;
-- ``spans`` — per-launch lifecycle spans feeding the phase histograms and
-  the load map's device-time attribution (obs/spans.py);
+- ``spans`` — per-launch lifecycle spans feeding the phase histograms
+  (obs/spans.py);
+- ``calls`` — the encode, admission-wait and submit phases of every
+  public data call (obs/spans.py);
+- ``launches`` — event-timed device time per executor launch, billed to
+  the load map, and each idle gap between launches put down to the host
+  phase that held the next (obs/spans.py);
 - ``slowlog`` — the SLOWLOG ring (obs/slowlog.py);
 - ``trace`` — the head-sampled distributed tracer (obs/trace.py);
 - ``latency`` — the LATENCY monitor (obs/latency.py);
 - ``events`` — the flight-recorder ring (obs/events.py);
 - ``loadmap`` — per-slot, per-key and per-tenant load (obs/loadmap.py).
 
-The families carry the JAX package's names, help text and labels.  The
+The families carry the JAX package's names, help text and labels, but
+for the three of ``calls`` and ``launches``, which the JAX package does
+not have (README.md, "Port-only families and phases").  The
 engine registers the health gauges (breaker state, degraded objects,
 coalescer queue and windows) and the tier and near-cache occupancy
 gauges on the same registry.
@@ -26,7 +33,12 @@ from redisson_tpu_torch.obs.latency import LatencyMonitor
 from redisson_tpu_torch.obs.loadmap import LoadMap
 from redisson_tpu_torch.obs.registry import Family, MetricsRegistry
 from redisson_tpu_torch.obs.slowlog import SlowLog, SlowLogEntry
-from redisson_tpu_torch.obs.spans import OpSpan, SpanRecorder
+from redisson_tpu_torch.obs.spans import (
+    CallRecorder,
+    LaunchTimer,
+    OpSpan,
+    SpanRecorder,
+)
 from redisson_tpu_torch.obs.trace import Tracer
 
 
@@ -256,7 +268,6 @@ class Observability:
             ("tenant", "op"), max_children=256)
         self.loadmap = LoadMap()
         self.loadmap.tenant_device_us_family = self.tenant_device_us
-        self.spans.loadmap = self.loadmap
         _lm = self.loadmap
         r.gauge_callback(
             "rtpu_loadmap_slot_ops",
@@ -376,6 +387,12 @@ class Observability:
             "applied; 0 on a primary)",
             lambda: float(self.repl_lag_source())
             if self.repl_lag_source is not None else 0.0)
+        # Port-only: the per-call phases, and the device's own time per
+        # launch with the idle gaps between launches by cause; the load
+        # map's per-tenant device time is the launches' event-timed time.
+        self.calls = CallRecorder(r)
+        self.launches = LaunchTimer(r)
+        self.launches.loadmap = self.loadmap
 
     def record_resp_command(self, cmd: str, duration_s: float,
                             error: bool) -> None:
@@ -396,10 +413,12 @@ class Observability:
                 self.shard_ops.inc((str(s),), int(c))
 
     def reset_op_stats(self) -> None:
-        """Zero the span-derived families and the trace ring (benches
-        call this after warmup, so compile-era samples stay out of the
-        warm-path view)."""
+        """Zero the span-derived families, the call phases, the launch
+        times and idle gaps, and the trace ring (benches call this after
+        warmup, so compile-era samples stay out of the warm-path view)."""
         self.spans.reset()
+        self.calls.reset()
+        self.launches.reset()
         self.trace.reset()
 
     def reset_command_stats(self) -> None:
@@ -461,8 +480,8 @@ class Observability:
 
     def phase_stats(self) -> dict:
         """{op: {phase: {launches, p50_ms, p99_ms}}} from the lifecycle
-        phase histograms (coalesce_wait / host_stage / device_dispatch /
-        d2h_fetch)."""
+        phase histograms (coalesce_wait / host_stage / slot_wait /
+        enqueue / d2h_fetch: host intervals, not device time)."""
         out: dict = {}
         h = self.spans._phase_hist
         for (op, phase), c in h.items():

@@ -135,8 +135,10 @@ class LatencyMonitor:
             "fsync-stall": "consider appendfsync everysec, a faster "
                            "disk, or a larger group-commit window",
             "slow-launch": "check rtpu_op_phase_seconds for the slow "
-                           "phase (coalesce_wait vs device_dispatch vs "
-                           "d2h_fetch) and the link-phase gauges",
+                           "phase (coalesce_wait, host_stage, slot_wait, "
+                           "enqueue or d2h_fetch), "
+                           "rtpu_launch_device_seconds for the device's "
+                           "own time, and the link-phase gauges",
             "breaker-open": "a device dispatch path is failing; see "
                             "rtpu_breaker_state and INFO stats "
                             "(degraded/breakers_open)",

@@ -26,9 +26,12 @@ accumulates exactly that, in three planes:
   structures decay by the same half-life, so "hot" means *recently*
   hot, not hot-ever (redis-cli --hotkeys over LFU has the same
   recency shape).
-- **Per-tenant device-time attribution** — the span recorder hands each
-  retiring launch's device-side microseconds here together with the
-  (tenant, nops) composition the coalescer stashed on the span; the
+- **Per-tenant device-time attribution** — the launch timer
+  (obs/spans.py ``LaunchTimer``) hands each retiring launch's device
+  microseconds, from timing events that bracket the launch on its
+  stream (host issue gaps between its kernels included), here
+  together with the (tenant, nops) composition the coalescer stashed on
+  the launch's span; the
   time is split proportionally to each tenant's op share.  Tenant
   cardinality is bounded: past ``max_tenants`` the coldest entries fold
   into one ``"other"`` bucket (never evicted), and the exported

@@ -748,13 +748,18 @@ def p15_small(cuda, monkeypatch):
 
 
 def test_spans_cover_the_card(p15_small):
-    """15a at a small size: the spans' device phases and the tenant's
-    attributed device time are at least the kernel and memcpy time the
-    profiler saw; K1's dispatch records equal its launches, and each K1
-    kernel of the trace sits inside its rtpu: region."""
+    """15a at a small size: the spans' event-timed device time over the
+    kernel and memcpy time the profiler saw lies in the band the card
+    run set, each span's is below its enqueue + d2h_fetch (15a checks
+    it), and the tenant's attributed device time is the spans';
+    K1's dispatch records equal its launches, and each K1 kernel of the
+    trace sits inside its rtpu: region."""
     out = p15_small.p15a_spans(np.random.default_rng(15), "test")
-    assert out["add_pass_span_device_us"] >= out["add_pass_card_us"] > 0
-    assert out["add_pass_tenant_device_us"] >= out["add_pass_card_us"]
+    lo, hi = p15_small.P15_DEVICE_OVER_CARD
+    assert out["add_pass_card_us"] > 0
+    assert lo <= out["span_over_card"] <= hi
+    assert out["add_pass_tenant_device_us"] == pytest.approx(
+        out["add_pass_span_device_us"], abs=0.5)
     assert out["k1_dispatch_records"] == out["k1_launches"] >= out["k1_kernels"] > 0
 
 

@@ -15,7 +15,8 @@ package's.
   JAX and the port ``LoadMap``, ``DecayedCMS`` and ``SpaceSavingTopK``
   give equal snapshots (the same float arithmetic: ``==``).
 * The engine path: launch device time reaches the tenant shares and
-  ``rtpu_tenant_device_us``.
+  ``rtpu_tenant_device_us``, and it is the spans' event-timed
+  ``device_s``.
 """
 
 import time
@@ -149,11 +150,15 @@ def test_exact_key_counters_and_device_time_on_the_engine_path():
         fam = cl.obs.registry.family("rtpu_tenant_device_us_total")
         assert sum(c.value for (t, _op), c in fam.items()
                    if t == "bf-dev") == pytest.approx(us, abs=0.05)
+        # The bill is the launches' own device time (event-timed; the
+        # launch's host duration on the CPU), not the spans' host phases.
         spans = [s for s in cl.obs.spans.recent() if s.tenants]
-        dev = sum((s.phases()["device_dispatch"] + s.phases()["d2h_fetch"])
-                  * 1e6 for s in spans
+        assert spans and all(s.device_s is not None for s in spans)
+        dev = sum(s.device_s * 1e6 for s in spans
                   if any(t == "bf-dev" for t, _ in s.tenants))
         assert us == pytest.approx(dev, abs=0.05)  # shares round to 0.1 us
+        assert dev < sum((s.phases()["enqueue"] + s.phases()["d2h_fetch"]) * 1e6
+                         for s in spans if any(t == "bf-dev" for t, _ in s.tenants))
     finally:
         conn.close()
         srv.close()

@@ -19,7 +19,12 @@ and INFO sections over the wire.
 
   ``test_metric_catalog_matches_doc`` is replaced by the port's own case
   of that name: the doc table's rows minus the families of modules not
-  yet ported (the shard family of item 5), exactly.
+  yet ported, plus the port-only families of README.md's "Port-only
+  families and phases" section, exactly.  ``test_span_phase_sum_matches_
+  end_to_end`` and ``test_prometheus_labels_and_types`` are replaced by
+  port cases of those names: the port's launch has five phases
+  (``slot_wait`` and ``enqueue`` where the JAX package has
+  ``device_dispatch``).
 * Pure modules under an injected clock: ``SlowLog`` and its argument
   truncation, fed the same seeded inputs in both packages, give equal
   snapshots.
@@ -29,6 +34,13 @@ and INFO sections over the wire.
   and the slowlog ids' start.
 * The spans' phases sum to ``end_to_end`` on a CPU port client, and every
   K1 call is one dispatch record.
+* The port-only records: every data call observes its three phases once;
+  the launch timer's idle gaps go to the phase that held the launch (a
+  caller's sleep to ``caller``, a slow staging to ``host_stage``) and
+  their causes sum to each gap; no ``record_function`` is entered while
+  no profiler records, and an all-threads profile shows ``rtpu:encode``,
+  ``rtpu:submit`` and ``rtpu:stage`` on the threads that do the work;
+  the added submit-path cost of a 1024-key call is bounded.
 """
 
 import inspect
@@ -48,6 +60,7 @@ import redisson_tpu_torch as rt  # noqa: E402
 import test_observability as _ref  # noqa: E402
 from _pytest.fixtures import FixtureFunctionDefinition  # noqa: E402
 from redisson_tpu_torch.obs import Observability  # noqa: E402
+from redisson_tpu_torch.obs.spans import PHASES  # noqa: E402
 from test_torch_grid_coordination import _one_torch_thread, port_case  # noqa: E402,F401
 
 
@@ -92,9 +105,76 @@ SKIPPED = {
         "keys every JAX device, the port every distinct device of the mesh",
     "test_metric_catalog_matches_doc":
         "replaced below by the port's catalog case of the same name",
+    "test_span_phase_sum_matches_end_to_end":
+        "replaced below by the port's case of the same name: five phases",
+    "test_prometheus_labels_and_types":
+        "replaced below by the port's case of the same name: the port's "
+        "phase labels",
 }
 
 port_module(_ref, globals(), skip=SKIPPED)
+
+
+def test_span_phase_sum_matches_end_to_end(tpu_client):
+    """The reference case on the port: the port's five launch phases
+    partition the end-to-end latency."""
+    bf = tpu_client.get_bloom_filter("span-bf")
+    bf.try_init(10_000, 0.01)
+    bf.add_all(np.arange(512, dtype=np.uint64))
+    bf.contains_each(np.arange(512, dtype=np.uint64))
+    spans = tpu_client.obs.spans.recent()
+    assert spans, "coalesced launches must leave spans"
+    for s in spans:
+        phases = s.phases()
+        assert set(phases) == set(PHASES)
+        assert sum(phases.values()) == pytest.approx(
+            s.end_to_end(), rel=1e-6, abs=1e-6
+        )
+        assert s.nops > 0 and not s.error
+        assert s.device_s is not None and 0 < s.device_s <= s.end_to_end()
+    snap = tpu_client.get_metrics()
+    assert snap["ops"], snap
+    assert any(
+        st["ops"] >= 1024 and st["p99_ms"] > 0
+        for st in snap["ops"].values()
+    ), snap["ops"]
+    assert snap["tenants"].get("span-bf", 0) >= 1024
+
+
+def test_prometheus_labels_and_types(tpu_client):
+    """The reference case on the port, with the port's phase labels and
+    its three port-only families typed."""
+    from redisson_tpu_torch.serve.resp import RespServer
+    from test_resp_server import RespClient
+
+    srv = RespServer(tpu_client)
+    conn = RespClient(srv.host, srv.port)
+    try:
+        conn.cmd("SET", "k", "v")
+        conn.cmd("GET", "k")
+        bf = tpu_client.get_bloom_filter("prom-bf")
+        bf.try_init(10_000, 0.01)
+        bf.add_all(np.arange(256, dtype=np.uint64))
+        bf.add_all(np.arange(256, 512, dtype=np.uint64))  # a gap between launches
+        text = tpu_client.render_prometheus()
+        assert "# TYPE rtpu_resp_commands_total counter" in text
+        assert 'rtpu_resp_commands_total{cmd="GET"} 1' in text
+        assert "# TYPE rtpu_tenant_ops_total counter" in text
+        assert 'tenant="prom-bf"' in text
+        assert "# TYPE rtpu_op_phase_seconds histogram" in text
+        for phase in PHASES:
+            assert f'phase="{phase}"' in text, phase
+        assert "# TYPE rtpu_call_phase_seconds histogram" in text
+        assert "# TYPE rtpu_launch_device_seconds histogram" in text
+        assert "# TYPE rtpu_device_idle_seconds_total counter" in text
+        assert "# TYPE rtpu_coalescer_queued_ops gauge" in text
+        assert "# TYPE rtpu_tenants gauge" in text
+        assert 'rtpu_tenants{kind="bloom"} 1' in text
+        assert "# TYPE rtpu_pool_rows gauge" in text
+        assert "# TYPE redisson_tpu_ops_total counter" in text
+    finally:
+        conn.close()
+        srv.close()
 
 
 # Families of the JAX package's bundle that wait with their modules: none
@@ -140,11 +220,20 @@ def _device_memory_case(cl, Profiler):
     assert not [ln for ln in fam if ln.startswith("rtpu_device_memory_bytes")]
 
 
-def _doc_families() -> set:
-    path = os.path.join(os.path.dirname(__file__), "..", "docs",
-                        "observability.md")
-    with open(path) as f:
-        section = f.read().split("### Labeled registry", 1)[1]
+# The port's own families, which the JAX package does not have
+# (README.md, "Port-only families and phases").
+PORT_ONLY_FAMILIES = {
+    "rtpu_call_phase_seconds", "rtpu_launch_device_seconds",
+    "rtpu_device_idle_seconds_total",
+}
+
+
+def _doc_families(path: str = "docs/observability.md",
+                  heading: str = "### Labeled registry") -> set:
+    """The ``rtpu_`` names of the tables under ``heading`` in ``path``,
+    up to the next second-level heading."""
+    with open(os.path.join(os.path.dirname(__file__), "..", path)) as f:
+        section = f.read().split(heading, 1)[1]
     section = section.split("\n## ", 1)[0]
     names = set()
     for line in section.splitlines():
@@ -156,10 +245,12 @@ def _doc_families() -> set:
 
 def test_metric_catalog_matches_doc():
     """docs/observability.md's labeled-registry table, less the families
-    of modules the port has not reached, is exactly what a
-    fully-featured port engine registers (coalescer, pre-warmer and
-    journal gauges)."""
-    doc = _doc_families()
+    of modules the port has not reached, with the table of README.md's
+    port-only section, is exactly what a fully-featured port engine
+    registers (coalescer, pre-warmer and journal gauges)."""
+    port_only = _doc_families("README.md", "### Port-only families and phases")
+    assert port_only == PORT_ONLY_FAMILIES
+    doc = _doc_families() | port_only
     assert WAITING_FAMILIES <= doc
     cfg = rt.Config().use_gpu_sketch(device="cpu", min_bucket=64, prewarm=True)
     cl = rt.create(cfg)
@@ -175,7 +266,8 @@ def test_metric_catalog_matches_doc():
 
 
 # The families of the tier's own modules (spans, trace, latency, events,
-# loadmap and the dispatch records).
+# loadmap, the dispatch records, and the port's call phases and launch
+# times).
 TIER_FAMILIES = {
     "rtpu_latency_events_total", "rtpu_trace_sampled_total",
     "rtpu_trace_spans_total", "rtpu_op_phase_seconds", "rtpu_op_seconds",
@@ -183,20 +275,24 @@ TIER_FAMILIES = {
     "rtpu_tenant_calls_total", "rtpu_dispatches_total",
     "rtpu_dispatch_ops_total", "rtpu_dispatch_enqueue_seconds",
     "rtpu_tenant_device_us_total", "rtpu_events_emitted_total",
-    "rtpu_events_evicted_total",
+    "rtpu_events_evicted_total", "rtpu_call_phase_seconds",
+    "rtpu_launch_device_seconds", "rtpu_device_idle_seconds_total",
 }
 
 
 def test_families_match_the_jax_bundle():
-    """Every family the port's bundle builds has the JAX family's name,
-    type and labels; the tier's own families its help text too."""
+    """Every family the port's bundle builds, but for exactly the three
+    port-only ones, has the JAX family's name, type and labels; the
+    tier's own families its help text too."""
     from redisson_tpu.obs import Observability as JaxObs
 
     j, t = JaxObs().registry, Observability().registry
     assert TIER_FAMILIES <= set(t._families)
-    assert set(t._families) <= set(j._families)
+    assert set(t._families) - set(j._families) == PORT_ONLY_FAMILIES
     assert set(j._families) - set(t._families) <= WAITING_FAMILIES
     for name, fam in t._families.items():
+        if name in PORT_ONLY_FAMILIES:
+            continue
         jf = j._families[name]
         assert (fam.labelnames, type(fam).__name__) == (
             jf.labelnames, type(jf).__name__), name
@@ -282,15 +378,15 @@ def test_span_phases_partition_end_to_end_and_count_the_launches():
         assert spans
         for s in spans:
             ph = s.phases()
-            assert set(ph) == {"coalesce_wait", "host_stage",
-                               "device_dispatch", "d2h_fetch"}
+            assert set(ph) == {"coalesce_wait", "host_stage", "slot_wait",
+                               "enqueue", "d2h_fetch"} == set(PHASES)
             assert abs(sum(ph.values()) - s.end_to_end()) < 1e-6
         hist = cl.obs.registry.family("rtpu_op_phase_seconds")
         counts = {lv: c.count for lv, c in hist.items()}
         ops = {lv[0] for lv in counts}
         for op in ops:
             n = [c for (o, ph), c in counts.items()
-                 if o == op and ph == "device_dispatch"]
+                 if o == op and ph == "enqueue"]
             assert n == [len(cl.obs.spans.recent(op))]
         assert cl.obs.tenant_stats()["sp"] == 4 * 4096
         assert sum(st["ops"] for st in cl.obs.op_stats().values()) == 4 * 4096
@@ -333,9 +429,14 @@ def test_get_metrics_nested_views_match_the_jax_client():
         assert tm["tenants"] == jm["tenants"] == {"gm": 300}
         assert tm["slowlog_len"] == jm["slowlog_len"] == 0
         assert tm["traces"] == jm["traces"] == {}
-        for view in ("ops", "phases"):
-            for op, st in tm[view].items():
-                assert set(st) == set(next(iter(jm[view].values())))
+        for op, st in tm["ops"].items():
+            assert set(st) == set(next(iter(jm["ops"].values())))
+        # The port's launch has its own five phases; each phase's view
+        # carries the JAX view's fields.
+        jfields = set(next(iter(next(iter(jm["phases"].values())).values())))
+        for op, st in tm["phases"].items():
+            assert set(st) == set(PHASES)
+            assert all(set(v) == jfields for v in st.values())
     finally:
         tc.shutdown()
         jc.shutdown()
@@ -372,6 +473,12 @@ def _encode(cmd) -> bytes:
 
 
 _NUM = re.compile(rb"\d+(\.\d+)?")
+_JAX_LAUNCH_ADVICE = (b"check rtpu_op_phase_seconds for the slow phase (coalesce_wait "
+                      b"vs device_dispatch vs d2h_fetch) and the link-phase gauges")
+_PORT_LAUNCH_ADVICE = (b"check rtpu_op_phase_seconds for the slow phase (coalesce_wait, "
+                       b"host_stage, slot_wait, enqueue or d2h_fetch), "
+                       b"rtpu_launch_device_seconds for the device's own time, and "
+                       b"the link-phase gauges")
 
 
 def _mask(cmd, reply, ids):
@@ -404,6 +511,9 @@ def _mask(cmd, reply, ids):
             assert b"command" in [r[0] for r in reply]
         return sorted({tuple(type(x).__name__ for x in r) for r in reply})
     if name == b"LATENCY" and sub == b"DOCTOR":
+        # The slow-launch advice names the phases of each package's
+        # launch; the port's own advice stands in for the JAX one's.
+        reply = reply.replace(_PORT_LAUNCH_ADVICE, _JAX_LAUNCH_ADVICE)
         return _NUM.sub(b"N", reply)
     if name == b"INFO":
         lines = []
