@@ -395,7 +395,7 @@ class ShardedTorchCommandExecutor(TorchCommandExecutor):
         only; murmur and the exact 64-bit mod run per shard."""
         wpr = pool.row_units
         blocks = np.asarray(blocks)
-        blocks_t, L = _trim_lanes(blocks)
+        blocks_t, L = _trim_lanes(blocks, self.obs)
         fn = pm.psharded_bloom_mixed_keys(self.ctx, k=k, words_per_row=wpr,
                                           target_lanes=L)
         B = blocks.shape[0]
@@ -488,7 +488,7 @@ class ShardedTorchCommandExecutor(TorchCommandExecutor):
         B = blocks.shape[0]
         if B == 0:
             return LazyResult(False)
-        blocks_t, L = _trim_lanes(blocks)
+        blocks_t, L = _trim_lanes(blocks, self.obs)
         p = self._part(np.full(B, row, np.int32))
         lengths = np.asarray(lengths, np.uint32)
         if lengths.ndim == 0:

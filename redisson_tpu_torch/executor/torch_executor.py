@@ -260,23 +260,46 @@ def _fill_bits(buf, off: int, n_pad: int, flags) -> int:
     return off + nw
 
 
+def _lane_pairs(blocks) -> bool:
+    """Whether a ``[B, L]`` lane block moves as 8-byte words: 4-byte
+    lanes, a whole number of lane pairs, the lanes of a row adjacent in
+    memory and every row starting a whole number of words apart."""
+    return (blocks.ndim == 2 and blocks.dtype.itemsize == 4
+            and blocks.shape[1] % 2 == 0 and blocks.strides[1] == 4
+            and blocks.strides[0] % 8 == 0)
+
+
 def _fill_blocks(buf, off: int, n_pad: int, blocks) -> int:
-    """Write a [B, L] uint32 lane block, zero-padded to [n_pad, L]."""
+    """Write a [B, L] uint32 lane block, zero-padded to [n_pad, L]; a
+    block of lane pairs (``_lane_pairs``) is copied as 8-byte words."""
     B, L = blocks.shape
-    view = buf[off : off + n_pad * L].reshape(n_pad, L)
+    view = buf[off : off + n_pad * L]
+    if _lane_pairs(blocks):
+        view = view.view(np.uint64).reshape(n_pad, L // 2)
+        blocks = blocks.view(np.uint64)
+    else:
+        view = view.reshape(n_pad, L)
     view[:B] = blocks
     view[B:] = 0
     return off + n_pad * L
 
 
-def _trim_lanes(blocks):
+def _trim_lanes(blocks, obs=None):
     """Drop trailing all-zero lane columns before the H2D copy (the
-    kernel rebuilds them, fastpath.pad_lanes); returns (trimmed, lanes)."""
+    kernel rebuilds them, fastpath.pad_lanes); returns (trimmed, lanes).
+    A block of lane pairs is scanned as 8-byte words and trimmed by whole
+    pairs (path ``wide``); any other block lane by lane (``narrow``).
+    Keys that all fit in one lane then ship two, the second all-zero.
+    ``obs`` counts the path in ``rtpu_lane_staging_total``."""
     L = blocks.shape[1]
-    used = L
-    while used > 1 and not np.any(blocks[:, used - 1]):
+    wide = _lane_pairs(blocks)
+    if obs is not None:
+        obs.lane_staging.inc(("wide" if wide else "narrow",))
+    cols, step = (blocks.view(np.uint64), 2) if wide else (blocks, 1)
+    used = cols.shape[1]
+    while used > 1 and not np.any(cols[:, used - 1]):
         used -= 1
-    return blocks[:, :used], L
+    return blocks[:, : used * step], L
 
 
 # Row-maintenance methods exempt from the direct-dispatch deadline shed:
@@ -746,7 +769,7 @@ class TorchCommandExecutor:
         and flags: device hash + the exact sequential mixed op."""
         B = blocks.shape[0]
         Bp = self._bucket(B)
-        blocks, L = _trim_lanes(blocks)
+        blocks, L = _trim_lanes(blocks, self.obs)
         Lt = blocks.shape[1]
         Wb = Bp >> 5
         total = 3 * Bp + Wb + Bp * Lt
@@ -781,7 +804,7 @@ class TorchCommandExecutor:
         ends up with the same bits in both."""
         B = int(run_starts[-1])
         Bp = self._bucket(B)
-        blocks, L = _trim_lanes(blocks)
+        blocks, L = _trim_lanes(blocks, self.obs)
         Lt = blocks.shape[1]
         C = len(run_rows)
         Cp = max(1024, _pow2ceil(C))
@@ -825,7 +848,7 @@ class TorchCommandExecutor:
     def _keys_block(self, blocks, lengths):
         """Ship [B, Lt] key lanes + per-op lengths in one H2D."""
         B = blocks.shape[0]
-        blocks, L = _trim_lanes(blocks)
+        blocks, L = _trim_lanes(blocks, self.obs)
         Lt = blocks.shape[1]
         buf, host = self._staging(B + B * Lt)
         _fill_words(buf, 0, B, np.asarray(lengths, np.uint32), np.uint32)

@@ -19,11 +19,12 @@ per engine/client ties together:
 - ``loadmap`` — per-slot, per-key and per-tenant load (obs/loadmap.py).
 
 The families carry the JAX package's names, help text and labels, but
-for the three of ``calls`` and ``launches``, which the JAX package does
-not have (README.md, "Port-only families and phases").  The
-engine registers the health gauges (breaker state, degraded objects,
-coalescer queue and windows) and the tier and near-cache occupancy
-gauges on the same registry.
+for the three of ``calls`` and ``launches`` and the executor's
+``rtpu_lane_staging_total``, which the JAX package does not have
+(README.md, "Port-only families and phases").  The engine registers
+the health gauges (breaker state, degraded objects, coalescer queue and
+windows) and the tier and near-cache occupancy gauges on the same
+registry.
 """
 
 from __future__ import annotations
@@ -87,6 +88,13 @@ class Observability:
         self.dispatch_ops = r.counter(
             "rtpu_dispatch_ops", "ops dispatched, by executor method",
             ("method",))
+        # Key blocks staged for a keyed launch, by how their lanes moved
+        # on the host (executor/torch_executor.py ``_trim_lanes``).
+        self.lane_staging = r.counter(
+            "rtpu_lane_staging",
+            "key blocks staged for a keyed launch, by lane path "
+            "(wide: lanes scanned as 8-byte words, and copied so on one "
+            "card | narrow: 4-byte lanes)", ("path",))
         self.dispatch_seconds = r.histogram(
             "rtpu_dispatch_enqueue_seconds",
             "host-side dispatch enqueue time, by method", ("method",))

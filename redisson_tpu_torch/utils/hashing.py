@@ -291,9 +291,11 @@ def encode_bytes_batch(items) -> tuple[np.ndarray, np.ndarray]:
 def encode_uint64_batch(arr) -> tuple[np.ndarray, np.ndarray]:
     """Fast path for integer keys: ``uint64[B] -> (uint32[B, 4], 8)``,
     bit-identical to routing LongCodec bytes through
-    ``encode_bytes_batch``."""
+    ``encode_bytes_batch``.  The block is built as a C-contiguous
+    ``uint64[B, 2]`` (the key's 8 little-endian bytes, then the zero
+    padding) and written in two 8-byte-wide passes."""
     a = np.ascontiguousarray(arr, dtype="<u8")
-    n = a.shape[0]
-    blocks = np.zeros((n, 4), dtype=np.uint32)
-    blocks[:, :2] = a.view("<u4").reshape(n, 2)
-    return blocks, np.full((n,), 8, dtype=np.uint32)
+    words = np.empty((a.shape[0], 2), dtype="<u8")
+    words[:, 0] = a
+    words[:, 1] = 0
+    return words.view("<u4"), np.full((a.shape[0],), 8, dtype=np.uint32)

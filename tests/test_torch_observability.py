@@ -143,7 +143,7 @@ def test_span_phase_sum_matches_end_to_end(tpu_client):
 
 def test_prometheus_labels_and_types(tpu_client):
     """The reference case on the port, with the port's phase labels and
-    its three port-only families typed."""
+    its four port-only families typed."""
     from redisson_tpu_torch.serve.resp import RespServer
     from test_resp_server import RespClient
 
@@ -167,6 +167,7 @@ def test_prometheus_labels_and_types(tpu_client):
         assert "# TYPE rtpu_call_phase_seconds histogram" in text
         assert "# TYPE rtpu_launch_device_seconds histogram" in text
         assert "# TYPE rtpu_device_idle_seconds_total counter" in text
+        assert "# TYPE rtpu_lane_staging_total counter" in text
         assert "# TYPE rtpu_coalescer_queued_ops gauge" in text
         assert "# TYPE rtpu_tenants gauge" in text
         assert 'rtpu_tenants{kind="bloom"} 1' in text
@@ -224,7 +225,7 @@ def _device_memory_case(cl, Profiler):
 # (README.md, "Port-only families and phases").
 PORT_ONLY_FAMILIES = {
     "rtpu_call_phase_seconds", "rtpu_launch_device_seconds",
-    "rtpu_device_idle_seconds_total",
+    "rtpu_device_idle_seconds_total", "rtpu_lane_staging_total",
 }
 
 
@@ -281,7 +282,7 @@ TIER_FAMILIES = {
 
 
 def test_families_match_the_jax_bundle():
-    """Every family the port's bundle builds, but for exactly the three
+    """Every family the port's bundle builds, but for exactly the four
     port-only ones, has the JAX family's name, type and labels; the
     tier's own families its help text too."""
     from redisson_tpu.obs import Observability as JaxObs
