@@ -421,10 +421,15 @@ def _locked(fn):
         launch = None
         if obs is not None:
             # Timing events around the launch on its streams; a coalesced
-            # launch carries its segment's span (the flush thread names it).
+            # launch carries its segment's span (the flush thread names it),
+            # a direct one the stamps of the data call making it.
             span = _spans.current_launch()
+            call = None
+            if span is None:
+                call = _spans.current_call()
+                call = None if call is None else call.stamps()
             launch = obs.launches.begin(self.launch_devices,
-                                        name if span is None else span.op, span)
+                                        name if span is None else span.op, span, call)
         out = None
         _spans.set_timing(launch)
         try:

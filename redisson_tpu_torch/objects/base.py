@@ -6,10 +6,12 @@ name-addressed objects bound to a client engine with the RObject
 lifecycle (exists, delete, rename, TTL, DUMP/RESTORE); camelCase names
 (``tryInit``) alias the snake_case API.
 
-``data_call`` marks the public data calls of the objects' async paths:
-each is one call of the bundle's ``CallRecorder`` (obs/spans.py), with
-its encode phase ended by ``_encode`` (or ``_indexes``), its admission
-wait stamped by the coalescer, and the rest its submit phase.
+``data_call`` marks the public data calls of the objects' async paths
+(and the count-min sketch's streaming ``add_all_seq``): each is one call
+of the bundle's ``CallRecorder`` (obs/spans.py), with its encode phase
+ended by ``_encode`` (or ``_indexes``), its admission wait stamped by
+the coalescer, the stages its path times (``hash``, ``drain``,
+``fetch``, ``offer``) carved out, and the rest its submit phase.
 """
 
 from __future__ import annotations
@@ -187,5 +189,9 @@ class RObject(CamelCompatMixin):
         return out
 
     def _hash128(self, objs):
+        """Encode, then MurmurHash3 on the host: the call's ``hash`` stage."""
         blocks, lengths = self._encode(objs)
-        return hashing.hash128_np(blocks, lengths)
+        t = _spans.clock()
+        out = hashing.hash128_np(blocks, lengths)
+        _spans.spent("hash", t)
+        return out

@@ -14,10 +14,12 @@ on device so the ranking reflects current counts exactly.
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 
 from redisson_tpu_torch.objects.base import MappedFuture, RObject, data_call
+from redisson_tpu_torch.obs import spans as _spans
 from redisson_tpu_torch.tenancy import PoolKind
 
 
@@ -108,7 +110,7 @@ class CountMinSketch(RObject):
         k = self._engine.topk.track(self._name)
         if not k:
             return fut
-        return _OfferOnResult(fut, self._make_offer(objs, k))
+        return _OfferOnResult(fut, self._make_offer(objs, k), self._calls)
 
     def _make_offer(self, objs, k: int):
         """Top-K candidate feed shared by add_all_async and add_all_seq:
@@ -148,13 +150,17 @@ class CountMinSketch(RObject):
 
         return offer
 
+    @data_call
     def add_all_seq(self, objs, counts=None) -> np.ndarray:
         """Streaming variant of add_all (kernel K1, ops/cms_seq.py): each
         op's returned estimate is its
         AT-SEQUENCE-POINT value — its own update applied, LATER ops in
         the batch excluded (five adds of one key return 1,2,3,4,5).
         add_all's vectorized path instead returns post-whole-batch
-        estimates (5,5,5,5,5); the final table is identical either way."""
+        estimates (5,5,5,5,5); the final table is identical either way.
+        One data call: ``encode``, ``hash``, the engine's ``drain``,
+        ``submit`` (K1's host issue), the ``fetch`` of the estimates and
+        the top-K ``offer``."""
         if not isinstance(objs, np.ndarray):
             objs = list(objs)  # generators: see add_all_async
         H1, H2 = self._hash128(objs)
@@ -163,13 +169,17 @@ class CountMinSketch(RObject):
         fut = self._engine.cms_add_seq(
             self._name, H1, H2, np.asarray(counts, np.uint32)
         )
+        t = _spans.clock(wait=True)
         res = np.asarray(fut.result())
+        _spans.spent("fetch", t)
         k = self._engine.topk.track(self._name)
         if k:
             # Sequential estimates are per-op lower than batch-final; the
             # shared table max-merges, so offering them is still sound —
             # same unique-key/cap selection as add_all_async.
+            t = _spans.clock()
             self._make_offer(objs, k)(res)
+            _spans.spent("offer", t)
         return res
 
     def estimate(self, obj) -> int:
@@ -203,11 +213,13 @@ class CountMinSketch(RObject):
 
 class _OfferOnResult:
     """Future adapter: feeds the engine's top-K table exactly once when the
-    batch's estimates materialize."""
+    batch's estimates materialize, and records how long that took as the
+    ``offer`` stage of ``add_all_async`` (its call has returned by then)."""
 
-    def __init__(self, fut, offer):
+    def __init__(self, fut, offer, calls=None):
         self._fut = fut
         self._offer = offer
+        self._calls = calls
         self._done_val = None
         self._offered = False
 
@@ -215,7 +227,11 @@ class _OfferOnResult:
         v = self._fut.result(*a, **kw)
         if not self._offered:
             self._offered = True
+            t = time.monotonic()
             self._done_val = self._offer(v)
+            if self._calls is not None:
+                self._calls.observe(
+                    "CountMinSketch.add_all_async", "offer", time.monotonic() - t)
         return self._done_val if self._done_val is not None else v
 
     def get(self):

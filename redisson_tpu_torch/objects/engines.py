@@ -97,7 +97,7 @@ from redisson_tpu_torch.objects.durability import (
     parse_device_dump,
     safe_load_npy,
 )
-from redisson_tpu_torch.obs import Observability
+from redisson_tpu_torch.obs import Observability, spans as _spans
 from redisson_tpu_torch.ops import bitset as bitset_ops, golden
 from redisson_tpu_torch.storage import ResidencyManager
 from redisson_tpu_torch.tenancy import PoolKind, TenantGovernor, TenantRegistry
@@ -201,11 +201,22 @@ class TopKStore:
     CountMinSketch handle for ``name`` sees ONE table of candidate keys
     with their last-seen estimates, max-merged and pruned; ``top_k()``
     re-estimates candidates on the device, so the table only needs to
-    not LOSE heavy keys."""
+    not LOSE heavy keys.  With an observability bundle (``obs``) it
+    counts the keys offered (``rtpu_topk_offered_total``) and the prunes
+    (``rtpu_topk_prunes_total``), and keeps the candidates held over
+    every table in ``rtpu_topk_candidates``."""
 
-    def __init__(self):
+    def __init__(self, obs=None):
         self._lock = _witness.named(threading.Lock(), "engine.topk")
         self._tables: dict[str, dict] = {}
+        self._obs = obs
+        self._held = 0  # candidates over every table
+
+    def _recount(self) -> None:
+        """Recount the candidates held (under the lock)."""
+        self._held = sum(len(t["cands"]) for t in self._tables.values())
+        if self._obs is not None:
+            self._obs.topk_candidates.set((), self._held)
 
     def configure(self, name: str, k: int) -> None:
         with self._lock:
@@ -228,18 +239,28 @@ class TopKStore:
             if t is None:
                 return
             cands = t["cands"]
+            before = len(cands)
             for key, est in zip(keys, estimates):
                 e = int(est)
                 if cands.get(key, 0) < e:
                     cands[key] = e
             cap = 4 * max(t["k"], 16)
-            if len(cands) > 2 * cap:
+            pruned = len(cands) > 2 * cap
+            if pruned:
                 keep = heapq.nlargest(cap, cands.items(), key=lambda kv: kv[1])
                 t["cands"] = dict(keep)
+            obs = self._obs
+            if obs is not None:
+                self._held += len(t["cands"]) - before
+                obs.topk_candidates.set((), self._held)
+                obs.topk_offered.inc((), len(keys))
+                if pruned:
+                    obs.topk_prunes.inc()
 
     def drop(self, name: str) -> None:
         with self._lock:
-            self._tables.pop(name, None)
+            if self._tables.pop(name, None) is not None:
+                self._recount()
 
     def candidates(self, name: str) -> list:
         with self._lock:
@@ -252,6 +273,7 @@ class TopKStore:
             t = self._tables.pop(old, None)
             if t is not None:
                 self._tables[new] = t
+            self._recount()
 
     # -- durability: snapshots and CMS dumps carry the candidate tables,
     # data-only (losing them would forget every heavy hitter while the
@@ -340,8 +362,9 @@ class TopKStore:
                 self._tables.pop(name, None)  # never keep a ghost table
                 if decoded:
                     self._tables[name] = decoded
-                return
-            self._tables.update(decoded or {})
+            else:
+                self._tables.update(decoded or {})
+            self._recount()
 
     def import_state(self, state, name: Optional[str] = None) -> None:
         self.import_decoded(self.decode_state(state, name), name)
@@ -476,7 +499,7 @@ class TorchSketchEngine(SketchDurabilityMixin):
             lambda point, kind: self.obs.faults_injected.inc((point, kind))
         )
         _chaos.set_observer(self._chaos_observer)
-        self.topk = TopKStore()
+        self.topk = TopKStore(self.obs)
         # Wired by the client to the grid store's lock-free ``probe`` —
         # one logical keyspace across both backends (WRONGTYPE on
         # cross-backend reuse).
@@ -2443,7 +2466,9 @@ class TorchSketchEngine(SketchDurabilityMixin):
     def _cms_add_impl(self, name, H1, H2, weights):
         entry = self._require(name, PoolKind.CMS)
         d, w = entry.params["depth"], entry.params["width"]
+        t = _spans.clock()
         h1w, h2w = hashing.km_reduce_mod(H1, H2, w)
+        _spans.spent("hash", t)
         wts = np.asarray(weights, np.uint32)
         res = self._serve_degraded(
             entry, len(H1), lambda mir: mir.update_estimate(h1w, h2w, wts))
@@ -2490,7 +2515,9 @@ class TorchSketchEngine(SketchDurabilityMixin):
 
     def _cms_estimate_dispatch(self, entry, H1, H2):
         d, w = entry.params["depth"], entry.params["width"]
+        t = _spans.clock()
         h1w, h2w = hashing.km_reduce_mod(H1, H2, w)
+        _spans.spent("hash", t)
         row0 = entry.row  # BEFORE the residency check (see _tier_row)
         res = self._serve_degraded(
             entry, len(H1),
@@ -2522,8 +2549,12 @@ class TorchSketchEngine(SketchDurabilityMixin):
         limits; the gate keeps both packages' answers the same.  A row
         that the residency ladder demoted serves from its mirror (whole
         call semantics, like the degraded case); once promoted back, K1
-        runs on its new row."""
+        runs on its new row.  The wait for the gate and the coalescer's
+        drain are the calling data call's ``drain`` stage, the mod-w
+        reduction its ``hash``."""
+        t = _spans.clock(wait=True)
         with self._nc_mutate(name), self._journal_gate:
+            _spans.spent("drain", t)
             res = self._cms_add_seq_impl(name, H1, H2, weights)
             # Same record as cms_add: the STATE effect of the sequential
             # and the vectorized add is identical (only the returned
@@ -2548,9 +2579,13 @@ class TorchSketchEngine(SketchDurabilityMixin):
             # _cms_add_impl, not cms_add: this call already holds the
             # gate and bumped the epochs.
             return self._cms_add_impl(name, H1, H2, weights)
+        t = _spans.clock()
         h1w, h2w = hashing.km_reduce_mod(H1, H2, w)
+        _spans.spent("hash", t)
         weights = np.asarray(weights, np.uint32)
+        t = _spans.clock(wait=True)
         self._drain()  # sequential semantics: all queued ops land first
+        _spans.spent("drain", t)
         B = len(h1w)
         if B <= self._SEQ_CHUNK:
             return self.executor.cms_update_estimate_seq(

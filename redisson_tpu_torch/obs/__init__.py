@@ -19,8 +19,10 @@ per engine/client ties together:
 - ``loadmap`` — per-slot, per-key and per-tenant load (obs/loadmap.py).
 
 The families carry the JAX package's names, help text and labels, but
-for the three of ``calls`` and ``launches`` and the executor's
-``rtpu_lane_staging_total``, which the JAX package does not have
+for the three of ``calls`` and ``launches``, the executor's
+``rtpu_lane_staging_total`` and the top-K tables' three
+(``rtpu_topk_offered_total``, ``rtpu_topk_prunes_total``,
+``rtpu_topk_candidates``), which the JAX package does not have
 (README.md, "Port-only families and phases").  The engine registers
 the health gauges (breaker state, degraded objects, coalescer queue and
 windows) and the tier and near-cache occupancy gauges on the same
@@ -95,6 +97,17 @@ class Observability:
             "key blocks staged for a keyed launch, by lane path "
             "(wide: lanes scanned as 8-byte words, and copied so on one "
             "card | narrow: 4-byte lanes)", ("path",))
+        # The count-min sketches' heavy-hitter candidate tables
+        # (objects/engines.py ``TopKStore``).
+        self.topk_offered = r.counter(
+            "rtpu_topk_offered",
+            "keys offered to the count-min sketches' top-K candidate tables")
+        self.topk_prunes = r.counter(
+            "rtpu_topk_prunes",
+            "top-K candidate tables cut back to their cap")
+        self.topk_candidates = r.gauge(
+            "rtpu_topk_candidates",
+            "candidate keys held over every top-K table")
         self.dispatch_seconds = r.histogram(
             "rtpu_dispatch_enqueue_seconds",
             "host-side dispatch enqueue time, by method", ("method",))

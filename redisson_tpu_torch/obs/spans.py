@@ -23,9 +23,14 @@ Three more records live here, all on the same monotonic host clock:
 - ``CallRecorder``: three phases of every public data call of the
   objects (``encode``: codec to lane blocks; ``admit_wait``: the
   coalescer's backpressure loop; ``submit``: the rest up to the returned
-  future), in ``rtpu_call_phase_seconds``.  The open call is an ambient
-  per-thread context, so the coalescer stamps the span of the segment a
-  call creates with when that call began and when it was admitted.
+  future), and the ``STAGE_PHASES`` of a path that has them (a count-min
+  call's host ``hash``, the ``drain`` its sequential semantics waits on,
+  the ``fetch`` of its estimates and its top-K ``offer``), in
+  ``rtpu_call_phase_seconds``.  The open call is an ambient per-thread
+  context, so the coalescer stamps the span of the segment a call
+  creates with when that call began and when it was admitted, and a
+  launch made with no segment (a direct dispatch) takes the stamps of
+  the call that made it.
 - ``LaunchTimer``: every outermost executor launch is bracketed by a
   pair of timing events on its stream (host stamps on the CPU), so its
   time holds its kernels and copies and the gaps between them in which
@@ -53,10 +58,14 @@ from redisson_tpu_torch.obs.registry import bucket_index_us
 
 PHASES = ("coalesce_wait", "host_stage", "slot_wait", "enqueue", "d2h_fetch")
 CALL_PHASES = ("encode", "admit_wait", "submit")
+# Phases a call observes only where its path has them, each carved out
+# of what would otherwise be its submit phase.
+STAGE_PHASES = ("hash", "drain", "fetch", "offer")
 # What the device waited on in an idle gap before a launch, in the
-# launch's own order.
-IDLE_CAUSES = ("caller", "encode", "admit_wait", "coalesce_wait", "host_stage",
-               "slot_wait", "enqueue", "direct")
+# launch's own order: a coalesced launch's, then a direct launch's made
+# inside a call (``hash``, ``drain``, ``submit``), then one with neither.
+IDLE_CAUSES = ("caller", "encode", "hash", "drain", "submit", "admit_wait",
+               "coalesce_wait", "host_stage", "slot_wait", "enqueue", "direct")
 
 _tls = threading.local()
 _INF = float("inf")
@@ -83,6 +92,28 @@ def host_range(name: str):
 def current_call():
     """The data call open on this thread, or None."""
     return getattr(_tls, "call", None)
+
+
+def clock(wait: bool = False):
+    """Now, where a data call is open on this thread, to pass to ``spent``
+    when the stage ends; None otherwise.  ``wait``: the stage waits, so
+    the call's ``rtpu:submit`` range closes until it ends."""
+    call = getattr(_tls, "call", None)
+    if call is None:
+        return None
+    if wait:
+        call.pause()
+    return time.monotonic()
+
+
+def spent(phase: str, t0) -> None:
+    """The open call spent ``[t0, now]`` in ``phase`` (one of
+    ``STAGE_PHASES``); nothing where ``t0`` is None."""
+    if t0 is None:
+        return
+    call = getattr(_tls, "call", None)
+    if call is not None:
+        call.spend(phase, t0)
 
 
 def current_launch():
@@ -280,7 +311,7 @@ class SpanRecorder:
 
 
 class _Call:
-    __slots__ = ("op", "t0", "t_enc", "admit_s", "rf")
+    __slots__ = ("op", "t0", "t_enc", "admit_s", "rf", "stages", "marks")
 
     def __init__(self, op: str):
         self.op = op
@@ -288,6 +319,23 @@ class _Call:
         self.t_enc = None
         self.admit_s = 0.0
         self.rf = None  # the open rtpu:submit range, while profiling
+        self.stages = None  # {stage phase: seconds}, once one is spent
+        self.marks = ()  # (stage phase, end) in the order they ended
+
+    def spend(self, phase: str, t0: float) -> None:
+        t = time.monotonic()
+        if self.stages is None:
+            self.stages = {}
+            self.marks = []
+        self.stages[phase] = self.stages.get(phase, 0.0) + (t - t0)
+        self.marks.append((phase, t))
+        if self.rf is None:
+            self.resume()
+
+    def stamps(self) -> tuple:
+        """``(call start, encode end, stage marks so far)``: what a direct
+        launch made now keeps for the idle gap before it."""
+        return (self.t0, self.t_enc, tuple(self.marks))
 
     def encoded(self) -> None:
         """The call's encode phase ends now; its submit phase begins."""
@@ -303,25 +351,28 @@ class _Call:
             rf.__exit__(None, None, None)
 
     def resume(self) -> None:
-        if self.t_enc is not None and profiling():
+        if self.t_enc is not None and self.rf is None and profiling():
             self.rf = host_range("rtpu:submit")
             self.rf.__enter__()
 
 
 class CallRecorder:
     """``rtpu_call_phase_seconds{op, phase}``: one observation of each of
-    ``CALL_PHASES`` per public data call; the three sum to the call's
-    time from entry to its returned future.  An op's three children share
-    one lock (made with them, the first time the op ends a call), so a
-    call's observations take one lock and no family lookup; the family
-    is reset only through ``reset``."""
+    ``CALL_PHASES`` per public data call, and of each of ``STAGE_PHASES``
+    the call spent time in; together they sum to the call's time from
+    entry to its return.  An op's children share one lock (made with
+    them, the first time the op ends a call), so a call's observations
+    take one lock and no family lookup; the family is reset only
+    through ``reset``."""
 
     def __init__(self, registry):
         self._hist = registry.histogram(
             "rtpu_call_phase_seconds",
-            "per-call client phase durations (encode | admit_wait | submit)",
+            "per-call client phase durations (encode | admit_wait | submit, "
+            "and hash | drain | fetch | offer where the call has them)",
             ("op", "phase"))
-        self._ops: dict = {}  # op -> (lock, encode, admit_wait, submit children)
+        # op -> (lock, encode, admit_wait, submit children, {stage: child})
+        self._ops: dict = {}
         self._lock = threading.Lock()
 
     @staticmethod
@@ -341,8 +392,23 @@ class CallRecorder:
                 cs = [self._hist.child((op, ph)) for ph in CALL_PHASES]
                 for c in cs:
                     c.lock = lock
-                kids = self._ops[op] = (lock, *cs)
+                kids = self._ops[op] = (lock, *cs, {})
         return kids
+
+    def _stage_children(self, op: str, stages) -> list:
+        lock, _, _, _, more = self._ops.get(op) or self._children(op)
+        out = []
+        for ph in stages:
+            c = more.get(ph)
+            if c is None:
+                with self._lock:
+                    c = more.get(ph)
+                    if c is None:
+                        c = self._hist.child((op, ph))
+                        c.lock = lock
+                        more[ph] = c
+            out.append(c)
+        return out
 
     def end(self, call: _Call) -> None:
         _tls.call = None
@@ -354,9 +420,13 @@ class CallRecorder:
             t_enc = t0
         enc = t_enc - t0
         sub = t - t_enc - adm
+        stages = call.stages
+        if stages:
+            sub -= sum(stages.values())
+            kids = self._stage_children(call.op, stages)
         if sub < 0.0:
             sub = 0.0
-        lock, ce, ca, cs = self._ops.get(call.op) or self._children(call.op)
+        lock, ce, ca, cs, _ = self._ops.get(call.op) or self._children(call.op)
         ie = bucket_index_us(enc * 1e6)
         ia = 0 if adm == 0.0 else bucket_index_us(adm * 1e6)
         is_ = bucket_index_us(sub * 1e6)
@@ -370,6 +440,21 @@ class CallRecorder:
             cs.buckets[is_] += 1
             cs.sum += sub
             cs.count += 1
+            if stages:
+                for c, s in zip(kids, stages.values()):
+                    c.buckets[bucket_index_us(s * 1e6)] += 1
+                    c.sum += s
+                    c.count += 1
+
+    def observe(self, op: str, phase: str, seconds: float) -> None:
+        """One observation of a stage that ran after ``op``'s call
+        returned (an asynchronous call's top-K ``offer``, made when its
+        future's result is first read)."""
+        (c,) = self._stage_children(op, (phase,))
+        with c.lock:
+            c.buckets[bucket_index_us(seconds * 1e6)] += 1
+            c.sum += seconds
+            c.count += 1
 
     def reset(self) -> None:
         with self._lock:
@@ -423,42 +508,51 @@ class _Mark:
 
 
 class _Launch:
-    __slots__ = ("timer", "op", "span", "marks", "device_s", "left", "fetched")
+    __slots__ = ("timer", "op", "span", "call", "marks", "device_s", "left", "fetched")
 
-    def __init__(self, timer, op, span):
+    def __init__(self, timer, op, span, call=None):
         self.timer = timer
         self.op = op
         self.span = span
+        self.call = call  # a direct launch's call stamps (``_Call.stamps``)
         self.marks: list = []
         self.device_s = 0.0
         self.left = 0
         self.fetched = False
 
 
-def idle_causes(span, a: float, b: float) -> dict:
+def idle_causes(span, a: float, b: float, call=None) -> dict:
     """Split the host interval ``[a, b]`` in which the device sat idle
-    before a launch into ``IDLE_CAUSES``, against the launch's host stamps:
-    ``direct`` without a segment; else the caller's own code until the
+    before a launch into ``IDLE_CAUSES``, against the launch's host stamps.
+    A coalesced launch (``span``): the caller's own code until the
     segment's first call began, that call's work until its admission wait
     (its encode and the engine's per-call work), the wait, the queue
     until staging, staging, the launch-slot wait and the enqueue up to
-    ``b``.  The parts sum to ``b - a``."""
-    if span is None:
+    ``b``.  A direct launch made inside a data call (``call``, the call's
+    ``stamps()``): the caller's code until the call began, its encode,
+    then each stage it marked (``hash``, ``drain``; the stretch before a
+    stage counts with it) and its ``submit`` up to ``b``.  ``direct``
+    with neither.  The parts sum to ``b - a``."""
+    if span is not None:
+        tc, ta0, ta1 = span.first or (None, None, None)
+        queued = span.t0 if ta0 is None else ta0
+        stamps = {}
+        for name, t in span.stamps:
+            stamps[name] = t  # a retried segment's latest stamps
+        bounds = (
+            ("caller", queued if tc is None else tc),
+            ("encode", None if tc is None else queued),
+            ("admit_wait", ta1),
+            ("coalesce_wait", stamps.get("coalesce_wait")),
+            ("host_stage", stamps.get("host_stage")),
+            ("slot_wait", stamps.get("slot_wait")),
+            ("enqueue", _INF),
+        )
+    elif call is not None:
+        tc, t_enc, marks = call
+        bounds = (("caller", tc), ("encode", t_enc), *marks, ("submit", _INF))
+    else:
         return {"direct": b - a}
-    tc, ta0, ta1 = span.first or (None, None, None)
-    queued = span.t0 if ta0 is None else ta0
-    stamps = {}
-    for name, t in span.stamps:
-        stamps[name] = t  # a retried segment's latest stamps
-    bounds = (
-        ("caller", queued if tc is None else tc),
-        ("encode", None if tc is None else queued),
-        ("admit_wait", ta1),
-        ("coalesce_wait", stamps.get("coalesce_wait")),
-        ("host_stage", stamps.get("host_stage")),
-        ("slot_wait", stamps.get("slot_wait")),
-        ("enqueue", _INF),
-    )
     parts: dict = {}
     lo = a
     for cause, until in bounds:
@@ -466,7 +560,7 @@ def idle_causes(span, a: float, b: float) -> dict:
             continue
         hi = b if until >= b else until
         if hi > lo:
-            parts[cause] = hi - lo
+            parts[cause] = parts.get(cause, 0.0) + (hi - lo)
             lo = hi
     return parts
 
@@ -506,8 +600,9 @@ class LaunchTimer:
         self._idle = registry.counter(
             "rtpu_device_idle_seconds",
             "seconds the device sat idle before a launch, by the host phase "
-            "that held the launch (caller | encode | admit_wait | "
-            "coalesce_wait | host_stage | slot_wait | enqueue | direct)",
+            "that held the launch (caller | encode | hash | drain | submit | "
+            "admit_wait | coalesce_wait | host_stage | slot_wait | enqueue | "
+            "direct)",
             ("cause",))
         # The bundle's LoadMap: retired launches bill their device time
         # to the tenants stashed on their span.
@@ -522,8 +617,10 @@ class LaunchTimer:
             st = self._streams.setdefault(device, _Stream(device))
         return st
 
-    def begin(self, devices, op: str, span=None) -> _Launch:
-        launch = _Launch(self, op, span)
+    def begin(self, devices, op: str, span=None, call=None) -> _Launch:
+        """``span``: the coalesced segment the launch carries; ``call``:
+        for a direct launch, the stamps of the data call making it."""
+        launch = _Launch(self, op, span, call)
         for dev in devices:
             st = self._stream(dev)
             if st.cuda:
@@ -605,7 +702,7 @@ class LaunchTimer:
         launch.device_s += dt
         launch.left -= 1
         if gap is not None and gap > 0:
-            parts = idle_causes(launch.span, m.t_rec - gap, m.t_rec)
+            parts = idle_causes(launch.span, m.t_rec - gap, m.t_rec, launch.call)
             for cause, s in parts.items():
                 self._idle.inc((cause,), s)
             self._gaps.append((gap, parts, launch.op))

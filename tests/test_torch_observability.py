@@ -226,6 +226,7 @@ def _device_memory_case(cl, Profiler):
 PORT_ONLY_FAMILIES = {
     "rtpu_call_phase_seconds", "rtpu_launch_device_seconds",
     "rtpu_device_idle_seconds_total", "rtpu_lane_staging_total",
+    "rtpu_topk_offered_total", "rtpu_topk_prunes_total", "rtpu_topk_candidates",
 }
 
 
@@ -282,7 +283,7 @@ TIER_FAMILIES = {
 
 
 def test_families_match_the_jax_bundle():
-    """Every family the port's bundle builds, but for exactly the four
+    """Every family the port's bundle builds, but for exactly the seven
     port-only ones, has the JAX family's name, type and labels; the
     tier's own families its help text too."""
     from redisson_tpu.obs import Observability as JaxObs
